@@ -1,0 +1,237 @@
+"""Paged-attention decode over the shared block store: the hand-written
+Hopper kernel (``csrc/paged_decode.cu``), its plain PyTorch version, and
+the bytes-read cost model.
+
+Port of ``chainermn_tpu/parallel/paged_kernel.py``. :func:`paged_attend`
+keeps the reference's signature and ``[B, S, H, D]`` layout. It launches
+the CUDA kernel for CUDA tensors and raises when the kernel cannot take
+them; for CPU tensors it runs :func:`paged_attend_reference`. There is no
+fallback on the card and no switch to turn the kernel off.
+
+The kernel library is compiled with ``nvcc`` at first use from the source
+in this checkout into ``build/`` at the repository root and loaded with
+``ctypes``; nothing about CUDA is touched while this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from chainermn_torch.parallel.sequence import (
+    _dequant_cached_attention,
+    cached_attention,
+)
+
+_SRC = Path(__file__).resolve().parents[1] / "csrc" / "paged_decode.cu"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+_MAX_QUERIES = 8          # kMaxQueries in the CUDA source
+_HEAD_DIMS = (64, 128)
+_Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return str(Path(home) / "bin" / "nvcc")
+
+
+def build_library() -> ctypes.CDLL:
+    """Compile (once per source version) and load the kernel library.
+    The shared object is named by a hash of the source, so an edited
+    kernel is never served from a stale build. Raises ``RuntimeError``
+    with the compiler's output when ``nvcc`` fails. ``build_library.log``
+    holds the last build's compiler output (``-Xptxas -v`` register and
+    shared-memory report)."""
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        src = _SRC.read_bytes()
+        so = _BUILD_DIR / f"paged_decode_{hashlib.sha256(src).hexdigest()[:12]}.so"
+        if not so.exists():
+            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                   "-Xptxas", "-v", "-o", str(tmp), str(_SRC)]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            build_library.log = res.stdout + res.stderr
+            if res.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({res.returncode}) building {_SRC}:\n"
+                    f"{build_library.log}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.paged_decode_launch.argtypes = (
+            [p] * 8 + [i] * 7 + [ctypes.c_float, i, i, p])
+        lib.paged_decode_launch.restype = i
+        _lib = lib
+        return lib
+
+
+build_library.log = ""
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"paged_attend: {msg}")
+
+
+def paged_attend(q, store_k, store_v, table, lengths, *,
+                 k_scale=None, v_scale=None, scale: Optional[float] = None,
+                 max_blocks: Optional[int] = None):
+    """Paged-attention decode over the shared block store.
+
+    - ``q``: ``[B, S, H, D]`` queries for positions ``lengths[b]-S ..
+      lengths[b]-1`` of each row;
+    - ``store_k``/``store_v``: ``[n_blocks, bs, H, D]``, already holding
+      this step's writes;
+    - ``table``: ``[B, max_blocks]`` integer block table;
+    - ``lengths``: ``[B]`` valid KV rows per row after the write;
+    - ``k_scale``/``v_scale``: ``[n_blocks, bs, H]`` f32, present iff the
+      store is int8;
+    - ``max_blocks``: optional cap on the table entries read.
+
+    Returns ``[B, S, H, D]`` in ``q.dtype``. On CUDA tensors this launches
+    the hand-written kernel (adding one to ``paged_attend.launches``) and
+    raises ``ValueError`` for inputs it does not take: q in f32/bf16, a
+    store in f32/bf16/int8, ``D`` in {64, 128}, ``S <= 8``, contiguous
+    tensors on one device. On CPU tensors it runs
+    :func:`paged_attend_reference`."""
+    if not q.is_cuda:
+        return paged_attend_reference(q, store_k, store_v, table, lengths,
+                                      k_scale=k_scale, v_scale=v_scale,
+                                      scale=scale, max_blocks=max_blocks)
+    b, s_len, h, d = q.shape
+    n_blocks, bs = store_k.shape[0], store_k.shape[1]
+    quant = store_k.dtype == torch.int8
+    dev = q.device
+    _check(q.dtype in _Q_CODES, f"q dtype {q.dtype} (want f32 or bf16)")
+    _check(store_k.dtype in _KV_CODES and store_v.dtype == store_k.dtype,
+           f"store dtypes {store_k.dtype}/{store_v.dtype}")
+    _check(d in _HEAD_DIMS, f"head dim {d} (want one of {_HEAD_DIMS})")
+    _check(1 <= s_len <= _MAX_QUERIES, f"{s_len} queries per row "
+           f"(the kernel takes 1..{_MAX_QUERIES})")
+    _check(tuple(store_k.shape) == (n_blocks, bs, h, d)
+           and store_v.shape == store_k.shape,
+           f"store shapes {tuple(store_k.shape)}/{tuple(store_v.shape)} "
+           f"vs q {tuple(q.shape)}")
+    _check(table.dim() == 2 and table.shape[0] == b
+           and tuple(lengths.shape) == (b,),
+           f"table {tuple(table.shape)} / lengths {tuple(lengths.shape)} "
+           f"for batch {b}")
+    _check(quant == (k_scale is not None) == (v_scale is not None),
+           "k_scale/v_scale must be given iff the store is int8")
+    tensors = [q, store_k, store_v, table, lengths]
+    if quant:
+        _check(k_scale.dtype == torch.float32 == v_scale.dtype
+               and tuple(k_scale.shape) == (n_blocks, bs, h)
+               and v_scale.shape == k_scale.shape,
+               "scales must be f32 [n_blocks, bs, H]")
+        tensors += [k_scale, v_scale]
+    _check(all(t.device == dev for t in tensors),
+           "all tensors must be on q's device")
+    _check(all(t.is_contiguous() for t in tensors if t is not table
+               and t is not lengths), "q, store and scales must be contiguous")
+    table32 = table.to(torch.int32).contiguous()
+    lengths32 = lengths.to(torch.int32).contiguous()
+    n_j = table.shape[1]
+    if max_blocks is not None:
+        n_j = max(1, min(n_j, int(max_blocks)))
+    if scale is None:
+        scale = d ** -0.5
+    out = torch.empty_like(q)
+    lib = build_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.paged_decode_launch(
+        q.data_ptr(), store_k.data_ptr(), store_v.data_ptr(),
+        k_scale.data_ptr() if quant else None,
+        v_scale.data_ptr() if quant else None,
+        table32.data_ptr(), lengths32.data_ptr(), out.data_ptr(),
+        b, s_len, h, d, bs, table32.shape[1], n_j, float(scale),
+        _Q_CODES[q.dtype], _KV_CODES[store_k.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"paged_decode kernel launch failed: "
+                           f"cudaError {err}")
+    paged_attend.launches += 1
+    return out
+
+
+paged_attend.launches = 0
+
+
+def paged_attend_reference(q, store_k, store_v, table, lengths, *,
+                           k_scale=None, v_scale=None,
+                           scale: Optional[float] = None,
+                           max_blocks: Optional[int] = None):
+    """The plain PyTorch version of :func:`paged_attend`: gather each
+    row's table span into a dense view and run the position-masked
+    :func:`~chainermn_torch.parallel.sequence.cached_attention` (int8:
+    ``_dequant_cached_attention``) with each row's base
+    ``lengths[b] - S``."""
+    b, s_len = q.shape[0], q.shape[1]
+    n_j = table.shape[1]
+    if max_blocks is not None:
+        n_j = max(1, min(n_j, int(max_blocks)))
+    flat = table[:, :n_j].reshape(-1).long()
+
+    def gather(store):
+        rows = store.index_select(0, flat)
+        return rows.reshape((b, -1) + tuple(rows.shape[2:]))
+
+    pos0 = lengths.long() - s_len
+    if k_scale is not None:
+        return _dequant_cached_attention(
+            q, gather(store_k), gather(k_scale), gather(store_v),
+            gather(v_scale), pos0, scale=scale)
+    return cached_attention(q, gather(store_k), gather(store_v), pos0,
+                            scale=scale)
+
+
+def bytes_read_model(lengths, *, block_size: int, max_blocks: int,
+                     n_heads: int, head_dim: int, n_layers: int = 1,
+                     kv_quant: str = "none") -> dict:
+    """Per-decode-step KV bytes-read model (host arithmetic on host
+    values, copied from the reference): what one step's attention streams
+    from the store, gather path vs kernel, summed over rows and layers.
+    The gather path reads every row's full ``max_blocks`` table span and,
+    for int8, builds a dequantized f32 dense view (counted as its write
+    and read back); the kernel reads ``ceil(len/bs)`` blocks per row in
+    the storage type. Elements count 4 bytes unless int8."""
+    lengths = np.asarray(lengths, np.int64)
+    row_elems = n_heads * head_dim
+    esize = 1 if kv_quant == "int8" else 4
+    kv_rows_xla = int(lengths.size) * max_blocks * block_size
+    kv_rows_kern = int(
+        np.sum(-(-np.maximum(lengths, 0) // block_size)) * block_size)
+    per_row_scale = n_heads * 4 if kv_quant == "int8" else 0
+    xla = 2 * kv_rows_xla * (row_elems * esize + per_row_scale)
+    kern = 2 * kv_rows_kern * (row_elems * esize + per_row_scale)
+    if kv_quant == "int8":
+        xla += 2 * 2 * kv_rows_xla * row_elems * 4
+    return {
+        "xla_bytes": int(xla * n_layers),
+        "kernel_bytes": int(kern * n_layers),
+        "read_amplification": round(xla / max(kern, 1), 3),
+    }
+
+
+__all__ = ["build_library", "bytes_read_model", "paged_attend",
+           "paged_attend_reference"]

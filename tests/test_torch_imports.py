@@ -1,0 +1,68 @@
+"""Import rules of the port: ``chainermn_torch`` never imports jax, flax
+or anything of ``chainermn_tpu``, and its entry points do not carry on
+quietly on the CPU."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+PKG = pathlib.Path(__file__).resolve().parents[1] / "chainermn_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chainermn_tpu")
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(PKG.parent).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        yield ".".join(parts), path
+
+
+def test_importing_every_module_pulls_in_no_jax():
+    names = [name for name, _ in _modules()]
+    code = (
+        "import importlib, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         cwd=str(PKG.parent))
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("name,path", list(_modules()),
+                         ids=[n for n, _ in _modules()])
+def test_module_source_names_no_jax(name, path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots = [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            roots = [(node.module or "").split(".")[0]]
+        else:
+            continue
+        assert not set(roots) & set(FORBIDDEN), (
+            f"{name}:{node.lineno} imports {roots}")
+
+
+def test_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from chainermn_torch.models import TransformerLM
+    from chainermn_torch.serving import ServingEngine
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TransformerLM(vocab_size=11, d_model=8, n_heads=2, n_layers=1)
+    model = TransformerLM(vocab_size=11, d_model=8, n_heads=2, n_layers=1,
+                          max_len=16, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(model, n_slots=1, prefill_len=4)

@@ -1,0 +1,150 @@
+"""The port's paged-decode wrapper (``chainermn_torch.parallel.
+paged_kernel``) against the JAX package's Pallas kernel and its XLA
+paged path, on the CPU.
+
+On CPU tensors ``paged_attend`` runs its plain PyTorch version (gather
+the table span, then the position-masked cached attention); the JAX side
+runs the Pallas kernel in interpret mode, as the JAX package's own tests
+do. Inputs come from numpy with a fixed seed. Tolerance: f32 atol 1e-5
+(the two sides sum in different orders: online softmax vs one softmax).
+The CUDA kernel itself is held against the same plain version on the
+card by ``chip_smoke.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from chainermn_tpu.parallel import paged_kernel as jpk
+from chainermn_tpu.parallel import sequence as jseq
+from chainermn_torch.parallel import paged_kernel as tpk
+from chainermn_torch.parallel import sequence as tseq
+
+torch.set_float32_matmul_precision("highest")
+# tiny shapes: one intra-op thread, so parallel test workers do not
+# oversubscribe the cores that timing-sensitive tests share
+torch.set_num_threads(1)
+
+B, H, D, BS, N_MAX = 3, 2, 8, 4, 5
+ATOL = 1e-5
+
+
+def _q8(x):
+    sc = np.maximum(np.abs(x).max(-1) / 127.0, 1e-8).astype(np.float32)
+    return (np.clip(np.round(x / sc[..., None]), -127, 127).astype(np.int8),
+            sc)
+
+
+def _inputs(s_len, lengths, *, quant, seed=0):
+    """A store of random rows, every row's table pointing at its own
+    random blocks, junk in the scratch block and junk ids in each table's
+    tail past the row's length (the position mask must hide them)."""
+    rng = np.random.default_rng(seed)
+    n_blocks = 1 + B * N_MAX + 3
+    k = rng.standard_normal((n_blocks, BS, H, D)).astype(np.float32)
+    v = rng.standard_normal((n_blocks, BS, H, D)).astype(np.float32)
+    ids = rng.permutation(np.arange(1, n_blocks))
+    table = ids[:B * N_MAX].reshape(B, N_MAX).astype(np.int32)
+    for i, n in enumerate(lengths):
+        live = -(-n // BS)
+        table[i, live:] = rng.integers(0, n_blocks, N_MAX - live)
+    q = rng.standard_normal((B, s_len, H, D)).astype(np.float32)
+    out = dict(q=q, k=k, v=v, table=table,
+               lengths=np.asarray(lengths, np.int32), ks=None, vs=None)
+    if quant:
+        out["k"], out["ks"] = _q8(k)
+        out["v"], out["vs"] = _q8(v)
+    return out
+
+
+def _jax(x, **kw):
+    opt = lambda a: None if a is None else jnp.asarray(a)
+    return np.asarray(jpk.paged_attend(
+        jnp.asarray(x["q"]), jnp.asarray(x["k"]), jnp.asarray(x["v"]),
+        jnp.asarray(x["table"]), jnp.asarray(x["lengths"]),
+        k_scale=opt(x["ks"]), v_scale=opt(x["vs"]), interpret=True, **kw))
+
+
+def _torch(fn, x, **kw):
+    opt = lambda a: None if a is None else torch.from_numpy(a)
+    return fn(torch.from_numpy(x["q"]), torch.from_numpy(x["k"]),
+              torch.from_numpy(x["v"]), torch.from_numpy(x["table"]),
+              torch.from_numpy(x["lengths"]), k_scale=opt(x["ks"]),
+              v_scale=opt(x["vs"]), **kw).numpy()
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("s_len", [1, 3])
+def test_paged_attend_matches_jax_kernel(s_len, quant):
+    """Ragged lengths: the youngest possible row (= S), one exactly at a
+    block edge, and one filling the table."""
+    x = _inputs(s_len, [s_len, 2 * BS, N_MAX * BS], quant=quant)
+    want = _jax(x)
+    got = _torch(tpk.paged_attend, x)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=ATOL)
+    before = tpk.paged_attend.launches
+    np.testing.assert_array_equal(_torch(tpk.paged_attend_reference, x), got)
+    assert tpk.paged_attend.launches == before   # CPU: no kernel launch
+
+
+def test_max_blocks_cap_matches_jax():
+    """A table-span cap at the batch's live block count changes nothing;
+    the same cap on both sides agrees."""
+    lengths = [3, 7, 9]
+    x = _inputs(1, lengths, quant=False, seed=1)
+    cap = -(-max(lengths) // BS)
+    got = _torch(tpk.paged_attend, x, max_blocks=cap)
+    np.testing.assert_allclose(got, _jax(x, max_blocks=cap), atol=ATOL,
+                               rtol=ATOL)
+    np.testing.assert_allclose(got, _torch(tpk.paged_attend, x), atol=ATOL,
+                               rtol=ATOL)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("s_len", [1, 3])
+def test_update_and_attend_matches_jax_paged_path(s_len, quant):
+    """Write S rows at each row's own position through the table, then
+    attend: the port (in place) against the JAX XLA paged path (which
+    returns the new store), output and store."""
+    lengths = [s_len + 2, 2 * BS, N_MAX * BS - 1]
+    x = _inputs(s_len, lengths, quant=quant, seed=2)
+    rng = np.random.default_rng(3)
+    new_k = rng.standard_normal((B, s_len, H, D)).astype(np.float32)
+    new_v = rng.standard_normal((B, s_len, H, D)).astype(np.float32)
+    pos = (x["lengths"] - s_len).astype(np.int32)
+    jcache = {"k": jnp.asarray(x["k"]), "v": jnp.asarray(x["v"]),
+              "table": jnp.asarray(x["table"])}
+    tcache = {"k": torch.from_numpy(x["k"].copy()),
+              "v": torch.from_numpy(x["v"].copy()),
+              "table": torch.from_numpy(x["table"])}
+    if quant:
+        jcache.update(k_scale=jnp.asarray(x["ks"]),
+                      v_scale=jnp.asarray(x["vs"]))
+        tcache.update(k_scale=torch.from_numpy(x["ks"].copy()),
+                      v_scale=torch.from_numpy(x["vs"].copy()))
+    want, jnew = jseq.paged_update_cache_and_attend(
+        jcache, jnp.asarray(x["q"]), jnp.asarray(new_k), jnp.asarray(new_v),
+        jnp.asarray(pos))
+    got = tseq.paged_update_cache_and_attend(
+        tcache, torch.from_numpy(x["q"]), torch.from_numpy(new_k),
+        torch.from_numpy(new_v), torch.from_numpy(pos))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=ATOL)
+    for kk in jnew:
+        np.testing.assert_array_equal(tcache[kk].numpy(),
+                                      np.asarray(jnew[kk]))
+    kernel_read = tseq.paged_update_cache_and_attend(
+        dict(tcache, use_kernel=True), torch.from_numpy(x["q"]),
+        torch.from_numpy(new_k), torch.from_numpy(new_v),
+        torch.from_numpy(pos))
+    np.testing.assert_array_equal(kernel_read.numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_bytes_read_model_matches_jax(kv_quant):
+    kw = dict(block_size=16, max_blocks=128, n_heads=16, head_dim=64,
+              n_layers=12, kv_quant=kv_quant)
+    lengths = [1, 16, 17, 300, 2048, 0]
+    assert tpk.bytes_read_model(lengths, **kw) == \
+        jpk.bytes_read_model(lengths, **kw)
