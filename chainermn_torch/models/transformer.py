@@ -6,8 +6,10 @@ Numerics follow the flax model so converted weights give the same
 logits: LayerNorm eps 1e-6 with float32 statistics, the tanh form of
 GELU, matmuls and embeddings in ``compute_dtype`` (bf16 by default) over
 float32 parameters, attention scores and softmax in float32, logits cast
-to float32. Tensor, expert and sequence parallelism and rematerialisation
-are not part of this port.
+to float32. ``attention`` picks the cacheless forward's attention by
+name (``'full'`` or ``'flash'``, the flash kernels); the KV-cache path
+does not depend on it. Tensor, expert and sequence parallelism and
+rematerialisation are not part of this port.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from torch import nn
 
 from chainermn_torch._device import resolve_device
 from chainermn_torch.parallel.sequence import (
-    full_attention,
+    sequence_parallel_attention,
     update_cache_and_attend,
 )
 
@@ -45,17 +47,22 @@ class TransformerBlock(nn.Module):
     """Pre-LN block: ``x + proj(attn(LN(x)))`` then ``x + MLP(LN(x))``.
     ``qkv`` is flax's ``DenseGeneral((3, H, Dh))`` flattened to one
     ``Linear(d, 3*H*Dh)`` with outputs in ``(3, H, Dh)`` order; ``proj``
-    takes its inputs in ``(H, Dh)`` order."""
+    takes its inputs in ``(H, Dh)`` order. ``attention`` names the
+    cacheless forward's attention (see
+    :func:`~chainermn_torch.parallel.sequence.sequence_parallel_attention`)."""
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int, *,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 device=None) -> None:
+                 attention: str = "full", device=None) -> None:
         super().__init__()
         if d_model % n_heads:
             raise ValueError(f"d_model {d_model} not divisible by n_heads "
                              f"{n_heads}")
         self.d_model, self.n_heads = d_model, n_heads
         self.compute_dtype = compute_dtype
+        self.attention = attention
+        self._attend = sequence_parallel_attention(attention, None,
+                                                   causal=True)
         self.ln1 = nn.LayerNorm(d_model, eps=_LN_EPS, device=device)
         self.qkv = nn.Linear(d_model, 3 * d_model, device=device)
         self.proj = nn.Linear(d_model, d_model, device=device)
@@ -67,7 +74,8 @@ class TransformerBlock(nn.Module):
         """``x [B,T,d]`` in ``compute_dtype``. With ``kv_cache`` (a paged
         layer dict) the block writes its K/V rows into the store in place
         at ``pos_offset`` (int or ``[B]``) and attends through it;
-        without, it runs causal full attention."""
+        without, it runs causal attention of the block's ``attention``
+        kind."""
         dt = self.compute_dtype
         b, t, _ = x.shape
         dh = self.d_model // self.n_heads
@@ -77,7 +85,7 @@ class TransformerBlock(nn.Module):
         if kv_cache is not None:
             o = update_cache_and_attend(kv_cache, q, k, v, pos_offset)
         else:
-            o = full_attention(q, k, v, causal=True)
+            o = self._attend(q, k, v)
         x = x + _dense(self.proj, o.reshape(b, t, self.d_model), dt)
         h = _layer_norm(self.ln2, x, dt)
         h = F.gelu(_dense(self.fc1, h, dt), approximate="tanh")
@@ -94,13 +102,17 @@ class TransformerLM(nn.Module):
 
     Parameters are created float32 on ``device`` (the current CUDA card
     when ``None``; raises when there is none — pass ``device="cpu"`` for
-    the CPU). ``seed`` initialises them from a ``torch.Generator``."""
+    the CPU). ``seed`` initialises them from a ``torch.Generator``.
+    ``attention`` (``'full'`` or ``'flash'``) is every block's cacheless
+    attention; parameters stay float32 for training, while serving may
+    store them in ``compute_dtype`` with :meth:`cast_weights_`."""
 
     def __init__(self, vocab_size: int, d_model: int = 512,
                  n_heads: int = 8, n_layers: int = 6,
                  d_ff: Optional[int] = None, max_len: int = 65536,
                  compute_dtype: torch.dtype = torch.bfloat16, *,
-                 device=None, seed: Optional[int] = None) -> None:
+                 attention: str = "full", device=None,
+                 seed: Optional[int] = None) -> None:
         super().__init__()
         device = resolve_device(device)
         self.vocab_size, self.d_model = vocab_size, d_model
@@ -108,11 +120,13 @@ class TransformerLM(nn.Module):
         self.d_ff = d_ff or 4 * d_model
         self.max_len = max_len
         self.compute_dtype = compute_dtype
+        self.attention = attention
         self.embed = nn.Embedding(vocab_size, d_model, device=device)
         self.pos_embed = nn.Embedding(max_len, d_model, device=device)
         self.blocks = nn.ModuleList(
             TransformerBlock(d_model, n_heads, self.d_ff,
-                             compute_dtype=compute_dtype, device=device)
+                             compute_dtype=compute_dtype,
+                             attention=attention, device=device)
             for _ in range(n_layers))
         self.ln_f = nn.LayerNorm(d_model, eps=_LN_EPS, device=device)
         self.lm_head = nn.Linear(d_model, vocab_size, device=device)

@@ -16,74 +16,37 @@ in this checkout into ``build/`` at the repository root and loaded with
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 
+from chainermn_torch._build import load_library
 from chainermn_torch.parallel.sequence import (
     _dequant_cached_attention,
     cached_attention,
 )
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "paged_decode.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 _MAX_QUERIES = 8          # kMaxQueries in the CUDA source
 _HEAD_DIMS = (64, 128)
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return str(Path(home) / "bin" / "nvcc")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {"paged_decode_launch": (
+    [_P] * 8 + [_I] * 7 + [ctypes.c_float, _I, _I, _P], _I)}
 
 
 def build_library() -> ctypes.CDLL:
-    """Compile (once per source version) and load the kernel library.
-    The shared object is named by a hash of the source, so an edited
-    kernel is never served from a stale build. Raises ``RuntimeError``
-    with the compiler's output when ``nvcc`` fails. ``build_library.log``
-    holds the last build's compiler output (``-Xptxas -v`` register and
-    shared-memory report)."""
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        src = _SRC.read_bytes()
-        so = _BUILD_DIR / f"paged_decode_{hashlib.sha256(src).hexdigest()[:12]}.so"
-        if not so.exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", "-o", str(tmp), str(_SRC)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            build_library.log = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}) building {_SRC}:\n"
-                    f"{build_library.log}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.paged_decode_launch.argtypes = (
-            [p] * 8 + [i] * 7 + [ctypes.c_float, i, i, p])
-        lib.paged_decode_launch.restype = i
-        _lib = lib
-        return lib
+    """Compile (once per source version) and load the kernel library
+    through :func:`chainermn_torch._build.load_library`. Raises
+    ``RuntimeError`` with the compiler's output when ``nvcc`` fails.
+    ``build_library.log`` holds this process's build output (``-Xptxas
+    -v`` register and shared-memory report)."""
+    lib, log = load_library(_SRC, _SIGNATURES)
+    build_library.log = log
+    return lib
 
 
 build_library.log = ""

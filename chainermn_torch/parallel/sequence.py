@@ -1,5 +1,5 @@
-"""Local attention and the paged KV-cache path (the port's subset of
-``chainermn_tpu/parallel/sequence.py``).
+"""Local attention, the attention dispatch by name, and the paged
+KV-cache path (the port's subset of ``chainermn_tpu/parallel/sequence.py``).
 
 Layout is the JAX package's ``[batch, seq, heads, head_dim]`` at every
 public function, so the tests compare like with like. Scores, softmax and
@@ -11,11 +11,16 @@ rows never contribute.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
+from chainermn_torch.ops.flash_attention import flash_attention
+
 _NEG_BIG = -1e30
+_SEQUENCE_KINDS = ("ring", "ring_flash", "zigzag", "zigzag_flash", "ulysses",
+                   "ulysses_flash")
 
 
 def _softmax_attend(s, v, p_scale=None):
@@ -195,5 +200,34 @@ def full_attention(q, k, v, *, causal: bool = False,
     return _softmax_attend(s, v).to(q.dtype)
 
 
+def sequence_parallel_attention(kind: str, axis_name: Optional[str], *,
+                                causal: bool = False,
+                                scale: Optional[float] = None):
+    """Pick an attention implementation by name; returns ``f(q, k, v) ->
+    o`` over ``[B, T, H, D]``. ``'full'`` is :func:`full_attention`;
+    ``'flash'`` is the flash kernels' local attention
+    (:func:`chainermn_torch.ops.flash_attention.flash_attention`), the same
+    function in O(T) memory, for an unsharded sequence only. The
+    sequence-parallel kinds (ring, zigzag, Ulysses and their ``_flash``
+    variants) are not ported yet."""
+    if kind == "flash":
+        if axis_name is not None:
+            raise ValueError(
+                "attention='flash' is local (unsharded-sequence) attention; "
+                "it cannot attend across a sharded sequence axis "
+                f"({axis_name!r}) — use 'ring' or 'ulysses' there")
+        return functools.partial(flash_attention, causal=causal, scale=scale)
+    if kind == "full":
+        return functools.partial(full_attention, causal=causal, scale=scale)
+    if kind in _SEQUENCE_KINDS:
+        raise NotImplementedError(
+            f"attention={kind!r} is sequence-parallel attention, which the "
+            "port does not have yet (ROADMAP.md, Queue A: parallel "
+            "strategies)")
+    raise ValueError(f"unknown attention kind {kind!r}; use 'full' or "
+                     "'flash'")
+
+
 __all__ = ["cached_attention", "full_attention",
-           "paged_update_cache_and_attend", "update_cache_and_attend"]
+           "paged_update_cache_and_attend", "sequence_parallel_attention",
+           "update_cache_and_attend"]

@@ -5,25 +5,41 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from the sources in the checkout, holds
-each against its plain PyTorch version on the card, times it, serves the
-220M-parameter TransformerLM (vocab 32768, d_model 1024, 12 layers, 16
-heads; random weights from a seed) through ``ServingEngine(paged=True,
-paged_kernel=True)`` and ``FCFSScheduler``, checks that every decode-step
-attention went through the kernel, and checks the kernel-read engine's
-greedy tokens against the plain-read engine's on a small f32 model. Each
-phase prints one JSON line; the last two lines are the kernel summary and
-``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
-checkout, it exits non-zero and prints no result. Imports nothing of JAX.
+It builds the port's CUDA kernels from the sources in the checkout (one
+``nvcc`` per source, started together), holds each against its plain
+PyTorch version on the card, times it, and drives the port's two paths
+with the 220M-parameter TransformerLM (vocab 32768, d_model 1024, 12
+layers, 16 heads; random weights from a seed):
+
+- serving: ``ServingEngine(paged=True, paged_kernel=True)`` and
+  ``FCFSScheduler`` answer 32 requests; every decode-step attention must
+  go through the paged-decode kernel, and the kernel-read engine's greedy
+  tokens must equal the plain-read engine's on a small f32 model;
+- training: ``TransformerLM(attention='flash')``,
+  ``create_communicator('pure_nccl')``, ``create_multi_node_optimizer``
+  over ``AdamW`` and ``lm_train_step`` take 12 steps on a [8, 2048] batch;
+  every attention forward and backward must go through the flash kernels,
+  the loss must fall, and a small f32 LM trained on the kernels must match
+  the same LM trained on plain attention.
+
+Each launch count is set to 0 just before its path runs and read just
+after. Each phase prints one JSON line; the line before the last two is
+the kernel summary, then the card's name and power limit, then ``{"ok":
+true, "device": {...}}``. Without a CUDA device, or outside a checkout, it
+exits non-zero and prints no result. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
+import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -31,6 +47,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate
 BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor-core peak
 SEED = 0
+SPIN_CYCLES = 4_000_000            # ~2 ms of device spin at H100 clocks
 
 # the served model: scripts/onchip_lm.py's full-width LM
 LM = dict(vocab_size=32768, d_model=1024, n_heads=16, n_layers=12,
@@ -41,6 +58,17 @@ N_REQUESTS = 32
 PROMPT_LEN = (64, 512)
 MAX_NEW = (64, 128)
 TOL = {"bf16": (2e-2, 2e-2), "f32": (1e-5, 1e-5), "int8": (1e-4, 1e-4)}
+# the trained model: scripts/onchip_lm.py's headline cell
+TRAIN = dict(batch=8, seq_len=2048, lr=3e-4, weight_decay=1e-4,
+             warmup_steps=2, timed_steps=10, profile_steps=3)
+FLASH_KERNELS = {
+    "flash_fwd": ("flash_fwd_with_lse", "flash_fwd_kernel",
+                  "chainermn_tpu/ops/flash_attention.py:195"),
+    "flash_dq": ("flash_dq", "flash_dq_kernel",
+                 "chainermn_tpu/ops/flash_attention.py:355"),
+    "flash_dkv": ("flash_dkv", "flash_dkv_kernel",
+                  "chainermn_tpu/ops/flash_attention.py:412"),
+}
 
 
 def emit(obj) -> None:
@@ -49,7 +77,10 @@ def emit(obj) -> None:
 
 def cuda_ms(fn, reps: int = 50, flush=None) -> float:
     """Median of ``reps`` CUDA-event timings of ``fn()``; ``flush()`` runs
-    before each timed call, outside the timed region."""
+    before each timed call, outside the timed region. A device spin of
+    about 2 ms sits between the two, so the card is still busy while the
+    host enqueues ``fn``'s kernels: the events then time the device's
+    work, not the host's launch overhead."""
     import torch
 
     for _ in range(3):
@@ -58,6 +89,7 @@ def cuda_ms(fn, reps: int = 50, flush=None) -> float:
     for _ in range(reps):
         if flush is not None:
             flush()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -126,16 +158,49 @@ def phase_device():
     return line
 
 
+def _ptxas(log: str) -> list:
+    """Registers and spills of each kernel entry in ``nvcc -Xptxas -v``
+    output (names demangled where ``c++filt`` exists)."""
+    entries, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = {"entry": m.group(1)}
+            entries.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if cur is not None and m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if cur is not None and m:
+            cur["registers"] = int(m.group(1))
+    if entries and shutil.which("c++filt"):
+        res = subprocess.run(["c++filt"], input="\n".join(
+            e["entry"] for e in entries), capture_output=True, text=True,
+            timeout=60)
+        for e, name in zip(entries, res.stdout.splitlines()):
+            name = re.sub(r"\(anonymous namespace\)::", "", name)
+            e["entry"] = name.split("(")[0]
+    return entries
+
+
 def phase_build():
+    """Both kernel libraries, one ``nvcc`` each, started together."""
+    from chainermn_torch.ops import flash_attention
     from chainermn_torch.parallel import paged_kernel
 
-    t0 = time.perf_counter()
-    paged_kernel.build_library()
-    log = sorted({ln.split(":", 1)[-1].strip()
-                  for ln in paged_kernel.build_library.log.splitlines()
-                  if "registers" in ln or "spill" in ln})
-    emit({"phase": "build", "kernel": "paged_decode",
-          "seconds": time.perf_counter() - t0, "ptxas": log[:24]})
+    libs = {"paged_decode": paged_kernel, "flash_attention": flash_attention}
+
+    def build(mod):
+        t0 = time.perf_counter()
+        mod.build_library()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(libs)) as pool:
+        seconds = dict(zip(libs, pool.map(build, libs.values())))
+    for name, mod in libs.items():
+        emit({"phase": "build", "kernel": name, "seconds": seconds[name],
+              "ptxas": _ptxas(mod.build_library.log)})
 
 
 def phase_parity(device):
@@ -409,6 +474,403 @@ def phase_engine_parity(device):
         raise AssertionError("kernel-read and plain-read engines disagree")
 
 
+# name, Tq, Tk, causal, q_offset, k_offset
+FLASH_CASES = [
+    ("square_causal", 1024, 1024, True, 0, 0),
+    ("square_full", 1024, 1024, False, 0, 0),
+    ("ragged_causal", 1000, 1000, True, 0, 0),
+    ("ragged_full", 1000, 1000, False, 0, 0),
+    ("rect_full", 512, 1024, False, 0, 0),
+    ("rect_causal", 512, 1024, True, 512, 0),
+    ("offset_q256", 1024, 1024, True, 256, 0),
+    ("offset_k300", 1024, 1024, True, 0, 300),   # rows 0..299 see no key
+]
+
+
+def _flash_inputs(b, tq, tk, h, d, dtype, gen, device, fused=False):
+    """q, k, v and do drawn from a seeded CPU generator. ``fused``: q, k
+    and v are slices of one [B, T, 3, H, D] tensor, as the model's qkv
+    projection hands them to attention."""
+    import torch
+
+    def draw(shape):
+        return torch.randn(shape, generator=gen).to(device=device,
+                                                    dtype=dtype)
+
+    if fused:
+        qkv = draw((b, tq, 3, h, d))
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    else:
+        q, k, v = draw((b, tq, h, d)), draw((b, tk, h, d)), draw((b, tk, h, d))
+    return q, k, v, draw((b, tq, h, d))
+
+
+def _compare(got, want, rtol, atol):
+    err = (got.float() - want.float()).abs()
+    return float(err.max()), bool((err <= atol + rtol * want.float().abs())
+                                  .all())
+
+
+def phase_flash_parity(device):
+    """Each flash kernel against its plain version on the card: B=2,
+    H=16, D in {64, 128}, bf16 and f32, the FLASH_CASES shapes (ragged
+    tails, Tq != Tk, offsets). The backward kernels take the plain
+    forward's lse and delta, so each kernel sees its plain version's
+    inputs; gradients come back in the input dtype, as in training. Rows
+    that see no key must hold out == 0 and lse == -1e30, and their dq and
+    the unseen keys' dk and dv must be 0, exactly."""
+    import torch
+
+    from chainermn_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(SEED + 4)
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    results = []
+    worst = dict.fromkeys(FLASH_KERNELS, 0.0)
+    for d in (64, 128):
+        for dname, dtype in dtypes.items():
+            rtol, atol = TOL[dname]
+            for name, tq, tk, causal, qo, ko in FLASH_CASES:
+                q, k, v, do = _flash_inputs(2, tq, tk, 16, d, dtype, gen,
+                                            device)
+                kw = dict(causal=causal, q_offset=qo, k_offset=ko)
+                gkw = dict(kw, grad_dtype=dtype)
+                out, lse = fa.flash_fwd_with_lse(q, k, v, **kw)
+                r_out, r_lse = fa.flash_fwd_reference(q, k, v, **kw)
+                delta = (do.float() * r_out.float()).sum(-1).transpose(1, 2)
+                delta = delta.contiguous()
+                dq = fa.flash_dq(q, k, v, do, r_lse, delta, **gkw)
+                dk, dv = fa.flash_dkv(q, k, v, do, r_lse, delta, **gkw)
+                r_dq = fa.flash_dq_reference(q, k, v, do, r_lse, delta, **gkw)
+                r_dk, r_dv = fa.flash_dkv_reference(q, k, v, do, r_lse,
+                                                    delta, **gkw)
+                torch.cuda.synchronize()
+                checks = {"out": _compare(out, r_out, rtol, atol),
+                          "lse": _compare(lse, r_lse, rtol, atol),
+                          "dq": _compare(dq, r_dq, rtol, atol),
+                          "dk": _compare(dk, r_dk, rtol, atol),
+                          "dv": _compare(dv, r_dv, rtol, atol)}
+                blind_q = blind_k = 0
+                sentinel_ok = True
+                if causal:
+                    rows = qo + torch.arange(tq, device=device) < ko
+                    keys = ko + torch.arange(tk, device=device) > qo + tq - 1
+                    blind_q, blind_k = int(rows.sum()), int(keys.sum())
+                    sentinel_ok = bool(
+                        (out[:, rows] == 0).all()
+                        and (lse[:, :, rows] == -1e30).all()
+                        and (dq[:, rows] == 0).all()
+                        and (dk[:, keys] == 0).all()
+                        and (dv[:, keys] == 0).all())
+                ok = sentinel_ok and all(c[1] for c in checks.values())
+                results.append({
+                    "D": d, "dtype": dname, "case": name,
+                    "err": {n: float(f"{c[0]:.3g}")
+                            for n, c in checks.items()},
+                    "blind_rows": blind_q, "blind_keys": blind_k,
+                    "sentinels_exact": sentinel_ok, "ok": ok})
+                worst["flash_fwd"] = max(worst["flash_fwd"],
+                                         checks["out"][0], checks["lse"][0])
+                worst["flash_dq"] = max(worst["flash_dq"], checks["dq"][0])
+                worst["flash_dkv"] = max(worst["flash_dkv"], checks["dk"][0],
+                                         checks["dv"][0])
+    emit({"phase": "flash_parity", "B": 2, "H": 16, "tol": TOL,
+          "shapes": {c[0]: c[1:] for c in FLASH_CASES},
+          "shape_fields": ["Tq", "Tk", "causal", "q_offset", "k_offset"],
+          "cases": results})
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"flash kernels disagree with their plain "
+                             f"versions: {bad}")
+    return worst
+
+
+def phase_train(device):
+    """The training path: the 220M LM with ``attention='flash'`` (bf16
+    compute, f32 parameters, seed 0), ``create_communicator('pure_nccl')``
+    (a one-rank NCCL group), ``create_multi_node_optimizer`` over
+    ``AdamW(3e-4, weight_decay=1e-4)`` (optax ``adamw``'s decay) and
+    ``lm_train_step``, on one seeded [8, 2048] batch with targets = tokens
+    rolled by one, reused every step. 2 warm-up steps, then 10 timed
+    steps closed by a device->host fetch of the loss."""
+    import torch
+
+    from chainermn_torch import (
+        create_communicator,
+        create_multi_node_optimizer,
+    )
+    from chainermn_torch.models import TransformerLM
+    from chainermn_torch.ops import flash_attention as fa
+    from chainermn_torch.training import lm_train_step
+
+    t0 = time.perf_counter()
+    model = TransformerLM(**LM, attention="flash",
+                          compute_dtype=torch.bfloat16, device=device,
+                          seed=SEED)
+    comm = create_communicator("pure_nccl", device=device)
+    comm.bcast_data(model)
+    opt = create_multi_node_optimizer(torch.optim.AdamW(
+        model.parameters(), lr=TRAIN["lr"],
+        weight_decay=TRAIN["weight_decay"]), comm)
+    step = lm_train_step(model, opt, comm)
+    b, t = TRAIN["batch"], TRAIN["seq_len"]
+    gen = torch.Generator().manual_seed(SEED)
+    tokens = torch.randint(0, LM["vocab_size"], (b, t), generator=gen)
+    tokens = tokens.to(device)
+    targets = torch.roll(tokens, -1, dims=1)
+    t_setup = time.perf_counter() - t0
+
+    counted = {name: getattr(fa, fn) for name, (fn, _, _)
+               in FLASH_KERNELS.items()}
+    for fn in counted.values():
+        fn.launches = 0
+    losses = [step(tokens, targets)[0] for _ in range(TRAIN["warmup_steps"])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    for _ in range(TRAIN["timed_steps"]):
+        loss, stats = step(tokens, targets)
+        losses.append(loss)
+    last = float(loss)              # the device->host fetch closes the window
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+    peak = torch.cuda.max_memory_allocated(device)
+    losses = [float(x) for x in losses]
+
+    n_steps = TRAIN["warmup_steps"] + TRAIN["timed_steps"]
+    n_params = sum(p.numel() for p in model.parameters())
+    n_nonembed = n_params - (LM["vocab_size"] + LM["max_len"]) * LM["d_model"]
+    h, dh = LM["n_heads"], LM["d_model"] // LM["n_heads"]
+    # analytic FLOPs of a step: the matmul tower fwd+bwd, plus causal
+    # attention fwd+bwd in every layer
+    flops = (6.0 * n_nonembed * b * t
+             + 12.0 * b * h * t * t * dh / 2 * LM["n_layers"])
+    step_s = wall / TRAIN["timed_steps"]
+    rec = {"phase": "train", "model": dict(LM, params=n_params,
+                                           nonembed_params=n_nonembed,
+                                           attention="flash",
+                                           compute_dtype="bf16"),
+           "train": TRAIN, "communicator": repr(comm), "setup_s": t_setup,
+           "step_ms": step_s * 1e3, "tokens_per_sec": b * t / step_s,
+           "analytic_flop_per_step": flops,
+           "analytic_tflops": flops / step_s / 1e12,
+           "mfu_vs_989_tflops": flops / step_s / BF16_OPS_PER_S,
+           "peak_memory_allocated_gb": peak / 1e9,
+           "first_loss": losses[0], "last_loss": last, "losses": losses,
+           "steps": n_steps, "launches": launches, "stats": stats}
+    emit(rec)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    want = n_steps * LM["n_layers"]
+    if any(n != want for n in launches.values()):
+        raise AssertionError(f"flash launches {launches} != {n_steps} steps "
+                             f"x {LM['n_layers']} layers")
+    phase_train_profile(step, tokens, targets, TRAIN["profile_steps"])
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return launches, comm
+
+
+def phase_train_profile(step, tokens, targets, n_steps):
+    """Where a train step's time goes: ``torch.profiler`` over
+    ``n_steps`` steps. Device busy time is the sum of CUDA activity in the
+    window, without user annotations (the optimizer's
+    ``Optimizer.step#AdamW.step`` range spans kernels already counted);
+    idle share is what is left of the host wall clock."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            loss, _ = step(tokens, targets)
+        float(loss)
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    busy_us = sum(e.self_device_time_total for e in dev)
+    flash_us = {name: sum(e.self_device_time_total for e in dev
+                          if kern in e.key)
+                for name, (_, kern, _) in FLASH_KERNELS.items()}
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:10]
+    measured = busy_us > 0
+    rec = {"phase": "train_profile", "steps": n_steps,
+           "step_wall_ms": wall / n_steps * 1e3,
+           "step_device_busy_ms": busy_us / n_steps / 1e3 if measured
+           else "not measured",
+           "device_idle_share": 1 - busy_us / 1e6 / wall if measured
+           else "not measured",
+           "flash_ms_per_step": {n: us / n_steps / 1e3
+                                 for n, us in flash_us.items()},
+           "flash_share_of_busy": (sum(flash_us.values()) / busy_us
+                                   if measured else "not measured"),
+           "top_device": [{"name": e.key[:70], "ms_per_step":
+                           e.self_device_time_total / n_steps / 1e3,
+                           "calls_per_step": e.count / n_steps}
+                          for e in top]}
+    emit(rec)
+    return rec
+
+
+def phase_flash_timing(device):
+    """Each flash kernel, its plain version and a library yardstick at the
+    training shape (B=8, T=2048, H=16, D=64, bf16, causal; q, k and v
+    sliced from one fused qkv tensor as the model passes them), L2
+    flushed before each timed call. Each kernel's outputs must agree with
+    its plain version's within the bf16 tolerance, so the strided reads
+    of the training path are held to a limit. The yardstick, which the port never
+    calls, is ``F.scaled_dot_product_attention(is_causal=True)`` forward,
+    and its backward as one number for dq, dk and dv together. The bound
+    is the larger of the causal FLOPs this run needs (visible (q, k)
+    pairs x 4 D for fwd, 6 D for dq, 8 D for dk/dv) at 989 TFLOP/s and
+    each input read once plus each output written once at 3.35 TB/s."""
+    import torch
+    import torch.nn.functional as F
+
+    from chainermn_torch.ops import flash_attention as fa
+
+    b, t = TRAIN["batch"], TRAIN["seq_len"]
+    h, d = LM["n_heads"], LM["d_model"] // LM["n_heads"]
+    gen = torch.Generator().manual_seed(SEED + 5)
+    q, k, v, do = _flash_inputs(b, t, t, h, d, torch.bfloat16, gen, device,
+                                fused=True)
+    scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=device)
+    flush = scratch.zero_
+    saved = {fn: getattr(fa, fn).launches for fn, _, _
+             in FLASH_KERNELS.values()}
+    kw = dict(causal=True)
+    gkw = dict(kw, grad_dtype=torch.bfloat16)
+    out, lse = fa.flash_fwd_with_lse(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    calls = {
+        "flash_fwd": (lambda: fa.flash_fwd_with_lse(q, k, v, **kw),
+                      lambda: fa.flash_fwd_reference(q, k, v, **kw)),
+        "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, **gkw),
+                     lambda: fa.flash_dq_reference(q, k, v, do, lse, delta,
+                                                   **gkw)),
+        "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, **gkw),
+                      lambda: fa.flash_dkv_reference(q, k, v, do, lse,
+                                                     delta, **gkw)),
+    }
+    pairs = b * h * t * (t + 1) // 2
+    elem, rows = b * t * h * d, b * h * t
+    work = {"flash_fwd": (4 * elem * 2 + rows * 4, 4 * d * pairs),
+            "flash_dq": (5 * elem * 2 + 2 * rows * 4, 6 * d * pairs),
+            "flash_dkv": (6 * elem * 2 + 2 * rows * 4, 8 * d * pairs)}
+
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+
+    def lib_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib_do = do.transpose(1, 2)
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, (qt, kt, vt), lib_do,
+                                   retain_graph=True)
+
+    lib_err = float((lib_out.detach().transpose(1, 2).float()
+                     - out.float()).abs().max())
+    library = {"flash_fwd": cuda_ms(lib_fwd, flush=flush)}
+    library["flash_dq"] = library["flash_dkv"] = cuda_ms(lib_bwd,
+                                                         flush=flush)
+    rtol, atol = TOL["bf16"]
+    recs = {}
+    for name, (kern, plain) in calls.items():
+        got, want = kern(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        checks = [_compare(g, w, rtol, atol) for g, w in zip(got, want)]
+        del got, want
+        kernel_ms = cuda_ms(kern, flush=flush)
+        plain_ms = cuda_ms(plain, reps=5, flush=flush)
+        n_bytes, n_ops = work[name]
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n_ops / BF16_OPS_PER_S * 1e3
+        recs[name] = {"max_abs_err": max(c[0] for c in checks),
+                      "within_tol": all(c[1] for c in checks), "ms": kernel_ms,
+                      "plain_ms": plain_ms, "library_ms": library[name],
+                      "bytes": n_bytes, "ops": n_ops,
+                      "bound_ms": max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes >= t_ops
+                      else "operations",
+                      "tflops": n_ops / kernel_ms / 1e9}
+        torch.cuda.empty_cache()
+    for fn, n in saved.items():
+        getattr(fa, fn).launches = n
+    emit({"phase": "flash_timing", "B": b, "T": t, "H": h, "D": d,
+          "dtype": "bf16", "causal": True, "tol": TOL["bf16"],
+          "library_call": "F.scaled_dot_product_attention(is_causal=True); "
+                          "dq and dkv rows share its backward (dq, dk, dv)",
+          "library_max_abs_err": lib_err, "kernels": recs})
+    bad = [n for n, r in recs.items() if not r["within_tol"]]
+    if bad:
+        raise AssertionError(f"flash kernels {bad} disagree with their plain "
+                             f"versions at the training shape")
+    return recs
+
+
+def phase_train_parity(device):
+    """A small f32 LM (2 layers, d_model 256, 4 heads, T=256, B=4) built
+    twice from one seed takes 3 steps with ``attention='flash'`` (the f32
+    kernels) and 3 with ``'full'`` (plain attention): losses and
+    parameters must agree to 1e-4. Adam's eps is 1e-5 on both: the key
+    bias's gradient is zero in exact arithmetic, so each path computes it
+    as rounding noise, which eps 1e-8 would turn into updates of up to
+    ``lr`` of either sign."""
+    import torch
+
+    from chainermn_torch import (
+        create_communicator,
+        create_multi_node_optimizer,
+    )
+    from chainermn_torch.models import TransformerLM
+    from chainermn_torch.training import lm_train_step
+
+    cfg = dict(vocab_size=1000, d_model=256, n_heads=4, n_layers=2,
+               max_len=256)
+    b, t, n_steps, tol = 4, 256, 3, 1e-4
+    gen = torch.Generator().manual_seed(SEED + 3)
+    tokens = torch.randint(0, cfg["vocab_size"], (b, t), generator=gen)
+    tokens = tokens.to(device)
+    targets = torch.roll(tokens, -1, dims=1)
+    comm = create_communicator("pure_nccl", device=device)
+    runs = {}
+    for attention in ("flash", "full"):
+        model = TransformerLM(**cfg, attention=attention,
+                              compute_dtype=torch.float32, device=device,
+                              seed=SEED + 3)
+        opt = create_multi_node_optimizer(torch.optim.AdamW(
+            model.parameters(), lr=TRAIN["lr"], eps=1e-5,
+            weight_decay=TRAIN["weight_decay"]), comm)
+        step = lm_train_step(model, opt, comm)
+        losses = [float(step(tokens, targets)[0]) for _ in range(n_steps)]
+        runs[attention] = (losses, {n: w.detach() for n, w
+                                    in model.named_parameters()})
+    (l_f, p_f), (l_p, p_p) = runs["flash"], runs["full"]
+    loss_err = max(abs(a - c) for a, c in zip(l_f, l_p))
+    param_err = {n: float((p_f[n] - p_p[n]).abs().max()) for n in p_f}
+    worst = max(param_err, key=param_err.get)
+    ok = loss_err <= tol and param_err[worst] <= tol
+    emit({"phase": "train_parity", "model": dict(cfg, compute_dtype="f32"),
+          "B": b, "T": t, "steps": n_steps, "losses_flash": l_f,
+          "losses_full": l_p, "loss_max_abs_err": loss_err,
+          "param_max_abs_err": param_err[worst], "worst_param": worst,
+          "tol": tol, "ok": ok})
+    if not ok:
+        raise AssertionError("flash-kernel training diverged from plain "
+                             "attention training")
+
+
 def main() -> int:
     try:
         import torch
@@ -432,7 +894,12 @@ def main() -> int:
     launches, lengths, _ = phase_serve(device)
     timing = phase_timing(device, lengths)
     phase_engine_parity(device)
-    emit({"kernels": [{
+    flash_err = phase_flash_parity(device)
+    flash_launches, comm = phase_train(device)
+    flash_timing = phase_flash_timing(device)
+    phase_train_parity(device)
+    comm.finalize()
+    kernels = [{
         "name": "paged_decode", "route": "cuda",
         "source": "chainermn_torch/csrc/paged_decode.cu",
         "replaces": "chainermn_tpu/parallel/paged_kernel.py:91",
@@ -440,7 +907,19 @@ def main() -> int:
         "parity_max_abs_err": parity_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"]}]})
+        "library_ms": timing["library_ms"]}]
+    for name, (_, _, replaces) in FLASH_KERNELS.items():
+        rec = flash_timing[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "chainermn_torch/csrc/flash_attention.cu",
+            "replaces": replaces, "launches": flash_launches[name],
+            "max_abs_err": rec["max_abs_err"],
+            "parity_max_abs_err": flash_err[name],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"]})
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
-"""Import rules of the port: ``chainermn_torch`` never imports jax, flax
-or anything of ``chainermn_tpu``, and its entry points do not carry on
-quietly on the CPU."""
+"""Import rules of the port: ``chainermn_torch`` and ``chip_smoke.py``
+never import jax, flax, optax or anything of ``chainermn_tpu``, and the
+port's entry points do not carry on quietly on the CPU."""
 
 import ast
 import pathlib
@@ -11,6 +11,7 @@ import pytest
 import torch
 
 PKG = pathlib.Path(__file__).resolve().parents[1] / "chainermn_torch"
+CHIP_SMOKE = PKG.parent / "chip_smoke.py"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chainermn_tpu")
 
 
@@ -39,8 +40,9 @@ def test_importing_every_module_pulls_in_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-@pytest.mark.parametrize("name,path", list(_modules()),
-                         ids=[n for n, _ in _modules()])
+@pytest.mark.parametrize(
+    "name,path", list(_modules()) + [("chip_smoke", CHIP_SMOKE)],
+    ids=[n for n, _ in _modules()] + ["chip_smoke"])
 def test_module_source_names_no_jax(name, path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -57,11 +59,17 @@ def test_module_source_names_no_jax(name, path):
 def test_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    from chainermn_torch import create_communicator
     from chainermn_torch.models import TransformerLM
     from chainermn_torch.serving import ServingEngine
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TransformerLM(vocab_size=11, d_model=8, n_heads=2, n_layers=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TransformerLM(vocab_size=11, d_model=8, n_heads=2, n_layers=1,
+                      attention="flash")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_communicator()
     model = TransformerLM(vocab_size=11, d_model=8, n_heads=2, n_layers=1,
                           max_len=16, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
