@@ -3,9 +3,10 @@
 A source under ``chainermn_torch/csrc/`` is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, written to
 ``build/`` at the repository root and loaded with ``ctypes``. The library
-is named by a hash of its source, so an edited kernel is never served from
-a stale build. Nothing here runs while a module is imported: a kernel
-module calls :func:`load_library` the first time it launches.
+is named by a hash of its source and of every header it includes with
+``#include "..."`` (transitively), so an edited kernel or header is never
+served from a stale build. Nothing here runs while a module is imported:
+a kernel module calls :func:`load_library` the first time it launches.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -23,6 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 _loaded: dict[Path, tuple[ctypes.CDLL, str]] = {}
 _locks: dict[Path, threading.Lock] = {}
 _locks_guard = threading.Lock()
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def _nvcc() -> str:
@@ -31,6 +34,32 @@ def _nvcc() -> str:
         return found
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     return str(Path(home) / "bin" / "nvcc")
+
+
+def _included(src: Path) -> list[Path]:
+    """Every file ``src`` includes with ``#include "..."``, transitively
+    (each path relative to the file that names it), sorted."""
+    seen: set[Path] = set()
+    todo = [src]
+    while todo:
+        f = todo.pop()
+        for name in _INCLUDE.findall(f.read_text()):
+            inc = (f.parent / name).resolve()
+            if inc.is_file() and inc not in seen:
+                seen.add(inc)
+                todo.append(inc)
+    return sorted(seen)
+
+
+def library_path(src: Path) -> Path:
+    """Where the library built from ``src`` lives: named by a hash of the
+    source and of the headers it includes."""
+    src = Path(src).resolve()
+    h = hashlib.sha256(src.read_bytes())
+    for inc in _included(src):
+        h.update(inc.name.encode())
+        h.update(inc.read_bytes())
+    return BUILD_DIR / f"{src.stem}_{h.hexdigest()[:12]}.so"
 
 
 def load_library(src: Path, signatures: dict) -> tuple[ctypes.CDLL, str]:
@@ -48,8 +77,7 @@ def load_library(src: Path, signatures: dict) -> tuple[ctypes.CDLL, str]:
     with lock:
         if src in _loaded:
             return _loaded[src]
-        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-        so = BUILD_DIR / f"{src.stem}_{digest}.so"
+        so = library_path(src)
         log = ""
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -72,4 +100,4 @@ def load_library(src: Path, signatures: dict) -> tuple[ctypes.CDLL, str]:
         return lib, log
 
 
-__all__ = ["BUILD_DIR", "load_library"]
+__all__ = ["BUILD_DIR", "library_path", "load_library"]

@@ -23,7 +23,13 @@
 //
 // What bounds it: causal attention does about T / 3 flops per byte it must
 // move (~680 at the LM's T = 2048), above the H100's ridge of ~295, so the
-// floor is the tensor-core rate. The design, right and simple first:
+// floor is the tensor-core rate. The bf16 dq and dk/dv kernels, which do
+// most of a training step's attention work, are built for that floor in
+// flash_bwd_sm90.cuh (flash_dq_kernel_sm90, flash_dkv_kernel_sm90): wgmma
+// products whose f32 accumulators stay in registers (S, P, dP, dS never
+// reach shared memory), two warpgroups a CTA, and a 3-stage cp.async ring
+// that loads the next tiles while the current one is computed. The forward
+// and the f32 kernels below keep the first, simple design:
 //   - one thread block (4 warps) per (batch*head, 64-row tile); the TPU's
 //     sequential grid axis becomes a loop inside the block over the other
 //     sequence's tiles, so no state crosses blocks and every gradient is
@@ -35,8 +41,8 @@
 //   - tiles live in shared memory; bf16 products run on the tensor cores
 //     through wmma (16x16x16, f32 accumulate), with scores, softmax and the
 //     f32 accumulators staged in shared memory between the products;
-//   - blocks with the most causal work are issued first.
-// Not yet: wgmma, TMA, register-resident accumulators, pipelined loads.
+//   - blocks with the most causal work are issued first (fwd, dq).
+// Not yet for the forward: wgmma, register accumulators, pipelined loads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -508,12 +514,17 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------- bf16 dq and dk/dv (Hopper) --
+
+#include "flash_bwd_sm90.cuh"
+
 // --------------------------------------------------------------- launchers --
 
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
+// The forward (both types) and the f32 dq and dk/dv kernels.
 template <int KIND, typename T, typename OT, int D>
-cudaError_t launch(const FlashArgs& a, cudaStream_t stream) {
+cudaError_t launch_simple(const FlashArgs& a, cudaStream_t stream) {
   using L = Layout<T, D>;
   void (*kern)(const FlashArgs);
   size_t smem;
@@ -539,6 +550,17 @@ cudaError_t launch(const FlashArgs& a, cudaStream_t stream) {
                   static_cast<unsigned>(a.batch * a.heads));
   kern<<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int KIND, typename T, typename OT, int D>
+cudaError_t launch(const FlashArgs& a, cudaStream_t stream) {
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  if constexpr (kBf16 && KIND == kDq)
+    return launch_dq_sm90<OT, D>(a, stream);
+  else if constexpr (kBf16 && KIND == kDkv)
+    return launch_dkv_sm90<OT, D>(a, stream);
+  else
+    return launch_simple<KIND, T, OT, D>(a, stream);
 }
 
 template <int KIND, int D>

@@ -185,7 +185,8 @@ def _ptxas(log: str) -> list:
 
 
 def phase_build():
-    """Both kernel libraries, one ``nvcc`` each, started together."""
+    """Both kernel libraries, one ``nvcc`` each, started together. Fails
+    if a bf16 dq or dk/dv instance (``*_sm90``) spills registers."""
     from chainermn_torch.ops import flash_attention
     from chainermn_torch.parallel import paged_kernel
 
@@ -198,9 +199,16 @@ def phase_build():
 
     with ThreadPoolExecutor(len(libs)) as pool:
         seconds = dict(zip(libs, pool.map(build, libs.values())))
-    for name, mod in libs.items():
+    ptxas = {name: _ptxas(mod.build_library.log) for name, mod in libs.items()}
+    for name in libs:
         emit({"phase": "build", "kernel": name, "seconds": seconds[name],
-              "ptxas": _ptxas(mod.build_library.log)})
+              "ptxas": ptxas[name]})
+    # the bf16 dq and dk/dv kernels keep their accumulators in registers:
+    # a spill would put them in local memory
+    spilled = [e for e in ptxas["flash_attention"]
+               if "_sm90" in e["entry"] and e.get("spill_stores", 0)]
+    if spilled:
+        raise AssertionError(f"bf16 backward kernels spill: {spilled}")
 
 
 def phase_parity(device):
@@ -484,6 +492,8 @@ FLASH_CASES = [
     ("rect_causal", 512, 1024, True, 512, 0),
     ("offset_q256", 1024, 1024, True, 256, 0),
     ("offset_k300", 1024, 1024, True, 0, 300),   # rows 0..299 see no key
+    ("tiny_causal", 100, 100, True, 0, 0),       # below one 128-row tile
+    ("ragged_offset_q64", 1000, 1000, True, 64, 0),
 ]
 
 
@@ -514,11 +524,11 @@ def _compare(got, want, rtol, atol):
 def phase_flash_parity(device):
     """Each flash kernel against its plain version on the card: B=2,
     H=16, D in {64, 128}, bf16 and f32, the FLASH_CASES shapes (ragged
-    tails, Tq != Tk, offsets). The backward kernels take the plain
-    forward's lse and delta, so each kernel sees its plain version's
-    inputs; gradients come back in the input dtype, as in training. Rows
-    that see no key must hold out == 0 and lse == -1e30, and their dq and
-    the unseen keys' dk and dv must be 0, exactly."""
+    tails, Tq != Tk, offsets, a sequence below one tile). The backward
+    kernels take the plain forward's lse and delta, so each kernel sees
+    its plain version's inputs; gradients come back in the input dtype, as
+    in training. Rows that see no key must hold out == 0 and lse == -1e30,
+    and their dq and the unseen keys' dk and dv must be 0, exactly."""
     import torch
 
     from chainermn_torch.ops import flash_attention as fa
@@ -729,7 +739,9 @@ def phase_flash_timing(device):
     and its backward as one number for dq, dk and dv together. The bound
     is the larger of the causal FLOPs this run needs (visible (q, k)
     pairs x 4 D for fwd, 6 D for dq, 8 D for dk/dv) at 989 TFLOP/s and
-    each input read once plus each output written once at 3.35 TB/s."""
+    each input read once plus each output written once at 3.35 TB/s.
+    Each kernel runs twice on the same inputs and must give bitwise-equal
+    outputs: no atomics, so the results are deterministic."""
     import torch
     import torch.nn.functional as F
 
@@ -786,18 +798,20 @@ def phase_flash_timing(device):
     rtol, atol = TOL["bf16"]
     recs = {}
     for name, (kern, plain) in calls.items():
-        got, want = kern(), plain()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
+        got, again, want = kern(), kern(), plain()
+        got, again, want = (x if isinstance(x, tuple) else (x,)
+                            for x in (got, again, want))
         checks = [_compare(g, w, rtol, atol) for g, w in zip(got, want)]
-        del got, want
+        same = all(torch.equal(g, x) for g, x in zip(got, again))
+        del got, again, want
         kernel_ms = cuda_ms(kern, flush=flush)
         plain_ms = cuda_ms(plain, reps=5, flush=flush)
         n_bytes, n_ops = work[name]
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = n_ops / BF16_OPS_PER_S * 1e3
         recs[name] = {"max_abs_err": max(c[0] for c in checks),
-                      "within_tol": all(c[1] for c in checks), "ms": kernel_ms,
+                      "within_tol": all(c[1] for c in checks),
+                      "deterministic": same, "ms": kernel_ms,
                       "plain_ms": plain_ms, "library_ms": library[name],
                       "bytes": n_bytes, "ops": n_ops,
                       "bound_ms": max(t_bytes, t_ops),
@@ -816,6 +830,10 @@ def phase_flash_timing(device):
     if bad:
         raise AssertionError(f"flash kernels {bad} disagree with their plain "
                              f"versions at the training shape")
+    bad = [n for n, r in recs.items() if not r["deterministic"]]
+    if bad:
+        raise AssertionError(f"flash kernels {bad} gave different outputs "
+                             f"for the same inputs")
     return recs
 
 

@@ -16,6 +16,8 @@ values land one bf16 ulp apart). The CUDA kernels are held against the
 same plain versions on the card by ``chip_smoke.py``.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -245,3 +247,33 @@ def test_build_error_carries_the_compiler_output(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="(?s)nvcc failed.*no sm_90a"):
         _build.load_library(src, {})
     assert not list((tmp_path / "build").iterdir())
+
+
+def test_edited_header_changes_the_library_name(tmp_path, monkeypatch):
+    """The library is named by a hash of its source and of the headers it
+    includes (also through another header), so an edited header is never
+    served from a stale build. The fake nvcc fails and prints the output
+    path it was given."""
+    from chainermn_torch import _build
+
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\necho "$@" >&2\nexit 3\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    (tmp_path / "inc").mkdir()
+    src = tmp_path / "kernel.cu"
+    src.write_text('#include "inc/outer.cuh"\n')
+    (tmp_path / "inc" / "outer.cuh").write_text('#include "inner.cuh"\n')
+    inner = tmp_path / "inc" / "inner.cuh"
+
+    def built_name():
+        with pytest.raises(RuntimeError) as err:
+            _build.load_library(src, {})
+        return re.search(r"kernel_[0-9a-f]{12}\.so", str(err.value)).group()
+
+    inner.write_text("// one\n")
+    first = built_name()
+    assert built_name() == first == _build.library_path(src).name
+    inner.write_text("// two\n")
+    assert built_name() != first

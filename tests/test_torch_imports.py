@@ -1,6 +1,7 @@
-"""Import rules of the port: ``chainermn_torch`` and ``chip_smoke.py``
-never import jax, flax, optax or anything of ``chainermn_tpu``, and the
-port's entry points do not carry on quietly on the CPU."""
+"""Import rules of the port: ``chainermn_torch``, ``chip_smoke.py`` and
+``kernel_ab.py`` never import jax, flax, optax or anything of
+``chainermn_tpu``, and the port's entry points do not carry on quietly on
+the CPU."""
 
 import ast
 import pathlib
@@ -11,7 +12,8 @@ import pytest
 import torch
 
 PKG = pathlib.Path(__file__).resolve().parents[1] / "chainermn_torch"
-CHIP_SMOKE = PKG.parent / "chip_smoke.py"
+SCRIPTS = [(name, PKG.parent / f"{name}.py")
+           for name in ("chip_smoke", "kernel_ab")]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chainermn_tpu")
 
 
@@ -41,8 +43,8 @@ def test_importing_every_module_pulls_in_no_jax():
 
 
 @pytest.mark.parametrize(
-    "name,path", list(_modules()) + [("chip_smoke", CHIP_SMOKE)],
-    ids=[n for n, _ in _modules()] + ["chip_smoke"])
+    "name,path", list(_modules()) + SCRIPTS,
+    ids=[n for n, _ in _modules()] + [n for n, _ in SCRIPTS])
 def test_module_source_names_no_jax(name, path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
