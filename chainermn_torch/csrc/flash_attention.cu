@@ -23,14 +23,16 @@
 //
 // What bounds it: causal attention does about T / 3 flops per byte it must
 // move (~680 at the LM's T = 2048), above the H100's ridge of ~295, so the
-// floor is the tensor-core rate. The bf16 dq and dk/dv kernels, which do
-// most of a training step's attention work, are built for that floor in
-// flash_bwd_sm90.cuh (flash_dq_kernel_sm90, flash_dkv_kernel_sm90): wgmma
-// products whose f32 accumulators stay in registers (S, P, dP, dS never
-// reach shared memory), two warpgroups a CTA, and a 3-stage cp.async ring
-// that loads the next tiles while the current one is computed. The forward
-// and the f32 kernels below keep the first, simple design:
-//   - one thread block (4 warps) per (batch*head, 64-row tile); the TPU's
+// floor is the tensor-core rate. The bf16 kernels, which do a training
+// step's attention work, are built for that floor: the forward in
+// flash_fwd_sm90.cuh (flash_fwd_kernel_sm90), dq and dk/dv in
+// flash_bwd_sm90.cuh (flash_dq_kernel_sm90, flash_dkv_kernel_sm90). Each
+// runs wgmma products whose f32 accumulators stay in registers (S, P, dP,
+// dS never reach shared memory, and O, dQ, dK, dV are written once), two
+// warpgroups a CTA, and a 3-stage cp.async ring that loads the next tiles
+// while the current one is computed. The f32 kernels below keep the first,
+// simple design:
+//   - one thread block (4 warps) per (batch*head, 32-row tile); the TPU's
 //     sequential grid axis becomes a loop inside the block over the other
 //     sequence's tiles, so no state crosses blocks and every gradient is
 //     written once, with no atomics (deterministic);
@@ -38,15 +40,14 @@
 //     dq) or start at the first query tile that sees the key tile (dkv):
 //     fully masked tiles are neither read nor computed;
 //   - ragged Tq / Tk are masked in the tail tile, so any length works;
-//   - tiles live in shared memory; bf16 products run on the tensor cores
-//     through wmma (16x16x16, f32 accumulate), with scores, softmax and the
-//     f32 accumulators staged in shared memory between the products;
+//   - tiles live in shared memory; products run on plain f32 FMA, with
+//     scores, softmax and the f32 accumulators staged in shared memory
+//     between the products;
 //   - blocks with the most causal work are issued first (fwd, dq).
-// Not yet for the forward: wgmma, register accumulators, pipelined loads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -83,22 +84,11 @@ constexpr float kNegBig = -1e30f;
 
 using bf16 = __nv_bfloat16;
 
-// Tile rows and shared-memory row padding per input type. bf16 rows pad to
-// a 16-byte multiple (wmma and 16-byte stores need it); f32 rows take an
-// odd pitch so the scalar products read columns without bank conflicts, and
-// smaller tiles keep the f32 dk/dv block inside shared memory at D = 128.
-template <typename T>
-struct Cfg;
-template <>
-struct Cfg<bf16> {
-  static constexpr int kTile = 64;
-  static constexpr int kPad = 8;
-};
-template <>
-struct Cfg<float> {
-  static constexpr int kTile = 32;
-  static constexpr int kPad = 1;
-};
+// Tile rows and shared-memory row padding of the f32 kernels: an odd pitch
+// lets the scalar products read columns without bank conflicts, and 32-row
+// tiles keep the dk/dv block inside shared memory at D = 128.
+constexpr int kTile = 32;
+constexpr int kPad = 1;
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -154,27 +144,25 @@ __device__ __forceinline__ Geo make_geo(const FlashArgs& a) {
              a.causal != 0};
 }
 
-// Rows row0 .. row0+R-1 of one (batch, head) slice of a [B, T, H, D] input
-// into a shared tile of pitch D + kPad; rows at or past n_rows read as 0.
-// 16-byte loads: neighbouring threads read neighbouring pieces of a row.
-template <typename T, int D, int R>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, int64_t st,
-                                          int row0, int n_rows) {
-  constexpr int kLd = D + Cfg<T>::kPad;
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = D / kVec;
+// Rows row0 .. row0+R-1 of one (batch, head) slice of a [B, T, H, D] f32
+// input into a shared tile of pitch D + kPad; rows at or past n_rows read
+// as 0. 16-byte loads: neighbouring threads read neighbouring pieces of a
+// row.
+template <int D, int R>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int64_t st, int row0, int n_rows) {
+  constexpr int kLd = D + kPad;
+  constexpr int kPerRow = D / 4;
   for (int i = threadIdx.x; i < R * kPerRow; i += kThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * kVec;
+    const int r = i / kPerRow, c = (i % kPerRow) * 4;
     const int t = row0 + r;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (t < n_rows) x = *reinterpret_cast<const uint4*>(src + t * st + c);
-    if constexpr (sizeof(T) == 2) {
-      *reinterpret_cast<uint4*>(dst + r * kLd + c) = x;
-    } else {
-      const float* f = reinterpret_cast<const float*>(&x);
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) dst[r * kLd + c + e] = f[e];
-    }
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (t < n_rows) x = *reinterpret_cast<const float4*>(src + t * st + c);
+    float* d = dst + r * kLd + c;
+    d[0] = x.x;
+    d[1] = x.y;
+    d[2] = x.z;
+    d[3] = x.w;
   }
 }
 
@@ -186,66 +174,37 @@ __device__ __forceinline__ void load_stat(float* dst, const float* src,
     dst[r] = row0 + r < n_rows ? src[row0 + r] : 0.f;
 }
 
-// C[M x N] (f32, pitch ldc) = or += op(A)[M x K] op(B)[K x N], all in shared
-// memory. A[m][k] is a[m * lda + k], or a[k * lda + m] when TA; B[k][n] is
-// b[k * ldb + n], or b[n * ldb + k] when TB. bf16 runs wmma 16x16x16 with an
-// f32 accumulator, one warp per 16x16 output tile; f32 runs plain FMA, one
-// thread per output element. The whole block calls it; the caller syncs.
-template <typename T, int M, int N, int K, bool TA, bool TB, bool ACC>
-__device__ __forceinline__ void block_mm(const T* a, int lda, const T* b,
-                                         int ldb, float* c, int ldc) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    using namespace nvcuda;
-    using LA = typename std::conditional<TA, wmma::col_major,
-                                         wmma::row_major>::type;
-    using LB = typename std::conditional<TB, wmma::col_major,
-                                         wmma::row_major>::type;
-    constexpr int kTn = N / 16;
-    for (int t = threadIdx.x / 32; t < (M / 16) * kTn; t += kWarps) {
-      const int m0 = (t / kTn) * 16, n0 = (t % kTn) * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      if (ACC)
-        wmma::load_matrix_sync(acc, c + m0 * ldc + n0, ldc,
-                               wmma::mem_row_major);
-      else
-        wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int k0 = 0; k0 < K; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> fb;
-        wmma::load_matrix_sync(fa, TA ? a + k0 * lda + m0 : a + m0 * lda + k0,
-                               lda);
-        wmma::load_matrix_sync(fb, TB ? b + n0 * ldb + k0 : b + k0 * ldb + n0,
-                               ldb);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(c + m0 * ldc + n0, acc, ldc,
-                              wmma::mem_row_major);
-    }
-  } else {
-    for (int i = threadIdx.x; i < M * N; i += kThreads) {
-      const int m = i / N, n = i % N;
-      float s = ACC ? c[m * ldc + n] : 0.f;
+// C[M x N] (pitch ldc) = or += op(A)[M x K] op(B)[K x N], all f32 in
+// shared memory, plain FMA (never TF32), one thread per output element.
+// A[m][k] is a[m * lda + k], or a[k * lda + m] when TA; B[k][n] is
+// b[k * ldb + n], or b[n * ldb + k] when TB. The whole block calls it; the
+// caller syncs.
+template <int M, int N, int K, bool TA, bool TB, bool ACC>
+__device__ __forceinline__ void block_mm(const float* a, int lda,
+                                         const float* b, int ldb, float* c,
+                                         int ldc) {
+  for (int i = threadIdx.x; i < M * N; i += kThreads) {
+    const int m = i / N, n = i % N;
+    float s = ACC ? c[m * ldc + n] : 0.f;
 #pragma unroll 8
-      for (int k = 0; k < K; ++k)
-        s = fmaf(TA ? a[k * lda + m] : a[m * lda + k],
-                 TB ? b[n * ldb + k] : b[k * ldb + n], s);
-      c[m * ldc + n] = s;
-    }
+    for (int k = 0; k < K; ++k)
+      s = fmaf(TA ? a[k * lda + m] : a[m * lda + k],
+               TB ? b[n * ldb + k] : b[k * ldb + n], s);
+    c[m * ldc + n] = s;
   }
 }
 
 // Shared-memory pitches and sizes, one place for kernels and launchers.
-template <typename T, int D>
+template <int D>
 struct Layout {
-  static constexpr int kB = Cfg<T>::kTile;      // rows of every tile
-  static constexpr int kLd = D + Cfg<T>::kPad;  // q, k, v, do tiles
-  static constexpr int kLds = kB + 4;           // f32 scores
-  static constexpr int kLdp = kB + Cfg<T>::kPad;  // p / ds in T
-  static constexpr int kLdo = D + 4;            // f32 accumulators
-  static constexpr size_t kTileBytes = round128(sizeof(T) * kB * kLd);
+  static constexpr int kB = kTile;        // rows of every tile
+  static constexpr int kLd = D + kPad;    // q, k, v, do tiles
+  static constexpr int kLds = kB + 4;     // scores
+  static constexpr int kLdp = kB + kPad;  // p / ds
+  static constexpr int kLdo = D + 4;      // accumulators
+  static constexpr size_t kTileBytes = round128(sizeof(float) * kB * kLd);
   static constexpr size_t kScoreBytes = round128(sizeof(float) * kB * kLds);
-  static constexpr size_t kPBytes = round128(sizeof(T) * kB * kLdp);
+  static constexpr size_t kPBytes = round128(sizeof(float) * kB * kLdp);
   static constexpr size_t kAccBytes = round128(sizeof(float) * kB * kLdo);
   static constexpr size_t kStatBytes = round128(sizeof(float) * kB);
   static constexpr size_t kFwd =
@@ -258,18 +217,18 @@ struct Layout {
 
 // ---------------------------------------------------------------- forward --
 
-template <typename T, typename OT, int D>
+template <typename OT, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const FlashArgs a) {
-  using L = Layout<T, D>;
+  using L = Layout<D>;
   constexpr int B = L::kB;
   extern __shared__ __align__(128) unsigned char smem[];
   Carver cv{smem};
-  T* qs = cv.take<T>(B * L::kLd);
-  T* ks = cv.take<T>(B * L::kLd);
-  T* vs = cv.take<T>(B * L::kLd);
+  float* qs = cv.take<float>(B * L::kLd);
+  float* ks = cv.take<float>(B * L::kLd);
+  float* vs = cv.take<float>(B * L::kLd);
   float* S = cv.take<float>(B * L::kLds);
-  T* P = cv.take<T>(B * L::kLdp);
+  float* P = cv.take<float>(B * L::kLdp);
   float* O = cv.take<float>(B * L::kLdo);
   float* m_s = cv.take<float>(B);
   float* l_s = cv.take<float>(B);
@@ -280,11 +239,11 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = (gridDim.x - 1 - blockIdx.x) * B;  // longest blocks first
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const float scale = static_cast<float>(a.scale);
-  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
+  const float* qb = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
 
-  load_rows<T, D, B>(qs, qb, a.q_st, q0, g.tq);
+  load_rows<D, B>(qs, qb, a.q_st, q0, g.tq);
   for (int i = threadIdx.x; i < B * D; i += kThreads)
     O[(i / D) * L::kLdo + i % D] = 0.f;
   for (int r = threadIdx.x; r < B; r += kThreads) {
@@ -299,10 +258,10 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   for (int k0 = 0; k0 < k_end; k0 += B) {
-    load_rows<T, D, B>(ks, kb, a.k_st, k0, g.tk);
-    load_rows<T, D, B>(vs, vb, a.v_st, k0, g.tk);
+    load_rows<D, B>(ks, kb, a.k_st, k0, g.tk);
+    load_rows<D, B>(vs, vb, a.v_st, k0, g.tk);
     __syncthreads();
-    block_mm<T, B, B, D, false, true, false>(qs, L::kLd, ks, L::kLd, S,
+    block_mm<B, B, D, false, true, false>(qs, L::kLd, ks, L::kLd, S,
                                              L::kLds);
     __syncthreads();
     // online softmax: one warp per row, B / 32 keys per lane
@@ -326,7 +285,7 @@ __global__ void __launch_bounds__(kThreads)
         // sentinel, and exp(s - mx) would be 1
         const float p = s[c] <= 0.5f * kNegBig ? 0.f : expf(s[c] - mx);
         p_sum += p;
-        P[r * L::kLdp + lane + 32 * c] = from_f32<T>(p);
+        P[r * L::kLdp + lane + 32 * c] = p;
       }
       p_sum = warp_sum(p_sum);
       const float corr = expf(m_old - mx);
@@ -337,7 +296,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();
-    block_mm<T, B, D, B, false, false, true>(P, L::kLdp, vs, L::kLd, O,
+    block_mm<B, D, B, false, false, true>(P, L::kLdp, vs, L::kLd, O,
                                              L::kLdo);
     __syncthreads();
   }
@@ -361,19 +320,19 @@ __global__ void __launch_bounds__(kThreads)
 
 // --------------------------------------------------------------------- dq --
 
-template <typename T, typename OT, int D>
+template <typename OT, int D>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const FlashArgs a) {
-  using L = Layout<T, D>;
+  using L = Layout<D>;
   constexpr int B = L::kB;
   extern __shared__ __align__(128) unsigned char smem[];
   Carver cv{smem};
-  T* qs = cv.take<T>(B * L::kLd);
-  T* dos = cv.take<T>(B * L::kLd);
-  T* ks = cv.take<T>(B * L::kLd);
-  T* vs = cv.take<T>(B * L::kLd);
+  float* qs = cv.take<float>(B * L::kLd);
+  float* dos = cv.take<float>(B * L::kLd);
+  float* ks = cv.take<float>(B * L::kLd);
+  float* vs = cv.take<float>(B * L::kLd);
   float* S = cv.take<float>(B * L::kLds);
   float* dP = cv.take<float>(B * L::kLds);
-  T* dS = cv.take<T>(B * L::kLdp);
+  float* dS = cv.take<float>(B * L::kLdp);
   float* dQ = cv.take<float>(B * L::kLdo);
   float* lse_s = cv.take<float>(B);
   float* dl_s = cv.take<float>(B);
@@ -383,13 +342,13 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const FlashArgs a) {
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * B;
   const float scale = static_cast<float>(a.scale);
-  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const T* dob = static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh;
+  const float* qb = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
+  const float* dob = static_cast<const float*>(a.dout) + b * a.do_sb + h * a.do_sh;
 
-  load_rows<T, D, B>(qs, qb, a.q_st, q0, g.tq);
-  load_rows<T, D, B>(dos, dob, a.do_st, q0, g.tq);
+  load_rows<D, B>(qs, qb, a.q_st, q0, g.tq);
+  load_rows<D, B>(dos, dob, a.do_st, q0, g.tq);
   load_stat<B>(lse_s, a.lse + static_cast<int64_t>(bh) * g.tq, q0, g.tq);
   load_stat<B>(dl_s, a.delta + static_cast<int64_t>(bh) * g.tq, q0, g.tq);
   for (int i = threadIdx.x; i < B * D; i += kThreads)
@@ -401,12 +360,12 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const FlashArgs a) {
   __syncthreads();
 
   for (int k0 = 0; k0 < k_end; k0 += B) {
-    load_rows<T, D, B>(ks, kb, a.k_st, k0, g.tk);
-    load_rows<T, D, B>(vs, vb, a.v_st, k0, g.tk);
+    load_rows<D, B>(ks, kb, a.k_st, k0, g.tk);
+    load_rows<D, B>(vs, vb, a.v_st, k0, g.tk);
     __syncthreads();
-    block_mm<T, B, B, D, false, true, false>(qs, L::kLd, ks, L::kLd, S,
+    block_mm<B, B, D, false, true, false>(qs, L::kLd, ks, L::kLd, S,
                                              L::kLds);
-    block_mm<T, B, B, D, false, true, false>(dos, L::kLd, vs, L::kLd, dP,
+    block_mm<B, B, D, false, true, false>(dos, L::kLd, vs, L::kLd, dP,
                                              L::kLds);
     __syncthreads();
     for (int i = threadIdx.x; i < B * B; i += kThreads) {
@@ -414,10 +373,10 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const FlashArgs a) {
       const float s = S[r * L::kLds + j] * scale;
       // masked p is exactly 0, also when lse is the -1e30 sentinel
       const float p = g.visible(q0 + r, k0 + j) ? expf(s - lse_s[r]) : 0.f;
-      dS[r * L::kLdp + j] = from_f32<T>(p * (dP[r * L::kLds + j] - dl_s[r]));
+      dS[r * L::kLdp + j] = p * (dP[r * L::kLds + j] - dl_s[r]);
     }
     __syncthreads();
-    block_mm<T, B, D, B, false, false, true>(dS, L::kLdp, ks, L::kLd, dQ,
+    block_mm<B, D, B, false, false, true>(dS, L::kLdp, ks, L::kLd, dQ,
                                              L::kLdo);
     __syncthreads();
   }
@@ -433,21 +392,21 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const FlashArgs a) {
 
 // -------------------------------------------------------------------- dkv --
 
-template <typename T, typename OT, int D>
+template <typename OT, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_dkv_kernel(const FlashArgs a) {
-  using L = Layout<T, D>;
+  using L = Layout<D>;
   constexpr int B = L::kB;
   extern __shared__ __align__(128) unsigned char smem[];
   Carver cv{smem};
-  T* ks = cv.take<T>(B * L::kLd);
-  T* vs = cv.take<T>(B * L::kLd);
-  T* qs = cv.take<T>(B * L::kLd);
-  T* dos = cv.take<T>(B * L::kLd);
+  float* ks = cv.take<float>(B * L::kLd);
+  float* vs = cv.take<float>(B * L::kLd);
+  float* qs = cv.take<float>(B * L::kLd);
+  float* dos = cv.take<float>(B * L::kLd);
   float* S = cv.take<float>(B * L::kLds);
   float* dP = cv.take<float>(B * L::kLds);
-  T* P = cv.take<T>(B * L::kLdp);
-  T* dS = cv.take<T>(B * L::kLdp);
+  float* P = cv.take<float>(B * L::kLdp);
+  float* dS = cv.take<float>(B * L::kLdp);
   float* dK = cv.take<float>(B * L::kLdo);
   float* dV = cv.take<float>(B * L::kLdo);
   float* lse_s = cv.take<float>(B);
@@ -458,15 +417,15 @@ __global__ void __launch_bounds__(kThreads)
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int k0 = (gridDim.x - 1 - blockIdx.x) * B;
   const float scale = static_cast<float>(a.scale);
-  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const T* dob = static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh;
+  const float* qb = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
+  const float* dob = static_cast<const float*>(a.dout) + b * a.do_sb + h * a.do_sh;
   const float* lse = a.lse + static_cast<int64_t>(bh) * g.tq;
   const float* delta = a.delta + static_cast<int64_t>(bh) * g.tq;
 
-  load_rows<T, D, B>(ks, kb, a.k_st, k0, g.tk);
-  load_rows<T, D, B>(vs, vb, a.v_st, k0, g.tk);
+  load_rows<D, B>(ks, kb, a.k_st, k0, g.tk);
+  load_rows<D, B>(vs, vb, a.v_st, k0, g.tk);
   for (int i = threadIdx.x; i < B * D; i += kThreads) {
     dK[(i / D) * L::kLdo + i % D] = 0.f;
     dV[(i / D) * L::kLdo + i % D] = 0.f;
@@ -478,27 +437,27 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int q0 = q_begin; q0 < g.tq; q0 += B) {
     __syncthreads();  // the previous products are done with qs, dos, P, dS
-    load_rows<T, D, B>(qs, qb, a.q_st, q0, g.tq);
-    load_rows<T, D, B>(dos, dob, a.do_st, q0, g.tq);
+    load_rows<D, B>(qs, qb, a.q_st, q0, g.tq);
+    load_rows<D, B>(dos, dob, a.do_st, q0, g.tq);
     load_stat<B>(lse_s, lse, q0, g.tq);
     load_stat<B>(dl_s, delta, q0, g.tq);
     __syncthreads();
-    block_mm<T, B, B, D, false, true, false>(qs, L::kLd, ks, L::kLd, S,
+    block_mm<B, B, D, false, true, false>(qs, L::kLd, ks, L::kLd, S,
                                              L::kLds);
-    block_mm<T, B, B, D, false, true, false>(dos, L::kLd, vs, L::kLd, dP,
+    block_mm<B, B, D, false, true, false>(dos, L::kLd, vs, L::kLd, dP,
                                              L::kLds);
     __syncthreads();
     for (int i = threadIdx.x; i < B * B; i += kThreads) {
       const int r = i / B, j = i % B;
       const float s = S[r * L::kLds + j] * scale;
       const float p = g.visible(q0 + r, k0 + j) ? expf(s - lse_s[r]) : 0.f;
-      P[r * L::kLdp + j] = from_f32<T>(p);
-      dS[r * L::kLdp + j] = from_f32<T>(p * (dP[r * L::kLds + j] - dl_s[r]));
+      P[r * L::kLdp + j] = p;
+      dS[r * L::kLdp + j] = p * (dP[r * L::kLds + j] - dl_s[r]);
     }
     __syncthreads();
-    block_mm<T, B, D, B, true, false, true>(P, L::kLdp, dos, L::kLd, dV,
+    block_mm<B, D, B, true, false, true>(P, L::kLdp, dos, L::kLd, dV,
                                             L::kLdo);
-    block_mm<T, B, D, B, true, false, true>(dS, L::kLdp, qs, L::kLd, dK,
+    block_mm<B, D, B, true, false, true>(dS, L::kLdp, qs, L::kLd, dK,
                                             L::kLdo);
   }
   __syncthreads();
@@ -514,31 +473,32 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ------------------------------------------- bf16 dq and dk/dv (Hopper) --
+// ---------------------------------- bf16 forward, dq and dk/dv (Hopper) --
 
 #include "flash_bwd_sm90.cuh"
+#include "flash_fwd_sm90.cuh"
 
 // --------------------------------------------------------------- launchers --
 
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
-// The forward (both types) and the f32 dq and dk/dv kernels.
-template <int KIND, typename T, typename OT, int D>
+// The f32 forward, dq and dk/dv kernels.
+template <int KIND, typename OT, int D>
 cudaError_t launch_simple(const FlashArgs& a, cudaStream_t stream) {
-  using L = Layout<T, D>;
+  using L = Layout<D>;
   void (*kern)(const FlashArgs);
   size_t smem;
   int64_t rows;
   if constexpr (KIND == kFwd) {
-    kern = flash_fwd_kernel<T, OT, D>;
+    kern = flash_fwd_kernel<OT, D>;
     smem = L::kFwd;
     rows = a.tq;
   } else if constexpr (KIND == kDq) {
-    kern = flash_dq_kernel<T, OT, D>;
+    kern = flash_dq_kernel<OT, D>;
     smem = L::kDq;
     rows = a.tq;
   } else {
-    kern = flash_dkv_kernel<T, OT, D>;
+    kern = flash_dkv_kernel<OT, D>;
     smem = L::kDkv;
     rows = a.tk;
   }
@@ -555,12 +515,14 @@ cudaError_t launch_simple(const FlashArgs& a, cudaStream_t stream) {
 template <int KIND, typename T, typename OT, int D>
 cudaError_t launch(const FlashArgs& a, cudaStream_t stream) {
   constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  if constexpr (kBf16 && KIND == kDq)
+  if constexpr (kBf16 && KIND == kFwd)
+    return launch_fwd_sm90<OT, D>(a, stream);
+  else if constexpr (kBf16 && KIND == kDq)
     return launch_dq_sm90<OT, D>(a, stream);
   else if constexpr (kBf16 && KIND == kDkv)
     return launch_dkv_sm90<OT, D>(a, stream);
   else
-    return launch_simple<KIND, T, OT, D>(a, stream);
+    return launch_simple<KIND, OT, D>(a, stream);
 }
 
 template <int KIND, int D>

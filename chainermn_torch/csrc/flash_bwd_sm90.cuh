@@ -2,11 +2,11 @@
 // accumulators, fed by an asynchronous multi-stage shared-memory ring.
 //
 // Included by flash_attention.cu inside its anonymous namespace, after
-// FlashArgs, Geo, make_geo and bf16; it includes nothing itself. They
-// replace the wmma bodies of flash_dq_kernel / flash_dkv_kernel for bf16
-// inputs (TPU: _bwd_dq_kernel / _bwd_dkv_kernel of
-// chainermn_tpu/ops/flash_attention.py) and compute the same functions
-// under the same contract (flash_attention.cu's header).
+// FlashArgs, Geo, make_geo and bf16; it includes nothing itself. They are
+// the dq and dk/dv kernels for bf16 inputs (TPU: _bwd_dq_kernel /
+// _bwd_dkv_kernel of chainermn_tpu/ops/flash_attention.py; f32 inputs take
+// flash_dq_kernel / flash_dkv_kernel) and compute the same functions under
+// the same contract (flash_attention.cu's header).
 //
 // Design (two consumer warpgroups, 256 threads; a CTA owns 128 rows of its
 // sequence, each warpgroup 64 of them):

@@ -10,76 +10,104 @@
 // [B, table_stride] (only the first n_j entries are read). int8 stores
 // carry f32 per-row-per-head scales [n_blocks, bs, H]: the k-scale
 // multiplies the logits after QK, the v-scale multiplies p before PV, and
-// l sums the unscaled p. Softmax state (m, l, acc) and the PV product are
-// f32 (p is never rounded to a narrower type), masked p is exactly 0, and
-// a row with l == 0 writes 0.
+// l sums the unscaled p. QK, the softmax state (m, l, acc) and the PV
+// product are f32 (p is never rounded to a narrower type: greedy decoding
+// must give the plain path's tokens), a masked p is exactly 0, and a row
+// with l == 0 writes 0.
 //
 // What bounds it: decode attention does ~2 flops per byte of KV it reads,
 // far below the H100's ~295 flops/byte ridge, so the time floor is the KV
 // bytes of each row's live blocks over the memory rate
-// (bytes_read_model's "kernel_bytes"). The design reads only those bytes:
-//   - one thread block per (row b, head h) -- not the TPU kernel's heads
-//     folded into rows, which Mosaic forced and which costs H x the work;
-//   - a loop inside the block walks positions 0 .. min(len, n_j*bs)-1 in
-//     tiles of 32 keys and reads table[b, p / bs] itself, so blocks past
-//     the row's length are never touched (this replaces the TPU kernel's
-//     scalar-prefetched index map and its clamp);
-//   - K and V are read once from device memory in their storage type
-//     (int8 stays int8 on the wire) and widened to f32 in shared memory;
-//   - all S queries of the row share each tile, so S = 1 decode and S > 1
-//     windows run the same kernel.
-// It is a simple first kernel: no TMA, wgmma or split-K yet.
+// (bytes_read_model's "kernel_bytes"). The design keeps many loads in
+// flight and no thread waiting on another:
+//   - a CTA (4 warps) per (head h, row b, split): the host splits each
+//     row's table span into n_split ranges of whole bs-key blocks
+//     (split_plan in the wrapper, from host values only), so a long row is
+//     read by several CTAs at once (flash-decoding) and the longest row
+//     does not set the kernel's time. Keys past the row's length are never
+//     read; a split that starts past it writes l = 0;
+//   - the CTA stages its range's table entries in shared memory once, so
+//     each entry is read once per CTA, not once per element;
+//   - inside the key loop there is no CTA barrier: each warp walks its own
+//     chunks of the range (interleaved with the other warps') and keeps its
+//     own online-softmax state (m, l and the accumulator, for all S <= 8
+//     queries) in registers;
+//   - a group of G lanes covers one key row with 16-byte loads (8 bf16, 4
+//     f32 or 16 int8 elements a lane; 8 int8 when S > 1, so that q and the
+//     accumulator stay in registers), so one warp load covers 32 / G keys,
+//     and each lane has kUnroll loads of K and of V in flight before the
+//     first is used. Scores are the lane's q (f32 registers) times its K
+//     elements, reduced over the group by shuffles; each lane accumulates
+//     p * v for its own dimensions;
+//   - at the end the key groups of a warp combine by shuffles and the
+//     warps through shared memory, in a fixed order; with several splits
+//     each CTA writes its (m, l, acc) to an f32 workspace and a second
+//     small kernel combines the splits in split order. No atomics: the
+//     results are bitwise reproducible.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kTileKeys = 32;  // one warp lane per key in the softmax step
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxQueries = 8;
+constexpr int kMaxSplitBlocks = 4096;  // table entries a CTA stages
 constexpr float kNegBig = -1e30f;
 
-static_assert(kTileKeys == 32, "the softmax step maps one lane to a key");
+using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(int8_t x) {
-  return static_cast<float>(x);
-}
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 
 __device__ __forceinline__ void store_f32(float x, float* p) { *p = x; }
-__device__ __forceinline__ void store_f32(float x, __nv_bfloat16* p) {
+__device__ __forceinline__ void store_f32(float x, bf16* p) {
   *p = __float2bfloat16(x);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
+// How the lanes of a warp cover key rows of a KVT store with D dimensions
+// when NQ query registers are live (NQ = 1 for S = 1, else kMaxQueries).
+template <typename KVT, int D, int NQ>
+struct Lanes {
+  static constexpr int kBytes = sizeof(KVT) == 1 && NQ > 1 ? 8 : 16;
+  static constexpr int kElems = kBytes / static_cast<int>(sizeof(KVT));
+  static constexpr int kGroup = D / kElems;         // lanes per key row
+  static constexpr int kKeysPerLoad = 32 / kGroup;  // keys a warp load covers
+  static constexpr int kUnroll = NQ == 1 ? 4 : 1;   // loads in flight
+  static constexpr int kKeysPerStep = kKeysPerLoad * kUnroll;
+  using Raw = typename std::conditional<kBytes == 16, uint4, uint2>::type;
+  static_assert(kGroup <= 32 && 32 % kGroup == 0, "lane group");
+};
+
+// The E elements of one lane's raw load, widened to f32.
+template <typename KVT, int E, typename Raw>
+__device__ __forceinline__ void widen(const Raw& r, float (&f)[E]) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(&r);
+  if constexpr (std::is_same<KVT, float>::value) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
+    for (int e = 0; e < E; ++e) f[e] = __uint_as_float(w[e]);
+  } else if constexpr (std::is_same<KVT, bf16>::value) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+    for (int j = 0; j < E / 2; ++j) {
+      f[2 * j] = __uint_as_float(w[j] << 16);
+      f[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < E / 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        f[4 * j + c] = static_cast<float>(
+            static_cast<int8_t>((w[j] >> (8 * c)) & 0xffu));
+  }
 }
 
-// Floats of dynamic shared memory one block needs for S queries.
-__host__ __device__ constexpr int smem_floats(int s, int d) {
-  return 2 * s * d                     // qs, acc
-         + kTileKeys * (d + 1)         // ks (padded rows: no bank conflicts)
-         + kTileKeys * d               // vs
-         + s * kTileKeys               // scores, then p
-         + 3 * s                       // m, l, correction
-         + 2 * kTileKeys;              // k and v scales of the tile
-}
-
-template <typename QT, typename KVT, int D, bool QUANT>
+template <typename QT, typename KVT, int D, int NQ, bool QUANT>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
                     const KVT* __restrict__ v,
@@ -87,172 +115,259 @@ paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
                     const float* __restrict__ v_scale,
                     const int* __restrict__ table,
                     const int* __restrict__ lengths, QT* __restrict__ out,
-                    int S, int H, int bs, int table_stride, int n_j,
-                    float scale) {
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* acc = qs + S * D;
-  float* ks = acc + S * D;
-  float* vs = ks + kTileKeys * (D + 1);
-  float* ps = vs + kTileKeys * D;
-  float* m_s = ps + S * kTileKeys;
-  float* l_s = m_s + S;
-  float* c_s = l_s + S;
-  float* ksc = c_s + S;
-  float* vsc = ksc + kTileKeys;
+                    float* __restrict__ partial, int S, int H, int bs,
+                    int table_stride, int n_j, int split_keys, float scale) {
+  using Ln = Lanes<KVT, D, NQ>;
+  using Raw = typename Ln::Raw;
+  constexpr int E = Ln::kElems, G = Ln::kGroup, KPL = Ln::kKeysPerLoad;
+  constexpr int U = Ln::kUnroll, KPS = Ln::kKeysPerStep;
+  __shared__ float w_m[kWarps][NQ], w_l[kWarps][NQ];
+  __shared__ float w_acc[kWarps][NQ][D];
+  extern __shared__ int blk[];  // the range's table entries
 
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+  const int h = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = lane / G, d0 = (lane % G) * E;
 
+  // the range's table entries do not depend on the row's length, so they
+  // load while the length does
+  const int lo = split * split_keys, r_end = min(n_j * bs, lo + split_keys);
+  const int* trow = table + static_cast<int64_t>(b) * table_stride + lo / bs;
+  for (int j = threadIdx.x; j * bs < r_end - lo; j += kThreads)
+    blk[j] = trow[j];
   const int len = lengths[b];
-  const int n_live = min((max(len, 0) + bs - 1) / bs, n_j);
-  const int kv_end = min(len, n_live * bs);
-  const int q_pos0 = len - S;
-  const int* trow = table + static_cast<int64_t>(b) * table_stride;
+  const int hi = min(max(len, 0), r_end);
+  const int q_pos0 = len - S;  // query sq sees keys 0 .. q_pos0 + sq
 
-  for (int i = tid; i < S * D; i += kThreads) {
-    const int sq = i / D, d = i % D;
-    qs[i] = to_f32(q[((static_cast<int64_t>(b) * S + sq) * H + h) * D + d]);
-    acc[i] = 0.f;
+  float qr[NQ][E];
+#pragma unroll
+  for (int sq = 0; sq < NQ; ++sq)
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      qr[sq][e] = sq < S ? to_f32(q[((static_cast<int64_t>(b) * S + sq) * H +
+                                     h) * D + d0 + e])
+                         : 0.f;
+  float m[NQ], l[NQ], acc[NQ][E];
+#pragma unroll
+  for (int sq = 0; sq < NQ; ++sq) {
+    m[sq] = kNegBig;
+    l[sq] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[sq][e] = 0.f;
   }
-  for (int i = tid; i < S; i += kThreads) {
-    m_s[i] = kNegBig;
-    l_s[i] = 0.f;
+  __syncthreads();  // blk
+
+  for (int base = lo + warp * KPS; base < hi; base += kWarps * KPS) {
+    Raw kr[U], vr[U];
+    float ksc[U], vsc[U];
+    int t[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      t[u] = base + u * KPL + grp;
+      kr[u] = vr[u] = Raw{};
+      ksc[u] = vsc[u] = 0.f;
+      if (t[u] < hi) {
+        const int j = (t[u] - lo) / bs;
+        const int64_t row =
+            static_cast<int64_t>(blk[j]) * bs + (t[u] - lo - j * bs);
+        const int64_t off = (row * H + h) * D + d0;
+        kr[u] = *reinterpret_cast<const Raw*>(k + off);
+        vr[u] = *reinterpret_cast<const Raw*>(v + off);
+        if (QUANT) {
+          ksc[u] = k_scale[row * H + h];
+          vsc[u] = v_scale[row * H + h];
+        }
+      }
+    }
+    float s[NQ][U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float kf[E];
+      widen<KVT, E>(kr[u], kf);
+#pragma unroll
+      for (int sq = 0; sq < NQ; ++sq) {
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < E; ++e) dot = fmaf(qr[sq][e], kf[e], dot);
+#pragma unroll
+        for (int o = G / 2; o > 0; o >>= 1)
+          dot += __shfl_xor_sync(0xffffffffu, dot, o);
+        float x = dot * scale;
+        if (QUANT) x *= ksc[u];
+        // masked: -inf, so p = exp(-inf - m) is exactly 0 (m is finite)
+        s[sq][u] = t[u] < hi && t[u] <= q_pos0 + sq ? x : -INFINITY;
+      }
+    }
+#pragma unroll
+    for (int sq = 0; sq < NQ; ++sq) {
+      float mx = m[sq];
+#pragma unroll
+      for (int u = 0; u < U; ++u) mx = fmaxf(mx, s[sq][u]);
+      const float corr = expf(m[sq] - mx);
+      m[sq] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        s[sq][u] = expf(s[sq][u] - mx);
+        sum += s[sq][u];
+      }
+      l[sq] = l[sq] * corr + sum;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[sq][e] *= corr;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float vf[E];
+      widen<KVT, E>(vr[u], vf);
+#pragma unroll
+      for (int sq = 0; sq < NQ; ++sq) {
+        const float p = QUANT ? s[sq][u] * vsc[u] : s[sq][u];
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[sq][e] = fmaf(p, vf[e], acc[sq][e]);
+      }
+    }
+  }
+
+  // the warp's key groups (lanes grp * G + c, one c per dimension slice)
+#pragma unroll
+  for (int o = G; o < 32; o <<= 1) {
+#pragma unroll
+    for (int sq = 0; sq < NQ; ++sq) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[sq], o);
+      const float lo_ = __shfl_xor_sync(0xffffffffu, l[sq], o);
+      const float mn = fmaxf(m[sq], mo);
+      const float ca = expf(m[sq] - mn), cb = expf(mo - mn);
+      l[sq] = l[sq] * ca + lo_ * cb;
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        acc[sq][e] =
+            acc[sq][e] * ca + __shfl_xor_sync(0xffffffffu, acc[sq][e], o) * cb;
+      m[sq] = mn;
+    }
+  }
+  if (grp == 0) {
+#pragma unroll
+    for (int sq = 0; sq < NQ; ++sq) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) w_acc[warp][sq][d0 + e] = acc[sq][e];
+      if (lane == 0) {
+        w_m[warp][sq] = m[sq];
+        w_l[warp][sq] = l[sq];
+      }
+    }
   }
   __syncthreads();
 
-  for (int t0 = 0; t0 < kv_end; t0 += kTileKeys) {
-    const int nt = min(kTileKeys, kv_end - t0);
-    // K/V tile: neighbouring threads read neighbouring d of one row
-    for (int i = tid; i < nt * D; i += kThreads) {
-      const int t = i / D, d = i % D;
-      const int p = t0 + t;
-      const int64_t row = static_cast<int64_t>(trow[p / bs]) * bs + p % bs;
-      const int64_t idx = (row * H + h) * D + d;
-      ks[t * (D + 1) + d] = to_f32(k[idx]);
-      vs[t * D + d] = to_f32(v[idx]);
-    }
-    if (QUANT) {
-      for (int t = tid; t < nt; t += kThreads) {
-        const int p = t0 + t;
-        const int64_t row =
-            static_cast<int64_t>(trow[p / bs]) * bs + p % bs;
-        ksc[t] = k_scale[row * H + h];
-        vsc[t] = v_scale[row * H + h];
-      }
-    }
-    __syncthreads();
-
-    // scores: one thread per (query, key)
-    for (int i = tid; i < S * nt; i += kThreads) {
-      const int sq = i / nt, t = i % nt;
-      const float* qr = qs + sq * D;
-      const float* kr = ks + t * (D + 1);
-      float dot = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-      float s = dot * scale;
-      if (QUANT) s *= ksc[t];
-      if (t0 + t > q_pos0 + sq) s = kNegBig;  // causal mask
-      ps[sq * kTileKeys + t] = s;
-    }
-    __syncthreads();
-
-    // online softmax: one warp per query row, one lane per key
-    for (int sq = warp; sq < S; sq += kThreads / 32) {
-      const float s = lane < nt ? ps[sq * kTileKeys + lane] : kNegBig;
-      const float m_old = m_s[sq];
-      const float m_new = fmaxf(m_old, warp_max(s));
-      float p = (lane < nt && s > 0.5f * kNegBig) ? expf(s - m_new) : 0.f;
-      const float p_sum = warp_sum(p);
-      if (QUANT) p *= vsc[lane];
-      if (lane < nt) ps[sq * kTileKeys + lane] = p;
-      __syncwarp();
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        c_s[sq] = corr;
-        l_s[sq] = l_s[sq] * corr + p_sum;
-        m_s[sq] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * corr + p @ V, f32 throughout
-    for (int i = tid; i < S * D; i += kThreads) {
-      const int sq = i / D, d = i % D;
-      const float* pr = ps + sq * kTileKeys;
-      float a = acc[i] * c_s[sq];
-      for (int t = 0; t < nt; ++t) a = fmaf(pr[t], vs[t * D + d], a);
-      acc[i] = a;
-    }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < S * D; i += kThreads) {
+  // the warps, in order
+  const int n_split = gridDim.z;
+  for (int i = threadIdx.x; i < S * D; i += kThreads) {
     const int sq = i / D, d = i % D;
-    const float l = l_s[sq];
-    store_f32(acc[i] / (l == 0.f ? 1.f : l),
+    float mx = kNegBig;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, w_m[w][sq]);
+    float sum = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float c = expf(w_m[w][sq] - mx);
+      sum += w_l[w][sq] * c;
+      a += w_acc[w][sq][d] * c;
+    }
+    if (n_split == 1) {
+      store_f32(a / (sum == 0.f ? 1.f : sum),
+                out + ((static_cast<int64_t>(b) * S + sq) * H + h) * D + d);
+    } else {
+      // [m (S), l (S), acc (S x D)]; acc only where the split saw a key
+      float* part = partial + ((static_cast<int64_t>(b) * H + h) * n_split +
+                               split) * S * (D + 2);
+      if (d == 0) {
+        part[sq] = mx;
+        part[S + sq] = sum;
+      }
+      if (sum != 0.f) part[2 * S + i] = a;
+    }
+  }
+}
+
+// Combines the n_split partials of each (row, head), in split order.
+template <typename QT>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_combine_kernel(const float* __restrict__ partial,
+                            QT* __restrict__ out, int S, int H, int D,
+                            int n_split) {
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int stride = S * (D + 2);
+  const float* base =
+      partial + (static_cast<int64_t>(b) * H + h) * n_split * stride;
+  for (int i = threadIdx.x; i < S * D; i += kThreads) {
+    const int sq = i / D, d = i % D;
+    float mx = kNegBig;
+    for (int sp = 0; sp < n_split; ++sp)
+      mx = fmaxf(mx, base[sp * stride + sq]);
+    float sum = 0.f, a = 0.f;
+    for (int sp = 0; sp < n_split; ++sp) {
+      const float* p = base + sp * stride;
+      const float ls = p[S + sq];
+      if (ls != 0.f) {
+        const float c = expf(p[sq] - mx);
+        sum += ls * c;
+        a += p[2 * S + i] * c;
+      }
+    }
+    store_f32(a / (sum == 0.f ? 1.f : sum),
               out + ((static_cast<int64_t>(b) * S + sq) * H + h) * D + d);
   }
 }
 
-template <typename QT, typename KVT, int D, bool QUANT>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* k_scale, const void* v_scale,
-                   const void* table, const void* lengths, void* out, int B,
-                   int S, int H, int bs, int table_stride, int n_j,
-                   float scale, cudaStream_t stream) {
-  const dim3 grid(H, B);
-  const size_t smem = sizeof(float) * smem_floats(S, D);
-  paged_decode_kernel<QT, KVT, D, QUANT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const QT*>(q), static_cast<const KVT*>(k),
-      static_cast<const KVT*>(v), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), static_cast<const int*>(table),
-      static_cast<const int*>(lengths), static_cast<QT*>(out), S, H, bs,
-      table_stride, n_j, scale);
+struct Call {
+  const void *q, *k, *v, *k_scale, *v_scale, *table, *lengths;
+  void *out, *partial;
+  int B, S, H, bs, table_stride, n_j, n_split, split_keys;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename QT, typename KVT, int D, int NQ, bool QUANT>
+cudaError_t launch(const Call& c) {
+  const dim3 grid(c.H, c.B, c.n_split);
+  const size_t smem = sizeof(int) * (c.split_keys / c.bs);
+  paged_decode_kernel<QT, KVT, D, NQ, QUANT>
+      <<<grid, kThreads, smem, c.stream>>>(
+          static_cast<const QT*>(c.q), static_cast<const KVT*>(c.k),
+          static_cast<const KVT*>(c.v), static_cast<const float*>(c.k_scale),
+          static_cast<const float*>(c.v_scale),
+          static_cast<const int*>(c.table),
+          static_cast<const int*>(c.lengths), static_cast<QT*>(c.out),
+          static_cast<float*>(c.partial), c.S, c.H, c.bs, c.table_stride,
+          c.n_j, c.split_keys, c.scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || c.n_split == 1) return err;
+  paged_decode_combine_kernel<QT><<<dim3(c.H, c.B), kThreads, 0, c.stream>>>(
+      static_cast<const float*>(c.partial), static_cast<QT*>(c.out), c.S,
+      c.H, D, c.n_split);
   return cudaGetLastError();
 }
 
 template <typename QT, typename KVT, bool QUANT>
-cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
-                     const void* k_scale, const void* v_scale,
-                     const void* table, const void* lengths, void* out,
-                     int B, int S, int H, int bs, int table_stride, int n_j,
-                     float scale, cudaStream_t stream) {
+cudaError_t launch_d(int D, const Call& c) {
+  const bool one = c.S == 1;
   if (D == 64)
-    return launch<QT, KVT, 64, QUANT>(q, k, v, k_scale, v_scale, table,
-                                      lengths, out, B, S, H, bs,
-                                      table_stride, n_j, scale, stream);
+    return one ? launch<QT, KVT, 64, 1, QUANT>(c)
+               : launch<QT, KVT, 64, kMaxQueries, QUANT>(c);
   if (D == 128)
-    return launch<QT, KVT, 128, QUANT>(q, k, v, k_scale, v_scale, table,
-                                       lengths, out, B, S, H, bs,
-                                       table_stride, n_j, scale, stream);
+    return one ? launch<QT, KVT, 128, 1, QUANT>(c)
+               : launch<QT, KVT, 128, kMaxQueries, QUANT>(c);
   return cudaErrorInvalidValue;
 }
 
 template <typename QT>
-cudaError_t launch_kv(int kv_dtype, int D, const void* q, const void* k,
-                      const void* v, const void* k_scale,
-                      const void* v_scale, const void* table,
-                      const void* lengths, void* out, int B, int S, int H,
-                      int bs, int table_stride, int n_j, float scale,
-                      cudaStream_t stream) {
+cudaError_t launch_kv(int kv_dtype, int D, const Call& c) {
   switch (kv_dtype) {
     case 0:
-      return launch_d<QT, float, false>(D, q, k, v, k_scale, v_scale, table,
-                                        lengths, out, B, S, H, bs,
-                                        table_stride, n_j, scale, stream);
+      return launch_d<QT, float, false>(D, c);
     case 1:
-      return launch_d<QT, __nv_bfloat16, false>(
-          D, q, k, v, k_scale, v_scale, table, lengths, out, B, S, H, bs,
-          table_stride, n_j, scale, stream);
+      return launch_d<QT, bf16, false>(D, c);
     case 2:
-      return launch_d<QT, int8_t, true>(D, q, k, v, k_scale, v_scale, table,
-                                        lengths, out, B, S, H, bs,
-                                        table_stride, n_j, scale, stream);
+      return launch_d<QT, int8_t, true>(D, c);
     default:
       return cudaErrorInvalidValue;
   }
@@ -260,30 +375,35 @@ cudaError_t launch_kv(int kv_dtype, int D, const void* q, const void* k,
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (stores only).
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (stores only). With
+// n_split > 1, `partial` is an f32 workspace of B * H * n_split * S * (D + 2)
+// floats; split i covers keys [i * split_keys, (i + 1) * split_keys).
 // Returns 0 on a successful launch, else the cudaError_t of the launch.
-extern "C" int paged_decode_launch(const void* q, const void* k,
-                                   const void* v, const void* k_scale,
-                                   const void* v_scale, const void* table,
-                                   const void* lengths, void* out, int B,
-                                   int S, int H, int D, int bs,
-                                   int table_stride, int n_j, float scale,
-                                   int q_dtype, int kv_dtype, void* stream) {
-  if (B < 1 || H < 1 || S < 1 || S > kMaxQueries || bs < 1 || n_j < 1)
+extern "C" int paged_decode_launch(
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, const void* table, const void* lengths, void* out,
+    void* partial, int B, int S, int H, int D, int bs, int table_stride,
+    int n_j, int n_split, int split_keys, float scale, int q_dtype,
+    int kv_dtype, void* stream) {
+  if (B < 1 || B > 65535 || H < 1 || H > 65535 || S < 1 || S > kMaxQueries ||
+      bs < 1 || n_j < 1 || n_split < 1 || n_split > 65535 ||
+      split_keys < bs || split_keys % bs != 0 ||
+      split_keys / bs > kMaxSplitBlocks ||
+      static_cast<int64_t>(n_split - 1) * split_keys >=
+          static_cast<int64_t>(n_j) * bs ||
+      static_cast<int64_t>(n_split) * split_keys <
+          static_cast<int64_t>(n_j) * bs ||
+      (n_split > 1 && partial == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Call c{q, k, v, k_scale, v_scale, table, lengths, out, partial, B, S,
+               H, bs, table_stride, n_j, n_split, split_keys, scale,
+               static_cast<cudaStream_t>(stream)};
   cudaError_t err;
   if (q_dtype == 0)
-    err = launch_kv<float>(kv_dtype, D, q, k, v, k_scale, v_scale, table,
-                           lengths, out, B, S, H, bs, table_stride, n_j,
-                           scale, st);
+    err = launch_kv<float>(kv_dtype, D, c);
   else if (q_dtype == 1)
-    err = launch_kv<__nv_bfloat16>(kv_dtype, D, q, k, v, k_scale, v_scale,
-                                   table, lengths, out, B, S, H, bs,
-                                   table_stride, n_j, scale, st);
+    err = launch_kv<bf16>(kv_dtype, D, c);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }
-
-extern "C" int paged_decode_max_queries() { return kMaxQueries; }

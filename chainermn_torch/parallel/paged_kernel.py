@@ -35,7 +35,11 @@ _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"paged_decode_launch": (
-    [_P] * 8 + [_I] * 7 + [ctypes.c_float, _I, _I, _P], _I)}
+    [_P] * 9 + [_I] * 9 + [ctypes.c_float, _I, _I, _P], _I)}
+# the split-K choice (split_plan)
+_SPLIT_CTAS = 1024        # CTAs that fill the card: ~8 per SM on 132 SMs
+_SPLIT_MIN_KEYS = 128     # fewest keys worth a CTA of their own
+_SPLIT_MAX_BLOCKS = 4096  # kMaxSplitBlocks: table entries a CTA stages
 
 
 def build_library() -> ctypes.CDLL:
@@ -57,6 +61,23 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"paged_attend: {msg}")
 
 
+def split_plan(batch: int, heads: int, n_j: int, bs: int) -> tuple:
+    """How the kernel splits each row's table span ``[0, n_j * bs)``
+    across CTAs: ``(n_split, split_keys)``, split ``i`` taking keys
+    ``[i * split_keys, (i + 1) * split_keys)`` (clipped by the kernel to
+    the row's length). ``split_keys`` is a whole number of ``bs``-key
+    blocks, every split starts inside the span, and together they cover
+    it. Host values only: ``lengths`` lives on the card, and reading it
+    would wait for the device. Enough splits that ``batch * heads *
+    n_split`` fills the card, but at most one per ``_SPLIT_MIN_KEYS``
+    keys of the span."""
+    want = min(-(-_SPLIT_CTAS // (batch * heads)),
+               -(-n_j * bs // _SPLIT_MIN_KEYS))
+    want = max(want, -(-n_j // _SPLIT_MAX_BLOCKS), 1)
+    blocks = -(-n_j // want)
+    return -(-n_j // blocks), blocks * bs
+
+
 def paged_attend(q, store_k, store_v, table, lengths, *,
                  k_scale=None, v_scale=None, scale: Optional[float] = None,
                  max_blocks: Optional[int] = None):
@@ -76,8 +97,11 @@ def paged_attend(q, store_k, store_v, table, lengths, *,
     the hand-written kernel (adding one to ``paged_attend.launches``) and
     raises ``ValueError`` for inputs it does not take: q in f32/bf16, a
     store in f32/bf16/int8, ``D`` in {64, 128}, ``S <= 8``, contiguous
-    tensors on one device. On CPU tensors it runs
-    :func:`paged_attend_reference`."""
+    tensors on one device, a 16-byte-aligned store. Long rows are split
+    across CTAs as :func:`split_plan` says; with more than one split the
+    kernel's partials go to a float32 workspace allocated here, and a
+    second kernel combines them (both count as one launch). On CPU
+    tensors it runs :func:`paged_attend_reference`."""
     if not q.is_cuda:
         return paged_attend_reference(q, store_k, store_v, table, lengths,
                                       k_scale=k_scale, v_scale=v_scale,
@@ -113,6 +137,8 @@ def paged_attend(q, store_k, store_v, table, lengths, *,
            "all tensors must be on q's device")
     _check(all(t.is_contiguous() for t in tensors if t is not table
                and t is not lengths), "q, store and scales must be contiguous")
+    _check(store_k.data_ptr() % 16 == 0 == store_v.data_ptr() % 16,
+           "the store must be 16-byte aligned")
     table32 = table.to(torch.int32).contiguous()
     lengths32 = lengths.to(torch.int32).contiguous()
     n_j = table.shape[1]
@@ -120,7 +146,12 @@ def paged_attend(q, store_k, store_v, table, lengths, *,
         n_j = max(1, min(n_j, int(max_blocks)))
     if scale is None:
         scale = d ** -0.5
+    n_split, split_keys = split_plan(b, h, n_j, bs)
     out = torch.empty_like(q)
+    # per split: m and l of each query, then its unnormalised output
+    partial = (torch.empty((b * h * n_split, s_len * (d + 2)),
+                           dtype=torch.float32, device=dev)
+               if n_split > 1 else None)
     lib = build_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.paged_decode_launch(
@@ -128,8 +159,9 @@ def paged_attend(q, store_k, store_v, table, lengths, *,
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None,
         table32.data_ptr(), lengths32.data_ptr(), out.data_ptr(),
-        b, s_len, h, d, bs, table32.shape[1], n_j, float(scale),
-        _Q_CODES[q.dtype], _KV_CODES[store_k.dtype], stream)
+        partial.data_ptr() if partial is not None else None,
+        b, s_len, h, d, bs, table32.shape[1], n_j, n_split, split_keys,
+        float(scale), _Q_CODES[q.dtype], _KV_CODES[store_k.dtype], stream)
     if err != 0:
         raise RuntimeError(f"paged_decode kernel launch failed: "
                            f"cudaError {err}")
@@ -197,4 +229,4 @@ def bytes_read_model(lengths, *, block_size: int, max_blocks: int,
 
 
 __all__ = ["build_library", "bytes_read_model", "paged_attend",
-           "paged_attend_reference"]
+           "paged_attend_reference", "split_plan"]

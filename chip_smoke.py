@@ -61,13 +61,18 @@ TOL = {"bf16": (2e-2, 2e-2), "f32": (1e-5, 1e-5), "int8": (1e-4, 1e-4)}
 # the trained model: scripts/onchip_lm.py's headline cell
 TRAIN = dict(batch=8, seq_len=2048, lr=3e-4, weight_decay=1e-4,
              warmup_steps=2, timed_steps=10, profile_steps=3)
+# name: (wrapper, kernel name in traces, TPU kernel it replaces, source of
+# the bf16 kernel the training path runs)
 FLASH_KERNELS = {
     "flash_fwd": ("flash_fwd_with_lse", "flash_fwd_kernel",
-                  "chainermn_tpu/ops/flash_attention.py:195"),
+                  "chainermn_tpu/ops/flash_attention.py:195",
+                  "chainermn_torch/csrc/flash_fwd_sm90.cuh"),
     "flash_dq": ("flash_dq", "flash_dq_kernel",
-                 "chainermn_tpu/ops/flash_attention.py:355"),
+                 "chainermn_tpu/ops/flash_attention.py:355",
+                 "chainermn_torch/csrc/flash_bwd_sm90.cuh"),
     "flash_dkv": ("flash_dkv", "flash_dkv_kernel",
-                  "chainermn_tpu/ops/flash_attention.py:412"),
+                  "chainermn_tpu/ops/flash_attention.py:412",
+                  "chainermn_torch/csrc/flash_bwd_sm90.cuh"),
 }
 
 
@@ -186,7 +191,8 @@ def _ptxas(log: str) -> list:
 
 def phase_build():
     """Both kernel libraries, one ``nvcc`` each, started together. Fails
-    if a bf16 dq or dk/dv instance (``*_sm90``) spills registers."""
+    if a bf16 flash instance (``*_sm90``) or a paged-decode instance
+    spills registers."""
     from chainermn_torch.ops import flash_attention
     from chainermn_torch.parallel import paged_kernel
 
@@ -203,48 +209,64 @@ def phase_build():
     for name in libs:
         emit({"phase": "build", "kernel": name, "seconds": seconds[name],
               "ptxas": ptxas[name]})
-    # the bf16 dq and dk/dv kernels keep their accumulators in registers:
-    # a spill would put them in local memory
-    spilled = [e for e in ptxas["flash_attention"]
-               if "_sm90" in e["entry"] and e.get("spill_stores", 0)]
+    # the bf16 flash kernels and the paged kernel keep their accumulators
+    # in registers: a spill would put them in local memory
+    spilled = [e for e in ptxas["flash_attention"] + ptxas["paged_decode"]
+               if ("_sm90" in e["entry"] or "paged_decode" in e["entry"])
+               and e.get("spill_stores", 0)]
     if spilled:
-        raise AssertionError(f"bf16 backward kernels spill: {spilled}")
+        raise AssertionError(f"kernels spill: {spilled}")
+
+
+# paged parity: "split" spans the cache's 2048 keys, so the kernel splits
+# each row across CTAs (lengths at and across the 512-key split edges, at
+# block edges, below bs, at 2048); "single" spans 128 keys, one CTA a row
+PAGED_LENGTHS = {
+    "split": [1, 5, 16, 17, 31, 64, 100, 255, 511, 513, 777, 1024, 1500,
+              1999, 2047, 2048],
+    "single": [1, 5, 8, 15, 16, 17, 31, 33, 47, 64, 65, 100, 111, 126, 127,
+               128],
+}
 
 
 def phase_parity(device):
     """paged_attend vs paged_attend_reference on the card: B=16, H=16,
-    D=64, bs=16, ragged lengths 1..2048 (one at a block edge, one below
-    bs), S in {1, 4}, bf16 / f32 / int8 stores."""
+    bs=16, the PAGED_LENGTHS sets (split-K and one-CTA paths), D=64 with
+    S in {1, 4, 8} and D=128 with S in {1, 8} (8 is the most the kernel
+    takes), bf16 / f32 / int8 stores."""
     import torch
 
     from chainermn_torch.parallel.paged_kernel import (
         paged_attend,
         paged_attend_reference,
+        split_plan,
     )
 
     gen = torch.Generator().manual_seed(SEED)
-    base = [1, 5, 16, 17, 31, 64, 100, 255, 256, 511, 777, 1024, 1500,
-            1999, 2047, 2048]
     cases = {"bf16": (torch.bfloat16, torch.bfloat16),
              "f32": (torch.float32, torch.float32),
              "int8": (torch.int8, torch.float32)}
     results = []
-    for s_len in (1, 4):
-        lengths = [max(n, s_len) for n in base]
-        for name, (dtype, q_dtype) in cases.items():
-            x = make_paged_inputs(lengths, s_len=s_len, h=16, d=64, bs=16,
-                                  dtype=dtype, q_dtype=q_dtype, gen=gen,
-                                  device=device)
-            args, kw = attend_args(x)
-            got = paged_attend(*args, **kw).float()
-            want = paged_attend_reference(*args, **kw).float()
-            torch.cuda.synchronize()
-            rtol, atol = TOL[name]
-            err = (got - want).abs()
-            ok = bool((err <= atol + rtol * want.abs()).all())
-            results.append({"store": name, "S": s_len,
-                            "max_abs_err": float(err.max()), "rtol": rtol,
-                            "atol": atol, "ok": ok})
+    for d, s_len in ((64, 1), (64, 4), (64, 8), (128, 1), (128, 8)):
+        for path, base in PAGED_LENGTHS.items():
+            lengths = [max(n, s_len) for n in base]
+            for name, (dtype, q_dtype) in cases.items():
+                x = make_paged_inputs(lengths, s_len=s_len, h=16, d=d,
+                                      bs=16, dtype=dtype, q_dtype=q_dtype,
+                                      gen=gen, device=device)
+                args, kw = attend_args(x)
+                got = paged_attend(*args, **kw).float()
+                want = paged_attend_reference(*args, **kw).float()
+                torch.cuda.synchronize()
+                rtol, atol = TOL[name]
+                err = (got - want).abs()
+                ok = bool((err <= atol + rtol * want.abs()).all())
+                plan = split_plan(len(lengths), 16, x["table"].shape[1], 16)
+                results.append({"store": name, "D": d, "S": s_len,
+                                "path": path, "n_split": plan[0],
+                                "split_keys": plan[1],
+                                "max_abs_err": float(err.max()),
+                                "rtol": rtol, "atol": atol, "ok": ok})
     emit({"phase": "parity", "kernel": "paged_decode", "cases": results})
     bad = [r for r in results if not r["ok"]]
     if bad:
@@ -360,8 +382,9 @@ def phase_profile(engine, sched, rng, n_steps: int = 20):
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in dev)
+    # the split-K pass and its combine pass
     kern_us = sum(e.self_device_time_total for e in dev
-                  if "paged_decode_kernel" in e.key)
+                  if "paged_decode" in e.key)
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
     rec = {"phase": "profile", "decode_steps": n_steps,
            "active_slots": engine.active_slots,
@@ -392,6 +415,7 @@ def phase_timing(device, lengths):
     from chainermn_torch.parallel.paged_kernel import (
         paged_attend,
         paged_attend_reference,
+        split_plan,
     )
 
     h, d, bs = LM["n_heads"], LM["d_model"] // LM["n_heads"], 16
@@ -436,8 +460,10 @@ def phase_timing(device, lengths):
     n_ops = 4 * kv_rows * h * d                         # QK and PV, S = 1
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / BF16_OPS_PER_S * 1e3
+    n_split, split_keys = split_plan(b, h, span, bs)
     rec = {"phase": "timing", "kernel": "paged_decode", "B": b, "S": 1,
            "H": h, "D": d, "bs": bs, "store": "bf16", "lengths": lengths,
+           "n_split": n_split, "split_keys": split_keys,
            "max_abs_err": err, "library_max_abs_err": lib_err,
            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bytes": n_bytes, "ops": n_ops,
@@ -630,7 +656,7 @@ def phase_train(device):
     targets = torch.roll(tokens, -1, dims=1)
     t_setup = time.perf_counter() - t0
 
-    counted = {name: getattr(fa, fn) for name, (fn, _, _)
+    counted = {name: getattr(fa, fn) for name, (fn, *_)
                in FLASH_KERNELS.items()}
     for fn in counted.values():
         fn.launches = 0
@@ -707,7 +733,7 @@ def phase_train_profile(step, tokens, targets, n_steps):
     busy_us = sum(e.self_device_time_total for e in dev)
     flash_us = {name: sum(e.self_device_time_total for e in dev
                           if kern in e.key)
-                for name, (_, kern, _) in FLASH_KERNELS.items()}
+                for name, (_, kern, *_) in FLASH_KERNELS.items()}
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:10]
     measured = busy_us > 0
     rec = {"phase": "train_profile", "steps": n_steps,
@@ -754,7 +780,7 @@ def phase_flash_timing(device):
                                 fused=True)
     scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=device)
     flush = scratch.zero_
-    saved = {fn: getattr(fa, fn).launches for fn, _, _
+    saved = {fn: getattr(fa, fn).launches for fn, *_
              in FLASH_KERNELS.values()}
     kw = dict(causal=True)
     gkw = dict(kw, grad_dtype=torch.bfloat16)
@@ -926,11 +952,10 @@ def main() -> int:
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"]}]
-    for name, (_, _, replaces) in FLASH_KERNELS.items():
+    for name, (_, _, replaces, source) in FLASH_KERNELS.items():
         rec = flash_timing[name]
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "chainermn_torch/csrc/flash_attention.cu",
+            "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": flash_launches[name],
             "max_abs_err": rec["max_abs_err"],
             "parity_max_abs_err": flash_err[name],

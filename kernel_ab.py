@@ -9,8 +9,9 @@ on ``sys.path`` (each builds its kernels into its own ``build/``), and
 prints one JSON line a run: CUDA-event medians (``chip_smoke.cuda_ms``, L2
 flushed before each call) of the flash forward, dq and dk/dv kernels in
 bf16 and f32 at B=2, T=1024, H=16, D=64, causal, q/k/v sliced from one
-fused tensor, and of the paged-decode kernel on 16 rows of 64..639 keys;
-then the card's name and power limit. Both checkouts need
+fused tensor, of the bf16 forward at the training shape (B=8, T=2048),
+and of the paged-decode kernel on 16 rows of 64..639 keys; then the
+card's name and power limit. Both checkouts need
 ``chip_smoke.py``; two versions are only compared inside one such call.
 """
 
@@ -47,6 +48,12 @@ def _child(name: str, root: str) -> None:
                  "dkv": lambda: fa.flash_dkv(q, k, v, do, lse, delta, **gkw)}
         for kname, fn in calls.items():
             rec[f"{kname}_{dname}_ms"] = cs.cuda_ms(fn, flush=flush)
+    q, k, v, _ = cs._flash_inputs(8, 2048, 2048, 16, 64, torch.bfloat16,
+                                  torch.Generator().manual_seed(8), dev,
+                                  fused=True)
+    rec["fwd_bf16_train_shape_ms"] = cs.cuda_ms(
+        lambda: fa.flash_fwd_with_lse(q, k, v, causal=True), flush=flush)
+    del q, k, v
     lengths = [int(n) for n in torch.randint(64, 640, (16,), generator=gen)]
     x = cs.make_paged_inputs(lengths, s_len=1, h=16, d=64, bs=16,
                              dtype=torch.bfloat16, q_dtype=torch.bfloat16,

@@ -52,6 +52,12 @@ CASES = {
     "masked_rows": (24, 16, True, 0, 12),
     # the whole q slice is before every key
     "all_masked": (16, 16, True, 0, 100),
+    # Tq past one 128-row tile of the bf16 kernels, Tk past one 64-key
+    # stage, the diagonal crossing both edges (q_offset) or rows that see
+    # no key (k_offset)
+    "tile_edges_causal_q_offset": (136, 72, True, 8, 0),
+    "tile_edges_causal_k_offset": (136, 80, True, 0, 64),
+    "tile_edges_full": (136, 72, False, 0, 0),
 }
 
 
@@ -247,6 +253,15 @@ def test_build_error_carries_the_compiler_output(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="(?s)nvcc failed.*no sm_90a"):
         _build.load_library(src, {})
     assert not list((tmp_path / "build").iterdir())
+
+
+def test_flash_library_hash_covers_both_hopper_headers():
+    """The bf16 forward and backward kernels live in headers that
+    ``flash_attention.cu`` includes: both count in the library's name."""
+    from chainermn_torch import _build
+
+    names = [p.name for p in _build._included(tfa._SRC)]
+    assert names == ["flash_bwd_sm90.cuh", "flash_fwd_sm90.cuh"]
 
 
 def test_edited_header_changes_the_library_name(tmp_path, monkeypatch):

@@ -75,7 +75,7 @@ def _torch(fn, x, **kw):
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
-@pytest.mark.parametrize("s_len", [1, 3])
+@pytest.mark.parametrize("s_len", [1, 3, 8])
 def test_paged_attend_matches_jax_kernel(s_len, quant):
     """Ragged lengths: the youngest possible row (= S), one exactly at a
     block edge, and one filling the table."""
@@ -102,7 +102,7 @@ def test_max_blocks_cap_matches_jax():
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
-@pytest.mark.parametrize("s_len", [1, 3])
+@pytest.mark.parametrize("s_len", [1, 3, 8])
 def test_update_and_attend_matches_jax_paged_path(s_len, quant):
     """Write S rows at each row's own position through the table, then
     attend: the port (in place) against the JAX XLA paged path (which
@@ -139,6 +139,29 @@ def test_update_and_attend_matches_jax_paged_path(s_len, quant):
         torch.from_numpy(new_k), torch.from_numpy(new_v),
         torch.from_numpy(pos))
     np.testing.assert_array_equal(kernel_read.numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("batch,heads", [(1, 1), (4, 4), (16, 16),
+                                         (64, 32)])
+@pytest.mark.parametrize("bs", [1, 4, 16])
+def test_split_plan_covers_the_span_once_on_block_edges(batch, heads, bs):
+    """Every key position of the table span lies in exactly one split,
+    every split starts on a block edge inside the span, and the choice
+    follows batch * heads: more rows and heads, fewer splits."""
+    for n_j in (1, 2, 3, 7, 8, 40, 128, 129, 5000):
+        n_split, split_keys = tpk.split_plan(batch, heads, n_j, bs)
+        span = n_j * bs
+        assert n_split >= 1 and split_keys % bs == 0
+        assert split_keys // bs <= tpk._SPLIT_MAX_BLOCKS
+        starts = [i * split_keys for i in range(n_split)]
+        assert all(s < span for s in starts)
+        seen = np.zeros(span, np.int64)
+        for s in starts:
+            seen[s:min(s + split_keys, span)] += 1
+        assert (seen == 1).all(), (n_j, n_split, split_keys)
+        if n_j <= tpk._SPLIT_MAX_BLOCKS:
+            assert n_split <= -(-span // tpk._SPLIT_MIN_KEYS)
+            assert batch * heads * (n_split - 1) < tpk._SPLIT_CTAS
 
 
 @pytest.mark.parametrize("kv_quant", ["none", "int8"])
