@@ -2,7 +2,7 @@
 NVIDIA H100 (Hopper, sm_90a).
 
 The layout mirrors the JAX package so each module's counterpart is easy
-to find. It holds two paths so far:
+to find. It holds three paths so far:
 
 - paged serving: the dense :class:`~chainermn_torch.models.TransformerLM`,
   the paged KV-cache attention (:mod:`chainermn_torch.parallel.sequence`)
@@ -11,18 +11,61 @@ to find. It holds two paths so far:
   scheduler, metrics and client (:mod:`chainermn_torch.serving`);
 - LM training: ``TransformerLM(attention='flash')`` on the hand-written
   flash forward, dq and dk/dv CUDA kernels
-  (:mod:`chainermn_torch.ops.flash_attention`), the communicator
-  (:func:`create_communicator`), the multi-node optimizer
-  (:func:`create_multi_node_optimizer`) and the step
-  (:func:`chainermn_torch.training.lm_train_step`).
+  (:mod:`chainermn_torch.ops.flash_attention`) and
+  :func:`chainermn_torch.training.lm_train_step`;
+- ChainerMN's data-parallel training: every communicator strategy
+  (:func:`create_communicator`), the multi-node optimizer with double
+  buffering (:func:`create_multi_node_optimizer`), ZeRO-1
+  (:func:`create_zero_optimizer`), multi-node BatchNorm
+  (:class:`MultiNodeBatchNormalization`, :func:`create_mnbn_model`), the
+  differentiable collectives (:mod:`chainermn_torch.functions`), dataset
+  scattering, and :func:`chainermn_torch.training.train_step` over the
+  ResNet family (:mod:`chainermn_torch.models`).
 
 The package imports ``torch`` and numpy only; weights cross over from
-flax through :func:`chainermn_torch.interop.params_from_flax`.
+flax through :mod:`chainermn_torch.interop`.
 """
 
-from chainermn_torch.communicators import create_communicator
-from chainermn_torch.optimizers import create_multi_node_optimizer
+from chainermn_torch import functions
+from chainermn_torch.communicators import (
+    CommunicatorBase,
+    FlatCommunicator,
+    HierarchicalCommunicator,
+    NaiveCommunicator,
+    ProcessGroupCommunicator,
+    PureNcclCommunicator,
+    SingleNodeCommunicator,
+    TwoDimensionalCommunicator,
+    create_communicator,
+)
+from chainermn_torch.datasets import (
+    SubDataset,
+    create_empty_dataset,
+    get_n_iterations_for_one_epoch,
+    scatter_dataset,
+    scatter_index,
+)
+from chainermn_torch.links import (
+    MultiNodeBatchNormalization,
+    create_mnbn_model,
+)
+from chainermn_torch.optimizers import (
+    clip_by_global_norm_sharded,
+    create_multi_node_optimizer,
+    create_zero_optimizer,
+)
 
 __version__ = "0.1.0"
 
-__all__ = ["create_communicator", "create_multi_node_optimizer"]
+__all__ = [
+    "CommunicatorBase", "ProcessGroupCommunicator", "NaiveCommunicator",
+    "FlatCommunicator", "PureNcclCommunicator", "HierarchicalCommunicator",
+    "TwoDimensionalCommunicator", "SingleNodeCommunicator",
+    "create_communicator",
+    "create_multi_node_optimizer", "create_zero_optimizer",
+    "clip_by_global_norm_sharded",
+    "MultiNodeBatchNormalization", "create_mnbn_model",
+    "SubDataset", "scatter_dataset", "scatter_index", "create_empty_dataset",
+    "get_n_iterations_for_one_epoch",
+    "functions",
+]

@@ -1,16 +1,19 @@
-"""Weights across the frameworks: the flax ``TransformerLM`` parameter tree
-as a :class:`chainermn_torch.models.TransformerLM` ``state_dict``.
+"""Weights and images across the frameworks: flax variable trees as the
+port's ``state_dict``s (``TransformerLM``, ``ResNet``, ``MLP``,
+``AlexNet``), and NHWC images in the port's layout.
 
-The tree is taken as nested dicts of numpy arrays (``jax.device_get`` of
-the flax params, with or without the outer ``{"params": ...}``), so this
-module needs neither jax nor flax. Layout conversions:
+A tree is taken as nested dicts of numpy arrays (``jax.device_get`` of
+the flax variables, with or without the outer ``{"params": ...}``), so
+this module needs neither jax nor flax. Layout conversions:
 
 - ``qkv`` ``DenseGeneral`` kernel ``[d, 3, H, Dh]`` -> ``Linear`` weight
   ``[3*H*Dh, d]``; bias ``[3, H, Dh]`` -> ``[3*H*Dh]``;
 - ``proj`` ``DenseGeneral`` kernel ``[H, Dh, d]`` -> weight ``[d, H*Dh]``;
 - ``Dense`` kernel ``[in, out]`` -> ``Linear`` weight ``[out, in]``;
+- ``Conv`` kernel HWIO -> OIHW;
 - ``Embed`` ``embedding`` -> ``Embedding`` weight (same layout);
-- ``LayerNorm`` ``scale``/``bias`` -> ``weight``/``bias``.
+- ``LayerNorm`` / ``BatchNorm`` ``scale``/``bias`` -> ``weight``/``bias``;
+  ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``.
 """
 
 from __future__ import annotations
@@ -58,4 +61,84 @@ def params_from_flax(tree) -> dict:
     return sd
 
 
-__all__ = ["params_from_flax"]
+def _conv(p, prefix: str) -> dict:
+    hwio = np.asarray(p["kernel"])
+    sd = {f"{prefix}.weight": _t(hwio.transpose(3, 2, 0, 1))}
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+    return sd
+
+
+def _batch_norm(p, stats, prefix: str) -> dict:
+    sd = {f"{prefix}.running_mean": _t(stats["mean"]),
+          f"{prefix}.running_var": _t(stats["var"])}
+    for flax_name, name in (("scale", "weight"), ("bias", "bias")):
+        if flax_name in p:
+            sd[f"{prefix}.{name}"] = _t(p[flax_name])
+    return sd
+
+
+def _numbered(tree, *stems: str) -> list:
+    """The keys ``<stem>_<i>`` of ``tree`` in index order, for whichever
+    of ``stems`` it uses (flax names unnamed submodules by class)."""
+    keys = [k for k in tree if k.rsplit("_", 1)[0] in stems]
+    return sorted(keys, key=lambda k: int(k.rsplit("_", 1)[1]))
+
+
+def resnet_params_from_flax(variables) -> dict:
+    """Convert the flax ``ResNet`` variables (``params`` and
+    ``batch_stats``; blocks ``BottleneckBlock_i``/``BasicBlock_i``
+    numbered across stages, norms ``BatchNorm_k`` or
+    ``MultiNodeBatchNormalization_k``) to the port's
+    :class:`~chainermn_torch.models.ResNet` ``state_dict``."""
+    p, stats = variables["params"], variables["batch_stats"]
+    norms = ("BatchNorm", "MultiNodeBatchNormalization")
+    sd = _conv(p["stem_conv"], "stem_conv")
+    sd.update(_batch_norm(p["stem_norm"], stats["stem_norm"], "stem_norm"))
+    for i, name in enumerate(_numbered(p, "BottleneckBlock", "BasicBlock")):
+        blk, bst, pre = p[name], stats[name], f"blocks.{i}"
+        for k, conv in enumerate(_numbered(blk, "Conv")):
+            sd.update(_conv(blk[conv], f"{pre}.conv{k}"))
+        for k, norm in enumerate(_numbered(blk, *norms)):
+            sd.update(_batch_norm(blk[norm], bst[norm], f"{pre}.norm{k}"))
+        if "downsample" in blk:
+            sd.update(_conv(blk["downsample"], f"{pre}.downsample"))
+            sd.update(_batch_norm(blk["downsample_norm"],
+                                  bst["downsample_norm"],
+                                  f"{pre}.downsample_norm"))
+    sd.update(_linear(p["Dense_0"], "head"))
+    return sd
+
+
+def mlp_params_from_flax(tree) -> dict:
+    """Convert the flax ``MLP`` params to the port's
+    :class:`~chainermn_torch.models.MLP` ``state_dict``."""
+    p = tree.get("params", tree)
+    return {k: v for i, name in enumerate(_numbered(p, "Dense"))
+            for k, v in _linear(p[name], f"fcs.{i}").items()}
+
+
+def alexnet_params_from_flax(tree) -> dict:
+    """Convert the flax ``AlexNet`` params to the port's
+    :class:`~chainermn_torch.models.AlexNet` ``state_dict``."""
+    p = tree.get("params", tree)
+    sd = mlp_params_from_flax(p)
+    for i, name in enumerate(_numbered(p, "Conv")):
+        sd.update(_conv(p[name], f"convs.{i}"))
+    return sd
+
+
+def images_from_nhwc(images, device=None) -> torch.Tensor:
+    """NHWC images (numpy or torch, the reference's layout) as the port's
+    NCHW tensor in ``channels_last`` memory: a view, not a copy, of a
+    contiguous NHWC input (then moved to ``device`` when given)."""
+    x = torch.as_tensor(images)
+    if x.dim() != 4:
+        raise ValueError(f"images must be [N, H, W, C], got {tuple(x.shape)}")
+    x = x.permute(0, 3, 1, 2)
+    return x if device is None else x.to(device)
+
+
+__all__ = ["params_from_flax", "resnet_params_from_flax",
+           "mlp_params_from_flax", "alexnet_params_from_flax",
+           "images_from_nhwc"]

@@ -1,5 +1,17 @@
-"""Models served by the port."""
+"""Models of the port."""
 
+from chainermn_torch.models.mlp import MLP
+from chainermn_torch.models.resnet import (
+    AlexNet,
+    BasicBlock,
+    BottleneckBlock,
+    ResNet,
+    ResNet18,
+    ResNet34,
+    ResNet50,
+    ResNet101,
+    ResNet152,
+)
 from chainermn_torch.models.transformer import (
     TransformerBlock,
     TransformerLM,
@@ -7,5 +19,7 @@ from chainermn_torch.models.transformer import (
     init_paged_kv_caches,
 )
 
-__all__ = ["TransformerBlock", "TransformerLM", "generate",
+__all__ = ["MLP", "ResNet", "ResNet18", "ResNet34", "ResNet50", "ResNet101",
+           "ResNet152", "BottleneckBlock", "BasicBlock", "AlexNet",
+           "TransformerBlock", "TransformerLM", "generate",
            "init_paged_kv_caches"]

@@ -7,9 +7,9 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
 It builds the port's CUDA kernels from the sources in the checkout (one
 ``nvcc`` per source, started together), holds each against its plain
-PyTorch version on the card, times it, and drives the port's two paths
+PyTorch version on the card, times it, and drives the port's three paths
 with the 220M-parameter TransformerLM (vocab 32768, d_model 1024, 12
-layers, 16 heads; random weights from a seed):
+layers, 16 heads) and ResNet-50 (random weights from a seed):
 
 - serving: ``ServingEngine(paged=True, paged_kernel=True)`` and
   ``FCFSScheduler`` answer 32 requests; every decode-step attention must
@@ -20,7 +20,14 @@ layers, 16 heads; random weights from a seed):
   over ``AdamW`` and ``lm_train_step`` take 12 steps on a [8, 2048] batch;
   every attention forward and backward must go through the flash kernels,
   the loss must fall, and a small f32 LM trained on the kernels must match
-  the same LM trained on plain attention.
+  the same LM trained on plain attention;
+- data-parallel training (no kernel of its own): ResNet-50 at
+  ``bench.py``'s headline configuration (batch 256, 224x224, bf16) through
+  ``create_communicator('pure_nccl', allreduce_grad_dtype=bf16)``,
+  ``create_multi_node_optimizer(SGD)`` and ``train_step`` for 23 steps,
+  profiled, and a small f32 ResNet trained by every strategy, double
+  buffering and ZeRO-1 on the card must match the same training on the
+  CPU, with the ln 10 known answer on zero images.
 
 Each launch count is set to 0 just before its path runs and read just
 after. Each phase prints one JSON line; the line before the last two is
@@ -61,6 +68,13 @@ TOL = {"bf16": (2e-2, 2e-2), "f32": (1e-5, 1e-5), "int8": (1e-4, 1e-4)}
 # the trained model: scripts/onchip_lm.py's headline cell
 TRAIN = dict(batch=8, seq_len=2048, lr=3e-4, weight_decay=1e-4,
              warmup_steps=2, timed_steps=10, profile_steps=3)
+# the data-parallel cell: bench.py's headline train configuration
+DP = dict(batch=256, image_size=224, num_classes=1000, lr=0.1, momentum=0.9,
+          warmup_steps=3, timed_steps=20, profile_steps=3)
+RESNET50_PARAMS = 25_557_032       # the flax ResNet50(num_classes=1000)
+DP_PARITY = dict(model=dict(stage_sizes=[1, 1, 1, 1], width=8,
+                            num_classes=10),
+                 image_size=32, batch=8, steps=3, clip=0.05, tol=1e-4)
 # name: (wrapper, kernel name in traces, TPU kernel it replaces, source of
 # the bf16 kernel the training path runs)
 FLASH_KERNELS = {
@@ -915,6 +929,312 @@ def phase_train_parity(device):
                              "attention training")
 
 
+def _resnet_flops(model, images) -> float:
+    """Analytic FLOPs of one forward from the model's own shapes: every
+    convolution's ``2·K²·Cin·Cout·Hout·Wout`` and the head's
+    ``2·in·out``, per image, times the batch (recorded by hooks over one
+    forward without gradients)."""
+    import torch
+
+    from chainermn_torch.models.resnet import Conv
+
+    total = [0.0]
+
+    def conv_hook(mod, _, out):
+        k2cc = mod.weight.shape[1] * mod.weight.shape[0] * mod.kernel ** 2
+        total[0] += 2.0 * k2cc * out.shape[0] * out.shape[2] * out.shape[3]
+
+    def head_hook(mod, _, out):
+        total[0] += 2.0 * mod.in_features * mod.out_features * out.shape[0]
+
+    hooks = [m.register_forward_hook(conv_hook) for m in model.modules()
+             if isinstance(m, Conv)]
+    hooks.append(model.head.register_forward_hook(head_hook))
+    with torch.no_grad():
+        model(images, train=False)
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def phase_dp_train(device):
+    """The data-parallel path at ``bench.py``'s headline configuration
+    (``bench.py:156-244, 367-393``): ResNet-50 (conv7 stem, 1000 classes,
+    f32 parameters, bf16 compute), a [256, 224, 224, 3] bf16 batch of
+    seeded normal images with zero labels, ``create_communicator(
+    'pure_nccl', allreduce_grad_dtype=bf16)`` on one NCCL rank,
+    ``create_multi_node_optimizer(SGD(0.1, momentum=0.9))`` and
+    ``train_step``. 3 warm-up steps, then 20 timed steps closed by a
+    device->host fetch of the loss. MFU counts 3x the forward's analytic
+    FLOPs against 989 TFLOP/s."""
+    import torch
+
+    from chainermn_torch import (
+        create_communicator,
+        create_multi_node_optimizer,
+    )
+    from chainermn_torch.interop import images_from_nhwc
+    from chainermn_torch.models import ResNet50
+    from chainermn_torch.training import train_step
+
+    torch.backends.cudnn.benchmark = True
+    t0 = time.perf_counter()
+    model = ResNet50(num_classes=DP["num_classes"], device=device, seed=SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    comm = create_communicator("pure_nccl", device=device,
+                               allreduce_grad_dtype=torch.bfloat16)
+    comm.bcast_data(model)
+    opt = create_multi_node_optimizer(torch.optim.SGD(
+        model.parameters(), lr=DP["lr"], momentum=DP["momentum"]), comm)
+    step = train_step(model, opt, comm)
+    b, s = DP["batch"], DP["image_size"]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    images = images_from_nhwc(torch.randn(
+        (b, s, s, 3), generator=gen, device=device, dtype=torch.bfloat16))
+    labels = torch.zeros(b, dtype=torch.long, device=device)
+    fwd_flops = _resnet_flops(model, images)
+    t_setup = time.perf_counter() - t0
+
+    losses = [step(images, labels) for _ in range(DP["warmup_steps"])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    for _ in range(DP["timed_steps"]):
+        loss = step(images, labels)
+        losses.append(loss)
+    last = float(loss)              # the device->host fetch closes the window
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    losses = [float(x) for x in losses]
+    step_s = wall / DP["timed_steps"]
+    flops = 3.0 * fwd_flops
+    rec = {"phase": "dp_train",
+           "model": {"name": "ResNet50", "stem": "conv7", "params": n_params,
+                     "compute_dtype": "bf16", "param_dtype": "f32"},
+           "dp": DP, "communicator": repr(comm),
+           "allreduce_grad_dtype": "bf16", "setup_s": t_setup,
+           "step_ms": step_s * 1e3, "images_per_sec": b / step_s,
+           "analytic_flop_per_step": flops,
+           "analytic_tflops": flops / step_s / 1e12,
+           "mfu_vs_989_tflops": flops / step_s / BF16_OPS_PER_S,
+           "peak_memory_allocated_gb": peak / 1e9,
+           "first_loss": losses[0], "last_loss": last, "losses": losses,
+           "steps": len(losses)}
+    emit(rec)
+    if n_params != RESNET50_PARAMS:
+        raise AssertionError(f"ResNet-50 has {n_params} parameters, the flax "
+                             f"model {RESNET50_PARAMS}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    phase_dp_profile(step, images, labels, DP["profile_steps"])
+    comm.finalize()
+    del model, opt, step, images
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = False
+    return rec
+
+
+# device kernels of the data-parallel step by kind, matched on the
+# lower-cased kernel name in this order
+DP_KINDS = (
+    ("all-reduce", ("nccl",)),
+    ("batch norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
+    ("sgd (foreach)", ("multi_tensor_apply",)),
+    ("convolution", ("conv", "xmma", "cudnn", "cutlass", "implicit",
+                     "fprop", "dgrad", "wgrad", "nvjet", "gemm")),
+    ("max pool", ("max_pool",)),
+    ("copy (casts, pads)", ("copy", "memcpy")),
+    ("reduce", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized")),
+)
+
+
+def _dp_kind(name: str) -> str:
+    low = name.lower()
+    for kind, keys in DP_KINDS:
+        if any(k in low for k in keys):
+            return kind
+    return "other"
+
+
+def phase_dp_profile(step, images, labels, n_steps):
+    """Where a data-parallel step's time goes: ``torch.profiler`` over
+    ``n_steps`` ResNet-50 steps; device busy and idle share as in
+    ``train_profile``, device time by kind of kernel (``DP_KINDS``) and
+    the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            loss = step(images, labels)
+        float(loss)
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    busy_us = sum(e.self_device_time_total for e in dev)
+    measured = busy_us > 0
+    # every kind, so one with no kernel (the one-rank all-reduce) shows 0
+    kinds = {k: [0.0, 0] for k, _ in DP_KINDS + (("other", ()),)}
+    for e in dev:
+        kind = kinds[_dp_kind(e.key)]
+        kind[0] += e.self_device_time_total
+        kind[1] += e.count
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:15]
+    rec = {"phase": "dp_profile", "steps": n_steps,
+           "step_wall_ms": wall / n_steps * 1e3,
+           "step_device_busy_ms": busy_us / n_steps / 1e3 if measured
+           else "not measured",
+           "device_idle_share": 1 - busy_us / 1e6 / wall if measured
+           else "not measured",
+           "by_kind": {k: {"ms_per_step": us / n_steps / 1e3,
+                           "calls_per_step": n / n_steps,
+                           "share_of_busy": us / busy_us if measured
+                           else "not measured"}
+                       for k, (us, n) in sorted(kinds.items(),
+                                                key=lambda kv: -kv[1][0])},
+           "top_device": [{"name": e.key[:90], "kind": _dp_kind(e.key),
+                           "ms_per_step":
+                           e.self_device_time_total / n_steps / 1e3,
+                           "calls_per_step": e.count / n_steps}
+                          for e in top]}
+    emit(rec)
+    return rec
+
+
+# dp_parity: name -> (strategy, optimizer kind, wire dtype)
+DP_CASES = {
+    "naive": ("naive", "plain", None),
+    "flat": ("flat", "plain", None),
+    "pure_nccl": ("pure_nccl", "plain", None),
+    "tpu": ("tpu", "plain", None),
+    "pure_ici": ("pure_ici", "plain", None),
+    "hierarchical": ("hierarchical", "plain", None),
+    "non_cuda_aware": ("non_cuda_aware", "plain", None),
+    "two_dimensional": ("two_dimensional", "plain", None),
+    "single_node": ("single_node", "plain", None),
+    "pure_nccl_bf16_wire": ("pure_nccl", "plain", "bf16"),
+    "double_buffering": ("pure_nccl", "double_buffering", None),
+    "zero1": ("pure_nccl", "zero", None),
+    "zero1_clip": ("pure_nccl", "zero_clip", None),
+}
+
+
+def _dp_run(case, state, images, labels, device, n_steps):
+    """``n_steps`` ``train_step``s of the small ResNet from ``state`` on
+    one batch: losses and the final ``state_dict`` (on the CPU)."""
+    import warnings
+
+    import torch
+
+    from chainermn_torch import (
+        clip_by_global_norm_sharded,
+        create_communicator,
+        create_multi_node_optimizer,
+        create_zero_optimizer,
+    )
+    from chainermn_torch.models import ResNet
+    from chainermn_torch.training import train_step
+
+    strategy, kind, wire = case
+    model = ResNet(**DP_PARITY["model"], compute_dtype=torch.float32,
+                   device=device)
+    model.load_state_dict(state)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # non_cuda_aware warns
+        comm = create_communicator(
+            strategy, device=device,
+            allreduce_grad_dtype=torch.bfloat16 if wire else None)
+    sgd = torch.optim.SGD(model.parameters(), lr=DP["lr"],
+                          momentum=DP["momentum"])
+    if kind.startswith("zero"):
+        clip = (clip_by_global_norm_sharded(DP_PARITY["clip"], comm)
+                if kind == "zero_clip" else None)
+        opt = create_zero_optimizer(sgd, comm, grad_transform=clip)
+    else:
+        opt = create_multi_node_optimizer(
+            sgd, comm, double_buffering=kind == "double_buffering")
+    step = train_step(model, opt, comm)
+    losses = [step(images.to(device), labels.to(device))
+              for _ in range(n_steps)]
+    losses = [float(x) for x in losses]
+    out = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    comm.finalize()
+    return losses, out, type(comm).__name__
+
+
+def phase_dp_parity(device):
+    """Every strategy name, a bf16 wire, double buffering and ZeRO-1
+    (with and without the sharded clip) train a small f32 ResNet
+    (``stage_sizes=[1, 1, 1, 1]``, width 8, 10 classes, 32x32) for 3
+    steps on one seeded batch, from one seeded ``state_dict``, on the
+    card (one NCCL rank) and on the CPU (one gloo rank): losses,
+    parameters and running statistics must agree within
+    ``DP_PARITY['tol']``. On the card, each strategy's first step on
+    zero images from a fresh model must give ln 10 (uniform logits from
+    the zero head bias) within 1e-3, and all within 1e-5 of each other
+    (``__graft_entry__.py:147-158``)."""
+    import torch
+
+    from chainermn_torch import create_communicator
+    from chainermn_torch.models import ResNet
+
+    cfg, s, b = DP_PARITY["model"], DP_PARITY["image_size"], DP_PARITY["batch"]
+    gen = torch.Generator().manual_seed(SEED + 6)
+    state = ResNet(**cfg, compute_dtype=torch.float32, device="cpu",
+                   seed=SEED + 6).state_dict()
+    images = torch.randn((b, s, s, 3), generator=gen).permute(0, 3, 1, 2)
+    labels = torch.randint(0, cfg["num_classes"], (b,), generator=gen)
+    zeros = torch.zeros((b, 3, s, s)).to(memory_format=torch.channels_last)
+    zero_labels = torch.zeros(b, dtype=torch.long)
+    torch.backends.cudnn.deterministic = True
+    runs, known = {}, {}
+    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        world = create_communicator("naive", device=dev)   # owns the group
+        for name, case in DP_CASES.items():
+            runs[(name, where)] = _dp_run(case, state, images, labels, dev,
+                                          DP_PARITY["steps"])
+            if where == "card":
+                known[name] = _dp_run(case, state, zeros, zero_labels, dev,
+                                      1)[0][0]
+        world.finalize()
+    torch.backends.cudnn.deterministic = False
+    tol = DP_PARITY["tol"]
+    results = []
+    for name in DP_CASES:
+        (l_gpu, s_gpu, cls), (l_cpu, s_cpu, _) = (runs[(name, "card")],
+                                                  runs[(name, "cpu")])
+        errs = {k: float((s_gpu[k].float() - s_cpu[k].float()).abs().max())
+                for k in s_gpu if s_gpu[k].is_floating_point()}
+        worst = max(errs, key=errs.get)
+        loss_err = max(abs(a - c) for a, c in zip(l_gpu, l_cpu))
+        results.append({
+            "case": name, "class": cls, "losses_card": l_gpu,
+            "losses_cpu": l_cpu, "loss_max_abs_err": loss_err,
+            "state_max_abs_err": errs[worst], "worst": worst,
+            "known_answer_loss": known[name],
+            "ok": (loss_err <= tol and errs[worst] <= tol
+                   and all(math.isfinite(x) for x in l_gpu))})
+    ln10 = math.log(10.0)
+    known_err = max(abs(v - ln10) for v in known.values())
+    known_spread = max(known.values()) - min(known.values())
+    emit({"phase": "dp_parity", "model": dict(cfg, compute_dtype="f32"),
+          "image_size": s, "batch": b, "steps": DP_PARITY["steps"],
+          "tol": tol, "known_answer_err": known_err,
+          "known_answer_spread": known_spread, "cases": results})
+    bad = [r["case"] for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"data-parallel training on the card diverged "
+                             f"from the CPU: {bad}")
+    if known_err > 1e-3 or known_spread > 1e-5:
+        raise AssertionError(f"known answer: losses {known} against ln 10")
+
+
 def main() -> int:
     try:
         import torch
@@ -943,6 +1263,8 @@ def main() -> int:
     flash_timing = phase_flash_timing(device)
     phase_train_parity(device)
     comm.finalize()
+    phase_dp_train(device)
+    phase_dp_parity(device)
     kernels = [{
         "name": "paged_decode", "route": "cuda",
         "source": "chainermn_torch/csrc/paged_decode.cu",

@@ -62,7 +62,7 @@ def test_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from chainermn_torch import create_communicator
-    from chainermn_torch.models import TransformerLM
+    from chainermn_torch.models import MLP, AlexNet, ResNet, TransformerLM
     from chainermn_torch.serving import ServingEngine
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -70,8 +70,16 @@ def test_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TransformerLM(vocab_size=11, d_model=8, n_heads=2, n_layers=1,
                       attention="flash")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        create_communicator()
+    for name in ("pure_nccl", "naive", "hierarchical", "two_dimensional"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            create_communicator(name)
+    from chainermn_torch.links import BatchNorm, MultiNodeBatchNormalization
+
+    for build in (lambda: ResNet([1], width=4), MLP, AlexNet,
+                  lambda: BatchNorm(4),
+                  lambda: MultiNodeBatchNormalization(4, None)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
     model = TransformerLM(vocab_size=11, d_model=8, n_heads=2, n_layers=1,
                           max_len=16, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):

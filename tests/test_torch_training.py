@@ -14,6 +14,7 @@ import socket
 import subprocess
 import sys
 import textwrap
+import warnings
 from pathlib import Path
 
 import jax
@@ -68,12 +69,36 @@ def test_one_rank_collectives_are_identities(comm):
     torch.testing.assert_close(alias[0], grads[2], atol=0, rtol=0)
 
 
-def test_strategy_names(comm):
-    assert type(create_communicator("tpu", device="cpu")) is type(comm)
-    for name in ("naive", "flat", "hierarchical", "two_dimensional",
-                 "single_node", "non_cuda_aware", "pure_ici"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            create_communicator(name, device="cpu")
+STRATEGY_CLASSES = {
+    "pure_nccl": "PureNcclCommunicator", "tpu": "PureNcclCommunicator",
+    "pure_ici": "PureNcclCommunicator", "naive": "NaiveCommunicator",
+    "flat": "FlatCommunicator", "hierarchical": "HierarchicalCommunicator",
+    "non_cuda_aware": "HierarchicalCommunicator",
+    "two_dimensional": "TwoDimensionalCommunicator",
+    "single_node": "SingleNodeCommunicator"}
+
+
+@pytest.mark.parametrize("name", list(STRATEGY_CLASSES))
+def test_strategy_names(comm, name):
+    """Every strategy name of the reference's factory builds its class
+    (here over the one-rank group ``comm`` started); only the flat NCCL
+    strategy takes ``allreduce_grad_dtype``; an unknown name raises."""
+    flat = STRATEGY_CLASSES[name] == "PureNcclCommunicator"
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # non_cuda_aware warns
+        built = create_communicator(name, device="cpu")
+        assert type(built).__name__ == STRATEGY_CLASSES[name]
+        assert (built.rank, built.size) == (0, 1)
+        built.finalize()
+        if flat:
+            wired = create_communicator(name, device="cpu",
+                                        allreduce_grad_dtype=torch.bfloat16)
+            assert wired.allreduce_grad_dtype is torch.bfloat16
+            wired.finalize()
+        else:
+            with pytest.raises(ValueError, match="allreduce_grad_dtype"):
+                create_communicator(name, device="cpu",
+                                    allreduce_grad_dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="unknown communicator"):
         create_communicator("mpi", device="cpu")
 
@@ -169,8 +194,12 @@ def test_multi_node_optimizer_wraps_the_inner_step(comm):
     # zero_fill is accepted and ignored, as in the reference
     create_multi_node_optimizer(inner, comm, zero_fill=True).step()
     assert q.grad is None and (q == 1).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_multi_node_optimizer(inner, comm, double_buffering=True)
+    # double buffering builds; its first step applies a zero gradient
+    buffered = create_multi_node_optimizer(inner, comm, double_buffering=True)
+    p.grad = torch.tensor([1.0, 2.0, 3.0])
+    buffered.step()
+    torch.testing.assert_close(p.detach(), torch.tensor([0.5, 0.0, -0.5]))
+    assert buffered.param_groups is inner.param_groups
 
 
 def test_attention_kinds():
