@@ -2,7 +2,7 @@
 NVIDIA H100 (Hopper, sm_90a).
 
 The layout mirrors the JAX package so each module's counterpart is easy
-to find. It holds three paths so far:
+to find. It holds four paths so far:
 
 - paged serving: the dense :class:`~chainermn_torch.models.TransformerLM`,
   the paged KV-cache attention (:mod:`chainermn_torch.parallel.sequence`)
@@ -20,13 +20,21 @@ to find. It holds three paths so far:
   (:class:`MultiNodeBatchNormalization`, :func:`create_mnbn_model`), the
   differentiable collectives (:mod:`chainermn_torch.functions`), dataset
   scattering, and :func:`chainermn_torch.training.train_step` over the
-  ResNet family (:mod:`chainermn_torch.models`).
+  ResNet family (:mod:`chainermn_torch.models`);
+- the ImageNet trainer (``python -m
+  chainermn_torch.examples.imagenet.train_imagenet``): the iterators
+  (:mod:`chainermn_torch.iterators`), the native C++ batch loader
+  (:mod:`chainermn_torch.native`), the device prefetcher
+  (:mod:`chainermn_torch.dataflow`), the warmup-cosine LR schedule, the
+  multi-node evaluator, FSDP/HSDP (:mod:`chainermn_torch.parallel.fsdp`),
+  GoogLeNet and VGG16, and the global except hook.
 
 The package imports ``torch`` and numpy only; weights cross over from
 flax through :mod:`chainermn_torch.interop`.
 """
 
 from chainermn_torch import functions
+from chainermn_torch.global_except_hook import add_hook as add_global_except_hook
 from chainermn_torch.communicators import (
     CommunicatorBase,
     FlatCommunicator,
@@ -45,6 +53,12 @@ from chainermn_torch.datasets import (
     scatter_dataset,
     scatter_index,
 )
+from chainermn_torch.evaluators import create_multi_node_evaluator
+from chainermn_torch.iterators import (
+    SerialIterator,
+    create_multi_node_iterator,
+    create_synchronized_iterator,
+)
 from chainermn_torch.links import (
     MultiNodeBatchNormalization,
     create_mnbn_model,
@@ -53,6 +67,7 @@ from chainermn_torch.optimizers import (
     clip_by_global_norm_sharded,
     create_multi_node_optimizer,
     create_zero_optimizer,
+    warmup_cosine_decay_schedule,
 )
 
 __version__ = "0.1.0"
@@ -63,9 +78,12 @@ __all__ = [
     "TwoDimensionalCommunicator", "SingleNodeCommunicator",
     "create_communicator",
     "create_multi_node_optimizer", "create_zero_optimizer",
-    "clip_by_global_norm_sharded",
+    "clip_by_global_norm_sharded", "warmup_cosine_decay_schedule",
     "MultiNodeBatchNormalization", "create_mnbn_model",
     "SubDataset", "scatter_dataset", "scatter_index", "create_empty_dataset",
     "get_n_iterations_for_one_epoch",
+    "SerialIterator", "create_multi_node_iterator",
+    "create_synchronized_iterator", "create_multi_node_evaluator",
+    "add_global_except_hook",
     "functions",
 ]

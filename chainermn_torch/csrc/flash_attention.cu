@@ -21,6 +21,12 @@
 //     inputs share one type here), each with f32 accumulation;
 //   - f32 inputs use plain f32 FMA (never TF32).
 //
+// What it takes: f32, bf16 or f16 inputs (one type for all four), outputs
+// in that type or f32 (f32 inputs may also write bf16), D = 64 or 128
+// (the wrapper pads other head dims up to 128 with zero lanes), any Tq and
+// Tk, and any B * H: the (batch, head) pairs run on grid y and, past
+// 65535 of them, on grid z as well (flash_grid).
+//
 // What bounds it: causal attention does about T / 3 flops per byte it must
 // move (~680 at the LM's T = 2048), above the H100's ridge of ~295, so the
 // floor is the tensor-core rate. The bf16 kernels, which do a training
@@ -46,6 +52,7 @@
 //   - blocks with the most causal work are issued first (fwd, dq).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -72,7 +79,7 @@ struct FlashArgs {
   int64_t do_sb, do_st, do_sh;
   int64_t batch, heads, tq, tk, head_dim;
   int64_t q_offset, k_offset, causal;
-  int64_t in_dtype, out_dtype;  // 0 = float32, 1 = bfloat16
+  int64_t in_dtype, out_dtype;  // 0 = float32, 1 = bfloat16, 2 = float16
   double scale;
 };
 
@@ -128,6 +135,18 @@ struct Carver {
     return r;
   }
 };
+
+// The grid of a kernel whose CTAs each own `tile` rows of `rows`, one row
+// of CTAs per (batch, head) pair: the pairs fill grid y up to its limit
+// of 65535 and spill over onto grid z; a kernel finds its pair at
+// blockIdx.z * gridDim.y + blockIdx.y and the spare CTAs of the last
+// z-slice return at once.
+inline dim3 flash_grid(int64_t rows, int tile, const FlashArgs& a) {
+  const int64_t bh = a.batch * a.heads;
+  const int64_t y = bh < 65535 ? bh : 65535;
+  return dim3(static_cast<unsigned>((rows + tile - 1) / tile),
+              static_cast<unsigned>(y), static_cast<unsigned>((bh + y - 1) / y));
+}
 
 // Geometry of one call, in ints.
 struct Geo {
@@ -235,7 +254,8 @@ __global__ void __launch_bounds__(kThreads)
 
   const Geo g = make_geo(a);
   const int H = static_cast<int>(a.heads);
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int bh = blockIdx.z * gridDim.y + blockIdx.y, b = bh / H, h = bh % H;
+  if (bh >= a.batch * a.heads) return;  // the last z-slice's spare CTAs
   const int q0 = (gridDim.x - 1 - blockIdx.x) * B;  // longest blocks first
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const float scale = static_cast<float>(a.scale);
@@ -339,7 +359,8 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const FlashArgs a) {
 
   const Geo g = make_geo(a);
   const int H = static_cast<int>(a.heads);
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int bh = blockIdx.z * gridDim.y + blockIdx.y, b = bh / H, h = bh % H;
+  if (bh >= a.batch * a.heads) return;  // the last z-slice's spare CTAs
   const int q0 = (gridDim.x - 1 - blockIdx.x) * B;
   const float scale = static_cast<float>(a.scale);
   const float* qb = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
@@ -414,7 +435,8 @@ __global__ void __launch_bounds__(kThreads)
 
   const Geo g = make_geo(a);
   const int H = static_cast<int>(a.heads);
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int bh = blockIdx.z * gridDim.y + blockIdx.y, b = bh / H, h = bh % H;
+  if (bh >= a.batch * a.heads) return;  // the last z-slice's spare CTAs
   const int k0 = (gridDim.x - 1 - blockIdx.x) * B;
   const float scale = static_cast<float>(a.scale);
   const float* qb = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
@@ -473,7 +495,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---------------------------------- bf16 forward, dq and dk/dv (Hopper) --
+// ------------------------ bf16 / f16 forward, dq and dk/dv (Hopper) --
 
 #include "flash_bwd_sm90.cuh"
 #include "flash_fwd_sm90.cuh"
@@ -506,40 +528,42 @@ cudaError_t launch_simple(const FlashArgs& a, cudaStream_t stream) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>((rows + L::kB - 1) / L::kB),
-                  static_cast<unsigned>(a.batch * a.heads));
-  kern<<<grid, kThreads, smem, stream>>>(a);
+  kern<<<flash_grid(rows, L::kB, a), kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <int KIND, typename T, typename OT, int D>
 cudaError_t launch(const FlashArgs& a, cudaStream_t stream) {
-  constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  if constexpr (kBf16 && KIND == kFwd)
-    return launch_fwd_sm90<OT, D>(a, stream);
-  else if constexpr (kBf16 && KIND == kDq)
-    return launch_dq_sm90<OT, D>(a, stream);
-  else if constexpr (kBf16 && KIND == kDkv)
-    return launch_dkv_sm90<OT, D>(a, stream);
+  constexpr bool k16 = !std::is_same<T, float>::value;
+  if constexpr (k16 && KIND == kFwd)
+    return launch_fwd_sm90<T, OT, D>(a, stream);
+  else if constexpr (k16 && KIND == kDq)
+    return launch_dq_sm90<T, OT, D>(a, stream);
+  else if constexpr (k16 && KIND == kDkv)
+    return launch_dkv_sm90<T, OT, D>(a, stream);
   else
     return launch_simple<KIND, OT, D>(a, stream);
 }
 
+// (input, output) type codes: f32 -> f32 or bf16; bf16 -> bf16 or f32;
+// f16 -> f16 or f32.
 template <int KIND, int D>
 cudaError_t dispatch_types(const FlashArgs& a, cudaStream_t st) {
-  const bool in16 = a.in_dtype == 1, out16 = a.out_dtype == 1;
-  if (in16)
-    return out16 ? launch<KIND, bf16, bf16, D>(a, st)
-                 : launch<KIND, bf16, float, D>(a, st);
-  return out16 ? launch<KIND, float, bf16, D>(a, st)
-               : launch<KIND, float, float, D>(a, st);
+  const int in = static_cast<int>(a.in_dtype), out = static_cast<int>(a.out_dtype);
+  if (in == 1 && out == 1) return launch<KIND, bf16, bf16, D>(a, st);
+  if (in == 1 && out == 0) return launch<KIND, bf16, float, D>(a, st);
+  if (in == 2 && out == 2) return launch<KIND, half, half, D>(a, st);
+  if (in == 2 && out == 0) return launch<KIND, half, float, D>(a, st);
+  if (in == 0 && out == 1) return launch<KIND, float, bf16, D>(a, st);
+  if (in == 0 && out == 0) return launch<KIND, float, float, D>(a, st);
+  return cudaErrorInvalidValue;
 }
 
 template <int KIND>
 int dispatch(const FlashArgs* a, void* stream) {
+  // grid z holds ceil(B * H / 65535) slices of (batch, head) pairs
   if (a->batch < 1 || a->heads < 1 || a->tq < 1 || a->tk < 1 ||
-      a->batch * a->heads > 65535 || a->in_dtype < 0 || a->in_dtype > 1 ||
-      a->out_dtype < 0 || a->out_dtype > 1)
+      a->batch * a->heads > int64_t{65535} * 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;

@@ -1,9 +1,12 @@
-// The bf16 dq and dk/dv kernels for Hopper: wgmma products with register
-// accumulators, fed by an asynchronous multi-stage shared-memory ring.
+// The 16-bit (bf16 and f16) dq and dk/dv kernels for Hopper: wgmma
+// products with register accumulators, fed by an asynchronous multi-stage
+// shared-memory ring.
 //
 // Included by flash_attention.cu inside its anonymous namespace, after
-// FlashArgs, Geo, make_geo and bf16; it includes nothing itself. They are
-// the dq and dk/dv kernels for bf16 inputs (TPU: _bwd_dq_kernel /
+// FlashArgs, Geo, make_geo, flash_grid, bf16 and half; it includes nothing
+// itself. They are the dq and dk/dv kernels for bf16 and f16 inputs, the
+// element type T a template parameter (wgmma has the f16 form of every
+// bf16 shape used here) (TPU: _bwd_dq_kernel /
 // _bwd_dkv_kernel of chainermn_tpu/ops/flash_attention.py; f32 inputs take
 // flash_dq_kernel / flash_dkv_kernel) and compute the same functions under
 // the same contract (flash_attention.cu's header).
@@ -15,16 +18,16 @@
 //     the first query tile that sees the keys. Each warpgroup computes
 //     S^T = K Q^T and dP^T = V dO^T (wgmma, both operands in shared memory),
 //     then P^T and dS^T = P^T (dP^T - delta) in the accumulator registers,
-//     then dV += bf16(P^T) dO and dK += bf16(dS^T) Q (wgmma with A in
+//     then dV += T(P^T) dO and dK += T(dS^T) Q (wgmma with A in
 //     registers, B read through the MN-major flag). dK and dV stay in
 //     registers for the whole loop and are written once.
 //   - dq: a CTA per (batch*head, 128-query tile). Q, dO, lse and delta are
 //     loaded once; K and V tiles of 64 keys stream through the ring up to
 //     the causal end. S = Q K^T, dP = dO V^T, P and dS in registers, then
-//     dQ += bf16(dS) K; dQ stays in registers and is written once.
+//     dQ += T(dS) K; dQ stays in registers and is written once.
 //   - S, P, dP and dS never touch shared memory. The f32 fragment of a
 //     product is the A operand of the next: its layout matches wgmma's
-//     register-A layout, and rounding it to bf16 is the reference's cast.
+//     register-A layout, and rounding it to T is the reference's cast.
 //   - Tiles sit in shared memory in the 128-byte swizzle wgmma reads (16-
 //     byte chunk c of row r at chunk c ^ (r % 8), 64-column panels).
 //     cp.async copies 16 bytes a thread straight into that layout and
@@ -113,104 +116,136 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
          static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
 }
 
-// m64nNk16 bf16 wgmma, f32 accumulators (N / 2 registers a thread).
+// m64nNk16 wgmma on 16-bit inputs (bf16 or f16, spelled TY in the PTX),
+// f32 accumulators (N / 2 registers a thread).
 // mma_ss: d = A B (+ d when acc), A and B K-major in shared memory.
 // mma_rs: d += A B, A in registers, B MN-major in shared memory.
+#define CMN_MMA_SS_N32(TY)                                                \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "        \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "                                 \
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "                          \
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"                                     \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                   \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                   \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                 \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])                \
+      : "l"(a), "l"(b), "r"(acc))
+
+#define CMN_MMA_SS_N64(TY)                                                \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "        \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "                                 \
+      " %8, %9, %10, %11, %12, %13, %14, %15, "                           \
+      " %16, %17, %18, %19, %20, %21, %22, %23, "                         \
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "                         \
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"                                     \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                   \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                   \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                 \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),               \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),               \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),               \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),               \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])                \
+      : "l"(a), "l"(b), "r"(acc))
+
+#define CMN_MMA_RS_N64(TY)                                                \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "        \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "                                 \
+      " %8, %9, %10, %11, %12, %13, %14, %15, "                           \
+      " %16, %17, %18, %19, %20, %21, %22, %23, "                         \
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "                         \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                       \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                   \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                   \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                 \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),               \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),               \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),               \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),               \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])                \
+      : "r"(f[0]), "r"(f[1]), "r"(f[2]), "r"(f[3]), "l"(b), "r"(1))
+
+#define CMN_MMA_RS_N128(TY)                                               \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "       \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "                                 \
+      " %8, %9, %10, %11, %12, %13, %14, %15, "                           \
+      " %16, %17, %18, %19, %20, %21, %22, %23, "                         \
+      " %24, %25, %26, %27, %28, %29, %30, %31, "                         \
+      " %32, %33, %34, %35, %36, %37, %38, %39, "                         \
+      " %40, %41, %42, %43, %44, %45, %46, %47, "                         \
+      " %48, %49, %50, %51, %52, %53, %54, %55, "                         \
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "                         \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                       \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                   \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                   \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                 \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),               \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),               \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),               \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),               \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),               \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),               \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),               \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),               \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),               \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),               \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),               \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),               \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                \
+      : "r"(f[0]), "r"(f[1]), "r"(f[2]), "r"(f[3]), "l"(b), "r"(1))
+
+template <typename T>
+constexpr bool kIsHalf = std::is_same<T, half>::value;
+
+template <typename T>
 __device__ __forceinline__ void mma_ss(float (&d)[16], uint64_t a,
                                        uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(acc));
+  if constexpr (kIsHalf<T>)
+    CMN_MMA_SS_N32("f16");
+  else
+    CMN_MMA_SS_N32("bf16");
 }
 
+template <typename T>
 __device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a,
                                        uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(acc));
+  if constexpr (kIsHalf<T>)
+    CMN_MMA_SS_N64("f16");
+  else
+    CMN_MMA_SS_N64("bf16");
 }
 
+template <typename T>
 __device__ __forceinline__ void mma_rs(float (&d)[32],
                                        const uint32_t (&f)[4],
                                        uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(f[0]), "r"(f[1]), "r"(f[2]), "r"(f[3]), "l"(b), "r"(1));
+  if constexpr (kIsHalf<T>)
+    CMN_MMA_RS_N64("f16");
+  else
+    CMN_MMA_RS_N64("bf16");
 }
 
+template <typename T>
 __device__ __forceinline__ void mma_rs(float (&d)[64],
                                        const uint32_t (&f)[4],
                                        uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31, "
-      " %32, %33, %34, %35, %36, %37, %38, %39, "
-      " %40, %41, %42, %43, %44, %45, %46, %47, "
-      " %48, %49, %50, %51, %52, %53, %54, %55, "
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(f[0]), "r"(f[1]), "r"(f[2]), "r"(f[3]), "l"(b), "r"(1));
+  if constexpr (kIsHalf<T>)
+    CMN_MMA_RS_N128("f16");
+  else
+    CMN_MMA_RS_N128("bf16");
 }
 
 // ------------------------------------------------------------ tile layout --
 
-// Byte offset of 16-byte chunk c of row r in an [R, D] bf16 tile held as
+// Byte offset of 16-byte chunk c of row r in an [R, D] 16-bit tile held as
 // D / 64 panels of R rows x 128 bytes, swizzled (panels 1024-aligned).
 template <int R>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
@@ -219,8 +254,8 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
 
 // Rows row0 .. row0+R-1 of one (batch, head) slice of a [B, T, H, D]
 // input, zero past n_rows, issued as cp.async by the whole CTA.
-template <int R, int D>
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
+template <int R, int D, typename T>
+__device__ __forceinline__ void load_tile(uint32_t dst, const T* src,
                                           int64_t st, int row0, int n_rows) {
   constexpr int kChunks = D / 8;
   static_assert(R * kChunks % kSm90Threads == 0, "tile / thread mismatch");
@@ -259,41 +294,49 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
   return gmma_desc(tile + kk * 2048, R * 128, 1024);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// Two f32 values rounded to T (bf16 or f16) and packed in one register.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kIsHalf<T>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
 // d = A B over K = 16 * KS: A = rows a_row0 .. +63 of an R_A-row tile, B
 // all rows of an R_B-row tile, both K-major. Issues; the caller commits.
-template <int R_A, int R_B, int KS, int NR>
+template <typename T, int R_A, int R_B, int KS, int NR>
 __device__ __forceinline__ void gemm_ss(float (&d)[NR], uint32_t a_tile,
                                         int a_row0, uint32_t b_tile) {
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk)
-    mma_ss(d, desc_k<R_A>(a_tile, a_row0, kk), desc_k<R_B>(b_tile, 0, kk),
+    mma_ss<T>(d, desc_k<R_A>(a_tile, a_row0, kk), desc_k<R_B>(b_tile, 0, kk),
            kk > 0);
 }
 
-// The A fragments of bf16(p): p is an f32 accumulator fragment [64, 8 KS];
-// k-step kk takes its columns 16kk .. 16kk+15.
-template <int KS>
+// The A fragments of p rounded to T: p is an f32 accumulator fragment
+// [64, 8 KS]; k-step kk takes its columns 16kk .. 16kk+15.
+template <typename T, int KS>
 __device__ __forceinline__ void to_a_frags(uint32_t (&f)[KS][4],
                                            const float (&p)[KS * 8]) {
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      f[kk][j] = pack_bf16(p[8 * kk + 2 * j], p[8 * kk + 2 * j + 1]);
+      f[kk][j] = pack2<T>(p[8 * kk + 2 * j], p[8 * kk + 2 * j + 1]);
 }
 
 // d += A B: A the register fragments, B an R_B-row tile read MN-major.
-template <int R_B, int KS, int NR>
+template <typename T, int R_B, int KS, int NR>
 __device__ __forceinline__ void gemm_rs(float (&d)[NR],
                                         const uint32_t (&f)[KS][4],
                                         uint32_t b_tile) {
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) mma_rs(d, f[kk], desc_mn<R_B>(b_tile, kk));
+  for (int kk = 0; kk < KS; ++kk)
+    mma_rs<T>(d, f[kk], desc_mn<R_B>(b_tile, kk));
 }
 
 // Accumulator element i of a thread: row (within the warpgroup's 64) and
@@ -315,6 +358,10 @@ __device__ __forceinline__ void store2(bf16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
+__device__ __forceinline__ void store2(half* p, float x, float y) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x, y);
+}
+
 // -------------------------------------------------------------------- dkv --
 
 template <int D>
@@ -326,7 +373,7 @@ struct DkvTiles {
   static constexpr size_t kSmem = 2 * kKv + kStages * kStage + 1024;
 };
 
-template <typename OT, int D>
+template <typename T, typename OT, int D>
 __global__ void __launch_bounds__(kSm90Threads, 1)
     flash_dkv_kernel_sm90(const FlashArgs a) {
   using L = DkvTiles<D>;
@@ -338,15 +385,15 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
 
   const Geo g = make_geo(a);
   const int H = static_cast<int>(a.heads);
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int bh = blockIdx.z * gridDim.y + blockIdx.y, b = bh / H, h = bh % H;
+  if (bh >= a.batch * a.heads) return;  // the last z-slice's spare CTAs
   const int k0 = blockIdx.x * kSm90Rows;  // low keys: most causal work
   const int wg = threadIdx.x / 128, kw0 = k0 + wg * 64;
   const float scale = static_cast<float>(a.scale), sl2 = scale * kLog2e;
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const bf16* dob =
-      static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh;
+  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
+  const T* dob = static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh;
   const float* lse = a.lse + static_cast<int64_t>(bh) * g.tq;
   const float* delta = a.delta + static_cast<int64_t>(bh) * g.tq;
 
@@ -397,9 +444,9 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
                                                                  kw0 + 63);
       float s[BQ / 2], dp[BQ / 2];
       wgmma_fence();
-      gemm_ss<kSm90Rows, BQ, D / 16>(s, ks, wg * 64, qs);    // S^T = K Q^T
+      gemm_ss<T, kSm90Rows, BQ, D / 16>(s, ks, wg * 64, qs);    // S^T = K Q^T
       wgmma_commit();
-      gemm_ss<kSm90Rows, BQ, D / 16>(dp, vs, wg * 64, dos);  // dP^T = V dO^T
+      gemm_ss<T, kSm90Rows, BQ, D / 16>(dp, vs, wg * 64, dos);  // dP^T = V dO^T
       wgmma_commit();
       wgmma_wait<1>();
       reg_fence(s);
@@ -418,11 +465,11 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
 #pragma unroll
       for (int i = 0; i < BQ / 2; ++i) dp[i] = s[i] * (dp[i] - dl_s[frag_col(i)]);
       uint32_t pa[BQ / 16][4], da[BQ / 16][4];
-      to_a_frags<BQ / 16>(pa, s);   // p rounded to do's type
-      to_a_frags<BQ / 16>(da, dp);  // ds rounded to q's type
+      to_a_frags<T, BQ / 16>(pa, s);   // p rounded to do's type
+      to_a_frags<T, BQ / 16>(da, dp);  // ds rounded to q's type
       wgmma_fence();
-      gemm_rs<BQ, BQ / 16>(dv, pa, dos);  // dV += P^T dO
-      gemm_rs<BQ, BQ / 16>(dk, da, qs);   // dK += dS^T Q
+      gemm_rs<T, BQ, BQ / 16>(dv, pa, dos);  // dV += P^T dO
+      gemm_rs<T, BQ, BQ / 16>(dk, da, qs);   // dK += dS^T Q
       wgmma_commit();
       wgmma_wait<0>();
       reg_fence(dk);
@@ -458,7 +505,7 @@ struct DqTiles {
   static constexpr size_t kSmem = 2 * kQ + kStages * kStage + 1024;
 };
 
-template <typename OT, int D>
+template <typename T, typename OT, int D>
 __global__ void __launch_bounds__(kSm90Threads, 1)
     flash_dq_kernel_sm90(const FlashArgs a) {
   using L = DqTiles<D>;
@@ -470,15 +517,15 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
 
   const Geo g = make_geo(a);
   const int H = static_cast<int>(a.heads);
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int bh = blockIdx.z * gridDim.y + blockIdx.y, b = bh / H, h = bh % H;
+  if (bh >= a.batch * a.heads) return;  // the last z-slice's spare CTAs
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kSm90Rows;  // longest first
   const int wg = threadIdx.x / 128, qw0 = q0 + wg * 64;
   const float scale = static_cast<float>(a.scale), sl2 = scale * kLog2e;
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const bf16* dob =
-      static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh;
+  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
+  const T* dob = static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh;
   const float* lse = a.lse + static_cast<int64_t>(bh) * g.tq;
   const float* delta = a.delta + static_cast<int64_t>(bh) * g.tq;
 
@@ -532,9 +579,9 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
                                                                   k0 + BK - 1);
       float s[BK / 2], dp[BK / 2];
       wgmma_fence();
-      gemm_ss<kSm90Rows, BK, D / 16>(s, qs, wg * 64, kst);    // S = Q K^T
+      gemm_ss<T, kSm90Rows, BK, D / 16>(s, qs, wg * 64, kst);  // S = Q K^T
       wgmma_commit();
-      gemm_ss<kSm90Rows, BK, D / 16>(dp, dos, wg * 64, vst);  // dP = dO V^T
+      gemm_ss<T, kSm90Rows, BK, D / 16>(dp, dos, wg * 64, vst);  // dP = dO V^T
       wgmma_commit();
       wgmma_wait<1>();
       reg_fence(s);
@@ -551,9 +598,9 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) dp[i] = s[i] * (dp[i] - dl[(i / 2) % 2]);
       uint32_t da[BK / 16][4];
-      to_a_frags<BK / 16>(da, dp);  // ds rounded to k's type
+      to_a_frags<T, BK / 16>(da, dp);  // ds rounded to k's type
       wgmma_fence();
-      gemm_rs<BK, BK / 16>(dq, da, kst);  // dQ += dS K
+      gemm_rs<T, BK, BK / 16>(dq, da, kst);  // dQ += dS K
       wgmma_commit();
       wgmma_wait<0>();
       reg_fence(dq);
@@ -583,20 +630,18 @@ cudaError_t launch_sm90(K kern, size_t smem, int64_t rows, const FlashArgs& a,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>((rows + kSm90Rows - 1) / kSm90Rows),
-                  static_cast<unsigned>(a.batch * a.heads));
-  kern<<<grid, kSm90Threads, smem, stream>>>(a);
+  kern<<<flash_grid(rows, kSm90Rows, a), kSm90Threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename OT, int D>
+template <typename T, typename OT, int D>
 cudaError_t launch_dq_sm90(const FlashArgs& a, cudaStream_t stream) {
-  return launch_sm90(flash_dq_kernel_sm90<OT, D>, DqTiles<D>::kSmem, a.tq, a,
-                     stream);
+  return launch_sm90(flash_dq_kernel_sm90<T, OT, D>, DqTiles<D>::kSmem, a.tq,
+                     a, stream);
 }
 
-template <typename OT, int D>
+template <typename T, typename OT, int D>
 cudaError_t launch_dkv_sm90(const FlashArgs& a, cudaStream_t stream) {
-  return launch_sm90(flash_dkv_kernel_sm90<OT, D>, DkvTiles<D>::kSmem, a.tk,
-                     a, stream);
+  return launch_sm90(flash_dkv_kernel_sm90<T, OT, D>, DkvTiles<D>::kSmem,
+                     a.tk, a, stream);
 }

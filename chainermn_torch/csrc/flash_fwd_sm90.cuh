@@ -1,14 +1,16 @@
-// The bf16 flash forward for Hopper: wgmma products with register
+// The 16-bit (bf16 and f16) flash forward for Hopper: wgmma products with
+// register
 // accumulators, fed by the asynchronous multi-stage ring of
 // flash_bwd_sm90.cuh.
 //
 // Included by flash_attention.cu inside its anonymous namespace, after
 // flash_bwd_sm90.cuh, whose PTX helpers, swizzled tile loads, descriptors,
 // gemm_ss / gemm_rs, to_a_frags, frag_row / frag_col and launch_sm90 it
-// uses; it includes nothing itself. It is the forward for bf16 inputs
-// (TPU: _fwd_kernel of chainermn_tpu/ops/flash_attention.py; f32 inputs
-// take flash_fwd_kernel) and computes the same function under the same
-// contract (flash_attention.cu's header).
+// uses; it includes nothing itself. It is the forward for bf16 and f16
+// inputs, the element type T a template parameter (TPU: _fwd_kernel of
+// chainermn_tpu/ops/flash_attention.py; f32 inputs take flash_fwd_kernel)
+// and computes the same function under the same contract
+// (flash_attention.cu's header).
 //
 // Design (two consumer warpgroups, 256 threads; a CTA per (batch*head,
 // 128-query tile), longest causal tiles first, each warpgroup 64 rows):
@@ -19,8 +21,8 @@
 //     (frag_row(0) and frag_row(2)), a row's max is taken over the four
 //     threads of a quad, p = exp2(s * scale * log2e - m) with m kept in
 //     that domain, and O and l are rescaled in registers.
-//   - bf16(P) is packed from the accumulator in place (to_a_frags: the
-//     reference's rounding of p to v's type), then O += bf16(P) V (wgmma,
+//   - T(P) is packed from the accumulator in place (to_a_frags: the
+//     reference's rounding of p to v's type), then O += T(P) V (wgmma,
 //     A in registers, V read MN-major). O stays in registers for the whole
 //     loop and is written once; l sums the f32 p and is reduced over the
 //     quad at the end.
@@ -88,7 +90,7 @@ __device__ __forceinline__ void softmax_step(float (&s)[BK / 2],
   for (int e = 0; e < 2; ++e) l[e] = l[e] * corr[e] + sum[e];
 }
 
-template <typename OT, int D>
+template <typename T, typename OT, int D>
 __global__ void __launch_bounds__(kSm90Threads, 1)
     flash_fwd_kernel_sm90(const FlashArgs a) {
   using L = FwdTiles<D>;
@@ -98,13 +100,14 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
 
   const Geo g = make_geo(a);
   const int H = static_cast<int>(a.heads);
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int bh = blockIdx.z * gridDim.y + blockIdx.y, b = bh / H, h = bh % H;
+  if (bh >= a.batch * a.heads) return;  // the last z-slice's spare CTAs
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kSm90Rows;  // longest first
   const int wg = threadIdx.x / 128, qw0 = q0 + wg * 64;
   const float sl2 = static_cast<float>(a.scale) * kLog2e;
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb + h * a.v_sh;
+  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
 
   // causal: keys past the tile's last query position are never visible
   const int q_last = min(q0 + kSm90Rows, g.tq) - 1;
@@ -140,7 +143,7 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
   float o[D / 2], s[BK / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-  uint32_t pa[BK / 16][4];  // bf16(P) of the tile whose P V is next
+  uint32_t pa[BK / 16][4];  // T(P) of the tile whose P V is next
 
   // tile 0: S and its softmax; P V waits for the loop
   if (n_tiles > 0) {
@@ -149,15 +152,15 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
     __syncthreads();
     if (n_act > 0) {
       wgmma_fence();
-      gemm_ss<kSm90Rows, BK, D / 16>(s, qs, wg * 64, k_stage(0));
+      gemm_ss<T, kSm90Rows, BK, D / 16>(s, qs, wg * 64, k_stage(0));
       wgmma_commit();
       wgmma_wait<0>();
       reg_fence(s);
       softmax_step<BK>(s, m, l, corr, g, qw0, 0, sl2);
-      to_a_frags<BK / 16>(pa, s);  // p rounded to v's type
+      to_a_frags<T, BK / 16>(pa, s);  // p rounded to v's type
     }
   }
-  // tile j: O += bf16(P_j) V_j in flight while tile j + 1's S = Q K^T
+  // tile j: O += T(P_j) V_j in flight while tile j + 1's S = Q K^T
   // lands and its softmax runs
   for (int it = 0; it < n_tiles; ++it) {
     if (it + kStages - 1 < n_tiles) load_stage(it + kStages - 1);
@@ -170,9 +173,9 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
     // are a prefix, so tile it + 1 active means tile it is too
     if (it + 1 < n_act) {
       wgmma_fence();
-      gemm_ss<kSm90Rows, BK, D / 16>(s, qs, wg * 64, k_stage(it + 1));
+      gemm_ss<T, kSm90Rows, BK, D / 16>(s, qs, wg * 64, k_stage(it + 1));
       wgmma_commit();
-      gemm_rs<BK, BK / 16>(o, pa, k_stage(it) + L::kK);  // O += bf16(P) V
+      gemm_rs<T, BK, BK / 16>(o, pa, k_stage(it) + L::kK);  // O += T(P) V
       wgmma_commit();
       wgmma_wait<1>();  // S of tile it + 1; P V of tile it still running
       reg_fence(s);
@@ -182,10 +185,10 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
       reg_fence(pa);
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i / 2) % 2];
-      to_a_frags<BK / 16>(pa, s);
+      to_a_frags<T, BK / 16>(pa, s);
     } else if (it < n_act) {
       wgmma_fence();
-      gemm_rs<BK, BK / 16>(o, pa, k_stage(it) + L::kK);
+      gemm_rs<T, BK, BK / 16>(o, pa, k_stage(it) + L::kK);
       wgmma_commit();
       wgmma_wait<0>();
       reg_fence(o);
@@ -221,8 +224,8 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
   }
 }
 
-template <typename OT, int D>
+template <typename T, typename OT, int D>
 cudaError_t launch_fwd_sm90(const FlashArgs& a, cudaStream_t stream) {
-  return launch_sm90(flash_fwd_kernel_sm90<OT, D>, FwdTiles<D>::kSmem, a.tq,
-                     a, stream);
+  return launch_sm90(flash_fwd_kernel_sm90<T, OT, D>, FwdTiles<D>::kSmem,
+                     a.tq, a, stream);
 }

@@ -20,7 +20,8 @@
 // bytes of each row's live blocks over the memory rate
 // (bytes_read_model's "kernel_bytes"). The design keeps many loads in
 // flight and no thread waiting on another:
-//   - a CTA (4 warps) per (head h, row b, split): the host splits each
+//   - a CTA (4 warps) per ((row b, head h), split), the B * H pairs on
+//     grid x and the splits on grid y: the host splits each
 //     row's table span into n_split ranges of whole bs-key blocks
 //     (split_plan in the wrapper, from host values only), so a long row is
 //     read by several CTAs at once (flash-decoding) and the longest row
@@ -31,10 +32,16 @@
 //   - inside the key loop there is no CTA barrier: each warp walks its own
 //     chunks of the range (interleaved with the other warps') and keeps its
 //     own online-softmax state (m, l and the accumulator, for all S <= 8
-//     queries) in registers;
+//     queries) in registers; the wrapper runs longer query windows as
+//     chunks of 8;
 //   - a group of G lanes covers one key row with 16-byte loads (8 bf16, 4
 //     f32 or 16 int8 elements a lane; 8 int8 when S > 1, so that q and the
-//     accumulator stay in registers), so one warp load covers 32 / G keys,
+//     accumulator stay in registers), so one warp load covers 32 / G keys.
+//     The head dim D is any of 1 .. 128: the lanes are laid out for the
+//     tile width DP (16, 32, 64 or 128, the least that holds D), lanes
+//     whose elements lie at or past D load nothing and hold zeros, and
+//     when D is not a whole number of a lane's elements every lane loads
+//     element by element (the store is never padded or copied),
 //     and each lane has kUnroll loads of K and of V in flight before the
 //     first is used. Scores are the lane's q (f32 registers) times its K
 //     elements, reduced over the group by shuffles; each lane accumulates
@@ -70,19 +77,40 @@ __device__ __forceinline__ void store_f32(float x, bf16* p) {
   *p = __float2bfloat16(x);
 }
 
-// How the lanes of a warp cover key rows of a KVT store with D dimensions
-// when NQ query registers are live (NQ = 1 for S = 1, else kMaxQueries).
-template <typename KVT, int D, int NQ>
+// How the lanes of a warp cover key rows of a KVT store with a tile width
+// of DP dimensions when NQ query registers are live (NQ = 1 for S = 1,
+// else kMaxQueries).
+template <typename KVT, int DP, int NQ>
 struct Lanes {
   static constexpr int kBytes = sizeof(KVT) == 1 && NQ > 1 ? 8 : 16;
   static constexpr int kElems = kBytes / static_cast<int>(sizeof(KVT));
-  static constexpr int kGroup = D / kElems;         // lanes per key row
+  static constexpr int kGroup = DP / kElems;        // lanes per key row
   static constexpr int kKeysPerLoad = 32 / kGroup;  // keys a warp load covers
   static constexpr int kUnroll = NQ == 1 ? 4 : 1;   // loads in flight
   static constexpr int kKeysPerStep = kKeysPerLoad * kUnroll;
   using Raw = typename std::conditional<kBytes == 16, uint4, uint2>::type;
-  static_assert(kGroup <= 32 && 32 % kGroup == 0, "lane group");
+  static_assert(kGroup >= 1 && kGroup <= 32 && 32 % kGroup == 0,
+                "lane group");
 };
+
+// One lane's E elements of a key row at src (element d0 of the row, D
+// elements long): one Raw load when `vec` (D a whole number of lanes'
+// elements, so the load is aligned), else element by element; elements
+// at or past D read as 0.
+template <typename KVT, int E, typename Raw>
+__device__ __forceinline__ Raw load_lane(const KVT* src, int d0, int D,
+                                         bool vec) {
+  Raw r{};
+  if (vec) {
+    if (d0 < D) r = *reinterpret_cast<const Raw*>(src);
+  } else {
+    KVT* e = reinterpret_cast<KVT*>(&r);
+#pragma unroll
+    for (int i = 0; i < E; ++i)
+      if (d0 + i < D) e[i] = src[i];
+  }
+  return r;
+}
 
 // The E elements of one lane's raw load, widened to f32.
 template <typename KVT, int E, typename Raw>
@@ -107,7 +135,7 @@ __device__ __forceinline__ void widen(const Raw& r, float (&f)[E]) {
   }
 }
 
-template <typename QT, typename KVT, int D, int NQ, bool QUANT>
+template <typename QT, typename KVT, int DP, int NQ, bool QUANT>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
                     const KVT* __restrict__ v,
@@ -115,19 +143,20 @@ paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
                     const float* __restrict__ v_scale,
                     const int* __restrict__ table,
                     const int* __restrict__ lengths, QT* __restrict__ out,
-                    float* __restrict__ partial, int S, int H, int bs,
+                    float* __restrict__ partial, int S, int H, int D, int bs,
                     int table_stride, int n_j, int split_keys, float scale) {
-  using Ln = Lanes<KVT, D, NQ>;
+  using Ln = Lanes<KVT, DP, NQ>;
   using Raw = typename Ln::Raw;
   constexpr int E = Ln::kElems, G = Ln::kGroup, KPL = Ln::kKeysPerLoad;
   constexpr int U = Ln::kUnroll, KPS = Ln::kKeysPerStep;
   __shared__ float w_m[kWarps][NQ], w_l[kWarps][NQ];
-  __shared__ float w_acc[kWarps][NQ][D];
+  __shared__ float w_acc[kWarps][NQ][DP];
   extern __shared__ int blk[];  // the range's table entries
 
-  const int h = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int h = blockIdx.x % H, b = blockIdx.x / H, split = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int grp = lane / G, d0 = (lane % G) * E;
+  const bool vec = D % E == 0;
 
   // the range's table entries do not depend on the row's length, so they
   // load while the length does
@@ -144,9 +173,10 @@ paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
   for (int sq = 0; sq < NQ; ++sq)
 #pragma unroll
     for (int e = 0; e < E; ++e)
-      qr[sq][e] = sq < S ? to_f32(q[((static_cast<int64_t>(b) * S + sq) * H +
-                                     h) * D + d0 + e])
-                         : 0.f;
+      qr[sq][e] = sq < S && d0 + e < D
+                      ? to_f32(q[((static_cast<int64_t>(b) * S + sq) * H +
+                                  h) * D + d0 + e])
+                      : 0.f;
   float m[NQ], l[NQ], acc[NQ][E];
 #pragma unroll
   for (int sq = 0; sq < NQ; ++sq) {
@@ -171,8 +201,8 @@ paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
         const int64_t row =
             static_cast<int64_t>(blk[j]) * bs + (t[u] - lo - j * bs);
         const int64_t off = (row * H + h) * D + d0;
-        kr[u] = *reinterpret_cast<const Raw*>(k + off);
-        vr[u] = *reinterpret_cast<const Raw*>(v + off);
+        kr[u] = load_lane<KVT, E, Raw>(k + off, d0, D, vec);
+        vr[u] = load_lane<KVT, E, Raw>(v + off, d0, D, vec);
         if (QUANT) {
           ksc[u] = k_scale[row * H + h];
           vsc[u] = v_scale[row * H + h];
@@ -259,7 +289,7 @@ paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
   __syncthreads();
 
   // the warps, in order
-  const int n_split = gridDim.z;
+  const int n_split = gridDim.y;
   for (int i = threadIdx.x; i < S * D; i += kThreads) {
     const int sq = i / D, d = i % D;
     float mx = kNegBig;
@@ -294,7 +324,7 @@ __global__ void __launch_bounds__(kThreads)
 paged_decode_combine_kernel(const float* __restrict__ partial,
                             QT* __restrict__ out, int S, int H, int D,
                             int n_split) {
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int h = blockIdx.x % H, b = blockIdx.x / H;
   const int stride = S * (D + 2);
   const float* base =
       partial + (static_cast<int64_t>(b) * H + h) * n_split * stride;
@@ -326,37 +356,41 @@ struct Call {
   cudaStream_t stream;
 };
 
-template <typename QT, typename KVT, int D, int NQ, bool QUANT>
-cudaError_t launch(const Call& c) {
-  const dim3 grid(c.H, c.B, c.n_split);
+template <typename QT, typename KVT, int DP, int NQ, bool QUANT>
+cudaError_t launch(int D, const Call& c) {
+  const unsigned bh = static_cast<unsigned>(c.B) * static_cast<unsigned>(c.H);
+  const dim3 grid(bh, c.n_split);
   const size_t smem = sizeof(int) * (c.split_keys / c.bs);
-  paged_decode_kernel<QT, KVT, D, NQ, QUANT>
+  paged_decode_kernel<QT, KVT, DP, NQ, QUANT>
       <<<grid, kThreads, smem, c.stream>>>(
           static_cast<const QT*>(c.q), static_cast<const KVT*>(c.k),
           static_cast<const KVT*>(c.v), static_cast<const float*>(c.k_scale),
           static_cast<const float*>(c.v_scale),
           static_cast<const int*>(c.table),
           static_cast<const int*>(c.lengths), static_cast<QT*>(c.out),
-          static_cast<float*>(c.partial), c.S, c.H, c.bs, c.table_stride,
+          static_cast<float*>(c.partial), c.S, c.H, D, c.bs, c.table_stride,
           c.n_j, c.split_keys, c.scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || c.n_split == 1) return err;
-  paged_decode_combine_kernel<QT><<<dim3(c.H, c.B), kThreads, 0, c.stream>>>(
+  paged_decode_combine_kernel<QT><<<bh, kThreads, 0, c.stream>>>(
       static_cast<const float*>(c.partial), static_cast<QT*>(c.out), c.S,
       c.H, D, c.n_split);
   return cudaGetLastError();
 }
 
+template <typename QT, typename KVT, int DP, bool QUANT>
+cudaError_t launch_s(int D, const Call& c) {
+  return c.S == 1 ? launch<QT, KVT, DP, 1, QUANT>(D, c)
+                  : launch<QT, KVT, DP, kMaxQueries, QUANT>(D, c);
+}
+
+// The tile width: the least of 16, 32, 64 and 128 that holds D.
 template <typename QT, typename KVT, bool QUANT>
 cudaError_t launch_d(int D, const Call& c) {
-  const bool one = c.S == 1;
-  if (D == 64)
-    return one ? launch<QT, KVT, 64, 1, QUANT>(c)
-               : launch<QT, KVT, 64, kMaxQueries, QUANT>(c);
-  if (D == 128)
-    return one ? launch<QT, KVT, 128, 1, QUANT>(c)
-               : launch<QT, KVT, 128, kMaxQueries, QUANT>(c);
-  return cudaErrorInvalidValue;
+  if (D <= 16) return launch_s<QT, KVT, 16, QUANT>(D, c);
+  if (D <= 32) return launch_s<QT, KVT, 32, QUANT>(D, c);
+  if (D <= 64) return launch_s<QT, KVT, 64, QUANT>(D, c);
+  return launch_s<QT, KVT, 128, QUANT>(D, c);
 }
 
 template <typename QT>
@@ -375,7 +409,8 @@ cudaError_t launch_kv(int kv_dtype, int D, const Call& c) {
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (stores only). With
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (stores only). D is
+// any of 1 .. 128; S at most kMaxQueries (8). With
 // n_split > 1, `partial` is an f32 workspace of B * H * n_split * S * (D + 2)
 // floats; split i covers keys [i * split_keys, (i + 1) * split_keys).
 // Returns 0 on a successful launch, else the cudaError_t of the launch.
@@ -385,7 +420,9 @@ extern "C" int paged_decode_launch(
     void* partial, int B, int S, int H, int D, int bs, int table_stride,
     int n_j, int n_split, int split_keys, float scale, int q_dtype,
     int kv_dtype, void* stream) {
-  if (B < 1 || B > 65535 || H < 1 || H > 65535 || S < 1 || S > kMaxQueries ||
+  if (B < 1 || H < 1 ||
+      static_cast<int64_t>(B) * H > 0x7fffffff ||  // grid x
+      D < 1 || D > 128 || S < 1 || S > kMaxQueries ||
       bs < 1 || n_j < 1 || n_split < 1 || n_split > 65535 ||
       split_keys < bs || split_keys % bs != 0 ||
       split_keys / bs > kMaxSplitBlocks ||

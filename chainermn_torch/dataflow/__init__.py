@@ -1,5 +1,7 @@
-"""Host/device data movement for the serving path."""
+"""Host/device data movement: the serving step's device-to-host fetch and
+the training input's copy-ahead prefetcher."""
 
 from chainermn_torch.dataflow.dispatch import device_fetch
+from chainermn_torch.dataflow.prefetch import DevicePrefetcher
 
-__all__ = ["device_fetch"]
+__all__ = ["DevicePrefetcher", "device_fetch"]

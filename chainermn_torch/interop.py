@@ -1,6 +1,7 @@
 """Weights and images across the frameworks: flax variable trees as the
 port's ``state_dict``s (``TransformerLM``, ``ResNet``, ``MLP``,
-``AlexNet``), and NHWC images in the port's layout.
+``AlexNet``, ``GoogLeNet``, ``VGG16``), and NHWC images in the port's
+layout.
 
 A tree is taken as nested dicts of numpy arrays (``jax.device_get`` of
 the flax variables, with or without the outer ``{"params": ...}``), so
@@ -128,6 +129,36 @@ def alexnet_params_from_flax(tree) -> dict:
     return sd
 
 
+def googlenet_params_from_flax(tree) -> dict:
+    """Convert the flax ``GoogLeNet`` params (``stem1``,
+    ``stem2_reduce``, ``stem2``, ``InceptionBlock_i`` with their named
+    branch convolutions, the ``Dense_0`` head) to the port's
+    :class:`~chainermn_torch.models.vision.GoogLeNet` ``state_dict``."""
+    p = tree.get("params", tree)
+    sd = {}
+    for name in ("stem1", "stem2_reduce", "stem2"):
+        sd.update(_conv(p[name], name))
+    for i, name in enumerate(_numbered(p, "InceptionBlock")):
+        for branch, conv in p[name].items():
+            sd.update(_conv(conv, f"blocks.{i}.{branch}"))
+    sd.update(_linear(p["Dense_0"], "head"))
+    return sd
+
+
+def vgg16_params_from_flax(tree) -> dict:
+    """Convert the flax ``VGG16`` params (``conv<stage>_<i>``,
+    ``Dense_0..2``) to the port's
+    :class:`~chainermn_torch.models.vision.VGG16` ``state_dict``. Both
+    flatten in NHWC order, so the first dense kernel keeps its rows."""
+    p = tree.get("params", tree)
+    sd = mlp_params_from_flax(p)
+    convs = sorted((k for k in p if k.startswith("conv")),
+                   key=lambda k: tuple(map(int, k[4:].split("_"))))
+    for i, name in enumerate(convs):
+        sd.update(_conv(p[name], f"convs.{i}"))
+    return sd
+
+
 def images_from_nhwc(images, device=None) -> torch.Tensor:
     """NHWC images (numpy or torch, the reference's layout) as the port's
     NCHW tensor in ``channels_last`` memory: a view, not a copy, of a
@@ -141,4 +172,5 @@ def images_from_nhwc(images, device=None) -> torch.Tensor:
 
 __all__ = ["params_from_flax", "resnet_params_from_flax",
            "mlp_params_from_flax", "alexnet_params_from_flax",
+           "googlenet_params_from_flax", "vgg16_params_from_flax",
            "images_from_nhwc"]

@@ -18,8 +18,10 @@ from chainermn_torch.models.transformer import (
     generate,
     init_paged_kv_caches,
 )
+from chainermn_torch.models.vision import VGG16, GoogLeNet, InceptionBlock
 
 __all__ = ["MLP", "ResNet", "ResNet18", "ResNet34", "ResNet50", "ResNet101",
            "ResNet152", "BottleneckBlock", "BasicBlock", "AlexNet",
+           "GoogLeNet", "InceptionBlock", "VGG16",
            "TransformerBlock", "TransformerLM", "generate",
            "init_paged_kv_caches"]

@@ -16,14 +16,19 @@ as float32 ``[B, H, Tq]``:
   the ring layer builds its own backward on.
 
 Each kernel wrapper launches its CUDA kernel for CUDA tensors (adding one
-to its ``launches`` count) and raises ``ValueError`` for inputs the kernel
-does not take; for CPU tensors it runs the plain version
+to its ``launches`` count); for CPU tensors it runs the plain version
 (:func:`flash_fwd_reference`, :func:`flash_dq_reference`,
 :func:`flash_dkv_reference`), which materialises the scores and repeats
 the kernel's casts. There is no fallback on the card and no switch to
-turn the kernels off. The kernels take any ``Tq``/``Tk``, so the
-reference's ``full_attention`` fallback for untileable lengths has no
-counterpart; its ``block_q``/``block_k`` tuning knobs have none either.
+turn the kernels off. On the card they take what the reference takes:
+float32, bfloat16 or float16 inputs of one dtype, any ``Tq``/``Tk``, any
+``B * H``, and every head dim ``D`` up to 128 — the kernels are built for
+``D`` of 64 and 128, and :func:`pad_head_dim` runs any other ``D`` on the
+next of the two with zero lanes (exact; it costs one padded copy of the
+inputs). ``D > 128`` raises ``ValueError``: the 128-row tiles of the
+16-bit kernels would not fit in shared memory. The reference's
+``full_attention`` fallback for untileable lengths has no counterpart;
+its ``block_q``/``block_k`` tuning knobs have none either.
 
 Masked scores take ``-1e30``; a masked probability is exactly 0; a row
 that sees no key gets ``out = 0``, ``lse = -1e30`` and zero gradients.
@@ -46,8 +51,14 @@ from chainermn_torch._build import load_library
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention.cu"
 _NEG_BIG = -1e30
-_HEAD_DIMS = (64, 128)
-_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128)       # the widths the kernels are built for
+_MAX_HEAD_DIM = _HEAD_DIMS[-1]
+_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the output dtypes each input dtype's kernels write; any other output
+# dtype is written as float32 and cast, which rounds the same f32 value once
+_OUT_DTYPES = {torch.float32: (torch.float32, torch.bfloat16),
+               torch.bfloat16: (torch.bfloat16, torch.float32),
+               torch.float16: (torch.float16, torch.float32)}
 
 
 class _FlashArgs(ctypes.Structure):
@@ -92,6 +103,41 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"flash attention kernel: {msg}")
 
 
+def kernel_head_dim(d: int) -> int:
+    """The head dim the kernels run ``d`` at: the least of
+    ``_HEAD_DIMS`` that holds it. Raises ``ValueError`` past 128."""
+    _check(1 <= d <= _MAX_HEAD_DIM,
+           f"head dim {d} (the kernels take 1 .. {_MAX_HEAD_DIM})")
+    return next(w for w in _HEAD_DIMS if w >= d)
+
+
+def pad_head_dim(attend, q, k, v, *rest, scale: Optional[float] = None,
+                 **kw):
+    """``attend(q, k, v, *rest, scale=..., **kw)`` run at the kernels' head
+    dim (:func:`kernel_head_dim`): every ``[B, T, H, D]`` argument is
+    padded with zero lanes up to it, the softmax scale stays the true
+    ``D ** -0.5`` unless given, and every ``[B, T, H, D]`` result is cut
+    back to ``D`` (``lse``-shaped results pass through). Exact: a zero
+    lane adds nothing to ``q k^T`` and gives zero columns of out, dq, dk
+    and dv. ``attend`` is any of the wrappers or their plain versions."""
+    d = q.shape[-1]
+    width = kernel_head_dim(d)
+    scale = _scale(q, scale)
+    if width == d:
+        return attend(q, k, v, *rest, scale=scale, **kw)
+
+    def pad(t):
+        if isinstance(t, torch.Tensor) and t.dim() == 4 and t.shape[-1] == d:
+            return torch.nn.functional.pad(t, (0, width - d))
+        return t
+
+    def cut(t):
+        return t[..., :d] if t.dim() == 4 else t
+
+    out = attend(*map(pad, (q, k, v, *rest)), scale=scale, **kw)
+    return tuple(map(cut, out)) if isinstance(out, tuple) else cut(out)
+
+
 def _kernel_view(x: torch.Tensor, name: str) -> torch.Tensor:
     """``x`` as the kernel reads it: unit stride on D, a 16-byte-aligned
     base and batch/time/head strides in whole 16-byte pieces (the fused
@@ -120,7 +166,8 @@ def _prepare(q, k, v, do=None, lse=None, delta=None):
            "q, k and v must be [B, T, H, D]")
     b, tq, h, d = q.shape
     tk = k.shape[1]
-    _check(q.dtype in _CODES, f"dtype {q.dtype} (want float32 or bfloat16)")
+    _check(q.dtype in _CODES,
+           f"dtype {q.dtype} (want float32, bfloat16 or float16)")
     _check(all(t.dtype == q.dtype for t in ins.values()),
            "q, k, v and do must share one dtype")
     _check(d in _HEAD_DIMS, f"head dim {d} (want one of {_HEAD_DIMS})")
@@ -129,7 +176,7 @@ def _prepare(q, k, v, do=None, lse=None, delta=None):
            f"{tuple(q.shape)}")
     _check(do is None or do.shape == q.shape,
            f"do shape {tuple(do.shape) if do is not None else ()} vs q")
-    _check(tq >= 1 and tk >= 1 and b * h <= 65535,
+    _check(tq >= 1 and tk >= 1 and b * h <= 65535 ** 2,
            f"sequence lengths {tq}/{tk} and batch*heads {b * h}")
     stats = [t for t in (lse, delta) if t is not None]
     _check(all(t.dtype == torch.float32 and tuple(t.shape) == (b, h, tq)
@@ -151,10 +198,14 @@ def _prepare(q, k, v, do=None, lse=None, delta=None):
     return ins, (lse, delta), args
 
 
+def _out_dtype(in_dtype, want):
+    """The dtype the kernel writes for output dtype ``want``: ``want``
+    itself where the kernels write it, else float32 (cast after)."""
+    return want if want in _OUT_DTYPES[in_dtype] else torch.float32
+
+
 def _launch(name: str, args: _FlashArgs, dtype, *, causal, scale, q_offset,
             k_offset, device) -> None:
-    _check(dtype in _CODES, f"output dtype {dtype} (want float32 or "
-           "bfloat16)")
     args.out_dtype = _CODES[dtype]
     args.causal = int(bool(causal))
     args.q_offset, args.k_offset = int(q_offset), int(k_offset)
@@ -173,23 +224,26 @@ def flash_fwd_with_lse(q, k, v, *, causal: bool = False,
     ``out_dtype`` (default ``q.dtype``), ``lse`` float32 with ``-1e30``
     for rows that see no key. ``q_offset``/``k_offset`` are the global
     positions of ``q[:, 0]``/``k[:, 0]`` for causal masking. On CUDA
-    tensors this launches the forward kernel; it takes float32 or
-    bfloat16 inputs of one dtype, ``D`` in {64, 128}, any lengths."""
+    tensors this launches the forward kernel; it takes float32, bfloat16
+    or float16 inputs of one dtype, ``D`` up to 128, any lengths."""
     scale = _scale(q, scale)
+    kw = dict(causal=causal, scale=scale, q_offset=q_offset,
+              k_offset=k_offset, out_dtype=out_dtype)
     if not q.is_cuda:
-        return flash_fwd_reference(q, k, v, causal=causal, scale=scale,
-                                   q_offset=q_offset, k_offset=k_offset,
-                                   out_dtype=out_dtype)
+        return flash_fwd_reference(q, k, v, **kw)
+    if q.shape[-1] not in _HEAD_DIMS:
+        return pad_head_dim(flash_fwd_with_lse, q, k, v, **kw)
     views, _, args = _prepare(q, k, v)   # held until the launch is queued
     b, tq, h, d = q.shape
-    out = torch.empty((b, tq, h, d), dtype=out_dtype or q.dtype,
+    want = out_dtype or q.dtype
+    out = torch.empty((b, tq, h, d), dtype=_out_dtype(q.dtype, want),
                       device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     args.out, args.lse_out = out.data_ptr(), lse.data_ptr()
     _launch("flash_fwd_launch", args, out.dtype, causal=causal, scale=scale,
             q_offset=q_offset, k_offset=k_offset, device=q.device)
     flash_fwd_with_lse.launches += 1
-    return out, lse
+    return out.to(want), lse
 
 
 flash_fwd_with_lse.launches = 0
@@ -202,17 +256,20 @@ def flash_dq(q, k, v, do, lse, delta, *, causal: bool = False,
     ``delta`` (float32 ``[B, H, Tq]``). On CUDA tensors this launches the
     dq kernel."""
     scale = _scale(q, scale)
+    kw = dict(causal=causal, scale=scale, q_offset=q_offset,
+              k_offset=k_offset, grad_dtype=grad_dtype)
     if not q.is_cuda:
-        return flash_dq_reference(q, k, v, do, lse, delta, causal=causal,
-                                  scale=scale, q_offset=q_offset,
-                                  k_offset=k_offset, grad_dtype=grad_dtype)
+        return flash_dq_reference(q, k, v, do, lse, delta, **kw)
+    if q.shape[-1] not in _HEAD_DIMS:
+        return pad_head_dim(flash_dq, q, k, v, do, lse, delta, **kw)
     views, stats, args = _prepare(q, k, v, do, lse, delta)
-    dq = torch.empty(q.shape, dtype=grad_dtype, device=q.device)
+    dq = torch.empty(q.shape, dtype=_out_dtype(q.dtype, grad_dtype),
+                     device=q.device)
     args.dq = dq.data_ptr()
-    _launch("flash_dq_launch", args, grad_dtype, causal=causal, scale=scale,
+    _launch("flash_dq_launch", args, dq.dtype, causal=causal, scale=scale,
             q_offset=q_offset, k_offset=k_offset, device=q.device)
     flash_dq.launches += 1
-    return dq
+    return dq.to(grad_dtype)
 
 
 flash_dq.launches = 0
@@ -225,18 +282,22 @@ def flash_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
     final ``lse`` and ``delta``. On CUDA tensors this launches the dk/dv
     kernel."""
     scale = _scale(q, scale)
+    kw = dict(causal=causal, scale=scale, q_offset=q_offset,
+              k_offset=k_offset, grad_dtype=grad_dtype)
     if not q.is_cuda:
-        return flash_dkv_reference(q, k, v, do, lse, delta, causal=causal,
-                                   scale=scale, q_offset=q_offset,
-                                   k_offset=k_offset, grad_dtype=grad_dtype)
+        return flash_dkv_reference(q, k, v, do, lse, delta, **kw)
+    if q.shape[-1] not in _HEAD_DIMS:
+        return pad_head_dim(flash_dkv, q, k, v, do, lse, delta, **kw)
     views, stats, args = _prepare(q, k, v, do, lse, delta)
-    dk = torch.empty(k.shape, dtype=grad_dtype, device=q.device)
-    dv = torch.empty(v.shape, dtype=grad_dtype, device=q.device)
+    kernel_dtype = _out_dtype(q.dtype, grad_dtype)
+    dk = torch.empty(k.shape, dtype=kernel_dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=kernel_dtype, device=q.device)
     args.dk, args.dv = dk.data_ptr(), dv.data_ptr()
-    _launch("flash_dkv_launch", args, grad_dtype, causal=causal, scale=scale,
-            q_offset=q_offset, k_offset=k_offset, device=q.device)
+    _launch("flash_dkv_launch", args, kernel_dtype, causal=causal,
+            scale=scale, q_offset=q_offset, k_offset=k_offset,
+            device=q.device)
     flash_dkv.launches += 1
-    return dk, dv
+    return dk.to(grad_dtype), dv.to(grad_dtype)
 
 
 flash_dkv.launches = 0
@@ -363,4 +424,4 @@ def flash_dkv_reference(q, k, v, do, lse, delta, *, causal: bool = False,
 __all__ = ["build_library", "flash_attention", "flash_block_grads",
            "flash_dkv", "flash_dkv_reference", "flash_dq",
            "flash_dq_reference", "flash_fwd_reference",
-           "flash_fwd_with_lse"]
+           "flash_fwd_with_lse", "kernel_head_dim", "pad_head_dim"]

@@ -11,7 +11,10 @@ transformation inside a traced step; here it wraps a
 - :func:`create_zero_optimizer`: ZeRO-1, the inner optimizer's state
   sharded over the ranks;
 - :func:`clip_by_global_norm_sharded`: gradient clipping by the global
-  norm of sharded gradients, for use inside ZeRO-1.
+  norm of sharded gradients, for use inside ZeRO-1;
+- :func:`warmup_cosine_decay_schedule`: ``optax``'s schedule of the same
+  name as a plain function of the step, for
+  ``torch.optim.lr_scheduler.LambdaLR``.
 
 Anything else (``zero_grad``, ``param_groups``, ``state_dict`` ...) goes
 to the inner optimizer. optax and torch differ in defaults, not formulas:
@@ -24,6 +27,7 @@ momentum=m)``.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Callable, Optional
 
 import torch
@@ -263,6 +267,34 @@ def clip_by_global_norm_sharded(max_norm: float,
     return transform
 
 
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
+                                 warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0,
+                                 exponent: float = 1.0) -> Callable:
+    """``optax.warmup_cosine_decay_schedule`` as a function of the step
+    count (the number of updates already applied): a linear ramp from
+    ``init_value`` to ``peak_value`` over ``warmup_steps``, then a cosine
+    decay to ``end_value`` at ``decay_steps`` (warmup included), held
+    there after. With ``torch.optim.lr_scheduler.LambdaLR(opt, schedule)``
+    over an optimizer built with ``lr=1.0``, update ``t`` uses
+    ``schedule(t)``, as optax's ``count`` does."""
+    if not decay_steps - warmup_steps > 0:
+        raise ValueError(f"the cosine part needs decay_steps > warmup_steps,"
+                         f" got {decay_steps} and {warmup_steps}")
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    cosine_steps = decay_steps - warmup_steps
+
+    def schedule(step: int) -> float:
+        if step < warmup_steps:    # optax.linear_schedule
+            frac = 1.0 - max(step, 0) / warmup_steps
+            return (init_value - peak_value) * frac + peak_value
+        count = min(step - warmup_steps, cosine_steps)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * count / cosine_steps))
+        return peak_value * ((1.0 - alpha) * cosine ** exponent + alpha)
+
+    return schedule
+
+
 __all__ = ["create_multi_node_optimizer", "wait_double_buffering",
            "create_zero_optimizer", "ZeroOptimizer",
-           "clip_by_global_norm_sharded"]
+           "clip_by_global_norm_sharded", "warmup_cosine_decay_schedule"]

@@ -4,9 +4,13 @@ the bytes-read cost model.
 
 Port of ``chainermn_tpu/parallel/paged_kernel.py``. :func:`paged_attend`
 keeps the reference's signature and ``[B, S, H, D]`` layout. It launches
-the CUDA kernel for CUDA tensors and raises when the kernel cannot take
-them; for CPU tensors it runs :func:`paged_attend_reference`. There is no
-fallback on the card and no switch to turn the kernel off.
+the CUDA kernel for CUDA tensors; for CPU tensors it runs
+:func:`paged_attend_reference`. There is no fallback on the card and no
+switch to turn the kernel off. On the card it takes every head dim up to
+128 (the kernel masks the lanes past ``D``; the store is never copied),
+any ``B`` and ``H``, and any number of queries per row: the kernel holds
+at most 8 in registers, so :func:`chunk_queries` runs longer windows as
+chunks of 8, each with its rows' lengths cut to the chunk's last query.
 
 The kernel library is compiled with ``nvcc`` at first use from the source
 in this checkout into ``build/`` at the repository root and loaded with
@@ -30,7 +34,7 @@ from chainermn_torch.parallel.sequence import (
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "paged_decode.cu"
 _MAX_QUERIES = 8          # kMaxQueries in the CUDA source
-_HEAD_DIMS = (64, 128)
+_MAX_HEAD_DIM = 128
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -59,6 +63,24 @@ build_library.log = ""
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"paged_attend: {msg}")
+
+
+def chunk_queries(attend, q, store_k, store_v, table, lengths, **kw):
+    """``attend(q, store_k, store_v, table, lengths, **kw)`` over a query
+    window of any length S, as launches of at most ``_MAX_QUERIES``
+    queries. Query ``s`` of a row sits at position ``lengths[b] - S + s``,
+    so the chunk of queries ``[c0, c1)`` is exactly the last ``c1 - c0``
+    queries of the same row with its length cut to ``lengths[b] - S +
+    c1``. ``attend`` is :func:`paged_attend` or its plain version."""
+    s_len = q.shape[1]
+    if s_len <= _MAX_QUERIES:
+        return attend(q, store_k, store_v, table, lengths, **kw)
+    outs = []
+    for c0 in range(0, s_len, _MAX_QUERIES):
+        c1 = min(s_len, c0 + _MAX_QUERIES)
+        outs.append(attend(q[:, c0:c1].contiguous(), store_k, store_v,
+                           table, lengths - (s_len - c1), **kw))
+    return torch.cat(outs, 1)
 
 
 def split_plan(batch: int, heads: int, n_j: int, bs: int) -> tuple:
@@ -94,10 +116,12 @@ def paged_attend(q, store_k, store_v, table, lengths, *,
     - ``max_blocks``: optional cap on the table entries read.
 
     Returns ``[B, S, H, D]`` in ``q.dtype``. On CUDA tensors this launches
-    the hand-written kernel (adding one to ``paged_attend.launches``) and
-    raises ``ValueError`` for inputs it does not take: q in f32/bf16, a
-    store in f32/bf16/int8, ``D`` in {64, 128}, ``S <= 8``, contiguous
-    tensors on one device, a 16-byte-aligned store. Long rows are split
+    the hand-written kernel (adding one to ``paged_attend.launches`` for
+    each launch; more than 8 queries a row take one launch per chunk of
+    8, :func:`chunk_queries`) and raises ``ValueError`` for inputs it does
+    not take: q in f32/bf16, a store in f32/bf16/int8, ``D`` up to 128,
+    contiguous tensors on one device, a 16-byte-aligned store. Long rows
+    are split
     across CTAs as :func:`split_plan` says; with more than one split the
     kernel's partials go to a float32 workspace allocated here, and a
     second kernel combines them (both count as one launch). On CPU
@@ -106,6 +130,11 @@ def paged_attend(q, store_k, store_v, table, lengths, *,
         return paged_attend_reference(q, store_k, store_v, table, lengths,
                                       k_scale=k_scale, v_scale=v_scale,
                                       scale=scale, max_blocks=max_blocks)
+    kw = dict(k_scale=k_scale, v_scale=v_scale, scale=scale,
+              max_blocks=max_blocks)
+    if q.shape[1] > _MAX_QUERIES:
+        return chunk_queries(paged_attend, q, store_k, store_v, table,
+                             lengths, **kw)
     b, s_len, h, d = q.shape
     n_blocks, bs = store_k.shape[0], store_k.shape[1]
     quant = store_k.dtype == torch.int8
@@ -113,9 +142,9 @@ def paged_attend(q, store_k, store_v, table, lengths, *,
     _check(q.dtype in _Q_CODES, f"q dtype {q.dtype} (want f32 or bf16)")
     _check(store_k.dtype in _KV_CODES and store_v.dtype == store_k.dtype,
            f"store dtypes {store_k.dtype}/{store_v.dtype}")
-    _check(d in _HEAD_DIMS, f"head dim {d} (want one of {_HEAD_DIMS})")
-    _check(1 <= s_len <= _MAX_QUERIES, f"{s_len} queries per row "
-           f"(the kernel takes 1..{_MAX_QUERIES})")
+    _check(1 <= d <= _MAX_HEAD_DIM,
+           f"head dim {d} (the kernel takes 1 .. {_MAX_HEAD_DIM})")
+    _check(s_len >= 1, "no queries")
     _check(tuple(store_k.shape) == (n_blocks, bs, h, d)
            and store_v.shape == store_k.shape,
            f"store shapes {tuple(store_k.shape)}/{tuple(store_v.shape)} "
@@ -228,5 +257,5 @@ def bytes_read_model(lengths, *, block_size: int, max_blocks: int,
     }
 
 
-__all__ = ["build_library", "bytes_read_model", "paged_attend",
-           "paged_attend_reference", "split_plan"]
+__all__ = ["build_library", "bytes_read_model", "chunk_queries",
+           "paged_attend", "paged_attend_reference", "split_plan"]

@@ -7,9 +7,11 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
 It builds the port's CUDA kernels from the sources in the checkout (one
 ``nvcc`` per source, started together), holds each against its plain
-PyTorch version on the card, times it, and drives the port's three paths
-with the 220M-parameter TransformerLM (vocab 32768, d_model 1024, 12
-layers, 16 heads) and ResNet-50 (random weights from a seed):
+PyTorch version on the card (at the kernels' own head dims and at those
+the wrappers pad or mask, in f32, bf16 and f16, with more than 65535
+(row, head) pairs), times it, and drives the port's four paths with the
+220M-parameter TransformerLM (vocab 32768, d_model 1024, 12 layers, 16
+heads) and ResNet-50 (random weights from a seed):
 
 - serving: ``ServingEngine(paged=True, paged_kernel=True)`` and
   ``FCFSScheduler`` answer 32 requests; every decode-step attention must
@@ -27,7 +29,14 @@ layers, 16 heads) and ResNet-50 (random weights from a seed):
   ``create_multi_node_optimizer(SGD)`` and ``train_step`` for 23 steps,
   profiled, and a small f32 ResNet trained by every strategy, double
   buffering and ZeRO-1 on the card must match the same training on the
-  CPU, with the ln 10 known answer on zero images.
+  CPU, with the ln 10 known answer on zero images;
+- the ImageNet trainer: the twin of ``examples/imagenet/train_imagenet.py``
+  (``chainermn_torch.examples.imagenet.train_imagenet.main``) runs in
+  process at full width (ResNet-50, 224x224, 1000 classes, batch 256,
+  one NCCL rank) with the recipe on the native C++ loader and the device
+  prefetcher, with the numpy collate, with FSDP and with multi-node
+  BatchNorm and double buffering; every loss must be finite and the
+  native loader must run where it was asked for.
 
 Each launch count is set to 0 just before its path runs and read just
 after. Each phase prints one JSON line; the line before the last two is
@@ -65,6 +74,7 @@ N_REQUESTS = 32
 PROMPT_LEN = (64, 512)
 MAX_NEW = (64, 128)
 TOL = {"bf16": (2e-2, 2e-2), "f32": (1e-5, 1e-5), "int8": (1e-4, 1e-4)}
+TOL["f16"] = TOL["bf16"]           # the 16-bit tolerance, for float16
 # the trained model: scripts/onchip_lm.py's headline cell
 TRAIN = dict(batch=8, seq_len=2048, lr=3e-4, weight_decay=1e-4,
              warmup_steps=2, timed_steps=10, profile_steps=3)
@@ -243,11 +253,21 @@ PAGED_LENGTHS = {
 }
 
 
+# (D, S) of the paged parity cases: the kernel's own widths with up to
+# the 8 queries one launch holds, then head dims it masks inside (8, 32,
+# 96) and windows of 12 queries (two launches, chunk_queries)
+PAGED_SHAPES = ((64, 1), (64, 4), (64, 8), (128, 1), (128, 8),
+                (8, 1), (8, 12), (32, 4), (32, 12), (96, 8), (96, 12),
+                (64, 12))
+# more (row, head) pairs than one grid axis of 65535 holds, for each kernel
+GRID_BH = 70_000
+
+
 def phase_parity(device):
     """paged_attend vs paged_attend_reference on the card: B=16, H=16,
-    bs=16, the PAGED_LENGTHS sets (split-K and one-CTA paths), D=64 with
-    S in {1, 4, 8} and D=128 with S in {1, 8} (8 is the most the kernel
-    takes), bf16 / f32 / int8 stores."""
+    bs=16, the PAGED_LENGTHS sets (split-K and one-CTA paths), the
+    PAGED_SHAPES (D, S) pairs, bf16 / f32 / int8 stores; then one case
+    with B * H = 70000 rows and heads (B = 70000, H = 1, a bf16 store)."""
     import torch
 
     from chainermn_torch.parallel.paged_kernel import (
@@ -261,7 +281,7 @@ def phase_parity(device):
              "f32": (torch.float32, torch.float32),
              "int8": (torch.int8, torch.float32)}
     results = []
-    for d, s_len in ((64, 1), (64, 4), (64, 8), (128, 1), (128, 8)):
+    for d, s_len in PAGED_SHAPES:
         for path, base in PAGED_LENGTHS.items():
             lengths = [max(n, s_len) for n in base]
             for name, (dtype, q_dtype) in cases.items():
@@ -281,6 +301,21 @@ def phase_parity(device):
                                 "split_keys": plan[1],
                                 "max_abs_err": float(err.max()),
                                 "rtol": rtol, "atol": atol, "ok": ok})
+    # the grid: B * H past 65535 (B = GRID_BH rows of one head)
+    lengths = torch.randint(1, 40, (GRID_BH,), generator=gen).tolist()
+    x = make_paged_inputs(lengths, s_len=1, h=1, d=64, bs=16,
+                          dtype=torch.bfloat16, q_dtype=torch.bfloat16,
+                          gen=gen, device=device)
+    args, kw = attend_args(x)
+    got = paged_attend(*args, **kw).float()
+    want = paged_attend_reference(*args, **kw).float()
+    rtol, atol = TOL["bf16"]
+    err = (got - want).abs()
+    results.append({"store": "bf16", "D": 64, "S": 1, "path": "grid",
+                    "B": GRID_BH, "H": 1, "max_abs_err": float(err.max()),
+                    "rtol": rtol, "atol": atol,
+                    "ok": bool((err <= atol + rtol * want.abs()).all())})
+    del x, args, got, want, err
     emit({"phase": "parity", "kernel": "paged_decode", "cases": results})
     bad = [r for r in results if not r["ok"]]
     if bad:
@@ -449,6 +484,19 @@ def phase_timing(device, lengths):
     kernel_ms = cuda_ms(lambda: paged_attend(*args, **kw), flush=flush)
     plain_ms = cuda_ms(lambda: paged_attend_reference(*args, **kw),
                        flush=flush)
+    # the same rows at a head dim the kernel masks inside (D = 8, the
+    # repo's small LM configurations) and with a 12-query window (two
+    # launches of chunk_queries)
+    wider = {}
+    for tag, s_len, dd in (("D8", 1, 8), ("S12", 12, d)):
+        y = make_paged_inputs([max(n, s_len) for n in lengths], s_len=s_len,
+                              h=h, d=dd, bs=bs, dtype=torch.bfloat16,
+                              q_dtype=torch.bfloat16, gen=gen, device=device,
+                              n_blocks=n_blocks)
+        y_args, y_kw = attend_args(y)
+        wider[f"ms_{tag}"] = cuda_ms(lambda: paged_attend(*y_args, **y_kw),
+                                     flush=flush)
+        del y, y_args, y_kw
     paged_attend.launches = launches0
 
     b = len(lengths)
@@ -479,7 +527,8 @@ def phase_timing(device, lengths):
            "H": h, "D": d, "bs": bs, "store": "bf16", "lengths": lengths,
            "n_split": n_split, "split_keys": split_keys,
            "max_abs_err": err, "library_max_abs_err": lib_err,
-           "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "ms": kernel_ms, **wider, "plain_ms": plain_ms,
+           "library_ms": library_ms,
            "bytes": n_bytes, "ops": n_ops,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -561,10 +610,17 @@ def _compare(got, want, rtol, atol):
                                   .all())
 
 
+# the FLASH_CASES run at head dims the wrapper pads (8, 32, 96)
+FLASH_PAD_CASES = ("square_causal", "ragged_full", "rect_causal",
+                   "offset_k300")
+
+
 def phase_flash_parity(device):
     """Each flash kernel against its plain version on the card: B=2,
-    H=16, D in {64, 128}, bf16 and f32, the FLASH_CASES shapes (ragged
-    tails, Tq != Tk, offsets, a sequence below one tile). The backward
+    H=16, D in {64, 128} with the FLASH_CASES shapes (ragged tails,
+    Tq != Tk, offsets, a sequence below one tile) and D in {8, 32, 96}
+    with the FLASH_PAD_CASES, bf16, f32 and f16 each; then one case with
+    B * H past 65535 (B = 4375, H = 16, T = 8, bf16, causal). The backward
     kernels take the plain forward's lse and delta, so each kernel sees
     its plain version's inputs; gradients come back in the input dtype, as
     in training. Rows that see no key must hold out == 0 and lse == -1e30,
@@ -574,14 +630,22 @@ def phase_flash_parity(device):
     from chainermn_torch.ops import flash_attention as fa
 
     gen = torch.Generator().manual_seed(SEED + 4)
-    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32,
+              "f16": torch.float16}
+    grid_case = ("grid_bh", 8, 8, True, 0, 0)
     results = []
     worst = dict.fromkeys(FLASH_KERNELS, 0.0)
-    for d in (64, 128):
-        for dname, dtype in dtypes.items():
+    padded = [c for c in FLASH_CASES if c[0] in FLASH_PAD_CASES]
+    # (B, D, dtypes, cases)
+    groups = ([(2, d, dtypes, FLASH_CASES) for d in (64, 128)]
+              + [(2, d, dtypes, padded) for d in (8, 32, 96)]
+              + [(-(-GRID_BH // 16), 64, {"bf16": torch.bfloat16},
+                  [grid_case])])
+    for b, d, group_dtypes, cases in groups:
+        for dname, dtype in group_dtypes.items():
             rtol, atol = TOL[dname]
-            for name, tq, tk, causal, qo, ko in FLASH_CASES:
-                q, k, v, do = _flash_inputs(2, tq, tk, 16, d, dtype, gen,
+            for name, tq, tk, causal, qo, ko in cases:
+                q, k, v, do = _flash_inputs(b, tq, tk, 16, d, dtype, gen,
                                             device)
                 kw = dict(causal=causal, q_offset=qo, k_offset=ko)
                 gkw = dict(kw, grad_dtype=dtype)
@@ -614,7 +678,7 @@ def phase_flash_parity(device):
                         and (dv[:, keys] == 0).all())
                 ok = sentinel_ok and all(c[1] for c in checks.values())
                 results.append({
-                    "D": d, "dtype": dname, "case": name,
+                    "B": b, "D": d, "dtype": dname, "case": name,
                     "err": {n: float(f"{c[0]:.3g}")
                             for n, c in checks.items()},
                     "blind_rows": blind_q, "blind_keys": blind_k,
@@ -624,8 +688,8 @@ def phase_flash_parity(device):
                 worst["flash_dq"] = max(worst["flash_dq"], checks["dq"][0])
                 worst["flash_dkv"] = max(worst["flash_dkv"], checks["dk"][0],
                                          checks["dv"][0])
-    emit({"phase": "flash_parity", "B": 2, "H": 16, "tol": TOL,
-          "shapes": {c[0]: c[1:] for c in FLASH_CASES},
+    emit({"phase": "flash_parity", "H": 16, "tol": TOL,
+          "shapes": {c[0]: c[1:] for c in FLASH_CASES + [grid_case]},
           "shape_fields": ["Tq", "Tk", "causal", "q_offset", "k_offset"],
           "cases": results})
     bad = [r for r in results if not r["ok"]]
@@ -859,6 +923,14 @@ def phase_flash_timing(device):
                       else "operations",
                       "tflops": n_ops / kernel_ms / 1e9}
         torch.cuda.empty_cache()
+    # the same shape at D = 8 (the repo's small LM configurations), which
+    # the wrapper runs padded to 64
+    q, k, v, do = _flash_inputs(b, t, t, h, 8, torch.bfloat16, gen, device,
+                                fused=True)
+    out, lse = fa.flash_fwd_with_lse(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    for name, (kern, _) in calls.items():
+        recs[name]["ms_D8"] = cuda_ms(kern, flush=flush)
     for fn, n in saved.items():
         getattr(fa, fn).launches = n
     emit({"phase": "flash_timing", "B": b, "T": t, "H": h, "D": d,
@@ -1235,6 +1307,136 @@ def phase_dp_parity(device):
         raise AssertionError(f"known answer: losses {known} against ln 10")
 
 
+# the ImageNet trainer twin at full width (ResNet-50, 224x224, 1000
+# classes, batch 256 a rank, one NCCL rank, a bf16 wire) in each mode:
+# name -> (flags, native loader asked for)
+IMAGENET = ["--arch", "resnet50", "--classes", "1000", "--image-size", "224",
+            "--communicator", "pure_nccl", "--dtype", "bfloat16",
+            "--n-synthetic", "16384"]
+IMAGENET_MODES = {
+    # the recipe (warmup-cosine LR over 90 epochs, label smoothing,
+    # held-out top-1) on the native C++ loader and the device prefetcher
+    "a_recipe_native_prefetch": (
+        ["--batchsize", "256", "--recipe", "--epoch", "90", "--val-frac",
+         "0.02", "--native-loader", "--device-prefetch", "2",
+         "--iterations", "30"], True),
+    # the numpy collate on the loop's thread
+    "b_numpy_collate": (["--batchsize", "256", "--no-native-loader",
+                         "--iterations", "8"], False),
+    # the two other layouts run on NCCL
+    "c_fsdp": (["--batchsize", "64", "--fsdp", "--iterations", "5"], False),
+    "c_mnbn_double_buffering": (["--batchsize", "64", "--mnbn",
+                                 "--double-buffering", "--iterations", "5"],
+                                False),
+}
+IMAGENET_PROFILE = dict(wait=2, active=3)   # loop iterations
+
+
+def _twin(argv, step_callback=None):
+    """The twin's ``main(argv)`` with its printed lines captured."""
+    import contextlib
+    import io
+
+    from chainermn_torch.examples.imagenet.train_imagenet import main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        summary = main(argv, step_callback=step_callback)
+    return summary, buf.getvalue().splitlines()
+
+
+def _profiled_twin(argv, wait, active):
+    """The twin for ``wait + active`` iterations with ``torch.profiler``
+    over the last ``active`` loop iterations (input pipeline included),
+    the card synchronized at both ends of the window: device kernel time,
+    device copy time and the window's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = {}
+
+    def callback(iteration, loss):
+        if iteration in (wait, wait + active):
+            torch.cuda.synchronize()
+            window[iteration] = time.perf_counter()
+            (prof.start if iteration == wait else prof.stop)()
+
+    _twin(argv + ["--iterations", str(wait + active)], callback)
+    wall = window[wait + active] - window[wait]
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    copies = sum(e.self_device_time_total for e in dev
+                 if e.key.startswith(("Memcpy", "Memset")))
+    kernels = sum(e.self_device_time_total for e in dev) - copies
+    return kernels / 1e6, copies / 1e6, wall
+
+
+def phase_imagenet(device, step_images_per_sec):
+    """The ImageNet trainer twin (``chainermn_torch.examples.imagenet.
+    train_imagenet.main``) in process at full width, in each of
+    IMAGENET_MODES: a timed run (the loop's images/s excludes the first
+    iteration, as the reference's does), then a profiled run of
+    IMAGENET_PROFILE's iterations for the device idle share (kernel time
+    over the window's wall time; the copies are reported beside it). One
+    JSON line per mode, beside dp_train's step-only images/s. Fails if a
+    loss is not finite, a mode prints no ``done:`` line, or the native
+    loader was asked for and did not run."""
+    import torch
+
+    torch.backends.cudnn.benchmark = True
+    records = []
+    for mode, (flags, native) in IMAGENET_MODES.items():
+        argv = IMAGENET + flags
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        summary, printed = _twin(argv)
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(device)
+        cut = argv.index("--iterations")
+        kernel_s, copy_s, wall = _profiled_twin(
+            argv[:cut] + argv[cut + 2:], **IMAGENET_PROFILE)
+        done = [ln for ln in printed if ln.startswith("done: ")]
+        rec = {"phase": "imagenet", "mode": mode, "argv": argv,
+               "printed": printed, "run_s": run_s,
+               "iterations": summary["iterations"],
+               "loop_images_per_sec": summary["images_per_sec"],
+               "dp_train_step_images_per_sec": step_images_per_sec,
+               "loop_over_step": (summary["images_per_sec"]
+                                  / step_images_per_sec
+                                  if summary["images_per_sec"] else None),
+               "native_loader": summary["native_loader"],
+               "h2d_seconds_per_batch": summary["h2d_seconds_per_batch"],
+               "profiled_iterations": IMAGENET_PROFILE["active"],
+               "profiled_wall_ms_per_iter":
+                   wall / IMAGENET_PROFILE["active"] * 1e3,
+               "device_kernel_ms_per_iter":
+                   kernel_s / IMAGENET_PROFILE["active"] * 1e3,
+               "device_copy_ms_per_iter":
+                   copy_s / IMAGENET_PROFILE["active"] * 1e3,
+               "device_idle_share": (1 - kernel_s / wall) if kernel_s > 0
+               else "not measured",
+               "peak_memory_allocated_gb": peak / 1e9,
+               "top1": summary["top1"], "params": summary["params"],
+               "losses": summary["losses"],
+               "losses_finite": summary["losses_finite"]}
+        emit(rec)
+        records.append(rec)
+        if not summary["losses_finite"]:
+            raise AssertionError(f"imagenet {mode}: a loss is not finite")
+        if not done:
+            raise AssertionError(f"imagenet {mode}: no 'done:' line")
+        if native and not summary["native_loader"]:
+            raise AssertionError(f"imagenet {mode}: the native loader was "
+                                 "asked for and did not run")
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = False
+    return records
+
+
 def main() -> int:
     try:
         import torch
@@ -1263,8 +1465,9 @@ def main() -> int:
     flash_timing = phase_flash_timing(device)
     phase_train_parity(device)
     comm.finalize()
-    phase_dp_train(device)
+    dp = phase_dp_train(device)
     phase_dp_parity(device)
+    phase_imagenet(device, dp["images_per_sec"])
     kernels = [{
         "name": "paged_decode", "route": "cuda",
         "source": "chainermn_torch/csrc/paged_decode.cu",

@@ -5,7 +5,8 @@ without ``clip_by_global_norm_sharded``) on 4 gloo ranks with
 ``LOCAL_WORLD_SIZE=2``, against ``jit_train_step`` on a 4-device CPU
 mesh (2x2 for the two-level strategies), from one converted flax init
 and the same per-rank batches; the ln 10 known answer of
-``__graft_entry__.py:147-158``; ``scatter_dataset``; and the
+``__graft_entry__.py:147-177`` (FSDP and HSDP included);
+``scatter_dataset``; and the
 classification loss with and without label smoothing.
 
 The 4 ranks start once per module and run every case; the tests
@@ -70,8 +71,9 @@ CASES = {
 }
 # the known answer on every case: a superset of __graft_entry__'s
 # data-parallel paths (hierarchical with double buffering, a bf16 wire,
-# two_dimensional, ZeRO-1)
-KNOWN = CASES
+# two_dimensional, ZeRO-1, FSDP and HSDP over the intra groups)
+KNOWN = dict(CASES, fsdp=("pure_nccl", "fsdp", None),
+             hsdp=("hierarchical", "hsdp", None))
 
 _WORKER = """
 import math
@@ -84,6 +86,7 @@ from chainermn_torch import (
 from chainermn_torch.optimizers import wait_double_buffering
 from chainermn_torch.interop import images_from_nhwc
 from chainermn_torch.models import ResNet
+from chainermn_torch.parallel.fsdp import fsdp_shard, fsdp_train_step
 from chainermn_torch.training import train_step
 
 torch.set_float32_matmul_precision("highest")
@@ -129,9 +132,17 @@ zeros = torch.zeros(n, 3, 32, 32).to(memory_format=torch.channels_last)
 for name, case in spec["known"].items():
     model = ResNet(stage_sizes=[1, 1, 1, 1], width=8, num_classes=10,
                    compute_dtype=torch.float32, device="cpu", seed=0)
-    comm, opt = build(case, model)
-    out["known"][name] = float(train_step(model, opt, comm)(
-        zeros, torch.zeros(n, dtype=torch.long)))
+    if case[1] in ("fsdp", "hsdp"):
+        comm = create_communicator(case[0], device="cpu")
+        axis = "intra" if case[1] == "hsdp" else None
+        model = fsdp_shard(model, comm, axis=axis)
+        sgd = torch.optim.SGD(model.parameters(), lr=spec["lr"],
+                              momentum=0.9)
+        step = fsdp_train_step(model, sgd, comm, axis=axis)
+    else:
+        comm, opt = build(case, model)
+        step = train_step(model, opt, comm)
+    out["known"][name] = float(step(zeros, torch.zeros(n, dtype=torch.long)))
     comm.finalize()
 
 two_level = create_communicator("hierarchical", device="cpu")
@@ -276,8 +287,8 @@ def test_options_change_the_trajectory(runs):
 @pytest.mark.parametrize("name", list(KNOWN))
 def test_known_answer_ln10(runs, name):
     """Zero images and a zero-initialized head bias give uniform logits:
-    the first loss is ln 10 for every strategy, double buffering and
-    ZeRO-1 (``__graft_entry__.py:147-158``)."""
+    the first loss is ln 10 for every strategy, double buffering, ZeRO-1,
+    FSDP and HSDP (``__graft_entry__.py:147-177``)."""
     known = runs[1][0]["known"]
     assert abs(known[name] - math.log(10.0)) < 1e-3
     assert max(abs(v - known[name]) for v in known.values()) < 1e-5

@@ -12,8 +12,12 @@ Tolerances: f32 atol 1e-5 (the two sides sum in different orders: one
 softmax over all keys against an online softmax over 8-key blocks); bf16
 atol 2e-2 (p is rounded to bf16 before PV on both sides, but relative to
 the global row max on one and the running max on the other, so a few
-values land one bf16 ulp apart). The CUDA kernels are held against the
-same plain versions on the card by ``chip_smoke.py``.
+values land one bf16 ulp apart); float16 atol 2e-2 as bf16 (a 16-bit
+type with the same casts). Head dims other than the kernels' 64 and 128
+(8, 32, 96) and float16 are held to the JAX kernels too, and the
+wrapper's zero-lane padding (``pad_head_dim``) to the plain versions at
+the true head dim. The CUDA kernels are held against the same plain
+versions on the card by ``chip_smoke.py``.
 """
 
 import re
@@ -229,10 +233,14 @@ def test_kernel_args_read_the_fused_qkv_slices_in_place():
             args.in_dtype) == (b, h, t, t, d, 1)
 
 
-@pytest.mark.parametrize("bad", ["head_dim", "float16", "mixed", "stats"])
+@pytest.mark.parametrize("bad", ["head_dim", "float64", "mixed", "stats"])
 def test_kernel_args_reject_what_the_kernels_do_not_take(bad):
+    """The launch struct takes the kernels' own widths only (the public
+    wrappers pad other head dims first, :func:`pad_head_dim`), one of
+    float32, bfloat16 or float16 for all inputs, and ``[B, H, Tq]``
+    statistics."""
     shape = {"head_dim": (1, 4, 2, 32)}.get(bad, (1, 4, 2, 64))
-    dtype = torch.float16 if bad == "float16" else torch.float32
+    dtype = torch.float64 if bad == "float64" else torch.float32
     q = torch.zeros(shape, dtype=dtype)
     k = q.to(torch.bfloat16) if bad == "mixed" else q
     lse = torch.zeros((1, 2, 3 if bad == "stats" else 4))
@@ -292,3 +300,96 @@ def test_edited_header_changes_the_library_name(tmp_path, monkeypatch):
     assert built_name() == first == _build.library_path(src).name
     inner.write_text("// two\n")
     assert built_name() != first
+
+
+# --------------------------------------------------------------------- #
+# What the reference takes beyond the kernels' own widths and types      #
+# --------------------------------------------------------------------- #
+
+# head dims the kernels run padded (D -> 64 or 128), and float16
+WIDE = {"D8": (8, "f32"), "D32": (32, "f32"), "D96": (96, "f32"),
+        "D32_f16": (32, "f16"), "D64_f16": (64, "f16")}
+WIDE_DTYPES = dict(DTYPES, f16=(jnp.float16, torch.float16, 2e-2))
+
+
+def _wide_inputs(d, dtype, tq=24, tk=24, seed=6):
+    rng = np.random.default_rng(seed)
+    xs = [rng.standard_normal((2, t, H, d)).astype(np.float32)
+          for t in (tq, tk, tk, tq)]
+    jdt, tdt, _ = WIDE_DTYPES[dtype]
+    return ([jnp.asarray(x, jdt) for x in xs],
+            [torch.from_numpy(x).to(tdt) for x in xs])
+
+
+@pytest.mark.parametrize("case", list(WIDE))
+def test_plain_versions_match_jax_at_any_head_dim_and_float16(case):
+    """The forward and both backward plain versions against the Pallas
+    kernels (interpret mode, 8-row blocks) at head dims the CUDA kernels
+    run padded, and in float16 (p and ds rounded to float16 on both
+    sides, float32 accumulation)."""
+    d, dtype = WIDE[case]
+    (jq, jk, jv, jdo), (q, k, v, do) = _wide_inputs(d, dtype)
+    kw = dict(causal=True, q_offset=4, k_offset=0)
+    j_out, j_lse = jax_fwd(jq, jk, jv, **kw, **BLOCKS)
+    out, lse = tfa.flash_fwd_with_lse(q, k, v, **kw)
+    atol = WIDE_DTYPES[dtype][2]
+    assert out.dtype == WIDE_DTYPES[dtype][1]
+    np.testing.assert_allclose(_np(out), _np(j_out), atol=atol, rtol=0)
+    np.testing.assert_allclose(_np(lse), _np(j_lse), atol=atol, rtol=1e-6)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    want = jax_block_grads(jq, jk, jv, jdo, jnp.asarray(lse.numpy()),
+                           jnp.asarray(delta.numpy()), **kw, **BLOCKS)
+    got = tfa.flash_block_grads(q, k, v, do, lse, delta, **kw)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(_np(g), _np(w), atol=atol, rtol=0,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("d", [1, 8, 32, 65, 96])
+def test_pad_head_dim_is_exact(d):
+    """The wrapper-side padding, run over the plain versions: out, lse,
+    dq, dk and dv at the padded width, cut back to D, equal the plain
+    versions at the true D (the softmax scale stays D ** -0.5)."""
+    (_, _, _, _), (q, k, v, do) = _wide_inputs(d, "f32", seed=7)
+    kw = dict(causal=True, q_offset=0, k_offset=3)
+    out, lse = tfa.pad_head_dim(tfa.flash_fwd_reference, q, k, v, **kw)
+    r_out, r_lse = tfa.flash_fwd_reference(q, k, v, **kw)
+    assert out.shape == q.shape
+    torch.testing.assert_close(out, r_out, atol=1e-6, rtol=0)
+    torch.testing.assert_close(lse, r_lse, atol=1e-6, rtol=0)
+    delta = (do * r_out).sum(-1).transpose(1, 2).contiguous()
+    dq = tfa.pad_head_dim(tfa.flash_dq_reference, q, k, v, do, r_lse,
+                          delta, **kw)
+    dk, dv = tfa.pad_head_dim(tfa.flash_dkv_reference, q, k, v, do, r_lse,
+                              delta, **kw)
+    r_dk, r_dv = tfa.flash_dkv_reference(q, k, v, do, r_lse, delta, **kw)
+    torch.testing.assert_close(
+        dq, tfa.flash_dq_reference(q, k, v, do, r_lse, delta, **kw),
+        atol=1e-6, rtol=0)
+    torch.testing.assert_close(dk, r_dk, atol=1e-6, rtol=0)
+    torch.testing.assert_close(dv, r_dv, atol=1e-6, rtol=0)
+
+
+def test_kernel_head_dim_rounds_up_and_stops_at_128():
+    assert [tfa.kernel_head_dim(d) for d in (1, 8, 63, 64, 65, 96, 128)] == \
+        [64, 64, 64, 64, 128, 128, 128]
+    with pytest.raises(ValueError, match="head dim 160"):
+        tfa.kernel_head_dim(160)
+
+
+def test_float16_autograd_matches_jax():
+    """The differentiable entry in float16 against ``jax_flash``: values
+    and gradients come back in float16."""
+    (jq, jk, jv, jg), tqkvg = _wide_inputs(32, "f16", seed=8)
+    g = np.asarray(jg, np.float32)
+    j_out, j_grads = _jax_value_and_grads(jq, jk, jv, jnp.asarray(g),
+                                          causal=True, **BLOCKS)
+    tqkv = [t.requires_grad_() for t in tqkvg[:3]]
+    t_out = tfa.flash_attention(*tqkv, causal=True)
+    t_grads = torch.autograd.grad(t_out.float(), tqkv, torch.from_numpy(g))
+    assert t_out.dtype == torch.float16
+    np.testing.assert_allclose(_np(t_out), _np(j_out), atol=2e-2, rtol=0)
+    for got, want, name in zip(t_grads, j_grads, "qkv"):
+        assert got.dtype == torch.float16, name
+        np.testing.assert_allclose(_np(got), _np(want), atol=2e-2, rtol=0,
+                                   err_msg=f"d{name}")

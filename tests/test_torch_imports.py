@@ -73,11 +73,14 @@ def test_entry_points_raise_without_a_card():
     for name in ("pure_nccl", "naive", "hierarchical", "two_dimensional"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             create_communicator(name)
+    from chainermn_torch.dataflow import DevicePrefetcher
     from chainermn_torch.links import BatchNorm, MultiNodeBatchNormalization
+    from chainermn_torch.models import VGG16, GoogLeNet
 
     for build in (lambda: ResNet([1], width=4), MLP, AlexNet,
                   lambda: BatchNorm(4),
-                  lambda: MultiNodeBatchNormalization(4, None)):
+                  lambda: MultiNodeBatchNormalization(4, None),
+                  GoogLeNet, VGG16, lambda: DevicePrefetcher(iter([]))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
     model = TransformerLM(vocab_size=11, d_model=8, n_heads=2, n_layers=1,

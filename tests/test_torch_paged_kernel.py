@@ -7,8 +7,11 @@ the table span, then the position-masked cached attention); the JAX side
 runs the Pallas kernel in interpret mode, as the JAX package's own tests
 do. Inputs come from numpy with a fixed seed. Tolerance: f32 atol 1e-5
 (the two sides sum in different orders: online softmax vs one softmax).
-The CUDA kernel itself is held against the same plain version on the
-card by ``chip_smoke.py``.
+Head dims the kernel masks inside (8, 32, 96) and windows of more than
+the 8 queries a launch takes are held to the JAX kernel too, and the
+wrapper's chunking (``chunk_queries``) to one plain call over the whole
+window. The CUDA kernel itself is held against the same plain version on
+the card by ``chip_smoke.py``.
 """
 
 import jax.numpy as jnp
@@ -36,20 +39,20 @@ def _q8(x):
             sc)
 
 
-def _inputs(s_len, lengths, *, quant, seed=0):
+def _inputs(s_len, lengths, *, quant, seed=0, d=D):
     """A store of random rows, every row's table pointing at its own
     random blocks, junk in the scratch block and junk ids in each table's
     tail past the row's length (the position mask must hide them)."""
     rng = np.random.default_rng(seed)
     n_blocks = 1 + B * N_MAX + 3
-    k = rng.standard_normal((n_blocks, BS, H, D)).astype(np.float32)
-    v = rng.standard_normal((n_blocks, BS, H, D)).astype(np.float32)
+    k = rng.standard_normal((n_blocks, BS, H, d)).astype(np.float32)
+    v = rng.standard_normal((n_blocks, BS, H, d)).astype(np.float32)
     ids = rng.permutation(np.arange(1, n_blocks))
     table = ids[:B * N_MAX].reshape(B, N_MAX).astype(np.int32)
     for i, n in enumerate(lengths):
         live = -(-n // BS)
         table[i, live:] = rng.integers(0, n_blocks, N_MAX - live)
-    q = rng.standard_normal((B, s_len, H, D)).astype(np.float32)
+    q = rng.standard_normal((B, s_len, H, d)).astype(np.float32)
     out = dict(q=q, k=k, v=v, table=table,
                lengths=np.asarray(lengths, np.int32), ks=None, vs=None)
     if quant:
@@ -171,3 +174,29 @@ def test_bytes_read_model_matches_jax(kv_quant):
     lengths = [1, 16, 17, 300, 2048, 0]
     assert tpk.bytes_read_model(lengths, **kw) == \
         jpk.bytes_read_model(lengths, **kw)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("d,s_len", [(8, 1), (32, 4), (96, 8), (32, 12),
+                                     (8, 12)])
+def test_paged_attend_matches_jax_at_any_head_dim_and_window(d, s_len,
+                                                             quant):
+    """Head dims the kernel masks inside (8, 32, 96) and query windows
+    past the kernel's 8 a launch (S = 12), against the Pallas kernel."""
+    x = _inputs(s_len, [13, 17, 20], quant=quant, seed=2, d=d)
+    np.testing.assert_allclose(_torch(tpk.paged_attend, x), _jax(x),
+                               atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("s_len", [9, 12, 17])
+def test_chunk_queries_is_exact(s_len, quant):
+    """The wrapper-side chunking, run over the plain version: chunks of 8
+    queries with each row's length cut to the chunk's last query equal
+    one call over the whole window, rows shorter than the window
+    included (their early queries see no key)."""
+    x = _inputs(s_len, [s_len, 14, 20], quant=quant, seed=3)
+    want = _torch(tpk.paged_attend_reference, x)
+    got = _torch(lambda *a, **kw: tpk.chunk_queries(
+        tpk.paged_attend_reference, *a, **kw), x)
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
