@@ -2,7 +2,7 @@
 NVIDIA H100 (Hopper, sm_90a).
 
 The layout mirrors the JAX package so each module's counterpart is easy
-to find. It holds four paths so far:
+to find. It holds five paths so far:
 
 - paged serving: the dense :class:`~chainermn_torch.models.TransformerLM`,
   the paged KV-cache attention (:mod:`chainermn_torch.parallel.sequence`)
@@ -27,13 +27,22 @@ to find. It holds four paths so far:
   (:mod:`chainermn_torch.native`), the device prefetcher
   (:mod:`chainermn_torch.dataflow`), the warmup-cosine LR schedule, the
   multi-node evaluator, FSDP/HSDP (:mod:`chainermn_torch.parallel.fsdp`),
-  GoogLeNet and VGG16, and the global except hook.
+  GoogLeNet and VGG16, and the global except hook;
+- ChainerMN's model parallelism and extensions: :class:`MultiNodeChainList`
+  over the differentiable ``send``/``recv``/``pseudo_connect``
+  (:mod:`chainermn_torch.functions`) with
+  :func:`create_component_wise_optimizer`, the CRC-footer checkpointer
+  (:func:`create_multi_node_checkpointer`), :class:`AllreducePersistent`,
+  :class:`ObservationAggregator`, the profiling helpers
+  (:mod:`chainermn_torch.extensions`) and fault injection and retry
+  (:mod:`chainermn_torch.resilience`), with the MNIST and seq2seq example
+  twins under :mod:`chainermn_torch.examples`.
 
 The package imports ``torch`` and numpy only; weights cross over from
 flax through :mod:`chainermn_torch.interop`.
 """
 
-from chainermn_torch import functions
+from chainermn_torch import dataflow, functions, monitor, resilience
 from chainermn_torch.global_except_hook import add_hook as add_global_except_hook
 from chainermn_torch.communicators import (
     CommunicatorBase,
@@ -54,6 +63,11 @@ from chainermn_torch.datasets import (
     scatter_index,
 )
 from chainermn_torch.evaluators import create_multi_node_evaluator
+from chainermn_torch.extensions import (
+    AllreducePersistent,
+    ObservationAggregator,
+    create_multi_node_checkpointer,
+)
 from chainermn_torch.iterators import (
     SerialIterator,
     create_multi_node_iterator,
@@ -61,10 +75,12 @@ from chainermn_torch.iterators import (
 )
 from chainermn_torch.links import (
     MultiNodeBatchNormalization,
+    MultiNodeChainList,
     create_mnbn_model,
 )
 from chainermn_torch.optimizers import (
     clip_by_global_norm_sharded,
+    create_component_wise_optimizer,
     create_multi_node_optimizer,
     create_zero_optimizer,
     warmup_cosine_decay_schedule,
@@ -78,12 +94,15 @@ __all__ = [
     "TwoDimensionalCommunicator", "SingleNodeCommunicator",
     "create_communicator",
     "create_multi_node_optimizer", "create_zero_optimizer",
+    "create_component_wise_optimizer",
     "clip_by_global_norm_sharded", "warmup_cosine_decay_schedule",
-    "MultiNodeBatchNormalization", "create_mnbn_model",
+    "MultiNodeChainList", "MultiNodeBatchNormalization", "create_mnbn_model",
     "SubDataset", "scatter_dataset", "scatter_index", "create_empty_dataset",
     "get_n_iterations_for_one_epoch",
     "SerialIterator", "create_multi_node_iterator",
     "create_synchronized_iterator", "create_multi_node_evaluator",
+    "AllreducePersistent", "ObservationAggregator",
+    "create_multi_node_checkpointer",
     "add_global_except_hook",
-    "functions",
+    "dataflow", "functions", "monitor", "resilience",
 ]

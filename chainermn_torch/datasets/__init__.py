@@ -100,5 +100,18 @@ def get_n_iterations_for_one_epoch(dataset, local_batch_size: int) -> int:
     return -(-len(dataset) // local_batch_size)
 
 
+def equal_shards(shard, comm: CommunicatorBase) -> SubDataset:
+    """``shard`` padded with its own first records to the longest rank's
+    length (ChainerMN's ``force_equal_length``), so every rank draws the
+    same number of batches an epoch — one process a rank runs a
+    collective step cadence. Every rank calls it."""
+    longest = comm.allreduce_obj(len(shard), max)
+    if len(shard) == longest:
+        return shard
+    idx = list(range(len(shard)))
+    return SubDataset(shard, idx + idx[:longest - len(shard)])
+
+
 __all__ = ["SubDataset", "scatter_dataset", "scatter_index",
-           "create_empty_dataset", "get_n_iterations_for_one_epoch"]
+           "create_empty_dataset", "get_n_iterations_for_one_epoch",
+           "equal_shards"]

@@ -52,7 +52,7 @@ import torch
 
 import chainermn_torch
 from chainermn_torch import models
-from chainermn_torch.datasets import SubDataset
+from chainermn_torch.datasets import SubDataset, equal_shards
 from chainermn_torch.interop import images_from_nhwc
 from chainermn_torch.training import train_step
 from chainermn_torch.utils import ensure_batch_fits
@@ -143,17 +143,6 @@ def record_source(ds):
     raise TypeError(
         f"--native-loader supports the synthetic/npz datasets, got "
         f"{type(ds).__name__}")
-
-
-def equal_shards(shard, comm) -> SubDataset:
-    """``shard`` padded with its own first records to the longest rank's
-    length (ChainerMN's ``force_equal_length``), so every rank draws the
-    same number of batches an epoch."""
-    longest = comm.allreduce_obj(len(shard), max)
-    if len(shard) == longest:
-        return shard
-    idx = list(range(len(shard)))
-    return SubDataset(shard, idx + idx[:longest - len(shard)])
 
 
 def _parser() -> argparse.ArgumentParser:

@@ -14,7 +14,12 @@ this module needs neither jax nor flax. Layout conversions:
 - ``Conv`` kernel HWIO -> OIHW;
 - ``Embed`` ``embedding`` -> ``Embedding`` weight (same layout);
 - ``LayerNorm`` / ``BatchNorm`` ``scale``/``bias`` -> ``weight``/``bias``;
-  ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``.
+  ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``;
+- ``GRUCell`` (``ir``/``iz``/``in``, ``hr``/``hz``/``hn``) -> ``nn.GRU``'s
+  stacked ``(r, z, n)`` gates (:func:`gru_params_from_flax`).
+
+:func:`load_chain_from_flax` loads a ``MultiNodeChainList`` component by
+component from the JAX chain's ``init``.
 """
 
 from __future__ import annotations
@@ -159,6 +164,54 @@ def vgg16_params_from_flax(tree) -> dict:
     return sd
 
 
+def gru_params_from_flax(p, prefix: str = "gru") -> dict:
+    """Convert a flax ``GRUCell``'s params to a one-layer ``nn.GRU``'s
+    (``weight_ih_l0``, ``weight_hh_l0``, ``bias_ih_l0``, ``bias_hh_l0``).
+
+    flax: ``r = σ(ir(x) + hr(h))``, ``z = σ(iz(x) + hz(h))``,
+    ``n = tanh(in(x) + r * hn(h))``, ``h' = (1 - z) n + z h``, where the
+    ``i*`` denses and ``hn`` have biases and ``hr``/``hz`` have none.
+    torch computes the same with the gates stacked ``(r, z, n)`` and a
+    hidden bias on every gate, so ``hr``/``hz``'s is zero and ``hn``'s
+    bias, which sits inside ``r * (...)``, is ``bias_hh``'s n block.
+    Training must hold those two zero blocks at zero (flax has no such
+    parameters; the seq2seq twin's GRUs drop their gradient)."""
+    def w(name):
+        return np.asarray(p[name]["kernel"], np.float32).T
+
+    hidden = np.asarray(p["ir"]["kernel"]).shape[1]
+    zeros = np.zeros(hidden, np.float32)
+    return {
+        f"{prefix}.weight_ih_l0": _t(np.concatenate([w("ir"), w("iz"),
+                                                     w("in")])),
+        f"{prefix}.weight_hh_l0": _t(np.concatenate([w("hr"), w("hz"),
+                                                     w("hn")])),
+        f"{prefix}.bias_ih_l0": _t(np.concatenate(
+            [p["ir"]["bias"], p["iz"]["bias"], p["in"]["bias"]])),
+        f"{prefix}.bias_hh_l0": _t(np.concatenate([zeros, zeros,
+                                                   p["hn"]["bias"]])),
+    }
+
+
+def load_chain_from_flax(chain, variables, converters) -> None:
+    """Load a :class:`~chainermn_torch.links.MultiNodeChainList` from the
+    JAX ``MultiNodeChainList.init``'s list of flax variables (one a
+    component, in insertion order): each component this rank holds gets
+    ``converters[i](variables[i])`` as its ``state_dict`` (``converters``
+    one callable for every component, or a list of one a component). The
+    other ranks' components stay where they are."""
+    if callable(converters):
+        converters = [converters] * len(variables)
+    if not len(variables) == len(converters) == len(chain.components):
+        raise ValueError(f"{len(variables)} variables and "
+                         f"{len(converters)} converters for "
+                         f"{len(chain.components)} components")
+    held = set(map(id, chain.local_components()))
+    for link, v, convert in zip(chain.components, variables, converters):
+        if id(link) in held:
+            link.load_state_dict(convert(v))
+
+
 def images_from_nhwc(images, device=None) -> torch.Tensor:
     """NHWC images (numpy or torch, the reference's layout) as the port's
     NCHW tensor in ``channels_last`` memory: a view, not a copy, of a
@@ -173,4 +226,5 @@ def images_from_nhwc(images, device=None) -> torch.Tensor:
 __all__ = ["params_from_flax", "resnet_params_from_flax",
            "mlp_params_from_flax", "alexnet_params_from_flax",
            "googlenet_params_from_flax", "vgg16_params_from_flax",
+           "gru_params_from_flax", "load_chain_from_flax",
            "images_from_nhwc"]

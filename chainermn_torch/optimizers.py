@@ -295,6 +295,40 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
     return schedule
 
 
+class ComponentWiseOptimizer:
+    """One optimizer per component of a
+    :class:`~chainermn_torch.links.MultiNodeChainList` (made by
+    :func:`create_component_wise_optimizer`); ``step`` and ``zero_grad``
+    act on each."""
+
+    def __init__(self, optimizers: list) -> None:
+        self.optimizers = optimizers
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for opt in self.optimizers:
+            opt.zero_grad(set_to_none=set_to_none)
+
+    def step(self) -> None:
+        for opt in self.optimizers:
+            opt.step()
+
+
+
+def create_component_wise_optimizer(make_optimizer: Callable,
+                                    model) -> ComponentWiseOptimizer:
+    """An optimizer for each component of ``model`` (a
+    ``MultiNodeChainList``) that this rank holds and that has parameters,
+    each made by ``make_optimizer(parameters)`` (``optimizers.py:118-144``;
+    a torch optimizer binds its parameters when it is built, so this takes
+    a factory, e.g. ``lambda ps: torch.optim.Adam(ps, 1e-3)``). Each
+    rank's optimizers see only its own components, as in upstream
+    ChainerMN; no gradient crosses ranks."""
+    return ComponentWiseOptimizer([
+        make_optimizer(list(m.parameters()))
+        for m in model.local_components() if any(True for _ in m.parameters())])
+
+
 __all__ = ["create_multi_node_optimizer", "wait_double_buffering",
            "create_zero_optimizer", "ZeroOptimizer",
+           "ComponentWiseOptimizer", "create_component_wise_optimizer",
            "clip_by_global_norm_sharded", "warmup_cosine_decay_schedule"]

@@ -36,7 +36,16 @@ heads) and ResNet-50 (random weights from a seed):
   one NCCL rank) with the recipe on the native C++ loader and the device
   prefetcher, with the numpy collate, with FSDP and with multi-node
   BatchNorm and double buffering; every loss must be finite and the
-  native loader must run where it was asked for.
+  native loader must run where it was asked for;
+- the MNIST and seq2seq twins (no kernel of their own), each at its JAX
+  script's defaults: data-parallel MNIST in process on one NCCL rank
+  (finite, falling losses, val accuracy at least 0.9); the checkpoint
+  twin crashed and resumed in three runs (the resumed run's last snapshot
+  must equal an uninterrupted run's, leaf for leaf); the model-parallel
+  MNIST and seq2seq twins as two processes on the card over a gloo group
+  (stage parameters on the card, boundary tensors staged through the
+  host; MNIST's first losses must match the two stages in one process to
+  1e-5, with one transfer each way a step).
 
 Each launch count is set to 0 just before its path runs and read just
 after. Each phase prints one JSON line; the line before the last two is
@@ -1437,6 +1446,337 @@ def phase_imagenet(device, step_images_per_sec):
     return records
 
 
+# the example twins' phases (their JAX scripts' defaults, nothing cut).
+# The JAX examples' own figures at the same arguments on the CPU
+# (examples/mnist/train_mnist.py on one device, examples/mnist/
+# train_mnist_model_parallel.py and examples/seq2seq/seq2seq.py on two,
+# JAX_PLATFORMS=cpu): final validation accuracy, token accuracy
+JAX_CPU = {"mnist_val_accuracy": 1.0, "mnist_mp_val_accuracy": 1.0,
+           "seq2seq_token_accuracy": 0.8955}
+MNIST_GATE = 0.9                   # the JAX figure clears it
+CKPT_STOP_AT = 123                 # crash after 123 of 200 iterations
+MP_PARITY_STEPS = 3
+
+
+def _lines(run):
+    """``run()``'s result and the lines it printed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = run()
+    return out, buf.getvalue().splitlines()
+
+
+def phase_mnist(device, card):
+    """The data-parallel MNIST twin (``chainermn_torch.examples.mnist.
+    train_mnist.main``) in process on one NCCL rank at its defaults
+    (batch 100, unit 1000, 20 epochs, 10,000/2,000 synthetic images).
+    Fails unless every loss is finite, the last epoch's loss is below the
+    first step's and the final validation accuracy is at least
+    MNIST_GATE."""
+    import torch
+
+    from chainermn_torch.examples.mnist.train_mnist import main as twin
+
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    summary, printed = _lines(lambda: twin(["--communicator", "pure_nccl"]))
+    run_s = time.perf_counter() - t0
+    epochs = summary["epochs"]
+    losses = [summary["first_loss"]] + [e["loss"] for e in epochs]
+    acc = epochs[-1]["validation/main/accuracy"]
+    rec = {"phase": "mnist", "card": card, "printed": printed,
+           "run_s": run_s, "steps": summary["steps"],
+           "images_per_sec": summary["steps"] * summary["global_batch"]
+           / summary["train_seconds"],
+           "step_ms": summary["train_seconds"] / summary["steps"] * 1e3,
+           "first_loss": summary["first_loss"],
+           "epoch_losses": [e["loss"] for e in epochs],
+           "val_accuracy": [e["validation/main/accuracy"] for e in epochs],
+           "jax_cpu_val_accuracy": JAX_CPU["mnist_val_accuracy"],
+           "peak_memory_allocated_gb":
+               torch.cuda.max_memory_allocated(device) / 1e9}
+    emit(rec)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"mnist: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"mnist: the loss did not fall: {losses}")
+    if acc < MNIST_GATE:
+        raise AssertionError(f"mnist: val accuracy {acc} < {MNIST_GATE}")
+
+
+def _snapshot_leaves(path):
+    """The leaves of one snapshot file, by path in its tree."""
+    import pickle
+
+    from chainermn_torch.extensions.checkpoint import _strip_footer
+
+    payload, verified = _strip_footer(Path(path).read_bytes())
+    if not verified:
+        raise AssertionError(f"{path}: the checksum does not match")
+    out = {}
+
+    def walk(tree, at):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{at}/{k}")
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                walk(v, f"{at}/{i}")
+        else:
+            out[at] = tree
+    walk(pickle.loads(payload)["state"], "")
+    return out
+
+
+def phase_mnist_checkpoint(card):
+    """The checkpoint twin (``python -m chainermn_torch.examples.mnist.
+    train_mnist_checkpoint``) at its defaults, three runs on the card: an
+    uninterrupted one, one with ``--stop-at CKPT_STOP_AT`` (must exit
+    non-zero after "simulated crash"), and a resumed one (must print
+    "resumed from iteration K'", K' the newest snapshot at or before the
+    crash). Fails unless the resumed run's last snapshot equals the
+    uninterrupted run's, leaf by leaf (the largest difference is
+    reported; the target is 0)."""
+    import tempfile
+
+    import numpy as np
+
+    cmd = [sys.executable, "-m",
+           "chainermn_torch.examples.mnist.train_mnist_checkpoint",
+           "--communicator", "pure_nccl"]
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, extra, out in (("uninterrupted", [], "a"),
+                                 ("crash", ["--stop-at", str(CKPT_STOP_AT)],
+                                  "b"),
+                                 ("resumed", [], "b")):
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd + ["--out", str(Path(tmp) / out)] + extra,
+                               cwd=ROOT, capture_output=True, text=True,
+                               timeout=600)
+            printed = r.stdout.splitlines()
+            runs[name] = {"rc": r.returncode, "s": time.perf_counter() - t0,
+                          "printed": printed[:2] + printed[-2:],
+                          "stderr_tail": r.stderr[-2000:]}
+        snaps = {k: sorted(Path(tmp, k).glob("snapshot_mnist_example_*.0"),
+                           key=lambda p: int(p.name.split("_")[-1][:-2]))
+                 for k in ("a", "b")}
+        last = {k: v[-1].name for k, v in snaps.items() if v}
+        diffs, same_leaves = {}, False
+        if len(last) == 2 and last["a"] == last["b"]:
+            a, b = (_snapshot_leaves(snaps[k][-1]) for k in ("a", "b"))
+            same_leaves = list(a) == list(b)
+            for k in a:
+                x, y = np.asarray(a[k]), np.asarray(b.get(k))
+                if x.dtype.kind in "fiu" and x.shape == y.shape:
+                    diffs[k] = float(np.abs(x.astype(np.float64)
+                                            - y.astype(np.float64)).max()
+                                     if x.size else 0.0)
+                else:
+                    diffs[k] = 0.0 if repr(a[k]) == repr(b.get(k)) else \
+                        float("inf")
+    expect = CKPT_STOP_AT // 5 * 5
+    stats = [ln for ln in runs["resumed"]["printed"]
+             if ln.startswith("finished at iteration")]
+    resumed_from = [ln for ln in runs["resumed"]["printed"]
+                    if ln.startswith("resumed from")]
+    rec = {"phase": "mnist_checkpoint", "card": card, "runs": runs,
+           "last_snapshots": last, "leaves": len(diffs),
+           "max_abs_diff": max(diffs.values()) if diffs else None,
+           "checkpoint_stats": stats}
+    emit(rec)
+    if runs["uninterrupted"]["rc"] or runs["resumed"]["rc"]:
+        raise AssertionError("mnist_checkpoint: a run failed")
+    if not runs["crash"]["rc"] or not any(
+            "simulated crash" in ln for ln in runs["crash"]["printed"]):
+        raise AssertionError("mnist_checkpoint: the crash run did not crash")
+    if resumed_from != [f"resumed from iteration {expect}"]:
+        raise AssertionError(f"mnist_checkpoint: did not resume from {expect}")
+    if not same_leaves or rec["max_abs_diff"] != 0.0:
+        raise AssertionError("mnist_checkpoint: the resumed run's last "
+                             "snapshot differs from the uninterrupted run's")
+
+
+# two ranks on one card: a gloo default group (NCCL refuses two ranks on
+# one device), which the twin's communicator joins; parameters and compute
+# stay on the card, the boundary tensors are staged through the host
+_TWO_RANKS_ON_ONE_CARD = """
+import contextlib, io, os, time
+import torch
+import torch.distributed as dist
+
+dist.init_process_group("gloo", init_method="env://", rank=RANK,
+                        world_size=int(os.environ["WORLD_SIZE"]))
+import importlib
+main = importlib.import_module(ARGS[0]).main
+torch.cuda.reset_peak_memory_stats()
+buf = io.StringIO()
+t0 = time.perf_counter()
+with contextlib.redirect_stdout(buf):
+    summary = main(["--device", "cuda"])
+summary["run_s"] = time.perf_counter() - t0
+summary["printed"] = buf.getvalue().splitlines()
+summary["peak_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+summary["backend"] = dist.get_backend()
+if len(ARGS) > 1:
+    # the host-staged transfer alone: round trips of the boundary tensor
+    # (and of one float, the fixed cost) over the same comm.send/recv
+    from chainermn_torch import create_communicator
+
+    comm = create_communicator("naive", device="cuda")
+    peer = 1 - comm.rank
+    summary["pingpong_ms"] = {}
+    for name, shape in (("boundary", [int(n) for n in ARGS[1].split(",")]),
+                        ("one_float", [1])):
+        x = torch.randn(shape, device="cuda")
+        for i in range(53):
+            if i == 3:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            if comm.rank == 0:
+                comm.send(x, peer)
+                x = comm.recv(peer)
+            else:
+                comm.send(comm.recv(peer), peer)
+        torch.cuda.synchronize()
+        # one way, averaged over 50 round trips
+        summary["pingpong_ms"][name] = (time.perf_counter() - t0) / 100 * 1e3
+    comm.finalize()
+save(summary)
+dist.destroy_process_group()
+"""
+
+
+def _two_ranks(module, *pingpong_shape):
+    from chainermn_torch.testing import run_ranks
+
+    return run_ranks(_TWO_RANKS_ON_ONE_CARD, 2,
+                     args=[module, *pingpong_shape], timeout=600)
+
+
+def _mp_one_process(device, n_steps):
+    """The model-parallel twin's two stages as one module in one process
+    (the same seeded weights, batches and per-stage Adam): its first
+    ``n_steps`` losses."""
+    import torch
+    import torch.nn.functional as F
+
+    from chainermn_torch import SerialIterator
+    from chainermn_torch.examples.mnist import train_mnist_model_parallel as mp
+    from chainermn_torch.examples.mnist.train_mnist import (
+        ArrayDataset, collate, load_mnist)
+
+    stages = [mp.MLPHalf0(500).to(device), mp.MLPHalf1(500).to(device)]
+    model = torch.nn.Sequential(*stages)
+    opts = [torch.optim.Adam(s.parameters(), lr=1e-3) for s in stages]
+    (x, y), _ = load_mnist(None, 8000, 1000)
+    it = SerialIterator(ArrayDataset(x, y), 100, shuffle=True, seed=1)
+    losses = []
+    for _ in range(n_steps):
+        images, labels = collate(next(it))
+        for o in opts:
+            o.zero_grad()
+        loss = F.cross_entropy(model(torch.as_tensor(images, device=device)),
+                               torch.as_tensor(labels, device=device).long())
+        loss.backward()
+        for o in opts:
+            o.step()
+        losses.append(float(loss))
+    return losses
+
+
+def phase_mnist_mp(device, card):
+    """The model-parallel MNIST twin as two processes on the card (stage 0
+    on rank 0, stage 1 on rank 1) at its defaults (unit 500, batch 100,
+    10 epochs, 8,000/1,000 images). Fails unless every parameter is on
+    the card, the losses are finite and fall, the final validation
+    accuracy is at least MNIST_GATE, the first MP_PARITY_STEPS losses
+    match the two stages in one process to 1e-5, and each rank ran one
+    forward and one backward transfer a step. After training the two
+    ranks time round trips of the boundary tensor alone over the same
+    host-staged path (the transfer's own cost, apart from waiting for the
+    other stage)."""
+    t0 = time.perf_counter()
+    ranks = _two_ranks("chainermn_torch.examples.mnist."
+                       "train_mnist_model_parallel", "100,500")
+    run_s = time.perf_counter() - t0
+    ref = _mp_one_process(device, MP_PARITY_STEPS)
+    stage1 = ranks[1]
+    losses = stage1["losses"]
+    parity = max(abs(a - b) for a, b in zip(losses, ref))
+    per_rank = []
+    for r, out in enumerate(ranks):
+        t = out["transfers"]
+        n = t["forward"] + t["backward"]
+        per_rank.append({
+            "rank": r, "backend": out["backend"], "steps": out["steps"],
+            "param_devices": out["param_devices"],
+            "n_params": out["n_params"],
+            "step_ms": out["train_seconds"] / out["steps"] * 1e3,
+            "transfers_forward": t["forward"],
+            "transfers_backward": t["backward"],
+            "bytes_per_transfer": t["bytes"] / n if n else None,
+            "transfer_ms_per_step": t["seconds"] / out["steps"] * 1e3,
+            "send_recv_share_of_step": t["seconds"] / out["train_seconds"],
+            "pingpong_one_way_ms": out["pingpong_ms"],
+            "peak_memory_allocated_gb": out["peak_memory_allocated_gb"],
+            "run_s": out["run_s"]})
+    acc = stage1["epochs"][-1]["validation/main/accuracy"]
+    rec = {"phase": "mnist_mp", "card": card, "printed": ranks[0]["printed"],
+           "run_s": run_s, "ranks": per_rank,
+           "epoch_losses": [e["loss"] for e in stage1["epochs"]],
+           "val_accuracy": [e["validation/main/accuracy"]
+                            for e in stage1["epochs"]],
+           "jax_cpu_val_accuracy": JAX_CPU["mnist_mp_val_accuracy"],
+           "first_losses": losses[:MP_PARITY_STEPS],
+           "one_process_losses": ref, "parity_max_abs_diff": parity}
+    emit(rec)
+    for p in per_rank:
+        if p["param_devices"] != ["cuda"]:
+            raise AssertionError(f"mnist_mp: rank {p['rank']} holds "
+                                 f"parameters on {p['param_devices']}")
+        if p["transfers_forward"] != p["steps"] or \
+                p["transfers_backward"] != p["steps"]:
+            raise AssertionError(f"mnist_mp: rank {p['rank']} ran "
+                                 "other than one transfer each way a step")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError("mnist_mp: the losses are not finite or did "
+                             "not fall")
+    if acc < MNIST_GATE:
+        raise AssertionError(f"mnist_mp: val accuracy {acc} < {MNIST_GATE}")
+    if not parity <= 1e-5:
+        raise AssertionError(f"mnist_mp: {losses[:MP_PARITY_STEPS]} against "
+                             f"one process's {ref}")
+
+
+def phase_seq2seq_mp(card):
+    """The seq2seq twin as two processes on the card (the GRU encoder on
+    rank 0, the decoder on rank 1) at its defaults (unit 64, vocab 16,
+    seq 8, batch 64, 20 epochs, 2,048 pairs). Fails unless every loss is
+    finite and the last epoch's token accuracy is above the first's."""
+    t0 = time.perf_counter()
+    ranks = _two_ranks("chainermn_torch.examples.seq2seq.seq2seq")
+    epochs = ranks[0]["epochs"]
+    acc = [e["token_accuracy"] for e in epochs]
+    losses = [e["loss"] for e in epochs]
+    rec = {"phase": "seq2seq_mp", "card": card, "printed": ranks[0]["printed"],
+           "run_s": time.perf_counter() - t0,
+           "param_devices": [out["param_devices"] for out in ranks],
+           "steps": ranks[1]["steps"],
+           "step_ms": ranks[1]["train_seconds"] / ranks[1]["steps"] * 1e3,
+           "epoch_losses": losses, "token_accuracy": acc,
+           "jax_cpu_token_accuracy": JAX_CPU["seq2seq_token_accuracy"]}
+    emit(rec)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"seq2seq_mp: a loss is not finite: {losses}")
+    if not acc[-1] > acc[0]:
+        raise AssertionError(f"seq2seq_mp: token accuracy did not rise: {acc}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1468,6 +1808,10 @@ def main() -> int:
     dp = phase_dp_train(device)
     phase_dp_parity(device)
     phase_imagenet(device, dp["images_per_sec"])
+    phase_mnist(device, smi)
+    phase_mnist_checkpoint(smi)
+    phase_mnist_mp(device, smi)
+    phase_seq2seq_mp(smi)
     kernels = [{
         "name": "paged_decode", "route": "cuda",
         "source": "chainermn_torch/csrc/paged_decode.cu",

@@ -87,3 +87,21 @@ def test_entry_points_raise_without_a_card():
                           max_len=16, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(model, n_slots=1, prefill_len=4)
+
+
+# names of chainermn_tpu.__all__ the port does not have yet; each has its
+# item in ROADMAP.md's Queue A
+STILL_TO_PORT = ("MeshCommunicator", "TpuCommunicator", "fleet")
+
+
+def test_facade_covers_the_jax_package():
+    import chainermn_torch
+    import chainermn_tpu
+
+    missing = {n for n in chainermn_tpu.__all__
+               if not hasattr(chainermn_torch, n)}
+    assert missing == set(STILL_TO_PORT)
+    roadmap = (PKG.parent / "ROADMAP.md").read_text()
+    queue_a = roadmap.split("### Queue A")[1].split("### Queue B")[0]
+    for name in STILL_TO_PORT:
+        assert f"`{name}`" in queue_a, f"{name} has no item in Queue A"
