@@ -2,7 +2,7 @@
 NVIDIA H100 (Hopper, sm_90a).
 
 The layout mirrors the JAX package so each module's counterpart is easy
-to find. It holds five paths so far:
+to find. It holds these paths so far:
 
 - paged serving: the dense :class:`~chainermn_torch.models.TransformerLM`,
   the paged KV-cache attention (:mod:`chainermn_torch.parallel.sequence`)
@@ -36,7 +36,13 @@ to find. It holds five paths so far:
   :class:`ObservationAggregator`, the profiling helpers
   (:mod:`chainermn_torch.extensions`) and fault injection and retry
   (:mod:`chainermn_torch.resilience`), with the MNIST and seq2seq example
-  twins under :mod:`chainermn_torch.examples`.
+  twins under :mod:`chainermn_torch.examples`;
+- context and tensor parallelism of the LM: ring, zigzag and Ulysses
+  attention on the flash kernels (:mod:`chainermn_torch.parallel.sequence`),
+  Megatron layers and the vocab-parallel head
+  (:mod:`chainermn_torch.parallel.tensor`), the ``dp x sp x tp`` rank mesh
+  (:mod:`chainermn_torch.parallel.mesh`, :class:`MeshCommunicator`) and
+  ``lm_train_step``'s sequence- and tensor-parallel steps.
 
 The package imports ``torch`` and numpy only; weights cross over from
 flax through :mod:`chainermn_torch.interop`.
@@ -48,6 +54,7 @@ from chainermn_torch.communicators import (
     CommunicatorBase,
     FlatCommunicator,
     HierarchicalCommunicator,
+    MeshCommunicator,
     NaiveCommunicator,
     ProcessGroupCommunicator,
     PureNcclCommunicator,
@@ -89,7 +96,8 @@ from chainermn_torch.optimizers import (
 __version__ = "0.1.0"
 
 __all__ = [
-    "CommunicatorBase", "ProcessGroupCommunicator", "NaiveCommunicator",
+    "CommunicatorBase", "MeshCommunicator", "ProcessGroupCommunicator",
+    "NaiveCommunicator",
     "FlatCommunicator", "PureNcclCommunicator", "HierarchicalCommunicator",
     "TwoDimensionalCommunicator", "SingleNodeCommunicator",
     "create_communicator",

@@ -15,7 +15,9 @@ name                strategy
 ``non_cuda_aware``  :class:`HierarchicalCommunicator`, with a warning
 ==================  ============================================
 
-Only the flat NCCL strategy takes ``allreduce_grad_dtype``, as in the
+:class:`MeshCommunicator` (a named ``dp x sp x tp`` rank mesh with one
+group per axis, for sequence and tensor parallelism) is built directly,
+as in the reference. Only the flat NCCL strategy takes ``allreduce_grad_dtype``, as in the
 reference.
 """
 
@@ -30,6 +32,7 @@ from chainermn_torch.communicators.hierarchical_communicator import (
     SingleNodeCommunicator,
     TwoDimensionalCommunicator,
 )
+from chainermn_torch.communicators.mesh_communicator import MeshCommunicator
 from chainermn_torch.communicators.naive_communicator import NaiveCommunicator
 from chainermn_torch.communicators.process_group_communicator import (
     ProcessGroupCommunicator,
@@ -71,7 +74,7 @@ def create_communicator(communicator_name: str = "pure_nccl", *,
     return _OTHERS[name](device=device)
 
 
-__all__ = ["CommunicatorBase", "ProcessGroupCommunicator",
+__all__ = ["CommunicatorBase", "MeshCommunicator", "ProcessGroupCommunicator",
            "NaiveCommunicator", "FlatCommunicator", "PureNcclCommunicator",
            "HierarchicalCommunicator", "TwoDimensionalCommunicator",
            "SingleNodeCommunicator", "create_communicator"]

@@ -3,8 +3,6 @@
 packed into one buffer per dtype, one all-reduce each, unpacked and
 divided by the size."""
 
-import torch.distributed as dist
-
 from chainermn_torch.communicators import _memory_utility
 from chainermn_torch.communicators.process_group_communicator import (
     ProcessGroupCommunicator,
@@ -14,10 +12,9 @@ from chainermn_torch.communicators.process_group_communicator import (
 class FlatCommunicator(ProcessGroupCommunicator):
     def _mean_leaves(self, leaves: list) -> list:
         buffers, metas = _memory_utility.pack_leaves(leaves)
-        for buf in buffers:
-            dist.all_reduce(buf, group=self.group)
-            buf.mul_(1.0 / self.size)
-        return _memory_utility.unpack_leaves(buffers, metas)
+        means = [self._all_reduce(buf, copy=False).mul_(1.0 / self.size)
+                 for buf in buffers]
+        return _memory_utility.unpack_leaves(means, metas)
 
 
 __all__ = ["FlatCommunicator"]

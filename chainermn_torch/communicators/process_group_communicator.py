@@ -13,6 +13,7 @@ per gradient (``mesh_communicator.py:636-641``).
 from __future__ import annotations
 
 import os
+import time
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
@@ -29,6 +30,11 @@ _OPS = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
         "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN,
         "prod": dist.ReduceOp.PRODUCT}
 _ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR")
+# collectives of CUDA tensors over a gloo group (gloo moves no CUDA tensor
+# in point-to-point or all-to-all, so the communicator stages them through
+# the host itself): the bytes copied between the card and the host, both
+# directions, and the seconds from the copy off the card to the copy back
+HOST_STAGED = {"bytes": 0, "seconds": 0.0}
 
 
 class _MessageType(NamedTuple):
@@ -118,6 +124,8 @@ class ProcessGroupCommunicator(CommunicatorBase):
         self._rank = self._obj.rank
         self._size = len(ranks)
         self._mailbox: dict[int, list] = {}
+        self._stage = (self.device.type == "cuda"
+                       and dist.get_backend(group) == "gloo")
 
     def _new_group(self, ranks: list[int], backend=None):
         """``dist.new_group`` over global ``ranks``; every rank of the
@@ -184,9 +192,37 @@ class ProcessGroupCommunicator(CommunicatorBase):
         if op not in _OPS:
             raise ValueError(f"unknown reduce op {op!r}; use one of "
                              f"{sorted(_OPS)}")
-        y = x.detach().clone()
-        dist.all_reduce(y, op=_OPS[op], group=self._group)
+        y = self._all_reduce(x, _OPS[op])
         return y / self._size if op == "mean" else y
+
+    def _all_reduce(self, x, op=dist.ReduceOp.SUM, copy: bool = True):
+        """The reduction of every rank's ``x``: a new tensor, or, with
+        ``copy=False`` (the caller owns ``x``), ``x`` itself reduced in
+        place unless it is staged through the host."""
+        y, back = self._to_wire(x, copy)
+        dist.all_reduce(y, op=op, group=self._group)
+        return back(y)
+
+    def _to_wire(self, x, copy: bool = True):
+        """``x`` as the group's backend can move it, and the function that
+        brings a result back to ``x``'s device: a CUDA tensor over a gloo
+        group goes through the host, counted in ``HOST_STAGED``; any other
+        is ``x`` itself, or a fresh copy of it when ``copy`` (the backend
+        writes into it)."""
+        if not (self._stage and x.is_cuda):
+            return (x.detach().clone() if copy else x.detach()), lambda y: y
+        torch.cuda.synchronize(x.device)   # the card's queue is not ours
+        t0 = time.perf_counter()
+        HOST_STAGED["bytes"] += x.numel() * x.element_size()
+        dev = x.device
+
+        def back(y):
+            HOST_STAGED["bytes"] += y.numel() * y.element_size()
+            y = y.to(dev)
+            HOST_STAGED["seconds"] += time.perf_counter() - t0
+            return y
+
+        return x.detach().cpu(), back
 
     def _like_root(self, x, root: int, slice0: bool):
         """Root's tensor header (shape, dtype) on every rank, and an
@@ -234,10 +270,39 @@ class ProcessGroupCommunicator(CommunicatorBase):
         if x.shape[0] != self._size:
             raise ValueError(f"alltoall input leading axis {x.shape[0]} != "
                              f"comm size {self._size}")
-        x = x.detach().contiguous()
+        x, back = self._to_wire(x.contiguous(), copy=False)
         out = torch.empty_like(x)
         dist.all_to_all_single(out, x, group=self._group)
-        return out
+        return back(out)
+
+    def ppermute(self, x, perm):
+        """Each rank's ``x`` moved along ``perm``, a list of ``(source,
+        dest)`` pairs of this communicator's ranks (``lax.ppermute``): the
+        result is what this rank's source sent, zeros where no pair ends
+        here. The send and the receive are posted together, so a ring
+        does not deadlock on two ranks."""
+        perm = [(int(s), int(d)) for s, d in perm]
+        dest = [d for s, d in perm if s == self._rank]
+        source = [s for s, d in perm if d == self._rank]
+        if len(dest) > 1 or len(source) > 1 or len(
+                {s for s, _ in perm}) != len(perm) or len(
+                {d for _, d in perm}) != len(perm):
+            raise ValueError(f"ppermute needs a permutation, got {perm}")
+        if dest == [self._rank] and source == [self._rank]:
+            return x.detach().clone()
+        buf, back = self._to_wire(x.contiguous(), copy=False)
+        out = torch.zeros_like(buf)
+        ops = []
+        if dest:
+            ops.append(dist.P2POp(dist.isend, buf, self._global(dest[0]),
+                                  self._group))
+        if source:
+            ops.append(dist.P2POp(dist.irecv, out, self._global(source[0]),
+                                  self._group))
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        return back(out) if source else torch.zeros_like(x)
 
     def send(self, x, dest: int, tag: int = 0) -> None:
         leaves, treedef = _flatten(x)
@@ -311,12 +376,7 @@ class ProcessGroupCommunicator(CommunicatorBase):
     def _mean_leaves(self, leaves: list) -> list:
         """Strategy hook: a list of gradients -> their means over ranks.
         Here: one all-reduce a gradient (the naive strategy)."""
-        out = []
-        for g in leaves:
-            g = g.detach().clone()
-            dist.all_reduce(g, group=self._group)
-            out.append(g.mul_(1.0 / self._size))
-        return out
+        return [self._all_reduce(g).mul_(1.0 / self._size) for g in leaves]
 
     @torch.no_grad()
     def multi_node_mean_grad(self, grads, zero_fill: bool = False):
@@ -342,11 +402,7 @@ class ProcessGroupCommunicator(CommunicatorBase):
         strategies fall back to one all-reduce a gradient on it."""
         del key
         colors = self._obj.allgather_obj(color)
-        sub = object.__new__(type(self))
-        sub.device = self.device
-        sub._owns_default = False
-        sub._intra_size = self._intra_size
-        sub._created = []
+        sub = self._sub_communicator(type(self))
         mine = None
         for c in sorted(set(colors)):
             ranks = [self._ranks[r] for r, rc in enumerate(colors) if rc == c]
@@ -356,6 +412,17 @@ class ProcessGroupCommunicator(CommunicatorBase):
                 mine = (g, obj_group, ranks)
         sub._attach(*mine, split=True)
         self._copy_strategy_state(sub)
+        return sub
+
+    def _sub_communicator(self, cls):
+        """An unattached communicator of ``cls`` on this process's device
+        and node geometry, owning no group yet (``split`` and the mesh
+        axes attach it to one)."""
+        sub = object.__new__(cls)
+        sub.device = self.device
+        sub._owns_default = False
+        sub._intra_size = self._intra_size
+        sub._created = []
         return sub
 
     def _copy_strategy_state(self, sub) -> None:

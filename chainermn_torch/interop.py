@@ -10,6 +10,9 @@ this module needs neither jax nor flax. Layout conversions:
 - ``qkv`` ``DenseGeneral`` kernel ``[d, 3, H, Dh]`` -> ``Linear`` weight
   ``[3*H*Dh, d]``; bias ``[3, H, Dh]`` -> ``[3*H*Dh]``;
 - ``proj`` ``DenseGeneral`` kernel ``[H, Dh, d]`` -> weight ``[d, H*Dh]``;
+- the tensor-parallel blocks' global ``Dense``-shaped kernels (``qkv_tpcol``,
+  ``proj_tprow`` and the MLP's column/row pair) -> the port's
+  ``attn.qkv``, ``attn.proj``, ``mlp.fc1``, ``mlp.fc2``;
 - ``Dense`` kernel ``[in, out]`` -> ``Linear`` weight ``[out, in]``;
 - ``Conv`` kernel HWIO -> OIHW;
 - ``Embed`` ``embedding`` -> ``Embedding`` weight (same layout);
@@ -44,9 +47,14 @@ def _layer_norm(p, prefix: str) -> dict:
 
 
 def params_from_flax(tree) -> dict:
-    """Convert the flax ``TransformerLM`` (dense blocks) parameter tree to
-    the port's ``state_dict`` (float32 tensors on the CPU; load it with
-    ``model.load_state_dict``)."""
+    """Convert the flax ``TransformerLM`` parameter tree to the port's
+    ``state_dict`` (float32 tensors on the CPU; load it with
+    ``model.load_state_dict``). Dense blocks and tensor-parallel blocks
+    (``tensor_axis``: ``attn/qkv_tpcol``, ``attn/proj_tprow``,
+    ``mlp/ColumnParallelDense_0``, ``mlp/RowParallelDense_0``) both
+    convert, and so does the vocab-parallel head: the global kernels
+    cross unchanged, qkv columns in the tree's own
+    ``(rank, 3, local_head, d_head)`` order."""
     p = tree.get("params", tree)
     sd = {"embed.weight": _t(p["embed"]["embedding"]),
           "pos_embed.weight": _t(p["pos_embed"]["embedding"])}
@@ -54,8 +62,16 @@ def params_from_flax(tree) -> dict:
     for i in range(n_layers):
         blk = p[f"block_{i}"]
         pre = f"blocks.{i}"
-        proj = np.asarray(blk["proj"]["kernel"], np.float32)  # [H, Dh, d]
         sd.update(_layer_norm(blk["LayerNorm_0"], f"{pre}.ln1"))
+        if "attn" in blk:       # a tensor-parallel (Megatron) block
+            attn, mlp = blk["attn"], blk["mlp"]
+            sd.update(_linear(attn["qkv_tpcol"], f"{pre}.attn.qkv"))
+            sd.update(_linear(attn["proj_tprow"], f"{pre}.attn.proj"))
+            sd.update(_layer_norm(blk["LayerNorm_1"], f"{pre}.ln2"))
+            sd.update(_linear(mlp["ColumnParallelDense_0"], f"{pre}.mlp.fc1"))
+            sd.update(_linear(mlp["RowParallelDense_0"], f"{pre}.mlp.fc2"))
+            continue
+        proj = np.asarray(blk["proj"]["kernel"], np.float32)  # [H, Dh, d]
         sd.update(_linear(blk["qkv"], f"{pre}.qkv"))   # [d, 3*H*Dh]
         sd[f"{pre}.proj.weight"] = _t(proj.reshape(-1, proj.shape[-1]).T)
         sd[f"{pre}.proj.bias"] = _t(blk["proj"]["bias"])

@@ -7,8 +7,11 @@ logits: LayerNorm eps 1e-6 with float32 statistics, the tanh form of
 GELU, matmuls and embeddings in ``compute_dtype`` (bf16 by default) over
 float32 parameters, attention scores and softmax in float32, logits cast
 to float32. ``attention`` picks the cacheless forward's attention by
-name (``'full'`` or ``'flash'``, the flash kernels); the KV-cache path
-does not depend on it. Tensor, expert and sequence parallelism and
+name (``'full'``, ``'flash'`` — the flash kernels — or a
+sequence-parallel kind over ``sequence_axis``); the KV-cache path does
+not depend on it. ``tensor_axis`` makes every block Megatron's
+(:mod:`chainermn_torch.parallel.tensor`), and ``vocab_parallel_head``
+shards the head over the vocabulary. Expert parallelism and
 rematerialisation are not part of this port.
 """
 
@@ -22,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from chainermn_torch._device import resolve_device
+from chainermn_torch.parallel import tensor as tp
 from chainermn_torch.parallel.sequence import (
     sequence_parallel_attention,
     update_cache_and_attend,
@@ -53,7 +57,8 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int, *,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 attention: str = "full", device=None) -> None:
+                 attention: str = "full", sequence_axis=None,
+                 tensor_axis=None, device=None) -> None:
         super().__init__()
         if d_model % n_heads:
             raise ValueError(f"d_model {d_model} not divisible by n_heads "
@@ -61,12 +66,20 @@ class TransformerBlock(nn.Module):
         self.d_model, self.n_heads = d_model, n_heads
         self.compute_dtype = compute_dtype
         self.attention = attention
-        self._attend = sequence_parallel_attention(attention, None,
+        self.sequence_axis, self.tensor_axis = sequence_axis, tensor_axis
+        self._attend = sequence_parallel_attention(attention, sequence_axis,
                                                    causal=True)
         self.ln1 = nn.LayerNorm(d_model, eps=_LN_EPS, device=device)
+        self.ln2 = nn.LayerNorm(d_model, eps=_LN_EPS, device=device)
+        if tensor_axis is not None:
+            kw = dict(compute_dtype=compute_dtype, device=device)
+            self.attn = tp.TensorParallelAttention(
+                d_model, n_heads, tensor_axis, attention=attention,
+                sequence_axis=sequence_axis, **kw)
+            self.mlp = tp.TensorParallelMLP(d_model, d_ff, tensor_axis, **kw)
+            return
         self.qkv = nn.Linear(d_model, 3 * d_model, device=device)
         self.proj = nn.Linear(d_model, d_model, device=device)
-        self.ln2 = nn.LayerNorm(d_model, eps=_LN_EPS, device=device)
         self.fc1 = nn.Linear(d_model, d_ff, device=device)
         self.fc2 = nn.Linear(d_ff, d_model, device=device)
 
@@ -75,8 +88,21 @@ class TransformerBlock(nn.Module):
         layer dict) the block writes its K/V rows into the store in place
         at ``pos_offset`` (int or ``[B]``) and attends through it;
         without, it runs causal attention of the block's ``attention``
-        kind."""
+        kind (across ``sequence_axis`` for the sequence-parallel kinds).
+        A ``tensor_axis`` block is Megatron's: this rank's heads and FFN
+        columns, one all-reduce each."""
         dt = self.compute_dtype
+        if kv_cache is not None and self.sequence_axis is not None:
+            raise ValueError(
+                "kv_cache decoding does not support sequence-sharded "
+                "blocks — rebuild with sequence_axis=None for inference")
+        if self.tensor_axis is not None:
+            if kv_cache is not None:
+                raise NotImplementedError(
+                    "tensor-parallel decoding (the head-sharded KV store) is "
+                    "not ported yet (ROADMAP.md, Queue A: serving)")
+            x = x + self.attn(_layer_norm(self.ln1, x, dt))
+            return x + self.mlp(_layer_norm(self.ln2, x, dt))
         b, t, _ = x.shape
         dh = self.d_model // self.n_heads
         h = _layer_norm(self.ln1, x, dt)
@@ -103,18 +129,45 @@ class TransformerLM(nn.Module):
     Parameters are created float32 on ``device`` (the current CUDA card
     when ``None``; raises when there is none — pass ``device="cpu"`` for
     the CPU). ``seed`` initialises them from a ``torch.Generator``.
-    ``attention`` (``'full'`` or ``'flash'``) is every block's cacheless
-    attention; parameters stay float32 for training, while serving may
-    store them in ``compute_dtype`` with :meth:`cast_weights_`."""
+    ``attention`` is every block's cacheless attention; parameters stay
+    float32 for training, while serving may store them in
+    ``compute_dtype`` with :meth:`cast_weights_`.
+
+    Sequence parallelism: with ``sequence_axis`` (a communicator or a
+    mesh axis name) and a sequence-parallel ``attention`` kind, ``tokens``
+    is this rank's shard of the sequence and ``pos_offset`` its global
+    positions — a scalar base, or zigzag's ``[T_local]`` vector
+    (:func:`chainermn_torch.training.lm_train_step` passes them). Tensor
+    parallelism: ``tensor_axis`` makes every block Megatron's, and
+    ``vocab_parallel_head`` shards the head too, so ``forward`` returns
+    this rank's ``[B, T, vocab/n]`` slice of the logits. The reference's
+    guards hold: no KV cache with ``sequence_axis``, ``tensor_axis``
+    excludes ``moe_experts`` (MoE is not ported: a nonzero value raises),
+    and ``vocab_parallel_head`` needs ``tensor_axis``."""
 
     def __init__(self, vocab_size: int, d_model: int = 512,
                  n_heads: int = 8, n_layers: int = 6,
                  d_ff: Optional[int] = None, max_len: int = 65536,
                  compute_dtype: torch.dtype = torch.bfloat16, *,
-                 attention: str = "full", device=None,
+                 attention: str = "full", sequence_axis=None,
+                 tensor_axis=None, vocab_parallel_head: bool = False,
+                 moe_experts: int = 0, device=None,
                  seed: Optional[int] = None) -> None:
         super().__init__()
+        if tensor_axis is not None and moe_experts:
+            raise ValueError(
+                "tensor_axis and moe_experts are mutually exclusive: the MoE "
+                "blocks' expert axis and the TP axis would need a combined "
+                "gradient pattern this model does not define")
+        if moe_experts:
+            raise NotImplementedError(
+                "MoE blocks (parallel/moe.py) are not ported yet "
+                "(ROADMAP.md, Queue A: parallel strategies)")
+        if vocab_parallel_head and tensor_axis is None:
+            raise ValueError("vocab_parallel_head needs tensor_axis")
         device = resolve_device(device)
+        self.sequence_axis, self.tensor_axis = sequence_axis, tensor_axis
+        self.vocab_parallel_head = vocab_parallel_head
         self.vocab_size, self.d_model = vocab_size, d_model
         self.n_heads, self.n_layers = n_heads, n_layers
         self.d_ff = d_ff or 4 * d_model
@@ -126,10 +179,17 @@ class TransformerLM(nn.Module):
         self.blocks = nn.ModuleList(
             TransformerBlock(d_model, n_heads, self.d_ff,
                              compute_dtype=compute_dtype,
-                             attention=attention, device=device)
+                             attention=attention,
+                             sequence_axis=sequence_axis,
+                             tensor_axis=tensor_axis, device=device)
             for _ in range(n_layers))
         self.ln_f = nn.LayerNorm(d_model, eps=_LN_EPS, device=device)
-        self.lm_head = nn.Linear(d_model, vocab_size, device=device)
+        if vocab_parallel_head:
+            self.lm_head = tp.ColumnParallelDense(
+                d_model, vocab_size, tensor_axis,
+                compute_dtype=compute_dtype, device=device)
+        else:
+            self.lm_head = nn.Linear(d_model, vocab_size, device=device)
         if seed is not None:
             self.reset_parameters(seed)
 
@@ -169,6 +229,10 @@ class TransformerLM(nn.Module):
     def forward(self, tokens, pos_offset=0,
                 kv_caches: Optional[Sequence[dict]] = None):
         dt = self.compute_dtype
+        if kv_caches is not None and self.sequence_axis is not None:
+            raise ValueError(
+                "kv_caches decoding does not support sequence-sharded "
+                "models — rebuild with sequence_axis=None for inference")
         tokens = tokens.to(self.device)
         t = tokens.shape[1]
         x = F.embedding(tokens, self.embed.weight).to(dt)
@@ -183,6 +247,8 @@ class TransformerLM(nn.Module):
             x = block(x, block_pos,
                       kv_cache=None if kv_caches is None else kv_caches[i])
         x = _layer_norm(self.ln_f, x, dt)
+        if self.vocab_parallel_head:
+            return self.lm_head(x).float()
         return _dense(self.lm_head, x, dt).float()
 
 

@@ -45,7 +45,21 @@ heads) and ResNet-50 (random weights from a seed):
   MNIST and seq2seq twins as two processes on the card over a gloo group
   (stage parameters on the card, boundary tensors staged through the
   host; MNIST's first losses must match the two stages in one process to
-  1e-5, with one transfer each way a step).
+  1e-5, with one transfer each way a step);
+- context and tensor parallelism, the ranks as processes on the card over
+  a gloo group (every transfer staged through the host, so nothing here
+  prices NCCL between cards): the six sequence-parallel kinds on 2 ranks
+  at the LM's attention shape against one process's flash attention
+  (``sp_parity``); the 220M LM trained with ``ring_flash``,
+  ``zigzag_flash`` and ``ulysses_flash`` over 2 ranks
+  (``lm_train_step(shard_sequence=True)``, ``sp_train``) and with
+  ``tensor_axis`` over tp = 2 and the vocab-parallel head (``tp_train``),
+  each first loss against the one-process LM on the same weights and
+  every attention call on the flash kernels; the dry run's dp x sp x tp
+  = 2 x 2 x 2 LM on 8 ranks (``hybrid``). The flash kernels are also held
+  to their plain versions as the ring calls them (``flash_ring_blocks``:
+  f32 out from bf16, block gradients on the final lse, a fully masked
+  block).
 
 Each launch count is set to 0 just before its path runs and read just
 after. Each phase prints one JSON line; the line before the last two is
@@ -56,6 +70,7 @@ exits non-zero and prints no result. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -592,6 +607,7 @@ FLASH_CASES = [
     ("offset_k300", 1024, 1024, True, 0, 300),   # rows 0..299 see no key
     ("tiny_causal", 100, 100, True, 0, 0),       # below one 128-row tile
     ("ragged_offset_q64", 1000, 1000, True, 64, 0),
+    ("future_block", 1024, 1024, True, 0, 1024),  # no row sees a key
 ]
 
 
@@ -706,6 +722,128 @@ def phase_flash_parity(device):
         raise AssertionError(f"flash kernels disagree with their plain "
                              f"versions: {bad}")
     return worst
+
+
+# flash_ring_blocks holds f32 outputs of bf16 inputs: absolute
+# tolerances a few times the largest sound readings (2.88e-3 on dq,
+# 1.54e-3 on out, 9.5e-7 on lse; PERF.md section 6) and below what a
+# planted fault (one 64-key tile left out) reads on every output
+RING_BLOCK_TOL = {"out": 5e-3, "lse": 1e-4, "dq": 5e-3, "dk": 5e-3,
+                  "dv": 5e-3}
+RING_BLOCK_TILE = 64
+
+
+def phase_flash_ring_blocks(device):
+    """The flash kernels as the sequence-parallel kinds call them (bf16
+    inputs, float32 out and gradients, global offsets), each against its
+    plain version: the ring's blocks at the LM's shape (B=8, T_local=1024,
+    H=16, D=64; two ranks' queries against both K/V blocks, the earlier
+    rank's later block fully masked), with the dq and dk/dv kernels given
+    the *final* lse and delta of the whole sequence, and the blocks'
+    lse-weighted merge against the whole sequence's output; zigzag's c x c
+    blocks (causal at equal offsets, and full); Ulysses' local call (T =
+    2048, H = 8). A fully masked block must give out 0, lse -1e30 and
+    exactly zero gradients. Held to RING_BLOCK_TOL, which a planted fault
+    must fail on every output: the kernels on zigzag's full block with
+    one K tile left out (its dk and dv rows zero), against the whole
+    block's plain version."""
+    import torch
+
+    from chainermn_torch.ops import flash_attention as fa
+    from chainermn_torch.parallel.sequence import _zz_merge
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    tol = RING_BLOCK_TOL
+    f32 = dict(out_dtype=torch.float32)
+    g32 = dict(grad_dtype=torch.float32)
+    b, tl, h, d = 8, 1024, 16, 64
+    results = []
+
+    def check(name, q, k, v, do, lse, delta, kw, masked=False):
+        out, lse_b = fa.flash_fwd_with_lse(q, k, v, **kw, **f32)
+        r_out, r_lse = fa.flash_fwd_reference(q, k, v, **kw, **f32)
+        grads = fa.flash_block_grads(q, k, v, do, lse, delta, **kw, **g32)
+        r_dq = fa.flash_dq_reference(q, k, v, do, lse, delta, **kw, **g32)
+        r_dk, r_dv = fa.flash_dkv_reference(q, k, v, do, lse, delta, **kw,
+                                            **g32)
+        checks = {n: _compare(g, w, 0.0, tol[n]) for n, g, w in zip(
+            ("out", "lse", "dq", "dk", "dv"), (out, lse_b) + grads,
+            (r_out, r_lse, r_dq, r_dk, r_dv))}
+        exact = True
+        if masked:
+            exact = bool((out == 0).all() and (lse_b == -1e30).all()
+                         and all((g == 0).all() for g in grads))
+        results.append({"case": name, "shape": list(q.shape) + [k.shape[1]],
+                        "kw": kw, "fully_masked": masked,
+                        "err": {n: c[0] for n, c in checks.items()},
+                        "sentinels_exact": exact,
+                        "ok": exact and all(c[1] for c in checks.values())})
+        return out, lse_b
+
+    q, kk, vv, do = _flash_inputs(b, 2 * tl, 2 * tl, h, d, torch.bfloat16,
+                                  gen, device)
+    for r in range(2):
+        qr, dor = q[:, r * tl:(r + 1) * tl], do[:, r * tl:(r + 1) * tl]
+        # the whole sequence's output and lse for these queries: the final
+        # statistics the ring's backward hands every block
+        full, lse = fa.flash_fwd_reference(qr, kk, vv, causal=True,
+                                           q_offset=r * tl, **f32)
+        delta = (dor.float() * full).sum(-1).transpose(1, 2).contiguous()
+        merged = None
+        for src in range(2):
+            kw = dict(causal=True, q_offset=r * tl, k_offset=src * tl)
+            part = check(f"ring_q{r}_kv{src}", qr,
+                         kk[:, src * tl:(src + 1) * tl],
+                         vv[:, src * tl:(src + 1) * tl], dor, lse, delta, kw,
+                         masked=src > r)
+            merged = part if merged is None else _zz_merge(*merged, *part)
+        err_o = _compare(merged[0], full, 0.0, tol["out"])
+        err_l = _compare(merged[1], lse, 0.0, tol["lse"])
+        results.append({"case": f"ring_merge_q{r}", "err": {
+            "out": err_o[0], "lse": err_l[0]}, "ok": err_o[1] and err_l[1]})
+    c = tl // 2
+    for name, causal, off in (("zigzag_diag", True, c), ("zigzag_full",
+                                                          False, 0)):
+        qc, kc, vc, dc = (x[:, :c] for x in (q, kk, vv, do))
+        kw = dict(causal=causal, q_offset=off, k_offset=off)
+        o, lse = fa.flash_fwd_reference(qc, kc, vc, **kw, **f32)
+        delta = (dc.float() * o).sum(-1).transpose(1, 2).contiguous()
+        check(name, qc, kc, vc, dc, lse, delta, kw)
+    # the planted fault, on the last (full) block: keys of tile 3 left out
+    r_dq = fa.flash_dq_reference(qc, kc, vc, dc, lse, delta, **kw, **g32)
+    r_dk, r_dv = fa.flash_dkv_reference(qc, kc, vc, dc, lse, delta, **kw,
+                                        **g32)
+    cut = RING_BLOCK_TILE
+    keep = torch.cat([torch.arange(3 * cut), torch.arange(4 * cut, c)]).to(
+        device)
+    f_out, f_lse = fa.flash_fwd_with_lse(qc, kc[:, keep], vc[:, keep],
+                                         **kw, **f32)
+    f_dq, dk_k, dv_k = fa.flash_block_grads(qc, kc[:, keep], vc[:, keep],
+                                            dc, lse, delta, **kw, **g32)
+    f_dk, f_dv = torch.zeros_like(r_dk), torch.zeros_like(r_dv)
+    f_dk[:, keep], f_dv[:, keep] = dk_k, dv_k
+    fault = {n: _compare(g, w, 0.0, tol[n]) for n, g, w in zip(
+        ("out", "lse", "dq", "dk", "dv"), (f_out, f_lse, f_dq, f_dk, f_dv),
+        (o, lse, r_dq, r_dk, r_dv))}
+    q, kk, vv, do = _flash_inputs(b, 2 * tl, 2 * tl, h // 2, d,
+                                  torch.bfloat16, gen, device)
+    kw = dict(causal=True, q_offset=0, k_offset=0)
+    o, lse = fa.flash_fwd_reference(q, kk, vv, **kw, **f32)
+    delta = (do.float() * o).sum(-1).transpose(1, 2).contiguous()
+    check("ulysses_local", q, kk, vv, do, lse, delta, kw)
+    emit({"phase": "flash_ring_blocks", "atol": tol,
+          "dtypes": "bf16 in, f32 out and gradients", "cases": results,
+          "planted_fault": {"case": "zigzag_full without keys "
+                                    f"[{3 * cut}, {4 * cut})",
+                            "err": {n: x[0] for n, x in fault.items()}}})
+    bad = [x for x in results if not x["ok"]]
+    if bad:
+        raise AssertionError(f"flash kernels disagree on the ring's "
+                             f"blocks: {bad}")
+    passed = [n for n, x in fault.items() if x[1]]
+    if passed:
+        raise AssertionError(f"flash_ring_blocks: the planted fault passes "
+                             f"the tolerance on {passed}: {fault}")
 
 
 def phase_train(device):
@@ -1777,6 +1915,646 @@ def phase_seq2seq_mp(card):
         raise AssertionError(f"seq2seq_mp: token accuracy did not rise: {acc}")
 
 
+# --------------------------------------------------------------------------- #
+# Context and tensor parallelism: ranks as processes on the one card          #
+# --------------------------------------------------------------------------- #
+# NCCL refuses two ranks on one device, so these phases start the ranks as
+# processes on cuda:0 over a gloo group: parameters and compute stay on the
+# card, every transfer is staged through the host by the communicator
+# (HOST_STAGED counts it). They prove the paths correct and on the kernels;
+# they price nothing about NCCL between cards.
+
+SP_KINDS = ("ring", "ring_flash", "zigzag", "zigzag_flash", "ulysses",
+            "ulysses_flash")
+# sp_parity: the 220M LM's attention shape, global T over 2 ranks;
+# (rtol, atol). bf16 is flash_parity's: one bf16 ulp is 1.6e-2 at
+# |x| >= 2, and the plain kinds do not round p to bf16 before PV as the
+# kernels do, so an absolute 2e-2 alone fails on a 1-ulp difference
+SP_PARITY = dict(batch=8, seq_len=2048, heads=16, head_dim=64,
+                 tol={"f32": (0.0, 1e-4), "bf16": TOL["bf16"]})
+# sp_train / tp_train: the train phase's LM, batch and AdamW over 2 ranks,
+# held to the one-process flash LM trained alike: every step's loss
+# (loss_tol, by phase) and the first step's global gradient, by the
+# largest relative L2 error of a leaf (grad_rel_tol), both bf16, a few
+# times the sound readings; planted faults read in the same run must
+# exceed grad_rel_tol (readings in PERF.md section 6). TP's losses drift
+# further: its row-parallel partial sums are rounded to bf16 before they
+# are summed, and the trajectory rises at step 6, which amplifies that
+SP_TRAIN = dict(batch=8, seq_len=2048, warmup_steps=2, timed_steps=5,
+                kinds=("ring_flash", "zigzag_flash", "ulysses_flash"),
+                loss_tol={"sp_train": 2e-2, "tp_train": 0.15},
+                grad_rel_tol=5e-2, small_tol=1e-4)
+SMALL_LM = dict(vocab_size=1000, d_model=256, n_heads=4, n_layers=2,
+                max_len=256)
+SMALL_BATCH = (4, 256)
+# hybrid: __graft_entry__.py:278-307 — d_model 16, 8 heads, vocab 8 tp
+HYBRID = dict(shape=(2, 2, 2), vocab_size=16, d_model=16, n_heads=8,
+              n_layers=1, max_len=128, batch=4, seq_len=12, steps=5,
+              lr=1e-2)
+
+_GLOO_RANKS = """
+import os
+import torch
+import torch.distributed as dist
+
+dist.init_process_group("gloo", init_method="env://", rank=RANK,
+                        world_size=int(os.environ["WORLD_SIZE"]))
+torch.cuda.set_device(0)
+torch.backends.cuda.matmul.allow_tf32 = False
+import chip_smoke
+save(getattr(chip_smoke, ARGS[0])(*ARGS[1:]))
+dist.destroy_process_group()
+"""
+
+
+def _gloo_ranks(fn: str, n: int, *args):
+    """``chip_smoke.<fn>(*args)`` in ``n`` processes on cuda:0 joined by a
+    gloo group; what each returned, by rank."""
+    from chainermn_torch.testing import run_ranks
+
+    return run_ranks(_GLOO_RANKS, n, args=[fn, *args], timeout=900)
+
+
+def _flash_counts():
+    from chainermn_torch.ops import flash_attention as fa
+
+    return {name: getattr(fa, fn).launches
+            for name, (fn, *_) in FLASH_KERNELS.items()}
+
+
+def _zero_flash_counts():
+    from chainermn_torch.ops import flash_attention as fa
+
+    for fn, *_ in FLASH_KERNELS.values():
+        getattr(fa, fn).launches = 0
+
+
+def _staged():
+    from chainermn_torch.communicators import process_group_communicator
+
+    return dict(process_group_communicator.HOST_STAGED)
+
+
+def _launches_per_attention(kind: str, causal: bool, n: int) -> int:
+    """Kernel launches of each flash kernel for one attention call (its
+    forward and backward) on one rank of ``n``."""
+    if kind == "ring_flash" or (kind == "zigzag_flash" and not causal):
+        return n
+    return {"zigzag_flash": 2 * n + 1, "ulysses_flash": 1}.get(kind, 0)
+
+
+def rank_sp_parity():
+    """One rank of sp_parity: every kind, causal and not, f32 and bf16, at
+    B=8, global T=2048, H=16, D=64; this rank's shard of the output and
+    q/k/v gradients against one process's ``flash_attention`` on the
+    whole sequence."""
+    import torch
+
+    from chainermn_torch import create_communicator
+    from chainermn_torch.ops import flash_attention as fa
+    from chainermn_torch.parallel import sequence as sq
+
+    dev = torch.device("cuda", 0)
+    comm = create_communicator("naive", device=dev)
+    n, r = comm.size, comm.rank
+    cfg = SP_PARITY
+    b, t, h, d = cfg["batch"], cfg["seq_len"], cfg["heads"], cfg["head_dim"]
+    tl = t // n
+    gen = torch.Generator().manual_seed(SEED + 8)
+    inputs = [torch.randn((b, t, h, d), generator=gen) for _ in range(4)]
+    cases = []
+    for dname, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        q, k, v, do = (x.to(dev, dt) for x in inputs)
+        for causal in (True, False):
+            qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+            ref = fa.flash_attention(qr, kr, vr, causal=causal)
+            ref.backward(do)
+            want = [x.detach() for x in (ref, qr.grad, kr.grad, vr.grad)]
+            del qr, kr, vr, ref
+            for kind in SP_KINDS:
+                layout = (sq.zigzag_permutation(t, n)
+                          if kind.startswith("zigzag") and causal
+                          else torch.arange(t))
+                mine = layout[r * tl:(r + 1) * tl].to(dev)
+                qs, ks, vs = (x[:, mine].detach().requires_grad_()
+                              for x in (q, k, v))
+                f = sq.sequence_parallel_attention(kind, comm, causal=causal)
+                torch.cuda.synchronize()
+                _zero_flash_counts()
+                staged0 = _staged()
+                t0 = time.perf_counter()
+                out = f(qs, ks, vs)
+                out.backward(do[:, mine])
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                staged = _staged()
+                got = (out, qs.grad, ks.grad, vs.grad)
+                checks = {name: _compare(g, w[:, mine], *cfg["tol"][dname])
+                          for name, g, w in zip(("out", "dq", "dk", "dv"),
+                                                got, want)}
+                cases.append({
+                    "kind": kind, "causal": causal, "dtype": dname,
+                    "err": {name: c[0] for name, c in checks.items()},
+                    "ok": all(c[1] for c in checks.values()),
+                    "launches": _flash_counts(),
+                    "launches_want": _launches_per_attention(kind, causal, n),
+                    "staged_bytes": staged["bytes"] - staged0["bytes"],
+                    "staged_s": staged["seconds"] - staged0["seconds"],
+                    "fwd_bwd_ms": ms})
+                del qs, ks, vs, out, got
+            del want
+            torch.cuda.empty_cache()
+    comm.finalize()
+    return cases
+
+
+def phase_sp_parity(card):
+    """The six sequence-parallel kinds on 2 ranks of the card
+    (``rank_sp_parity``). Fails unless every output and gradient is
+    within SP_PARITY's tolerance (f32 1e-4 absolute; bf16 2e-2 absolute
+    plus 2e-2 relative, both sides in bf16) of one process's flash
+    attention, and every ``_flash`` kind
+    launched each flash kernel the expected number of times a call:
+    ``ring_flash`` n, ``zigzag_flash`` 2n + 1 (n when not causal),
+    ``ulysses_flash`` 1; the plain kinds none."""
+    t0 = time.perf_counter()
+    ranks = _gloo_ranks("rank_sp_parity", 2)
+    cases = []
+    for i, c0 in enumerate(ranks[0]):
+        per = [rk[i] for rk in ranks]
+        cases.append({
+            "kind": c0["kind"], "causal": c0["causal"], "dtype": c0["dtype"],
+            "err": {k: max(p["err"][k] for p in per) for k in c0["err"]},
+            "ok": all(p["ok"] for p in per),
+            "launches_per_rank": [p["launches"] for p in per],
+            "launches_want": c0["launches_want"],
+            "staged_bytes_per_rank": [p["staged_bytes"] for p in per],
+            "staged_s_per_rank": [p["staged_s"] for p in per],
+            "fwd_bwd_ms_per_rank": [p["fwd_bwd_ms"] for p in per]})
+    emit({"phase": "sp_parity", "card": card, "ranks": 2, "backend": "gloo",
+          "shape": {k: SP_PARITY[k] for k in ("batch", "seq_len", "heads",
+                                              "head_dim")},
+          "tol_rtol_atol": SP_PARITY["tol"],
+          "run_s": time.perf_counter() - t0,
+          "reference": "one process's flash_attention on the whole sequence",
+          "cases": cases})
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"sp_parity: kinds disagree with one-process "
+                             f"flash attention: {bad}")
+    bad = [c for c in cases for counts in c["launches_per_rank"]
+           if any(v != c["launches_want"] for v in counts.values())]
+    if bad:
+        raise AssertionError(f"sp_parity: flash launches off: {bad}")
+    return cases
+
+
+def _lm_batch(device, b, t, vocab, seed):
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, vocab, (b, t), generator=gen).to(device)
+    return tokens, torch.roll(tokens, -1, dims=1)
+
+
+def _dense_names(tree: dict, n_heads: int, d_head: int, n_tp) -> dict:
+    """A TP model's leaves (weights or gradients) by the dense LM's names,
+    the qkv columns in the dense order (``reshard_tp_qkv`` to degree 1);
+    ``n_tp=None`` keeps them as they are."""
+    from chainermn_torch.parallel.tensor import reshard_tp_qkv
+
+    if n_tp is None:
+        return dict(tree)
+    tree = reshard_tp_qkv(tree, n_heads, d_head, n_tp, 1)
+    return {k.replace("attn.", "").replace("mlp.", ""): w
+            for k, w in tree.items()}
+
+
+def _grad_error(grads: dict, ref: dict) -> dict:
+    """The largest relative L2 error of a leaf, ||g - ref|| / ||ref||,
+    and the leaf's name."""
+    errs = {n: float((grads[n].float() - r.float()).norm()
+                     / r.float().norm()) for n, r in ref.items()}
+    worst = max(errs, key=errs.get)
+    return {"max_rel": errs[worst], "leaf": worst}
+
+
+def _model_grads(model, n_tp=None, scale_sliced: float = 1.0) -> dict:
+    """``model``'s gradients by dense name (``scale_sliced`` multiplies a
+    TP model's sliced leaves: a planted fault)."""
+    from chainermn_torch.parallel.tensor import sliced_parameters
+
+    sliced = {id(p) for p in sliced_parameters(model)} if n_tp else set()
+    grads = {n: p.grad * scale_sliced if id(p) in sliced else p.grad
+             for n, p in model.named_parameters()}
+    return _dense_names(grads, model.n_heads, model.d_model // model.n_heads,
+                        n_tp)
+
+
+def _reference_run(model, tokens, targets, steps):
+    """``model`` trained ``steps`` AdamW steps (TRAIN's) on the whole batch
+    in this process: its losses and its first step's gradients."""
+    import torch
+    import torch.nn.functional as F
+
+    opt = torch.optim.AdamW(model.parameters(), lr=TRAIN["lr"],
+                            weight_decay=TRAIN["weight_decay"])
+    losses, grads = [], None
+    for _ in range(steps):
+        opt.zero_grad(set_to_none=True)
+        logits = model(tokens)
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               targets.reshape(-1))
+        loss.backward()
+        if grads is None:
+            grads = {n: p.grad.detach().clone()
+                     for n, p in model.named_parameters()}
+        opt.step()
+        losses.append(float(loss))
+    return losses, grads
+
+
+@contextlib.contextmanager
+def _offdiag_dkv_dropped():
+    """A planted fault: the sequence kinds' dk and dv of every K/V block
+    but a rank's own (diagonal) one are lost, as when the accumulators
+    that travel with their block are mis-routed."""
+    import torch
+
+    from chainermn_torch.parallel import sequence
+
+    real = sequence.flash_block_grads
+
+    def faulty(*args, causal=False, q_offset=0, k_offset=0, **kw):
+        dq, dk, dv = real(*args, causal=causal, q_offset=q_offset,
+                          k_offset=k_offset, **kw)
+        if not (causal and q_offset == k_offset):
+            dk, dv = torch.zeros_like(dk), torch.zeros_like(dv)
+        return dq, dk, dv
+
+    sequence.flash_block_grads = faulty
+    try:
+        yield
+    finally:
+        sequence.flash_block_grads = real
+
+
+def _one_process_loss(model, tokens, targets) -> float:
+    """The pre-update loss of ``model`` on the whole batch in this
+    process (the reference of a sharded step's first loss)."""
+    import torch
+    import torch.nn.functional as F
+
+    with torch.no_grad():
+        logits = model(tokens)
+        return float(F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                     targets.reshape(-1)))
+
+
+def _dense_from_tp(tp_model, n_tp, **kw):
+    """The dense LM holding ``tp_model``'s weights (``_dense_names``)."""
+    from chainermn_torch.models import TransformerLM
+
+    dense = TransformerLM(tp_model.vocab_size, tp_model.d_model,
+                          tp_model.n_heads, tp_model.n_layers, tp_model.d_ff,
+                          tp_model.max_len, tp_model.compute_dtype, **kw)
+    dense.load_state_dict(_dense_names(
+        tp_model.state_dict(), tp_model.n_heads,
+        tp_model.d_model // tp_model.n_heads, n_tp))
+    return dense
+
+
+def _train_run(model, step, tokens, targets, warmup, timed, staged_fn,
+               first_grads):
+    """``warmup`` + ``timed`` steps of ``step``; the timed window closed by
+    a device->host fetch of the loss. ``first_grads()`` reads the
+    gradients the first step left."""
+    import torch
+
+    _zero_flash_counts()
+    losses = [step(tokens, targets)[0]]
+    grad = first_grads()
+    losses += [step(tokens, targets)[0] for _ in range(warmup - 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    staged0 = staged_fn()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        loss, _ = step(tokens, targets)
+        losses.append(loss)
+    float(loss)
+    wall = time.perf_counter() - t0
+    staged = staged_fn()
+    b, t = tokens.shape
+    return {"losses": [float(x) for x in losses], "grad_err": grad,
+            "step_ms": wall / timed * 1e3,
+            "tokens_per_sec_rank": b * t / (wall / timed),
+            "launches": _flash_counts(),
+            "staged_bytes_per_step": (staged["bytes"] - staged0["bytes"])
+            / timed,
+            "staged_share_of_step": (staged["seconds"] - staged0["seconds"])
+            / wall,
+            "peak_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _small_parity(build, comm, shard):
+    """A small f32 LM built by ``build(attention)`` from one seed: its
+    first sharded step's loss against the same weights' loss in this
+    process (``shard(tokens)`` is this rank's part of the batch)."""
+    import torch
+
+    from chainermn_torch.training import lm_train_step
+
+    dev = torch.device("cuda", 0)
+    tokens, targets = _lm_batch(dev, *SMALL_BATCH, SMALL_LM["vocab_size"],
+                                SEED + 9)
+    model, reference = build()
+    want = _one_process_loss(reference, tokens, targets)
+    opt = torch.optim.AdamW(model.parameters(), lr=TRAIN["lr"], eps=1e-5)
+    if getattr(model, "tensor_axis", None) is None:
+        from chainermn_torch import create_multi_node_optimizer
+
+        opt = create_multi_node_optimizer(opt, comm)
+    step = lm_train_step(model, opt, comm,
+                         shard_sequence=model.sequence_axis is not None)
+    got = float(step(shard(tokens), shard(targets))[0])
+    return {"loss": got, "one_process_loss": want,
+            "abs_diff": abs(got - want)}
+
+
+def rank_sp_train():
+    """One rank of sp_train: the 220M LM (bf16, seed 0) with each
+    ``SP_TRAIN['kinds']`` over a 2-rank flat communicator,
+    ``create_multi_node_optimizer(AdamW)`` and
+    ``lm_train_step(shard_sequence=True)`` on this rank's half of the
+    train phase's [8, 2048] batch (zigzag-permuted for zigzag), beside the
+    one-process flash LM trained alike on the whole batch; for the ring
+    kinds, a first step with the planted ``_offdiag_dkv_dropped`` fault;
+    then the small f32 LM's first loss against one process's."""
+    import torch
+
+    from chainermn_torch import (
+        create_communicator,
+        create_multi_node_optimizer,
+    )
+    from chainermn_torch.models import TransformerLM
+    from chainermn_torch.parallel.sequence import zigzag_permutation
+    from chainermn_torch.training import lm_train_step
+
+    dev = torch.device("cuda", 0)
+    comm = create_communicator("flat", device=dev)
+    n, r = comm.size, comm.rank
+    b, t = SP_TRAIN["batch"], SP_TRAIN["seq_len"]
+    n_steps = SP_TRAIN["warmup_steps"] + SP_TRAIN["timed_steps"]
+    tokens, targets = _lm_batch(dev, b, t, LM["vocab_size"], SEED)
+    bf16 = dict(compute_dtype=torch.bfloat16, device=dev, seed=SEED)
+    ref_losses, ref_grads = _reference_run(
+        TransformerLM(**LM, attention="flash", **bf16), tokens, targets,
+        n_steps)
+    torch.cuda.empty_cache()
+    out = {"one_process_losses": ref_losses}
+    for kind in SP_TRAIN["kinds"]:
+        layout = (zigzag_permutation(t, n) if kind.startswith("zigzag")
+                  else torch.arange(t))
+        mine = layout[r * (t // n):(r + 1) * (t // n)].to(dev)
+
+        def sharded(kind=kind):
+            model = TransformerLM(**LM, attention=kind, sequence_axis=comm,
+                                  **bf16)
+            opt = create_multi_node_optimizer(torch.optim.AdamW(
+                model.parameters(), lr=TRAIN["lr"],
+                weight_decay=TRAIN["weight_decay"]), comm)
+            return model, lm_train_step(model, opt, comm,
+                                        shard_sequence=True)
+
+        control = None
+        if kind != "ulysses_flash":     # Ulysses sends no dk/dv block
+            model, step = sharded()
+            with _offdiag_dkv_dropped():
+                step(tokens[:, mine], targets[:, mine])
+            control = _grad_error(_model_grads(model), ref_grads)
+            del model, step
+        model, step = sharded()
+        out[kind] = _train_run(model, step, tokens[:, mine],
+                               targets[:, mine], SP_TRAIN["warmup_steps"],
+                               SP_TRAIN["timed_steps"], _staged,
+                               lambda: _grad_error(_model_grads(model),
+                                                   ref_grads))
+        out[kind]["planted_fault_grad_err"] = control
+        del model, step
+        torch.cuda.empty_cache()
+
+        def build(kind=kind):
+            kw = dict(compute_dtype=torch.float32, device=dev, seed=SEED + 9)
+            return (TransformerLM(**SMALL_LM, attention=kind,
+                                  sequence_axis=comm, **kw),
+                    TransformerLM(**SMALL_LM, attention="flash", **kw))
+
+        st = SMALL_BATCH[1]
+        small = (zigzag_permutation(st, n) if kind.startswith("zigzag")
+                 else torch.arange(st))
+        small = small[r * (st // n):(r + 1) * (st // n)].to(dev)
+        out[kind]["small_f32"] = _small_parity(build, comm,
+                                               lambda x: x[:, small])
+    comm.finalize()
+    return out
+
+
+def _check_train(name, per_rank, want_launches):
+    tol = SP_TRAIN
+    for kind, want in want_launches.items():
+        for rk in per_rank:
+            rec, ref = rk[kind], rk["one_process_losses"]
+            losses = rec["losses"]
+            if not all(math.isfinite(x) for x in losses) or \
+                    not losses[-1] < losses[0]:
+                raise AssertionError(f"{name} {kind}: losses not finite or "
+                                     f"not falling: {losses}")
+            if max(abs(x - y) for x, y in zip(losses, ref)) > \
+                    tol["loss_tol"][name]:
+                raise AssertionError(f"{name} {kind}: losses {losses} vs "
+                                     f"one process's {ref}")
+            if rec["grad_err"]["max_rel"] > tol["grad_rel_tol"]:
+                raise AssertionError(f"{name} {kind}: first step's gradient "
+                                     f"off one process's: {rec['grad_err']}")
+            fault = rec["planted_fault_grad_err"]
+            if fault is not None and fault["max_rel"] <= tol["grad_rel_tol"]:
+                raise AssertionError(f"{name} {kind}: the planted fault "
+                                     f"passes the gradient gate: {fault}")
+            if rec["small_f32"]["abs_diff"] > tol["small_tol"]:
+                raise AssertionError(f"{name} {kind}: small f32 LM "
+                                     f"{rec['small_f32']}")
+            if any(v != want for v in rec["launches"].values()):
+                raise AssertionError(f"{name} {kind}: flash launches "
+                                     f"{rec['launches']} != {want} each")
+
+
+def phase_sp_train(card):
+    """The 220M LM's context-parallel training on 2 ranks of the card
+    (``rank_sp_train``). Fails unless, for each kind on each rank, the
+    losses are finite and fall, every step's loss is within ``loss_tol``
+    of the one-process flash LM's trained alike, the first step's global
+    gradient is within ``grad_rel_tol`` of its (a leaf's relative L2
+    error) and the planted fault is not, the small f32 LM's first loss is
+    within 1e-4 of its one-process loss, and every attention call of
+    every step went through the flash kernels (per rank and step:
+    ring_flash 2 launches of each kernel a layer, zigzag_flash 5,
+    ulysses_flash 1)."""
+    t0 = time.perf_counter()
+    ranks = _gloo_ranks("rank_sp_train", 2)
+    n_steps = SP_TRAIN["warmup_steps"] + SP_TRAIN["timed_steps"]
+    want = {k: n_steps * LM["n_layers"] * _launches_per_attention(k, True, 2)
+            for k in SP_TRAIN["kinds"]}
+    emit({"phase": "sp_train", "card": card, "ranks": 2, "backend": "gloo",
+          "model": dict(LM, compute_dtype="bf16"),
+          "train": dict(SP_TRAIN, lr=TRAIN["lr"],
+                        weight_decay=TRAIN["weight_decay"]),
+          "reduced": "none: B=8, T=2048 as the train phase",
+          "launches_want": want, "run_s": time.perf_counter() - t0,
+          "ranks_out": ranks})
+    _check_train("sp_train", ranks, want)
+    return ranks
+
+
+def rank_tp_train():
+    """One rank of tp_train: the 220M LM with ``tensor_axis`` over tp = 2
+    (a ``MeshCommunicator`` of shape (1, 1, 2)), the vocab-parallel head
+    and local ``attention='flash'``, plain AdamW (the step assembles the
+    global gradient), the whole [8, 2048] batch on both ranks, beside its
+    dense twin trained alike in one process; the planted fault is the
+    first step's gradients with the sliced leaves' x tp left out. Then
+    the small f32 TP LM's first loss against its dense twin's."""
+    import torch
+
+    from chainermn_torch import MeshCommunicator
+    from chainermn_torch.models import TransformerLM
+    from chainermn_torch.parallel.mesh import make_3d_mesh
+    from chainermn_torch.training import lm_train_step
+
+    dev = torch.device("cuda", 0)
+    comm = MeshCommunicator(make_3d_mesh(shape=(1, 1, 2)), device=dev)
+    n_tp = comm.axis_size("tp")
+    b, t = SP_TRAIN["batch"], SP_TRAIN["seq_len"]
+    tokens, targets = _lm_batch(dev, b, t, LM["vocab_size"], SEED)
+    tp_kw = dict(attention="flash", tensor_axis="tp",
+                 vocab_parallel_head=True, device=dev)
+    model = TransformerLM(**LM, **tp_kw, compute_dtype=torch.bfloat16,
+                          seed=SEED)
+    ref_losses, ref_grads = _reference_run(
+        _dense_from_tp(model, n_tp, attention="flash", device=dev), tokens,
+        targets, SP_TRAIN["warmup_steps"] + SP_TRAIN["timed_steps"])
+    torch.cuda.empty_cache()
+    opt = torch.optim.AdamW(model.parameters(), lr=TRAIN["lr"],
+                            weight_decay=TRAIN["weight_decay"])
+    step = lm_train_step(model, opt, comm)
+    fault = {}
+
+    def first_grads():
+        fault.update(_grad_error(_model_grads(model, n_tp, 1 / n_tp),
+                                 ref_grads))
+        return _grad_error(_model_grads(model, n_tp), ref_grads)
+
+    out = {"one_process_losses": ref_losses,
+           "flash": _train_run(model, step, tokens, targets,
+                               SP_TRAIN["warmup_steps"],
+                               SP_TRAIN["timed_steps"], _staged,
+                               first_grads)}
+    out["flash"]["planted_fault_grad_err"] = fault
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+    def build():
+        m = TransformerLM(**SMALL_LM, **tp_kw, compute_dtype=torch.float32,
+                          seed=SEED + 9)
+        return m, _dense_from_tp(m, n_tp, attention="flash", device=dev)
+
+    out["flash"]["small_f32"] = _small_parity(build, comm, lambda x: x)
+    comm.finalize()
+    return out
+
+
+def phase_tp_train(card):
+    """The 220M LM's tensor-parallel training on 2 ranks of the card
+    (``rank_tp_train``), held as sp_train is: finite falling losses,
+    every step's loss and the first step's global gradient against the
+    dense flash LM on the converted weights trained alike in one process
+    (the planted fault — the sliced leaves without the x tp — must fail
+    the gradient gate), the small f32 TP LM against its dense twin to
+    1e-4, and one launch of each flash kernel a layer and step on each
+    rank."""
+    t0 = time.perf_counter()
+    ranks = _gloo_ranks("rank_tp_train", 2)
+    n_steps = SP_TRAIN["warmup_steps"] + SP_TRAIN["timed_steps"]
+    want = {"flash": n_steps * LM["n_layers"]}
+    emit({"phase": "tp_train", "card": card, "ranks": 2, "backend": "gloo",
+          "model": dict(LM, compute_dtype="bf16", tensor_parallel=2,
+                        vocab_parallel_head=True, attention="flash"),
+          "reduced": "none: B=8, T=2048 as the train phase",
+          "launches_want": want, "run_s": time.perf_counter() - t0,
+          "ranks_out": ranks})
+    _check_train("tp_train", ranks, want)
+    return ranks
+
+
+def rank_hybrid():
+    """One rank of the hybrid: dp x sp x tp = 2 x 2 x 2 at the dry run's
+    size, ``attention='ring_flash'`` over sp, Megatron blocks and the
+    vocab-parallel head over tp, the batch over dp; 5 Adam steps."""
+    import torch
+
+    from chainermn_torch import MeshCommunicator
+    from chainermn_torch.models import TransformerLM
+    from chainermn_torch.parallel.mesh import make_3d_mesh
+    from chainermn_torch.training import lm_train_step
+
+    dev = torch.device("cuda", 0)
+    cfg = HYBRID
+    comm = MeshCommunicator(make_3d_mesh(shape=cfg["shape"]), device=dev)
+    ndp, nsp, _ = cfg["shape"]
+    model = TransformerLM(cfg["vocab_size"], cfg["d_model"], cfg["n_heads"],
+                          cfg["n_layers"], max_len=cfg["max_len"],
+                          compute_dtype=torch.float32,
+                          attention="ring_flash", sequence_axis="sp",
+                          tensor_axis="tp", vocab_parallel_head=True,
+                          device=dev, seed=SEED + 10)
+    tokens, _ = _lm_batch(dev, cfg["batch"], cfg["seq_len"],
+                          cfg["vocab_size"], SEED + 10)
+    bl, tl = cfg["batch"] // ndp, cfg["seq_len"] // nsp
+    di, si = comm.axis_index("dp"), comm.axis_index("sp")
+    mine = tokens[di * bl:(di + 1) * bl, si * tl:(si + 1) * tl]
+    opt = torch.optim.Adam(model.parameters(), lr=cfg["lr"])
+    step = lm_train_step(model, opt, comm, shard_sequence=True)
+    _zero_flash_counts()
+    losses = [float(step(mine, mine)[0]) for _ in range(cfg["steps"])]
+    out = {"coords": {a: comm.axis_index(a) for a in ("dp", "sp", "tp")},
+           "losses": losses, "launches": _flash_counts()}
+    comm.finalize()
+    return out
+
+
+def phase_hybrid(card):
+    """dp x sp x tp = 2 x 2 x 2 as 8 processes on the card
+    (``rank_hybrid``). Fails unless every rank's losses are finite and
+    fall over the 5 steps, and every rank launched each flash kernel
+    2 (ring steps) x 5 steps times."""
+    t0 = time.perf_counter()
+    ranks = _gloo_ranks("rank_hybrid", 8)
+    want = 2 * HYBRID["steps"] * HYBRID["n_layers"]
+    emit({"phase": "hybrid", "card": card, "ranks": 8, "backend": "gloo",
+          "config": HYBRID, "launches_want": want,
+          "run_s": time.perf_counter() - t0, "ranks_out": ranks})
+    for rk in ranks:
+        losses = rk["losses"]
+        if not all(math.isfinite(x) for x in losses) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"hybrid: rank {rk['coords']} losses "
+                                 f"{losses}")
+        if any(v != want for v in rk["launches"].values()):
+            raise AssertionError(f"hybrid: rank {rk['coords']} launches "
+                                 f"{rk['launches']} != {want}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1801,6 +2579,7 @@ def main() -> int:
     timing = phase_timing(device, lengths)
     phase_engine_parity(device)
     flash_err = phase_flash_parity(device)
+    phase_flash_ring_blocks(device)
     flash_launches, comm = phase_train(device)
     flash_timing = phase_flash_timing(device)
     phase_train_parity(device)
@@ -1812,6 +2591,10 @@ def main() -> int:
     phase_mnist_checkpoint(smi)
     phase_mnist_mp(device, smi)
     phase_seq2seq_mp(smi)
+    phase_sp_parity(smi)
+    sp_train = phase_sp_train(smi)
+    phase_tp_train(smi)
+    phase_hybrid(smi)
     kernels = [{
         "name": "paged_decode", "route": "cuda",
         "source": "chainermn_torch/csrc/paged_decode.cu",
@@ -1826,6 +2609,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": flash_launches[name],
+            "launches_ring_path": sp_train[0]["ring_flash"]["launches"][name],
             "max_abs_err": rec["max_abs_err"],
             "parity_max_abs_err": flash_err[name],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],

@@ -26,6 +26,13 @@ def _modules():
         yield ".".join(parts), path
 
 
+def test_the_parallel_modules_are_checked():
+    names = {name for name, _ in _modules()}
+    assert {"chainermn_torch.parallel.mesh", "chainermn_torch.parallel.tensor",
+            "chainermn_torch.parallel.sequence",
+            "chainermn_torch.communicators.mesh_communicator"} <= names
+
+
 def test_importing_every_module_pulls_in_no_jax():
     names = [name for name, _ in _modules()]
     code = (
@@ -91,7 +98,7 @@ def test_entry_points_raise_without_a_card():
 
 # names of chainermn_tpu.__all__ the port does not have yet; each has its
 # item in ROADMAP.md's Queue A
-STILL_TO_PORT = ("MeshCommunicator", "TpuCommunicator", "fleet")
+STILL_TO_PORT = ("TpuCommunicator", "fleet")
 
 
 def test_facade_covers_the_jax_package():

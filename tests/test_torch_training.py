@@ -207,9 +207,10 @@ def test_attention_kinds():
     assert sequence_parallel_attention("flash", None, causal=True)
     with pytest.raises(ValueError, match="local"):
         sequence_parallel_attention("flash", "seq")
-    for kind in ("ring", "ring_flash", "zigzag", "ulysses_flash"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sequence_parallel_attention(kind, "seq")
+    for kind in ("ring", "ring_flash", "zigzag", "zigzag_flash", "ulysses",
+                 "ulysses_flash"):
+        assert callable(sequence_parallel_attention(kind, "seq"))
+        assert callable(sequence_parallel_attention(kind, None))
     with pytest.raises(ValueError, match="unknown attention"):
         TransformerLM(vocab_size=11, d_model=8, n_heads=2, n_layers=1,
                       attention="sparse", device="cpu")
