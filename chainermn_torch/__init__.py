@@ -42,7 +42,13 @@ to find. It holds these paths so far:
   Megatron layers and the vocab-parallel head
   (:mod:`chainermn_torch.parallel.tensor`), the ``dp x sp x tp`` rank mesh
   (:mod:`chainermn_torch.parallel.mesh`, :class:`MeshCommunicator`) and
-  ``lm_train_step``'s sequence- and tensor-parallel steps.
+  ``lm_train_step``'s sequence- and tensor-parallel steps;
+- expert, weights-at-rest and pipeline parallelism of the LM: the MoE
+  blocks (:mod:`chainermn_torch.parallel.moe`), the Megatron layout with
+  each rank storing its shards (:mod:`chainermn_torch.parallel.gspmd`),
+  GPipe (:mod:`chainermn_torch.ops.pipeline`), ``remat``, the fused
+  chunked cross entropy (:mod:`chainermn_torch.ops.losses`) and the
+  ``train_lm`` example twin.
 
 The package imports ``torch`` and numpy only; weights cross over from
 flax through :mod:`chainermn_torch.interop`.

@@ -250,10 +250,11 @@ class ProcessGroupCommunicator(CommunicatorBase):
         return out
 
     def allgather(self, x):
-        x = x.detach().contiguous()
+        shape = (self._size,) + tuple(x.shape)
+        x, back = self._to_wire(x.contiguous(), copy=False)
         out = x.new_empty((self._size * x.numel(),))
-        dist.all_gather_into_tensor(out, x.view(-1), group=self._group)
-        return out.view((self._size,) + tuple(x.shape))
+        dist.all_gather_into_tensor(out, x.reshape(-1), group=self._group)
+        return back(out).view(shape)
 
     def scatter(self, x, root: int = 0):
         if self._rank == root and x.shape[0] != self._size:

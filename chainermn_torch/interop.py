@@ -19,7 +19,15 @@ this module needs neither jax nor flax. Layout conversions:
 - ``LayerNorm`` / ``BatchNorm`` ``scale``/``bias`` -> ``weight``/``bias``;
   ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``;
 - ``GRUCell`` (``ir``/``iz``/``in``, ``hr``/``hz``/``hn``) -> ``nn.GRU``'s
-  stacked ``(r, z, n)`` gates (:func:`gru_params_from_flax`).
+  stacked ``(r, z, n)`` gates (:func:`gru_params_from_flax`);
+- an MoE block's ``moe/gate`` -> ``moe.gate``; its expert stacks
+  ``moe/w1|b1|w2|b2`` cross in flax's ``[E, in, out]`` layout (float32
+  here; ``load_state_dict`` stores them in the model's ``compute_dtype``,
+  as flax declares them).
+
+:func:`megatron_params_from_flax` cuts a converted dense tree to one
+rank's Megatron shards, and :func:`pipeline_params_from_flax` takes one
+stage of the pipelined LM's stacked blocks.
 
 :func:`load_chain_from_flax` loads a ``MultiNodeChainList`` component by
 component from the JAX chain's ``init``.
@@ -71,16 +79,69 @@ def params_from_flax(tree) -> dict:
             sd.update(_linear(mlp["ColumnParallelDense_0"], f"{pre}.mlp.fc1"))
             sd.update(_linear(mlp["RowParallelDense_0"], f"{pre}.mlp.fc2"))
             continue
-        proj = np.asarray(blk["proj"]["kernel"], np.float32)  # [H, Dh, d]
-        sd.update(_linear(blk["qkv"], f"{pre}.qkv"))   # [d, 3*H*Dh]
-        sd[f"{pre}.proj.weight"] = _t(proj.reshape(-1, proj.shape[-1]).T)
-        sd[f"{pre}.proj.bias"] = _t(blk["proj"]["bias"])
-        sd.update(_layer_norm(blk["LayerNorm_1"], f"{pre}.ln2"))
-        sd.update(_linear(blk["Dense_0"], f"{pre}.fc1"))
-        sd.update(_linear(blk["Dense_1"], f"{pre}.fc2"))
+        sd.update(_dense_block(blk, f"{pre}."))
     sd.update(_layer_norm(p["LayerNorm_0"], "ln_f"))
     sd.update(_linear(p["lm_head"], "lm_head"))
     return sd
+
+
+def _dense_block(blk, pre: str = "") -> dict:
+    """A dense (not tensor-parallel) block after its first LayerNorm, its
+    names prefixed by ``pre``: the attention, the second LayerNorm and
+    the FFN — ``Dense_0``/``Dense_1``, or an MoE block's ``moe`` (the
+    gate, and the expert stacks in flax's ``[E, in, out]`` layout)."""
+    proj = np.asarray(blk["proj"]["kernel"], np.float32)  # [H, Dh, d]
+    sd = _linear(blk["qkv"], f"{pre}qkv")                  # [d, 3*H*Dh]
+    sd[f"{pre}proj.weight"] = _t(proj.reshape(-1, proj.shape[-1]).T)
+    sd[f"{pre}proj.bias"] = _t(blk["proj"]["bias"])
+    sd.update(_layer_norm(blk["LayerNorm_1"], f"{pre}ln2"))
+    if "moe" in blk:
+        moe = blk["moe"]
+        sd.update(_linear(moe["gate"], f"{pre}moe.gate"))
+        for name in ("w1", "b1", "w2", "b2"):
+            sd[f"{pre}moe.{name}"] = _t(moe[name])
+        return sd
+    sd.update(_linear(blk["Dense_0"], f"{pre}fc1"))
+    sd.update(_linear(blk["Dense_1"], f"{pre}fc2"))
+    return sd
+
+
+def megatron_params_from_flax(tree, model, rank: int, n_tp: int) -> dict:
+    """Rank ``rank``'s Megatron shards (of ``n_tp``) of a flax dense
+    ``TransformerLM`` tree, for the port's ``model`` of the same shape —
+    the slice JAX's ``megatron_shard`` places on that rank
+    (``sharding.shard_shape``), in the port's layouts. Load it into a
+    model already cut by :func:`chainermn_torch.parallel.gspmd.
+    megatron_shard`."""
+    from chainermn_torch.parallel.gspmd import (
+        megatron_param_specs,
+        shard_state_dict,
+    )
+
+    specs = getattr(model, "_megatron_specs", None) or \
+        megatron_param_specs(model, n_tp)
+    return shard_state_dict(params_from_flax(tree), specs, rank, n_tp,
+                            model.n_heads)
+
+
+def pipeline_params_from_flax(tree, stage: int) -> dict:
+    """The flax pipelined LM's ``{'embed', 'blocks', 'head'}`` variables
+    (``init_pipeline_lm``; ``blocks`` stacked on a leading stage axis) as
+    ``state_dict``s of the port's ``make_pipeline_lm`` parts on the rank
+    that holds stage ``stage``: ``{'embed': ..., 'block': ..., 'head':
+    ...}``."""
+    def params(t):
+        return t.get("params", t)
+
+    emb, head = params(tree["embed"]), params(tree["head"])
+    blk = {k: {kk: np.asarray(vv)[stage] for kk, vv in v.items()}
+           for k, v in params(tree["blocks"]).items()}
+    block = {**_layer_norm(blk["LayerNorm_0"], "ln1"), **_dense_block(blk)}
+    return {"embed": {"embed.weight": _t(emb["embed"]["embedding"]),
+                      "pos_embed.weight": _t(emb["pos_embed"]["embedding"])},
+            "block": block,
+            "head": {**_layer_norm(head["LayerNorm_0"], "ln_f"),
+                     **_linear(head["lm_head"], "lm_head")}}
 
 
 def _conv(p, prefix: str) -> dict:
@@ -243,4 +304,5 @@ __all__ = ["params_from_flax", "resnet_params_from_flax",
            "mlp_params_from_flax", "alexnet_params_from_flax",
            "googlenet_params_from_flax", "vgg16_params_from_flax",
            "gru_params_from_flax", "load_chain_from_flax",
-           "images_from_nhwc"]
+           "images_from_nhwc", "megatron_params_from_flax",
+           "pipeline_params_from_flax"]

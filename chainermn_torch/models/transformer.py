@@ -11,8 +11,10 @@ name (``'full'``, ``'flash'`` — the flash kernels — or a
 sequence-parallel kind over ``sequence_axis``); the KV-cache path does
 not depend on it. ``tensor_axis`` makes every block Megatron's
 (:mod:`chainermn_torch.parallel.tensor`), and ``vocab_parallel_head``
-shards the head over the vocabulary. Expert parallelism and
-rematerialisation are not part of this port.
+shards the head over the vocabulary. ``moe_experts`` routes every
+``moe_every``-th block's FFN through experts
+(:mod:`chainermn_torch.parallel.moe`), and ``remat`` recomputes each
+block's forward in the backward (``torch.utils.checkpoint``).
 """
 
 from __future__ import annotations
@@ -23,9 +25,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from chainermn_torch._device import resolve_device
 from chainermn_torch.parallel import tensor as tp
+from chainermn_torch.parallel.moe import ExpertParallelMLP, GShardMoE
 from chainermn_torch.parallel.sequence import (
     sequence_parallel_attention,
     update_cache_and_attend,
@@ -53,16 +57,32 @@ class TransformerBlock(nn.Module):
     ``Linear(d, 3*H*Dh)`` with outputs in ``(3, H, Dh)`` order; ``proj``
     takes its inputs in ``(H, Dh)`` order. ``attention`` names the
     cacheless forward's attention (see
-    :func:`~chainermn_torch.parallel.sequence.sequence_parallel_attention`)."""
+    :func:`~chainermn_torch.parallel.sequence.sequence_parallel_attention`).
+
+    ``moe_experts > 0`` replaces the dense FFN by routed experts
+    (``transformer.py:122-144``): ``moe_impl='ep'`` is
+    :class:`~chainermn_torch.parallel.moe.ExpertParallelMLP` over
+    ``moe_axis``, ``'gshard'`` the einsum-dispatch
+    :class:`~chainermn_torch.parallel.moe.GShardMoE`. Such a block returns
+    ``(x, aux_loss)`` without a KV cache; dense blocks return ``x``."""
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int, *,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  attention: str = "full", sequence_axis=None,
-                 tensor_axis=None, device=None) -> None:
+                 tensor_axis=None, moe_experts: int = 0, moe_axis=None,
+                 moe_capacity_factor: float = 1.25, moe_top_k: int = 1,
+                 moe_impl: str = "ep", device=None) -> None:
         super().__init__()
         if d_model % n_heads:
             raise ValueError(f"d_model {d_model} not divisible by n_heads "
                              f"{n_heads}")
+        if tensor_axis is not None and moe_experts:
+            raise ValueError("tensor_axis and moe_experts are mutually "
+                             "exclusive on a TransformerBlock")
+        if moe_experts and moe_impl not in ("ep", "gshard"):
+            raise ValueError(f"moe_impl must be 'ep' or 'gshard', got "
+                             f"{moe_impl!r}")
+        self.moe_experts, self.moe_impl = moe_experts, moe_impl
         self.d_model, self.n_heads = d_model, n_heads
         self.compute_dtype = compute_dtype
         self.attention = attention
@@ -80,6 +100,14 @@ class TransformerBlock(nn.Module):
             return
         self.qkv = nn.Linear(d_model, 3 * d_model, device=device)
         self.proj = nn.Linear(d_model, d_model, device=device)
+        if moe_experts:
+            kw = dict(capacity_factor=moe_capacity_factor, top_k=moe_top_k,
+                      compute_dtype=compute_dtype, device=device)
+            self.moe = (GShardMoE(moe_experts, d_model, d_ff, **kw)
+                        if moe_impl == "gshard" else
+                        ExpertParallelMLP(moe_experts, d_model, d_ff,
+                                          moe_axis, **kw))
+            return
         self.fc1 = nn.Linear(d_model, d_ff, device=device)
         self.fc2 = nn.Linear(d_ff, d_model, device=device)
 
@@ -96,6 +124,11 @@ class TransformerBlock(nn.Module):
             raise ValueError(
                 "kv_cache decoding does not support sequence-sharded "
                 "blocks — rebuild with sequence_axis=None for inference")
+        if kv_cache is not None and self.moe_experts and \
+                self.moe_impl != "gshard":
+            raise ValueError(
+                "kv_cache decoding supports MoE only via moe_impl='gshard' "
+                "(the 'ep' experts exchange tokens across the expert axis)")
         if self.tensor_axis is not None:
             if kv_cache is not None:
                 raise NotImplementedError(
@@ -114,6 +147,9 @@ class TransformerBlock(nn.Module):
             o = self._attend(q, k, v)
         x = x + _dense(self.proj, o.reshape(b, t, self.d_model), dt)
         h = _layer_norm(self.ln2, x, dt)
+        if self.moe_experts:
+            y, aux = self.moe(h)
+            return x + y if kv_cache is not None else (x + y, aux)
         h = F.gelu(_dense(self.fc1, h, dt), approximate="tanh")
         return x + _dense(self.fc2, h, dt)
 
@@ -140,10 +176,28 @@ class TransformerLM(nn.Module):
     (:func:`chainermn_torch.training.lm_train_step` passes them). Tensor
     parallelism: ``tensor_axis`` makes every block Megatron's, and
     ``vocab_parallel_head`` shards the head too, so ``forward`` returns
-    this rank's ``[B, T, vocab/n]`` slice of the logits. The reference's
-    guards hold: no KV cache with ``sequence_axis``, ``tensor_axis``
-    excludes ``moe_experts`` (MoE is not ported: a nonzero value raises),
-    and ``vocab_parallel_head`` needs ``tensor_axis``."""
+    this rank's ``[B, T, vocab/n]`` slice of the logits.
+
+    Mixture of experts (``transformer.py:175-186``): with
+    ``moe_experts > 0`` block ``i`` is an MoE block when ``i % moe_every
+    == moe_every - 1``; ``moe_impl='ep'`` shards the experts over
+    ``moe_axis`` (a communicator or a bound axis name), ``'gshard'`` runs
+    the einsum dispatch in one process (or at rest over a tensor axis,
+    :mod:`chainermn_torch.parallel.gspmd`). ``forward(...,
+    return_aux=True)`` also returns the blocks' summed aux loss, and
+    :meth:`moe_stats` the last forward's routing records.
+    ``forward(..., return_hidden=True)`` stops before the head and returns
+    the final LayerNorm's output, for the fused head and loss
+    (:func:`~chainermn_torch.ops.losses.chunked_softmax_cross_entropy`).
+    ``remat=True`` wraps each block in ``torch.utils.checkpoint``
+    (non-reentrant) when gradients are recorded, never on the KV-cache
+    path: only block boundaries stay alive for the backward, which runs
+    each block's forward again (its collectives and kernels included).
+
+    The reference's guards hold: no KV cache with ``sequence_axis`` or
+    with ``moe_impl='ep'``, ``tensor_axis`` excludes ``moe_experts``,
+    ``vocab_parallel_head`` needs ``tensor_axis`` and excludes
+    ``return_hidden``."""
 
     def __init__(self, vocab_size: int, d_model: int = 512,
                  n_heads: int = 8, n_layers: int = 6,
@@ -151,7 +205,9 @@ class TransformerLM(nn.Module):
                  compute_dtype: torch.dtype = torch.bfloat16, *,
                  attention: str = "full", sequence_axis=None,
                  tensor_axis=None, vocab_parallel_head: bool = False,
-                 moe_experts: int = 0, device=None,
+                 moe_experts: int = 0, moe_axis=None, moe_every: int = 2,
+                 moe_capacity_factor: float = 1.25, moe_top_k: int = 1,
+                 moe_impl: str = "ep", remat: bool = False, device=None,
                  seed: Optional[int] = None) -> None:
         super().__init__()
         if tensor_axis is not None and moe_experts:
@@ -159,10 +215,6 @@ class TransformerLM(nn.Module):
                 "tensor_axis and moe_experts are mutually exclusive: the MoE "
                 "blocks' expert axis and the TP axis would need a combined "
                 "gradient pattern this model does not define")
-        if moe_experts:
-            raise NotImplementedError(
-                "MoE blocks (parallel/moe.py) are not ported yet "
-                "(ROADMAP.md, Queue A: parallel strategies)")
         if vocab_parallel_head and tensor_axis is None:
             raise ValueError("vocab_parallel_head needs tensor_axis")
         device = resolve_device(device)
@@ -174,6 +226,10 @@ class TransformerLM(nn.Module):
         self.max_len = max_len
         self.compute_dtype = compute_dtype
         self.attention = attention
+        self.moe_experts, self.moe_axis = moe_experts, moe_axis
+        self.moe_every, self.moe_top_k = moe_every, moe_top_k
+        self.moe_capacity_factor, self.moe_impl = moe_capacity_factor, moe_impl
+        self.remat = remat
         self.embed = nn.Embedding(vocab_size, d_model, device=device)
         self.pos_embed = nn.Embedding(max_len, d_model, device=device)
         self.blocks = nn.ModuleList(
@@ -181,8 +237,14 @@ class TransformerLM(nn.Module):
                              compute_dtype=compute_dtype,
                              attention=attention,
                              sequence_axis=sequence_axis,
-                             tensor_axis=tensor_axis, device=device)
-            for _ in range(n_layers))
+                             tensor_axis=tensor_axis,
+                             moe_experts=moe_experts if self._is_moe(i)
+                             else 0,
+                             moe_axis=moe_axis,
+                             moe_capacity_factor=moe_capacity_factor,
+                             moe_top_k=moe_top_k, moe_impl=moe_impl,
+                             device=device)
+            for i in range(n_layers))
         self.ln_f = nn.LayerNorm(d_model, eps=_LN_EPS, device=device)
         if vocab_parallel_head:
             self.lm_head = tp.ColumnParallelDense(
@@ -193,19 +255,30 @@ class TransformerLM(nn.Module):
         if seed is not None:
             self.reset_parameters(seed)
 
+    def _is_moe(self, i: int) -> bool:
+        return bool(self.moe_experts) and \
+            i % self.moe_every == self.moe_every - 1
+
     @property
     def device(self) -> torch.device:
         return self.embed.weight.device
+
+    def moe_stats(self) -> list:
+        """The MoE blocks' routing records of the last forward (each a
+        ``{'drop_frac', 'frac_routed'}`` dict; ``[]`` for a dense model)."""
+        return [blk.moe.stats for i, blk in enumerate(self.blocks)
+                if self._is_moe(i)]
 
     @torch.no_grad()
     def reset_parameters(self, seed: int) -> None:
         """Random weights from ``torch.Generator().manual_seed(seed)``
         (drawn on the CPU, so the same seed gives the same weights on
-        every device): normal(0, 0.02) matrices and embeddings, zero
-        biases, unit LayerNorm scales."""
+        every device): normal(0, 0.02) matrices, expert stacks and
+        embeddings, zero biases (the experts' ``b1``/``b2`` too), unit
+        LayerNorm scales."""
         gen = torch.Generator().manual_seed(int(seed))
         for name, p in self.named_parameters():
-            if name.endswith("bias"):
+            if name.endswith(("bias", "moe.b1", "moe.b2")):
                 p.zero_()
             elif p.dim() == 1:
                 p.fill_(1.0)
@@ -227,12 +300,33 @@ class TransformerLM(nn.Module):
         return self
 
     def forward(self, tokens, pos_offset=0,
-                kv_caches: Optional[Sequence[dict]] = None):
+                kv_caches: Optional[Sequence[dict]] = None, *,
+                return_aux: bool = False, return_hidden: bool = False):
         dt = self.compute_dtype
+        if getattr(self, "_megatron_axis", None) is not None:
+            raise ValueError(
+                "this model holds Megatron shards (parallel.gspmd."
+                "megatron_shard): run it with gspmd.sharded_forward or "
+                "gspmd_lm_train_step")
         if kv_caches is not None and self.sequence_axis is not None:
             raise ValueError(
                 "kv_caches decoding does not support sequence-sharded "
                 "models — rebuild with sequence_axis=None for inference")
+        if kv_caches is not None and self.moe_experts and \
+                self.moe_impl != "gshard":
+            raise ValueError(
+                "kv_caches decoding supports MoE only via moe_impl='gshard' "
+                "— rebuild the model with moe_impl='gshard' for inference "
+                "(same parameters: the expert stacks are identical)")
+        if return_hidden and self.vocab_parallel_head:
+            raise ValueError(
+                "return_hidden composes with the replicated lm_head (the "
+                "fused CE applies it itself); the vocab-parallel head "
+                "already avoids full logits — use "
+                "vocab_parallel_cross_entropy instead")
+        if return_hidden and kv_caches is not None:
+            raise ValueError("return_hidden is a training-loss path; decode "
+                             "wants logits")
         tokens = tokens.to(self.device)
         t = tokens.shape[1]
         x = F.embedding(tokens, self.embed.weight).to(dt)
@@ -243,13 +337,27 @@ class TransformerLM(nn.Module):
         pe = F.embedding(pos, self.pos_embed.weight).to(dt)
         x = x + (pe if pe.dim() == 3 else pe[None])
         block_pos = pos[:, 0] if pos.dim() == 2 else pos_offset
+        remat = self.remat and kv_caches is None and torch.is_grad_enabled()
+        aux = torch.zeros((), device=self.device)
         for i, block in enumerate(self.blocks):
-            x = block(x, block_pos,
-                      kv_cache=None if kv_caches is None else kv_caches[i])
+            if kv_caches is not None:
+                x = block(x, block_pos, kv_cache=kv_caches[i])
+                continue
+            out = (checkpoint(block, x, block_pos, use_reentrant=False)
+                   if remat else block(x, block_pos))
+            if self._is_moe(i):
+                x, a = out
+                aux = aux + a
+            else:
+                x = out
         x = _layer_norm(self.ln_f, x, dt)
+        if return_hidden:
+            return (x, aux) if return_aux else x
         if self.vocab_parallel_head:
-            return self.lm_head(x).float()
-        return _dense(self.lm_head, x, dt).float()
+            logits = self.lm_head(x).float()
+        else:
+            logits = _dense(self.lm_head, x, dt).float()
+        return (logits, aux) if return_aux else logits
 
 
 def init_paged_kv_caches(model: TransformerLM, n_blocks: int,

@@ -1,6 +1,6 @@
 """The train steps (the port's counterparts of
 ``chainermn_tpu.training.jit_train_step`` and ``jit_lm_train_step``, the
-latter dense, sequence-parallel and tensor-parallel).
+latter dense, MoE, fused-loss, sequence-parallel and tensor-parallel).
 
 PyTorch's idiom replaces JAX's pure step: the model and the optimizer are
 updated in place, and each step returns its loss as a device tensor (no
@@ -18,6 +18,8 @@ from torch import nn
 from chainermn_torch.communicators import CommunicatorBase
 from chainermn_torch.communicators import _memory_utility
 from chainermn_torch.links.batch_normalization import BatchNorm
+from chainermn_torch.ops.losses import chunked_softmax_cross_entropy
+from chainermn_torch.parallel.moe import drop_frac_from_sown
 from chainermn_torch.parallel.mesh import resolve_axis
 from chainermn_torch.parallel.sequence import zigzag_positions
 from chainermn_torch.parallel.tensor import (
@@ -113,6 +115,7 @@ def _ce(logits, targets):
 
 def lm_train_step(model, optimizer, comm: CommunicatorBase, *,
                   shard_sequence: bool = False,
+                  moe_aux_weight: float = 0.01,
                   fused_ce: bool = False) -> Callable:
     """Next-token-prediction step for a
     :class:`~chainermn_torch.models.TransformerLM`-shaped model. Call as
@@ -146,16 +149,36 @@ def lm_train_step(model, optimizer, comm: CommunicatorBase, *,
     the other ranks — so ``optimizer`` is a plain ``torch.optim``
     optimizer, as the reference's is a plain optax transform.
 
-    Raises for ``fused_ce=True`` (the chunked cross entropy of
-    ``ops/losses.py`` is a later slice)."""
+    An MoE model (``moe_experts > 0``, built with ``moe_axis`` over the
+    step's communicator, as the reference demands) trains on ``ce +
+    moe_aux_weight * aux`` and the step returns ``(loss, {'moe_drop_frac':
+    ...})``, the mean over the MoE blocks of the share of assignments
+    dropped at the capacity bound (``training.py:308-427``); a dense
+    model's stats are ``{}``.
+
+    ``fused_ce=True`` computes the head and the loss together with
+    :func:`~chainermn_torch.ops.losses.chunked_softmax_cross_entropy` on
+    the model's ``return_hidden`` output and the float32 head weights,
+    as the reference does: the ``[B, T, vocab]`` logits never exist."""
     attn = getattr(model, "attention", None)
     seq_axis = getattr(model, "sequence_axis", None)
-    if fused_ce:
-        raise NotImplementedError(
-            "fused_ce (the chunked cross entropy of ops/losses.py) is not "
-            "ported yet (ROADMAP.md, Queue A: the LM)")
+    moe = bool(getattr(model, "moe_experts", 0))
+    if fused_ce and (getattr(model, "tensor_axis", None) is not None
+                     or getattr(model, "vocab_parallel_head", False)):
+        raise ValueError(
+            "fused_ce applies the replicated lm_head itself; the TP/"
+            "vocab-parallel paths shard the head and already avoid full "
+            "logits (vocab_parallel_cross_entropy)")
     if getattr(model, "tensor_axis", None) is not None:
         return _tp_lm_train_step(model, optimizer, comm, shard_sequence)
+    if moe:
+        axis = resolve_axis(getattr(model, "moe_axis", None))
+        if axis is None or (axis is not comm
+                            and list(axis._ranks) != list(comm._ranks)):
+            raise ValueError(
+                "MoE model must be built with moe_axis over the step's "
+                f"communicator's ranks (got {model.moe_axis!r}) so experts "
+                "shard over the ranks whose gradients the step averages")
     if shard_sequence:
         if attn == "flash":
             raise ValueError(
@@ -182,10 +205,26 @@ def lm_train_step(model, optimizer, comm: CommunicatorBase, *,
         pos = _shard_positions(model, seq_axis if shard_sequence else None,
                                tokens.shape[1])
         optimizer.zero_grad(set_to_none=True)
-        loss = _ce(model(tokens, pos), targets)
+        # the flags go only where asked for, as in the reference: a
+        # TransformerLM-shaped model without them keeps working unfused
+        kw = dict({"return_aux": True} if moe else {},
+                  **({"return_hidden": True} if fused_ce else {}))
+        out = model(tokens, pos, **kw)
+        out, aux = out if moe else (out, 0.0)
+        if fused_ce:
+            head = model.lm_head
+            ce = chunked_softmax_cross_entropy(out, head.weight, head.bias,
+                                               targets).mean()
+        else:
+            ce = _ce(out, targets)
+        loss = ce + moe_aux_weight * aux
         loss.backward()
         optimizer.step()
-        return comm.allreduce(loss.detach(), "mean"), {}
+        loss = comm.allreduce(loss.detach(), "mean")
+        if not moe:
+            return loss, {}
+        return loss, {"moe_drop_frac": drop_frac_from_sown(
+            model.moe_stats())}
 
     return step
 

@@ -59,11 +59,25 @@ heads) and ResNet-50 (random weights from a seed):
   = 2 x 2 x 2 LM on 8 ranks (``hybrid``). The flash kernels are also held
   to their plain versions as the ring calls them (``flash_ring_blocks``:
   f32 out from bf16, block gradients on the final lse, a fully masked
-  block).
+  block). ``sp_train`` and ``tp_train`` run the LM at 4 of its 12 layers;
+- expert, weights-at-rest and pipeline parallelism, ranks as processes
+  on the card over gloo: the 220M LM's widths and 12 layers with 8
+  experts (top-2) in every second block, expert-parallel over 2 ranks
+  against the same weights as a one-process gshard LM trained alike
+  (``moe_train``, on the flash kernels, with a planted fault and drop
+  fractions at the default capacity); the gshard LM cut to the Megatron
+  layout over tp = 2 (``megatron_shard``, ``gspmd_lm_train_step``)
+  against the replicated model, with each rank's stored fraction
+  (``gspmd_train``); a 4-stage GPipe pipeline of the LM's block width on
+  4 ranks (``jit_pp_lm_train_step``) against the sequential stack, with a
+  planted fault (``pp_train``); and in this process the fused chunked CE
+  and remat on the 220M LM against the plain step (``lm_fused_remat``)
+  and the ``train_lm.py`` twin's ``main()`` in its MoE and pipeline modes
+  (``lm_example``).
 
 Each launch count is set to 0 just before its path runs and read just
-after. Each phase prints one JSON line; the line before the last two is
-the kernel summary, then the card's name and power limit, then ``{"ok":
+after. Each phase prints one JSON line, then one line gives every
+phase's seconds; the line before the last two is the kernel summary, then the card's name and power limit, then ``{"ok":
 true, "device": {...}}``. Without a CUDA device, or outside a checkout, it
 exits non-zero and prints no result. Imports nothing of JAX.
 """
@@ -1940,6 +1954,10 @@ SP_PARITY = dict(batch=8, seq_len=2048, heads=16, head_dim=64,
 # exceed grad_rel_tol (readings in PERF.md section 6). TP's losses drift
 # further: its row-parallel partial sums are rounded to bf16 before they
 # are summed, and the trajectory rises at step 6, which amplifies that
+# SP_LM: the 220M LM's widths at 4 of its 12 layers — the depth cut so
+# that the script, grown by the MoE, GSPMD and pipeline phases, stays
+# well inside its time limit (12 layers took 165 + 54 s of it)
+SP_LM = dict(LM, n_layers=4)
 SP_TRAIN = dict(batch=8, seq_len=2048, warmup_steps=2, timed_steps=5,
                 kinds=("ring_flash", "zigzag_flash", "ulysses_flash"),
                 loss_tol={"sp_train": 2e-2, "tp_train": 0.15},
@@ -2151,20 +2169,28 @@ def _model_grads(model, n_tp=None, scale_sliced: float = 1.0) -> dict:
                         n_tp)
 
 
-def _reference_run(model, tokens, targets, steps):
+def _reference_run(model, tokens, targets, steps, stats=None):
     """``model`` trained ``steps`` AdamW steps (TRAIN's) on the whole batch
-    in this process: its losses and its first step's gradients."""
+    in this process: its losses and its first step's gradients. An MoE
+    model trains on ``ce + 0.01 * aux`` as ``lm_train_step`` does, and
+    appends each step's mean drop fraction to ``stats``."""
     import torch
     import torch.nn.functional as F
+
+    from chainermn_torch.parallel.moe import drop_frac_from_sown
 
     opt = torch.optim.AdamW(model.parameters(), lr=TRAIN["lr"],
                             weight_decay=TRAIN["weight_decay"])
     losses, grads = [], None
+    moe = bool(getattr(model, "moe_experts", 0))
     for _ in range(steps):
         opt.zero_grad(set_to_none=True)
-        logits = model(tokens)
+        logits, aux = model(tokens, return_aux=True)
         loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                targets.reshape(-1))
+        if moe:
+            loss = loss + 0.01 * aux
+            stats.append(float(drop_frac_from_sown(model.moe_stats())))
         loss.backward()
         if grads is None:
             grads = {n: p.grad.detach().clone()
@@ -2232,21 +2258,24 @@ def _train_run(model, step, tokens, targets, warmup, timed, staged_fn,
     import torch
 
     _zero_flash_counts()
-    losses = [step(tokens, targets)[0]]
+    out = [step(tokens, targets)]
     grad = first_grads()
-    losses += [step(tokens, targets)[0] for _ in range(warmup - 1)]
+    out += [step(tokens, targets) for _ in range(warmup - 1)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     staged0 = staged_fn()
     t0 = time.perf_counter()
     for _ in range(timed):
-        loss, _ = step(tokens, targets)
-        losses.append(loss)
-    float(loss)
+        out.append(step(tokens, targets))
+    float(out[-1][0])
     wall = time.perf_counter() - t0
     staged = staged_fn()
     b, t = tokens.shape
+    losses = [loss for loss, _ in out]
+    drops = [float(st["moe_drop_frac"]) for _, st in out
+             if "moe_drop_frac" in st]
     return {"losses": [float(x) for x in losses], "grad_err": grad,
+            "moe_drop_frac": drops,
             "step_ms": wall / timed * 1e3,
             "tokens_per_sec_rank": b * t / (wall / timed),
             "launches": _flash_counts(),
@@ -2284,7 +2313,8 @@ def _small_parity(build, comm, shard):
 
 
 def rank_sp_train():
-    """One rank of sp_train: the 220M LM (bf16, seed 0) with each
+    """One rank of sp_train: the 220M LM at 4 layers (SP_LM; bf16, seed 0)
+    with each
     ``SP_TRAIN['kinds']`` over a 2-rank flat communicator,
     ``create_multi_node_optimizer(AdamW)`` and
     ``lm_train_step(shard_sequence=True)`` on this rank's half of the
@@ -2310,7 +2340,7 @@ def rank_sp_train():
     tokens, targets = _lm_batch(dev, b, t, LM["vocab_size"], SEED)
     bf16 = dict(compute_dtype=torch.bfloat16, device=dev, seed=SEED)
     ref_losses, ref_grads = _reference_run(
-        TransformerLM(**LM, attention="flash", **bf16), tokens, targets,
+        TransformerLM(**SP_LM, attention="flash", **bf16), tokens, targets,
         n_steps)
     torch.cuda.empty_cache()
     out = {"one_process_losses": ref_losses}
@@ -2320,7 +2350,7 @@ def rank_sp_train():
         mine = layout[r * (t // n):(r + 1) * (t // n)].to(dev)
 
         def sharded(kind=kind):
-            model = TransformerLM(**LM, attention=kind, sequence_axis=comm,
+            model = TransformerLM(**SP_LM, attention=kind, sequence_axis=comm,
                                   **bf16)
             opt = create_multi_node_optimizer(torch.optim.AdamW(
                 model.parameters(), lr=TRAIN["lr"],
@@ -2391,7 +2421,8 @@ def _check_train(name, per_rank, want_launches):
 
 
 def phase_sp_train(card):
-    """The 220M LM's context-parallel training on 2 ranks of the card
+    """The 220M LM's context-parallel training (at 4 layers) on 2 ranks of
+    the card
     (``rank_sp_train``). Fails unless, for each kind on each rank, the
     losses are finite and fall, every step's loss is within ``loss_tol``
     of the one-process flash LM's trained alike, the first step's global
@@ -2404,13 +2435,14 @@ def phase_sp_train(card):
     t0 = time.perf_counter()
     ranks = _gloo_ranks("rank_sp_train", 2)
     n_steps = SP_TRAIN["warmup_steps"] + SP_TRAIN["timed_steps"]
-    want = {k: n_steps * LM["n_layers"] * _launches_per_attention(k, True, 2)
+    want = {k: n_steps * SP_LM["n_layers"]
+            * _launches_per_attention(k, True, 2)
             for k in SP_TRAIN["kinds"]}
     emit({"phase": "sp_train", "card": card, "ranks": 2, "backend": "gloo",
-          "model": dict(LM, compute_dtype="bf16"),
+          "model": dict(SP_LM, compute_dtype="bf16"),
           "train": dict(SP_TRAIN, lr=TRAIN["lr"],
                         weight_decay=TRAIN["weight_decay"]),
-          "reduced": "none: B=8, T=2048 as the train phase",
+          "reduced": "4 of the 12 layers; B=8, T=2048 as the train phase",
           "launches_want": want, "run_s": time.perf_counter() - t0,
           "ranks_out": ranks})
     _check_train("sp_train", ranks, want)
@@ -2418,7 +2450,8 @@ def phase_sp_train(card):
 
 
 def rank_tp_train():
-    """One rank of tp_train: the 220M LM with ``tensor_axis`` over tp = 2
+    """One rank of tp_train: the 220M LM at 4 layers (SP_LM) with
+    ``tensor_axis`` over tp = 2
     (a ``MeshCommunicator`` of shape (1, 1, 2)), the vocab-parallel head
     and local ``attention='flash'``, plain AdamW (the step assembles the
     global gradient), the whole [8, 2048] batch on both ranks, beside its
@@ -2439,7 +2472,7 @@ def rank_tp_train():
     tokens, targets = _lm_batch(dev, b, t, LM["vocab_size"], SEED)
     tp_kw = dict(attention="flash", tensor_axis="tp",
                  vocab_parallel_head=True, device=dev)
-    model = TransformerLM(**LM, **tp_kw, compute_dtype=torch.bfloat16,
+    model = TransformerLM(**SP_LM, **tp_kw, compute_dtype=torch.bfloat16,
                           seed=SEED)
     ref_losses, ref_grads = _reference_run(
         _dense_from_tp(model, n_tp, attention="flash", device=dev), tokens,
@@ -2475,7 +2508,8 @@ def rank_tp_train():
 
 
 def phase_tp_train(card):
-    """The 220M LM's tensor-parallel training on 2 ranks of the card
+    """The 220M LM's tensor-parallel training (at 4 layers) on 2 ranks of
+    the card
     (``rank_tp_train``), held as sp_train is: finite falling losses,
     every step's loss and the first step's global gradient against the
     dense flash LM on the converted weights trained alike in one process
@@ -2486,11 +2520,11 @@ def phase_tp_train(card):
     t0 = time.perf_counter()
     ranks = _gloo_ranks("rank_tp_train", 2)
     n_steps = SP_TRAIN["warmup_steps"] + SP_TRAIN["timed_steps"]
-    want = {"flash": n_steps * LM["n_layers"]}
+    want = {"flash": n_steps * SP_LM["n_layers"]}
     emit({"phase": "tp_train", "card": card, "ranks": 2, "backend": "gloo",
-          "model": dict(LM, compute_dtype="bf16", tensor_parallel=2,
+          "model": dict(SP_LM, compute_dtype="bf16", tensor_parallel=2,
                         vocab_parallel_head=True, attention="flash"),
-          "reduced": "none: B=8, T=2048 as the train phase",
+          "reduced": "4 of the 12 layers; B=8, T=2048 as the train phase",
           "launches_want": want, "run_s": time.perf_counter() - t0,
           "ranks_out": ranks})
     _check_train("tp_train", ranks, want)
@@ -2555,6 +2589,566 @@ def phase_hybrid(card):
                                  f"{rk['launches']} != {want}")
 
 
+# the MoE LM: the 220M LM's widths and depth with every second block's
+# FFN routed through 8 experts, top-2 (the JAX script's --moe-experts 8
+# --moe-top-k 2), attention on the flash kernels, bf16 compute. EP over 2
+# ranks holds 4 experts a rank; each rank trains on 2 x 1024 tokens, the
+# one-process reference (gshard) on the 4 x 1024 global batch. The seeded
+# gate routes unevenly (12-28% of assignments dropped at a capacity factor
+# of 2, PERF.md section 6), so the parity runs at E / k = 4, where an
+# expert can take every token and nothing drops (read, not assumed); then
+# 3 steps at the default 1.25. Tolerances (PERF.md section 6): the
+# gate's logits are bf16, and a token whose second and third choices lie
+# within one bf16 step of each other changes experts under any rounding
+# difference upstream, so two sound runs drift apart step by step (0.039
+# EP, 0.118 GSPMD over 7 steps) and the gate's own gradient differs most
+# (0.17 under GSPMD, whose blocks round their partial sums apart). The
+# pre-update loss is held tightly, the trajectory loosely; the gradient
+# gate carries the power, against planted faults that read >= 1.
+MOE = dict(experts=8, top_k=2, ranks=2, batch=2, seq_len=1024,
+           warmup_steps=2, timed_steps=5, drop_steps=3, parity_capacity=4.0,
+           first_loss_tol=1e-3, loss_tol=0.25, grad_rel_tol=5e-2)
+GSPMD_TOL = dict(first_loss_tol=1e-3, loss_tol=0.25, grad_rel_tol=0.35)
+# GPipe: 4 stages (one block of the 220M LM's width each, 'full'
+# attention as make_pipeline_lm builds them) on 4 ranks, 8 microbatches
+# of 2 x 1024, remat (the step's default), 5 AdamW steps
+PP = dict(stages=4, microbatches=8, micro_batch=2, seq_len=1024, steps=5,
+          loss_tol=2e-2, grad_rel_tol=5e-2)
+# fused CE and remat on the 220M dense LM at the train phase's batch
+FUSED = dict(batch=8, seq_len=2048, steps=3, loss_tol=2e-2)
+# the twin's main() on the card at its own defaults
+LM_EXAMPLE = {"moe": ["--moe-experts", "8", "--moe-top-k", "2",
+                      "--attention", "flash"],
+              "pipeline": ["--pipeline"]}
+
+
+def _moe_lm(**kw):
+    """The MoE LM of MOE (bf16, seed 0) on cuda:0."""
+    import torch
+
+    from chainermn_torch.models import TransformerLM
+
+    return TransformerLM(**LM, attention="flash", moe_experts=MOE["experts"],
+                         moe_top_k=MOE["top_k"], compute_dtype=torch.bfloat16,
+                         device=torch.device("cuda", 0), seed=SEED, **kw)
+
+
+@contextlib.contextmanager
+def _top2_unrenormalised():
+    """A planted fault: the top-2 combine weights left as the raw gate
+    probabilities instead of renormalised to sum to 1."""
+    import torch
+
+    from chainermn_torch.parallel import moe
+
+    real = moe._route
+
+    def faulty(gate_probs, n_experts, top_k, capacity_factor):
+        out = list(real(gate_probs, n_experts, top_k, capacity_factor))
+        out[0] = torch.topk(gate_probs, top_k, dim=-1).values
+        return tuple(out)
+
+    moe._route = faulty
+    try:
+        yield
+    finally:
+        moe._route = real
+
+
+def rank_moe_train():
+    """One rank of moe_train: the MoE LM with ``moe_impl='ep'`` over a
+    2-rank flat communicator, ``create_multi_node_optimizer(AdamW)`` and
+    ``lm_train_step`` on this rank's 2 x 1024 tokens of a 4 x 1024 global
+    batch, beside the same weights as a one-process ``moe_impl='gshard'``
+    LM trained alike on the global batch; the planted fault (top-2 weights
+    left unrenormalised) on one more first step; then 3 steps at the
+    default capacity factor."""
+    import torch
+
+    from chainermn_torch import create_communicator, create_multi_node_optimizer
+    from chainermn_torch.training import lm_train_step
+
+    dev = torch.device("cuda", 0)
+    comm = create_communicator("flat", device=dev)
+    n, r, b = comm.size, comm.rank, MOE["batch"]
+    n_steps = MOE["warmup_steps"] + MOE["timed_steps"]
+    tokens, targets = _lm_batch(dev, n * b, MOE["seq_len"], LM["vocab_size"],
+                                SEED + 11)
+    mine = slice(r * b, (r + 1) * b)
+    ref_drops = []
+    ref_losses, ref_grads = _reference_run(
+        _moe_lm(moe_impl="gshard", moe_capacity_factor=MOE["parity_capacity"]),
+        tokens, targets, n_steps, ref_drops)
+    torch.cuda.empty_cache()
+
+    def ep(capacity):
+        model = _moe_lm(moe_axis=comm, moe_capacity_factor=capacity)
+        opt = create_multi_node_optimizer(torch.optim.AdamW(
+            model.parameters(), lr=TRAIN["lr"],
+            weight_decay=TRAIN["weight_decay"]), comm)
+        return model, lm_train_step(model, opt, comm)
+
+    model, step = ep(MOE["parity_capacity"])
+    with _top2_unrenormalised():
+        step(tokens[mine], targets[mine])
+    fault = _grad_error(_model_grads(model), ref_grads)
+    del model, step
+    torch.cuda.empty_cache()
+    model, step = ep(MOE["parity_capacity"])
+    out = {"one_process_losses": ref_losses,
+           "one_process_moe_drop_frac": ref_drops,
+           "ep": _train_run(model, step, tokens[mine], targets[mine],
+                            MOE["warmup_steps"], MOE["timed_steps"], _staged,
+                            lambda: _grad_error(_model_grads(model),
+                                                ref_grads))}
+    out["ep"]["planted_fault_grad_err"] = fault
+    del model, step
+    torch.cuda.empty_cache()
+    model, step = ep(1.25)
+    out["default_capacity"] = _train_run(
+        model, step, tokens[mine], targets[mine], 1, MOE["drop_steps"] - 1,
+        _staged, lambda: None)
+    comm.finalize()
+    return out
+
+
+def phase_moe_train(card):
+    """The MoE LM's expert-parallel training on 2 ranks of the card
+    (``rank_moe_train``). Fails unless nothing dropped at the parity
+    capacity (EP and reference), every EP loss is finite, the pre-update
+    loss within ``first_loss_tol`` and every loss within ``loss_tol`` of
+    the one-process gshard LM's trained alike, the first
+    step's global gradient within ``grad_rel_tol`` of its and the planted
+    fault's not, every attention call of the 7 steps went through the
+    flash kernels (12 launches of each a step), and the 3 steps at the
+    default capacity gave finite losses and drop fractions."""
+    t0 = time.perf_counter()
+    ranks = _gloo_ranks("rank_moe_train", MOE["ranks"])
+    n_steps = MOE["warmup_steps"] + MOE["timed_steps"]
+    want = n_steps * LM["n_layers"]
+    emit({"phase": "moe_train", "card": card, "ranks": MOE["ranks"],
+          "backend": "gloo",
+          "model": dict(LM, compute_dtype="bf16", attention="flash",
+                        moe_experts=MOE["experts"], moe_top_k=MOE["top_k"],
+                        moe_every=2, moe_impl="ep"),
+          "train": dict(MOE, lr=TRAIN["lr"],
+                        weight_decay=TRAIN["weight_decay"]),
+          "reduced": "none: the 220M LM's widths and 12 layers",
+          "launches_want": want, "run_s": time.perf_counter() - t0,
+          "ranks_out": ranks})
+    for rk in ranks:
+        rec = rk["ep"]
+        drops = rec["moe_drop_frac"] + rk["one_process_moe_drop_frac"]
+        if any(d != 0 for d in drops):
+            raise AssertionError(f"moe_train: tokens dropped at the parity "
+                                 f"capacity {MOE['parity_capacity']}: {drops}")
+        _check_losses_and_grads("moe_train", rec, rk["one_process_losses"],
+                                MOE)
+        if any(v != want for v in rec["launches"].values()):
+            raise AssertionError(f"moe_train: flash launches "
+                                 f"{rec['launches']} != {want} each")
+        dflt = rk["default_capacity"]
+        if not all(math.isfinite(x) for x in dflt["losses"] +
+                   dflt["moe_drop_frac"]):
+            raise AssertionError(f"moe_train: default capacity {dflt}")
+    return ranks
+
+
+def _check_losses_and_grads(name, rec, ref_losses, tol, fault=True):
+    """Finite losses within ``loss_tol`` of the one-process run's, the
+    first step's gradient within ``grad_rel_tol``, and (``fault``) the
+    planted fault's gradient outside it."""
+    losses = rec["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: non-finite losses {losses}")
+    if abs(losses[0] - ref_losses[0]) > tol.get("first_loss_tol", math.inf):
+        raise AssertionError(f"{name}: pre-update loss {losses[0]} vs one "
+                             f"process's {ref_losses[0]}")
+    if max(abs(x - y) for x, y in zip(losses, ref_losses)) > tol["loss_tol"]:
+        raise AssertionError(f"{name}: losses {losses} vs one process's "
+                             f"{ref_losses}")
+    if rec["grad_err"]["max_rel"] > tol["grad_rel_tol"]:
+        raise AssertionError(f"{name}: first step's gradient off one "
+                             f"process's: {rec['grad_err']}")
+    fault = rec.get("planted_fault_grad_err") if fault else None
+    if fault is not None and fault["max_rel"] <= tol["grad_rel_tol"]:
+        raise AssertionError(f"{name}: the planted fault passes the gradient "
+                             f"gate: {fault}")
+
+
+@contextlib.contextmanager
+def _dispatch_grads_unsummed():
+    """A planted fault: Megatron's *f* on the gshard dispatch's payload
+    and combine weights left out, so each rank's backward keeps only its
+    own experts' share of their gradients."""
+    from chainermn_torch.parallel import moe
+
+    real = moe.copy_to_parallel_region
+    moe.copy_to_parallel_region = lambda x, comm: x
+    try:
+        yield
+    finally:
+        moe.copy_to_parallel_region = real
+
+
+def rank_gspmd_train():
+    """One rank of gspmd_train: the MoE LM with ``moe_impl='gshard'`` cut
+    to the Megatron layout over tp = 2 (``megatron_shard``), plain AdamW
+    over the shards and ``gspmd_lm_train_step`` on the whole 4 x 1024
+    batch, beside the replicated model trained alike in one process; the
+    first step's gradient of every leaf against the replicated model's
+    same shard, and a planted fault's (``_dispatch_grads_unsummed``, one
+    more first step); the stored parameter and optimizer fractions."""
+    import torch
+
+    from chainermn_torch import create_communicator
+    from chainermn_torch.parallel import gspmd
+
+    dev = torch.device("cuda", 0)
+    comm = create_communicator("flat", device=dev)
+    n = comm.size
+    n_steps = MOE["warmup_steps"] + MOE["timed_steps"]
+    tokens, targets = _lm_batch(dev, MOE["ranks"] * MOE["batch"],
+                                MOE["seq_len"], LM["vocab_size"], SEED + 11)
+    ref_drops = []
+    kw = dict(moe_impl="gshard", moe_capacity_factor=MOE["parity_capacity"])
+    ref_losses, ref_grads = _reference_run(_moe_lm(**kw), tokens, targets,
+                                           n_steps, ref_drops)
+    torch.cuda.empty_cache()
+    def sharded():
+        model = gspmd.megatron_shard(_moe_lm(**kw), comm)
+        opt = torch.optim.AdamW(model.parameters(), lr=TRAIN["lr"],
+                                weight_decay=TRAIN["weight_decay"])
+        return model, opt, gspmd.gspmd_lm_train_step(model, opt, comm)
+
+    def grad_err():
+        return _grad_error({k: p.grad for k, p in model.named_parameters()},
+                           want_grads)
+
+    model, opt, step = sharded()
+    want_grads = gspmd.shard_state_dict(ref_grads, model._megatron_specs,
+                                        comm.rank, n, LM["n_heads"])
+    with _dispatch_grads_unsummed():
+        step(tokens, targets)
+    fault = grad_err()
+    del model, opt, step
+    torch.cuda.empty_cache()
+    model, opt, step = sharded()
+    out = {"one_process_losses": ref_losses,
+           "one_process_moe_drop_frac": ref_drops,
+           "gspmd": _train_run(
+               model, step, tokens, targets, MOE["warmup_steps"],
+               MOE["timed_steps"], _staged, grad_err)}
+    out["gspmd"]["planted_fault_grad_err"] = fault
+    out["gspmd"]["stored_fraction"] = gspmd.stored_fraction(model, opt)
+    out["gspmd"]["one_over_n"] = 1 / n
+    comm.finalize()
+    return out
+
+
+def phase_gspmd_train(card):
+    """The gshard MoE LM in the weights-at-rest Megatron layout over tp = 2
+    ranks of the card (``rank_gspmd_train``). Fails unless the pre-update
+    loss is within ``first_loss_tol`` and all 7 losses within
+    ``loss_tol`` of the replicated model's trained alike in one process
+    (the dry run's b5 check), every shard's first-step gradient within
+    ``grad_rel_tol`` of the replicated model's and the planted fault's
+    not, the stored parameter and optimizer fractions at most 1/2 plus
+    the replicated leaves' share, and every attention call on the flash
+    kernels (12 launches of each a step)."""
+    t0 = time.perf_counter()
+    ranks = _gloo_ranks("rank_gspmd_train", MOE["ranks"])
+    want = (MOE["warmup_steps"] + MOE["timed_steps"]) * LM["n_layers"]
+    emit({"phase": "gspmd_train", "card": card, "ranks": MOE["ranks"],
+          "backend": "gloo",
+          "model": dict(LM, compute_dtype="bf16", attention="flash",
+                        moe_experts=MOE["experts"], moe_top_k=MOE["top_k"],
+                        moe_impl="gshard", layout="megatron, tp=2",
+                        moe_capacity_factor=MOE["parity_capacity"]),
+          "tolerances": GSPMD_TOL,
+          "reduced": "none: the 220M LM's widths and 12 layers",
+          "launches_want": want, "run_s": time.perf_counter() - t0,
+          "ranks_out": ranks})
+    for rk in ranks:
+        rec = rk["gspmd"]
+        _check_losses_and_grads("gspmd_train", rec, rk["one_process_losses"],
+                                GSPMD_TOL)
+        frac = rec["stored_fraction"]
+        bound = rec["one_over_n"] + frac["replicated_share"]
+        if frac["params"] > bound or frac["opt"] > bound:
+            raise AssertionError(f"gspmd_train: stores {frac}, more than "
+                                 f"1/n plus the replicated share ({bound})")
+        if any(v != want for v in rec["launches"].values()):
+            raise AssertionError(f"gspmd_train: flash launches "
+                                 f"{rec['launches']} != {want} each")
+    return ranks
+
+
+def _pp_modules(stage: int):
+    import torch
+
+    from chainermn_torch.ops import init_pipeline_lm, make_pipeline_lm
+
+    mods = make_pipeline_lm(LM["vocab_size"], LM["d_model"], LM["n_heads"],
+                            PP["stages"], d_ff=LM["d_ff"],
+                            max_len=LM["max_len"],
+                            compute_dtype=torch.bfloat16,
+                            device=torch.device("cuda", 0))
+    init_pipeline_lm(mods, SEED, stage)
+    return mods
+
+
+def _pp_batch():
+    import torch
+
+    return _lm_batch(torch.device("cuda", 0),
+                     PP["microbatches"] * PP["micro_batch"], PP["seq_len"],
+                     LM["vocab_size"], SEED + 12)
+
+
+def _pp_reference(path: Path) -> list:
+    """The four stages as one sequential stack in this process, trained
+    ``PP['steps']`` AdamW steps on the whole batch: its losses and first
+    step's gradients, saved to ``path`` for the ranks."""
+    import torch
+    import torch.nn.functional as F
+
+    stages = [_pp_modules(s) for s in range(PP["stages"])]
+    embed, head = stages[0][0], stages[0][2]
+    blocks = [m[1] for m in stages]
+    params = [p for m in (embed, *blocks, head) for p in m.parameters()]
+    opt = torch.optim.AdamW(params, lr=TRAIN["lr"],
+                            weight_decay=TRAIN["weight_decay"])
+    tokens, targets = _pp_batch()
+    losses, grads = [], None
+    for _ in range(PP["steps"]):
+        opt.zero_grad(set_to_none=True)
+        x = embed(tokens)
+        for blk in blocks:
+            x = blk(x)
+        logits = head(x)
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               targets.reshape(-1))
+        loss.backward()
+        del logits, x
+        if grads is None:
+            grads = {"embed": {n: p.grad.detach().cpu() for n, p in
+                               embed.named_parameters()},
+                     "head": {n: p.grad.detach().cpu() for n, p in
+                              head.named_parameters()},
+                     "blocks": [{n: p.grad.detach().cpu() for n, p in
+                                 blk.named_parameters()} for blk in blocks]}
+        opt.step()
+        losses.append(float(loss))
+    torch.save({"losses": losses, "grads": grads}, path)
+    del stages, embed, head, blocks, params, opt
+    torch.cuda.empty_cache()
+    return losses
+
+
+@contextlib.contextmanager
+def _embed_grad_unsummed():
+    """A planted fault: the pipeline step's sum of the embedding gradient
+    over the ranks left out (each rank keeps its own: rank 0's whole
+    gradient, the others' zeros)."""
+    import torch
+
+    from chainermn_torch.ops import pipeline
+
+    real = pipeline._reduce_grads
+
+    def faulty(params, comm, op):
+        if op != "sum":
+            return real(params, comm, op)
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+
+    pipeline._reduce_grads = faulty
+    try:
+        yield
+    finally:
+        pipeline._reduce_grads = real
+
+
+def rank_pp_train(ref_path):
+    """One rank of pp_train: its stage of the 4-stage pipelined LM,
+    ``pp_lm_opt_init(AdamW)`` and ``jit_pp_lm_train_step`` (8 microbatches,
+    remat) on the whole batch; the planted fault on one more first step;
+    the first step's gradients (embedding, this rank's block, head)
+    against the sequential stack's."""
+    import torch
+
+    from chainermn_torch import create_communicator
+    from chainermn_torch.ops import jit_pp_lm_train_step, pp_lm_opt_init
+
+    dev = torch.device("cuda", 0)
+    comm = create_communicator("naive", device=dev)
+    r = comm.rank
+    ref = torch.load(ref_path, weights_only=False)
+    want = {**{f"embed.{k}": v for k, v in ref["grads"]["embed"].items()},
+            **{f"block.{k}": v for k, v in ref["grads"]["blocks"][r].items()},
+            **{f"head.{k}": v for k, v in ref["grads"]["head"].items()}}
+    want = {k: v.to(dev) for k, v in want.items()}
+    tokens, targets = _pp_batch()
+
+    def build():
+        mods = _pp_modules(r)
+        opt = pp_lm_opt_init(lambda ps: torch.optim.AdamW(
+            ps, lr=TRAIN["lr"], weight_decay=TRAIN["weight_decay"]), mods)
+        step = jit_pp_lm_train_step(mods, opt, comm, PP["microbatches"])
+        return mods, lambda tok, tgt: (step(tok, tgt), {})
+
+    def grads(mods):
+        return {f"{part}.{k}": p.grad for part, m in
+                zip(("embed", "block", "head"), mods)
+                for k, p in m.named_parameters()}
+
+    mods, step = build()
+    with _embed_grad_unsummed():
+        step(tokens, targets)
+    fault = _grad_error(grads(mods), want)
+    del mods, step
+    torch.cuda.empty_cache()
+    mods, step = build()
+    rec = _train_run(mods[1], step, tokens, targets, 1, PP["steps"] - 1,
+                     _staged, lambda: _grad_error(grads(mods), want))
+    rec["planted_fault_grad_err"] = fault
+    comm.finalize()
+    return {"pp": rec, "one_process_losses": ref["losses"], "rank": r}
+
+
+def phase_pp_train(card):
+    """The 220M LM's width as a 4-stage GPipe pipeline on 4 ranks of the
+    card (``rank_pp_train``; the sequential reference runs in this process
+    first). Fails unless the first (pre-update) loss and all 5 losses are
+    within ``loss_tol`` of the unpipelined four-block stack's trained
+    alike (the dry run's b6 check), every rank's first-step gradients
+    within ``grad_rel_tol`` of it, and the planted fault (the embedding
+    gradient left unsummed) fails that gate."""
+    t0 = time.perf_counter()
+    path = ROOT / "build" / "pp_reference.pt"
+    path.parent.mkdir(exist_ok=True)
+    ref_losses = _pp_reference(path)
+    ranks = _gloo_ranks("rank_pp_train", PP["stages"], str(path))
+    path.unlink()
+    emit({"phase": "pp_train", "card": card, "ranks": PP["stages"],
+          "backend": "gloo",
+          "model": dict(vocab_size=LM["vocab_size"], d_model=LM["d_model"],
+                        n_heads=LM["n_heads"], d_ff=LM["d_ff"],
+                        stages=PP["stages"], attention="full",
+                        compute_dtype="bf16"),
+          "train": dict(PP, lr=TRAIN["lr"],
+                        weight_decay=TRAIN["weight_decay"]),
+          "reduced": "4 blocks, one a stage (the 220M LM has 12)",
+          "bubble_fraction": (PP["stages"] - 1)
+          / (PP["microbatches"] + PP["stages"] - 1),
+          "one_process_losses": ref_losses,
+          "run_s": time.perf_counter() - t0, "ranks_out": ranks})
+    for rk in ranks:       # rank 0 holds the whole embedding gradient
+        _check_losses_and_grads("pp_train", rk["pp"], ref_losses, PP,
+                                fault=False)
+    if all(rk["pp"]["planted_fault_grad_err"]["max_rel"] <= PP["grad_rel_tol"]
+           for rk in ranks):
+        raise AssertionError("pp_train: the planted fault passes the "
+                             "gradient gate on every rank")
+    return ranks
+
+
+def phase_lm_fused_remat(device, card):
+    """``lm_train_step(fused_ce=True)`` and ``TransformerLM(remat=True)``,
+    each alone and both, on the 220M dense flash LM (bf16, seed 0), one
+    NCCL rank, FUSED's batch, against the plain step on the same weights.
+    Fails unless every config's losses are finite and within ``loss_tol``
+    of the plain step's, and under remat the flash forward launches twice
+    a layer and step while dq and dk/dv launch once."""
+    import torch
+
+    from chainermn_torch import create_communicator, create_multi_node_optimizer
+    from chainermn_torch.models import TransformerLM
+    from chainermn_torch.training import lm_train_step
+
+    t0 = time.perf_counter()
+    comm = create_communicator("pure_nccl", device=device)
+    tokens, targets = _lm_batch(device, FUSED["batch"], FUSED["seq_len"],
+                                LM["vocab_size"], SEED)
+    configs = {}
+    for fused, remat in ((False, False), (True, False), (False, True),
+                         (True, True)):
+        model = TransformerLM(**LM, attention="flash", remat=remat,
+                              compute_dtype=torch.bfloat16, device=device,
+                              seed=SEED)
+        opt = create_multi_node_optimizer(torch.optim.AdamW(
+            model.parameters(), lr=TRAIN["lr"],
+            weight_decay=TRAIN["weight_decay"]), comm)
+        step = lm_train_step(model, opt, comm, fused_ce=fused)
+        step(tokens, targets)                  # AdamW's state allocated
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        _zero_flash_counts()
+        t1 = time.perf_counter()
+        losses = [step(tokens, targets)[0] for _ in range(FUSED["steps"])]
+        losses = [float(x) for x in losses]
+        configs[f"fused_ce={fused},remat={remat}"] = {
+            "losses": losses,
+            "step_ms": (time.perf_counter() - t1) / FUSED["steps"] * 1e3,
+            "peak_memory_allocated_gb":
+                torch.cuda.max_memory_allocated(device) / 1e9,
+            "launches": _flash_counts()}
+        del model, opt, step
+        torch.cuda.empty_cache()
+    comm.finalize()
+    plain = configs["fused_ce=False,remat=False"]["losses"]
+    for rec in configs.values():
+        rec["max_loss_diff"] = max(abs(a - b)
+                                   for a, b in zip(rec["losses"], plain))
+    emit({"phase": "lm_fused_remat", "card": card,
+          "model": dict(LM, compute_dtype="bf16", attention="flash"),
+          "train": dict(FUSED, lr=TRAIN["lr"],
+                        weight_decay=TRAIN["weight_decay"]),
+          "reduced": "none", "run_s": time.perf_counter() - t0,
+          "configs": configs})
+    per = FUSED["steps"] * LM["n_layers"]
+    for name, rec in configs.items():
+        if not all(math.isfinite(x) for x in rec["losses"]) or \
+                rec["max_loss_diff"] > FUSED["loss_tol"]:
+            raise AssertionError(f"lm_fused_remat {name}: {rec['losses']} vs "
+                                 f"the plain step's {plain}")
+        fwd = 2 * per if name.endswith("remat=True") else per
+        want = {"flash_fwd": fwd, "flash_dq": per, "flash_dkv": per}
+        if rec["launches"] != want:
+            raise AssertionError(f"lm_fused_remat {name}: flash launches "
+                                 f"{rec['launches']} != {want}")
+    return configs
+
+
+def phase_lm_example(card):
+    """The LM trainer twin's ``main()`` in this process on one NCCL rank,
+    3 iterations at its own defaults, in the MoE mode (8 experts, top-2,
+    flash) and the pipeline mode (one stage). Fails unless each finishes
+    with finite losses, and the MoE mode's attention went through the
+    flash kernels."""
+    from chainermn_torch.examples.lm import train_lm
+
+    out = {}
+    for name, extra in LM_EXAMPLE.items():
+        t0 = time.perf_counter()
+        _zero_flash_counts()
+        res = train_lm.main(["--iterations", "3", *extra])
+        out[name] = dict(res, run_s=time.perf_counter() - t0,
+                         launches=_flash_counts())
+    emit({"phase": "lm_example", "card": card, "modes": LM_EXAMPLE,
+          "out": out})
+    for name, res in out.items():
+        if len(res["losses"]) != 3 or not all(math.isfinite(x)
+                                              for x in res["losses"]):
+            raise AssertionError(f"lm_example {name}: losses {res['losses']}")
+    if any(v != 3 * 2 for v in out["moe"]["launches"].values()):
+        raise AssertionError(f"lm_example moe: flash launches "
+                             f"{out['moe']['launches']} != 6 each")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2572,29 +3166,43 @@ def main() -> int:
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = phase_device()
-    phase_build()
-    parity_err = phase_parity(device)
-    launches, lengths, _ = phase_serve(device)
-    timing = phase_timing(device, lengths)
-    phase_engine_parity(device)
-    flash_err = phase_flash_parity(device)
-    phase_flash_ring_blocks(device)
-    flash_launches, comm = phase_train(device)
-    flash_timing = phase_flash_timing(device)
-    phase_train_parity(device)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    smi = timed("device", phase_device)
+    timed("build", phase_build)
+    parity_err = timed("parity", phase_parity, device)
+    launches, lengths, _ = timed("serve", phase_serve, device)
+    timing = timed("timing", phase_timing, device, lengths)
+    timed("engine_parity", phase_engine_parity, device)
+    flash_err = timed("flash_parity", phase_flash_parity, device)
+    timed("flash_ring_blocks", phase_flash_ring_blocks, device)
+    flash_launches, comm = timed("train", phase_train, device)
+    flash_timing = timed("flash_timing", phase_flash_timing, device)
+    timed("train_parity", phase_train_parity, device)
     comm.finalize()
-    dp = phase_dp_train(device)
-    phase_dp_parity(device)
-    phase_imagenet(device, dp["images_per_sec"])
-    phase_mnist(device, smi)
-    phase_mnist_checkpoint(smi)
-    phase_mnist_mp(device, smi)
-    phase_seq2seq_mp(smi)
-    phase_sp_parity(smi)
-    sp_train = phase_sp_train(smi)
-    phase_tp_train(smi)
-    phase_hybrid(smi)
+    dp = timed("dp_train", phase_dp_train, device)
+    timed("dp_parity", phase_dp_parity, device)
+    timed("imagenet", phase_imagenet, device, dp["images_per_sec"])
+    timed("mnist", phase_mnist, device, smi)
+    timed("mnist_checkpoint", phase_mnist_checkpoint, smi)
+    timed("mnist_mp", phase_mnist_mp, device, smi)
+    timed("seq2seq_mp", phase_seq2seq_mp, smi)
+    timed("sp_parity", phase_sp_parity, smi)
+    sp_train = timed("sp_train", phase_sp_train, smi)
+    timed("tp_train", phase_tp_train, smi)
+    timed("hybrid", phase_hybrid, smi)
+    moe = timed("moe_train", phase_moe_train, smi)
+    gspmd = timed("gspmd_train", phase_gspmd_train, smi)
+    timed("pp_train", phase_pp_train, smi)
+    timed("lm_fused_remat", phase_lm_fused_remat, device, smi)
+    timed("lm_example", phase_lm_example, smi)
+    emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
     kernels = [{
         "name": "paged_decode", "route": "cuda",
         "source": "chainermn_torch/csrc/paged_decode.cu",
@@ -2610,6 +3218,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": flash_launches[name],
             "launches_ring_path": sp_train[0]["ring_flash"]["launches"][name],
+            "launches_moe_path": moe[0]["ep"]["launches"][name],
+            "launches_gspmd_path": gspmd[0]["gspmd"]["launches"][name],
             "max_abs_err": rec["max_abs_err"],
             "parity_max_abs_err": flash_err[name],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],

@@ -30,7 +30,10 @@ def test_the_parallel_modules_are_checked():
     names = {name for name, _ in _modules()}
     assert {"chainermn_torch.parallel.mesh", "chainermn_torch.parallel.tensor",
             "chainermn_torch.parallel.sequence",
-            "chainermn_torch.communicators.mesh_communicator"} <= names
+            "chainermn_torch.communicators.mesh_communicator",
+            "chainermn_torch.parallel.moe", "chainermn_torch.parallel.gspmd",
+            "chainermn_torch.ops.pipeline", "chainermn_torch.ops.losses",
+            "chainermn_torch.examples.lm.train_lm"} <= names
 
 
 def test_importing_every_module_pulls_in_no_jax():

@@ -291,10 +291,50 @@ def test_lm_train_step_matches_jit_lm_train_step(comm):
 
 
 def test_lm_train_step_rejects_what_it_does_not_run(comm):
+    """The step refuses a local attention kind with ``shard_sequence``
+    and ``fused_ce`` with a sharded head; the fused step it does run
+    (``fused_ce=True``, the chunked cross entropy on the float32 head)
+    takes the same two steps as ``jit_lm_train_step(fused_ce=True)`` on
+    the same converted init, to 1e-5 on losses and parameters."""
     tlm = TransformerLM(**LM_CFG, attention="flash", device="cpu")
     opt = create_multi_node_optimizer(
         torch.optim.AdamW(tlm.parameters(), lr=1e-3), comm)
     with pytest.raises(ValueError, match="local"):
         lm_train_step(tlm, opt, comm, shard_sequence=True)
-    with pytest.raises(NotImplementedError, match="fused_ce"):
-        lm_train_step(tlm, opt, comm, fused_ce=True)
+    tp = TransformerLM(**LM_CFG, tensor_axis=comm, vocab_parallel_head=True,
+                       device="cpu")
+    with pytest.raises(ValueError, match="fused_ce"):
+        lm_train_step(tp, opt, comm, fused_ce=True)
+
+    tokens = np.random.default_rng(8).integers(0, 64, (2, 24)).astype(
+        np.int32)
+    targets = np.roll(tokens, -1, axis=1)
+    jlm = JaxLM(**LM_CFG, compute_dtype=jnp.float32)
+    jcomm = chainermn_tpu.create_communicator("tpu",
+                                              devices=jax.devices()[:1])
+    params = jcomm.bcast_data(jlm.init(jax.random.PRNGKey(4),
+                                       jnp.asarray(tokens[:1])))
+    start = jax.device_get(params)
+    jopt = chainermn_tpu.create_multi_node_optimizer(
+        optax.adam(1e-3, eps=1e-5), jcomm)
+    opt_state = jax.device_put(jopt.init(params), jcomm.named_sharding())
+    jstep = jit_lm_train_step(jlm, jopt, jcomm, fused_ce=True,
+                              monitored=False)
+    tlm = TransformerLM(**LM_CFG, attention="flash",
+                        compute_dtype=torch.float32, device="cpu")
+    tlm.load_state_dict(params_from_flax(start))
+    tstep = lm_train_step(tlm, create_multi_node_optimizer(
+        torch.optim.Adam(tlm.parameters(), lr=1e-3, eps=1e-5), comm), comm,
+        fused_ce=True)
+    for _ in range(2):
+        params, opt_state, jloss, _ = jstep(params, opt_state,
+                                            jnp.asarray(tokens),
+                                            jnp.asarray(targets))
+        tloss, stats = tstep(tokens, targets)
+        assert stats == {}
+        np.testing.assert_allclose(float(tloss), float(jloss), atol=1e-5,
+                                   rtol=0)
+    got = tlm.state_dict()
+    for name, w in params_from_flax(jax.device_get(params)).items():
+        np.testing.assert_allclose(got[name].numpy(), w.numpy(), atol=1e-5,
+                                   rtol=0, err_msg=name)
