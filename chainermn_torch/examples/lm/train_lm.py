@@ -17,11 +17,15 @@ chips): ``--batchsize`` is per rank in the data-parallel modes, each rank
 takes its slice of the global batch; ``--device cpu`` runs a rank on the
 CPU over gloo. Weights are random from seed 0, the same on every rank.
 
+``--serve-samples N`` serves N shared-context continuations of the
+trained model through the dense serving engine with its prefix store
+(bucketed, batched prefill), as the reference does.
+
 Not ported yet — each raises ``NotImplementedError`` naming its
 ROADMAP.md item: ``--resume``/``--inject-fault`` (``resilient_fit``),
-``--prefetch-depth``/``--fetch-every`` (``fit``), ``--serve-samples``
-(the dense serving engine), ``--publish-to`` (deploy), ``--snapshot-to``
-(sharded checkpoints), ``--trace-out`` (``monitor/trace``).
+``--prefetch-depth``/``--fetch-every`` (``fit``), ``--publish-to``
+(deploy), ``--snapshot-to`` (sharded checkpoints), ``--trace-out``
+(``monitor/trace``).
 
 Run one rank on the card::
 
@@ -36,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -313,9 +318,6 @@ def _check_flags(args) -> None:
          "--resume/--inject-fault need resilience.resilient_fit"),
         (args.prefetch_depth or args.fetch_every > 1,
          "--prefetch-depth/--fetch-every need training.fit and LossWindow"),
-        (args.serve_samples,
-         "--serve-samples needs the dense serving engine with the prefix "
-         "cache"),
         (args.publish_to, "--publish-to needs deploy's WeightPublisher"),
         (args.snapshot_to,
          "--snapshot-to needs extensions.sharded_checkpoint"),
@@ -474,9 +476,67 @@ def _run_steps(args, comm, step_comm) -> dict:
         print(f"done: {args.iterations} iterations, "
               f"loss {first:.3f} -> {last:.3f}{_drop_suffix(acc)}",
               flush=True)
-    return {"mode": "plain", "losses": [float(x) for x in losses],
-            "tokens_per_sec": toks / max(time.time() - t0, 1e-9),
-            "moe_drop": acc.summary(), "n_params": n_params}
+    out = {"mode": "plain", "losses": [float(x) for x in losses],
+           "tokens_per_sec": toks / max(time.time() - t0, 1e-9),
+           "moe_drop": acc.summary(), "n_params": n_params}
+    if args.serve_samples:
+        out["serve_samples"] = _serve_samples(args, comm, model, tokens_all)
+    return out
+
+
+def _serve_samples(args, comm, model, tokens_all) -> Optional[dict]:
+    """Training to serving in one script: ``--serve-samples`` continuations
+    of the trained model through the dense engine's fast path (bucketed
+    batched prefill + the prefix store). Every prompt shares the stream's
+    opening context, so after the first admission each later one hits the
+    prefix cache and prefills only its ragged tail. Rank 0 only; skipped
+    for sequence- or tensor-sharded models (rebuild dense to serve, see
+    ``serve_lm.py``). An expert-parallel model serves through a
+    ``moe_impl='gshard'`` copy of its weights. Returns the samples and
+    the prefix statistics."""
+    from chainermn_torch.serving import ServingClient, ServingEngine
+
+    if comm.rank != 0:
+        return None
+    if args.seq_parallel or args.tensor_parallel:
+        print("serve-samples: skipped (sequence/tensor-sharded training "
+              "model; rebuild dense for inference — see serve_lm.py)")
+        return None
+    infer = model
+    if model.moe_experts:
+        infer = TransformerLM(
+            model.vocab_size, model.d_model, model.n_heads, model.n_layers,
+            d_ff=model.d_ff, max_len=model.max_len,
+            compute_dtype=model.compute_dtype, moe_experts=model.moe_experts,
+            moe_top_k=model.moe_top_k, moe_impl="gshard",
+            device=model.device)
+        infer.load_state_dict(model.state_dict())
+    ctx_len = min(args.seq_len // 2, 24)
+    ctx = np.asarray(tokens_all[0][:ctx_len], np.int32)
+    tail_src = np.asarray(tokens_all[1], np.int32)
+    bucket_small = 8
+    prefill_len = ctx_len + bucket_small
+    engine = ServingEngine(
+        infer, n_slots=4, prefill_buckets=(bucket_small, prefill_len),
+        prefill_batch=4, prefix_cache_blocks=32, prefix_block_size=4,
+        cache_len=prefill_len + 16, paged=False, device=model.device)
+    engine.warmup()
+    n = args.serve_samples
+    print(f"serving {n} shared-context continuations "
+          f"(ctx={ctx_len} tokens, prefix-cached, bucketed prefill):")
+    samples = []
+    with ServingClient(engine) as client:
+        reqs = [client.submit(
+            np.concatenate([ctx, tail_src[:1 + i % bucket_small]]), 12,
+            seed=i) for i in range(n)]
+        for i, req in enumerate(reqs):
+            req.wait(timeout=300)
+            samples.append([int(t) for t in req.output])
+            print(f"  sample {i}: ...{samples[-1][-8:]}")
+    stats = engine.prefix_stats()
+    print(f"prefix cache: hit_rate={stats['hit_rate']} "
+          f"hits={stats['hits']} inserted_blocks={stats['inserted_blocks']}")
+    return {"samples": samples, "prefix": stats}
 
 
 if __name__ == "__main__":

@@ -16,6 +16,7 @@ from chainermn_torch.models.transformer import (
     TransformerBlock,
     TransformerLM,
     generate,
+    init_kv_caches,
     init_paged_kv_caches,
 )
 from chainermn_torch.models.vision import VGG16, GoogLeNet, InceptionBlock
@@ -24,4 +25,4 @@ __all__ = ["MLP", "ResNet", "ResNet18", "ResNet34", "ResNet50", "ResNet101",
            "ResNet152", "BottleneckBlock", "BasicBlock", "AlexNet",
            "GoogLeNet", "InceptionBlock", "VGG16",
            "TransformerBlock", "TransformerLM", "generate",
-           "init_paged_kv_caches"]
+           "init_kv_caches", "init_paged_kv_caches"]

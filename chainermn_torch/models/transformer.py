@@ -1,6 +1,7 @@
 """Decoder-only Transformer LM: the dense blocks of
-``chainermn_tpu/models/transformer.py`` as ``nn.Module``s, its paged KV
-store constructor, its sampler and its cached ``generate``.
+``chainermn_tpu/models/transformer.py`` as ``nn.Module``s, its dense and
+paged KV cache constructors, its sampler and its ``generate`` (cached and
+cacheless).
 
 Numerics follow the flax model so converted weights give the same
 logits: LayerNorm eps 1e-6 with float32 statistics, the tanh form of
@@ -360,6 +361,23 @@ class TransformerLM(nn.Module):
         return (logits, aux) if return_aux else logits
 
 
+def init_kv_caches(model: TransformerLM, batch: int, cache_len: int, *,
+                   device=None) -> list[dict]:
+    """Zeroed per-layer dense KV buffers for the ``kv_caches`` argument: a
+    list of ``{'k','v'}`` dicts shaped ``[batch, cache_len, heads,
+    d_head]`` in the model's compute dtype, written in place by the
+    blocks (:func:`~chainermn_torch.parallel.sequence.
+    dense_update_cache_and_attend`)."""
+    device = model.device if device is None else torch.device(device)
+    h, dh = model.n_heads, model.d_model // model.n_heads
+
+    def z():
+        return torch.zeros((batch, cache_len, h, dh),
+                           dtype=model.compute_dtype, device=device)
+
+    return [{"k": z(), "v": z()} for _ in range(model.n_layers)]
+
+
 def init_paged_kv_caches(model: TransformerLM, n_blocks: int,
                          block_size: int, *, quant: str = "none",
                          device=None) -> list[dict]:
@@ -441,8 +459,8 @@ def _check_sampler(model, temperature, top_k, top_p) -> None:
 @torch.no_grad()
 def generate(model: TransformerLM, prompt, n_tokens: int, *,
              temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
-             seed: int = 0,
-             eos_id: Optional[int] = None) -> torch.Tensor:
+             seed: int = 0, eos_id: Optional[int] = None,
+             use_cache: bool = True) -> torch.Tensor:
     """KV-cached autoregressive decoding (the reference's cached path):
     one prefill over ``prompt [B, T0]`` writes a paged store in which row
     ``b`` owns its own contiguous run of blocks, then one token per step
@@ -452,7 +470,12 @@ def generate(model: TransformerLM, prompt, n_tokens: int, *,
     generator seeded ``seed + b`` (``torch`` bits, not ``jax.random``'s,
     so only greedy output is comparable with the JAX package). ``eos_id``:
     once a row samples it, later positions of that row are written as pad
-    (0) while the loop keeps its shape, as in the reference."""
+    (0) while the loop keeps its shape, as in the reference.
+
+    ``use_cache=False`` is the reference's cacheless decode
+    (``_generate_fn``): every token re-runs the whole ``[B, T0 +
+    n_tokens]`` buffer through the model and reads the logits one
+    position back — the independent check of the cached path."""
     _check_sampler(model, temperature, top_k, top_p)
     dev = model.device
     prompt = torch.as_tensor(np.asarray(prompt), device=dev).long()
@@ -460,11 +483,6 @@ def generate(model: TransformerLM, prompt, n_tokens: int, *,
     total = t0 + n_tokens
     if total > model.max_len:
         raise ValueError(f"{total} tokens exceed max_len={model.max_len}")
-    n_max = -(-total // _GENERATE_BLOCK)
-    store = init_paged_kv_caches(model, b * n_max + 1, _GENERATE_BLOCK)
-    table = (1 + torch.arange(b * n_max, device=dev,
-                              dtype=torch.int32)).view(b, n_max)
-    caches = [dict(layer, table=table) for layer in store]
     sample = _sampler(float(temperature), int(top_k), float(top_p))
     gens = None
     if temperature:
@@ -472,6 +490,13 @@ def generate(model: TransformerLM, prompt, n_tokens: int, *,
                 for i in range(b)]
     buf = torch.zeros((b, total), dtype=torch.long, device=dev)
     buf[:, :t0] = prompt
+    if not use_cache:
+        return _generate_cacheless(model, buf, t0, sample, gens, eos_id)
+    n_max = -(-total // _GENERATE_BLOCK)
+    store = init_paged_kv_caches(model, b * n_max + 1, _GENERATE_BLOCK)
+    table = (1 + torch.arange(b * n_max, device=dev,
+                              dtype=torch.int32)).view(b, n_max)
+    caches = [dict(layer, table=table) for layer in store]
     nxt = sample(model(prompt, 0, kv_caches=caches)[:, -1], gens)
     buf[:, t0] = nxt
     done = (nxt == eos_id) if eos_id is not None else None
@@ -485,5 +510,20 @@ def generate(model: TransformerLM, prompt, n_tokens: int, *,
     return buf
 
 
+def _generate_cacheless(model, buf, t0: int, sample, gens, eos_id):
+    """The token at position ``i`` is sampled from the logits at ``i - 1``
+    of a full forward over the whole buffer (causal, so the zeros past
+    ``i`` do not reach them)."""
+    b, total = buf.shape
+    done = torch.zeros((b,), dtype=torch.bool, device=buf.device)
+    for i in range(t0, total):
+        nxt = sample(model(buf)[:, i - 1], gens)
+        if eos_id is not None:
+            nxt = torch.where(done, torch.zeros_like(nxt), nxt)
+            done = done | (nxt == eos_id)
+        buf[:, i] = nxt
+    return buf
+
+
 __all__ = ["TransformerBlock", "TransformerLM", "filter_logits", "generate",
-           "init_paged_kv_caches"]
+           "init_kv_caches", "init_paged_kv_caches"]

@@ -34,6 +34,24 @@ _SEQUENCE_KINDS = ("ring", "ring_flash", "zigzag", "zigzag_flash", "ulysses",
                    "ulysses_flash")
 
 
+def chunk_spans(start: int, total: int, chunk_len: int
+                ) -> list[tuple[int, int]]:
+    """Partition ``[start, total)`` into consecutive ``(offset, length)``
+    spans of at most ``chunk_len`` tokens: every span non-empty, the spans
+    tile the range, only the last may be short. Host arithmetic, shared by
+    sequence sharding plans and the serving engine's chunked prefill."""
+    start, total, chunk_len = int(start), int(total), int(chunk_len)
+    if chunk_len < 1:
+        raise ValueError(f"chunk_len must be >= 1, got {chunk_len}")
+    spans = []
+    frontier = start
+    while frontier < total:
+        clen = min(chunk_len, total - frontier)
+        spans.append((frontier, clen))
+        frontier += clen
+    return spans
+
+
 def _softmax_attend(s, v, p_scale=None):
     """Masked scores ``s [B,H,S,T]`` (f32) -> softmax -> optional per-key
     ``p_scale [B,H,1,T]`` -> PV against f32-upcast ``v [B,T,H,D]``."""
@@ -181,17 +199,49 @@ def paged_update_cache_and_attend(kv_cache, q, k, v, pos_offset, *,
                   max_blocks=m_used)
 
 
+def dense_update_cache_and_attend(kv_cache, q, k, v, pos_offset, *,
+                                  scale: Optional[float] = None):
+    """The dense per-slot cache path: write ``S`` new K/V rows into
+    ``kv_cache['k'/'v'] [B, Tc, H, D]`` at ``pos_offset`` (an int, or a
+    ``[B]`` tensor writing each row at its own position), in place, then
+    attend ``q`` against the buffers with the position mask. A write that
+    would run past ``Tc`` starts at ``Tc - S`` instead, as
+    ``lax.dynamic_update_slice`` clamps it in the reference. An optional
+    host int ``kv_cache['span']`` reads only the first ``span`` rows of
+    each buffer (the caller knows every query's position is below it, so
+    the rows left out are masked anyway)."""
+    kbuf, vbuf = kv_cache["k"], kv_cache["v"]
+    b, s = q.shape[0], q.shape[1]
+    tc = kbuf.shape[1]
+    if not isinstance(pos_offset, torch.Tensor) or pos_offset.dim() == 0:
+        start = min(max(int(pos_offset), 0), tc - s)
+        kbuf[:, start:start + s] = k.to(kbuf.dtype)
+        vbuf[:, start:start + s] = v.to(vbuf.dtype)
+    else:
+        dev = q.device
+        start = pos_offset.to(device=dev, dtype=torch.int64).clamp(0, tc - s)
+        rows = start[:, None] + torch.arange(s, device=dev)[None, :]
+        bidx = torch.arange(b, device=dev)[:, None].expand(b, s)
+        kbuf.index_put_((bidx, rows), k.to(kbuf.dtype))
+        vbuf.index_put_((bidx, rows), v.to(vbuf.dtype))
+    span = kv_cache.get("span")
+    if span is not None:
+        span = max(1, min(tc, int(span)))
+        kbuf, vbuf = kbuf[:, :span], vbuf[:, :span]
+    return cached_attention(q, kbuf, vbuf, pos_offset, scale=scale)
+
+
 def update_cache_and_attend(kv_cache, q, k, v, pos_offset, *,
                             scale: Optional[float] = None):
     """Write ``S`` new K/V rows and attend — the one cache entry the model
     blocks call. A ``kv_cache`` carrying a ``'table'`` takes the paged
-    path (:func:`paged_update_cache_and_attend`); the dense per-slot cache
-    of the reference is not part of the port yet and raises."""
-    if "table" not in kv_cache:
-        raise ValueError(
-            "kv_cache has no 'table': the port serves from the paged block "
-            "store only (build it with init_paged_kv_caches)")
-    return paged_update_cache_and_attend(kv_cache, q, k, v, pos_offset,
+    path (:func:`paged_update_cache_and_attend`); one without is a dense
+    per-slot buffer (:func:`dense_update_cache_and_attend`). Both write in
+    place and return the attention output."""
+    if "table" in kv_cache:
+        return paged_update_cache_and_attend(kv_cache, q, k, v, pos_offset,
+                                             scale=scale)
+    return dense_update_cache_and_attend(kv_cache, q, k, v, pos_offset,
                                          scale=scale)
 
 
@@ -610,7 +660,8 @@ def sequence_parallel_attention(kind: str, axis_name=None, *,
     return f
 
 
-__all__ = ["cached_attention", "full_attention",
+__all__ = ["cached_attention", "chunk_spans",
+           "dense_update_cache_and_attend", "full_attention",
            "paged_update_cache_and_attend", "ring_attention",
            "ring_flash_attention", "sequence_parallel_attention",
            "ulysses_attention", "ulysses_flash_attention",

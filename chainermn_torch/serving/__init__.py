@@ -1,23 +1,47 @@
-"""Continuous-batching serving over the paged KV store: engine
-(mechanism), scheduler (policy), metrics, and the in-process client."""
+"""Continuous-batching serving: engine (mechanism, paged or dense KV,
+decode windows, speculative decoding, chunked prefill), scheduler
+(policy: FIFO or weighted-fair admission, deadlines, brownout), metrics,
+and the in-process client."""
 
 from chainermn_torch.serving.client import ServingClient
-from chainermn_torch.serving.engine import AdmitPlan, ServingEngine
+from chainermn_torch.serving.engine import (
+    AdmitPlan,
+    ChunkedPrefill,
+    ServingEngine,
+)
+from chainermn_torch.serving.fairness import (
+    BROWNOUT_LEVELS,
+    PRIORITY_CLASSES,
+    BrownoutPolicy,
+    FairAdmission,
+    request_cost,
+)
 from chainermn_torch.serving.metrics import ServingMetrics
 from chainermn_torch.serving.prefix_cache import (
     BlockPool,
+    InsertPlan,
     PrefixCacheIndex,
     PrefixMatch,
 )
 from chainermn_torch.serving.scheduler import (
+    DeadlineExceededError,
     EngineFailed,
     FCFSScheduler,
     QueueFullError,
     Request,
     RequestState,
 )
+from chainermn_torch.serving.speculative import (
+    DraftModelDrafter,
+    NgramDrafter,
+    SpeculativeConfig,
+    build_drafter,
+)
 
-__all__ = ["AdmitPlan", "BlockPool", "EngineFailed", "FCFSScheduler",
-           "PrefixCacheIndex", "PrefixMatch", "QueueFullError", "Request",
-           "RequestState", "ServingClient", "ServingEngine",
-           "ServingMetrics"]
+__all__ = ["AdmitPlan", "BROWNOUT_LEVELS", "BlockPool", "BrownoutPolicy",
+           "ChunkedPrefill", "DeadlineExceededError", "DraftModelDrafter",
+           "EngineFailed", "FCFSScheduler", "FairAdmission", "InsertPlan",
+           "NgramDrafter", "PRIORITY_CLASSES", "PrefixCacheIndex",
+           "PrefixMatch", "QueueFullError", "Request", "RequestState",
+           "ServingClient", "ServingEngine", "ServingMetrics",
+           "SpeculativeConfig", "build_drafter", "request_cost"]

@@ -28,15 +28,15 @@ _IDLE_WAIT_S = 0.05    # idle poll: bounds how long close() waits on a sleeper
 
 class ServingClient:
     """Background-threaded continuous-batching server, in process. The
-    engine is built by the caller; ``eos_id`` and ``max_queue`` go to the
+    engine is built by the caller; every other keyword (``eos_id``,
+    ``max_queue``, ``default_deadline_s``, ``fair``, ``tenant_weights``,
+    ``brownout``, ``chunk_tokens_per_step``, ...) goes to the
     :class:`FCFSScheduler`. The thread starts in the constructor and stops
     in :meth:`close` (or on leaving the ``with`` block)."""
 
-    def __init__(self, engine, *, eos_id: Optional[int] = None,
-                 max_queue: Optional[int] = None) -> None:
+    def __init__(self, engine, **scheduler_kw) -> None:
         self.engine = engine
-        self.scheduler = FCFSScheduler(engine, eos_id=eos_id,
-                                       max_queue=max_queue)
+        self.scheduler = FCFSScheduler(engine, **scheduler_kw)
         self.metrics = self.scheduler.metrics
         self._work = threading.Event()
         self._stop = threading.Event()
@@ -46,8 +46,9 @@ class ServingClient:
         self._thread.start()
 
     def submit(self, prompt, max_new_tokens: int, *, seed: int = 0,
-               stream_cb: Optional[Callable[[int], None]] = None
-               ) -> Request:
+               stream_cb: Optional[Callable[[int], None]] = None,
+               deadline_s: Optional[float] = None, tenant: str = "default",
+               priority: str = "interactive") -> Request:
         """Enqueue a request and return at once; ``stream_cb`` runs on the
         engine thread once per generated token."""
         if self._failure is not None:
@@ -55,15 +56,22 @@ class ServingClient:
         if self._stop.is_set():
             raise RuntimeError("client is closed")
         req = self.scheduler.submit(prompt, max_new_tokens, seed=seed,
-                                    stream_cb=stream_cb)
+                                    stream_cb=stream_cb,
+                                    deadline_s=deadline_s, tenant=tenant,
+                                    priority=priority)
         self._work.set()
         return req
 
     def generate(self, prompt, max_new_tokens: int, *, seed: int = 0,
-                 timeout: Optional[float] = None) -> np.ndarray:
+                 timeout: Optional[float] = None,
+                 deadline_s: Optional[float] = None, tenant: str = "default",
+                 priority: str = "interactive") -> np.ndarray:
         """Blocking single request: ``prompt + generated`` tokens. An
-        ERRORED request re-raises here; a timeout cancels it."""
-        req = self.submit(prompt, max_new_tokens, seed=seed)
+        ERRORED request (shed past its deadline included) re-raises here;
+        a timeout cancels it."""
+        req = self.submit(prompt, max_new_tokens, seed=seed,
+                          deadline_s=deadline_s, tenant=tenant,
+                          priority=priority)
         if not req.wait(timeout):
             self.cancel(req)
             raise TimeoutError(
@@ -91,7 +99,8 @@ class ServingClient:
     def _pending(self) -> list:
         with self.scheduler._lock:
             return (list(self.scheduler._queue)
-                    + list(self.scheduler._by_slot.values()))
+                    + list(self.scheduler._by_slot.values())
+                    + list(self.scheduler._prefilling.values()))
 
     def _loop(self) -> None:
         try:

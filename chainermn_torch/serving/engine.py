@@ -1,65 +1,105 @@
-"""Continuous-batching decode engine over the paged KV store (the port of
-the paged path of ``chainermn_tpu/serving/engine.py``).
+"""Continuous-batching decode engine (the port of
+``chainermn_tpu/serving/engine.py``'s single-device paths).
 
-One shared block store (:func:`~chainermn_torch.models.transformer.
-init_paged_kv_caches`) holds every slot's KV; each slot reaches its
-sequence through a row of the ``[n_slots, max_blocks]`` block table, kept
-on the host and sent with every call. Block 0 is a reserved scratch
-block: inactive rows and unallocated table entries point at it, so
-ride-along writes land nowhere. Slots allocate blocks lazily as their
-sequence crosses block boundaries (:meth:`ServingEngine.append_block`,
-driven by the scheduler); a prefix-cache hit is a shared table entry (no
-copy); retirement gives the slot's block references back to the pool.
+Two KV layouts:
 
-Two device paths, both plain eager PyTorch around the model:
+- **paged** (``paged=True``, the port's default): one shared block store
+  (:func:`~chainermn_torch.models.transformer.init_paged_kv_caches`) holds
+  every slot's KV; each slot reaches its sequence through a row of the
+  ``[n_slots, max_blocks]`` block table, kept on the host and sent with
+  every call. Block 0 is a reserved scratch block: inactive rows,
+  unallocated table entries and writes a window masks out land there.
+  Slots allocate blocks lazily as their writes cross block boundaries
+  (:meth:`ServingEngine.append_block`, driven by the scheduler); a
+  prefix-cache hit is a shared table entry (no copy); retirement gives
+  the slot's block references back to the pool.
+- **dense** (``paged=False``): one ``[n_slots, cache_len]`` region a slot
+  (:func:`~chainermn_torch.models.transformer.init_kv_caches`). With
+  ``prefix_cache_blocks > 0`` a separate block store and a private-pool
+  trie cache prompt prefixes: each prefill copies its row's matched
+  blocks into the slot first (inside the same call), and a freshly
+  prefilled prompt's full blocks are copied into the store after the
+  step (:meth:`ServingEngine.flush_inserts`).
+
+Device paths, all plain eager PyTorch around the model:
 
 - **prefill** (per bucket of padded prompt-suffix lengths): up to
-  ``prefill_batch`` requests write their suffix K/V through their table
-  rows and sample their first token from their last real position;
-- **decode step**: every slot advances one token at its own position.
-  With ``paged_kernel=True`` the attention read of each layer is the
-  hand-written paged-decode CUDA kernel
-  (:func:`chainermn_torch.parallel.paged_kernel.paged_attend`); prefill
-  and every write stay plain torch, as in the reference.
+  ``prefill_batch`` requests write their suffix K/V and sample their
+  first token from their last real position;
+- **decode step**: every slot advances one token at its own position;
+  ``decode_window=n`` runs ``n`` such steps in one engine call
+  (:meth:`ServingEngine.decode_steps`);
+- **speculative verify** (paged, greedy): every slot scores ``[token,
+  d1..dk]`` at ``k + 1`` positions in one forward and commits the
+  accepted drafts plus one correction token
+  (:meth:`ServingEngine.spec_decode_step`);
+- **chunked prefill** (paged): a long prompt's suffix prefills one chunk
+  a scheduler step through the same bucket path
+  (:meth:`ServingEngine.prefill_chunk`).
+
+With ``paged_kernel=True`` the attention read of every paged decode step,
+decode-window step and verify window is the hand-written paged-decode
+CUDA kernel (:func:`chainermn_torch.parallel.paged_kernel.paged_attend`),
+at ``S = 1`` and ``S = k + 1`` queries a row; prefill and every write stay
+plain torch, as in the reference.
 
 Why stale rows never leak: the causal position mask only admits rows at
 positions ``<= q_pos``, and each of those was written by this request's
-prefill or one of its decode steps (each step writes its row before it
+prefill or one of its decode steps (each step writes its rows before it
 attends). Shared prefix blocks are never written: a match covers only
 full prompt blocks, and every write position ``>= match.length`` lands in
-a block the slot owns.
+a block the slot owns. A verify window's rejected rows are rewritten by
+the next window before any query attends them.
 
 Per-request sampling: each slot holds its own ``torch.Generator`` seeded
 from the request's integer ``seed`` at admission, so its draws do not
-depend on its batch neighbours and a preempted request replays the same
-stream. Greedy decoding (``temperature=0``) draws nothing.
+depend on its batch neighbours, a preempted request replays the same
+stream, and a decode window draws exactly what the per-token steps draw.
+Greedy decoding (``temperature=0``) draws nothing.
 
-The dense per-slot engine (``paged=False``), tensor parallelism,
-speculative decoding, decode windows, chunked prefill, KV migration,
-``restart``/``swap_params``, the watchdog and fault cut-points are not
-part of this port yet (ROADMAP.md).
+Unlike the reference, the stores are written in place, so a failed call
+leaves them usable; there is no donated buffer to lose. Tensor-parallel
+serving, KV migration and ``restart``/``swap_params`` are not part of
+this port yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional, Sequence
+import contextlib
+from dataclasses import dataclass, field
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from chainermn_torch._device import resolve_device
 from chainermn_torch.dataflow.dispatch import device_fetch
+from chainermn_torch.extensions.profiling import Watchdog
 from chainermn_torch.models.transformer import (
     _check_sampler,
     _sampler,
+    init_kv_caches,
     init_paged_kv_caches,
 )
 from chainermn_torch.monitor import get_event_log, get_registry
+from chainermn_torch.parallel.sequence import chunk_spans
+from chainermn_torch.resilience.cutpoints import (
+    SERVING_CHUNK_PREFILL,
+    SERVING_DECODE,
+    SERVING_KV_APPEND,
+    SERVING_PREFILL_BATCH,
+    SERVING_PREFIX_COPY,
+    SERVING_SPEC_VERIFY,
+)
+from chainermn_torch.resilience.faults import inject
 from chainermn_torch.serving.prefix_cache import (
     BlockPool,
     PrefixCacheIndex,
     PrefixMatch,
+)
+from chainermn_torch.serving.speculative import (
+    SpeculativeConfig,
+    build_drafter,
 )
 
 
@@ -83,16 +123,46 @@ class AdmitPlan:
         return self.start / len(self.prompt) if len(self.prompt) else 0.0
 
 
+@dataclass
+class ChunkedPrefill:
+    """One slot's chunked prefill in progress: the prompt and seed, the
+    slot's block ids (allocated up front, not yet in the decode table —
+    see :meth:`ServingEngine.begin_chunked`), and the chunk schedule
+    ``[(frontier, chunk_len, bucket), ...]`` that
+    :meth:`ServingEngine.prefill_chunk` walks one entry a call."""
+
+    prompt: np.ndarray
+    seed: int
+    start: int                     # cached-prefix tokens (chunk 0 frontier)
+    max_new: int
+    ids: list = field(default_factory=list)
+    chunks: list = field(default_factory=list)
+    next_idx: int = 0
+
+    @property
+    def done(self) -> bool:
+        return self.next_idx >= len(self.chunks)
+
+    @property
+    def frontier(self) -> int:
+        """Tokens prefilled so far (the cached prefix included)."""
+        if self.done:
+            return len(self.prompt)
+        return self.chunks[self.next_idx][0]
+
+
 class ServingEngine:
-    """Slot-pool paged-KV decode engine (mechanism only; admission policy
-    and request bookkeeping live in
+    """Slot-pool decode engine (mechanism only; admission policy and
+    request bookkeeping live in
     :class:`~chainermn_torch.serving.scheduler.FCFSScheduler`).
 
     Parameters
     ----------
     model : TransformerLM
-        On ``device``. The engine calls ``model.cast_weights_()`` (matmul
-        weights stored in the compute dtype; logits unchanged).
+        On ``device``; not sequence-sharded, not tensor-parallel, MoE only
+        as ``moe_impl='gshard'``. The engine calls
+        ``model.cast_weights_()`` (matmul weights stored in the compute
+        dtype; logits unchanged).
     n_slots : int
         Concurrently decoding requests: the decode batch.
     prefill_len / prefill_buckets :
@@ -100,22 +170,36 @@ class ServingEngine:
         prompt-suffix lengths (default ``(prefill_len,)``).
     prefill_batch : int
         Requests admitted per prefill call (clamped to ``n_slots``).
+    prefix_cache_blocks / prefix_block_size / prefix_min_insert_blocks :
+        Dense engines only: ``prefix_cache_blocks > 0`` builds a prefix
+        store of that many ``prefix_block_size``-token blocks and its
+        trie; prompts adding fewer than ``prefix_min_insert_blocks`` new
+        full blocks are not inserted (on the paged store the same gate
+        applies to zero-copy inserts).
     paged : bool
-        Must be True: only the paged path is ported.
-    kv_blocks : int, optional
-        Store blocks including the scratch block; default
-        ``n_slots * ceil(cache_len / kv_block_size) + 1``.
-    kv_block_size : int
-        Tokens per block.
-    kv_quant : {'none', 'int8'}
-        int8 rows with per-row-per-head f32 scales.
+        The shared block store (default) or the dense per-slot cache.
+    kv_blocks / kv_block_size / kv_quant :
+        Paged only: store blocks including the scratch block (default
+        ``n_slots * ceil(cache_len / kv_block_size) + 1``), tokens per
+        block, and ``'int8'`` rows with per-row-per-head f32 scales.
     paged_kernel : bool
-        Decode attention reads through the hand-written CUDA kernel.
+        Paged only: decode, decode-window and verify attention reads go
+        through the hand-written CUDA kernel.
+    speculative : SpeculativeConfig, optional
+        Paged and greedy only: draft ``k`` tokens a slot a round and
+        verify them in one forward (:meth:`spec_decode_step`); admission
+        reserves ``ceil(k / kv_block_size)`` extra blocks a slot.
+    decode_window : int
+        ``n > 1`` advances every slot ``n`` tokens per engine call
+        (:meth:`decode_steps`); exclusive with ``speculative``.
     cache_len : int, optional
         Per-slot KV capacity (prompt + generated); default
         ``model.max_len``.
     temperature / top_k / top_p :
         Sampler shared by every request.
+    watchdog : Watchdog or float, optional
+        Hang detection around every device call; a float builds
+        ``Watchdog(timeout=...)`` (abort on fire). Off by default.
     device : optional
         Where the engine runs: the current CUDA card when ``None`` (raises
         when there is none); ``"cpu"`` must be asked for.
@@ -124,19 +208,31 @@ class ServingEngine:
     def __init__(self, model, *, n_slots: int,
                  prefill_len: Optional[int] = None,
                  prefill_buckets: Optional[Sequence[int]] = None,
-                 prefill_batch: int = 1, paged: bool = True,
+                 prefill_batch: int = 1, prefix_cache_blocks: int = 0,
+                 prefix_block_size: int = 16,
+                 prefix_min_insert_blocks: int = 1, paged: bool = True,
                  kv_blocks: Optional[int] = None, kv_block_size: int = 16,
                  kv_quant: str = "none", paged_kernel: bool = False,
+                 speculative: Optional[SpeculativeConfig] = None,
+                 decode_window: int = 1,
                  cache_len: Optional[int] = None, temperature: float = 0.0,
-                 top_k: int = 0, top_p: float = 1.0, device=None) -> None:
+                 top_k: int = 0, top_p: float = 1.0,
+                 watchdog: Optional[Union[Watchdog, float]] = None,
+                 device=None) -> None:
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on "
                              f"{self.device}: move the model first")
-        if not paged:
-            raise ValueError("only the paged engine is ported "
-                             "(pass paged=True); the dense per-slot cache "
-                             "is still to port (ROADMAP.md)")
+        if model.sequence_axis is not None:
+            raise ValueError("serving does not support sequence-sharded "
+                             "models: rebuild with sequence_axis=None")
+        if model.tensor_axis is not None:
+            raise NotImplementedError(
+                "tensor-parallel serving (the head-sharded KV store) is not "
+                "ported yet (ROADMAP.md, Queue A item 11.2)")
+        if model.moe_experts and model.moe_impl != "gshard":
+            raise ValueError("serving supports MoE only via "
+                             "moe_impl='gshard' (same parameters)")
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         cache_len = cache_len or model.max_len
@@ -167,6 +263,34 @@ class ServingEngine:
         if kv_block_size < 1:
             raise ValueError(f"kv_block_size must be >= 1, got "
                              f"{kv_block_size}")
+        if int(decode_window) < 1:
+            raise ValueError(f"decode_window must be >= 1, got "
+                             f"{decode_window}")
+        if speculative is not None:
+            speculative.validate()
+            if not paged:
+                raise ValueError("speculative decode needs paged=True: the "
+                                 "verify window writes through block "
+                                 "tables")
+            if float(temperature) != 0.0:
+                raise ValueError("speculative decode is greedy-only "
+                                 "(temperature=0): the verify step takes "
+                                 "the argmax at every position")
+            if int(decode_window) != 1:
+                raise ValueError("speculative= and decode_window > 1 are "
+                                 "mutually exclusive: the verify window "
+                                 "already commits several tokens a call")
+        if not paged and kv_quant != "none":
+            raise ValueError("kv_quant needs paged=True (the dense cache "
+                             "regions are not quantized)")
+        if not paged and paged_kernel:
+            raise ValueError("paged_kernel=True needs paged=True (the "
+                             "kernel reads the shared block store)")
+        if paged and prefix_cache_blocks:
+            raise ValueError("the paged engine keeps its prefix cache on "
+                             "the shared block store: drop "
+                             "prefix_cache_blocks and size the store with "
+                             "kv_blocks/kv_block_size")
         _check_sampler(model, float(temperature), int(top_k), float(top_p))
         self.model = model.eval().cast_weights_()
         self.n_slots = int(n_slots)
@@ -174,10 +298,15 @@ class ServingEngine:
         self.prefill_len = buckets[-1]
         self.prefill_batch = min(int(prefill_batch), self.n_slots)
         self.cache_len = int(cache_len)
+        self.paged = bool(paged)
         self.kv_quant = kv_quant
         self.paged_kernel = bool(paged_kernel)
+        self.decode_window = int(decode_window)
         self.temperature = float(temperature)
         self._sample = _sampler(self.temperature, int(top_k), float(top_p))
+        if watchdog is not None and not isinstance(watchdog, Watchdog):
+            watchdog = Watchdog(timeout=float(watchdog))
+        self.watchdog = watchdog
         self._events = get_event_log()
         reg = get_registry()
         labels = {"engine": "serving"}
@@ -186,34 +315,106 @@ class ServingEngine:
                            dict(labels, prefill_bucket=str(b)))
             for b in buckets}
         self._c_appends = reg.counter("kv_block_appends_total", labels)
-        self._c_decode_steps = reg.counter(
-            "serving_decode_steps_total",
-            dict(labels, paged_kernel="on" if self.paged_kernel else "off"))
+        self._c_chunks = reg.counter("prefill_chunks_total", labels)
+        decode_labels = dict(labels)
+        if self.paged:
+            decode_labels["paged_kernel"] = ("on" if self.paged_kernel
+                                             else "off")
+        self._c_decode_steps = reg.counter("serving_decode_steps_total",
+                                           decode_labels)
         self.peak_active = 0
-
-        self.kv_block_size = int(kv_block_size)
-        # table width: blocks covering a full-length slot
-        self._n_max = -(-self.cache_len // self.kv_block_size)
-        self.kv_blocks = int(kv_blocks if kv_blocks is not None
-                             else self.n_slots * self._n_max + 1)
-        self._pool = BlockPool(self.kv_blocks, reserve_scratch=True)
-        self.prefix_cache = PrefixCacheIndex(self.kv_block_size,
-                                             pool=self._pool)
-        self._store = init_paged_kv_caches(model, self.kv_blocks,
-                                           self.kv_block_size,
-                                           quant=kv_quant,
-                                           device=self.device)
-        self._tables = np.zeros((self.n_slots, self._n_max), np.int32)
-        self._slot_blocks: list[list[int]] = [[] for _ in range(n_slots)]
-        # worst-case growth blocks each active slot may still append:
-        # admission reserves them, append_block draws them down
-        self._slot_reserved = np.zeros((self.n_slots,), np.int64)
+        self._min_insert = max(1, int(prefix_min_insert_blocks))
+        self._spec = speculative
+        self._spec_headroom = 0
+        self.prefix_cache: Optional[PrefixCacheIndex] = None
+        if self.paged:
+            self.kv_block_size = int(kv_block_size)
+            # table width: blocks covering a full-length slot
+            self._n_max = -(-self.cache_len // self.kv_block_size)
+            self.kv_blocks = int(kv_blocks if kv_blocks is not None
+                                 else self.n_slots * self._n_max + 1)
+            self._pool = BlockPool(self.kv_blocks, reserve_scratch=True)
+            self.prefix_cache = PrefixCacheIndex(self.kv_block_size,
+                                                 pool=self._pool)
+            self._n_prog_blocks = self._n_max      # match cap for planning
+            self._tables = np.zeros((self.n_slots, self._n_max), np.int32)
+            self._slot_blocks: list[list[int]] = [
+                [] for _ in range(self.n_slots)]
+            # worst-case growth blocks each active slot may still append:
+            # admission reserves them, append_block draws them down
+            self._slot_reserved = np.zeros((self.n_slots,), np.int64)
+            # a multi-token round writes up to this many rows past the
+            # commit frontier (a verify window's drafts, a decode window's
+            # later steps); admission reserves the blocks they may need
+            self._write_horizon = (speculative.k if speculative is not None
+                                   else self.decode_window - 1)
+            self._spec_headroom = -(-self._write_horizon
+                                    // self.kv_block_size)
+            # slot -> ChunkedPrefill: neither free nor active, its table
+            # row all-scratch until the final chunk commits the real ids
+            self._chunking: dict[int, ChunkedPrefill] = {}
+            self.caches = None        # the block store is the cache
+            self._store = init_paged_kv_caches(
+                model, self.kv_blocks, self.kv_block_size, quant=kv_quant,
+                device=self.device)
+        else:
+            if prefix_cache_blocks:
+                if not 0 < prefix_block_size <= self.prefill_len:
+                    raise ValueError(
+                        f"prefix_block_size must be in (0, prefill_len="
+                        f"{self.prefill_len}], got {prefix_block_size}")
+                self.prefix_cache = PrefixCacheIndex(
+                    int(prefix_cache_blocks), int(prefix_block_size))
+                # blocks each prefill's prefix splice moves (whole blocks)
+                self._n_prog_blocks = max(
+                    1, self.prefill_len // prefix_block_size)
+            self.caches = init_kv_caches(model, self.n_slots,
+                                         self.cache_len, device=self.device)
+            self._store = (self._init_store()
+                           if self.prefix_cache is not None else None)
         self._token = np.zeros((self.n_slots,), np.int32)
         self._pos = np.zeros((self.n_slots,), np.int32)
         self._active = np.zeros((self.n_slots,), bool)
         self._gens: list[Optional[torch.Generator]] = [None] * self.n_slots
         self.free_slots = set(range(self.n_slots))
         self._warm = False
+        # dense prefix inserts (prompt, slot), copied by flush_inserts()
+        # after the step's tokens are out and before a donor slot can be
+        # reused
+        self._pending_inserts: list[tuple[np.ndarray, int]] = []
+        self._drafter = None
+        self._spec_proposed_total = 0
+        self._spec_accepted_total = 0
+        self._spec_rounds = 0
+        self._last_spec_window: Optional[tuple] = None
+        self._last_spec_slots: dict = {}
+        if speculative is not None:
+            self._drafter = build_drafter(speculative, self)
+
+    def _init_store(self) -> list[dict]:
+        """The dense engine's prefix store: ``[n_blocks, block_size, H,
+        D]`` per layer in the compute dtype."""
+        pc = self.prefix_cache
+        h = self.model.n_heads
+        dh = self.model.d_model // h
+
+        def z():
+            return torch.zeros((pc.n_blocks, pc.block_size, h, dh),
+                               dtype=self.model.compute_dtype,
+                               device=self.device)
+
+        return [{"k": z(), "v": z()} for _ in range(self.model.n_layers)]
+
+    def _watched(self, label: str, **ctx):
+        """Watchdog window around one device call (a no-op when hang
+        detection is off); ``ctx`` names whose work it is."""
+        if self.watchdog is None:
+            return contextlib.nullcontext()
+        return self.watchdog.step(label, **ctx)
+
+    @property
+    def prefix_enabled(self) -> bool:
+        return self.prefix_cache is not None
 
     # ------------------------------------------------------------------ #
     # device paths                                                         #
@@ -230,11 +431,22 @@ class ServingEngine:
 
     def _row_gens(self, gens: Sequence[Optional[torch.Generator]]):
         """Per-row generators for a sampled call (``None`` when greedy);
-        rows without one (inactive) draw from a throwaway generator."""
+        rows without one (inactive, or a chunk that samples nothing) draw
+        from a throwaway generator."""
         if not self.temperature:
             return None
         spare = torch.Generator(device=self.device)
         return [g if g is not None else spare for g in gens]
+
+    def _new_gen(self, seed: int) -> Optional[torch.Generator]:
+        if not self.temperature:
+            return None
+        return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    def _last_logits(self, logits, last_idx):
+        k = logits.shape[0]
+        return logits[torch.arange(k, device=self.device),
+                      self._dev(last_idx).long()]
 
     @torch.inference_mode()
     def _paged_prefill(self, bucket: int, table, tokens, starts, last_idx,
@@ -243,7 +455,6 @@ class ServingEngine:
         into the shared store, attends its table span, and samples its
         first token from its last real position. Inactive rows carry
         all-scratch tables."""
-        k = len(starts)
         tab = self._dev(table)
         caches = [dict(layer, table=tab,
                        max_blocks=self._span(int(starts.max()) + bucket))
@@ -251,35 +462,121 @@ class ServingEngine:
         pos = (self._dev(starts).long()[:, None]
                + torch.arange(bucket, device=self.device)[None, :])
         logits = self.model(self._dev(tokens).long(), pos, kv_caches=caches)
-        lg = logits[torch.arange(k, device=self.device),
-                    self._dev(last_idx).long()]
-        nxt = self._sample(lg, self._row_gens(gens))
+        nxt = self._sample(self._last_logits(logits, last_idx),
+                           self._row_gens(gens))
         return torch.where(self._dev(active), nxt, torch.zeros_like(nxt))
 
     @torch.inference_mode()
-    def _paged_decode(self):
-        """One token for every slot through the ``[n_slots, max_blocks]``
-        table. Inactive rows decode at position 0 of their all-scratch
-        table row (their output is discarded), so the read span and the
-        kernel's per-row work follow the active rows only."""
+    def _dense_prefill(self, bucket: int, slots, tokens, starts, last_idx,
+                       active, gens, fetch_ids=None):
+        """Gather each group row's slot region, splice in its matched
+        prefix blocks from the store (``fetch_ids``; rows without a match
+        splice junk that their own prefill overwrites or the mask hides),
+        run the padded suffixes at their start positions, sample each
+        row's first token from its last real position, and write the
+        active rows' regions back."""
+        k = len(starts)
+        sl = self._dev(slots).long()
+        slot_c = [{kk: c[kk].index_select(0, sl) for kk in ("k", "v")}
+                  for c in self.caches]
+        if fetch_ids is not None:
+            span = self._n_prog_blocks * self.prefix_cache.block_size
+            ids = self._dev(fetch_ids.reshape(-1)).long()
+            for sc, st in zip(slot_c, self._store):
+                for kk in ("k", "v"):
+                    rows = st[kk].index_select(0, ids)
+                    sc[kk][:, :span] = rows.reshape(
+                        (k, span) + tuple(rows.shape[2:]))
+        read = int(starts.max()) + bucket
+        caches = [dict(sc, span=read) for sc in slot_c]
+        pos = (self._dev(starts).long()[:, None]
+               + torch.arange(bucket, device=self.device)[None, :])
+        logits = self.model(self._dev(tokens).long(), pos, kv_caches=caches)
+        nxt = self._sample(self._last_logits(logits, last_idx),
+                           self._row_gens(gens))
+        rows = np.flatnonzero(active)
+        idx = self._dev(rows).long()
+        for c, sc in zip(self.caches, slot_c):
+            for kk in ("k", "v"):
+                c[kk].index_copy_(0, sl[idx], sc[kk].index_select(0, idx))
+        return torch.where(self._dev(active), nxt, torch.zeros_like(nxt))
+
+    @torch.inference_mode()
+    def _decode_round(self, n: int) -> torch.Tensor:
+        """``n`` chained one-token steps of every slot from its commit
+        frontier (step ``i`` at position ``pos + i``, fed the tokens step
+        ``i - 1`` sampled); returns the ``[n_slots, n]`` tokens. The
+        round's host operands go to the device once, before its first
+        step. Paged inactive rows decode at position 0 of their
+        all-scratch table row; a row past ``cache_len`` (the tail of a
+        decode window) writes nothing (paged: ``valid``) or its own last
+        row (dense, as the reference's clamped update) and sits at
+        ``cache_len - 1``; the scheduler drops its tokens."""
         act = self._active
-        pos = np.where(act, self._pos, 0).astype(np.int64)
-        span = self._span(int(pos.max()) + 1)
+        pos = self._pos.astype(np.int64)[None, :] + np.arange(n)[:, None]
+        if self.paged:
+            valid = self._dev((act[None, :] & (pos < self.cache_len))
+                              .astype(np.int32))
+            pos = np.where(act[None, :], np.minimum(pos, self.cache_len - 1),
+                           0)
+            tab = self._dev(self._tables)
+            spans = [self._span(int(p.max()) + 1) for p in pos]
+        else:
+            # inactive rows ride along at their stale position, which
+            # stays past their last prompt: a pending prefix insert still
+            # finds the donor's prompt rows intact
+            pos = np.minimum(pos, self.cache_len - 1)
+            spans = [int(p[act].max()) + 1 if act.any() else 1 for p in pos]
+        pos_d, act_d = self._dev(pos), self._dev(act)
+        tok = self._dev(self._token).long()
+        gens = self._row_gens(self._gens)
+        out = []
+        for i in range(n):
+            if self.paged:
+                caches = [dict(layer, table=tab, valid=valid[i],
+                               max_blocks=spans[i],
+                               use_kernel=self.paged_kernel)
+                          for layer in self._store]
+            else:
+                caches = [dict(c, span=spans[i]) for c in self.caches]
+            lg = self.model(tok[:, None], pos_d[i][:, None],
+                            kv_caches=caches)[:, 0]
+            tok = torch.where(act_d, self._sample(lg, gens),
+                              torch.zeros_like(tok))
+            out.append(tok)
+        return torch.stack(out, 1)
+
+    @torch.inference_mode()
+    def _spec_verify(self, tokens, valid) -> torch.Tensor:
+        """Score the ``[n_slots, k+1]`` window ``tokens`` at positions
+        ``pos .. pos+k`` in one forward and return every position's
+        argmax. Rows ``j >= valid`` (past ``cache_len``) write into the
+        scratch block and sit at ``cache_len - 1``; none of them is ever
+        committed. Inactive rows run at position 0 with ``valid = 0``."""
+        act = self._active
+        k1 = tokens.shape[1]
+        base = np.where(act, self._pos, 0).astype(np.int64)
+        pos = np.minimum(base[:, None] + np.arange(k1)[None, :],
+                         self.cache_len - 1)
         tab = self._dev(self._tables)
-        caches = [dict(layer, table=tab, max_blocks=span,
+        vd = self._dev(valid)
+        caches = [dict(layer, table=tab, valid=vd,
+                       max_blocks=self._span(int(base.max()) + k1),
                        use_kernel=self.paged_kernel)
                   for layer in self._store]
-        lg = self.model(self._dev(self._token).long()[:, None],
-                        self._dev(pos)[:, None], kv_caches=caches)[:, 0]
-        nxt = self._sample(lg, self._row_gens(self._gens))
-        return torch.where(self._dev(act), nxt, torch.zeros_like(nxt))
+        lg = self.model(self._dev(tokens).long(), self._dev(pos),
+                        kv_caches=caches)
+        g = torch.argmax(lg, dim=-1)
+        return torch.where(self._dev(act)[:, None], g, torch.zeros_like(g))
 
     def warmup(self) -> None:
-        """Run every prefill bucket and the decode step once on no-op
-        inputs (all rows inactive, all-scratch tables: every write lands
-        in the scratch block). This builds the paged-decode kernel when
-        ``paged_kernel`` is on a CUDA device, and takes the first-call
-        costs of the math libraries off the first request."""
+        """Run every prefill bucket and the decode step (and the verify
+        window, when speculative) once on no-op inputs: all rows
+        inactive, paged writes into the scratch block, dense writes into
+        free slots' rows that their next tenant rewrites. This builds the
+        paged-decode kernel when ``paged_kernel`` is on a CUDA device and
+        takes the first-call costs of the math libraries off the first
+        request."""
         if self._warm:
             return
         if self.active_slots:
@@ -287,16 +584,29 @@ class ServingEngine:
         k = self.prefill_batch
         zeros = np.zeros((k,), np.int32)
         for b in self.prefill_buckets:
-            self._paged_prefill(b, np.zeros((k, self._n_max), np.int32),
-                                np.zeros((k, b), np.int32), zeros, zeros,
-                                np.zeros((k,), bool), [None] * k)
-        self._paged_decode()
+            with self._watched(f"serving warmup prefill[{b}]"):
+                if self.paged:
+                    self._paged_prefill(
+                        b, np.zeros((k, self._n_max), np.int32),
+                        np.zeros((k, b), np.int32), zeros, zeros,
+                        np.zeros((k,), bool), [None] * k)
+                else:
+                    self._dense_prefill(b, zeros, np.zeros((k, b), np.int32),
+                                        zeros, zeros, np.zeros((k,), bool),
+                                        [None] * k)
+        with self._watched("serving warmup decode"):
+            self._decode_round(1)
+            if self._spec is not None:
+                self._spec_verify(
+                    np.zeros((self.n_slots, self._spec.k + 1), np.int32),
+                    np.zeros((self.n_slots,), np.int32))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._warm = True
         self._events.emit("serving_warmup", buckets=list(self.prefill_buckets),
-                          prefill_batch=k, paged=True,
-                          paged_kernel=self.paged_kernel)
+                          prefill_batch=k, paged=self.paged,
+                          paged_kernel=self.paged_kernel,
+                          prefix=self.prefix_enabled)
 
     # ------------------------------------------------------------------ #
     # admission planning (host side)                                       #
@@ -318,16 +628,19 @@ class ServingEngine:
         with :meth:`cancel_plan`."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         self.validate_request(len(prompt), max_new)
-        max_blocks = self._n_max
-        while True:
-            match = (self.prefix_cache.match(prompt, max_blocks)
-                     if max_blocks > 0 else None)
-            if match is None or self.bucket_for(
-                    len(prompt) - match.length, match.length) is not None:
-                break
-            # a long match can leave no bucket inside cache_len: shrink
-            max_blocks = len(match.nodes) - 1
-            self.prefix_cache.release(match)
+        match = None
+        if self.prefix_cache is not None:
+            max_blocks = self._n_prog_blocks
+            while True:
+                match = (self.prefix_cache.match(prompt, max_blocks)
+                         if max_blocks > 0 else None)
+                if match is None or self.bucket_for(
+                        len(prompt) - match.length,
+                        match.length) is not None:
+                    break
+                # a long match can leave no bucket inside cache_len
+                max_blocks = len(match.nodes) - 1
+                self.prefix_cache.release(match)
         start = match.length if match is not None else 0
         bucket = self.bucket_for(len(prompt) - start, start)
         return AdmitPlan(prompt=prompt, seed=int(seed or 0), match=match,
@@ -335,7 +648,8 @@ class ServingEngine:
 
     def cancel_plan(self, plan: AdmitPlan) -> None:
         """Discard an unused plan, unpinning its prefix match."""
-        self.prefix_cache.release(plan.match)
+        if self.prefix_cache is not None:
+            self.prefix_cache.release(plan.match)
 
     # ------------------------------------------------------------------ #
     # slot API (host side)                                                 #
@@ -357,48 +671,22 @@ class ServingEngine:
             raise ValueError(
                 f"{prompt_len} prompt + {max_new_tokens} new tokens exceed "
                 f"cache_len={self.cache_len}")
-        need = self.blocks_needed(prompt_len, max_new_tokens)
-        if need > self._pool.capacity:
-            raise ValueError(
-                f"request needs {need} KV blocks worst-case but the pool "
-                f"holds {self._pool.capacity} — raise kv_blocks or shrink "
-                "the request")
-
-    def _paged_alloc_slot(self, plan: AdmitPlan, slot: int) -> list:
-        """Allocate the blocks a plan's prefill writes (shared prefix
-        blocks are referenced, not copied), write the slot's table mirror
-        and reserve its worst-case decode growth. Raises ``RuntimeError``
-        when the pool (plus trie eviction) cannot cover it."""
-        bs = self.kv_block_size
-        plen = len(plan.prompt)
-        shared = list(plan.match.block_ids) if plan.match is not None else []
-        need_now = -(-plen // bs) - len(shared)
-        new = self.prefix_cache.alloc_blocks(need_now)
-        if len(new) < need_now:
-            for block in new:
-                self._pool.decref(block)
-            raise RuntimeError(
-                f"kv block pool exhausted: slot {slot} needs {need_now} "
-                f"blocks, {len(new)} allocatable (free="
-                f"{self._pool.free_blocks})")
-        for block in shared:
-            self._pool.incref(block)    # the slot co-owns its prefix
-        ids = shared + new
-        self._tables[slot, :] = 0
-        self._tables[slot, :len(ids)] = ids
-        self._slot_reserved[slot] = (-(-(plen + plan.max_new) // bs)
-                                     - (-(-plen // bs)))
-        return ids
+        if self.paged:
+            need = self.blocks_needed(prompt_len, max_new_tokens)
+            if need > self._pool.capacity:
+                raise ValueError(
+                    f"request needs {need} KV blocks worst-case but the "
+                    f"pool holds {self._pool.capacity} — raise kv_blocks "
+                    "or shrink the request")
 
     def admit_batch(self, plans: Sequence[AdmitPlan], *,
                     ctx: Optional[dict] = None) -> list[tuple[int, int]]:
-        """Admit a same-bucket group in ONE prefill call: allocate table
-        rows (prefix hits are shared entries), run the prefill, then commit
-        the slot mirrors and adopt each prompt's full blocks into the
-        prefix trie. Returns ``[(slot, first_token), ...]`` in plan order.
-        A failure rolls the allocations back and re-raises; the rows it
-        may have written belong to blocks now free, which a later tenant
-        rewrites before reading. ``ctx`` labels the prefill event."""
+        """Admit a same-bucket group in ONE prefill call; returns
+        ``[(slot, first_token), ...]`` in plan order. Slot mirrors commit
+        only after the call succeeds: a failure (an injected fault
+        included) rolls the allocations back, leaves every decoding slot
+        untouched, and re-raises. ``ctx`` labels the watchdog window and
+        the prefill event."""
         if not plans:
             return []
         if len(plans) > self.prefill_batch:
@@ -410,32 +698,135 @@ class ServingEngine:
         if len(buckets) != 1:
             raise ValueError(f"admission group mixes buckets "
                              f"{sorted(buckets)}")
-        bucket = plans[0].bucket
+        if self.paged:
+            return self._paged_admit(plans, ctx)
+        return self._dense_admit(plans, ctx)
+
+    def _group_arrays(self, plans, bucket: int):
+        """Host operands of one prefill call over ``prefill_batch`` rows:
+        the padded suffixes, start positions, last real indices, the
+        active mask and each row's sampler generator."""
         k = self.prefill_batch
-        slots = sorted(self.free_slots)[:len(plans)]
-        records: list[tuple[int, list]] = []
+        tokens = np.zeros((k, bucket), np.int32)
+        starts = np.zeros((k,), np.int32)
+        last = np.zeros((k,), np.int32)
+        active = np.zeros((k,), bool)
         gens: list[Optional[torch.Generator]] = [None] * k
+        for i, plan in enumerate(plans):
+            suffix = plan.prompt[plan.start:]
+            tokens[i, :len(suffix)] = suffix
+            starts[i] = plan.start
+            last[i] = len(suffix) - 1
+            active[i] = True
+            gens[i] = self._new_gen(plan.seed)
+        return tokens, starts, last, active, gens
+
+    def _commit_slot(self, slot: int, plan, first: int, gen, bucket: int,
+                     batch: int, ctx: Optional[dict], **event) -> None:
+        self.free_slots.discard(slot)
+        self._token[slot] = first
+        self._pos[slot] = len(plan.prompt)
+        self._active[slot] = True
+        self._gens[slot] = gen
+        self._c_prefills[bucket].inc()
+        self._events.emit("prefill", slot=slot, prompt_len=len(plan.prompt),
+                          bucket=bucket, cached=plan.start, batch=batch,
+                          **event, **(ctx or {}))
+        if self._drafter is not None:
+            self._drafter.on_admit(slot, plan.prompt, first)
+
+    def _dense_admit(self, plans, ctx) -> list[tuple[int, int]]:
+        bucket = plans[0].bucket
+        if self._pending_inserts:
+            self.flush_inserts()   # before slots are picked: no donor reuse
+        slots = sorted(self.free_slots)[:len(plans)]
+        n_cached = sum(p.match is not None for p in plans)
+        try:
+            with self._watched("serving prefill", **(ctx or {})):
+                if n_cached:
+                    inject(SERVING_PREFIX_COPY, op="fetch", hits=n_cached,
+                           batch=len(plans))
+                inject(SERVING_PREFILL_BATCH, batch=len(plans),
+                       bucket=bucket, slots=slots)
+                tokens, starts, last, active, gens = self._group_arrays(
+                    plans, bucket)
+                slot_ids = np.zeros((self.prefill_batch,), np.int32)
+                slot_ids[:len(slots)] = slots
+                fetch = None
+                if self.prefix_cache is not None:
+                    fetch = np.zeros((self.prefill_batch,
+                                      self._n_prog_blocks), np.int32)
+                    for i, plan in enumerate(plans):
+                        if plan.match is not None:
+                            ids = plan.match.block_ids
+                            fetch[i, :len(ids)] = ids
+                firsts = device_fetch(self._dense_prefill(
+                    bucket, slot_ids, tokens, starts, last, active, gens,
+                    fetch))
+        finally:
+            for plan in plans:
+                self.cancel_plan(plan)      # the pins served their purpose
+        out = []
+        for i, (plan, slot) in enumerate(zip(plans, slots)):
+            first = int(firsts[i])
+            self._commit_slot(slot, plan, first, gens[i], bucket, len(plans),
+                              ctx)
+            out.append((slot, first))
+            if self.prefix_cache is not None:
+                self._pending_inserts.append((plan.prompt, slot))
+        self.peak_active = max(self.peak_active, self.active_slots)
+        return out
+
+    def _alloc_prompt_blocks(self, plan: AdmitPlan, slot: int) -> list:
+        """The blocks a plan's prompt lives in: its shared prefix blocks
+        (referenced, not copied) then new ones for the rest, with the
+        slot's worst-case decode growth plus the multi-token round's
+        headroom reserved. Raises ``RuntimeError`` with nothing taken
+        when the pool (plus trie eviction) cannot cover it."""
+        bs = self.kv_block_size
+        plen = len(plan.prompt)
+        shared = list(plan.match.block_ids) if plan.match is not None else []
+        need_now = -(-plen // bs) - len(shared)
+        new = self.prefix_cache.alloc_blocks_atomic(need_now)
+        if new is None:
+            raise RuntimeError(
+                f"kv block pool exhausted: slot {slot} needs {need_now} "
+                f"blocks (free={self._pool.free_blocks})")
+        for block in shared:
+            self._pool.incref(block)    # the slot co-owns its prefix
+        self._slot_reserved[slot] = (-(-(plen + plan.max_new) // bs)
+                                     - (-(-plen // bs))
+                                     + self._spec_headroom)
+        return shared + new
+
+    def _paged_admit(self, plans, ctx) -> list[tuple[int, int]]:
+        """Allocate table rows (prefix hits are shared entries), run the
+        prefill through them, then commit the slot mirrors and adopt each
+        prompt's full blocks into the trie (zero copy)."""
+        bucket = plans[0].bucket
+        slots = sorted(self.free_slots)[:len(plans)]
+        n_cached = sum(p.match is not None for p in plans)
+        records: list[tuple[int, list]] = []
         try:
             try:
-                tokens = np.zeros((k, bucket), np.int32)
-                starts = np.zeros((k,), np.int32)
-                last = np.zeros((k,), np.int32)
-                active = np.zeros((k,), bool)
-                table = np.zeros((k, self._n_max), np.int32)
-                for i, (plan, slot) in enumerate(zip(plans, slots)):
-                    ids = self._paged_alloc_slot(plan, slot)
-                    records.append((slot, ids))
-                    table[i, :len(ids)] = ids
-                    suffix = plan.prompt[plan.start:]
-                    tokens[i, :len(suffix)] = suffix
-                    starts[i] = plan.start
-                    last[i] = len(suffix) - 1
-                    active[i] = True
-                    if self.temperature:
-                        gens[i] = torch.Generator(
-                            device=self.device).manual_seed(plan.seed)
-                firsts = device_fetch(self._paged_prefill(
-                    bucket, table, tokens, starts, last, active, gens))
+                with self._watched("serving prefill", **(ctx or {})):
+                    if n_cached:
+                        inject(SERVING_PREFIX_COPY, op="share",
+                               hits=n_cached, batch=len(plans))
+                    inject(SERVING_PREFILL_BATCH, batch=len(plans),
+                           bucket=bucket, slots=slots)
+                    tokens, starts, last, active, gens = self._group_arrays(
+                        plans, bucket)
+                    table = np.zeros((self.prefill_batch, self._n_max),
+                                     np.int32)
+                    for i, (plan, slot) in enumerate(zip(plans, slots)):
+                        ids = self._alloc_prompt_blocks(plan, slot)
+                        records.append((slot, ids))
+                        self._tables[slot, :] = 0
+                        self._tables[slot, :len(ids)] = ids
+                        table[i, :len(ids)] = ids
+                    firsts = device_fetch(self._paged_prefill(
+                        bucket, table, tokens, starts, last, active, gens))
             except Exception:
                 for slot, ids in records:   # undo: nothing admitted
                     for block in ids:
@@ -449,23 +840,128 @@ class ServingEngine:
         out = []
         for i, (plan, (slot, ids)) in enumerate(zip(plans, records)):
             first = int(firsts[i])
-            self.free_slots.discard(slot)
-            self._token[slot] = first
-            self._pos[slot] = len(plan.prompt)
-            self._active[slot] = True
-            self._gens[slot] = gens[i]
             self._slot_blocks[slot] = list(ids)
-            self._c_prefills[bucket].inc()
-            self._events.emit("prefill", slot=slot,
-                              prompt_len=len(plan.prompt), bucket=bucket,
-                              cached=plan.start, batch=len(plans),
-                              blocks=len(ids), **(ctx or {}))
+            self._commit_slot(slot, plan, first, gens[i], bucket, len(plans),
+                              ctx, blocks=len(ids))
             out.append((slot, first))
             # zero-copy trie insert: the slot's blocks already hold the
             # prompt's KV, so adopting them IS the cache insert
-            self.prefix_cache.insert_shared(plan.prompt, ids)
+            if self.prefix_cache.missing_blocks(plan.prompt) \
+                    >= self._min_insert:
+                self.prefix_cache.insert_shared(plan.prompt, ids)
         self.peak_active = max(self.peak_active, self.active_slots)
         return out
+
+    # ------------------------------------------------------------------ #
+    # chunked prefill (paged only)                                         #
+    # ------------------------------------------------------------------ #
+
+    def plan_chunks(self, plan: AdmitPlan,
+                    chunk_tokens: int) -> Optional[list]:
+        """The chunk schedule of a plan's suffix: ``[(frontier,
+        chunk_len, bucket), ...]`` over ``[start, len(prompt))`` in
+        ``chunk_tokens`` pieces, each bucket picked at its own frontier.
+        ``None`` (admit unchunked) on a dense engine, when the suffix fits
+        one chunk, or when a frontier leaves no bucket inside
+        ``cache_len``."""
+        if not self.paged:
+            return None
+        chunk_tokens = int(chunk_tokens)
+        if chunk_tokens < 1:
+            return None
+        plen = len(plan.prompt)
+        if plen - plan.start <= chunk_tokens:
+            return None
+        chunks = []
+        for frontier, clen in chunk_spans(plan.start, plen, chunk_tokens):
+            bucket = self.bucket_for(clen, frontier)
+            if bucket is None:
+                return None
+            chunks.append((frontier, clen, bucket))
+        return chunks
+
+    def begin_chunked(self, plan: AdmitPlan, chunks: list) -> int:
+        """Stage a chunked admission: claim a free slot, allocate all the
+        prompt's blocks up front (shared prefix blocks referenced) and
+        reserve decode growth, but leave the slot's decode-table row
+        all-scratch, so decode rounds interleaving with the chunks write
+        the slot's ride-along row into the scratch block. The real ids
+        live in the :class:`ChunkedPrefill` until the final chunk commits
+        them. Consumes the plan. Returns the slot."""
+        if not self.paged:
+            raise RuntimeError("chunked prefill needs paged=True")
+        if not self.free_slots:
+            raise RuntimeError("no free slot for chunked prefill")
+        slot = min(self.free_slots)
+        try:
+            ids = self._alloc_prompt_blocks(plan, slot)
+        finally:
+            self.cancel_plan(plan)
+        self._tables[slot, :] = 0          # scratch until the commit
+        self._slot_blocks[slot] = list(ids)
+        self.free_slots.discard(slot)
+        self._chunking[slot] = ChunkedPrefill(
+            prompt=plan.prompt, seed=plan.seed, start=plan.start,
+            max_new=int(plan.max_new), ids=ids, chunks=list(chunks))
+        return slot
+
+    def chunk_state(self, slot: int) -> Optional[ChunkedPrefill]:
+        return self._chunking.get(slot) if self.paged else None
+
+    def prefill_chunk(self, slot: int,
+                      ctx: Optional[dict] = None) -> Optional[int]:
+        """Run one staged chunk through its bucket's prefill (row 0 holds
+        the chunk at ``starts=frontier``; the other rows ride inactive on
+        all-scratch tables). An intermediate chunk discards its sample and
+        draws nothing from the request's generator (its padded tail rows
+        are rewritten by the next chunk before anything attends them);
+        the final chunk samples with the request's own seed, commits the
+        slot's table and mirrors, and returns the first token. ``None``
+        after an intermediate chunk. A raise leaves the staged state as it
+        was."""
+        st = self._chunking[slot]
+        frontier, clen, bucket = st.chunks[st.next_idx]
+        final = st.next_idx == len(st.chunks) - 1
+        k = self.prefill_batch
+        with self._watched("serving chunk_prefill", **(ctx or {})):
+            inject(SERVING_CHUNK_PREFILL, slot=slot, chunk=st.next_idx,
+                   of=len(st.chunks), bucket=bucket, frontier=frontier)
+            tokens = np.zeros((k, bucket), np.int32)
+            starts = np.zeros((k,), np.int32)
+            last = np.zeros((k,), np.int32)
+            active = np.zeros((k,), bool)
+            table = np.zeros((k, self._n_max), np.int32)
+            gens: list[Optional[torch.Generator]] = [None] * k
+            tokens[0, :clen] = st.prompt[frontier:frontier + clen]
+            starts[0] = frontier
+            last[0] = clen - 1
+            active[0] = True
+            table[0, :len(st.ids)] = st.ids
+            if final:
+                gens[0] = self._new_gen(st.seed)
+            nxt = self._paged_prefill(bucket, table, tokens, starts, last,
+                                      active, gens)
+            first = int(device_fetch(nxt)[0]) if final else None
+        st.next_idx += 1
+        self._c_chunks.inc()
+        self._events.emit("prefill_chunk", slot=slot, chunk=st.next_idx,
+                          of=len(st.chunks), tokens=clen, bucket=bucket,
+                          frontier=frontier, final=final)
+        if not final:
+            self._c_prefills[bucket].inc()
+            return None
+        # the staged ids become the slot's decode table and the slot joins
+        # the active set: from here on it is an ordinary admitted slot
+        self._tables[slot, :len(st.ids)] = st.ids
+        self._chunking.pop(slot)
+        self._commit_slot(slot, AdmitPlan(st.prompt, st.seed, None, st.start,
+                                          bucket, st.max_new),
+                          first, gens[0], bucket, 1, ctx,
+                          blocks=len(st.ids), chunks=len(st.chunks))
+        if self.prefix_cache.missing_blocks(st.prompt) >= self._min_insert:
+            self.prefix_cache.insert_shared(st.prompt, st.ids)
+        self.peak_active = max(self.peak_active, self.active_slots)
+        return first
 
     # ------------------------------------------------------------------ #
     # paged block management                                               #
@@ -475,9 +971,10 @@ class ServingEngine:
                       start: int = 0) -> int:
         """Worst-case new blocks a request admits with: blocks covering
         ``[start, prompt_len + max_new)`` (``start`` cached tokens sit in
-        shared blocks)."""
+        shared blocks) plus the multi-token round's headroom."""
         bs = self.kv_block_size
-        return -(-(prompt_len + max_new) // bs) - start // bs
+        return (-(-(prompt_len + max_new) // bs) - start // bs
+                + self._spec_headroom)
 
     def kv_blocks_admittable(self) -> int:
         """Blocks an admission may claim without starving a decode: free
@@ -487,26 +984,35 @@ class ServingEngine:
                 + self.prefix_cache.evictable_blocks()
                 - int(self._slot_reserved.sum()))
 
-    def _next_block_index(self, slot: int) -> Optional[int]:
-        """Table index of the slot's next write (``None`` past
-        ``cache_len``)."""
+    def _horizon_block_range(self, slot: int) -> range:
+        """Table indices the slot's next round may write: blocks covering
+        ``[pos, pos + write_horizon]`` inside ``cache_len`` (horizon 0 is
+        the next write's block)."""
+        bs = self.kv_block_size
         p = int(self._pos[slot])
-        return p // self.kv_block_size if p < self.cache_len else None
+        if p >= self.cache_len:
+            return range(0)
+        hi = min(p + self._write_horizon, self.cache_len - 1)
+        return range(p // bs, hi // bs + 1)
 
     def slot_needs_block(self, slot: int) -> bool:
-        """True when the slot's next decode write falls in a block it has
-        not allocated yet (its table entry still points at scratch)."""
-        if not self._active[slot]:
+        """True when a write of the slot's next round falls in a block it
+        has not allocated yet (a table entry in the span still points at
+        scratch)."""
+        if not self.paged or not self._active[slot]:
             return False
-        idx = self._next_block_index(slot)
-        return idx is not None and self._tables[slot, idx] == 0
+        return any(self._tables[slot, i] == 0
+                   for i in self._horizon_block_range(slot))
 
     def append_block(self, slot: int) -> bool:
-        """Allocate the block of the slot's next write (evicting idle trie
-        prefixes when the free list is dry). False when the pool is truly
-        exhausted: the scheduler then preempts a request and retries."""
-        idx = self._next_block_index(slot)
-        if idx is None or self._tables[slot, idx] != 0:
+        """Allocate the first unallocated block of the slot's next round
+        (evicting idle trie prefixes when the free list is dry). False
+        when the pool is truly exhausted: the scheduler then preempts a
+        request and retries. Carries the ``serving.kv_append`` cut-point."""
+        inject(SERVING_KV_APPEND, slot=slot, pos=int(self._pos[slot]))
+        idx = next((i for i in self._horizon_block_range(slot)
+                    if self._tables[slot, i] == 0), None)
+        if idx is None:
             return True
         got = self.prefix_cache.alloc_blocks(1)
         if not got:
@@ -522,15 +1028,18 @@ class ServingEngine:
         return True
 
     def slot_block_count(self, slot: int) -> int:
-        """Blocks the slot's table references now."""
-        return len(self._slot_blocks[slot])
+        """Blocks the slot's table references now (0 for a dense
+        engine)."""
+        return len(self._slot_blocks[slot]) if self.paged else 0
 
     def kv_pool_stats(self) -> tuple[int, int]:
         """(blocks in use, blocks free)."""
         return self._pool.used_blocks, self._pool.free_blocks
 
     def kv_stats(self) -> dict:
-        """Paged-store occupancy and configuration."""
+        """Paged-store occupancy and configuration (``{}`` when dense)."""
+        if not self.paged:
+            return {}
         return {
             "kv_blocks": self.kv_blocks,
             "kv_block_size": self.kv_block_size,
@@ -543,20 +1052,64 @@ class ServingEngine:
         }
 
     # ------------------------------------------------------------------ #
-    # decode + retirement                                                  #
+    # dense prefix inserts                                                 #
+    # ------------------------------------------------------------------ #
+
+    def flush_inserts(self) -> None:
+        """Copy the pending prompts' new full blocks into the dense
+        engine's prefix store. The scheduler calls it after each step's
+        tokens are delivered; admission calls it before picking slots, so
+        a donor's rows are copied before its slot can be reused. A no-op
+        for the paged engine, whose inserts are zero-copy."""
+        if self.paged:
+            return
+        pending, self._pending_inserts = self._pending_inserts, []
+        for prompt, slot in pending:
+            self._insert_prefix(prompt, slot)
+
+    @torch.inference_mode()
+    def _insert_prefix(self, prompt: np.ndarray, slot: int) -> None:
+        """Cache a freshly prefilled prompt's full blocks, best effort: a
+        failure aborts the insert and never touches the admitted
+        request."""
+        if self.prefix_cache.missing_blocks(prompt) < self._min_insert:
+            return
+        plan = self.prefix_cache.plan_insert(prompt)
+        if plan is None:
+            return
+        try:
+            inject(SERVING_PREFIX_COPY, op="insert", slot=slot,
+                   blocks=len(plan.block_ids))
+            bs = self.prefix_cache.block_size
+            rows = (self._dev(plan.row_starts).long()[:, None]
+                    + torch.arange(bs, device=self.device)[None, :])
+            ids = self._dev(plan.block_ids).long()
+            with self._watched("serving prefix insert"):
+                for st, c in zip(self._store, self.caches):
+                    for kk in ("k", "v"):
+                        st[kk].index_copy_(0, ids, c[kk][slot][rows])
+            self.prefix_cache.commit_insert(plan)
+        except Exception as e:  # noqa: BLE001 — inserting is best effort
+            self.prefix_cache.abort_insert(plan)
+            self._events.emit("prefix_insert_error", error=type(e).__name__,
+                              detail=str(e)[:200])
+
+    # ------------------------------------------------------------------ #
+    # decode rounds                                                        #
     # ------------------------------------------------------------------ #
 
     def decode_step(self, ctx: Optional[dict] = None) -> dict[int, int]:
         """Advance every active slot one token (one pass of the model over
         the whole pool); returns ``{slot: token}`` for the active slots,
         ``{}`` when none is active. The token fetch is the step's one
-        device-to-host sync."""
+        device-to-host sync, inside the watchdog window."""
         if not self._active.any():
             return {}
-        nxt = device_fetch(self._paged_decode())
+        with self._watched("serving decode_step", **(ctx or {})):
+            inject(SERVING_DECODE, active=self.active_slots)
+            nxt = device_fetch(self._decode_round(1))[:, 0]
         self._c_decode_steps.inc()
-        self._events.emit("decode_step", active=self.active_slots,
-                          **(ctx or {}))
+        self._events.emit("decode_step", active=self.active_slots)
         out = {}
         for slot in np.flatnonzero(self._active):
             slot = int(slot)
@@ -566,34 +1119,191 @@ class ServingEngine:
             out[slot] = tok
         return out
 
+    def decode_steps(self, ctx: Optional[dict] = None
+                     ) -> dict[int, list[int]]:
+        """Advance every active slot ``decode_window`` tokens in one engine
+        call: ``decode_window`` real one-token steps, each feeding the
+        last one's tokens, with one fetch at the end. Returns ``{slot:
+        [tokens...]}``; the stream equals ``decode_window`` calls of
+        :meth:`decode_step` (the same generator draws), and the scheduler
+        drops the tail past a retirement."""
+        if self.decode_window < 2:
+            raise RuntimeError(
+                "decode_steps needs ServingEngine(decode_window=n>1)")
+        if not self._active.any():
+            return {}
+        n = self.decode_window
+        with self._watched("serving decode_steps", **(ctx or {})):
+            inject(SERVING_DECODE, active=self.active_slots, window=n)
+            out = device_fetch(self._decode_round(n))
+        self._c_decode_steps.inc()
+        self._events.emit("decode_step", active=self.active_slots, window=n)
+        res = {}
+        for slot in np.flatnonzero(self._active):
+            slot = int(slot)
+            toks = [int(t) for t in out[slot]]
+            self._token[slot] = toks[-1]
+            self._pos[slot] += n
+            res[slot] = toks
+        return res
+
+    def spec_decode_step(self, ctx: Optional[dict] = None
+                         ) -> dict[int, list[int]]:
+        """One speculative round for every active slot: draft ``k`` tokens
+        a slot, verify the ``k + 1``-token window in one forward, and
+        commit each slot's longest matching draft prefix plus the
+        correction token. Returns ``{slot: [tokens...]}``; blocks appended
+        for rejected rows are rolled back."""
+        if self._spec is None:
+            raise RuntimeError(
+                "spec_decode_step needs ServingEngine(speculative=...)")
+        if not self._active.any():
+            return {}
+        k = self._spec.k
+        drafts = self._drafter.propose(k)             # [n_slots, k] int32
+        tokens = np.concatenate([self._token[:, None], drafts], axis=1)
+        # rows past valid write into the scratch block: a slot near
+        # cache_len must not reach past its table
+        valid = np.where(self._active,
+                         np.clip(self.cache_len - self._pos, 0, k + 1),
+                         0).astype(np.int32)
+        with self._watched("serving spec_verify", **(ctx or {})):
+            inject(SERVING_SPEC_VERIFY, active=self.active_slots, k=k)
+            g = device_fetch(self._spec_verify(tokens, valid))
+        self._c_decode_steps.inc()
+        self._spec_rounds += 1
+        self._events.emit("decode_step", active=self.active_slots,
+                          window=k + 1)
+        res = {}
+        proposed = accepted = 0
+        lengths = []
+        spec_slots = {}
+        for slot in np.flatnonzero(self._active):
+            slot = int(slot)
+            kd = min(k, int(valid[slot]) - 1)   # drafts that fit the slot
+            a = 0
+            while a < kd and int(drafts[slot, a]) == int(g[slot, a]):
+                a += 1
+            toks = [int(t) for t in drafts[slot, :a]] + [int(g[slot, a])]
+            self._token[slot] = toks[-1]
+            self._pos[slot] += len(toks)
+            self._drafter.on_commit(slot, toks)
+            self._rollback_spec_blocks(slot)
+            proposed += kd
+            accepted += a
+            lengths.append(a)
+            spec_slots[slot] = (kd, a)
+            res[slot] = toks
+        self._spec_proposed_total += proposed
+        self._spec_accepted_total += accepted
+        self._last_spec_window = (proposed, accepted, lengths)
+        self._last_spec_slots = spec_slots
+        return res
+
+    def _rollback_spec_blocks(self, slot: int) -> None:
+        """Free the blocks the window appended past the block of the
+        slot's next write (back into its reserved headroom). Shared prefix
+        blocks are out of reach: they cover rows below the prompt's end."""
+        keep = min(int(self._pos[slot]) // self.kv_block_size + 1,
+                   self._n_max)
+        freed = 0
+        for idx in range(keep, self._n_max):
+            block = int(self._tables[slot, idx])
+            if block == 0:
+                continue
+            self._pool.decref(block)
+            self._slot_blocks[slot].remove(block)
+            self._tables[slot, idx] = 0
+            self._slot_reserved[slot] += 1
+            freed += 1
+        if freed:
+            self._events.emit("spec_rollback", slot=slot, blocks=freed,
+                              pos=int(self._pos[slot]))
+
+    def decode_round(self, ctx: Optional[dict] = None
+                     ) -> dict[int, list[int]]:
+        """One decode call under the engine's mode — the scheduler's one
+        entry point: a verify window, a decode window, or one token."""
+        if self._spec is not None:
+            return self.spec_decode_step(ctx=ctx)
+        if self.decode_window > 1:
+            return self.decode_steps(ctx=ctx)
+        return {slot: [tok]
+                for slot, tok in self.decode_step(ctx=ctx).items()}
+
+    @property
+    def spec_enabled(self) -> bool:
+        return self._spec is not None
+
+    @property
+    def last_spec_slots(self) -> dict:
+        """``{slot: (drafts that fit, drafts accepted)}`` of the last
+        verify round; not cleared on read."""
+        return self._last_spec_slots
+
+    def pop_spec_window(self) -> Optional[tuple]:
+        """``(proposed, accepted, accept_lengths)`` of the last verify
+        round, cleared on read (the scheduler drains it into its
+        metrics)."""
+        win, self._last_spec_window = self._last_spec_window, None
+        return win
+
+    def spec_stats(self) -> dict:
+        """Cumulative speculative counters (``{}`` when speculation is
+        off)."""
+        if self._spec is None:
+            return {}
+        prop = self._spec_proposed_total
+        acc = self._spec_accepted_total
+        return {
+            "drafter": self._spec.drafter,
+            "spec_k": self._spec.k,
+            "spec_rounds": self._spec_rounds,
+            "spec_tokens_proposed": prop,
+            "spec_tokens_accepted": acc,
+            "accept_rate": (acc / prop) if prop else 0.0,
+        }
+
     def release(self, slot: int) -> None:
-        """Retire a slot: its block references go back to the pool
-        (blocks the prefix trie also holds stay resident for later hits).
-        The store is not zeroed: the position mask makes stale rows
+        """Retire a slot: paged, its block references go back to the pool
+        (blocks the prefix trie also holds stay resident for later hits),
+        and a half-prefilled chunked slot releases the same way. The
+        caches are not zeroed: the position mask makes stale rows
         unreachable to the next tenant."""
         if slot in self.free_slots:
             return
-        for block in self._slot_blocks[slot]:
-            self._pool.decref(block)
-        self._slot_blocks[slot] = []
-        self._slot_reserved[slot] = 0
-        self._tables[slot, :] = 0
+        if self.paged:
+            for block in self._slot_blocks[slot]:
+                self._pool.decref(block)
+            self._slot_blocks[slot] = []
+            self._slot_reserved[slot] = 0
+            self._tables[slot, :] = 0
+            self._chunking.pop(slot, None)
+        if self._drafter is not None:
+            self._drafter.on_release(slot)
         self._gens[slot] = None
         self._active[slot] = False
         self.free_slots.add(slot)
 
+    def prefix_stats(self) -> dict:
+        """The prefix cache's hit, eviction and occupancy numbers."""
+        return self.prefix_cache.stats() if self.prefix_cache else {}
+
     def occupancy(self) -> dict:
         """Host-side occupancy snapshot (no device call)."""
+        if self.paged:
+            kv_free = self._pool.free_blocks / max(self._pool.capacity, 1)
+        else:
+            kv_free = len(self.free_slots) / max(self.n_slots, 1)
         return {
             "n_slots": self.n_slots,
             "active_slots": self.active_slots,
             "free_slots": len(self.free_slots),
-            "kv_free_frac": self._pool.free_blocks
-            / max(self._pool.capacity, 1),
-            "prefix_enabled": True,
-            "paged": True,
+            "kv_free_frac": kv_free,
+            "prefix_enabled": self.prefix_enabled,
+            "paged": self.paged,
             "warm": self._warm,
         }
 
 
-__all__ = ["AdmitPlan", "ServingEngine"]
+__all__ = ["AdmitPlan", "ChunkedPrefill", "ServingEngine"]

@@ -1,5 +1,6 @@
-"""Serving statistics: TTFT, TPOT, tokens/s, queue depth, slot occupancy
-and paged-pool occupancy (the port's subset of
+"""Serving statistics: TTFT, TPOT, tokens/s, queue depth, slot occupancy,
+paged-pool occupancy, speculative accept accounting, sheds and
+class-labelled preemptions (the port's subset of
 ``chainermn_tpu/serving/metrics.py``).
 
 Every series lives in the metrics registry, labelled ``instance=N`` per
@@ -47,6 +48,7 @@ class ServingMetrics:
             "serving_requests_rejected_total", labels)
         self._c_errored = reg.counter(
             "serving_requests_errored_total", labels)
+        self._c_shed = reg.counter("serving_requests_shed_total", labels)
         self._c_tokens = reg.counter("serving_tokens_total", labels)
         self._c_preempt = reg.counter("kv_preemptions_total", labels)
         self._h_ttft = reg.histogram("serving_ttft_seconds", labels)
@@ -58,6 +60,22 @@ class ServingMetrics:
         self._h_req_blocks = reg.histogram("kv_blocks_per_request", labels)
         self._g_kv_used = reg.gauge("kv_blocks_in_use", labels)
         self._g_kv_free = reg.gauge("kv_blocks_free", labels)
+        # speculative decoding: the draft economy and accept lengths
+        self._c_spec_proposed = reg.counter("spec_tokens_proposed_total",
+                                            labels)
+        self._c_spec_accepted = reg.counter("spec_tokens_accepted_total",
+                                            labels)
+        self._h_spec_accept = reg.histogram("spec_accept_length", labels)
+        # overload policies: per-class queue depth and preemptions
+        self._g_class_queue = {
+            cls: reg.gauge("serving_class_queue_depth",
+                           dict(labels, priority=cls))
+            for cls in ("interactive", "batch")}
+        self._c_class_preempt = {
+            cls: reg.counter("serving_class_preemptions_total",
+                             dict(labels, priority=cls))
+            for cls in ("interactive", "batch")}
+        self._labels = labels
         self._t_first_token: Optional[float] = None
         self._t_last_token: Optional[float] = None
 
@@ -93,9 +111,33 @@ class ServingMetrics:
     def record_errored(self) -> None:
         self._c_errored.inc()
 
-    def record_preemption(self) -> None:
-        """A decoding request went back to the queue (pool ran dry)."""
+    def record_shed(self) -> None:
+        """A request shed: past its deadline, or by brownout L4."""
+        self._c_shed.inc()
+
+    def record_preemption(self, priority: Optional[str] = None) -> None:
+        """A decoding request went back to the queue (pool ran dry, or an
+        injected ``serving.kv_append`` fault); ``priority`` feeds the
+        per-class split."""
         self._c_preempt.inc()
+        if priority in self._c_class_preempt:
+            self._c_class_preempt[priority].inc()
+
+    def record_tenant_shed(self, tenant: str) -> None:
+        """Brownout L4 dropped one of ``tenant``'s queued requests."""
+        get_registry().counter(
+            "serving_tenant_sheds_total",
+            dict(self._labels, tenant=str(tenant))).inc()
+
+    def record_spec_window(self, proposed: int, accepted: int,
+                           lengths: list) -> None:
+        """One verify round's accounting (drained from the engine's
+        ``pop_spec_window``): totals to the counters, each slot's accept
+        length to the histogram."""
+        self._c_spec_proposed.inc(proposed)
+        self._c_spec_accepted.inc(accepted)
+        for a in lengths:
+            self._h_spec_accept.observe(a)
 
     def record_kv_pool(self, in_use: int, free: int) -> None:
         """Paged-store occupancy, sampled once per scheduler step."""
@@ -106,9 +148,12 @@ class ServingMetrics:
         """Store blocks a retiring request's table referenced."""
         self._h_req_blocks.observe(n_blocks)
 
-    def record_step(self, queue_depth: int, active_slots: int) -> None:
+    def record_step(self, queue_depth: int, active_slots: int,
+                    batch_depth: int = 0) -> None:
         self._h_queue.observe(queue_depth)
         self._h_occ.observe(active_slots / self.n_slots)
+        self._g_class_queue["batch"].set(batch_depth)
+        self._g_class_queue["interactive"].set(queue_depth - batch_depth)
 
     def _record_token_time(self, t: float) -> None:
         if self._t_first_token is None:
@@ -135,6 +180,7 @@ class ServingMetrics:
             "requests_completed": self._c_completed.value,
             "requests_cancelled": self._c_cancelled.value,
             "requests_rejected": self._c_rejected.value,
+            "requests_shed": self._c_shed.value,
             "requests_errored": self._c_errored.value,
             "tokens_generated": self.tokens_generated,
             "tokens_per_sec": self.tokens_per_sec,
@@ -162,6 +208,15 @@ class ServingMetrics:
             out["kv_blocks_per_request_mean"] = float(np.mean(req_blocks))
             out["kv_blocks_in_use"] = int(self._g_kv_used.value)
             out["kv_blocks_free"] = int(self._g_kv_free.value)
+        spec_prop = int(self._c_spec_proposed.value)
+        if spec_prop:
+            spec_acc = int(self._c_spec_accepted.value)
+            out["spec_tokens_proposed"] = spec_prop
+            out["spec_tokens_accepted"] = spec_acc
+            out["spec_accept_rate"] = spec_acc / spec_prop
+            accept = self._h_spec_accept.samples
+            if accept:
+                out["spec_accept_length_mean"] = float(np.mean(accept))
         return out
 
 

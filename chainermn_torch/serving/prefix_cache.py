@@ -1,15 +1,19 @@
-"""Host-side block pool and ref-counted prefix trie over the paged KV
-store (the port's copy of ``chainermn_tpu/serving/prefix_cache.py``,
-shared-pool mode only).
+"""Host-side block pool and ref-counted prefix trie over a KV block
+store (the port's copy of ``chainermn_tpu/serving/prefix_cache.py``).
 
-- :class:`BlockPool` hands out store block ids with refcounts; block 0 is
-  the reserved scratch block. A block returns to the free list only when
-  its last holder (a decode slot's table or a trie node) lets go.
+- :class:`BlockPool` hands out store block ids with refcounts; with
+  ``reserve_scratch`` block 0 is the reserved scratch block. A block
+  returns to the free list only when its last holder (a decode slot's
+  table or a trie node) lets go.
 - :class:`PrefixCacheIndex` is a trie over ``block_size``-token blocks.
-  ``match`` pins the longest cached prefix of a prompt; a paged engine
-  references the matched blocks from the slot's table (sharing, no copy)
-  and ``insert_shared`` adopts a freshly prefilled slot's full blocks.
-  Eviction takes least-recently-used, unpinned leaves.
+  ``match`` pins the longest cached prefix of a prompt. On the shared
+  pool of a paged engine the matched blocks are referenced from the
+  slot's table (no copy) and ``insert_shared`` adopts a freshly
+  prefilled slot's full blocks. With a private pool (the dense engine's
+  prefix store) a hit is copied into the slot and an insert is a
+  ``plan_insert`` -> device copy -> ``commit_insert`` (or
+  ``abort_insert``) transaction. Eviction takes least-recently-used,
+  unpinned leaves.
 
 Pure host state (numpy and the monitor spine), driven from the
 scheduler's one thread.
@@ -18,7 +22,7 @@ scheduler's one thread.
 from __future__ import annotations
 
 import itertools
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
@@ -76,6 +80,11 @@ class BlockPool:
             raise RuntimeError(
                 f"block {block} over-released (refcount went negative)")
 
+    def reset(self) -> None:
+        """Everything free, every refcount dropped."""
+        self._free = list(range(self.n_blocks - 1, self._lo - 1, -1))
+        self._refs[:] = 0
+
 
 class _Node:
     """One cached block: ``block_size`` tokens -> one store block."""
@@ -103,13 +112,50 @@ class PrefixMatch:
     released: bool = False
 
 
+@dataclass
+class InsertPlan:
+    """Blocks allocated for a pending insert whose device copy is not done
+    yet. ``start_block`` is the first new block's index in the prompt (the
+    blocks before it were cached already); ``row_starts`` are the slot
+    cache rows the copy reads. ``commit_insert`` links the nodes,
+    ``abort_insert`` gives the blocks back."""
+
+    parent: object
+    keys: list
+    block_ids: list
+    start_block: int
+    row_starts: list = field(default_factory=list)
+    closed: bool = False
+
+
 class PrefixCacheIndex:
     """Ref-counted trie over token blocks mapping prefixes to store block
-    ids, allocating from the shared ``pool``. Drive from one thread."""
+    ids. Drive from one thread.
 
-    def __init__(self, block_size: int, pool: BlockPool) -> None:
+    Two forms, as in the reference: ``PrefixCacheIndex(n_blocks,
+    block_size)`` owns a private pool of ``n_blocks`` blocks (the dense
+    engine's prefix store); with ``pool=`` it allocates from that shared
+    pool (the paged engine's store), and the block count may be left out:
+    ``PrefixCacheIndex(block_size, pool=pool)``."""
+
+    def __init__(self, *args, pool: Optional[BlockPool] = None) -> None:
+        if len(args) == 3 and pool is None:
+            args, pool = args[:2], args[2]
+        if len(args) == 2:
+            n_blocks, block_size = args
+        elif len(args) == 1 and pool is not None:
+            n_blocks, block_size = pool.n_blocks, args[0]
+        else:
+            raise TypeError("PrefixCacheIndex(n_blocks, block_size, "
+                            "pool=None) or PrefixCacheIndex(block_size, "
+                            "pool=pool)")
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
+        self._pool_private = pool is None
+        if pool is None:
+            if n_blocks < 1:
+                raise ValueError(f"n_blocks must be >= 1, got {n_blocks}")
+            pool = BlockPool(int(n_blocks))
         self.pool = pool
         self.n_blocks = pool.n_blocks
         self.block_size = int(block_size)
@@ -160,12 +206,113 @@ class PrefixCacheIndex:
         return PrefixMatch(nodes=nodes, length=len(nodes) * self.block_size,
                            block_ids=[nd.block for nd in nodes])
 
+    def missing_blocks(self, tokens) -> int:
+        """How many of ``tokens``' full blocks are not cached yet (no
+        allocation, no pin, no LRU touch)."""
+        tokens = np.asarray(tokens).reshape(-1)
+        total = len(tokens) // self.block_size
+        node, i = self._root, 0
+        while i < total:
+            child = node.children.get(self._key(tokens, i))
+            if child is None:
+                break
+            node, i = child, i + 1
+        return total - i
+
+    def ngram_continuation(self, tokens, k: int) -> Optional[list]:
+        """Up to ``k`` tokens a cached prompt says follow ``tokens``, for
+        the n-gram drafter: ``tokens`` must walk the trie cleanly (every
+        full block present, the ragged tail a prefix of exactly one child
+        key); the tail key's remainder comes first, then deeper blocks
+        while the path has one child. ``None`` when the trie has no
+        unambiguous answer. A pure read: no pin, no LRU touch, no hit or
+        miss counted."""
+        if k <= 0:
+            return None
+        tokens = np.asarray(tokens, np.int64).reshape(-1)
+        bs = self.block_size
+        node = self._root
+        for i in range(len(tokens) // bs):
+            child = node.children.get(self._key(tokens, i))
+            if child is None:
+                return None
+            node = child
+        tail = tuple(int(t) for t in tokens[(len(tokens) // bs) * bs:])
+        out: list = []
+        if tail:
+            matches = [key for key in node.children
+                       if key[:len(tail)] == tail]
+            if len(matches) != 1:
+                return None
+            key = matches[0]
+            out.extend(key[len(tail):])
+            node = node.children[key]
+        while len(out) < k and len(node.children) == 1:
+            (key, node), = node.children.items()
+            out.extend(key)
+        return out[:k] if out else None
+
     def release(self, match: Optional[PrefixMatch]) -> None:
         """Unpin a match (idempotent)."""
         if match is None or match.released:
             return
         match.released = True
         match.nodes[-1].refs -= 1
+
+    def plan_insert(self, tokens) -> Optional[InsertPlan]:
+        """Allocate blocks for the not-yet-cached full blocks of
+        ``tokens`` (evicting LRU leaves as needed) and pin the node they
+        attach under. ``None`` when nothing new would be cached. The
+        caller copies the KV, then commits or aborts."""
+        tokens = np.asarray(tokens).reshape(-1)
+        bs = self.block_size
+        total = len(tokens) // bs
+        node, i = self._root, 0
+        t = next(self._clock)
+        while i < total:
+            child = node.children.get(self._key(tokens, i))
+            if child is None:
+                break
+            child.last_use = t
+            node, i = child, i + 1
+        if i >= total:
+            return None
+        node.refs += 1                  # pin the attachment point
+        blocks = self.alloc_blocks(total - i)
+        if not blocks:
+            node.refs -= 1
+            return None
+        return InsertPlan(
+            parent=node,
+            keys=[self._key(tokens, i + j) for j in range(len(blocks))],
+            block_ids=blocks, start_block=i,
+            row_starts=[(i + j) * bs for j in range(len(blocks))])
+
+    def commit_insert(self, plan: InsertPlan) -> None:
+        if plan.closed:
+            return
+        plan.closed = True
+        node = plan.parent
+        node.refs -= 1
+        t = next(self._clock)
+        for key, block in zip(plan.keys, plan.block_ids):
+            child = _Node(key, block, node)
+            child.last_use = t
+            node.children[key] = child
+            node = child
+        n = len(plan.block_ids)
+        self.inserted_blocks += n
+        self._c_inserted.inc(n)
+        self._events.emit("prefix_insert", blocks=n,
+                          depth=plan.start_block + n, used=self.used_blocks)
+
+    def abort_insert(self, plan: InsertPlan) -> None:
+        if plan.closed:
+            return
+        plan.closed = True
+        plan.parent.refs -= 1
+        for block in plan.block_ids:
+            self.pool.decref(block)
 
     def insert_shared(self, tokens, block_ids) -> int:
         """Adopt already-resident blocks: ``block_ids[j]`` holds the KV of
@@ -258,9 +405,19 @@ class PrefixCacheIndex:
 
         return walk(self._root)[1]
 
+    def clear(self) -> None:
+        """Drop every cached prefix. A private pool is reset wholesale
+        (uncommitted plans' blocks too); a shared pool keeps its other
+        holders' references, and the trie's own are dropped with it only
+        when its owner resets the pool."""
+        self._root = _Node(None, -1, None)
+        if self._pool_private:
+            self.pool.reset()
+
     @property
     def used_blocks(self) -> int:
-        """Allocated blocks in the shared pool (slots and trie)."""
+        """Allocated blocks in the pool: with a private pool the trie's
+        own footprint, with a shared one the store's whole occupancy."""
         return self.pool.used_blocks
 
     @property
@@ -281,4 +438,4 @@ class PrefixCacheIndex:
         }
 
 
-__all__ = ["BlockPool", "PrefixCacheIndex", "PrefixMatch"]
+__all__ = ["BlockPool", "InsertPlan", "PrefixCacheIndex", "PrefixMatch"]

@@ -1,19 +1,39 @@
-"""FCFS admission and request lifecycle over the paged engine (the port's
+"""Admission and request lifecycle over the serving engine (the port's
 subset of ``chainermn_tpu/serving/scheduler.py``).
 
 Requests move through ``QUEUED -> PREFILL -> DECODE -> DONE`` (or
-``CANCELLED`` / ``ERRORED``). One :meth:`FCFSScheduler.step` is one engine
-round: admit from the queue head (a group of same-bucket requests in one
-prefill call, at most ``max_prefills_per_step`` calls), make sure every
-decoding slot has the block its next write needs, decode every slot one
-token, deliver tokens, and retire slots that hit EOS or their budget.
+``CANCELLED`` / ``ERRORED``); a chunked admission passes through
+``PREFILLING``. One :meth:`FCFSScheduler.step` is one engine round: shed
+requests past their deadline, let the brownout policy observe the queue,
+admit from the queue (a group of same-bucket requests in one prefill
+call, at most ``max_prefills_per_step`` calls), advance the oldest
+chunked prefill by one chunk, make sure every decoding slot has the
+blocks its next round writes, run one decode round (one token, a decode
+window, or a verify window), deliver tokens, and retire slots that hit
+EOS or their budget — mid-window, dropping the window's tail.
 
-Block-budget admission: a request admits only if its worst-case block
-growth fits ``free + evictable - reserved``; an unaffordable head goes
-back to the queue head (FCFS kept). When the pool still runs dry before a
-decode step, the newest request is preempted back to the queue; its
-re-admission replays the same prompt and seed, so its token stream comes
-out the same.
+- **Admission order**: FIFO by default. ``fair=True`` (or
+  ``tenant_weights``) picks the head by class order and weighted DRR
+  (:class:`~chainermn_torch.serving.fairness.FairAdmission`); brownout L1
+  holds the ``batch`` class back either way.
+- **Block-budget admission** (paged): a request admits only if its
+  worst-case block growth fits ``free + evictable - reserved``; an
+  unaffordable head goes back to the queue head. When the pool still runs
+  dry before a decode round, the request that sorts last by
+  :meth:`FCFSScheduler._preempt_key` (batch first, then the tenant most
+  over its share, then the newest) goes back to the queue; its
+  re-admission replays the same prompt and seed, so its token stream
+  comes out the same.
+- **Chunked prefill** (paged, ``chunk_tokens_per_step=N``): a prompt
+  whose suffix exceeds ``N`` tokens is staged on a slot and prefilled one
+  chunk a step, interleaved with decode rounds.
+- **Deadlines**: a request past ``deadline_s`` (or the scheduler's
+  ``default_deadline_s``) is shed at a step boundary — queued, decoding
+  or mid-chunk — with :class:`DeadlineExceededError` stored.
+- **Brownout** (:class:`~chainermn_torch.serving.fairness.
+  BrownoutPolicy`): L2 runs the single-token decode step instead of a
+  window, L3 caps the tokens a request gets (a prefix of its stream), L4
+  sheds the lowest-weight tenant's queued work.
 
 ``submit``/``cancel`` are safe from any thread; ``step`` is driven from
 one thread (the engine is not concurrent).
@@ -33,16 +53,41 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 
 from chainermn_torch.monitor import get_event_log
+from chainermn_torch.resilience.cutpoints import SERVING_ADMIT_FAIR
+from chainermn_torch.resilience.faults import inject
+from chainermn_torch.serving.fairness import (
+    PRIORITY_CLASSES,
+    BrownoutPolicy,
+    FairAdmission,
+)
 from chainermn_torch.serving.metrics import ServingMetrics
 
 
 class QueueFullError(RuntimeError):
-    """Submission rejected: the bounded admission queue is full."""
+    """Submission rejected: the bounded admission queue is full (or the
+    request was shed by brownout L4). ``retry_after_s`` is the
+    backpressure hint a client should wait before retrying."""
+
+    def __init__(self, msg: str = "", *,
+                 retry_after_s: Optional[float] = None) -> None:
+        super().__init__(msg)
+        self.retry_after_s = retry_after_s
+
+
+class DeadlineExceededError(TimeoutError):
+    """The request passed its deadline (queued, decoding or mid-chunk)
+    and was shed; carries the same ``retry_after_s`` hint."""
+
+    def __init__(self, msg: str = "", *,
+                 retry_after_s: Optional[float] = None) -> None:
+        super().__init__(msg)
+        self.retry_after_s = retry_after_s
 
 
 class RequestState(enum.Enum):
     QUEUED = "queued"
     PREFILL = "prefill"
+    PREFILLING = "prefilling"   # chunked prefill in progress (owns a slot)
     DECODE = "decode"
     DONE = "done"
     CANCELLED = "cancelled"
@@ -58,18 +103,25 @@ class EngineFailed(RuntimeError):
 class Request:
     """One inference request and its lifecycle state, created by
     :meth:`FCFSScheduler.submit`. ``seed`` seeds the request's sampler
-    generator at (every) admission. Compares by identity."""
+    generator at (every) admission; ``tenant`` keys fair admission and
+    brownout sheds; ``priority`` is its class (``interactive`` admits
+    first and is preempted last, ``batch`` waits). Compares by identity
+    (fair admission removes requests from the middle of the queue)."""
 
     prompt: np.ndarray
     max_new_tokens: int
     seed: int = 0
     stream_cb: Optional[Callable[[int], None]] = None
+    tenant: str = "default"
+    priority: str = "interactive"
     id: int = -1
     state: RequestState = RequestState.QUEUED
     slot: int = -1
     tokens: list = field(default_factory=list)
     error: Optional[BaseException] = None
+    deadline_s: Optional[float] = None
     t_submit: float = 0.0
+    t_deadline: Optional[float] = None
     t_last_token: float = 0.0
     _done: threading.Event = field(default_factory=threading.Event)
 
@@ -113,31 +165,63 @@ class Request:
 
 
 class FCFSScheduler:
-    """First-come-first-served continuous-batching scheduler.
+    """Continuous-batching scheduler (FIFO by default).
 
     ``eos_id``: a request retires as soon as it samples this token (kept
     as its last token). ``max_queue`` bounds the queue (submit raises
     :class:`QueueFullError` beyond it). ``max_prefills_per_step`` bounds
-    the prefill calls interleaved with each decode step."""
+    the prefill calls before each decode round: 1 when the engine batches
+    prefills, has several buckets or a prefix cache, unbounded otherwise.
+    ``default_deadline_s`` applies to requests submitted without one.
+    ``fair``/``tenant_weights``, ``brownout`` and
+    ``chunk_tokens_per_step`` are the policies of the module docstring
+    (``fair`` may also be a :class:`FairAdmission` to share or inspect).
+    """
 
     def __init__(self, engine, *, eos_id: Optional[int] = None,
                  metrics: Optional[ServingMetrics] = None,
                  max_queue: Optional[int] = None,
-                 max_prefills_per_step: int = 1) -> None:
+                 default_deadline_s: Optional[float] = None,
+                 max_prefills_per_step: Optional[int] = None,
+                 fair=None, tenant_weights=None,
+                 brownout: Optional[BrownoutPolicy] = None,
+                 chunk_tokens_per_step: Optional[int] = None) -> None:
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
-        if max_prefills_per_step < 1:
+        if max_prefills_per_step is not None and max_prefills_per_step < 1:
             raise ValueError(f"max_prefills_per_step must be >= 1, got "
                              f"{max_prefills_per_step}")
+        if chunk_tokens_per_step is not None and chunk_tokens_per_step < 1:
+            raise ValueError(f"chunk_tokens_per_step must be >= 1, got "
+                             f"{chunk_tokens_per_step}")
         self.engine = engine
         self.eos_id = eos_id
         self.metrics = metrics or ServingMetrics(engine.n_slots)
         self.max_queue = max_queue
-        self._max_prefills = int(max_prefills_per_step)
+        self.default_deadline_s = default_deadline_s
+        if max_prefills_per_step is None and (
+                engine.prefill_batch > 1 or len(engine.prefill_buckets) > 1
+                or engine.prefix_enabled):
+            max_prefills_per_step = 1
+        self._max_prefills = max_prefills_per_step
+        if fair is None:
+            fair = tenant_weights is not None
+        if isinstance(fair, FairAdmission):
+            self._fair: Optional[FairAdmission] = fair
+        elif fair:
+            self._fair = FairAdmission(tenant_weights=tenant_weights)
+        else:
+            self._fair = None
+        self._brownout = brownout
+        self._chunk_tokens = (int(chunk_tokens_per_step)
+                              if chunk_tokens_per_step is not None else None)
         self._events = get_event_log()
         self._lock = threading.Lock()
         self._queue: deque[Request] = deque()
         self._by_slot: dict[int, Request] = {}
+        # slot -> request mid-chunked-prefill (disjoint from _by_slot: it
+        # takes no decode token and appends no block)
+        self._prefilling: dict[int, Request] = {}
         self._ids = itertools.count()
 
     # ------------------------------------------------------------------ #
@@ -145,13 +229,23 @@ class FCFSScheduler:
     # ------------------------------------------------------------------ #
 
     def submit(self, prompt, max_new_tokens: int, *, seed: int = 0,
-               stream_cb: Optional[Callable[[int], None]] = None
-               ) -> Request:
+               stream_cb: Optional[Callable[[int], None]] = None,
+               deadline_s: Optional[float] = None, tenant: str = "default",
+               priority: str = "interactive") -> Request:
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         self.engine.validate_request(len(prompt), max_new_tokens)
+        if priority not in PRIORITY_CLASSES:
+            raise ValueError(f"priority must be one of {PRIORITY_CLASSES}, "
+                             f"got {priority!r}")
+        if deadline_s is None:
+            deadline_s = self.default_deadline_s
         req = Request(prompt=prompt, max_new_tokens=int(max_new_tokens),
-                      seed=int(seed), stream_cb=stream_cb)
+                      seed=int(seed), stream_cb=stream_cb,
+                      tenant=str(tenant), priority=str(priority),
+                      deadline_s=deadline_s)
         req.t_submit = time.perf_counter()
+        if deadline_s is not None:
+            req.t_deadline = req.t_submit + float(deadline_s)
         with self._lock:
             if (self.max_queue is not None
                     and len(self._queue) >= self.max_queue):
@@ -159,17 +253,20 @@ class FCFSScheduler:
                 self._events.emit("reject", prompt_len=len(prompt),
                                   queue_depth=len(self._queue))
                 raise QueueFullError(
-                    f"admission queue full ({self.max_queue} queued)")
+                    f"admission queue full ({self.max_queue} queued)",
+                    retry_after_s=self._retry_after_locked())
             req.id = next(self._ids)
             self._queue.append(req)
             self.metrics.record_submit()
         self._events.emit("submit", req=req.id, prompt_len=len(prompt),
-                          max_new=int(max_new_tokens))
+                          max_new=int(max_new_tokens), tenant=req.tenant,
+                          priority=req.priority)
         return req
 
     def cancel(self, req: Request) -> bool:
-        """Cancel: dequeued if QUEUED, slot freed if decoding. False if it
-        already finished."""
+        """Cancel: dequeued if QUEUED, slot freed if decoding; a chunked
+        prefill's slot is released by the driving thread at its next
+        chunk. False if it already finished."""
         with self._lock:
             if req.finished:
                 return False
@@ -178,6 +275,8 @@ class FCFSScheduler:
                     self._queue.remove(req)
                 except ValueError:
                     return False
+            elif req.state is RequestState.PREFILLING:
+                pass   # the driving thread owns the staged chunk state
             elif req.slot >= 0:
                 self.engine.release(req.slot)
                 self._by_slot.pop(req.slot, None)
@@ -192,7 +291,8 @@ class FCFSScheduler:
     @property
     def has_work(self) -> bool:
         with self._lock:
-            return bool(self._queue) or bool(self._by_slot)
+            return (bool(self._queue) or bool(self._by_slot)
+                    or bool(self._prefilling))
 
     @property
     def queue_depth(self) -> int:
@@ -205,32 +305,60 @@ class FCFSScheduler:
 
     def step(self) -> int:
         """One continuous-batching round; returns tokens emitted. Freed
-        slots refill before the decode step."""
+        slots refill before the decode round."""
         emitted = 0
+        self._shed_expired()
+        self._policy_tick()
         calls = 0
-        while self.engine.free_slots and calls < self._max_prefills:
+        while self.engine.free_slots and (self._max_prefills is None
+                                          or calls < self._max_prefills):
             group = self._next_group()
             if not group:
                 break
             calls += 1
             emitted += self._admit_group(group)
-        self._ensure_decode_blocks()
+        emitted += self._advance_chunks()
+        if self.engine.paged:
+            self._ensure_decode_blocks()
+        # brownout L2: the single-token step instead of a window
+        force_single = (self._brownout is not None
+                        and self._brownout.force_single_token)
+        ctx = {"reqs": [r.id for r in list(self._by_slot.values())]}
         try:
-            decoded = self.engine.decode_step(
-                ctx={"reqs": [r.id for r in list(self._by_slot.values())]})
+            if force_single:
+                decoded = {slot: [tok] for slot, tok in
+                           self.engine.decode_step(ctx=ctx).items()}
+            else:
+                decoded = self.engine.decode_round(ctx=ctx)
         except Exception as e:
             self._fail_inflight(e)
             raise
-        for slot, tok in decoded.items():
-            req = self._by_slot.get(slot)
-            if req is None or req.finished:
-                continue                   # cancelled during the step
-            now = time.perf_counter()
-            self.metrics.record_token(req.t_last_token, now)
-            self._deliver(req, tok, now)
-            emitted += 1
-        self.metrics.record_step(self.queue_depth, self.engine.active_slots)
-        self.metrics.record_kv_pool(*self.engine.kv_pool_stats())
+        for slot, toks in decoded.items():
+            for tok in toks:
+                # re-read per token: EOS or budget can retire the slot
+                # mid-window, and the rest of the window is dropped
+                req = self._by_slot.get(slot)
+                if req is None or req.finished:
+                    break
+                now = time.perf_counter()
+                self.metrics.record_token(req.t_last_token, now)
+                self._deliver(req, tok, now)
+                emitted += 1
+        if self.engine.spec_enabled and not force_single:
+            window = self.engine.pop_spec_window()
+            if window is not None:
+                self.metrics.record_spec_window(*window)
+        # dense prefix inserts: after the tokens are out, before a donor
+        # slot can be reused
+        self.engine.flush_inserts()
+        with self._lock:
+            depth = len(self._queue)
+            batch_depth = sum(1 for r in self._queue
+                              if r.priority == "batch")
+        self.metrics.record_step(depth, self.engine.active_slots,
+                                 batch_depth=batch_depth)
+        if self.engine.paged:
+            self.metrics.record_kv_pool(*self.engine.kv_pool_stats())
         return emitted
 
     def run_until_idle(self, max_steps: Optional[int] = None) -> int:
@@ -248,29 +376,67 @@ class FCFSScheduler:
     # admission internals                                                 #
     # ------------------------------------------------------------------ #
 
+    def _pop_head_locked(self) -> Optional[Request]:
+        """Pick and remove the next admission candidate (lock held): FIFO,
+        or the fair policy's pick; brownout L1 holds ``batch`` back."""
+        if not self._queue:
+            return None
+        allow_batch = not (self._brownout is not None
+                           and self._brownout.pause_batch)
+        if self._fair is not None:
+            head = self._fair.select(self._queue, allow_batch=allow_batch)
+            if head is None:
+                return None
+            self._queue.remove(head)
+        elif allow_batch:
+            head = self._queue.popleft()
+        else:
+            head = next((r for r in self._queue if r.priority != "batch"),
+                        None)
+            if head is None:
+                return None
+            self._queue.remove(head)
+        head.state = RequestState.PREFILL
+        return head
+
     def _next_group(self) -> list:
-        """Pop the next admission group: the queue head anchors it, then
-        queued companions whose padded suffix lands in the same bucket
-        join (those sharing the head's cached prefix first) while the
-        block budget, ``prefill_batch`` and the free slots allow. Returns
-        ``[(req, plan), ...]``; unselected candidates' plans are
+        """Pop the next admission group: the picked head anchors it, then
+        queued companions of the same class whose padded suffix lands in
+        the same bucket join (those sharing the head's cached prefix
+        first) while the block budget, ``prefill_batch`` and the free
+        slots allow. A long head may instead begin a chunked prefill.
+        Returns ``[(req, plan), ...]``; unselected candidates' plans are
         cancelled."""
         eng = self.engine
+        paged = eng.paged
         cap = min(eng.prefill_batch, len(eng.free_slots))
         with self._lock:
-            if not self._queue:
-                return []
-            head = self._queue.popleft()
-            head.state = RequestState.PREFILL
+            head = self._pop_head_locked()
+        if head is None:
+            return []
+        try:
+            inject(SERVING_ADMIT_FAIR, req=head.id, tenant=head.tenant,
+                   priority=head.priority)
+        except Exception as e:  # noqa: BLE001 — fail only the picked one
+            self._fail([head], e, "admission")
+            return []
         plan = eng.plan_admission(head.prompt, head.seed,
                                   max_new=head.max_new_tokens)
-        budget = eng.kv_blocks_admittable()
-        need = eng.blocks_needed(len(head.prompt), head.max_new_tokens,
-                                 plan.start)
-        if need > budget:
-            self._defer_admission(head, plan, need, budget)
-            return []
-        budget -= need
+        budget = None
+        if paged:
+            budget = eng.kv_blocks_admittable()
+            need = eng.blocks_needed(len(head.prompt), head.max_new_tokens,
+                                     plan.start)
+            if need > budget:
+                self._defer_admission(head, plan, need, budget)
+                return []
+            budget -= need
+        if (self._chunk_tokens is not None
+                and len(head.prompt) - plan.start > self._chunk_tokens):
+            chunks = eng.plan_chunks(plan, self._chunk_tokens)
+            if chunks is not None:
+                self._begin_chunked(head, plan, chunks)
+                return []
         group = [(head, plan)]
         if cap <= 1:
             return group
@@ -278,6 +444,8 @@ class FCFSScheduler:
             candidates = list(self._queue)
         scored = []
         for idx, req in enumerate(candidates):
+            if req.priority != head.priority:
+                continue   # a batch request must not ride an interactive group
             p = eng.plan_admission(req.prompt, req.seed,
                                    max_new=req.max_new_tokens)
             if p.bucket != plan.bucket:
@@ -288,9 +456,9 @@ class FCFSScheduler:
             scored.append((0 if shares else 1, idx, req, p))
         scored.sort(key=lambda t: (t[0], t[1]))
         for rank, (_, _, req, p) in enumerate(scored):
-            need = eng.blocks_needed(len(req.prompt), req.max_new_tokens,
-                                     p.start)
-            if rank < cap - 1 and need <= budget:
+            need = (eng.blocks_needed(len(req.prompt), req.max_new_tokens,
+                                      p.start) if paged else 0)
+            if rank < cap - 1 and (budget is None or need <= budget):
                 with self._lock:
                     try:
                         self._queue.remove(req)   # lost a cancel() race?
@@ -299,19 +467,23 @@ class FCFSScheduler:
                         continue
                     req.state = RequestState.PREFILL
                 group.append((req, p))
-                budget -= need
+                if budget is not None:
+                    budget -= need
             else:
                 eng.cancel_plan(p)
         return group
+
+    def _requeue_head(self, req: Request) -> None:
+        with self._lock:
+            req.state = RequestState.QUEUED
+            self._queue.appendleft(req)
 
     def _defer_admission(self, req: Request, plan, need: int,
                          available: int) -> None:
         """The block budget cannot cover the head: put it back at the
         queue head until retirements return blocks."""
         self.engine.cancel_plan(plan)
-        with self._lock:
-            req.state = RequestState.QUEUED
-            self._queue.appendleft(req)
+        self._requeue_head(req)
         self._events.emit("kv_admit_defer", req=req.id, need=need,
                           available=available)
 
@@ -340,12 +512,86 @@ class FCFSScheduler:
                 req.state = RequestState.DECODE
             self._events.emit("slot_admit", req=req.id, slot=slot,
                               prompt_len=len(req.prompt), bucket=plan.bucket,
-                              cached=plan.start)
+                              cached=plan.start, tenant=req.tenant,
+                              priority=req.priority)
             self.metrics.record_first_token(req.t_submit, now, req_id=req.id,
                                             cached_frac=plan.cached_frac)
             self._deliver(req, first, now)
             emitted += 1
         return emitted
+
+    # ------------------------------------------------------------------ #
+    # chunked prefill                                                     #
+    # ------------------------------------------------------------------ #
+
+    def _begin_chunked(self, req: Request, plan, chunks: list) -> None:
+        """Stage ``req`` as a chunked admission (the engine claims a slot
+        and its blocks); :meth:`_advance_chunks` runs one chunk a step. A
+        staging failure puts the request back at the queue head."""
+        eng = self.engine
+        try:
+            slot = eng.begin_chunked(plan, chunks)
+        except Exception as e:  # noqa: BLE001 — retry next step
+            self._requeue_head(req)
+            self._events.emit("kv_admit_defer", req=req.id,
+                              error=type(e).__name__)
+            return
+        with self._lock:
+            if req.state is RequestState.CANCELLED:
+                eng.release(slot)
+                return
+            req.state = RequestState.PREFILLING
+            req.slot = slot
+            self._prefilling[slot] = req
+        self._events.emit("slot_admit", req=req.id, slot=slot,
+                          prompt_len=len(req.prompt), bucket=chunks[0][2],
+                          cached=plan.start, chunks=len(chunks),
+                          tenant=req.tenant, priority=req.priority)
+
+    def _advance_chunks(self) -> int:
+        """Advance the oldest PREFILLING request by one chunk. The final
+        chunk commits the slot, records TTFT and delivers the first token.
+        A failed chunk errors that request alone: the engine's stores are
+        written in place, so nothing else is lost. Returns first tokens
+        emitted (0 or 1)."""
+        with self._lock:
+            if not self._prefilling:
+                return 0
+            slot, req = min(self._prefilling.items(),
+                            key=lambda kv: kv[1].id)
+        if req.finished:
+            # cancelled mid-chunk: cancel() left the release to this thread
+            with self._lock:
+                self._prefilling.pop(slot, None)
+            self.engine.release(slot)
+            return 0
+        st = self.engine.chunk_state(slot)
+        try:
+            first = self.engine.prefill_chunk(slot, ctx={"reqs": [req.id]})
+        except Exception as e:  # noqa: BLE001 — contain to this request
+            with self._lock:
+                self._prefilling.pop(slot, None)
+            self._fail([req], e, "chunk_prefill")
+            return 0
+        if first is None:
+            return 0
+        with self._lock:
+            self._prefilling.pop(slot, None)
+            if req.state is RequestState.CANCELLED:
+                self.engine.release(slot)
+                return 0
+            req.state = RequestState.DECODE
+            self._by_slot[slot] = req
+        now = time.perf_counter()
+        self.metrics.record_first_token(
+            req.t_submit, now, req_id=req.id,
+            cached_frac=st.start / len(st.prompt))
+        self._deliver(req, first, now)
+        return 1
+
+    # ------------------------------------------------------------------ #
+    # failures                                                            #
+    # ------------------------------------------------------------------ #
 
     def _fail(self, reqs: list, e: BaseException, where: str) -> None:
         """Error ``reqs`` terminally with :class:`EngineFailed` (``wait()``
@@ -356,6 +602,7 @@ class FCFSScheduler:
                     continue
                 if req.slot >= 0:
                     self._by_slot.pop(req.slot, None)
+                    self._prefilling.pop(req.slot, None)
                     self.engine.release(req.slot)
                 failure = EngineFailed(
                     f"{where} failed for request {req.id}: "
@@ -371,10 +618,12 @@ class FCFSScheduler:
             req._done.set()
 
     def _fail_inflight(self, e: BaseException) -> None:
-        """The decode step raised: every decoding request errors loudly
-        (no waiter hangs on a dead engine); the caller re-raises."""
+        """The decode round raised: every decoding and chunking request
+        errors loudly (no waiter hangs on a dead engine); the caller
+        re-raises."""
         with self._lock:
-            victims = list(self._by_slot.values())
+            victims = (list(self._by_slot.values())
+                       + list(self._prefilling.values()))
         self._fail(victims, e, "decode")
         self._events.dump(file=sys.stderr, last=32)
 
@@ -383,24 +632,40 @@ class FCFSScheduler:
     # ------------------------------------------------------------------ #
 
     def _ensure_decode_blocks(self) -> None:
-        """Before a decode step, append a block for every slot whose next
-        write crosses into an unallocated block. When the pool is dry even
-        after trie eviction, preempt the newest request (highest id) back
-        to the queue and retry."""
+        """Before a paged decode round, append blocks for every slot whose
+        round writes past its allocated span (a verify or decode window
+        may need more than one). When the pool is dry even after trie
+        eviction, preempt the request :meth:`_preempt_key` sorts last and
+        retry; an injected ``serving.kv_append`` fault preempts only that
+        slot's request."""
         eng = self.engine
         for slot in sorted(self._by_slot):
             req = self._by_slot.get(slot)
             if req is None:
                 continue
             while eng.slot_needs_block(slot):
-                if eng.append_block(slot):
+                try:
+                    appended = eng.append_block(slot)
+                except Exception as e:  # noqa: BLE001 — contain to slot
+                    self._preempt(req, reason=f"kv_append_"
+                                              f"{type(e).__name__}")
+                    break
+                if appended:
                     continue
-                victim = max(self._by_slot.values(), key=lambda r: r.id)
-                self._preempt(victim)
+                victim = max(self._by_slot.values(), key=self._preempt_key)
+                self._preempt(victim, reason="kv_pool_dry")
                 if victim is req:
                     break
 
-    def _preempt(self, req: Request) -> None:
+    def _preempt_key(self, req: Request) -> tuple:
+        """Victim order when blocks run dry (max is evicted first):
+        ``batch`` before ``interactive``, then the tenant with the largest
+        measured device-second share, then the newest (highest id)."""
+        share = (self._fair.tenant_share(req.tenant)
+                 if self._fair is not None else 0.0)
+        return (req.priority == "batch", share, req.id)
+
+    def _preempt(self, req: Request, reason: str) -> None:
         """Evict a decoding request back to QUEUED: slot and blocks free
         now, generated tokens are discarded, and it re-enters the queue in
         submission order to replay from its prompt and seed."""
@@ -416,9 +681,115 @@ class FCFSScheduler:
             idx = next((i for i, q in enumerate(self._queue)
                         if q.id > req.id), len(self._queue))
             self._queue.insert(idx, req)
-        self.metrics.record_preemption()
-        self._events.emit("kv_preempt", req=req.id,
+        self.metrics.record_preemption(priority=req.priority)
+        self._events.emit("kv_preempt", req=req.id, reason=reason,
+                          priority=req.priority, tenant=req.tenant,
                           queue_depth=self.queue_depth)
+
+    # ------------------------------------------------------------------ #
+    # overload policies                                                   #
+    # ------------------------------------------------------------------ #
+
+    def _shed_expired(self) -> None:
+        """Error every request past its deadline with
+        :class:`DeadlineExceededError`: queued ones leave the queue, and a
+        decoding or chunking one is retired here, between engine calls,
+        with its slot and blocks freed (the other slots' streams are
+        untouched)."""
+        now = time.perf_counter()
+        shed: list[tuple[Request, str]] = []
+        with self._lock:
+            if not (self._queue or self._by_slot or self._prefilling):
+                return
+            hint = self._retry_after_locked()
+
+            def expire(req, where, msg):
+                req.error = DeadlineExceededError(msg, retry_after_s=hint)
+                req.state = RequestState.ERRORED
+                self.metrics.record_shed()
+                shed.append((req, where))
+
+            def late(req):
+                return req.t_deadline is not None and now >= req.t_deadline
+
+            keep: deque[Request] = deque()
+            for req in self._queue:
+                if late(req):
+                    expire(req, "queue",
+                           f"request {req.id} spent its {req.deadline_s}s "
+                           "deadline in the admission queue")
+                else:
+                    keep.append(req)
+            self._queue = keep
+            for where, table in (("decode", self._by_slot),
+                                 ("prefill", self._prefilling)):
+                for slot in sorted(table):
+                    req = table[slot]
+                    if not late(req):
+                        continue
+                    self.engine.release(slot)
+                    table.pop(slot)
+                    expire(req, where,
+                           f"request {req.id} passed its {req.deadline_s}s "
+                           f"deadline after {len(req.tokens)} decoded "
+                           f"token(s)" if where == "decode" else
+                           f"request {req.id} passed its {req.deadline_s}s "
+                           "deadline mid chunked prefill")
+        for req, where in shed:
+            self._events.emit("shed", req=req.id, where=where,
+                              waited_s=now - req.t_submit)
+            req._done.set()
+
+    def _retry_after_locked(self) -> float:
+        """Backpressure hint on rejections and sheds: grows with the
+        queue depth."""
+        return round(0.05 + 0.01 * len(self._queue), 3)
+
+    def _policy_tick(self) -> None:
+        """Once a step, before admissions: a self-driving brownout policy
+        observes the interactive queue depth (a paused batch backlog must
+        not hold the ladder up), and L4 sheds."""
+        bo = self._brownout
+        if bo is None:
+            return
+        with self._lock:
+            depth = sum(1 for r in self._queue if r.priority != "batch")
+        bo.auto_observe(depth)
+        if bo.shed_lowest:
+            self._brownout_shed()
+
+    def _brownout_shed(self) -> None:
+        """Brownout L4: error the lowest-effective-weight tenant's QUEUED
+        requests with :class:`QueueFullError` and a Retry-After hint;
+        in-flight work is never touched."""
+        with self._lock:
+            tenants = sorted({r.tenant for r in self._queue})
+        if not tenants:
+            return
+        victim = (self._fair.lowest_weight_tenant(tenants)
+                  if self._fair is not None else tenants[0])
+        dropped: list[Request] = []
+        with self._lock:
+            hint = round(max(self._retry_after_locked(),
+                             float(self._brownout.down_after_s)), 3)
+            keep: deque[Request] = deque()
+            for req in self._queue:
+                if req.tenant == victim:
+                    req.error = QueueFullError(
+                        f"request {req.id} shed by brownout L4 "
+                        f"(tenant {victim})", retry_after_s=hint)
+                    req.state = RequestState.ERRORED
+                    self.metrics.record_shed()
+                    dropped.append(req)
+                else:
+                    keep.append(req)
+            self._queue = keep
+        for req in dropped:
+            self.metrics.record_tenant_shed(req.tenant)
+            self._events.emit("shed", req=req.id, where="brownout",
+                              tenant=req.tenant,
+                              retry_after_s=req.error.retry_after_s)
+            req._done.set()
 
     # ------------------------------------------------------------------ #
     # delivery and retirement                                             #
@@ -433,15 +804,22 @@ class FCFSScheduler:
             except Exception:  # noqa: BLE001 — a consumer must not kill
                 pass           # the engine loop
         hit_eos = self.eos_id is not None and int(tok) == self.eos_id
-        if hit_eos or len(req.tokens) >= req.max_new_tokens:
+        # brownout L3: a tighter budget gives a prefix of the stream
+        limit = req.max_new_tokens
+        if self._brownout is not None:
+            cap = self._brownout.effective_max_new_cap
+            if cap is not None:
+                limit = min(limit, cap)
+        if hit_eos or len(req.tokens) >= limit:
             self._retire(req, "eos" if hit_eos else "length")
 
     def _retire(self, req: Request, reason: str) -> None:
         with self._lock:
             if req.finished:   # a concurrent cancel() won the race
                 return
-            self.metrics.record_request_blocks(
-                self.engine.slot_block_count(req.slot))
+            if self.engine.paged:
+                self.metrics.record_request_blocks(
+                    self.engine.slot_block_count(req.slot))
             self.engine.release(req.slot)
             self._by_slot.pop(req.slot, None)
             req.state = RequestState.DONE
@@ -451,5 +829,5 @@ class FCFSScheduler:
         req._done.set()
 
 
-__all__ = ["EngineFailed", "FCFSScheduler", "QueueFullError", "Request",
-           "RequestState"]
+__all__ = ["DeadlineExceededError", "EngineFailed", "FCFSScheduler",
+           "QueueFullError", "Request", "RequestState"]

@@ -16,7 +16,15 @@ heads) and ResNet-50 (random weights from a seed):
 - serving: ``ServingEngine(paged=True, paged_kernel=True)`` and
   ``FCFSScheduler`` answer 32 requests; every decode-step attention must
   go through the paged-decode kernel, and the kernel-read engine's greedy
-  tokens must equal the plain-read engine's on a small f32 model;
+  tokens must equal the plain-read engine's on a small f32 model; then
+  the same LM with n-gram speculation (k = 4: every verify window's
+  attention through the kernel at S = 5), with ``decode_window=4``, with
+  chunked prefill of 1536-1920-token prompts beside decoding requests,
+  and in the dense engine with its prefix store, each f32 stream equal to
+  the plain engine's up to a recorded near-tie (a planted unverified
+  commit must fail that gate), the kernel's verify-window rows at a slot
+  ending at ``cache_len`` against the plain version, and the
+  ``serve_lm.py`` twin and ``train_lm.py --serve-samples`` in process;
 - training: ``TransformerLM(attention='flash')``,
   ``create_communicator('pure_nccl')``, ``create_multi_node_optimizer``
   over ``AdamW`` and ``lm_train_step`` take 12 steps on a [8, 2048] batch;
@@ -607,6 +615,624 @@ def phase_engine_parity(device):
           "tokens": sum(n for _, n in work)})
     if not same:
         raise AssertionError("kernel-read and plain-read engines disagree")
+
+
+# -- the serving engine's multi-token rounds, chunked prefill and the dense
+#    engine: the 220M LM through the same ServingEngine/FCFSScheduler API --
+
+SPEC = dict(k=4, prefix=256, phrase=32, body=(64, 256), max_new=(64, 128))
+PARITY_REQUESTS = 8
+NEAR_TIE = 1e-4            # f32 top-2 logit gap under which a flip passes
+DRAFT_LM = dict(vocab_size=LM["vocab_size"], d_model=256, n_heads=4,
+                n_layers=2, d_ff=1024, max_len=LM["max_len"])
+WINDOW = 4
+# the long prompts need a 2048 bucket; 256-token chunks fit a 256 bucket
+# at every frontier up to 1792
+CHUNKED = dict(n_long=8, prompt=(1536, 1920), long_new=(64, 128),
+               n_short=8, short_prompt=(64, 128), short_new=128,
+               chunk_tokens=256, buckets=(128, 256, 512, 2048),
+               parity_long_new=16, parity_short_new=32)
+# the near-cache_len check: a 512-token prompt plus 16 new tokens ends at
+# cache_len = 528 = 33 blocks, so the last verify windows run past it
+NEAR_END = dict(prompt=512, cache_len=528)
+DENSE = dict(prefix_cache_blocks=512, prefix_block_size=16)
+SERVE_EXAMPLE = {
+    "defaults": [],
+    "paged_spec_chunked_fair": ["--paged-kv", "--temperature", "0",
+                                "--speculate", "ngram", "--chunk-tokens",
+                                "8", "--tenants", "3", "--priority",
+                                "mixed", "--brownout", "2",
+                                "--verify-parity"],
+}
+
+
+def _spec_traffic(n, seed):
+    """``n`` requests sharing a 256-token system prefix, each followed by
+    its own 32-token phrase repeated to 64-256 tokens (something for the
+    n-gram drafter to find), asking 64-128 new tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    vocab = LM["vocab_size"]
+    prefix = rng.integers(1, vocab, SPEC["prefix"])
+    work = []
+    for _ in range(n):
+        phrase = rng.integers(1, vocab, SPEC["phrase"])
+        body = np.resize(phrase, int(rng.integers(SPEC["body"][0],
+                                                  SPEC["body"][1] + 1)))
+        work.append((np.concatenate([prefix, body]),
+                     int(rng.integers(SPEC["max_new"][0],
+                                      SPEC["max_new"][1] + 1))))
+    return work
+
+
+def _serve_traffic(n, seed):
+    """The ``serve`` phase's requests (its prompt and budget ranges)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    work = []
+    for _ in range(n):
+        plen = int(rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1))
+        prompt = rng.integers(1, LM["vocab_size"], size=plen)
+        work.append((prompt, int(rng.integers(MAX_NEW[0], MAX_NEW[1] + 1))))
+    return work
+
+
+def _drive(engine, work, *, seeds=None, sched_kw=None, on_step=None):
+    """Submit ``work`` to a fresh scheduler and step it dry; returns the
+    generated streams, the scheduler and the wall seconds (closed by a
+    synchronize). Fails unless every request finished cleanly with its
+    whole budget."""
+    import torch
+
+    from chainermn_torch.serving import FCFSScheduler
+
+    sched = FCFSScheduler(engine, **(sched_kw or {}))
+    reqs = [sched.submit(p, n, seed=(seeds[i] if seeds else 0))
+            for i, (p, n) in enumerate(work)]
+    t0 = time.perf_counter()
+    while sched.has_work:
+        if on_step is not None:
+            on_step(engine)
+        sched.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r in reqs:
+        if not (r.finished and r.error is None
+                and len(r.tokens) == r.max_new_tokens):
+            raise AssertionError(f"request {r.id} did not serve cleanly: "
+                                 f"{r.state} {len(r.tokens)} tokens "
+                                 f"{r.error}")
+    return [[int(t) for t in r.tokens] for r in reqs], sched, wall
+
+
+def _parity(model, work, got, want):
+    """Token streams ``got`` against ``want`` (the same requests): a
+    stream passes when it is identical, or when its first divergence sits
+    where ``model``'s logits (a cacheless forward over the prompt and the
+    reference's tokens before it) have a top-2 gap below ``NEAR_TIE``."""
+    import numpy as np
+    import torch
+
+    same, ties, bad = 0, [], []
+    for i, ((prompt, _), g, w) in enumerate(zip(work, got, want)):
+        if g == w:
+            same += 1
+            continue
+        at = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b),
+                  min(len(g), len(w)))
+        ctx = np.concatenate([prompt, w[:at]]).astype(np.int64)
+        with torch.inference_mode():
+            lg = model(torch.as_tensor(ctx[None], device=model.device))
+        top2 = torch.topk(lg[0, -1].float(), 2).values
+        rec = {"request": i, "position": at,
+               "top2_gap": float(top2[0] - top2[1])}
+        (ties if rec["top2_gap"] < NEAR_TIE else bad).append(rec)
+    return {"requests": len(work), "identical": same, "near_ties": ties,
+            "failures": bad}
+
+
+def _check_pool(engine, name):
+    pool = engine._pool
+    if (engine.active_slots or int(engine._slot_reserved.sum())
+            or pool.free_blocks + engine.prefix_cache.evictable_blocks()
+            != pool.capacity):
+        raise AssertionError(f"{name}: block pool not whole after "
+                             f"retirement: {engine.kv_stats()}")
+
+
+def _check_parity(name, rec):
+    if rec["failures"]:
+        raise AssertionError(f"{name}: streams diverge away from a near-tie: "
+                             f"{rec['failures']}")
+
+
+def _fullest(snap):
+    """An ``on_step`` hook keeping the active slots' positions at the
+    step where most slots were decoding."""
+    def hook(engine):
+        if engine.active_slots > snap.get("most", 0):
+            snap["most"] = engine.active_slots
+            snap["pos"] = [int(p) for p in engine._pos[engine._active]]
+    return hook
+
+
+def _empty():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve_spec(device, card):
+    """Speculative decoding through the paged kernel at S = k + 1: the
+    220M LM in bf16 serves 32 shared-prefix, repeated-phrase requests
+    with the n-gram drafter (k = 4). Fails unless every verify window's
+    attention went through the kernel (launches = verify rounds x 12),
+    the pool is whole after retirement, the f32 LM's speculative streams
+    (n-gram and a 2-layer draft model) equal the non-speculative kernel
+    engine's up to recorded near-ties while a planted fault (every draft
+    committed unverified) does not, and the kernel's verify-window rows
+    below ``valid`` at a slot that ends at ``cache_len`` match the plain
+    version within the bf16 tolerance."""
+    import numpy as np
+    import torch
+
+    from chainermn_torch.models import TransformerLM
+    from chainermn_torch.parallel import paged_kernel
+    from chainermn_torch.parallel.paged_kernel import (
+        paged_attend,
+        paged_attend_reference,
+    )
+    from chainermn_torch.serving import ServingEngine, SpeculativeConfig
+    from chainermn_torch.serving.speculative import NgramDrafter
+
+    t_phase = time.perf_counter()
+    k = SPEC["k"]
+    work = _spec_traffic(N_REQUESTS, SEED + 10)
+    model = TransformerLM(**LM, compute_dtype=torch.bfloat16, device=device,
+                          seed=SEED)
+    engine = ServingEngine(model, paged_kernel=True, device=device,
+                           speculative=SpeculativeConfig(k=k), **ENGINE)
+    engine.warmup()
+    snap = {}
+    rounds0 = engine.spec_stats()["spec_rounds"]
+    paged_attend.launches = 0
+    _, sched, wall = _drive(engine, work, on_step=_fullest(snap))
+    launches = paged_attend.launches
+    rounds = engine.spec_stats()["spec_rounds"] - rounds0
+    rep = sched.metrics.report()
+    stats = engine.spec_stats()
+    _check_pool(engine, "serve_spec")
+    if launches != rounds * LM["n_layers"]:
+        raise AssertionError(f"serve_spec: kernel launches {launches} != "
+                             f"verify rounds {rounds} x {LM['n_layers']}")
+    # the verify window's shape at the fullest step, timed alone
+    h, d, bs = LM["n_heads"], LM["d_model"] // LM["n_heads"], 16
+    gen = torch.Generator().manual_seed(SEED + 11)
+    x = make_paged_inputs([p + k + 1 for p in snap["pos"]], s_len=k + 1,
+                          h=h, d=d, bs=bs, dtype=torch.bfloat16,
+                          q_dtype=torch.bfloat16, gen=gen, device=device,
+                          n_blocks=engine.kv_blocks)
+    args, kw = attend_args(x)
+    got = paged_attend(*args, **kw).float()
+    want = paged_attend_reference(*args, **kw).float()
+    window_timing = {
+        "S": k + 1, "B": len(snap["pos"]),
+        "max_abs_err": float((got - want).abs().max()),
+        "ms": cuda_ms(lambda: paged_attend(*args, **kw)),
+        "plain_ms": cuda_ms(lambda: paged_attend_reference(*args, **kw))}
+    del engine, x, args, kw, got, want
+    _empty()
+
+    # near cache_len: the last windows' lengths run past the table
+    near = []
+
+    def recorder(q, sk, sv, table, lengths, **kw):
+        out = real_attend(q, sk, sv, table, lengths, **kw)
+        if q.shape[1] == k + 1:
+            valid = np.where(eng_near._active,
+                             np.clip(eng_near.cache_len - eng_near._pos, 0,
+                                     k + 1), 0)
+            rows = [b for b in range(q.shape[0]) if 0 < valid[b] < k + 1]
+            if rows:
+                ref = paged_attend_reference(q, sk, sv, table, lengths, **kw)
+                rtol, atol = TOL["bf16"]
+                for b in rows:
+                    o, r = out[b, :valid[b]].float(), ref[b, :valid[b]].float()
+                    near.append({
+                        "valid": int(valid[b]), "length": int(lengths[b]),
+                        "table_rows": int(kw["max_blocks"]) * sk.shape[1],
+                        "max_abs_err": float((o - r).abs().max()),
+                        "ok": bool(((o - r).abs()
+                                    <= atol + rtol * r.abs()).all())})
+        return out
+
+    class WrongNgram(NgramDrafter):
+        """The n-gram guesses moved by one: nearly every draft rejected,
+        so the slot walks through every position up to cache_len."""
+
+        def propose(self, kk):
+            return (super().propose(kk) + 1) % LM["vocab_size"]
+
+    eng_near = ServingEngine(model, paged_kernel=True, device=device,
+                             speculative=SpeculativeConfig(k=k),
+                             **dict(ENGINE, cache_len=NEAR_END["cache_len"]))
+    eng_near._drafter = WrongNgram(eng_near._spec, eng_near)
+    prompt = np.random.default_rng(SEED + 12).integers(
+        1, LM["vocab_size"], NEAR_END["prompt"])
+    real_attend = paged_kernel.paged_attend
+    # the wrapper counts its launches on the module's paged_attend
+    recorder.launches = real_attend.launches
+    paged_kernel.paged_attend = recorder
+    try:
+        _drive(eng_near, [(prompt, NEAR_END["cache_len"]
+                           - NEAR_END["prompt"])])
+    finally:
+        paged_kernel.paged_attend = real_attend
+        real_attend.launches = recorder.launches
+    _check_pool(eng_near, "serve_spec near cache_len")
+    del eng_near, model
+    _empty()
+
+    # f32 parity: speculative (n-gram, draft model) against the plain
+    # kernel engine, and the planted fault
+    m32 = TransformerLM(**LM, compute_dtype=torch.float32, device=device,
+                        seed=SEED)
+    pw = work[:PARITY_REQUESTS]
+    base = ServingEngine(m32, paged_kernel=True, device=device, **ENGINE)
+    want, _, _ = _drive(base, pw)
+    del base
+    spec32 = ServingEngine(m32, paged_kernel=True, device=device,
+                           speculative=SpeculativeConfig(k=k), **ENGINE)
+    got, _, _ = _drive(spec32, pw)
+    parity = _parity(m32, pw, got, want)
+    real_verify = spec32._spec_verify
+
+    def unverified(tokens, valid):
+        g = real_verify(tokens, valid).clone()
+        g[:, :k] = torch.as_tensor(tokens[:, 1:], device=g.device)
+        return g
+
+    spec32._spec_verify = unverified
+    fault, _, _ = _drive(spec32, pw)
+    planted = _parity(m32, pw, fault, want)
+    del spec32
+    _empty()
+    draft = TransformerLM(**DRAFT_LM, compute_dtype=torch.float32,
+                          device=device, seed=SEED + 13)
+    n_draft = PARITY_REQUESTS // 2
+    eng_draft = ServingEngine(
+        m32, paged_kernel=True, device=device, **ENGINE,
+        speculative=SpeculativeConfig(k=k, drafter="draft",
+                                      draft_model=draft))
+    got_d, _, _ = _drive(eng_draft, pw[:n_draft])
+    draft_parity = _parity(m32, pw[:n_draft], got_d, want[:n_draft])
+    draft_parity["spec"] = eng_draft.spec_stats()
+    del eng_draft, draft, m32
+    _empty()
+
+    rec = {"phase": "serve_spec", "card": card,
+           "model": dict(LM, compute_dtype="bf16"),
+           "engine": dict(ENGINE, paged_kernel=True, speculative="ngram",
+                          spec_k=k),
+           "traffic": dict(SPEC, requests=N_REQUESTS), "wall_s": wall,
+           "tokens_generated": rep["tokens_generated"],
+           "tokens_per_sec": rep["tokens_per_sec"],
+           "tpot_p50_s": rep["tpot_p50_s"], "ttft_p50_s": rep["ttft_p50_s"],
+           "accept_rate": stats["accept_rate"],
+           "tokens_per_verify": 1 + rep["spec_accept_length_mean"],
+           "verify_rounds": rounds, "kernel_launches": launches,
+           "window_timing": window_timing,
+           "f32_parity": parity, "planted_fault": planted,
+           "draft_model": dict(DRAFT_LM, requests=n_draft),
+           "draft_parity": draft_parity,
+           "near_cache_len": dict(NEAR_END, checks=near),
+           "run_s": time.perf_counter() - t_phase}
+    emit(rec)
+    _check_parity("serve_spec", parity)
+    _check_parity("serve_spec draft model", draft_parity)
+    if not planted["failures"]:
+        raise AssertionError("serve_spec: the planted unverified commit "
+                             "passes the parity gate")
+    past = [c for c in near if c["length"] > c["table_rows"]]
+    if not past or not all(c["ok"] for c in near):
+        raise AssertionError(f"serve_spec: near-cache_len verify windows "
+                             f"{near}")
+    return rec
+
+
+def phase_serve_window(device, card):
+    """``decode_window=4`` on the kernel: the ``serve`` phase's 32
+    requests, bf16. Fails unless every window step's attention went
+    through the kernel (launches = 4 x window calls x 12), the pool is
+    whole, the f32 window streams equal the per-token engine's up to
+    recorded near-ties, and at temperature 0.8 / top_k 50 the f32 window
+    stream equals the per-token stream for the same seeds."""
+    import torch
+
+    from chainermn_torch.models import TransformerLM
+    from chainermn_torch.monitor import get_registry
+    from chainermn_torch.parallel.paged_kernel import paged_attend
+    from chainermn_torch.serving import ServingEngine
+
+    t_phase = time.perf_counter()
+    work = _serve_traffic(N_REQUESTS, SEED)
+    calls_ctr = get_registry().counter(
+        "serving_decode_steps_total",
+        {"engine": "serving", "paged_kernel": "on"})
+    model = TransformerLM(**LM, compute_dtype=torch.bfloat16, device=device,
+                          seed=SEED)
+    engine = ServingEngine(model, paged_kernel=True, decode_window=WINDOW,
+                           device=device, **ENGINE)
+    engine.warmup()
+    calls0 = calls_ctr.value
+    paged_attend.launches = 0
+    _, sched, wall = _drive(engine, work)
+    launches = paged_attend.launches
+    calls = calls_ctr.value - calls0
+    rep = sched.metrics.report()
+    _check_pool(engine, "serve_window")
+    if launches != WINDOW * calls * LM["n_layers"]:
+        raise AssertionError(f"serve_window: kernel launches {launches} != "
+                             f"{WINDOW} x calls {calls} x {LM['n_layers']}")
+    decoded = rep["tokens_generated"] - len(work)    # first tokens: prefill
+    del engine, model
+    _empty()
+    m32 = TransformerLM(**LM, compute_dtype=torch.float32, device=device,
+                        seed=SEED)
+    pw = work[:PARITY_REQUESTS]
+    streams = {}
+    for window in (1, WINDOW):
+        eng = ServingEngine(m32, paged_kernel=True, decode_window=window,
+                            device=device, **ENGINE)
+        streams[window], _, _ = _drive(eng, pw)
+        del eng
+    parity = _parity(m32, pw, streams[WINDOW], streams[1])
+    sampled = {}
+    seeds = [1000 + i for i in range(len(pw))]
+    for window in (1, WINDOW):
+        eng = ServingEngine(m32, paged_kernel=True, decode_window=window,
+                            temperature=0.8, top_k=50, device=device,
+                            **ENGINE)
+        sampled[window], _, _ = _drive(eng, pw, seeds=seeds)
+        del eng
+    del m32
+    _empty()
+    same_sampled = sampled[1] == sampled[WINDOW]
+    rec = {"phase": "serve_window", "card": card,
+           "model": dict(LM, compute_dtype="bf16"),
+           "engine": dict(ENGINE, paged_kernel=True, decode_window=WINDOW),
+           "requests": N_REQUESTS, "wall_s": wall,
+           "tokens_generated": rep["tokens_generated"],
+           "tokens_per_sec": rep["tokens_per_sec"],
+           "tpot_p50_s": rep["tpot_p50_s"], "window_calls": calls,
+           "engine_calls_per_decoded_token": calls / max(decoded, 1),
+           "kernel_launches": launches, "f32_parity": parity,
+           "sampled_f32": {"temperature": 0.8, "top_k": 50,
+                           "requests": len(pw),
+                           "window_equals_per_token": same_sampled},
+           "run_s": time.perf_counter() - t_phase}
+    emit(rec)
+    _check_parity("serve_window", parity)
+    if not same_sampled:
+        raise AssertionError("serve_window: the sampled window stream "
+                             "differs from the per-token stream")
+    return rec
+
+
+def _chunked_traffic(seed, long_new=None, short_new=None):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    vocab = LM["vocab_size"]
+    short = [(rng.integers(1, vocab, int(rng.integers(
+        CHUNKED["short_prompt"][0], CHUNKED["short_prompt"][1] + 1))),
+        short_new or CHUNKED["short_new"]) for _ in range(CHUNKED["n_short"])]
+    long = [(rng.integers(1, vocab, int(rng.integers(
+        CHUNKED["prompt"][0], CHUNKED["prompt"][1] + 1))),
+        long_new or int(rng.integers(CHUNKED["long_new"][0],
+                                     CHUNKED["long_new"][1] + 1)))
+        for _ in range(CHUNKED["n_long"])]
+    return short, long
+
+
+def _short_then_long(engine, short, long, chunk_tokens):
+    """The short requests admit first and decode; the long ones arrive
+    once all of them are decoding. Returns every stream (short first) and
+    the short requests' gaps between consecutive tokens that overlap the
+    span from the long requests' arrival to their last first token."""
+    import numpy as np
+    import torch
+
+    from chainermn_torch.serving import FCFSScheduler, RequestState
+
+    sched = FCFSScheduler(engine, chunk_tokens_per_step=chunk_tokens)
+    stamps = [[] for _ in short]
+    reqs = [sched.submit(p, n, stream_cb=lambda t, i=i: stamps[i].append(
+        time.perf_counter())) for i, (p, n) in enumerate(short)]
+    while any(r.state is not RequestState.DECODE for r in reqs):
+        sched.step()
+    torch.cuda.synchronize()
+    t_long = time.perf_counter()
+    longs = [sched.submit(p, n) for p, n in long]
+    t_prefilled = None
+    while sched.has_work:
+        sched.step()
+        if t_prefilled is None and all(r.tokens or r.finished
+                                       for r in longs):
+            torch.cuda.synchronize()
+            t_prefilled = time.perf_counter()
+    for r in reqs + longs:
+        if not (r.finished and r.error is None
+                and len(r.tokens) == r.max_new_tokens):
+            raise AssertionError(f"request {r.id}: {r.state} {r.error}")
+    # every gap that overlaps the long prompts' prefill
+    gaps = [b - a for s in stamps for a, b in zip(s, s[1:])
+            if b > t_long and a < t_prefilled]
+    return ([[int(t) for t in r.tokens] for r in reqs + longs],
+            np.asarray(gaps, np.float64), t_prefilled - t_long)
+
+
+def phase_serve_chunked(device, card):
+    """Chunked prefill: 8 prompts of 1536-1920 tokens arrive while 8 short
+    requests decode, prefilled 256 tokens a step (bf16, kernel reads).
+    Reports the short requests' decode-gap p99 while the long prompts
+    prefill, chunked against unchunked (not gated). Fails unless the f32
+    chunked streams equal the unchunked ones up to recorded near-ties."""
+    import numpy as np
+    import torch
+
+    from chainermn_torch.models import TransformerLM
+    from chainermn_torch.serving import ServingEngine
+
+    t_phase = time.perf_counter()
+    eng_kw = dict(ENGINE, prefill_buckets=CHUNKED["buckets"])
+    model = TransformerLM(**LM, compute_dtype=torch.bfloat16, device=device,
+                          seed=SEED)
+    short, long = _chunked_traffic(SEED + 20)
+    gaps = {}
+    for name, chunk in (("unchunked", None),
+                        ("chunked", CHUNKED["chunk_tokens"])):
+        eng = ServingEngine(model, paged_kernel=True, device=device,
+                            **eng_kw)
+        eng.warmup()
+        _, g, prefill_s = _short_then_long(eng, short, long, chunk)
+        _check_pool(eng, f"serve_chunked {name}")
+        gaps[name] = {"samples": int(g.size),
+                      "p50_s": float(np.percentile(g, 50)),
+                      "p99_s": float(np.percentile(g, 99)),
+                      "max_s": float(g.max()),
+                      "long_prefill_wall_s": prefill_s}
+        del eng
+    del model
+    _empty()
+    m32 = TransformerLM(**LM, compute_dtype=torch.float32, device=device,
+                        seed=SEED)
+    short, long = _chunked_traffic(SEED + 21, CHUNKED["parity_long_new"],
+                                   CHUNKED["parity_short_new"])
+    streams = {}
+    for name, chunk in (("unchunked", None),
+                        ("chunked", CHUNKED["chunk_tokens"])):
+        eng = ServingEngine(m32, paged_kernel=True, device=device, **eng_kw)
+        streams[name], _, _ = _short_then_long(eng, short, long, chunk)
+        del eng
+    parity = _parity(m32, short + long, streams["chunked"],
+                     streams["unchunked"])
+    del m32
+    _empty()
+    rec = {"phase": "serve_chunked", "card": card,
+           "model": dict(LM, compute_dtype="bf16"),
+           "engine": dict(eng_kw, paged_kernel=True), "traffic": CHUNKED,
+           "short_decode_gaps_during_long_prefill": gaps,
+           "f32_parity": parity, "run_s": time.perf_counter() - t_phase}
+    emit(rec)
+    _check_parity("serve_chunked", parity)
+    return rec
+
+
+def phase_serve_dense(device, card):
+    """The dense engine with its prefix store (``paged=False``, 512
+    blocks of 16 tokens), bf16, the ``serve_spec`` traffic without
+    speculation. Reports tokens/s, TPOT and the prefix hit rate. Fails
+    unless the f32 dense streams equal the paged engine's up to recorded
+    near-ties."""
+    import torch
+
+    from chainermn_torch.models import TransformerLM
+    from chainermn_torch.serving import ServingEngine
+
+    t_phase = time.perf_counter()
+    dense_kw = {kk: v for kk, v in ENGINE.items() if kk != "kv_block_size"}
+    work = _spec_traffic(N_REQUESTS, SEED + 10)
+    model = TransformerLM(**LM, compute_dtype=torch.bfloat16, device=device,
+                          seed=SEED)
+    engine = ServingEngine(model, paged=False, device=device, **DENSE,
+                           **dense_kw)
+    engine.warmup()
+    kv_bytes = sum(t.numel() * t.element_size() for c in engine.caches
+                   for t in c.values())
+    _, sched, wall = _drive(engine, work)
+    rep = sched.metrics.report()
+    prefix = engine.prefix_stats()
+    del engine, model
+    _empty()
+    m32 = TransformerLM(**LM, compute_dtype=torch.float32, device=device,
+                        seed=SEED)
+    pw = work[:PARITY_REQUESTS]
+    paged = ServingEngine(m32, paged_kernel=True, device=device, **ENGINE)
+    want, _, _ = _drive(paged, pw)
+    del paged
+    dense = ServingEngine(m32, paged=False, device=device, **DENSE,
+                          **dense_kw)
+    got, _, _ = _drive(dense, pw)
+    parity = _parity(m32, pw, got, want)
+    del dense, m32
+    _empty()
+    rec = {"phase": "serve_dense", "card": card,
+           "model": dict(LM, compute_dtype="bf16"),
+           "engine": dict(dense_kw, paged=False, **DENSE),
+           "traffic": dict(SPEC, requests=N_REQUESTS, speculative=False),
+           "dense_kv_gb": kv_bytes / 1e9, "wall_s": wall,
+           "tokens_generated": rep["tokens_generated"],
+           "tokens_per_sec": rep["tokens_per_sec"],
+           "tpot_p50_s": rep["tpot_p50_s"], "ttft_p50_s": rep["ttft_p50_s"],
+           "prefix": prefix, "prefix_hit_rate": rep.get("prefix_hit_rate"),
+           "f32_parity": parity, "run_s": time.perf_counter() - t_phase}
+    emit(rec)
+    _check_parity("serve_dense", parity)
+    return rec
+
+
+def phase_serve_example(card):
+    """The ``serve_lm.py`` twin's ``main()`` in this process on the card,
+    at its defaults and with the paged store, n-gram speculation, chunked
+    prefill, three tenants of mixed classes, brownout up to L2 and
+    ``--verify-parity``; then ``train_lm.py --serve-samples`` (the dense
+    engine with the prefix store after three training steps). Fails
+    unless each twin run prints its done line and serves every request,
+    and the parity check passes."""
+    import contextlib
+    import io
+
+    from chainermn_torch.examples.lm import serve_lm, train_lm
+
+    out = {}
+    for name, extra in SERVE_EXAMPLE.items():
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = serve_lm.main(extra)
+        printed = buf.getvalue()
+        done = [ln for ln in printed.splitlines()
+                if "requests served in" in ln]
+        out[name] = {"done_line": done[0] if done else None,
+                     "served": res["served"], "requests": res["requests"],
+                     "compute_dtype": res["compute_dtype"],
+                     "tokens_per_sec": res["report"]["tokens_per_sec"],
+                     "spec": res["spec"], "parity": res.get("parity"),
+                     "brownout": res.get("brownout"),
+                     "run_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    res = train_lm.main(["--iterations", "3", "--serve-samples", "4"])
+    out["train_lm_serve_samples"] = {
+        "losses": res["losses"],
+        "samples": len(res["serve_samples"]["samples"]),
+        "prefix": res["serve_samples"]["prefix"],
+        "run_s": time.perf_counter() - t0}
+    emit({"phase": "serve_example", "card": card, "modes": SERVE_EXAMPLE,
+          "out": out})
+    for name, rec in out.items():
+        if name == "train_lm_serve_samples":
+            if rec["samples"] != 4:
+                raise AssertionError(f"serve_example: {rec}")
+            continue
+        if rec["done_line"] is None or rec["served"] != rec["requests"]:
+            raise AssertionError(f"serve_example {name}: {rec}")
+    return out
 
 
 # name, Tq, Tk, causal, q_offset, k_offset
@@ -3180,6 +3806,11 @@ def main() -> int:
     launches, lengths, _ = timed("serve", phase_serve, device)
     timing = timed("timing", phase_timing, device, lengths)
     timed("engine_parity", phase_engine_parity, device)
+    spec = timed("serve_spec", phase_serve_spec, device, smi)
+    window = timed("serve_window", phase_serve_window, device, smi)
+    timed("serve_chunked", phase_serve_chunked, device, smi)
+    timed("serve_dense", phase_serve_dense, device, smi)
+    timed("serve_example", phase_serve_example, smi)
     flash_err = timed("flash_parity", phase_flash_parity, device)
     timed("flash_ring_blocks", phase_flash_ring_blocks, device)
     flash_launches, comm = timed("train", phase_train, device)
@@ -3207,7 +3838,10 @@ def main() -> int:
         "name": "paged_decode", "route": "cuda",
         "source": "chainermn_torch/csrc/paged_decode.cu",
         "replaces": "chainermn_tpu/parallel/paged_kernel.py:91",
-        "launches": launches, "max_abs_err": timing["max_abs_err"],
+        "launches": launches,
+        "launches_spec_path": spec["kernel_launches"],
+        "launches_window_path": window["kernel_launches"],
+        "max_abs_err": timing["max_abs_err"],
         "parity_max_abs_err": parity_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],

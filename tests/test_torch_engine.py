@@ -20,7 +20,7 @@ from chainermn_tpu.models import generate as jax_generate
 from chainermn_tpu.serving import FCFSScheduler as JaxScheduler
 from chainermn_tpu.serving import ServingEngine as JaxEngine
 from chainermn_torch.interop import params_from_flax
-from chainermn_torch.models import TransformerLM
+from chainermn_torch.models import TransformerLM, init_kv_caches
 from chainermn_torch.serving import (
     FCFSScheduler,
     ServingClient,
@@ -195,15 +195,26 @@ def test_client_thread_serves_and_closes(weights, references):
 
 
 def test_engine_rejects_what_is_not_ported(weights):
+    """The dense engine (``paged=False``) is ported and builds; requests
+    the engine cannot hold are still refused; a tensor-parallel model
+    (head-sharded KV, not ported) still raises on a KV cache, and the
+    engine refuses it up front."""
     _, params = weights
     model = _port_model(params)
-    with pytest.raises(ValueError, match="paged"):
-        ServingEngine(model, device="cpu", **dict(ENGINE, paged=False))
+    dense = ServingEngine(model, device="cpu", **dict(ENGINE, paged=False))
+    assert not dense.paged and dense.caches is not None
     engine = ServingEngine(model, device="cpu", **ENGINE)
     with pytest.raises(ValueError, match="prefill_len"):
         engine.validate_request(9, 1)
     with pytest.raises(ValueError, match="cache_len"):
         engine.validate_request(8, 25)
+    tp = TransformerLM(**CFG, tensor_axis="tp", compute_dtype=torch.float32,
+                       device="cpu")
+    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+        tp(torch.zeros((1, 2), dtype=torch.long), 0,
+           kv_caches=init_kv_caches(tp, 1, 8))
+    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+        ServingEngine(tp, device="cpu", **ENGINE)
 
 
 def test_sampled_streams_follow_the_request_seed(weights):

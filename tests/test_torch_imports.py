@@ -33,7 +33,10 @@ def test_the_parallel_modules_are_checked():
             "chainermn_torch.communicators.mesh_communicator",
             "chainermn_torch.parallel.moe", "chainermn_torch.parallel.gspmd",
             "chainermn_torch.ops.pipeline", "chainermn_torch.ops.losses",
-            "chainermn_torch.examples.lm.train_lm"} <= names
+            "chainermn_torch.examples.lm.train_lm",
+            "chainermn_torch.examples.lm.serve_lm",
+            "chainermn_torch.serving.speculative",
+            "chainermn_torch.serving.fairness"} <= names
 
 
 def test_importing_every_module_pulls_in_no_jax():

@@ -108,8 +108,7 @@ def test_flag_guards_refuse_before_any_rank_starts(extra):
 
 @pytest.mark.parametrize("extra", [
     ["--resume"], ["--inject-fault", "3"], ["--prefetch-depth", "2"],
-    ["--fetch-every", "4"], ["--serve-samples", "2"],
-    ["--publish-to", "engine"], ["--snapshot-to", "snap"],
+    ["--fetch-every", "4"], ["--publish-to", "engine"], ["--snapshot-to", "snap"],
     ["--trace-out", "t.json"],
 ], ids=lambda e: e[0].strip("-"))
 def test_unported_flags_raise_naming_the_roadmap(extra):

@@ -94,11 +94,25 @@ def test_scalar_position_scatter_matches_jax():
 
 
 def test_update_cache_and_attend_needs_a_table():
-    store, _, rows = _case(2, False)
-    with pytest.raises(ValueError, match="table"):
-        tseq.update_cache_and_attend(
-            {kk: torch.from_numpy(a) for kk, a in store.items()},
-            *(torch.from_numpy(rows[kk]) for kk in ("q", "k", "v")), 0)
+    """Only a cache carrying a ``'table'`` takes the paged path; one
+    without is the dense per-slot buffer, written in place at the row's
+    position and equal to the JAX dense branch."""
+    _, _, rows = _case(2, False)
+    rng = np.random.default_rng(5)
+    bufs = {kk: rng.standard_normal((B, 9, H, D)).astype(np.float32)
+            for kk in ("k", "v")}
+    q, k, v = (rows[kk] for kk in ("q", "k", "v"))
+    want, want_c = jseq.update_cache_and_attend(
+        {kk: jnp.asarray(a) for kk, a in bufs.items()},
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 2)
+    cache = {kk: torch.from_numpy(a.copy()) for kk, a in bufs.items()}
+    got = tseq.update_cache_and_attend(
+        cache, *(torch.from_numpy(rows[kk]) for kk in ("q", "k", "v")), 2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+    for kk in ("k", "v"):
+        np.testing.assert_array_equal(cache[kk].numpy(),
+                                      np.asarray(want_c[kk]))
 
 
 @pytest.mark.parametrize("per_row", [False, True])
