@@ -359,6 +359,10 @@ def main(argv=None) -> dict:
         if summary[name]:
             print(f"{name}: " + ", ".join(f"{k}={v}" for k, v in
                                           summary[name].items()))
+    summary["executables"] = engine.compile_counts_detailed()
+    summary["recompiles"] = engine.recompiles
+    print(f"engine executables: {summary['executables']} "
+          f"(captured={engine.capture}, recompiles={summary['recompiles']})")
     return summary
 
 

@@ -1,9 +1,11 @@
 """Host-side telemetry the serving path writes: the metrics registry and
-the event ring, each with one process-wide default instance."""
+the event ring, each with one process-wide default instance, and the
+recompile guard over the serving engine's fixed step programs."""
 
 from __future__ import annotations
 
 from chainermn_torch.monitor.events import EventLog
+from chainermn_torch.monitor.instrument import RecompileGuard
 from chainermn_torch.monitor.registry import (
     Counter,
     Gauge,
@@ -27,4 +29,5 @@ def get_event_log() -> EventLog:
 
 
 __all__ = ["Counter", "EventLog", "Gauge", "Histogram", "MetricsRegistry",
-           "get_event_log", "get_registry", "latency_report"]
+           "RecompileGuard", "get_event_log", "get_registry",
+           "latency_report"]

@@ -22,6 +22,7 @@ class EventLog:
         self._ring: deque = deque(maxlen=capacity)
         self._seq = itertools.count()
         self._lock = threading.Lock()
+        self._dumped: set = set()       # once-keys already dumped
 
     def emit(self, kind: str, **fields) -> None:
         ev = {"i": next(self._seq), "t": round(time.time(), 6), "kind": kind}
@@ -34,10 +35,21 @@ class EventLog:
             evs = list(self._ring)
         return evs if n is None else evs[-n:]
 
-    def dump(self, file=None, last: int = 64) -> int:
+    def dump(self, file=None, last: int = 64,
+             once: Optional[str] = None) -> int:
         """Write the last ``last`` events, one JSON object per line (oldest
-        first), to ``file`` (stderr by default); returns the count."""
+        first), to ``file`` (stderr by default); returns the count.
+        ``once`` names a failure episode: a second dump with the same key
+        prints one line instead, until :meth:`reset_dump_guard`."""
         sink = file or sys.stderr
+        if once is not None:
+            with self._lock:
+                seen = once in self._dumped
+                self._dumped.add(once)
+            if seen:
+                print(f"chainermn_torch flight recorder: already dumped for "
+                      f"{once!r}", file=sink)
+                return 0
         evs = self.tail(last)
         print(f"chainermn_torch flight recorder: last {len(evs)} event(s)",
               file=sink)
@@ -45,6 +57,12 @@ class EventLog:
             print(json.dumps(ev, default=str), file=sink)
         print("end flight recorder", file=sink)
         return len(evs)
+
+    def reset_dump_guard(self) -> None:
+        """Forget every once-key: the episode ended (recovery succeeded),
+        so the next failure dumps again."""
+        with self._lock:
+            self._dumped.clear()
 
 
 __all__ = ["EventLog"]

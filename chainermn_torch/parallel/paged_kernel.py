@@ -118,7 +118,9 @@ def paged_attend(q, store_k, store_v, table, lengths, *,
     Returns ``[B, S, H, D]`` in ``q.dtype``. On CUDA tensors this launches
     the hand-written kernel (adding one to ``paged_attend.launches`` for
     each launch; more than 8 queries a row take one launch per chunk of
-    8, :func:`chunk_queries`) and raises ``ValueError`` for inputs it does
+    8, :func:`chunk_queries`; a CUDA graph that captured launches adds
+    them on every replay, :mod:`chainermn_torch.serving._programs`) and
+    raises ``ValueError`` for inputs it does
     not take: q in f32/bf16, a store in f32/bf16/int8, ``D`` up to 128,
     contiguous tensors on one device, a 16-byte-aligned store. Long rows
     are split
@@ -168,6 +170,8 @@ def paged_attend(q, store_k, store_v, table, lengths, *,
                and t is not lengths), "q, store and scales must be contiguous")
     _check(store_k.data_ptr() % 16 == 0 == store_v.data_ptr() % 16,
            "the store must be 16-byte aligned")
+    # an int32 contiguous table (the serving engine's static one) is
+    # used as it is: a CUDA graph keeps reading the same buffer
     table32 = table.to(torch.int32).contiguous()
     lengths32 = lengths.to(torch.int32).contiguous()
     n_j = table.shape[1]

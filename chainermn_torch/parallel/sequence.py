@@ -63,11 +63,12 @@ def _softmax_attend(s, v, p_scale=None):
 
 def _position_mask(pos_offset, s_len: int, t_len: int, device):
     """Causal mask of ``S`` queries at ``pos_offset + i`` against keys at
-    ``0..T-1``: ``[1,1,S,T]`` for a scalar base, ``[B,1,S,T]`` for a
-    ``[B]`` vector of per-row bases."""
+    ``0..T-1``: ``[1,1,S,T]`` for a host int or a 0-dim tensor base (read
+    on the device, never on the host), ``[B,1,S,T]`` for a ``[B]`` vector
+    of per-row bases."""
     k_pos = torch.arange(t_len, device=device)
     if not isinstance(pos_offset, torch.Tensor) or pos_offset.dim() == 0:
-        q_pos = int(pos_offset) + torch.arange(s_len, device=device)
+        q_pos = pos_offset + torch.arange(s_len, device=device)
         return (k_pos[None, :] <= q_pos[:, None])[None, None]
     q_pos = pos_offset.to(device)[:, None] + torch.arange(
         s_len, device=device)[None]
@@ -137,9 +138,9 @@ def paged_update_cache_and_attend(kv_cache, q, k, v, pos_offset, *,
       f32, present iff the store is int8;
     - optional ``'valid'``: ``[B]`` — rows ``j >= valid[b]`` write into
       the scratch block instead of the table;
-    - optional ``'max_blocks'``: a host int capping the table span read.
-      The caller holds host mirrors of the positions and passes it, so
-      the read side never syncs the host to tighten the span;
+    - optional ``'max_blocks'``: a host int capping the table span read
+      (``None`` or absent: the whole table, which is what the serving
+      engine's fixed programs read);
     - optional ``'use_kernel'``: route the read side through the
       hand-written paged-decode kernel
       (:func:`chainermn_torch.parallel.paged_kernel.paged_attend`);
@@ -157,10 +158,10 @@ def paged_update_cache_and_attend(kv_cache, q, k, v, pos_offset, *,
     bs = store_k.shape[1]
     b, s = q.shape[0], q.shape[1]
     dev = q.device
-    if not isinstance(pos_offset, torch.Tensor) or pos_offset.dim() == 0:
+    if not isinstance(pos_offset, torch.Tensor):
         pos_offset = torch.full((b,), int(pos_offset), dtype=torch.int64,
                                 device=dev)
-    pos_offset = pos_offset.to(device=dev, dtype=torch.int64)
+    pos_offset = pos_offset.to(device=dev, dtype=torch.int64).expand(b)
     pos = pos_offset[:, None] + torch.arange(s, device=dev)[None, :]
     in_span = pos < n_j * bs
     blk = torch.gather(table.long(), 1, torch.clamp(pos // bs, max=n_j - 1))
@@ -206,28 +207,25 @@ def dense_update_cache_and_attend(kv_cache, q, k, v, pos_offset, *,
     ``[B]`` tensor writing each row at its own position), in place, then
     attend ``q`` against the buffers with the position mask. A write that
     would run past ``Tc`` starts at ``Tc - S`` instead, as
-    ``lax.dynamic_update_slice`` clamps it in the reference. An optional
-    host int ``kv_cache['span']`` reads only the first ``span`` rows of
-    each buffer (the caller knows every query's position is below it, so
-    the rows left out are masked anyway)."""
+    ``lax.dynamic_update_slice`` clamps it in the reference. A 0-dim tensor
+    base is read on the device like a ``[B]`` one (no host sync). The
+    attention reads the whole buffer; the position mask hides the rows
+    past each query."""
     kbuf, vbuf = kv_cache["k"], kv_cache["v"]
     b, s = q.shape[0], q.shape[1]
     tc = kbuf.shape[1]
-    if not isinstance(pos_offset, torch.Tensor) or pos_offset.dim() == 0:
+    if not isinstance(pos_offset, torch.Tensor):
         start = min(max(int(pos_offset), 0), tc - s)
         kbuf[:, start:start + s] = k.to(kbuf.dtype)
         vbuf[:, start:start + s] = v.to(vbuf.dtype)
     else:
         dev = q.device
-        start = pos_offset.to(device=dev, dtype=torch.int64).clamp(0, tc - s)
+        start = pos_offset.to(device=dev, dtype=torch.int64).clamp(
+            0, tc - s).expand(b)
         rows = start[:, None] + torch.arange(s, device=dev)[None, :]
         bidx = torch.arange(b, device=dev)[:, None].expand(b, s)
         kbuf.index_put_((bidx, rows), k.to(kbuf.dtype))
         vbuf.index_put_((bidx, rows), v.to(vbuf.dtype))
-    span = kv_cache.get("span")
-    if span is not None:
-        span = max(1, min(tc, int(span)))
-        kbuf, vbuf = kbuf[:, :span], vbuf[:, :span]
     return cached_attention(q, kbuf, vbuf, pos_offset, scale=scale)
 
 

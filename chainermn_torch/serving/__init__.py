@@ -1,12 +1,15 @@
 """Continuous-batching serving: engine (mechanism, paged or dense KV,
-decode windows, speculative decoding, chunked prefill), scheduler
-(policy: FIFO or weighted-fair admission, deadlines, brownout), metrics,
-and the in-process client."""
+decode windows, speculative decoding, chunked prefill, fixed step
+programs captured as CUDA graphs, warm restart, in-place weight swap),
+scheduler (policy: FIFO or weighted-fair admission, deadlines, brownout,
+restart on engine failure, the weight-swap fence), metrics, and the
+in-process client."""
 
 from chainermn_torch.serving.client import ServingClient
 from chainermn_torch.serving.engine import (
     AdmitPlan,
     ChunkedPrefill,
+    EngineStateError,
     ServingEngine,
 )
 from chainermn_torch.serving.fairness import (
@@ -30,6 +33,7 @@ from chainermn_torch.serving.scheduler import (
     QueueFullError,
     Request,
     RequestState,
+    SwapTicket,
 )
 from chainermn_torch.serving.speculative import (
     DraftModelDrafter,
@@ -40,8 +44,9 @@ from chainermn_torch.serving.speculative import (
 
 __all__ = ["AdmitPlan", "BROWNOUT_LEVELS", "BlockPool", "BrownoutPolicy",
            "ChunkedPrefill", "DeadlineExceededError", "DraftModelDrafter",
-           "EngineFailed", "FCFSScheduler", "FairAdmission", "InsertPlan",
-           "NgramDrafter", "PRIORITY_CLASSES", "PrefixCacheIndex",
-           "PrefixMatch", "QueueFullError", "Request", "RequestState",
-           "ServingClient", "ServingEngine", "ServingMetrics",
-           "SpeculativeConfig", "build_drafter", "request_cost"]
+           "EngineFailed", "EngineStateError", "FCFSScheduler",
+           "FairAdmission", "InsertPlan", "NgramDrafter",
+           "PRIORITY_CLASSES", "PrefixCacheIndex", "PrefixMatch",
+           "QueueFullError", "Request", "RequestState", "ServingClient",
+           "ServingEngine", "ServingMetrics", "SpeculativeConfig",
+           "SwapTicket", "build_drafter", "request_cost"]

@@ -21,7 +21,11 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from chainermn_torch.serving.scheduler import FCFSScheduler, Request
+from chainermn_torch.serving.scheduler import (
+    FCFSScheduler,
+    Request,
+    SwapTicket,
+)
 
 _IDLE_WAIT_S = 0.05    # idle poll: bounds how long close() waits on a sleeper
 
@@ -30,8 +34,10 @@ class ServingClient:
     """Background-threaded continuous-batching server, in process. The
     engine is built by the caller; every other keyword (``eos_id``,
     ``max_queue``, ``default_deadline_s``, ``fair``, ``tenant_weights``,
-    ``brownout``, ``chunk_tokens_per_step``, ...) goes to the
-    :class:`FCFSScheduler`. The thread starts in the constructor and stops
+    ``brownout``, ``chunk_tokens_per_step``, ``retry``,
+    ``restart_on_error``, ``max_restarts``, ...) goes to the
+    :class:`FCFSScheduler`. :meth:`request_swap` queues a weight swap
+    behind the scheduler's fence. The thread starts in the constructor and stops
     in :meth:`close` (or on leaving the ``with`` block)."""
 
     def __init__(self, engine, **scheduler_kw) -> None:
@@ -80,6 +86,13 @@ class ServingClient:
 
     def cancel(self, req: Request) -> bool:
         return self.scheduler.cancel(req)
+
+    def request_swap(self, fn) -> SwapTicket:
+        """:meth:`FCFSScheduler.request_swap` on the engine thread's
+        scheduler (wakes the thread so the fence is served)."""
+        ticket = self.scheduler.request_swap(fn)
+        self._work.set()
+        return ticket
 
     def close(self, timeout: float = 10.0) -> None:
         """Stop the engine thread; pending requests are cancelled so no

@@ -21,51 +21,59 @@ Two KV layouts:
   prefilled prompt's full blocks are copied into the store after the
   step (:meth:`ServingEngine.flush_inserts`).
 
-Device paths, all plain eager PyTorch around the model:
+Device paths, each a fixed step program (:mod:`._programs`; on a CUDA
+device one captured CUDA graph, replayed every call):
 
-- **prefill** (per bucket of padded prompt-suffix lengths): up to
-  ``prefill_batch`` requests write their suffix K/V and sample their
+- **prefill** (one program per bucket of padded prompt-suffix lengths): up
+  to ``prefill_batch`` requests write their suffix K/V and sample their
   first token from their last real position;
 - **decode step**: every slot advances one token at its own position;
   ``decode_window=n`` runs ``n`` such steps in one engine call
-  (:meth:`ServingEngine.decode_steps`);
+  (:meth:`ServingEngine.decode_steps`), one program of ``n`` chained
+  steps;
 - **speculative verify** (paged, greedy): every slot scores ``[token,
   d1..dk]`` at ``k + 1`` positions in one forward and commits the
   accepted drafts plus one correction token
   (:meth:`ServingEngine.spec_decode_step`);
 - **chunked prefill** (paged): a long prompt's suffix prefills one chunk
-  a scheduler step through the same bucket path
-  (:meth:`ServingEngine.prefill_chunk`).
+  a scheduler step through the same bucket programs
+  (:meth:`ServingEngine.prefill_chunk`);
+- **prefix insert** (dense with a prefix store), and the draft model's
+  prefill and decode (``drafter='draft'``).
 
-With ``paged_kernel=True`` the attention read of every paged decode step,
-decode-window step and verify window is the hand-written paged-decode
-CUDA kernel (:func:`chainermn_torch.parallel.paged_kernel.paged_attend`),
-at ``S = 1`` and ``S = k + 1`` queries a row; prefill and every write stay
-plain torch, as in the reference.
-
-Why stale rows never leak: the causal position mask only admits rows at
-positions ``<= q_pos``, and each of those was written by this request's
-prefill or one of its decode steps (each step writes its rows before it
-attends). Shared prefix blocks are never written: a match covers only
-full prompt blocks, and every write position ``>= match.length`` lands in
-a block the slot owns. A verify window's rejected rows are rewritten by
-the next window before any query attends them.
+Every program reads the full width its shape allows (the whole block
+table, the whole dense cache), as the reference's single compiled decode
+program does; the position mask and the kernel's per-row lengths keep
+the rows past a sequence out. Host operands (tables, tokens, positions,
+``valid``, the active mask) are copied into each program's static
+buffers. :meth:`ServingEngine.warmup` builds every program, and a
+``RecompileGuard`` watches them (:meth:`ServingEngine.compile_counts`,
+:meth:`ServingEngine.compile_counts_detailed`,
+:attr:`ServingEngine.recompiles`).
 
 Per-request sampling: each slot holds its own ``torch.Generator`` seeded
 from the request's integer ``seed`` at admission, so its draws do not
 depend on its batch neighbours, a preempted request replays the same
 stream, and a decode window draws exactly what the per-token steps draw.
-Greedy decoding (``temperature=0``) draws nothing.
+Greedy decoding (``temperature=0``) draws nothing and takes its argmax
+inside the programs. With ``temperature > 0`` the programs stop at the
+logits and the draws run outside them, so a captured engine samples
+exactly the eager engine's stream; a sampled decode window replays the
+one-step program ``n`` times, sampling between replays.
 
-Unlike the reference, the stores are written in place, so a failed call
-leaves them usable; there is no donated buffer to lose. Tensor-parallel
-serving, KV migration and ``restart``/``swap_params`` are not part of
-this port yet (ROADMAP.md).
+The stores are written in place, so a failed call leaves them usable;
+there is no donated buffer to lose. :meth:`ServingEngine.restart` and
+:meth:`ServingEngine.swap_params` work in place too (the graphs hold the
+buffers' addresses): nothing a program reads is ever reallocated.
+Tensor-parallel serving and KV migration are not part of this port yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+from collections.abc import Mapping
 from dataclasses import dataclass, field
 from typing import Optional, Sequence, Union
 
@@ -81,7 +89,7 @@ from chainermn_torch.models.transformer import (
     init_kv_caches,
     init_paged_kv_caches,
 )
-from chainermn_torch.monitor import get_event_log, get_registry
+from chainermn_torch.monitor import RecompileGuard, get_event_log, get_registry
 from chainermn_torch.parallel.sequence import chunk_spans
 from chainermn_torch.resilience.cutpoints import (
     SERVING_CHUNK_PREFILL,
@@ -92,6 +100,7 @@ from chainermn_torch.resilience.cutpoints import (
     SERVING_SPEC_VERIFY,
 )
 from chainermn_torch.resilience.faults import inject
+from chainermn_torch.serving._programs import ProgramSet
 from chainermn_torch.serving.prefix_cache import (
     BlockPool,
     PrefixCacheIndex,
@@ -151,6 +160,13 @@ class ChunkedPrefill:
         return self.chunks[self.next_idx][0]
 
 
+class EngineStateError(RuntimeError):
+    """The engine cannot carry on in its current state: a weight swap
+    that does not match the engine's parameters (rejected before anything
+    is written), or a device failure that leaves its state unknown (the
+    scheduler fails the in-flight work and warm-restarts)."""
+
+
 class ServingEngine:
     """Slot-pool decode engine (mechanism only; admission policy and
     request bookkeeping live in
@@ -200,6 +216,11 @@ class ServingEngine:
     watchdog : Watchdog or float, optional
         Hang detection around every device call; a float builds
         ``Watchdog(timeout=...)`` (abort on fire). Off by default.
+    capture : bool, optional
+        Capture each step program into a CUDA graph (``None``: on a CUDA
+        device, as the reference always runs compiled programs). ``False``
+        runs the same programs eagerly; ``True`` on the CPU raises
+        ``ValueError``.
     device : optional
         Where the engine runs: the current CUDA card when ``None`` (raises
         when there is none); ``"cpu"`` must be asked for.
@@ -218,8 +239,14 @@ class ServingEngine:
                  cache_len: Optional[int] = None, temperature: float = 0.0,
                  top_k: int = 0, top_p: float = 1.0,
                  watchdog: Optional[Union[Watchdog, float]] = None,
-                 device=None) -> None:
+                 capture: Optional[bool] = None, device=None) -> None:
         self.device = resolve_device(device)
+        if capture is None:
+            capture = self.device.type == "cuda"
+        elif capture and self.device.type != "cuda":
+            raise ValueError("capture=True needs a CUDA device (the step "
+                             "programs become CUDA graphs); the CPU runs "
+                             "them eagerly")
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on "
                              f"{self.device}: move the model first")
@@ -322,6 +349,14 @@ class ServingEngine:
                                              else "off")
         self._c_decode_steps = reg.counter("serving_decode_steps_total",
                                            decode_labels)
+        self._c_restarts = reg.counter("serving_engine_restarts_total",
+                                       labels)
+        # versioned weights: 0 is the constructor's; every successful
+        # swap_params bumps it and moves the gauge
+        self.weight_version = 0
+        self._g_weight_version = reg.gauge("serving_weight_version", labels)
+        self._g_weight_version.set(0)
+        self._programs = ProgramSet(self.device, bool(capture))
         self.peak_active = 0
         self._min_insert = max(1, int(prefix_min_insert_blocks))
         self._spec = speculative
@@ -390,6 +425,14 @@ class ServingEngine:
         self._last_spec_slots: dict = {}
         if speculative is not None:
             self._drafter = build_drafter(speculative, self)
+        self._build_programs()
+
+    migration_supported = False     # KV migration: ROADMAP.md item 11.5
+
+    @property
+    def capture(self) -> bool:
+        """Whether the step programs run as captured CUDA graphs."""
+        return self._programs.capture
 
     def _init_store(self) -> list[dict]:
         """The dense engine's prefix store: ``[n_blocks, block_size, H,
@@ -417,17 +460,171 @@ class ServingEngine:
         return self.prefix_cache is not None
 
     # ------------------------------------------------------------------ #
-    # device paths                                                         #
+    # step programs                                                        #
     # ------------------------------------------------------------------ #
 
-    def _dev(self, arr) -> torch.Tensor:
-        return torch.as_tensor(arr, device=self.device)
+    def _build_programs(self) -> None:
+        """Declare every step program (built at its first call, or all at
+        :meth:`warmup`) and watch each one with the recompile guard."""
+        ps = self._programs
+        k, n = self.prefill_batch, self.n_slots
+        i64, i32, flag = torch.int64, torch.int32, torch.bool
+        self._prefill_progs = {}
+        for b in self.prefill_buckets:
+            ins = {"tokens": ((k, b), i64), "starts": ((k,), i64),
+                   "last_idx": ((k,), i64), "active": ((k,), flag)}
+            if self.paged:
+                ins["table"] = ((k, self._n_max), i32)
+                body = self._paged_prefill_body
+            else:
+                ins["slots"] = ((k,), i64)
+                if self.prefix_cache is not None:
+                    ins["fetch"] = ((k, self._n_prog_blocks), i64)
+                body = self._dense_prefill_body
+            self._prefill_progs[b] = ps.program(
+                f"prefill_{b}", functools.partial(body, b), ins)
+        self._decode_prog = ps.program(
+            "decode", functools.partial(self._decode_body, 1),
+            self._decode_inputs(1))
+        self._window_prog = None
+        if self.decode_window > 1:
+            # sampled: the window replays the one-step program n times
+            self._window_prog = self._decode_prog if self.temperature else \
+                ps.program("decode_window",
+                           functools.partial(self._decode_body,
+                                             self.decode_window),
+                           self._decode_inputs(self.decode_window))
+        self._spec_prog = None
+        if self._spec is not None:
+            k1 = self._spec.k + 1
+            self._spec_prog = ps.program(
+                "spec_verify", self._verify_body,
+                {"tokens": ((n, k1), i64), "pos": ((n, k1), i64),
+                 "valid": ((n,), i32), "active": ((n,), flag),
+                 "table": ((n, self._n_max), i32)})
+        self._insert_prog = None
+        if self.prefix_cache is not None and not self.paged:
+            nb = self._n_prog_blocks
+            self._insert_prog = ps.program(
+                "prefix_insert", self._insert_body,
+                {"slot": ((1,), i64), "ids": ((nb,), i64),
+                 "row_starts": ((nb,), i64)})
+        self._guard = RecompileGuard()
+        for b, prog in self._prefill_progs.items():
+            self._guard.watch(f"serving_prefill_{b}", prog)
+        self._guard.watch("serving_decode", self._decode_prog)
+        if self._insert_prog is not None:
+            self._guard.watch("serving_prefix_insert", self._insert_prog)
+        if self._window_prog is not None:
+            self._guard.watch("serving_decode_window", self._window_prog)
+        if self._spec_prog is not None:
+            self._guard.watch("serving_spec_verify", self._spec_prog)
+            for name, prog in self._drafter.watched_fns().items():
+                self._guard.watch(name, prog)
 
-    def _span(self, max_len: int) -> int:
-        """Table entries covering the longest row's ``max_len`` rows —
-        the read span, from host values (no device sync)."""
-        return max(1, min(self._n_max, -(-int(max_len)
-                                         // self.kv_block_size)))
+    def _decode_inputs(self, n: int) -> dict:
+        ins = {"tok": ((self.n_slots,), torch.int64),
+               "pos": ((n, self.n_slots), torch.int64),
+               "active": ((self.n_slots,), torch.bool)}
+        if self.paged:
+            ins["valid"] = ((n, self.n_slots), torch.int32)
+            ins["table"] = ((self.n_slots, self._n_max), torch.int32)
+        return ins
+
+    def _first_tokens(self, logits, ins):
+        """Each row's last real position: its greedy token (0 on inactive
+        rows), or its logits when sampling (drawn outside the program)."""
+        k = logits.shape[0]
+        last = logits[torch.arange(k, device=self.device), ins["last_idx"]]
+        if self.temperature:
+            return last
+        nxt = torch.argmax(last, dim=-1)
+        return torch.where(ins["active"], nxt, torch.zeros_like(nxt))
+
+    def _paged_prefill_body(self, bucket: int, ins):
+        """Each group row writes its padded suffix through its table row
+        into the shared store and attends its table. Inactive rows carry
+        all-scratch tables."""
+        caches = [dict(layer, table=ins["table"]) for layer in self._store]
+        pos = (ins["starts"][:, None]
+               + torch.arange(bucket, device=self.device)[None, :])
+        logits = self.model(ins["tokens"], pos, kv_caches=caches)
+        return self._first_tokens(logits, ins)
+
+    def _dense_prefill_body(self, bucket: int, ins):
+        """Gather each group row's slot region, splice in its matched
+        prefix blocks from the store (``fetch``; rows without a match
+        splice junk that their own prefill overwrites or the mask hides),
+        run the padded suffixes at their start positions, and write the
+        regions back: the active rows' new ones, the inactive rows'
+        (distinct, unused slots) as they were."""
+        sl = ins["slots"]
+        k = sl.shape[0]
+        slot_c = [{kk: c[kk].index_select(0, sl) for kk in ("k", "v")}
+                  for c in self.caches]
+        if self.prefix_cache is not None:
+            span = self._n_prog_blocks * self.prefix_cache.block_size
+            ids = ins["fetch"].reshape(-1)
+            for sc, st in zip(slot_c, self._store):
+                for kk in ("k", "v"):
+                    rows = st[kk].index_select(0, ids)
+                    sc[kk][:, :span] = rows.reshape(
+                        (k, span) + tuple(rows.shape[2:]))
+        pos = (ins["starts"][:, None]
+               + torch.arange(bucket, device=self.device)[None, :])
+        logits = self.model(ins["tokens"], pos, kv_caches=slot_c)
+        keep = ins["active"][:, None, None, None]
+        for c, sc in zip(self.caches, slot_c):
+            for kk in ("k", "v"):
+                c[kk].index_copy_(0, sl, torch.where(
+                    keep, sc[kk], c[kk].index_select(0, sl)))
+        return self._first_tokens(logits, ins)
+
+    def _decode_body(self, n: int, ins):
+        """``n`` chained one-token steps of every slot (step ``i`` at
+        ``pos[i]``, fed the tokens step ``i - 1`` took): ``[n_slots, n]``
+        greedy tokens, or the one step's logits when sampling."""
+        tok, act = ins["tok"], ins["active"]
+        out = []
+        for i in range(n):
+            if self.paged:
+                caches = [dict(layer, table=ins["table"],
+                               valid=ins["valid"][i],
+                               use_kernel=self.paged_kernel)
+                          for layer in self._store]
+            else:
+                caches = self.caches
+            lg = self.model(tok[:, None], ins["pos"][i][:, None],
+                            kv_caches=caches)[:, 0]
+            if self.temperature:
+                return lg
+            tok = torch.where(act, torch.argmax(lg, dim=-1),
+                              torch.zeros_like(tok))
+            out.append(tok)
+        return torch.stack(out, 1)
+
+    def _verify_body(self, ins):
+        caches = [dict(layer, table=ins["table"], valid=ins["valid"],
+                       use_kernel=self.paged_kernel)
+                  for layer in self._store]
+        lg = self.model(ins["tokens"], ins["pos"], kv_caches=caches)
+        g = torch.argmax(lg, dim=-1)
+        return torch.where(ins["active"][:, None], g, torch.zeros_like(g))
+
+    def _insert_body(self, ins):
+        """Copy a slot's prompt blocks into the dense prefix store (the
+        padding entries repeat the first one: same rows, same block)."""
+        bs = self.prefix_cache.block_size
+        rows = (ins["row_starts"][:, None]
+                + torch.arange(bs, device=self.device)[None, :])
+        for st, c in zip(self._store, self.caches):
+            for kk in ("k", "v"):
+                src = c[kk].index_select(0, ins["slot"])[0]
+                st[kk].index_copy_(0, ins["ids"], src[rows])
+
+    # ------------------------------------------------------------------ #
+    # device paths                                                         #
+    # ------------------------------------------------------------------ #
 
     def _row_gens(self, gens: Sequence[Optional[torch.Generator]]):
         """Per-row generators for a sampled call (``None`` when greedy);
@@ -443,110 +640,70 @@ class ServingEngine:
             return None
         return torch.Generator(device=self.device).manual_seed(int(seed))
 
-    def _last_logits(self, logits, last_idx):
-        k = logits.shape[0]
-        return logits[torch.arange(k, device=self.device),
-                      self._dev(last_idx).long()]
+    def _draw(self, prog, out, gens):
+        """A program's greedy tokens as they are, or its logits sampled
+        with each row's generator (0 on inactive rows)."""
+        if not self.temperature:
+            return out
+        with torch.inference_mode():
+            nxt = self._sample(out, self._row_gens(gens))
+            return torch.where(prog.inputs["active"], nxt,
+                               torch.zeros_like(nxt))
 
-    @torch.inference_mode()
     def _paged_prefill(self, bucket: int, table, tokens, starts, last_idx,
                        active, gens):
-        """Each group row writes its padded suffix through its table row
-        into the shared store, attends its table span, and samples its
-        first token from its last real position. Inactive rows carry
-        all-scratch tables."""
-        tab = self._dev(table)
-        caches = [dict(layer, table=tab,
-                       max_blocks=self._span(int(starts.max()) + bucket))
-                  for layer in self._store]
-        pos = (self._dev(starts).long()[:, None]
-               + torch.arange(bucket, device=self.device)[None, :])
-        logits = self.model(self._dev(tokens).long(), pos, kv_caches=caches)
-        nxt = self._sample(self._last_logits(logits, last_idx),
-                           self._row_gens(gens))
-        return torch.where(self._dev(active), nxt, torch.zeros_like(nxt))
+        """One bucket program over the group's host operands: returns
+        each row's first token (device tensor)."""
+        prog = self._prefill_progs[bucket]
+        out = prog.run(table=table, tokens=tokens, starts=starts,
+                       last_idx=last_idx, active=active)
+        return self._draw(prog, out, gens)
 
-    @torch.inference_mode()
     def _dense_prefill(self, bucket: int, slots, tokens, starts, last_idx,
                        active, gens, fetch_ids=None):
-        """Gather each group row's slot region, splice in its matched
-        prefix blocks from the store (``fetch_ids``; rows without a match
-        splice junk that their own prefill overwrites or the mask hides),
-        run the padded suffixes at their start positions, sample each
-        row's first token from its last real position, and write the
-        active rows' regions back."""
-        k = len(starts)
-        sl = self._dev(slots).long()
-        slot_c = [{kk: c[kk].index_select(0, sl) for kk in ("k", "v")}
-                  for c in self.caches]
+        prog = self._prefill_progs[bucket]
+        feed = dict(slots=slots, tokens=tokens, starts=starts,
+                    last_idx=last_idx, active=active)
         if fetch_ids is not None:
-            span = self._n_prog_blocks * self.prefix_cache.block_size
-            ids = self._dev(fetch_ids.reshape(-1)).long()
-            for sc, st in zip(slot_c, self._store):
-                for kk in ("k", "v"):
-                    rows = st[kk].index_select(0, ids)
-                    sc[kk][:, :span] = rows.reshape(
-                        (k, span) + tuple(rows.shape[2:]))
-        read = int(starts.max()) + bucket
-        caches = [dict(sc, span=read) for sc in slot_c]
-        pos = (self._dev(starts).long()[:, None]
-               + torch.arange(bucket, device=self.device)[None, :])
-        logits = self.model(self._dev(tokens).long(), pos, kv_caches=caches)
-        nxt = self._sample(self._last_logits(logits, last_idx),
-                           self._row_gens(gens))
-        rows = np.flatnonzero(active)
-        idx = self._dev(rows).long()
-        for c, sc in zip(self.caches, slot_c):
-            for kk in ("k", "v"):
-                c[kk].index_copy_(0, sl[idx], sc[kk].index_select(0, idx))
-        return torch.where(self._dev(active), nxt, torch.zeros_like(nxt))
+            feed["fetch"] = fetch_ids
+        return self._draw(prog, prog.run(**feed), gens)
 
-    @torch.inference_mode()
     def _decode_round(self, n: int) -> torch.Tensor:
         """``n`` chained one-token steps of every slot from its commit
-        frontier (step ``i`` at position ``pos + i``, fed the tokens step
-        ``i - 1`` sampled); returns the ``[n_slots, n]`` tokens. The
-        round's host operands go to the device once, before its first
-        step. Paged inactive rows decode at position 0 of their
-        all-scratch table row; a row past ``cache_len`` (the tail of a
-        decode window) writes nothing (paged: ``valid``) or its own last
-        row (dense, as the reference's clamped update) and sits at
-        ``cache_len - 1``; the scheduler drops its tokens."""
+        frontier; returns the ``[n_slots, n]`` tokens. Paged inactive rows
+        decode at position 0 of their all-scratch table row; a row past
+        ``cache_len`` (the tail of a decode window) writes nothing (paged:
+        ``valid``) or its own last row (dense, as the reference's clamped
+        update) and sits at ``cache_len - 1``; the scheduler drops its
+        tokens. Dense inactive rows ride along at their stale position,
+        past their last prompt, so a pending prefix insert still finds the
+        donor's prompt rows intact."""
         act = self._active
         pos = self._pos.astype(np.int64)[None, :] + np.arange(n)[:, None]
+        feed = {"tok": self._token, "active": act}
         if self.paged:
-            valid = self._dev((act[None, :] & (pos < self.cache_len))
-                              .astype(np.int32))
-            pos = np.where(act[None, :], np.minimum(pos, self.cache_len - 1),
-                           0)
-            tab = self._dev(self._tables)
-            spans = [self._span(int(p.max()) + 1) for p in pos]
+            feed["valid"] = (act[None, :]
+                             & (pos < self.cache_len)).astype(np.int32)
+            feed["pos"] = np.where(act[None, :],
+                                   np.minimum(pos, self.cache_len - 1), 0)
+            feed["table"] = self._tables
         else:
-            # inactive rows ride along at their stale position, which
-            # stays past their last prompt: a pending prefix insert still
-            # finds the donor's prompt rows intact
-            pos = np.minimum(pos, self.cache_len - 1)
-            spans = [int(p[act].max()) + 1 if act.any() else 1 for p in pos]
-        pos_d, act_d = self._dev(pos), self._dev(act)
-        tok = self._dev(self._token).long()
-        gens = self._row_gens(self._gens)
-        out = []
+            feed["pos"] = np.minimum(pos, self.cache_len - 1)
+        if not self.temperature:
+            prog = self._decode_prog if n == 1 else self._window_prog
+            return prog.run(**feed)
+        prog, gens, out = self._decode_prog, self._gens, []
         for i in range(n):
+            step = dict(feed, pos=feed["pos"][i:i + 1])
             if self.paged:
-                caches = [dict(layer, table=tab, valid=valid[i],
-                               max_blocks=spans[i],
-                               use_kernel=self.paged_kernel)
-                          for layer in self._store]
-            else:
-                caches = [dict(c, span=spans[i]) for c in self.caches]
-            lg = self.model(tok[:, None], pos_d[i][:, None],
-                            kv_caches=caches)[:, 0]
-            tok = torch.where(act_d, self._sample(lg, gens),
-                              torch.zeros_like(tok))
-            out.append(tok)
+                step["valid"] = feed["valid"][i:i + 1]
+            if i:                    # table and mask are in place already
+                step.pop("active")
+                step.pop("table", None)
+            feed["tok"] = self._draw(prog, prog.run(**step), gens)
+            out.append(feed["tok"])
         return torch.stack(out, 1)
 
-    @torch.inference_mode()
     def _spec_verify(self, tokens, valid) -> torch.Tensor:
         """Score the ``[n_slots, k+1]`` window ``tokens`` at positions
         ``pos .. pos+k`` in one forward and return every position's
@@ -558,28 +715,20 @@ class ServingEngine:
         base = np.where(act, self._pos, 0).astype(np.int64)
         pos = np.minimum(base[:, None] + np.arange(k1)[None, :],
                          self.cache_len - 1)
-        tab = self._dev(self._tables)
-        vd = self._dev(valid)
-        caches = [dict(layer, table=tab, valid=vd,
-                       max_blocks=self._span(int(base.max()) + k1),
-                       use_kernel=self.paged_kernel)
-                  for layer in self._store]
-        lg = self.model(self._dev(tokens).long(), self._dev(pos),
-                        kv_caches=caches)
-        g = torch.argmax(lg, dim=-1)
-        return torch.where(self._dev(act)[:, None], g, torch.zeros_like(g))
+        return self._spec_prog.run(tokens=tokens, pos=pos, valid=valid,
+                                   active=act, table=self._tables)
 
     def warmup(self) -> None:
-        """Run every prefill bucket and the decode step (and the verify
-        window, when speculative) once on no-op inputs: all rows
-        inactive, paged writes into the scratch block, dense writes into
-        free slots' rows that their next tenant rewrites. This builds the
-        paged-decode kernel when ``paged_kernel`` is on a CUDA device and
-        takes the first-call costs of the math libraries off the first
-        request."""
+        """Build every step program on no-op inputs: every prefill bucket,
+        the decode step, the decode window, the verify window, the prefix
+        insert and the drafter's two. All rows are inactive: paged writes
+        land in the scratch block, dense writes in free slots' rows that
+        their next tenant rewrites. On a CUDA device this captures the
+        graphs (and builds the paged-decode kernel when ``paged_kernel``);
+        the guard then records each build as its one compile."""
         if self._warm:
             return
-        if self.active_slots:
+        if self.active_slots or (self.paged and self._chunking):
             raise RuntimeError("warmup needs an idle engine")
         k = self.prefill_batch
         zeros = np.zeros((k,), np.int32)
@@ -591,22 +740,34 @@ class ServingEngine:
                         np.zeros((k, b), np.int32), zeros, zeros,
                         np.zeros((k,), bool), [None] * k)
                 else:
-                    self._dense_prefill(b, zeros, np.zeros((k, b), np.int32),
-                                        zeros, zeros, np.zeros((k,), bool),
-                                        [None] * k)
+                    self._dense_prefill(
+                        b, np.arange(k), np.zeros((k, b), np.int32), zeros,
+                        zeros, np.zeros((k,), bool), [None] * k,
+                        None if self.prefix_cache is None else
+                        np.zeros((k, self._n_prog_blocks), np.int32))
         with self._watched("serving warmup decode"):
             self._decode_round(1)
+            if self.decode_window > 1:
+                self._decode_round(self.decode_window)
             if self._spec is not None:
                 self._spec_verify(
                     np.zeros((self.n_slots, self._spec.k + 1), np.int32),
                     np.zeros((self.n_slots,), np.int32))
+                self._drafter.warmup()
+            if self._insert_prog is not None:
+                nb = self._n_prog_blocks
+                self._insert_prog.run(slot=np.zeros((1,), np.int64),
+                                      ids=np.zeros((nb,), np.int64),
+                                      row_starts=np.zeros((nb,), np.int64))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        self._guard.check()
         self._warm = True
         self._events.emit("serving_warmup", buckets=list(self.prefill_buckets),
                           prefill_batch=k, paged=self.paged,
                           paged_kernel=self.paged_kernel,
-                          prefix=self.prefix_enabled)
+                          prefix=self.prefix_enabled, capture=self.capture,
+                          capture_s=self._programs.capture_s)
 
     # ------------------------------------------------------------------ #
     # admission planning (host side)                                       #
@@ -698,9 +859,10 @@ class ServingEngine:
         if len(buckets) != 1:
             raise ValueError(f"admission group mixes buckets "
                              f"{sorted(buckets)}")
-        if self.paged:
-            return self._paged_admit(plans, ctx)
-        return self._dense_admit(plans, ctx)
+        out = (self._paged_admit(plans, ctx) if self.paged
+               else self._dense_admit(plans, ctx))
+        self._guard.check()
+        return out
 
     def _group_arrays(self, plans, bucket: int):
         """Host operands of one prefill call over ``prefill_batch`` rows:
@@ -750,8 +912,12 @@ class ServingEngine:
                        bucket=bucket, slots=slots)
                 tokens, starts, last, active, gens = self._group_arrays(
                     plans, bucket)
-                slot_ids = np.zeros((self.prefill_batch,), np.int32)
-                slot_ids[:len(slots)] = slots
+                # the rows past the group ride on distinct unused slots,
+                # whose regions the program writes back unchanged
+                spare = [i for i in range(self.n_slots) if i not in slots]
+                slot_ids = np.asarray(
+                    slots + spare[:self.prefill_batch - len(slots)],
+                    np.int64)
                 fetch = None
                 if self.prefix_cache is not None:
                     fetch = np.zeros((self.prefill_batch,
@@ -942,6 +1108,7 @@ class ServingEngine:
             nxt = self._paged_prefill(bucket, table, tokens, starts, last,
                                       active, gens)
             first = int(device_fetch(nxt)[0]) if final else None
+        self._guard.check()
         st.next_idx += 1
         self._c_chunks.inc()
         self._events.emit("prefill_chunk", slot=slot, chunk=st.next_idx,
@@ -1066,12 +1233,13 @@ class ServingEngine:
         pending, self._pending_inserts = self._pending_inserts, []
         for prompt, slot in pending:
             self._insert_prefix(prompt, slot)
+        if pending:
+            self._guard.check()
 
-    @torch.inference_mode()
     def _insert_prefix(self, prompt: np.ndarray, slot: int) -> None:
-        """Cache a freshly prefilled prompt's full blocks, best effort: a
-        failure aborts the insert and never touches the admitted
-        request."""
+        """Cache a freshly prefilled prompt's full blocks through the
+        prefix-insert program, best effort: a failure aborts the insert
+        and never touches the admitted request."""
         if self.prefix_cache.missing_blocks(prompt) < self._min_insert:
             return
         plan = self.prefix_cache.plan_insert(prompt)
@@ -1080,14 +1248,14 @@ class ServingEngine:
         try:
             inject(SERVING_PREFIX_COPY, op="insert", slot=slot,
                    blocks=len(plan.block_ids))
-            bs = self.prefix_cache.block_size
-            rows = (self._dev(plan.row_starts).long()[:, None]
-                    + torch.arange(bs, device=self.device)[None, :])
-            ids = self._dev(plan.block_ids).long()
+            nb = self._n_prog_blocks
+            ids = np.full((nb,), plan.block_ids[0], np.int64)
+            ids[:len(plan.block_ids)] = plan.block_ids
+            starts = np.full((nb,), plan.row_starts[0], np.int64)
+            starts[:len(plan.row_starts)] = plan.row_starts
             with self._watched("serving prefix insert"):
-                for st, c in zip(self._store, self.caches):
-                    for kk in ("k", "v"):
-                        st[kk].index_copy_(0, ids, c[kk][slot][rows])
+                self._insert_prog.run(slot=np.array([slot], np.int64),
+                                      ids=ids, row_starts=starts)
             self.prefix_cache.commit_insert(plan)
         except Exception as e:  # noqa: BLE001 — inserting is best effort
             self.prefix_cache.abort_insert(plan)
@@ -1108,6 +1276,7 @@ class ServingEngine:
         with self._watched("serving decode_step", **(ctx or {})):
             inject(SERVING_DECODE, active=self.active_slots)
             nxt = device_fetch(self._decode_round(1))[:, 0]
+        self._guard.check()
         self._c_decode_steps.inc()
         self._events.emit("decode_step", active=self.active_slots)
         out = {}
@@ -1136,6 +1305,7 @@ class ServingEngine:
         with self._watched("serving decode_steps", **(ctx or {})):
             inject(SERVING_DECODE, active=self.active_slots, window=n)
             out = device_fetch(self._decode_round(n))
+        self._guard.check()
         self._c_decode_steps.inc()
         self._events.emit("decode_step", active=self.active_slots, window=n)
         res = {}
@@ -1170,6 +1340,7 @@ class ServingEngine:
         with self._watched("serving spec_verify", **(ctx or {})):
             inject(SERVING_SPEC_VERIFY, active=self.active_slots, k=k)
             g = device_fetch(self._spec_verify(tokens, valid))
+        self._guard.check()
         self._c_decode_steps.inc()
         self._spec_rounds += 1
         self._events.emit("decode_step", active=self.active_slots,
@@ -1285,6 +1456,117 @@ class ServingEngine:
         self._active[slot] = False
         self.free_slots.add(slot)
 
+    def restart(self) -> None:
+        """Warm restart after an engine-side failure, in place: every store
+        and cache is zeroed where it lies (the captured programs hold
+        their addresses), the prefix trie and the pool are emptied with
+        them (a stale trie would "hit" on KV that is gone), the slot
+        tables, mirrors and generators are cleared, and the drafter is
+        reset. The same programs run afterwards with nothing rebuilt. The
+        scheduler drives this from its exception boundary; every restart
+        is counted (``serving_engine_restarts_total``) and logged."""
+        with torch.no_grad():
+            for layers in (self._store, self.caches):
+                for layer in layers or ():
+                    for t in layer.values():
+                        t.zero_()
+        if self.prefix_cache is not None:
+            self.prefix_cache.clear()
+        if self.paged:
+            self._pool.reset()
+            self._tables[:] = 0
+            self._slot_blocks = [[] for _ in range(self.n_slots)]
+            self._slot_reserved[:] = 0
+            self._chunking.clear()
+        self._pending_inserts = []
+        self._token[:] = 0
+        self._pos[:] = 0
+        self._active[:] = False
+        self._gens = [None] * self.n_slots
+        self.free_slots = set(range(self.n_slots))
+        if self._drafter is not None:
+            self._drafter.reset()
+        self._c_restarts.inc()
+        self._events.emit("engine_restart")
+
+    def swap_params(self, new_state, *, version: Optional[int] = None
+                    ) -> int:
+        """Copy a new weight set into the model's parameters in place and
+        return the new version. ``new_state`` maps exactly
+        ``model.state_dict()``'s keys to tensors of the same shape and of
+        the dtype the engine stores (matmul weights in the compute dtype
+        after ``cast_weights_()``). Every entry is checked before any is
+        written, so a rejected swap raises :class:`EngineStateError`
+        naming the first mismatch and leaves every parameter as it was.
+        The programs read the parameters' storage, so they run on the new
+        weights with nothing rebuilt. The prefix trie is cleared with the
+        swap: its blocks hold KV the old weights computed (the reference
+        keeps its trie, which would serve that KV to the new weights). The
+        scheduler runs it behind its swap fence
+        (:meth:`FCFSScheduler.request_swap`), where no slot is active."""
+        cur = self.model.state_dict()
+        if not isinstance(new_state, Mapping):
+            raise EngineStateError(f"swap_params: expected a mapping of "
+                                   f"tensors, got {type(new_state).__name__}")
+        missing = [k for k in cur if k not in new_state]
+        extra = [k for k in new_state if k not in cur]
+        if missing or extra:
+            raise EngineStateError(
+                f"swap_params: keys differ from the model's state_dict "
+                f"(missing {missing[:3]}, unexpected {extra[:3]})")
+        for name, old in cur.items():
+            new = new_state[name]
+            if not isinstance(new, torch.Tensor) or \
+                    tuple(new.shape) != tuple(old.shape) or \
+                    new.dtype != old.dtype:
+                raise EngineStateError(
+                    f"swap_params: {name!r} is "
+                    f"{tuple(getattr(new, 'shape', ()))}/"
+                    f"{getattr(new, 'dtype', type(new).__name__)}, the "
+                    f"engine stores {tuple(old.shape)}/{old.dtype}")
+        with torch.no_grad():
+            for name, old in cur.items():
+                old.copy_(new_state[name])
+        if self.prefix_cache is not None:
+            self._pending_inserts = []
+            self.prefix_cache.clear()
+        self.weight_version = (int(version) if version is not None
+                               else self.weight_version + 1)
+        self._g_weight_version.set(self.weight_version)
+        self._events.emit("weight_swap", version=self.weight_version)
+        return self.weight_version
+
+    def compile_counts(self) -> dict[str, int]:
+        """Builds of the prefill family (summed over buckets) and of the
+        decode program: ``{'prefill': len(buckets), 'decode': 1}`` after
+        :meth:`warmup`, and no later call adds one."""
+        return {"prefill": sum(p._cache_size()
+                               for p in self._prefill_progs.values()),
+                "decode": self._decode_prog._cache_size()}
+
+    def compile_counts_detailed(self) -> dict[str, int]:
+        """Builds per program (every bucket, decode, the decode window, the
+        verify window, the prefix insert, the drafter's two): each exactly
+        1 after :meth:`warmup`. The reference's ``kv_gather_*`` and
+        ``kv_scatter_*`` come with KV migration (ROADMAP.md item 11.5)."""
+        out = {f"prefill_{b}": p._cache_size()
+               for b, p in self._prefill_progs.items()}
+        out["decode"] = self._decode_prog._cache_size()
+        if self._insert_prog is not None:
+            out["prefix_insert"] = self._insert_prog._cache_size()
+        if self._spec_prog is not None:
+            out["spec_verify"] = self._spec_prog._cache_size()
+            out.update(self._drafter.compile_counts())
+        if self._window_prog is not None:
+            out["decode_window"] = self._window_prog._cache_size()
+        return out
+
+    @property
+    def recompiles(self) -> dict[str, int]:
+        """Rebuilds past each program's first build (the guard's live
+        count; empty while the fixed-program invariant holds)."""
+        return self._guard.recompiles
+
     def prefix_stats(self) -> dict:
         """The prefix cache's hit, eviction and occupancy numbers."""
         return self.prefix_cache.stats() if self.prefix_cache else {}
@@ -1303,7 +1585,9 @@ class ServingEngine:
             "prefix_enabled": self.prefix_enabled,
             "paged": self.paged,
             "warm": self._warm,
+            "weight_version": self.weight_version,
         }
 
 
-__all__ = ["AdmitPlan", "ChunkedPrefill", "ServingEngine"]
+__all__ = ["AdmitPlan", "ChunkedPrefill", "EngineStateError",
+           "ServingEngine"]

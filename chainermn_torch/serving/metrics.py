@@ -49,6 +49,8 @@ class ServingMetrics:
         self._c_errored = reg.counter(
             "serving_requests_errored_total", labels)
         self._c_shed = reg.counter("serving_requests_shed_total", labels)
+        self._c_restarts = reg.counter("serving_scheduler_restarts_total",
+                                       labels)
         self._c_tokens = reg.counter("serving_tokens_total", labels)
         self._c_preempt = reg.counter("kv_preemptions_total", labels)
         self._h_ttft = reg.histogram("serving_ttft_seconds", labels)
@@ -110,6 +112,13 @@ class ServingMetrics:
 
     def record_errored(self) -> None:
         self._c_errored.inc()
+
+    def record_restart(self) -> None:
+        self._c_restarts.inc()
+
+    @property
+    def engine_restarts(self) -> int:
+        return self._c_restarts.value
 
     def record_shed(self) -> None:
         """A request shed: past its deadline, or by brownout L4."""
@@ -182,6 +191,7 @@ class ServingMetrics:
             "requests_rejected": self._c_rejected.value,
             "requests_shed": self._c_shed.value,
             "requests_errored": self._c_errored.value,
+            "engine_restarts": self._c_restarts.value,
             "tokens_generated": self.tokens_generated,
             "tokens_per_sec": self.tokens_per_sec,
             "n_slots": self.n_slots,

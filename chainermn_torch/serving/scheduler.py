@@ -34,6 +34,20 @@ EOS or their budget — mid-window, dropping the window's tail.
   BrownoutPolicy`): L2 runs the single-token decode step instead of a
   window, L3 caps the tokens a request gets (a prefix of its stream), L4
   sheds the lowest-weight tenant's queued work.
+- **Engine failure** (the reference's degradation boundary): a decode
+  round that raises fails every in-flight, chunking and admitting request
+  with :class:`EngineFailed`, dumps the event log once, and warm-restarts
+  the engine (:meth:`ServingEngine.restart`, the same programs) within
+  ``max_restarts``; ``restart_on_error=False`` or a spent budget
+  re-raises. A failed admission or chunk errors only its own requests
+  (the stores are written in place, so nothing else is lost) unless it
+  raised :class:`~chainermn_torch.serving.engine.EngineStateError`;
+  ``retry=`` (a :class:`~chainermn_torch.resilience.retry.RetryPolicy`)
+  retries an admission's prefill first.
+- **Weight swap fence** (:meth:`FCFSScheduler.request_swap`): while a swap
+  is pending nothing is admitted; once the slots drain, the swap runs
+  between device calls, and every request records the
+  ``weight_version`` it was admitted on.
 
 ``submit``/``cancel`` are safe from any thread; ``step`` is driven from
 one thread (the engine is not concurrent).
@@ -55,6 +69,8 @@ import numpy as np
 from chainermn_torch.monitor import get_event_log
 from chainermn_torch.resilience.cutpoints import SERVING_ADMIT_FAIR
 from chainermn_torch.resilience.faults import inject
+from chainermn_torch.resilience.retry import RetryPolicy
+from chainermn_torch.serving.engine import EngineStateError
 from chainermn_torch.serving.fairness import (
     PRIORITY_CLASSES,
     BrownoutPolicy,
@@ -99,6 +115,42 @@ class EngineFailed(RuntimeError):
     engine's exception is the ``__cause__``)."""
 
 
+class SwapTicket:
+    """One pending weight swap (:meth:`FCFSScheduler.request_swap`).
+    ``wait()`` blocks until the driving thread ran (or failed) it;
+    ``result`` holds the swap function's return value, ``error`` its
+    exception: a rejected swap leaves the engine on its prior weights
+    (:meth:`ServingEngine.swap_params` checks before writing), so the
+    ticket is where the failure shows."""
+
+    def __init__(self, fn: Callable[[], object]) -> None:
+        self.fn = fn
+        self.result: object = None
+        self.error: Optional[BaseException] = None
+        self.t_request = time.perf_counter()
+        self.t_executed: Optional[float] = None
+        self._done = threading.Event()
+
+    @property
+    def done(self) -> bool:
+        return self._done.is_set()
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        """Block until the swap ran; re-raises its exception. True when it
+        ran within ``timeout``."""
+        ok = self._done.wait(timeout)
+        if self.error is not None:
+            raise self.error
+        return ok
+
+    @property
+    def fence_s(self) -> Optional[float]:
+        """Seconds from the request to the swap's execution."""
+        if self.t_executed is None:
+            return None
+        return self.t_executed - self.t_request
+
+
 @dataclass(eq=False)
 class Request:
     """One inference request and its lifecycle state, created by
@@ -123,6 +175,7 @@ class Request:
     t_submit: float = 0.0
     t_deadline: Optional[float] = None
     t_last_token: float = 0.0
+    weight_version: Optional[int] = None    # stamped at admission
     _done: threading.Event = field(default_factory=threading.Event)
 
     @property
@@ -176,6 +229,8 @@ class FCFSScheduler:
     ``fair``/``tenant_weights``, ``brownout`` and
     ``chunk_tokens_per_step`` are the policies of the module docstring
     (``fair`` may also be a :class:`FairAdmission` to share or inspect).
+    ``retry``, ``restart_on_error`` and ``max_restarts`` are its failure
+    handling.
     """
 
     def __init__(self, engine, *, eos_id: Optional[int] = None,
@@ -185,7 +240,10 @@ class FCFSScheduler:
                  max_prefills_per_step: Optional[int] = None,
                  fair=None, tenant_weights=None,
                  brownout: Optional[BrownoutPolicy] = None,
-                 chunk_tokens_per_step: Optional[int] = None) -> None:
+                 chunk_tokens_per_step: Optional[int] = None,
+                 retry: Optional[RetryPolicy] = None,
+                 restart_on_error: bool = True,
+                 max_restarts: int = 8) -> None:
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         if max_prefills_per_step is not None and max_prefills_per_step < 1:
@@ -199,6 +257,11 @@ class FCFSScheduler:
         self.metrics = metrics or ServingMetrics(engine.n_slots)
         self.max_queue = max_queue
         self.default_deadline_s = default_deadline_s
+        self._retry = retry
+        self._restart_on_error = bool(restart_on_error)
+        self._max_restarts = int(max_restarts)
+        self._restarts = 0
+        self._pending_swap: Optional[SwapTicket] = None
         if max_prefills_per_step is None and (
                 engine.prefill_batch > 1 or len(engine.prefill_buckets) > 1
                 or engine.prefix_enabled):
@@ -292,12 +355,70 @@ class FCFSScheduler:
     def has_work(self) -> bool:
         with self._lock:
             return (bool(self._queue) or bool(self._by_slot)
-                    or bool(self._prefilling))
+                    or bool(self._prefilling)
+                    or self._pending_swap is not None)
 
     @property
     def queue_depth(self) -> int:
         with self._lock:
             return len(self._queue)
+
+    @property
+    def engine_restarts(self) -> int:
+        """Warm restarts this scheduler has driven."""
+        return self._restarts
+
+    # ------------------------------------------------------------------ #
+    # supervisor surface                                                  #
+    # ------------------------------------------------------------------ #
+
+    def drain_queued(self) -> list:
+        """Remove and return every QUEUED request (they stay QUEUED; the
+        caller owns them now), for a supervisor that re-routes work away
+        from a failed engine. The reference's KV-import queue and traces
+        are not ported (ROADMAP.md items 11.5 and 13)."""
+        with self._lock:
+            drained = list(self._queue)
+            self._queue.clear()
+        return drained
+
+    def fail_inflight(self, e: BaseException) -> None:
+        """Fail every in-flight request loudly (ERRORED, ``wait()``
+        re-raises) without restarting the engine: the caller owns that
+        decision. A pending swap ticket fails too, so its waiter hears of
+        the death. Requests already errored are left as they are."""
+        with self._lock:
+            has_inflight = bool(self._by_slot) or bool(self._prefilling)
+            ticket, self._pending_swap = self._pending_swap, None
+        if ticket is not None:
+            ticket.error = EngineFailed(
+                "engine failed while a weight swap was fenced")
+            ticket.error.__cause__ = e
+            ticket.t_executed = time.perf_counter()
+            ticket._done.set()
+        if has_inflight:
+            restart, self._restart_on_error = self._restart_on_error, False
+            try:
+                self._engine_failure(e)
+            finally:
+                self._restart_on_error = restart
+
+    def request_swap(self, fn: Callable[[], object]) -> SwapTicket:
+        """Queue a weight swap (``fn``, typically ``lambda:
+        engine.swap_params(state)``) for the driving thread's next safe
+        point; thread-safe. While it is pending nothing is admitted, so
+        every in-flight request finishes on the weights it started with;
+        once the slots drain, ``fn`` runs between device calls and the
+        queue admits on the new weights. One swap may be pending at a
+        time."""
+        ticket = SwapTicket(fn)
+        with self._lock:
+            if self._pending_swap is not None:
+                raise RuntimeError(
+                    "a weight swap is already pending on this scheduler")
+            self._pending_swap = ticket
+        self._events.emit("swap_fence", queue_depth=self.queue_depth)
+        return ticket
 
     # ------------------------------------------------------------------ #
     # the scheduling loop (one driving thread)                            #
@@ -309,9 +430,19 @@ class FCFSScheduler:
         emitted = 0
         self._shed_expired()
         self._policy_tick()
+        # the version fence: no admission while a swap is pending; once
+        # the slots drain it runs here, between device calls
+        with self._lock:
+            swapping = self._pending_swap is not None
+            ticket = None
+            if swapping and not self._by_slot and not self._prefilling:
+                ticket, self._pending_swap = self._pending_swap, None
+                swapping = False
+        if ticket is not None:
+            self._execute_swap(ticket)
         calls = 0
-        while self.engine.free_slots and (self._max_prefills is None
-                                          or calls < self._max_prefills):
+        while not swapping and self.engine.free_slots and (
+                self._max_prefills is None or calls < self._max_prefills):
             group = self._next_group()
             if not group:
                 break
@@ -330,9 +461,10 @@ class FCFSScheduler:
                            self.engine.decode_step(ctx=ctx).items()}
             else:
                 decoded = self.engine.decode_round(ctx=ctx)
-        except Exception as e:
-            self._fail_inflight(e)
-            raise
+        except Exception as e:  # noqa: BLE001 — the degradation boundary
+            if not self._engine_failure(e):
+                raise
+            decoded = {}
         for slot, toks in decoded.items():
             for tok in toks:
                 # re-read per token: EOS or budget can retire the slot
@@ -493,11 +625,20 @@ class FCFSScheduler:
         group's requests."""
         reqs = [r for r, _ in group]
         plans = [p for _, p in group]
+        ctx = {"reqs": [r.id for r in reqs]}
         try:
-            results = self.engine.admit_batch(
-                plans, ctx={"reqs": [r.id for r in reqs]})
+            if self._retry is not None:
+                results = self._retry.call(self.engine.admit_batch, plans,
+                                           op="serving.prefill_batch",
+                                           ctx=ctx)
+            else:
+                results = self.engine.admit_batch(plans, ctx=ctx)
         except Exception as e:  # noqa: BLE001 — contain to this group
-            self._fail(reqs, e, "admission")
+            if isinstance(e, EngineStateError):
+                if not self._engine_failure(e, admitting=reqs):
+                    raise
+            else:
+                self._fail(reqs, e, "admission")
             return 0
         self.metrics.record_admission(len(group))
         emitted = 0
@@ -510,6 +651,8 @@ class FCFSScheduler:
                 req.slot = slot
                 self._by_slot[slot] = req
                 req.state = RequestState.DECODE
+                # the fence keeps this version until the request retires
+                req.weight_version = self.engine.weight_version
             self._events.emit("slot_admit", req=req.id, slot=slot,
                               prompt_len=len(req.prompt), bucket=plan.bucket,
                               cached=plan.start, tenant=req.tenant,
@@ -569,6 +712,10 @@ class FCFSScheduler:
         try:
             first = self.engine.prefill_chunk(slot, ctx={"reqs": [req.id]})
         except Exception as e:  # noqa: BLE001 — contain to this request
+            if isinstance(e, EngineStateError):
+                if not self._engine_failure(e):
+                    raise
+                return 0
             with self._lock:
                 self._prefilling.pop(slot, None)
             self._fail([req], e, "chunk_prefill")
@@ -581,6 +728,7 @@ class FCFSScheduler:
                 self.engine.release(slot)
                 return 0
             req.state = RequestState.DECODE
+            req.weight_version = self.engine.weight_version
             self._by_slot[slot] = req
         now = time.perf_counter()
         self.metrics.record_first_token(
@@ -617,15 +765,66 @@ class FCFSScheduler:
         for req in reqs:
             req._done.set()
 
-    def _fail_inflight(self, e: BaseException) -> None:
-        """The decode round raised: every decoding and chunking request
-        errors loudly (no waiter hangs on a dead engine); the caller
-        re-raises."""
+    def _engine_failure(self, e: BaseException, admitting=()) -> bool:
+        """The engine raised mid-round: every decoding, chunking and
+        ``admitting`` request errors loudly with :class:`EngineFailed`
+        (no waiter hangs on a dead engine), the event log is dumped once
+        for the episode, and within the restart budget the engine warm-
+        restarts (fresh stores, tables, trie and mirrors; the same
+        programs) so the queue keeps being served. Returns True after a
+        restart; False tells the caller to re-raise."""
         with self._lock:
             victims = (list(self._by_slot.values())
-                       + list(self._prefilling.values()))
-        self._fail(victims, e, "decode")
-        self._events.dump(file=sys.stderr, last=32)
+                       + list(self._prefilling.values()) + list(admitting))
+            self._by_slot.clear()
+            self._prefilling.clear()
+            for req in victims:
+                if req.slot >= 0:       # the stores are intact: free it
+                    self.engine.release(req.slot)
+                if req.finished:
+                    continue
+                if req.error is None:
+                    failure = EngineFailed(
+                        f"engine failed while request {req.id} was in "
+                        f"flight: {type(e).__name__}: {e}")
+                    failure.__cause__ = e
+                    req.error = failure
+                req.state = RequestState.ERRORED
+                self.metrics.record_errored()
+        self._events.emit("engine_error", where="decode",
+                          error=type(e).__name__, detail=str(e)[:200],
+                          reqs=[r.id for r in victims])
+        self._events.dump(file=sys.stderr, last=32, once="engine_failure")
+        for req in victims:
+            req._done.set()
+        if not self._restart_on_error or \
+                self._restarts >= self._max_restarts:
+            return False
+        self.engine.restart()
+        self._restarts += 1
+        self.metrics.record_restart()
+        self._events.emit("engine_restart", restarts=self._restarts)
+        self._events.reset_dump_guard()    # recovered: the next one dumps
+        return True
+
+    def _execute_swap(self, ticket: SwapTicket) -> None:
+        """Run a fenced swap on the driving thread (the slots drained). A
+        raising swap shows only on the ticket: the engine keeps its prior
+        weights and the queue keeps being served."""
+        t0 = time.perf_counter()
+        try:
+            ticket.result = ticket.fn()
+        except Exception as e:  # noqa: BLE001 — surfaced on the ticket
+            ticket.error = e
+        ticket.t_executed = time.perf_counter()
+        self._events.emit(
+            "swap_exec", ok=ticket.error is None,
+            seconds=round(ticket.t_executed - t0, 6),
+            fence_s=round(ticket.t_executed - ticket.t_request, 6),
+            queue_depth=self.queue_depth,
+            **({"error": type(ticket.error).__name__}
+               if ticket.error is not None else {}))
+        ticket._done.set()
 
     # ------------------------------------------------------------------ #
     # paged-KV block management                                           #
@@ -830,4 +1029,4 @@ class FCFSScheduler:
 
 
 __all__ = ["DeadlineExceededError", "EngineFailed", "FCFSScheduler",
-           "QueueFullError", "Request", "RequestState"]
+           "QueueFullError", "Request", "RequestState", "SwapTicket"]

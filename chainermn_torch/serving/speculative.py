@@ -20,9 +20,10 @@ Two drafters behind one interface (:class:`SpeculativeConfig`):
   ngram_continuation`), then repeating the last token. Host only.
 - ``'draft'``: :class:`DraftModelDrafter`, a small ``TransformerLM``
   decoding ``k`` greedy tokens a window against its own dense per-slot
-  caches. Every window rewrites the rows a rejected draft left behind
-  before any query attends them, so partial acceptance keeps the caches
-  consistent.
+  caches, through two step programs of the engine's program set (a
+  one-request prompt prefill and the ``k``-step draft window). Every
+  window rewrites the rows a rejected draft left behind before any query
+  attends them, so partial acceptance keeps the caches consistent.
 
 With ``ServingEngine(paged_kernel=True)`` the verify window's attention
 reads go through the paged-decode kernel at ``S = k + 1`` queries a row
@@ -103,6 +104,16 @@ class NgramDrafter:
     def reset(self) -> None:
         self._hist = [[] for _ in range(self.engine.n_slots)]
 
+    # no device programs
+    def warmup(self) -> None:
+        pass
+
+    def watched_fns(self) -> dict:
+        return {}
+
+    def compile_counts(self) -> dict:
+        return {}
+
     def _lookup(self, hist: list[int], k: int) -> list[int]:
         """The tokens after the most recent earlier occurrence of the
         trailing n-gram, longest n first."""
@@ -143,8 +154,11 @@ class NgramDrafter:
 
 class DraftModelDrafter:
     """Draft-``TransformerLM`` drafter with dense per-slot caches
-    ``[n_slots, cache_len]``: a full-prompt prefill per admission and
-    ``k`` all-slot greedy decode steps per window.
+    ``[n_slots, cache_len]`` and two step programs: ``draft_prefill``, a
+    full-prompt prefill of one slot per admission (the slot a device
+    index), and ``draft_decode``, ``k`` all-slot greedy steps per window.
+    Both read the whole cache; the position mask hides the rows past
+    each query.
 
     A window at base ``p`` writes draft rows ``p..p+k-1`` before its
     queries attend them; the next window starts at the commit frontier
@@ -172,24 +186,48 @@ class DraftModelDrafter:
         self.config = config
         self.engine = engine
         self.model = model.eval().cast_weights_()
-        self._init = lambda: init_kv_caches(model, engine.n_slots,
-                                            engine.cache_len)
-        self._caches = self._init()
-        self._prefill_len = engine.prefill_len
+        self._caches = init_kv_caches(model, engine.n_slots,
+                                      engine.cache_len)
+        n, k = engine.n_slots, config.k
+        i64 = torch.int64
+        self._prefill_prog = engine._programs.program(
+            "draft_prefill", self._prefill_body,
+            {"slot": ((1,), i64), "tokens": ((1, engine.prefill_len), i64)})
+        self._decode_prog = engine._programs.program(
+            "draft_decode", self._decode_body,
+            {"tok": ((n,), i64), "pos": ((k, n), i64),
+             "active": ((n,), torch.bool)})
 
-    @torch.inference_mode()
+    def _prefill_body(self, ins):
+        slot = ins["slot"]
+        views = [{kk: c[kk].index_select(0, slot) for kk in ("k", "v")}
+                 for c in self._caches]
+        self.model(ins["tokens"], 0, kv_caches=views)
+        for c, v in zip(self._caches, views):
+            for kk in ("k", "v"):
+                c[kk].index_copy_(0, slot, v[kk])
+
+    def _decode_body(self, ins):
+        tok, act = ins["tok"], ins["active"]
+        drafts = []
+        for j in range(ins["pos"].shape[0]):
+            lg = self.model(tok[:, None], ins["pos"][j][:, None],
+                            kv_caches=self._caches)[:, 0]
+            tok = torch.where(act, torch.argmax(lg, dim=-1),
+                              torch.zeros_like(tok))
+            drafts.append(tok)
+        return torch.stack(drafts, 1)
+
     def on_admit(self, slot: int, prompt, first_token: int) -> None:
         """The slot's whole prompt (the drafter has no prefix cache),
         padded to ``prefill_len``, at positions ``[0, prefill_len)`` of
         the slot's rows. No sampling: the first draft conditions on the
         engine's committed token."""
         prompt = np.asarray(prompt, np.int64).reshape(-1)
-        tokens = np.zeros((1, self._prefill_len), np.int64)
+        tokens = np.zeros((1, self.engine.prefill_len), np.int64)
         tokens[0, :len(prompt)] = prompt
-        dev = self.engine.device
-        views = [{kk: c[kk][slot:slot + 1] for kk in ("k", "v")}
-                 for c in self._caches]
-        self.model(torch.as_tensor(tokens, device=dev), 0, kv_caches=views)
+        self._prefill_prog.run(slot=np.array([slot], np.int64),
+                               tokens=tokens)
 
     def on_commit(self, slot: int, tokens) -> None:
         pass   # the caches advance inside propose()
@@ -198,9 +236,29 @@ class DraftModelDrafter:
         pass   # stale rows stay masked until the next tenant rewrites them
 
     def reset(self) -> None:
-        self._caches = self._init()
+        """Zero the caches in place (the programs hold their addresses)."""
+        with torch.no_grad():
+            for c in self._caches:
+                for t in c.values():
+                    t.zero_()
 
-    @torch.inference_mode()
+    def warmup(self) -> None:
+        """Build both programs on no-op inputs (the engine is idle: slot
+        0's rows and every slot's row 0 are rewritten before use)."""
+        eng = self.engine
+        self._prefill_prog.run(slot=np.zeros((1,), np.int64),
+                               tokens=np.zeros((1, eng.prefill_len),
+                                               np.int64))
+        self.propose(self.config.k)
+
+    def watched_fns(self) -> dict:
+        return {"spec_draft_prefill": self._prefill_prog,
+                "spec_draft_decode": self._decode_prog}
+
+    def compile_counts(self) -> dict:
+        return {"draft_prefill": self._prefill_prog._cache_size(),
+                "draft_decode": self._decode_prog._cache_size()}
+
     def propose(self, k: int) -> np.ndarray:
         """``k`` chained greedy draft steps from the engine's commit
         frontier (``_token`` at ``_pos`` a slot); the tokens stay on the
@@ -209,23 +267,15 @@ class DraftModelDrafter:
         drafts no slot can commit) sit at ``cache_len - 1``."""
         from chainermn_torch.dataflow.dispatch import device_fetch
 
+        if k != self.config.k:
+            raise ValueError(f"the draft window program drafts "
+                             f"{self.config.k} tokens, asked for {k}")
         eng = self.engine
-        dev = eng.device
-        tok = torch.as_tensor(eng._token, device=dev).long()
-        active = torch.as_tensor(eng._active, device=dev)
-        drafts = []
-        for j in range(k):
-            pos = np.minimum(eng._pos.astype(np.int64) + j,
-                             eng.cache_len - 1)
-            caches = [dict(c, span=int(pos.max()) + 1)
-                      for c in self._caches]
-            lg = self.model(tok[:, None],
-                            torch.as_tensor(pos, device=dev)[:, None],
-                            kv_caches=caches)[:, 0]
-            tok = torch.where(active, torch.argmax(lg, dim=-1),
-                              torch.zeros_like(tok))
-            drafts.append(tok)
-        return np.asarray(device_fetch(torch.stack(drafts, 1)), np.int32)
+        pos = np.minimum(eng._pos.astype(np.int64)[None, :]
+                         + np.arange(k)[:, None], eng.cache_len - 1)
+        out = self._decode_prog.run(tok=eng._token, pos=pos,
+                                    active=eng._active)
+        return np.asarray(device_fetch(out), np.int32)
 
 
 def build_drafter(config: SpeculativeConfig, engine):

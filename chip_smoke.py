@@ -24,7 +24,14 @@ heads) and ResNet-50 (random weights from a seed):
   the plain engine's up to a recorded near-tie (a planted unverified
   commit must fail that gate), the kernel's verify-window rows at a slot
   ending at ``cache_len`` against the plain version, and the
-  ``serve_lm.py`` twin and ``train_lm.py --serve-samples`` in process;
+  ``serve_lm.py`` twin and ``train_lm.py --serve-samples`` in process.
+  The engines run their step programs as captured CUDA graphs; the
+  ``serve_graphs`` phase runs the four paths eager and captured side by
+  side (f32 streams equal, a planted one-block read failing, compile
+  counts flat, launches exact), and ``serve_restart_swap`` warm-restarts
+  a captured engine after an injected decode fault and swaps its
+  weights behind the scheduler's fence, each followed by a request that
+  must stream exactly what a fresh engine streams;
 - training: ``TransformerLM(attention='flash')``,
   ``create_communicator('pure_nccl')``, ``create_multi_node_optimizer``
   over ``AdamW`` and ``lm_train_step`` take 12 steps on a [8, 2048] batch;
@@ -449,11 +456,18 @@ def phase_serve(device):
 
 
 def phase_profile(engine, sched, rng, n_steps: int = 20):
-    """Where a decode step's time goes: refill every slot, let admissions
-    finish, then trace ``n_steps`` pure decode steps with
-    ``torch.profiler``. Device busy time is the sum of CUDA activity
-    (kernels, copies) in the window; idle share is what is left of the
-    host wall clock."""
+    """Where a decode step's time goes (:func:`_profile_steps`)."""
+    rec = dict(_profile_steps(engine, sched, rng, n_steps), phase="profile")
+    emit(rec)
+    return rec
+
+
+def _profile_steps(engine, sched, rng, n_steps: int = 20):
+    """Refill every slot, let admissions finish, then trace ``n_steps``
+    pure decode steps with ``torch.profiler``. Device busy time is the sum
+    of CUDA activity (kernels, copies; a replayed CUDA graph's kernels
+    included) in the window; idle share is what is left of the host wall
+    clock."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -481,7 +495,7 @@ def phase_profile(engine, sched, rng, n_steps: int = 20):
     kern_us = sum(e.self_device_time_total for e in dev
                   if "paged_decode" in e.key)
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
-    rec = {"phase": "profile", "decode_steps": n_steps,
+    rec = {"decode_steps": n_steps,
            "active_slots": engine.active_slots,
            "step_wall_ms": wall / n_steps * 1e3,
            "step_device_busy_ms": busy_us / n_steps / 1e3 if busy_us
@@ -495,7 +509,6 @@ def phase_profile(engine, sched, rng, n_steps: int = 20):
                            e.self_device_time_total / n_steps / 1e3,
                            "calls_per_step": e.count / n_steps}
                           for e in top]}
-    emit(rec)
     return rec
 
 
@@ -503,7 +516,11 @@ def phase_timing(device, lengths):
     """Kernel, plain version and library yardstick at the serve phase's
     decode shape (the active slots at the lengths they held when the most
     were decoding; bf16 store of the engine's size; S = 1), L2 flushed
-    before each timed call."""
+    before each timed call. ``ms`` and ``plain_ms`` are at the table width
+    the engine's captured decode program reads (``cache_len / bs`` = 128
+    entries, the split plan fixed by that width); ``ms_span_cut`` is the
+    table cut to the longest row, as the eager engine of earlier versions
+    read it."""
     import torch
     import torch.nn.functional as F
 
@@ -527,8 +544,20 @@ def phase_timing(device, lengths):
     got = paged_attend(*args, **kw).float()
     want = paged_attend_reference(*args, **kw).float()
     err = float((got - want).abs().max())
-    kernel_ms = cuda_ms(lambda: paged_attend(*args, **kw), flush=flush)
-    plain_ms = cuda_ms(lambda: paged_attend_reference(*args, **kw),
+    span_ms = cuda_ms(lambda: paged_attend(*args, **kw), flush=flush)
+    span_plain_ms = cuda_ms(lambda: paged_attend_reference(*args, **kw),
+                            flush=flush)
+    # the captured decode program's read: the whole table
+    full_w = ENGINE["cache_len"] // bs
+    wide = torch.zeros((len(lengths), full_w), dtype=torch.int32,
+                       device=device)
+    wide[:, :span] = x["table"]
+    f_args = (args[0], args[1], args[2], wide, args[4])
+    err_full = float((paged_attend(*f_args, **kw).float()
+                      - paged_attend_reference(*f_args, **kw).float())
+                     .abs().max())
+    kernel_ms = cuda_ms(lambda: paged_attend(*f_args, **kw), flush=flush)
+    plain_ms = cuda_ms(lambda: paged_attend_reference(*f_args, **kw),
                        flush=flush)
     # the same rows at a head dim the kernel masks inside (D = 8, the
     # repo's small LM configurations) and with a 12-query window (two
@@ -568,12 +597,18 @@ def phase_timing(device, lengths):
     n_ops = 4 * kv_rows * h * d                         # QK and PV, S = 1
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / BF16_OPS_PER_S * 1e3
-    n_split, split_keys = split_plan(b, h, span, bs)
+    n_split, split_keys = split_plan(b, h, full_w, bs)
     rec = {"phase": "timing", "kernel": "paged_decode", "B": b, "S": 1,
            "H": h, "D": d, "bs": bs, "store": "bf16", "lengths": lengths,
-           "n_split": n_split, "split_keys": split_keys,
-           "max_abs_err": err, "library_max_abs_err": lib_err,
-           "ms": kernel_ms, **wider, "plain_ms": plain_ms,
+           "table_width": full_w, "n_split": n_split,
+           "split_keys": split_keys,
+           "span_cut": {"table_width": span,
+                        "split_plan": split_plan(b, h, span, bs),
+                        "max_abs_err": err, "ms": span_ms,
+                        "plain_ms": span_plain_ms},
+           "max_abs_err": err_full, "library_max_abs_err": lib_err,
+           "ms": kernel_ms, "ms_span_cut": span_ms, **wider,
+           "plain_ms": plain_ms,
            "library_ms": library_ms,
            "bytes": n_bytes, "ops": n_ops,
            "bound_ms": max(t_bytes, t_ops),
@@ -858,8 +893,11 @@ def phase_serve_spec(device, card):
         def propose(self, kk):
             return (super().propose(kk) + 1) % LM["vocab_size"]
 
+    # eager: the recorder wraps each kernel call, which a replayed graph
+    # does not make
     eng_near = ServingEngine(model, paged_kernel=True, device=device,
                              speculative=SpeculativeConfig(k=k),
+                             capture=False,
                              **dict(ENGINE, cache_len=NEAR_END["cache_len"]))
     eng_near._drafter = WrongNgram(eng_near._spec, eng_near)
     prompt = np.random.default_rng(SEED + 12).integers(
@@ -1184,6 +1222,306 @@ def phase_serve_dense(device, card):
            "f32_parity": parity, "run_s": time.perf_counter() - t_phase}
     emit(rec)
     _check_parity("serve_dense", parity)
+    return rec
+
+
+# -- the engine's fixed step programs: every serving path eager and as
+#    captured CUDA graphs, then warm restart and the weight-swap fence --
+
+GRAPH_PROFILE_STEPS = 10
+GRAPH_SAMPLED = dict(temperature=0.8, top_k=50)
+
+
+def _graph_paths():
+    """The serving paths the graphs phase runs: name -> (engine keywords,
+    traffic, kernel launches per engine call per layer)."""
+    from chainermn_torch.serving import SpeculativeConfig
+
+    dense_kw = {kk: v for kk, v in ENGINE.items() if kk != "kv_block_size"}
+    serve = _serve_traffic(N_REQUESTS, SEED)
+    spec = _spec_traffic(N_REQUESTS, SEED + 10)
+    return {
+        "serve": (dict(ENGINE, paged_kernel=True), serve, 1),
+        "serve_window": (dict(ENGINE, paged_kernel=True,
+                              decode_window=WINDOW), serve, WINDOW),
+        "serve_spec": (dict(ENGINE, paged_kernel=True,
+                            speculative=SpeculativeConfig(k=SPEC["k"])),
+                       spec, 1),
+        "serve_dense": (dict(dense_kw, paged=False, **DENSE), spec, 0),
+    }
+
+
+def _graph_pool_bytes(engine):
+    """Bytes of the segments in the engine's CUDA-graph memory pool."""
+    import torch
+
+    pool = engine._programs._pool
+    if pool is None:
+        return 0
+    try:
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+    except Exception:  # noqa: BLE001 — an allocator without the field
+        return "not measured"
+
+
+def _engine_ptrs(engine):
+    """Addresses of every tensor the engine's programs read or write."""
+    out = {f"param:{k}": p.data_ptr()
+           for k, p in engine.model.state_dict().items()}
+    for i, layer in enumerate(engine._store or ()):
+        out.update({f"store{i}:{k}": t.data_ptr() for k, t in layer.items()})
+    for i, layer in enumerate(engine.caches or ()):
+        out.update({f"cache{i}:{k}": t.data_ptr() for k, t in layer.items()})
+    progs = list(engine._prefill_progs.values()) + [engine._decode_prog]
+    for prog in progs:
+        out.update({f"{prog.name}:{k}": t.data_ptr()
+                    for k, t in prog.inputs.items()})
+    return out
+
+
+def _graph_run(model, kw, work, capture, device, *, profile=False,
+               seeds=None, per_call=0):
+    """One engine of a path, eager or captured: warmup, the traffic, and
+    (``profile``) a traced steady window. Fails unless the programs are
+    built once each and never again, and, on a kernel path, the kernel
+    launched ``per_call`` x 12 times for every engine decode call."""
+    import numpy as np
+    import torch
+
+    from chainermn_torch.monitor import get_registry
+    from chainermn_torch.parallel.paged_kernel import paged_attend
+    from chainermn_torch.serving import ServingEngine
+
+    eng = ServingEngine(model, device=device, capture=capture, **kw)
+    reserved0 = torch.cuda.memory_stats()["reserved_bytes.all.current"]
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    counts = eng.compile_counts_detailed()
+    labels = {"engine": "serving"}
+    if eng.paged:
+        labels["paged_kernel"] = "on" if eng.paged_kernel else "off"
+    calls_ctr = get_registry().counter("serving_decode_steps_total", labels)
+    calls0 = calls_ctr.value
+    paged_attend.launches = 0
+    streams, sched, wall = _drive(eng, work, seeds=seeds)
+    launches = paged_attend.launches
+    calls = calls_ctr.value - calls0
+    rep = sched.metrics.report()
+    rec = {"capture": eng.capture, "warmup_s": warm_s,
+           "capture_s": eng._programs.capture_s,
+           "graph_pool_bytes": _graph_pool_bytes(eng),
+           "reserved_bytes_added_by_warmup":
+               torch.cuda.memory_stats()["reserved_bytes.all.current"]
+               - reserved0,
+           "wall_s": wall, "tokens_generated": rep["tokens_generated"],
+           "tokens_per_sec": rep["tokens_per_sec"],
+           "tpot_p50_s": rep["tpot_p50_s"], "ttft_p50_s": rep["ttft_p50_s"],
+           "ttft_p99_s": rep["ttft_p99_s"], "decode_calls": calls,
+           "kernel_launches": launches, "compile_counts": counts,
+           "recompiles": eng.recompiles}
+    if set(counts.values()) != {1} or eng.compile_counts_detailed() \
+            != counts or eng.recompiles:
+        raise AssertionError(f"serve_graphs: programs rebuilt: {counts} -> "
+                             f"{eng.compile_counts_detailed()} "
+                             f"{eng.recompiles}")
+    if launches != calls * per_call * LM["n_layers"]:
+        raise AssertionError(f"serve_graphs: kernel launches {launches} != "
+                             f"{calls} calls x {per_call} x "
+                             f"{LM['n_layers']}")
+    if profile:
+        prof = _profile_steps(eng, sched, np.random.default_rng(SEED + 40),
+                              GRAPH_PROFILE_STEPS)
+        rec.update({k: prof[k] for k in ("step_wall_ms",
+                                         "step_device_busy_ms",
+                                         "device_idle_share")})
+    del eng, sched
+    _empty()
+    return streams, rec
+
+
+def phase_serve_graphs(device, card):
+    """Each serving path (``serve``, ``serve_window``, ``serve_spec``,
+    ``serve_dense``; the 220M LM in bf16, 32 requests) with
+    ``capture=False`` and then captured: tokens/s, TPOT, TTFT, a profiled
+    step's device-busy ms and idle share, the capture seconds and the
+    graph pool's bytes. Fails unless every run builds each program once
+    (``compile_counts_detailed()`` flat, ``recompiles`` empty), the
+    kernel launches equal decode calls x window x 12 on both, and, on the
+    f32 LM with 8 requests, each path's captured streams equal its eager
+    ones up to the near-tie rule (greedy; sampled at T 0.8 / top-k 50
+    except the greedy-only verify window) while a planted fault (the
+    captured decode program reading one table block) fails that gate."""
+    import torch
+
+    from chainermn_torch.models import TransformerLM
+
+    t_phase = time.perf_counter()
+    paths = _graph_paths()
+    model = TransformerLM(**LM, compute_dtype=torch.bfloat16, device=device,
+                          seed=SEED)
+    runs = {}
+    for name, (kw, work, per_call) in paths.items():
+        runs[name] = {}
+        for capture in (False, True):
+            _, runs[name][str(capture).lower()] = _graph_run(
+                model, kw, work, capture, device, profile=True,
+                per_call=per_call)
+    del model
+    _empty()
+    m32 = TransformerLM(**LM, compute_dtype=torch.float32, device=device,
+                        seed=SEED)
+    parity = {}
+    seeds = [2000 + i for i in range(PARITY_REQUESTS)]
+    for name, (kw, work, per_call) in paths.items():
+        pw = work[:PARITY_REQUESTS]
+        modes = [("greedy", {}, None)]
+        if name != "serve_spec":
+            modes.append(("sampled", GRAPH_SAMPLED, seeds))
+        for mode, extra, sd in modes:
+            got = {}
+            for capture in (False, True):
+                got[capture], _ = _graph_run(m32, dict(kw, **extra), pw,
+                                             capture, device, seeds=sd,
+                                             per_call=per_call)
+            parity[f"{name}_{mode}"] = _parity(m32, pw, got[True],
+                                               got[False])
+            if mode == "greedy" and name == "serve":
+                want = got[False]
+    # the planted fault: the programs capture a kernel read cut to one
+    # table block, then the real wrapper is back for every later phase
+    from chainermn_torch.parallel import paged_kernel
+    from chainermn_torch.serving import ServingEngine
+
+    kw, work, _ = paths["serve"]
+    pw = work[:PARITY_REQUESTS]
+    real = paged_kernel.paged_attend
+
+    def one_block(*args, **kwargs):
+        return real(*args, **dict(kwargs, max_blocks=1))
+
+    one_block.launches = 0
+    paged_kernel.paged_attend = one_block
+    try:
+        bad = ServingEngine(m32, device=device, **kw)
+        bad.warmup()
+    finally:
+        paged_kernel.paged_attend = real
+    fault, _, _ = _drive(bad, pw)
+    planted = _parity(m32, pw, fault, want)
+    del bad, m32
+    _empty()
+    rec = {"phase": "serve_graphs", "card": card,
+           "model": dict(LM, compute_dtype="bf16"),
+           "requests": N_REQUESTS, "profile_steps": GRAPH_PROFILE_STEPS,
+           "runs": runs, "f32_parity": parity, "planted_fault": planted,
+           "run_s": time.perf_counter() - t_phase}
+    emit(rec)
+    for name, p in parity.items():
+        _check_parity(f"serve_graphs {name}", p)
+    if not planted["failures"]:
+        raise AssertionError("serve_graphs: the planted one-block decode "
+                             "read passes the parity gate")
+    return rec
+
+
+def phase_serve_restart_swap(device, card):
+    """Warm restart and the weight-swap fence on the captured ``serve``
+    engine (220M, bf16): a ``serving.decode`` fault mid-run must end
+    every in-flight request ERRORED with ``EngineFailed`` after one
+    restart, and a probe request afterwards must stream exactly what it
+    streamed on the fresh engine; then ``request_swap`` onto a second
+    seeded weight set, with requests in flight: they finish on version
+    0, and the probe admitted after the fence must stream exactly what a
+    fresh engine on the new weights streams. Fails unless the programs'
+    counts never move and no store, parameter or static input moves."""
+    import torch
+
+    from chainermn_torch.models import TransformerLM
+    from chainermn_torch.resilience import FaultInjector
+    from chainermn_torch.resilience.cutpoints import SERVING_DECODE
+    from chainermn_torch.serving import (
+        EngineFailed,
+        FCFSScheduler,
+        RequestState,
+        ServingEngine,
+    )
+
+    t_phase = time.perf_counter()
+    kw = dict(ENGINE, paged_kernel=True)
+    work = _serve_traffic(8, SEED + 30)
+    probe = work[0]
+    model = TransformerLM(**LM, compute_dtype=torch.bfloat16, device=device,
+                          seed=SEED)
+    eng = ServingEngine(model, device=device, **kw)
+    eng.warmup()
+    counts = eng.compile_counts_detailed()
+    ptrs = _engine_ptrs(eng)
+    fresh_a, _, _ = _drive(eng, [probe])
+    sched = FCFSScheduler(eng)
+    victims = [sched.submit(p, n) for p, n in work[1:]]
+    inj = FaultInjector()
+    inj.arm(SERVING_DECODE, kind="raise", after=20, times=1)
+    with inj:
+        while sched.has_work:
+            sched.step()
+    torch.cuda.synchronize()
+    errored = sum(r.state is RequestState.ERRORED
+                  and isinstance(r.error, EngineFailed) for r in victims)
+    restarts = sched.engine_restarts
+    after_restart, _, _ = _drive(eng, [probe])
+    model_b = TransformerLM(**LM, compute_dtype=torch.bfloat16,
+                            device=device, seed=SEED + 1).cast_weights_()
+    fresh = ServingEngine(model_b, device=device, **kw)
+    fresh_b, _, _ = _drive(fresh, [probe])
+    del fresh
+    state_b = model_b.state_dict()
+    sched = FCFSScheduler(eng)
+    pre = [sched.submit(p, n) for p, n in work[1:5]]
+    for _ in range(5):
+        sched.step()
+    in_flight = eng.active_slots
+    ticket = sched.request_swap(lambda: eng.swap_params(state_b))
+    post = sched.submit(*probe)
+    while sched.has_work:
+        sched.step()
+    torch.cuda.synchronize()
+    ok_pre = all(r.finished and r.error is None and r.weight_version == 0
+                 and len(r.tokens) == r.max_new_tokens for r in pre)
+    rec = {"phase": "serve_restart_swap", "card": card,
+           "model": dict(LM, compute_dtype="bf16"),
+           "engine": dict(kw, capture=eng.capture),
+           "fault": {"in_flight": len(victims), "errored": errored,
+                     "engine_restarts": restarts,
+                     "probe_equals_fresh_engine": after_restart == fresh_a},
+           "swap": {"in_flight_at_request": in_flight,
+                    "ticket_result": ticket.result,
+                    "ticket_error": repr(ticket.error),
+                    "fence_s": ticket.fence_s, "pre_on_version_0": ok_pre,
+                    "post_weight_version": post.weight_version,
+                    "probe_equals_fresh_engine_b":
+                        [int(t) for t in post.tokens] == fresh_b[0]},
+           "compile_counts_flat": eng.compile_counts_detailed() == counts,
+           "recompiles": eng.recompiles,
+           "addresses_unchanged": _engine_ptrs(eng) == ptrs,
+           "run_s": time.perf_counter() - t_phase}
+    emit(rec)
+    del eng, model, model_b, state_b
+    _empty()
+    f, sw = rec["fault"], rec["swap"]
+    if not (f["errored"] == len(victims) and f["engine_restarts"] == 1
+            and f["probe_equals_fresh_engine"]):
+        raise AssertionError(f"serve_restart_swap: restart {f}")
+    if not (ticket.error is None and ticket.result == 1 and ok_pre
+            and in_flight and sw["post_weight_version"] == 1
+            and sw["probe_equals_fresh_engine_b"]):
+        raise AssertionError(f"serve_restart_swap: swap {sw}")
+    if not (rec["compile_counts_flat"] and not rec["recompiles"]
+            and rec["addresses_unchanged"]):
+        raise AssertionError(f"serve_restart_swap: programs or addresses "
+                             f"moved: {rec}")
     return rec
 
 
@@ -3810,6 +4148,8 @@ def main() -> int:
     window = timed("serve_window", phase_serve_window, device, smi)
     timed("serve_chunked", phase_serve_chunked, device, smi)
     timed("serve_dense", phase_serve_dense, device, smi)
+    graphs = timed("serve_graphs", phase_serve_graphs, device, smi)
+    timed("serve_restart_swap", phase_serve_restart_swap, device, smi)
     timed("serve_example", phase_serve_example, smi)
     flash_err = timed("flash_parity", phase_flash_parity, device)
     timed("flash_ring_blocks", phase_flash_ring_blocks, device)
@@ -3841,6 +4181,10 @@ def main() -> int:
         "launches": launches,
         "launches_spec_path": spec["kernel_launches"],
         "launches_window_path": window["kernel_launches"],
+        "launches_captured": {
+            name: runs["true"]["kernel_launches"]
+            for name, runs in graphs["runs"].items()},
+        "ms_span_cut": timing["ms_span_cut"],
         "max_abs_err": timing["max_abs_err"],
         "parity_max_abs_err": parity_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],

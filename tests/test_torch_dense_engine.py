@@ -235,7 +235,9 @@ def test_sampler_masks_match_jax(temperature, top_k, top_p):
 def test_watchdog_and_cut_points_wrap_the_device_calls(weights, paged):
     """``watchdog=`` arms a window around every prefill and decode call
     (report-only here), and an injected ``serving.decode`` fault errors
-    the in-flight requests and re-raises from the step."""
+    the in-flight requests and, with ``restart_on_error=False``, re-raises
+    from the step (the default warm-restarts instead:
+    ``test_torch_serving_restart.py``)."""
     from chainermn_torch.extensions.profiling import Watchdog
     from chainermn_torch.monitor import get_event_log
     from chainermn_torch.resilience import FaultInjector
@@ -247,7 +249,7 @@ def test_watchdog_and_cut_points_wrap_the_device_calls(weights, paged):
     engine = ServingEngine(_port_model(params), device="cpu", paged=paged,
                            watchdog=Watchdog(timeout=60, on_timeout="warn"),
                            **kw)
-    sched = FCFSScheduler(engine)
+    sched = FCFSScheduler(engine, restart_on_error=False)
     log = get_event_log()
     n0 = len(log.tail(4096))
     req = sched.submit(PROMPTS[0], 3)

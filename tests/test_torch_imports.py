@@ -36,7 +36,9 @@ def test_the_parallel_modules_are_checked():
             "chainermn_torch.examples.lm.train_lm",
             "chainermn_torch.examples.lm.serve_lm",
             "chainermn_torch.serving.speculative",
-            "chainermn_torch.serving.fairness"} <= names
+            "chainermn_torch.serving.fairness",
+            "chainermn_torch.serving._programs",
+            "chainermn_torch.monitor.instrument"} <= names
 
 
 def test_importing_every_module_pulls_in_no_jax():
