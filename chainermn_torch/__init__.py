@@ -48,13 +48,17 @@ to find. It holds these paths so far:
   each rank storing its shards (:mod:`chainermn_torch.parallel.gspmd`),
   GPipe (:mod:`chainermn_torch.ops.pipeline`), ``remat``, the fused
   chunked cross entropy (:mod:`chainermn_torch.ops.losses`) and the
-  ``train_lm`` example twin.
+  ``train_lm`` example twin;
+- the serving fleet (:mod:`chainermn_torch.fleet`): replicas behind a
+  router with prefix affinity, failover, disaggregated prefill/decode
+  tiers over the engine's KV migration, cross-replica prefix sharing and
+  mid-decode rebalancing.
 
 The package imports ``torch`` and numpy only; weights cross over from
 flax through :mod:`chainermn_torch.interop`.
 """
 
-from chainermn_torch import dataflow, functions, monitor, resilience
+from chainermn_torch import dataflow, fleet, functions, monitor, resilience
 from chainermn_torch.global_except_hook import add_hook as add_global_except_hook
 from chainermn_torch.communicators import (
     CommunicatorBase,
@@ -118,5 +122,5 @@ __all__ = [
     "AllreducePersistent", "ObservationAggregator",
     "create_multi_node_checkpointer",
     "add_global_except_hook",
-    "dataflow", "functions", "monitor", "resilience",
+    "dataflow", "fleet", "functions", "monitor", "resilience",
 ]

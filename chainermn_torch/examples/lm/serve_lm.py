@@ -20,6 +20,14 @@ The same single-engine flags with the same defaults as the reference:
 - overload: ``--max-queue``, ``--deadline``, ``--tenants``,
   ``--priority``, ``--tenant-weights`` and ``--brownout``;
 - ``--watchdog SECONDS``: the engine's hang watchdog;
+- the fleet: ``--replicas N`` engines behind a ``FleetRouter`` (prefix
+  affinity, ``--no-affinity`` for pure least-loaded);
+  ``--prefill-replicas P --decode-replicas D`` (with ``--paged-kv``):
+  disaggregated tiers, every request's KV migrating to the decode tier
+  after its prefill; ``--share-prefixes``: cross-replica prefix sharing;
+  ``--rebalance``: one live decode moved from the busiest replica to a
+  peer while the burst is in flight. Each replica's engine has weights of
+  its own (the same seed);
 - ``--verify-parity``: the first three completed requests against solo
   ``generate()`` with the same seed. Under greedy decoding a divergence
   passes only where the reference's top-2 logit gap at that token is
@@ -27,7 +35,7 @@ The same single-engine flags with the same defaults as the reference:
   bfloat16): the engine's and ``generate()``'s products differ in shape,
   so a near-tie may round either way.
 
-The fleet, deploy, tensor-parallel and monitor flags raise
+The fleet controller, deploy, tensor-parallel and monitor flags raise
 ``SystemExit`` naming the ROADMAP.md item they wait for.
 
 Run on the card (the model computes in bfloat16 there, float32 on the
@@ -36,6 +44,10 @@ CPU)::
     python -m chainermn_torch.examples.lm.serve_lm --requests 16 --slots 4
     python -m chainermn_torch.examples.lm.serve_lm --paged-kv \\
         --temperature 0 --speculate ngram --spec-k 4 --verify-parity
+    python -m chainermn_torch.examples.lm.serve_lm --paged-kv \\
+        --prefill-replicas 1 --decode-replicas 1 --verify-parity
+    python -m chainermn_torch.examples.lm.serve_lm --replicas 2 --paged-kv \\
+        --kv-block-size 2 --shared-prefix 12 --share-prefixes --rebalance
 
 ``main(argv)`` returns a summary dict.
 """
@@ -49,7 +61,9 @@ import numpy as np
 import torch
 
 from chainermn_torch._device import resolve_device
+from chainermn_torch.fleet import FleetRouter
 from chainermn_torch.models import TransformerLM, generate
+from chainermn_torch.monitor import get_registry
 from chainermn_torch.serving import (
     QueueFullError,
     ServingClient,
@@ -60,13 +74,6 @@ _TIE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 # flag -> the ROADMAP.md item it waits for
 _UNPORTED = {
-    "replicas": "the fleet router (Queue A item 12)",
-    "prefill_replicas": "KV migration between tiers (Queue A item 11.5)",
-    "decode_replicas": "KV migration between tiers (Queue A item 11.5)",
-    "share_prefixes": "prefix KV export/import (Queue A item 11.5)",
-    "rebalance": "KV migration (Queue A item 11.5)",
-    "affinity": "the fleet router (Queue A item 12)",
-    "no_affinity": "the fleet router (Queue A item 12)",
     "autoscale": "the fleet controller (Queue A item 12)",
     "min_replicas": "the fleet controller (Queue A item 12)",
     "max_replicas": "the fleet controller (Queue A item 12)",
@@ -144,8 +151,31 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="default: the current CUDA card; 'cpu' to ask for "
                          "the CPU")
-    for flag in ("replicas", "prefill_replicas", "decode_replicas",
-                 "min_replicas", "max_replicas", "http_port", "trace"):
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="engine replicas behind the fleet router (1: the "
+                         "single-engine client)")
+    ap.add_argument("--prefill-replicas", type=int, default=0,
+                    help="disaggregated tiers (with --paged-kv and "
+                         "--decode-replicas): the first P replicas prefill "
+                         "every new request, whose KV then migrates to a "
+                         "decode-tier replica (0: a symmetric fleet)")
+    ap.add_argument("--decode-replicas", type=int, default=0,
+                    help="disaggregated tiers: replicas that only decode "
+                         "migrated requests (the fleet is P + D)")
+    ap.add_argument("--share-prefixes", action="store_true",
+                    help="cross-replica prefix sharing (a --paged-kv fleet "
+                         "with affinity): an affinity miss on a prefix "
+                         "another replica holds imports its blocks before "
+                         "the admission")
+    ap.add_argument("--rebalance", action="store_true",
+                    help="move one live decode from the busiest replica "
+                         "to a peer while the burst is in flight (a "
+                         "--paged-kv fleet)")
+    ap.add_argument("--affinity", dest="affinity", action="store_true",
+                    default=True, help="prefix-affinity routing (default)")
+    ap.add_argument("--no-affinity", dest="affinity", action="store_false",
+                    help="pure occupancy-aware least-loaded routing")
+    for flag in ("min_replicas", "max_replicas", "http_port", "trace"):
         ap.add_argument("--" + flag.replace("_", "-"), type=int,
                         default=None, help="not ported yet")
     for flag in ("canary_bake", "slo_ttft_ms", "ts_cadence"):
@@ -154,8 +184,7 @@ def _parser() -> argparse.ArgumentParser:
     for flag in ("reshard_from", "trace_out"):
         ap.add_argument("--" + flag.replace("_", "-"), default=None,
                         help="not ported yet")
-    for flag in ("share_prefixes", "rebalance", "affinity", "no_affinity",
-                 "autoscale", "canary", "tensor_parallel", "prometheus",
+    for flag in ("autoscale", "canary", "tensor_parallel", "prometheus",
                  "health"):
         ap.add_argument("--" + flag.replace("_", "-"), action="store_true",
                         default=None, help="not ported yet")
@@ -164,8 +193,7 @@ def _parser() -> argparse.ArgumentParser:
 
 def _check_flags(args) -> None:
     for flag, what in _UNPORTED.items():
-        value = getattr(args, flag)
-        if value is None or (flag == "replicas" and value == 1):
+        if getattr(args, flag) is None:
             continue
         raise SystemExit(f"--{flag.replace('_', '-')} needs {what}, which "
                          "is not ported yet (ROADMAP.md)")
@@ -182,6 +210,24 @@ def _check_flags(args) -> None:
     if args.chunk_tokens and not args.paged_kv:
         raise SystemExit("--chunk-tokens stages chunks on the shared block "
                          "store; add --paged-kv")
+    tiered = bool(args.prefill_replicas or args.decode_replicas)
+    if tiered:
+        if not (args.prefill_replicas and args.decode_replicas):
+            raise SystemExit("disaggregated tiers need BOTH "
+                             "--prefill-replicas and --decode-replicas")
+        if not args.paged_kv:
+            raise SystemExit("KV migration moves block-store rows; the "
+                             "tiers need --paged-kv")
+    if args.share_prefixes or args.rebalance:
+        if not args.paged_kv:
+            raise SystemExit("--share-prefixes/--rebalance move "
+                             "block-store rows; add --paged-kv")
+        if not (args.replicas > 1 or tiered):
+            raise SystemExit("--share-prefixes/--rebalance need a fleet; "
+                             "add --replicas 2 (or more)")
+        if args.share_prefixes and not args.affinity:
+            raise SystemExit("--share-prefixes finds holders through the "
+                             "affinity trie; drop --no-affinity")
 
 
 def _scheduler_kw(args) -> tuple[dict, object]:
@@ -246,16 +292,20 @@ def _parity(model, jobs, args, eos) -> dict:
 def main(argv=None) -> dict:
     """Run the demo with ``argv`` (``sys.argv[1:]`` when ``None``); returns
     the served count, the metrics report, the engine's speculative,
-    prefix and paged-store statistics, the brownout episode and the
-    parity check."""
+    prefix and paged-store statistics, the brownout episode, the parity
+    check and, for a fleet, its report."""
     args = _parser().parse_args(argv)
     _check_flags(args)
     device = resolve_device(args.device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     max_len = args.prefill_len + args.max_new
-    model = TransformerLM(args.vocab, args.d_model, args.heads, args.layers,
-                          max_len=max_len, compute_dtype=dtype,
-                          device=device, seed=0)
+
+    def new_model():
+        return TransformerLM(args.vocab, args.d_model, args.heads,
+                             args.layers, max_len=max_len,
+                             compute_dtype=dtype, device=device, seed=0)
+
+    model = new_model()
     rng = np.random.RandomState(0)
     buckets = (tuple(int(b) for b in args.prefill_buckets.split(","))
                if args.prefill_buckets else None)
@@ -276,23 +326,45 @@ def main(argv=None) -> dict:
                                   device=device, seed=2)
         spec_cfg = SpeculativeConfig(k=args.spec_k, drafter=args.speculate,
                                      draft_model=draft)
-    engine = ServingEngine(
-        model, n_slots=args.slots, prefill_len=args.prefill_len,
-        prefill_buckets=buckets, prefill_batch=args.prefill_batch,
-        prefix_cache_blocks=args.prefix_blocks,
-        prefix_block_size=args.prefix_block_size, paged=args.paged_kv,
-        speculative=spec_cfg, temperature=args.temperature,
-        watchdog=args.watchdog or None, device=device, **paged_kw)
-    engine.warmup()      # first-call costs off the burst's clock
+    def new_engine(m):
+        return ServingEngine(
+            m, n_slots=args.slots, prefill_len=args.prefill_len,
+            prefill_buckets=buckets, prefill_batch=args.prefill_batch,
+            prefix_cache_blocks=args.prefix_blocks,
+            prefix_block_size=args.prefix_block_size, paged=args.paged_kv,
+            speculative=spec_cfg, temperature=args.temperature,
+            watchdog=args.watchdog or None, device=device, **paged_kw)
+
+    engine = new_engine(model)
     sched_kw, brownout = _scheduler_kw(args)
     eos = None if args.eos_id < 0 else args.eos_id
+    tiered = bool(args.prefill_replicas)
+    n_engines = (args.prefill_replicas + args.decode_replicas if tiered
+                 else args.replicas)
+    if n_engines > 1:
+        # each replica on weights of its own (the same seed): a weight
+        # swap writes an engine's parameters in place
+        engines = [engine] + [new_engine(new_model())
+                              for _ in range(n_engines - 1)]
+        tier_kw = (dict(prefill_replicas=args.prefill_replicas,
+                        decode_replicas=args.decode_replicas)
+                   if tiered else {})
+        front = FleetRouter(engines, eos_id=eos, affinity=args.affinity,
+                            share_prefixes=args.share_prefixes,
+                            **tier_kw, **sched_kw)
+        front.wait_ready(600)     # every replica warm, off the burst clock
+    else:
+        engines = [engine]
+        engine.warmup()      # first-call costs off the burst's clock
+        front = ServingClient(engine, eos_id=eos, **sched_kw)
     shared = (rng.randint(2, args.vocab, args.shared_prefix)
               .astype(np.int32) if args.shared_prefix
               else np.zeros((0,), np.int32))
     t0 = time.time()
     rejected = shed_or_failed = 0
     jobs = []
-    with ServingClient(engine, eos_id=eos, **sched_kw) as client:
+    rebalanced = None
+    with front as client:
         tail_max = max(1, args.prefill_len - len(shared))
         stream_toks: list[int] = []
         streamed = client.submit(
@@ -320,13 +392,38 @@ def main(argv=None) -> dict:
                 continue
             handles.append(h)
             jobs.append((h, prompt, n_new, 100 + i))
+        if args.rebalance:
+            # the probe: move one live decode off the busiest replica
+            # while the burst is in flight (False: nothing was mid-decode
+            # to move when the handshake ran)
+            snaps = [r.snapshot() for r in client.replicas]
+            busy = [sn for sn in snaps if sn.active_slots > 0]
+            src = max(busy or snaps, key=lambda sn: sn.active_slots)
+            ticket = client.rebalance_decode(src.replica_id)
+            rebalanced = (bool(ticket.wait(30)) if ticket is not None
+                          else False)
         for h in handles + [streamed]:
             try:
                 h.wait(timeout=600)
             except Exception as e:  # noqa: BLE001 — shed past a deadline
                 shed_or_failed += 1
                 print(f"request {h.id}: {type(e).__name__}: {e}")
-        report = client.metrics.report()
+        if n_engines > 1:
+            fleet_rep = client.fleet_report()
+            ttft = fleet_rep["pooled"]["histograms"].get(
+                "serving_ttft_seconds", {})
+            report = {
+                "fleet_requests_total": fleet_rep["requests_total"],
+                "fleet_reroutes_total": fleet_rep["reroutes_total"],
+                "fleet_shed_total": fleet_rep["shed_total"],
+                "fleet_capacity": fleet_rep["capacity"],
+                "affinity_hit_rate": fleet_rep["affinity"]["hit_rate"],
+                "ttft_p50_s": ttft.get("p50_s"),
+                "ttft_p99_s": ttft.get("p99_s"),
+                "tokens_generated": fleet_rep["pooled"]["counters"].get(
+                    "serving_tokens_total", 0)}
+        else:
+            report = client.metrics.report()
     wall = time.time() - t0
     print(f"streamed request: {len(stream_toks)} tokens "
           f"(first few: {stream_toks[:8]})")
@@ -363,7 +460,45 @@ def main(argv=None) -> dict:
     summary["recompiles"] = engine.recompiles
     print(f"engine executables: {summary['executables']} "
           f"(captured={engine.capture}, recompiles={summary['recompiles']})")
+    if n_engines > 1:
+        summary["fleet"] = _fleet_summary(client, fleet_rep, rebalanced)
     return summary
+
+
+def _fleet_summary(router, rep: dict, rebalanced) -> dict:
+    """The fleet's per-replica states, programs and recompiles, affinity,
+    KV reuse, tiers and migrations, printed as the reference prints
+    them."""
+    out = {"replicas": {}, "affinity": rep["affinity"],
+           "kv_reuse": rep["kv_reuse"], "tiers": rep["tiers"],
+           "rebalanced": rebalanced,
+           "kv_migrations_total": sum(
+               v for k, v in get_registry().snapshot()["counters"].items()
+               if k.startswith("kv_migrations_total"))}
+    for r in router.replicas:
+        out["replicas"][r.replica_id] = {
+            "state": r.state.value,
+            "served": r.metrics.requests_completed,
+            "executables": r.engine.compile_counts_detailed(),
+            "recompiles": r.engine.recompiles}
+        print(f"replica {r.replica_id}: state={r.state.value} "
+              f"served={r.metrics.requests_completed} "
+              f"recompiles={r.engine.recompiles}")
+    print("fleet: " + ", ".join(f"{k}={v}"
+                                for k, v in rep["affinity"].items()))
+    kr = rep["kv_reuse"]
+    pc = kr.get("payload_cache") or {}
+    print(f"kv reuse: share_enabled={kr['share_enabled']} "
+          f"shares={kr['shares']} rebalances={kr['rebalances']} "
+          f"payload_cache_hits={pc.get('hits', 0)} "
+          f"payload_cache_imports={pc.get('imports', 0)}")
+    if rebalanced is not None:
+        print(f"rebalance probe: moved={rebalanced}")
+    if rep["tiers"]:
+        print(f"tiers: prefill={rep['tiers']['prefill']} "
+              f"decode={rep['tiers']['decode']} "
+              f"kv_migrations_total={out['kv_migrations_total']}")
+    return out
 
 
 if __name__ == "__main__":

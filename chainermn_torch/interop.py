@@ -31,6 +31,10 @@ stage of the pipelined LM's stacked blocks.
 
 :func:`load_chain_from_flax` loads a ``MultiNodeChainList`` component by
 component from the JAX chain's ``init``.
+
+:func:`kv_payload_from_jax` takes a KV migration or prefix-share payload
+the JAX engine exported (numpy rows) as the port engine's payload, so a
+request prefilled there continues here.
 """
 
 from __future__ import annotations
@@ -289,6 +293,38 @@ def load_chain_from_flax(chain, variables, converters) -> None:
             link.load_state_dict(convert(v))
 
 
+def _rows(x) -> torch.Tensor:
+    """A numpy array of store rows as a tensor of the same type; bfloat16
+    (numpy has none, so it arrives as its ``ml_dtypes`` extension type)
+    crosses bit for bit through its 16-bit pattern."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def kv_payload_from_jax(payload: dict) -> dict:
+    """A reference engine's ``export_slot_kv`` / ``export_prefix_kv``
+    payload as the port's: the same keys, each layer's rows (int8 rows
+    and their scales as stored) as CPU tensors viewing one ``packed``
+    ``[n_blocks, n_layers, ...]`` buffer a store tensor. The reference's
+    sampler ``key`` is a JAX PRNG key, which no torch generator can
+    continue: it becomes ``None``, so a greedy request continues token
+    for token and a sampled one draws a fresh stream."""
+    layers = payload["layers"]
+    packed = {kk: torch.stack([_rows(layer[kk]) for layer in layers], 1)
+              for kk in layers[0]}
+    out = {k: v for k, v in payload.items() if k not in ("layers", "key")}
+    out["layers"] = [{kk: rows[:, li] for kk, rows in packed.items()}
+                     for li in range(len(layers))]
+    out["packed"] = packed
+    if "pos" in payload:
+        out["key"] = None
+    if "tokens" in payload:
+        out["tokens"] = np.asarray(payload["tokens"], np.int32).copy()
+    return out
+
+
 def images_from_nhwc(images, device=None) -> torch.Tensor:
     """NHWC images (numpy or torch, the reference's layout) as the port's
     NCHW tensor in ``channels_last`` memory: a view, not a copy, of a
@@ -304,5 +340,5 @@ __all__ = ["params_from_flax", "resnet_params_from_flax",
            "mlp_params_from_flax", "alexnet_params_from_flax",
            "googlenet_params_from_flax", "vgg16_params_from_flax",
            "gru_params_from_flax", "load_chain_from_flax",
-           "images_from_nhwc", "megatron_params_from_flax",
-           "pipeline_params_from_flax"]
+           "images_from_nhwc", "kv_payload_from_jax",
+           "megatron_params_from_flax", "pipeline_params_from_flax"]

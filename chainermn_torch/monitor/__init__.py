@@ -12,6 +12,7 @@ from chainermn_torch.monitor.registry import (
     Histogram,
     MetricsRegistry,
     latency_report,
+    merge_rank_payloads,
 )
 
 _REGISTRY = MetricsRegistry()
@@ -30,4 +31,4 @@ def get_event_log() -> EventLog:
 
 __all__ = ["Counter", "EventLog", "Gauge", "Histogram", "MetricsRegistry",
            "RecompileGuard", "get_event_log", "get_registry",
-           "latency_report"]
+           "latency_report", "merge_rank_payloads"]

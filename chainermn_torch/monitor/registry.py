@@ -1,10 +1,14 @@
 """Process-wide metrics registry: counters, gauges and histograms with
 labels (the port's copy of ``chainermn_tpu/monitor/registry.py``, limited
-to what the serving engine and its metrics write).
+to what the serving engine, its metrics and the fleet write).
 
 Instruments are get-or-create, keyed by ``name`` + sorted labels.
 Histograms keep a bounded reservoir of raw samples; reports turn them
-into ``mean/p50/p99`` through :func:`latency_report`'s convention.
+into ``mean/p50/p99`` through :func:`latency_report`'s convention
+(``_s``-suffixed for a ``unit='s'`` series). :meth:`MetricsRegistry.
+snapshot` renders every instrument under its ``name{label="v"}`` key,
+and :func:`merge_rank_payloads` pools per-replica payloads (counters
+sum, gauges mean, reservoirs concatenate) as the fleet report does.
 """
 
 from __future__ import annotations
@@ -40,6 +44,25 @@ def _labels_key(labels: Optional[Mapping[str, str]]) -> tuple:
     return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
 
 
+def _render_labels(lk: tuple) -> str:
+    if not lk:
+        return ""
+    return "{" + ",".join(f'{k}="{v}"' for k, v in lk) + "}"
+
+
+def _sample_stats(samples, unit: str) -> dict:
+    """``mean/p50/p99`` of a reservoir (``mean_s/p50_s/p99_s`` for a
+    seconds-valued one); ``{}`` when it is empty."""
+    if not len(samples):
+        return {}
+    if unit == "s":
+        rep = latency_report(samples, "h")
+        return {k[len("h_"):]: v for k, v in rep.items()}
+    t = np.asarray(samples, np.float64)
+    return {"mean": float(t.mean()), "p50": float(np.percentile(t, 50)),
+            "p99": float(np.percentile(t, 99))}
+
+
 class _Instrument:
     kind = "untyped"
 
@@ -47,6 +70,10 @@ class _Instrument:
         self.name = name
         self.labels_key = labels_key
         self._lock = threading.Lock()
+
+    @property
+    def key(self) -> str:
+        return self.name + _render_labels(self.labels_key)
 
 
 class Counter(_Instrument):
@@ -93,19 +120,36 @@ class Histogram(_Instrument):
 
     kind = "histogram"
 
-    def __init__(self, name: str, labels_key: tuple) -> None:
+    def __init__(self, name: str, labels_key: tuple, unit: str = "") -> None:
         super().__init__(name, labels_key)
+        self.unit = unit
         self._samples: deque = deque(maxlen=_MAX_SAMPLES)
+        self._count = 0
+        self._sum = 0.0
 
     def observe(self, v: float) -> None:
         v = float(v)
         with self._lock:
             self._samples.append(v)
+            self._count += 1
+            self._sum += v
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+    @property
+    def sum(self) -> float:
+        return self._sum
 
     @property
     def samples(self) -> list:
         with self._lock:
             return list(self._samples)
+
+    def stats(self) -> dict:
+        return dict({"count": self._count, "sum": self._sum},
+                    **_sample_stats(self.samples, self.unit))
 
 
 class MetricsRegistry:
@@ -117,14 +161,14 @@ class MetricsRegistry:
         self._lock = threading.Lock()
         self._instruments: dict[tuple, _Instrument] = {}
 
-    def _get(self, cls, name: str, labels):
+    def _get(self, cls, name: str, labels, **kwargs):
         if not _NAME_RE.match(name):
             raise ValueError(f"invalid metric name {name!r}")
         key = (name, _labels_key(labels))
         with self._lock:
             inst = self._instruments.get(key)
             if inst is None:
-                inst = cls(name, key[1])
+                inst = cls(name, key[1], **kwargs)
                 self._instruments[key] = inst
             elif not isinstance(inst, cls):
                 raise TypeError(
@@ -138,10 +182,55 @@ class MetricsRegistry:
     def gauge(self, name: str, labels: Optional[Mapping] = None) -> Gauge:
         return self._get(Gauge, name, labels)
 
-    def histogram(self, name: str,
-                  labels: Optional[Mapping] = None) -> Histogram:
-        return self._get(Histogram, name, labels)
+    def histogram(self, name: str, labels: Optional[Mapping] = None, *,
+                  unit: str = "") -> Histogram:
+        return self._get(Histogram, name, labels, unit=unit)
+
+    def snapshot(self) -> dict:
+        """Every instrument's state: ``{"counters": {key: int}, "gauges":
+        {key: float}, "histograms": {key: {count, sum, mean, p50, p99}}}``
+        with ``key`` the ``name{label="v",...}`` rendering."""
+        with self._lock:
+            insts = list(self._instruments.values())
+        return {
+            "counters": {i.key: int(i.value) for i in insts
+                         if isinstance(i, Counter)},
+            "gauges": {i.key: float(i.value) for i in insts
+                       if isinstance(i, Gauge)},
+            "histograms": {i.key: i.stats() for i in insts
+                           if isinstance(i, Histogram)},
+        }
+
+
+def merge_rank_payloads(payloads: list) -> dict:
+    """Pool per-rank (or per-replica) payloads ``{"counters", "gauges",
+    "hist": {key: {unit, count, sum, samples}}}`` into one snapshot:
+    counters sum, gauges mean, histogram reservoirs concatenate, so the
+    pooled p50/p99 are over every payload's samples."""
+    counters: dict[str, int] = {}
+    gauge_vals: dict[str, list] = {}
+    hist: dict[str, dict] = {}
+    for p in payloads:
+        for k, v in p.get("counters", {}).items():
+            counters[k] = counters.get(k, 0) + int(v)
+        for k, v in p.get("gauges", {}).items():
+            gauge_vals.setdefault(k, []).append(float(v))
+        for k, h in p.get("hist", {}).items():
+            ent = hist.setdefault(k, {"unit": h.get("unit", ""), "count": 0,
+                                      "sum": 0.0, "samples": []})
+            ent["count"] += int(h.get("count", 0))
+            ent["sum"] += float(h.get("sum", 0.0))
+            ent["samples"].extend(h.get("samples", ()))
+    return {
+        "ranks": len(payloads),
+        "counters": counters,
+        "gauges": {k: float(np.mean(v)) for k, v in gauge_vals.items()},
+        "histograms": {
+            k: dict({"count": e["count"], "sum": e["sum"]},
+                    **_sample_stats(e["samples"], e["unit"]))
+            for k, e in hist.items()},
+    }
 
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
-           "latency_report"]
+           "latency_report", "merge_rank_payloads"]

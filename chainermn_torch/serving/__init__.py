@@ -30,6 +30,7 @@ from chainermn_torch.serving.scheduler import (
     DeadlineExceededError,
     EngineFailed,
     FCFSScheduler,
+    KvReuseTicket,
     QueueFullError,
     Request,
     RequestState,
@@ -45,7 +46,7 @@ from chainermn_torch.serving.speculative import (
 __all__ = ["AdmitPlan", "BROWNOUT_LEVELS", "BlockPool", "BrownoutPolicy",
            "ChunkedPrefill", "DeadlineExceededError", "DraftModelDrafter",
            "EngineFailed", "EngineStateError", "FCFSScheduler",
-           "FairAdmission", "InsertPlan", "NgramDrafter",
+           "FairAdmission", "InsertPlan", "KvReuseTicket", "NgramDrafter",
            "PRIORITY_CLASSES", "PrefixCacheIndex", "PrefixMatch",
            "QueueFullError", "Request", "RequestState", "ServingClient",
            "ServingEngine", "ServingMetrics", "SpeculativeConfig",

@@ -26,11 +26,29 @@ A graph launches its kernels without calling their Python wrappers, so
 a wrapper's launch counter (``paged_attend.launches``) would stop at the
 capture. Each program records how many launches its capture made, takes
 them back (a capture launches nothing), and adds them on every replay.
+
+Engines of a fleet run on threads of one process. One capture runs at a
+time in the process (``_CAPTURE_LOCK``, held across a program's warm
+runs and its capture), in ``thread_local`` capture mode, so another
+thread's replays, copies and syncs on its own stream go on meanwhile.
+Each :class:`ProgramSet` owns a CUDA stream no other set holds
+(:attr:`ProgramSet.stream`): its programs are warmed and captured on it,
+and a fleet replica drives its engine on it. A captured matrix product
+keeps the cuBLAS workspace of the (thread, stream) it was captured on,
+so two engines captured on one stream would replay side by side over one
+workspace (split-K products there spin on its semaphores: the card
+hangs); on streams of their own they cannot.
+The replay's launch count is added under the same lock, so a capture
+counts its own thread's launches only; each :class:`ProgramSet` also
+tallies its own replays' launches (``kernel_launches``), which splits
+the process-wide count by engine.
 """
 
 from __future__ import annotations
 
+import threading
 import time
+import weakref
 from typing import Callable, Optional
 
 import torch
@@ -38,6 +56,28 @@ import torch
 from chainermn_torch.parallel import paged_kernel
 
 _WARM_RUNS = 2          # eager runs on a side stream before a capture
+# process-wide: stream capture is a device-wide state, whichever engine
+# (thread) starts it
+_CAPTURE_LOCK = threading.RLock()
+# (device, stream) pairs some live ProgramSet holds as its own
+_OWNED_STREAMS: set = set()
+
+
+def _own_stream(device: torch.device):
+    """A stream of the device's pool that no live set holds (the pool has
+    a fixed number a priority; both priorities are searched)."""
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    with _CAPTURE_LOCK:
+        for _ in range(64):
+            for prio in (0, -1):
+                stream = torch.cuda.Stream(dev, priority=prio)
+                key = (index, stream.cuda_stream)
+                if key not in _OWNED_STREAMS:
+                    _OWNED_STREAMS.add(key)
+                    return stream, key
+    raise RuntimeError("every pooled CUDA stream is held by a live engine")
 
 
 class ProgramSet:
@@ -50,7 +90,18 @@ class ProgramSet:
         self.device = device
         self.capture = bool(capture)
         self.capture_s = 0.0        # wall seconds spent warming + capturing
+        self.kernel_launches = 0    # paged_attend launches of its replays
         self._pool = None
+        self._stream = None
+
+    @property
+    def stream(self):
+        """This set's own CUDA stream (taken at the first use, given back
+        when the set is collected)."""
+        if self._stream is None:
+            self._stream, key = _own_stream(self.device)
+            weakref.finalize(self, _OWNED_STREAMS.discard, key)
+        return self._stream
 
     @property
     def pool(self):
@@ -114,29 +165,37 @@ class StepProgram:
             except Exception as e:
                 raise RuntimeError(f"step program {self.name!r}: CUDA graph "
                                    f"replay failed: {e}") from e
-            self._counter.launches += self._launches
+            if self._launches:
+                with _CAPTURE_LOCK:
+                    self._counter.launches += self._launches
+                    self._owner.kernel_launches += self._launches
             return self._outputs
 
     def _capture(self) -> None:
-        """Warm the body on a side stream, then capture it. The static
-        inputs hold the first call's operands: every body is idempotent on
-        the same inputs (its writes land where its reads look, with the
-        values it would write anyway), so the warm runs change nothing
-        the replay does not."""
+        with _CAPTURE_LOCK:
+            self._capture_locked()
+
+    def _capture_locked(self) -> None:
+        """Warm the body on the set's own stream, then capture it there.
+        The static inputs hold the first call's operands: every body is
+        idempotent on the same inputs (its writes land where its reads
+        look, with the values it would write anyway), so the warm runs
+        change nothing the replay does not."""
         t0 = time.perf_counter()
         dev = self._owner.device
         main = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
+        own = self._owner.stream
+        own.wait_stream(main)
+        with torch.cuda.stream(own):
             for _ in range(_WARM_RUNS):
                 self._body(self._inputs)
-        main.wait_stream(side)
+        main.wait_stream(own)
         counter = paged_kernel.paged_attend
         n0 = counter.launches
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, pool=self._owner.pool):
+            with torch.cuda.graph(graph, pool=self._owner.pool, stream=own,
+                                  capture_error_mode="thread_local"):
                 outputs = self._body(self._inputs)
         except Exception as e:
             counter.launches = n0

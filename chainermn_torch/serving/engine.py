@@ -39,7 +39,14 @@ device one captured CUDA graph, replayed every call):
   a scheduler step through the same bucket programs
   (:meth:`ServingEngine.prefill_chunk`);
 - **prefix insert** (dense with a prefix store), and the draft model's
-  prefill and decode (``drafter='draft'``).
+  prefill and decode (``drafter='draft'``);
+- **KV migration** (paged): ``kv_gather_{w}`` reads ``w`` blocks' rows
+  out of the store and ``kv_scatter_{w}`` writes ``w`` rows into it in
+  place, one pair per migration width (powers of two up to the table
+  width, plus 1 and the table width). :meth:`ServingEngine.export_slot_kv`
+  / :meth:`ServingEngine.import_slot_kv` move a decoding request between
+  engines through them, :meth:`ServingEngine.export_prefix_kv` /
+  :meth:`ServingEngine.import_prefix_kv` a cached prompt prefix.
 
 Every program reads the full width its shape allows (the whole block
 table, the whole dense cache), as the reference's single compiled decode
@@ -64,15 +71,26 @@ one-step program ``n`` times, sampling between replays.
 The stores are written in place, so a failed call leaves them usable;
 there is no donated buffer to lose. :meth:`ServingEngine.restart` and
 :meth:`ServingEngine.swap_params` work in place too (the graphs hold the
-buffers' addresses): nothing a program reads is ever reallocated.
-Tensor-parallel serving and KV migration are not part of this port yet
+buffers' addresses): nothing a program reads is ever reallocated, an
+import included. Tensor-parallel serving is not part of this port yet
 (ROADMAP.md).
+
+A migration payload is a dict with the reference's keys (``n_blocks``,
+``block_size``, ``kv_quant``, ``n_layers``, ``layers``, ``t_start``, and
+``pos``/``token``/``key`` for a slot or ``tokens`` for a prefix).
+``layers[l][name]`` is a CPU tensor of ``n_blocks`` store rows as stored
+(int8 rows and their scales are not dequantised), a view into
+``packed[name]``, one ``[n_blocks, n_layers, ...]`` host buffer a store
+tensor (pinned when the engine is on a card), which a transfer moves in
+one copy. ``key`` is the slot's sampler generator state (``None`` when
+greedy).
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import time
 from collections.abc import Mapping
 from dataclasses import dataclass, field
 from typing import Optional, Sequence, Union
@@ -351,6 +369,14 @@ class ServingEngine:
                                            decode_labels)
         self._c_restarts = reg.counter("serving_engine_restarts_total",
                                        labels)
+        self._c_migrations = reg.counter("kv_migrations_total", labels)
+        self._c_migrated_blocks = reg.counter("kv_migrated_blocks_total",
+                                              labels)
+        self._h_migration = reg.histogram("migration_seconds", labels,
+                                          unit="s")
+        # the two halves of a transfer, each closed by its device sync
+        self._h_export = reg.histogram("kv_export_seconds", labels, unit="s")
+        self._h_import = reg.histogram("kv_import_seconds", labels, unit="s")
         # versioned weights: 0 is the constructor's; every successful
         # swap_params bumps it and moves the gauge
         self.weight_version = 0
@@ -427,12 +453,23 @@ class ServingEngine:
             self._drafter = build_drafter(speculative, self)
         self._build_programs()
 
-    migration_supported = False     # KV migration: ROADMAP.md item 11.5
+    @property
+    def migration_supported(self) -> bool:
+        """KV migration needs the paged store (the reference also needs a
+        single-device layout; the port has no tensor-parallel engine)."""
+        return self.paged
 
     @property
     def capture(self) -> bool:
         """Whether the step programs run as captured CUDA graphs."""
         return self._programs.capture
+
+    @property
+    def stream(self):
+        """The engine's own CUDA stream (``None`` on the CPU): its programs
+        are captured on it, and a fleet replica drives the engine on it,
+        so no two engines share one."""
+        return self._programs.stream if self.device.type == "cuda" else None
 
     def _init_store(self) -> list[dict]:
         """The dense engine's prefix store: ``[n_blocks, block_size, H,
@@ -509,6 +546,20 @@ class ServingEngine:
                 "prefix_insert", self._insert_body,
                 {"slot": ((1,), i64), "ids": ((nb,), i64),
                  "row_starts": ((nb,), i64)})
+        self._gather_progs: dict = {}
+        self._scatter_progs: dict = {}
+        if self.migration_supported:
+            self._mig_buckets = self._migration_bucket_widths()
+            for w in self._mig_buckets:
+                self._gather_progs[w] = ps.program(
+                    f"kv_gather_{w}", self._kv_gather_body,
+                    {"ids": ((w,), i64)})
+                ins = {"ids": ((w,), i64), "n_used": ((1,), i64)}
+                ins.update({f"rows_{kk}": self._packed_spec(kk, w)
+                            for kk in self._store[0]})
+                self._scatter_progs[w] = ps.program(
+                    f"kv_scatter_{w}",
+                    functools.partial(self._kv_scatter_body, w), ins)
         self._guard = RecompileGuard()
         for b, prog in self._prefill_progs.items():
             self._guard.watch(f"serving_prefill_{b}", prog)
@@ -521,6 +572,10 @@ class ServingEngine:
             self._guard.watch("serving_spec_verify", self._spec_prog)
             for name, prog in self._drafter.watched_fns().items():
                 self._guard.watch(name, prog)
+        for w in self._gather_progs:
+            self._guard.watch(f"serving_kv_gather_{w}", self._gather_progs[w])
+            self._guard.watch(f"serving_kv_scatter_{w}",
+                              self._scatter_progs[w])
 
     def _decode_inputs(self, n: int) -> dict:
         ins = {"tok": ((self.n_slots,), torch.int64),
@@ -621,6 +676,58 @@ class ServingEngine:
             for kk in ("k", "v"):
                 src = c[kk].index_select(0, ins["slot"])[0]
                 st[kk].index_copy_(0, ins["ids"], src[rows])
+
+    def _packed_spec(self, kk: str, w: int) -> tuple:
+        """(shape, dtype) of ``w`` blocks' rows of store tensor ``kk`` over
+        every layer: ``[w, n_layers, ...]``."""
+        t = self._store[0][kk]
+        return (w, len(self._store)) + tuple(t.shape[1:]), t.dtype
+
+    def _kv_gather_body(self, ins):
+        """Migration read side: every store tensor's rows at ``ids``
+        (int8 rows and their scales as stored), packed ``[w, n_layers,
+        ...]`` a tensor. Pad ids read the scratch block; the exporter
+        keeps the first ``n`` rows. Reads only: the source keeps decoding
+        if the handover fails."""
+        ids = ins["ids"]
+        return {kk: torch.stack([layer[kk].index_select(0, ids)
+                                 for layer in self._store], 1)
+                for kk in self._store[0]}
+
+    def _kv_scatter_body(self, width: int, ins):
+        """Migration write side: rows ``[0, n_used)`` of the packed input
+        land in blocks ``ids`` of the store, in place (the captured graphs
+        hold the store's addresses). Rows past ``n_used`` carry the
+        scratch id 0 and rewrite what scratch already holds, so duplicate
+        pad indices write equal values."""
+        ids = ins["ids"]
+        keep = torch.arange(width, device=self.device) < ins["n_used"]
+        for li, layer in enumerate(self._store):
+            for kk, t in layer.items():
+                cur = t.index_select(0, ids)
+                mask = keep.reshape((-1,) + (1,) * (cur.dim() - 1))
+                t.index_copy_(0, ids, torch.where(
+                    mask, ins[f"rows_{kk}"][:, li], cur))
+
+    def _migration_bucket_widths(self) -> tuple:
+        """Migration widths: powers of two below the table width, plus 1
+        and the table width. A transfer pads its block list to the least
+        width that covers it, so at most twice the live blocks move and no
+        block count builds a new program."""
+        widths = {1, self._n_max}
+        w = 2
+        while w < self._n_max:
+            widths.add(w)
+            w *= 2
+        return tuple(sorted(widths))
+
+    def _mig_bucket(self, n: int) -> int:
+        """The least migration width covering ``n`` blocks."""
+        for w in self._mig_buckets:
+            if w >= n:
+                return w
+        raise RuntimeError(f"{n} blocks exceed the largest migration width "
+                           f"{self._mig_buckets[-1]}")
 
     # ------------------------------------------------------------------ #
     # device paths                                                         #
@@ -759,6 +866,15 @@ class ServingEngine:
                 self._insert_prog.run(slot=np.zeros((1,), np.int64),
                                       ids=np.zeros((nb,), np.int64),
                                       row_starts=np.zeros((nb,), np.int64))
+        # all-scratch ids with n_used = 0 at every width: the gather reads
+        # scratch, the scatter rewrites scratch's own rows
+        for w in self._gather_progs:
+            zeros_w = np.zeros((w,), np.int64)
+            with self._watched(f"serving warmup kv_gather[{w}]"):
+                self._gather_progs[w].run(ids=zeros_w)
+            with self._watched(f"serving warmup kv_scatter[{w}]"):
+                self._scatter_progs[w].run(ids=zeros_w,
+                                           n_used=np.zeros((1,), np.int64))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._guard.check()
@@ -1129,6 +1245,329 @@ class ServingEngine:
             self.prefix_cache.insert_shared(st.prompt, st.ids)
         self.peak_active = max(self.peak_active, self.active_slots)
         return first
+
+    # ------------------------------------------------------------------ #
+    # KV migration (paged)                                                 #
+    # ------------------------------------------------------------------ #
+
+    def _host_rows(self, shape, dtype) -> torch.Tensor:
+        """A host buffer for store rows, pinned when the engine is on a
+        card (one DMA each way, no pageable bounce)."""
+        return torch.empty(shape, dtype=dtype,
+                           pin_memory=self.device.type == "cuda")
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _gather_block_rows(self, ids: list, ctx: Optional[dict],
+                           fused: bool) -> dict:
+        """``ids``' rows on the host, ``{name: [n, n_layers, ...]}``.
+        Fused: one gather at the least covering width. Per-block: one
+        width-1 gather a block (the reference path the fused one is held
+        to). Both copy out of the program's static outputs before any
+        other program runs, and return after the copies landed."""
+        n = len(ids)
+        packed = {kk: self._host_rows(self._packed_spec(kk, n)[0],
+                                      t.dtype)
+                  for kk, t in self._store[0].items()}
+        plan = ([(self._mig_bucket(n), list(ids), 0)] if fused
+                else [(1, [b], j) for j, b in enumerate(ids)])
+        for w, chunk, at in plan:
+            ids_op = np.zeros((w,), np.int64)
+            ids_op[:len(chunk)] = chunk
+            with self._watched(f"serving kv_gather[{w}]", **(ctx or {})):
+                out = self._gather_progs[w].run(ids=ids_op)
+                with torch.no_grad():
+                    for kk, t in out.items():
+                        packed[kk][at:at + len(chunk)].copy_(
+                            t[:len(chunk)], non_blocking=True)
+                self._sync()
+            self._guard.check()
+        return packed
+
+    def _scatter_block_rows(self, new: list, packed: dict,
+                            ctx: Optional[dict], fused: bool) -> None:
+        """Land ``packed``'s rows in blocks ``new`` of this store: one
+        scatter at the least covering width (fused) or one width-1
+        scatter a block. Returns after the writes landed; a raise leaves
+        the rollback to the caller."""
+        n = len(new)
+        plan = ([(self._mig_bucket(n), list(new), 0)] if fused
+                else [(1, [b], j) for j, b in enumerate(new)])
+        for w, chunk, at in plan:
+            prog = self._scatter_progs[w]
+            ids_op = np.zeros((w,), np.int64)
+            ids_op[:len(chunk)] = chunk
+            with self._watched(f"serving kv_scatter[{w}]", **(ctx or {})):
+                with torch.inference_mode():
+                    for kk, rows in packed.items():
+                        prog.inputs[f"rows_{kk}"][:len(chunk)].copy_(
+                            rows[at:at + len(chunk)], non_blocking=True)
+                prog.run(ids=ids_op, n_used=np.asarray([len(chunk)]))
+                self._sync()
+            self._guard.check()
+
+    def _payload(self, packed: dict, n: int, t0: float, **fields) -> dict:
+        layers = [{kk: rows[:, li] for kk, rows in packed.items()}
+                  for li in range(self.model.n_layers)]
+        return dict({"n_blocks": n, "block_size": self.kv_block_size,
+                     "kv_quant": self.kv_quant,
+                     "n_layers": self.model.n_layers, "layers": layers,
+                     "packed": packed, "t_start": t0}, **fields)
+
+    @staticmethod
+    def _payload_rows(payload: dict) -> dict:
+        """``{name: [n, n_layers, ...]}`` host rows of a payload: its
+        ``packed`` buffers, or its per-layer tensors stacked."""
+        if "packed" in payload:
+            return payload["packed"]
+        layers = payload["layers"]
+        return {kk: torch.stack([torch.as_tensor(layer[kk])
+                                 for layer in layers], 1)
+                for kk in layers[0]}
+
+    def _layout_ok(self, payload: dict) -> bool:
+        """Block size, quantisation, depth, block count and row shapes
+        agree with this engine: a False here never clears."""
+        if (int(payload["block_size"]) != self.kv_block_size
+                or str(payload["kv_quant"]) != self.kv_quant
+                or int(payload["n_layers"]) != self.model.n_layers):
+            return False
+        if not 0 < int(payload["n_blocks"]) <= self._n_max:
+            return False
+        layer = payload["layers"][0]
+        if set(layer) != set(self._store[0]):
+            return False
+        for kk, arr in layer.items():
+            st = self._store[0][kk]
+            if (tuple(arr.shape[1:]) != tuple(st.shape[1:])
+                    or torch.as_tensor(arr[:0]).dtype != st.dtype):
+                return False
+        return True
+
+    def _state_ok(self) -> bool:
+        """Whether the store still answers after a failed transfer (the
+        port donates nothing, so only a device fault breaks it)."""
+        try:
+            self._store[0]["k"][:1].sum().item()    # a device fault raises
+            return True
+        except Exception:  # noqa: BLE001 — cannot tell: assume the worst
+            return False
+
+    def export_slot_kv(self, slot: int, ctx: Optional[dict] = None, *,
+                       fused: bool = True) -> dict:
+        """An active slot's whole KV state on the host (module docstring:
+        the payload), read through one ``kv_gather`` at the least width
+        covering its blocks (``fused=False``: one width-1 gather a block).
+        With the slot's position, last token and sampler state it is all
+        a peer needs to continue the request token for token
+        (:meth:`import_slot_kv`). Read-only: the slot stays active; the
+        caller releases it after the import commits."""
+        if not self.migration_supported:
+            raise RuntimeError("KV migration needs paged=True (the dense "
+                               "engine has no block store)")
+        if not self._active[slot]:
+            raise RuntimeError(f"slot {slot} is not active")
+        t0 = time.perf_counter()
+        ids = list(self._slot_blocks[slot])
+        packed = self._gather_block_rows(ids, ctx, fused)
+        self._h_export.observe(time.perf_counter() - t0)
+        gen = self._gens[slot]
+        return self._payload(packed, len(ids), t0,
+                             pos=int(self._pos[slot]),
+                             token=int(self._token[slot]),
+                             key=None if gen is None else gen.get_state())
+
+    def can_import(self, payload: dict, max_new: int = 1, *,
+                   static_only: bool = False) -> bool:
+        """Host-side check that :meth:`import_slot_kv` would succeed: the
+        layout agrees, the position leaves room for ``max_new`` tokens,
+        and (unless ``static_only``) the engine is warm with a free slot
+        and the blocks for the rows plus the remaining growth and the
+        multi-token round's headroom. A ``static_only`` False never
+        clears; any other False is transient."""
+        if not self.migration_supported:
+            return False
+        if not static_only and not (self._warm and self.free_slots):
+            return False
+        if not self._layout_ok(payload):
+            return False
+        n, pos = int(payload["n_blocks"]), int(payload["pos"])
+        if pos + int(max_new) > self.cache_len:
+            return False
+        if static_only:
+            return True
+        bs = self.kv_block_size
+        need = (n + max(0, -(-(pos + int(max_new)) // bs) - n)
+                + self._spec_headroom)
+        return need <= self.kv_blocks_admittable()
+
+    def import_slot_kv(self, payload: dict, *,
+                       prompt: Optional[np.ndarray] = None,
+                       max_new: int = 1, ctx: Optional[dict] = None,
+                       fused: bool = True) -> int:
+        """Land a migrated request here: allocate its blocks (all or
+        none), write the rows in place through ``kv_scatter`` and commit
+        the slot's position, token and sampler state, so the next decode
+        round continues the request token for token. With ``prompt`` its
+        full blocks join this engine's prefix trie and the drafter sees
+        the prompt. Returns the slot. Raises ``RuntimeError`` with the
+        engine as it was (layout, slots, blocks); the caller's fallback
+        is decoding at the source."""
+        if not self.migration_supported:
+            raise RuntimeError("KV migration needs paged=True (the dense "
+                               "engine has no block store)")
+        if not self._layout_ok(payload):
+            raise RuntimeError(
+                "migration layout mismatch: source and destination "
+                "disagree on block_size/kv_quant/n_layers/rows, or the "
+                f"payload's {payload['n_blocks']} blocks exceed this "
+                f"engine's table width {self._n_max}")
+        if not self.free_slots:
+            raise RuntimeError("no free slot for migration import")
+        n, pos = int(payload["n_blocks"]), int(payload["pos"])
+        if pos + int(max_new) > self.cache_len:
+            raise RuntimeError(
+                f"migrated position {pos} + {max_new} new tokens exceed "
+                f"cache_len={self.cache_len}")
+        new = self.prefix_cache.alloc_blocks_atomic(n)
+        if new is None:
+            raise RuntimeError(
+                f"kv block pool exhausted: import needs {n} blocks "
+                f"(free={self._pool.free_blocks})")
+        slot = min(self.free_slots)
+        t0 = time.perf_counter()
+        try:
+            self._scatter_block_rows(new, self._payload_rows(payload), ctx,
+                                     fused)
+        except Exception as e:
+            for block in new:
+                self._pool.decref(block)
+            if not self._state_ok():
+                raise EngineStateError(
+                    f"migration import failed mid-device-call "
+                    f"({type(e).__name__}: {e}) and the store no longer "
+                    "answers: restart required") from e
+            raise
+        self._h_import.observe(time.perf_counter() - t0)
+        bs = self.kv_block_size
+        self.free_slots.discard(slot)
+        self._tables[slot, :] = 0
+        self._tables[slot, :n] = new
+        self._slot_blocks[slot] = list(new)
+        self._slot_reserved[slot] = (
+            max(0, -(-(pos + int(max_new)) // bs) - n) + self._spec_headroom)
+        self._pos[slot] = pos
+        self._token[slot] = int(payload["token"])
+        self._active[slot] = True
+        gen = self._new_gen(0)
+        if gen is not None and payload.get("key") is not None:
+            gen.set_state(payload["key"])
+        self._gens[slot] = gen
+        seconds = (time.perf_counter() - float(payload["t_start"])
+                   if payload.get("t_start") else 0.0)
+        self._c_migrations.inc()
+        self._c_migrated_blocks.inc(n)
+        if seconds > 0.0:
+            self._h_migration.observe(seconds)
+        self._events.emit("kv_migrate", slot=slot, blocks=n, pos=pos,
+                          seconds=round(seconds, 6))
+        if prompt is not None:
+            prompt = np.asarray(prompt, np.int32).reshape(-1)
+            if self._drafter is not None:
+                self._drafter.on_admit(slot, prompt, int(payload["token"]))
+            if self.prefix_cache.missing_blocks(prompt) >= self._min_insert:
+                self.prefix_cache.insert_shared(prompt, new)
+        self.peak_active = max(self.peak_active, self.active_slots)
+        return slot
+
+    def export_prefix_kv(self, tokens, ctx: Optional[dict] = None, *,
+                         min_blocks: int = 1) -> Optional[dict]:
+        """This engine's cached prefix of ``tokens`` on the host, through
+        the fused gather: the share payload a peer adopts with
+        :meth:`import_prefix_kv` instead of prefilling blocks the fleet
+        already holds. ``None`` (never a raise on a cold cache) when the
+        engine is not warm or the trie holds fewer than ``min_blocks`` of
+        the prompt. The matched blocks are pinned only for the gather."""
+        if not (self.migration_supported and self._warm):
+            return None
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        m = self.prefix_cache.match(tokens)
+        if m is None:
+            return None
+        try:
+            n = len(m.block_ids)
+            if n < max(1, int(min_blocks)):
+                return None
+            t0 = time.perf_counter()
+            packed = self._gather_block_rows(list(m.block_ids), ctx, True)
+            self._h_export.observe(time.perf_counter() - t0)
+            return self._payload(packed, n, t0,
+                                 tokens=tokens[:m.length].copy())
+        finally:
+            self.prefix_cache.release(m)
+
+    def can_import_prefix(self, payload: dict, *,
+                          static_only: bool = False) -> bool:
+        """Check that :meth:`import_prefix_kv` would succeed: the layout
+        agrees and (unless ``static_only``) the engine is warm with the
+        blocks to spare. Same static/transient split as
+        :meth:`can_import`."""
+        if not self.migration_supported or not self._layout_ok(payload):
+            return False
+        if static_only:
+            return True
+        return (self._warm
+                and int(payload["n_blocks"]) <= self.kv_blocks_admittable())
+
+    def import_prefix_kv(self, payload: dict,
+                         ctx: Optional[dict] = None) -> int:
+        """Adopt a shared prefix payload into this engine's trie: allocate
+        its blocks (all or none), write the rows in place, then hand them
+        to the trie (``insert_shared``): each adopted block settles at
+        refcount 1, held by the trie, and a block whose position was
+        cached meanwhile goes straight back to the free list. The next
+        admission matching the prefix prefills none of its blocks.
+        Returns the blocks adopted (0: already cached here); raises
+        ``RuntimeError`` with the engine as it was on a layout mismatch
+        or a dry pool (the caller's fallback is a plain prefill)."""
+        if not self.migration_supported:
+            raise RuntimeError("prefix sharing needs paged=True (the dense "
+                               "engine has no block store)")
+        if not self._layout_ok(payload):
+            raise RuntimeError(
+                "share layout mismatch: source and destination disagree "
+                "on block_size/kv_quant/n_layers/rows, or the payload's "
+                f"{payload['n_blocks']} blocks exceed this engine's table "
+                f"width {self._n_max}")
+        tokens = np.asarray(payload["tokens"], np.int32).reshape(-1)
+        if self.prefix_cache.missing_blocks(tokens) == 0:
+            return 0                       # already cached here
+        n = int(payload["n_blocks"])
+        new = self.prefix_cache.alloc_blocks_atomic(n)
+        if new is None:
+            raise RuntimeError(
+                f"kv block pool exhausted: share import needs {n} blocks "
+                f"(free={self._pool.free_blocks})")
+        t0 = time.perf_counter()
+        try:
+            self._scatter_block_rows(new, self._payload_rows(payload), ctx,
+                                     True)
+        except Exception as e:
+            for block in new:
+                self._pool.decref(block)
+            if not self._state_ok():
+                raise EngineStateError(
+                    f"share import failed mid-device-call "
+                    f"({type(e).__name__}: {e}) and the store no longer "
+                    "answers: restart required") from e
+            raise
+        self._h_import.observe(time.perf_counter() - t0)
+        adopted = self.prefix_cache.insert_shared(tokens, new)
+        for block in new:
+            self._pool.decref(block)
+        return adopted
 
     # ------------------------------------------------------------------ #
     # paged block management                                               #
@@ -1546,9 +1985,9 @@ class ServingEngine:
 
     def compile_counts_detailed(self) -> dict[str, int]:
         """Builds per program (every bucket, decode, the decode window, the
-        verify window, the prefix insert, the drafter's two): each exactly
-        1 after :meth:`warmup`. The reference's ``kv_gather_*`` and
-        ``kv_scatter_*`` come with KV migration (ROADMAP.md item 11.5)."""
+        verify window, the prefix insert, the drafter's two, and the paged
+        engine's ``kv_gather_{w}``/``kv_scatter_{w}`` at every migration
+        width): each exactly 1 after :meth:`warmup`."""
         out = {f"prefill_{b}": p._cache_size()
                for b, p in self._prefill_progs.items()}
         out["decode"] = self._decode_prog._cache_size()
@@ -1559,6 +1998,9 @@ class ServingEngine:
             out.update(self._drafter.compile_counts())
         if self._window_prog is not None:
             out["decode_window"] = self._window_prog._cache_size()
+        for w in self._gather_progs:
+            out[f"kv_gather_{w}"] = self._gather_progs[w]._cache_size()
+            out[f"kv_scatter_{w}"] = self._scatter_progs[w]._cache_size()
         return out
 
     @property

@@ -53,13 +53,17 @@ class ServingMetrics:
                                        labels)
         self._c_tokens = reg.counter("serving_tokens_total", labels)
         self._c_preempt = reg.counter("kv_preemptions_total", labels)
-        self._h_ttft = reg.histogram("serving_ttft_seconds", labels)
-        self._h_tpot = reg.histogram("serving_tpot_seconds", labels)
+        self._h_ttft = reg.histogram("serving_ttft_seconds", labels,
+                                     unit="s")
+        self._h_tpot = reg.histogram("serving_tpot_seconds", labels,
+                                     unit="s")
         self._h_queue = reg.histogram("serving_queue_depth", labels)
         self._h_occ = reg.histogram("serving_slot_occupancy", labels)
         self._h_batch = reg.histogram("prefill_batch_size", labels)
         self._h_cached = reg.histogram("cached_prefix_frac", labels)
         self._h_req_blocks = reg.histogram("kv_blocks_per_request", labels)
+        self._g_queue = reg.gauge("serving_queue_depth_now", labels)
+        self._g_active = reg.gauge("serving_active_slots", labels)
         self._g_kv_used = reg.gauge("kv_blocks_in_use", labels)
         self._g_kv_free = reg.gauge("kv_blocks_free", labels)
         # speculative decoding: the draft economy and accept lengths
@@ -78,6 +82,9 @@ class ServingMetrics:
                              dict(labels, priority=cls))
             for cls in ("interactive", "batch")}
         self._labels = labels
+        # smoothed TTFT: the fleet's routing policy reads it as a load
+        # signal (ReplicaSnapshot.ttft_ewma_s)
+        self.ttft_ewma: Optional[float] = None
         self._t_first_token: Optional[float] = None
         self._t_last_token: Optional[float] = None
 
@@ -89,6 +96,8 @@ class ServingMetrics:
                            cached_frac: Optional[float] = None) -> None:
         ttft = t_token - t_submit
         self._h_ttft.observe(ttft)
+        self.ttft_ewma = (ttft if self.ttft_ewma is None
+                          else 0.8 * self.ttft_ewma + 0.2 * ttft)
         self._record_token_time(t_token)
         self._c_tokens.inc()
         if cached_frac is not None:
@@ -161,6 +170,8 @@ class ServingMetrics:
                     batch_depth: int = 0) -> None:
         self._h_queue.observe(queue_depth)
         self._h_occ.observe(active_slots / self.n_slots)
+        self._g_queue.set(queue_depth)
+        self._g_active.set(active_slots)
         self._g_class_queue["batch"].set(batch_depth)
         self._g_class_queue["interactive"].set(queue_depth - batch_depth)
 
@@ -172,6 +183,44 @@ class ServingMetrics:
     @property
     def tokens_generated(self) -> int:
         return self._c_tokens.value
+
+    @property
+    def requests_completed(self) -> int:
+        return self._c_completed.value
+
+    @property
+    def requests_errored(self) -> int:
+        return self._c_errored.value
+
+    def payload(self) -> dict:
+        """This scheduler's series keyed by plain metric names (no
+        ``instance`` label), in the shape
+        :func:`~chainermn_torch.monitor.merge_rank_payloads` pools: the
+        fleet report merges its replicas' payloads into fleet-wide
+        counters and TTFT/TPOT percentiles."""
+        hists = {"serving_ttft_seconds": self._h_ttft,
+                 "serving_tpot_seconds": self._h_tpot,
+                 "serving_queue_depth": self._h_queue,
+                 "serving_slot_occupancy": self._h_occ}
+        return {
+            "counters": {
+                "serving_requests_submitted_total": self._c_submitted.value,
+                "serving_requests_completed_total": self._c_completed.value,
+                "serving_requests_cancelled_total": self._c_cancelled.value,
+                "serving_requests_rejected_total": self._c_rejected.value,
+                "serving_requests_shed_total": self._c_shed.value,
+                "serving_requests_errored_total": self._c_errored.value,
+                "serving_scheduler_restarts_total": self._c_restarts.value,
+                "serving_tokens_total": self.tokens_generated,
+            },
+            "gauges": {
+                "serving_queue_depth_now": float(self._g_queue.value),
+                "serving_active_slots": float(self._g_active.value),
+            },
+            "hist": {name: {"unit": h.unit, "count": h.count, "sum": h.sum,
+                            "samples": h.samples}
+                     for name, h in hists.items()},
+        }
 
     @property
     def tokens_per_sec(self) -> float:

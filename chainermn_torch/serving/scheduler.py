@@ -48,6 +48,18 @@ EOS or their budget — mid-window, dropping the window's tail.
   is pending nothing is admitted; once the slots drain, the swap runs
   between device calls, and every request records the
   ``weight_version`` it was admitted on.
+- **KV handover** (paged): with :attr:`FCFSScheduler.migrate_cb` set (the
+  fleet's prefill tier), a request whose prefill completed is exported
+  (:meth:`ServingEngine.export_slot_kv`) and offered to ``cb(req,
+  payload)``; on True the same :class:`Request` continues on the peer that
+  took it (:meth:`FCFSScheduler.enqueue_migrated`, imported at the peer's
+  next step ahead of fresh admissions), on False or a raise it keeps
+  decoding here. The fleet's prefix shares and mid-decode rebalances run
+  as :class:`KvReuseTicket` operations on the driving thread at the start
+  of a step (:meth:`FCFSScheduler.request_prefix_export`,
+  :meth:`FCFSScheduler.enqueue_prefix_import`,
+  :meth:`FCFSScheduler.request_rebalance`); each decays to doing nothing
+  when it cannot complete.
 
 ``submit``/``cancel`` are safe from any thread; ``step`` is driven from
 one thread (the engine is not concurrent).
@@ -66,6 +78,7 @@ from typing import Callable, Iterator, Optional
 
 import numpy as np
 
+from chainermn_torch.analysis import sanitizer
 from chainermn_torch.monitor import get_event_log
 from chainermn_torch.resilience.cutpoints import SERVING_ADMIT_FAIR
 from chainermn_torch.resilience.faults import inject
@@ -149,6 +162,31 @@ class SwapTicket:
         if self.t_executed is None:
             return None
         return self.t_executed - self.t_request
+
+
+class KvReuseTicket:
+    """One pending fleet KV-reuse operation (a prefix export for sharing,
+    a prefix import, or a mid-decode rebalance), served on the
+    scheduler's driving thread between steps. The requesting thread
+    ``wait()``s with its own timeout; a timeout or a ``None``/``False``
+    result means "do nothing" (prefill again, decode in place): a ticket
+    never blocks the drive loop and never fails a request."""
+
+    def __init__(self, kind: str, **kw) -> None:
+        self.kind = kind
+        self.kw = kw
+        self.result: object = None
+        self._done = threading.Event()
+
+    def resolve(self, result: object) -> None:
+        self.result = result
+        self._done.set()
+
+    def wait(self, timeout: Optional[float] = None) -> object:
+        """The result once served within ``timeout``, else ``None``."""
+        if not self._done.wait(timeout):
+            return None
+        return self.result
 
 
 @dataclass(eq=False)
@@ -279,13 +317,29 @@ class FCFSScheduler:
         self._chunk_tokens = (int(chunk_tokens_per_step)
                               if chunk_tokens_per_step is not None else None)
         self._events = get_event_log()
-        self._lock = threading.Lock()
-        self._queue: deque[Request] = deque()
-        self._by_slot: dict[int, Request] = {}
+        # the handover hook ``cb(req, payload) -> bool`` a supervising
+        # layer sets (the fleet's prefill tier); True: it took the request
+        self.migrate_cb: Optional[Callable] = None
+        self._lock = sanitizer.make_lock("FCFSScheduler._lock")
+        self._queue: deque[Request] = self._guarded(deque(), "_queue")
+        self._by_slot: dict[int, Request] = self._guarded({}, "_by_slot")
         # slot -> request mid-chunked-prefill (disjoint from _by_slot: it
         # takes no decode token and appends no block)
-        self._prefilling: dict[int, Request] = {}
+        self._prefilling: dict[int, Request] = self._guarded(
+            {}, "_prefilling")
+        # migrated-in (request, payload) pairs waiting for a slot
+        self._pending_imports: deque = self._guarded(deque(),
+                                                     "_pending_imports")
+        # KvReuseTickets waiting for the driving thread
+        self._pending_kv_reuse: deque = self._guarded(deque(),
+                                                      "_pending_kv_reuse")
         self._ids = itertools.count()
+
+    def _guarded(self, obj, name: str):
+        """``obj`` whose mutations demand ``_lock`` while the sanitizer
+        is on (as is, when it is off)."""
+        return sanitizer.guarded(obj, lock=self._lock,
+                                 name=f"FCFSScheduler.{name}")
 
     # ------------------------------------------------------------------ #
     # submission surface (any thread)                                     #
@@ -337,7 +391,15 @@ class FCFSScheduler:
                 try:
                     self._queue.remove(req)
                 except ValueError:
-                    return False
+                    # a migrated-in request waiting for its import? (one
+                    # mid-handover belongs to no scheduler: not
+                    # cancellable here)
+                    for i, (r, _) in enumerate(self._pending_imports):
+                        if r is req:
+                            del self._pending_imports[i]
+                            break
+                    else:
+                        return False
             elif req.state is RequestState.PREFILLING:
                 pass   # the driving thread owns the staged chunk state
             elif req.slot >= 0:
@@ -356,6 +418,8 @@ class FCFSScheduler:
         with self._lock:
             return (bool(self._queue) or bool(self._by_slot)
                     or bool(self._prefilling)
+                    or bool(self._pending_imports)
+                    or bool(self._pending_kv_reuse)
                     or self._pending_swap is not None)
 
     @property
@@ -375,11 +439,20 @@ class FCFSScheduler:
     def drain_queued(self) -> list:
         """Remove and return every QUEUED request (they stay QUEUED; the
         caller owns them now), for a supervisor that re-routes work away
-        from a failed engine. The reference's KV-import queue and traces
-        are not ported (ROADMAP.md items 11.5 and 13)."""
+        from a failed engine: the admission queue and the migrated-in
+        requests still waiting for their import (they never decoded here,
+        so a replay elsewhere loses nothing). Pending KV-reuse tickets
+        resolve empty-handed at once, so a share waiting on this replica
+        falls back to a prefill without sitting out its timeout."""
         with self._lock:
             drained = list(self._queue)
             self._queue.clear()
+            drained.extend(req for req, _ in self._pending_imports)
+            self._pending_imports.clear()
+            reuse = list(self._pending_kv_reuse)
+            self._pending_kv_reuse.clear()
+        for ticket in reuse:
+            ticket.resolve(None)
         return drained
 
     def fail_inflight(self, e: BaseException) -> None:
@@ -435,11 +508,18 @@ class FCFSScheduler:
         with self._lock:
             swapping = self._pending_swap is not None
             ticket = None
-            if swapping and not self._by_slot and not self._prefilling:
+            if (swapping and not self._by_slot and not self._prefilling
+                    and not self._pending_imports):
                 ticket, self._pending_swap = self._pending_swap, None
                 swapping = False
         if ticket is not None:
             self._execute_swap(ticket)
+        # fleet KV reuse first (a shared prefix must be in the trie before
+        # this step's admissions match), then migrated-in requests, which
+        # admit even through a swap fence: they started on the current
+        # weights elsewhere and must finish on them here
+        self._serve_kv_reuse()
+        self._admit_imports()
         calls = 0
         while not swapping and self.engine.free_slots and (
                 self._max_prefills is None or calls < self._max_prefills):
@@ -661,6 +741,10 @@ class FCFSScheduler:
                                             cached_frac=plan.cached_frac)
             self._deliver(req, first, now)
             emitted += 1
+            if not req.finished:
+                # prefilled in one call: a fleet's prefill tier hands the
+                # decode to its decode tier
+                self._maybe_migrate(req, slot)
         return emitted
 
     # ------------------------------------------------------------------ #
@@ -735,7 +819,228 @@ class FCFSScheduler:
             req.t_submit, now, req_id=req.id,
             cached_frac=st.start / len(st.prompt))
         self._deliver(req, first, now)
+        if not req.finished:
+            self._maybe_migrate(req, slot)
         return 1
+
+    # ------------------------------------------------------------------ #
+    # KV handover and fleet KV reuse                                      #
+    # ------------------------------------------------------------------ #
+
+    def _maybe_migrate(self, req: Request, slot: int) -> bool:
+        """Offer a request whose prefill completed to :attr:`migrate_cb`
+        (:meth:`_handover`)."""
+        cb = self.migrate_cb
+        if cb is None or not self.engine.migration_supported:
+            return False
+        return self._handover(req, slot, cb, reason="migrated")
+
+    def _handover(self, req: Request, slot: int, cb: Callable,
+                  reason: str = "migrated") -> bool:
+        """Hand a decoding request's slot to a peer through ``cb(req,
+        payload) -> bool``: the slot's rows are read out first (read-only:
+        the slot can keep decoding here), then the callback places the
+        request. On True the same :class:`Request` belongs to the peer and
+        the slot is released here; on False, or when the export or the
+        callback raises, the request is bound to its slot again unchanged.
+        Shared by the prefill tier's handover (``reason="migrated"``) and
+        the mid-decode rebalance (``"rebalanced"``)."""
+        try:
+            payload = self.engine.export_slot_kv(slot, ctx={"reqs": [req.id]})
+        except Exception:  # noqa: BLE001 — fall back to decoding in place
+            return False
+        n_tokens = len(req.tokens)
+        # the request's own state changes before the callback: on True the
+        # peer owns it at once (maybe admitting it on its own thread)
+        with self._lock:
+            self._by_slot.pop(slot, None)
+            req.state = RequestState.QUEUED
+            req.slot = -1
+        try:
+            ok = bool(cb(req, payload))
+        except Exception:  # noqa: BLE001 — a failed handshake stays local
+            ok = False
+        if not ok:
+            with self._lock:
+                req.state = RequestState.DECODE
+                req.slot = slot
+                self._by_slot[slot] = req
+            return False
+        self.engine.release(slot)
+        self._events.emit("slot_retire", req=req.id, slot=slot,
+                          reason=reason, tokens=n_tokens)
+        return True
+
+    def request_prefix_export(self, tokens, *,
+                              min_blocks: int = 1) -> KvReuseTicket:
+        """Ask the driving thread to export this engine's cached prefix of
+        ``tokens`` (thread-safe; the fleet's share handshake). The ticket
+        resolves to the share payload, or ``None`` when the trie holds
+        fewer than ``min_blocks`` of it."""
+        ticket = KvReuseTicket("prefix_export", tokens=tokens,
+                               min_blocks=int(min_blocks))
+        with self._lock:
+            self._pending_kv_reuse.append(ticket)
+        return ticket
+
+    def enqueue_prefix_import(self, payload: dict,
+                              on_done: Optional[Callable] = None
+                              ) -> KvReuseTicket:
+        """Queue a shared prefix payload for adoption into this engine's
+        trie (thread-safe). It is served at the next step before fresh
+        admissions, so a request submitted after the ticket resolved
+        prefills none of the shared blocks. The ticket resolves to the
+        blocks adopted (0: cached here already, or the import failed and
+        the request prefills); ``on_done(adopted)`` fires on the driving
+        thread too."""
+        ticket = KvReuseTicket("prefix_import", payload=payload,
+                               on_done=on_done)
+        with self._lock:
+            self._pending_kv_reuse.append(ticket)
+        return ticket
+
+    def request_rebalance(self, place_cb: Callable) -> KvReuseTicket:
+        """Ask the driving thread to hand its cheapest decoding request to
+        ``place_cb(req, payload) -> bool`` (thread-safe). Resolves True
+        when one moved; False or ``None`` leaves everything here."""
+        ticket = KvReuseTicket("rebalance", place_cb=place_cb)
+        with self._lock:
+            self._pending_kv_reuse.append(ticket)
+        return ticket
+
+    def _serve_kv_reuse(self) -> None:
+        """Serve the pending KV-reuse tickets on the driving thread, each
+        best effort: an export that finds nothing resolves ``None``, an
+        import that cannot land adopts 0 (the requester prefills), a
+        rebalance that cannot place leaves its victim here. Only an
+        :class:`EngineStateError` escalates, through the engine-failure
+        boundary."""
+        eng = self.engine
+        while True:
+            with self._lock:
+                if not self._pending_kv_reuse:
+                    return
+                ticket = self._pending_kv_reuse.popleft()
+            if ticket.kind == "prefix_export":
+                try:
+                    payload = eng.export_prefix_kv(
+                        ticket.kw["tokens"],
+                        min_blocks=ticket.kw["min_blocks"])
+                except Exception:  # noqa: BLE001 — sharing is best effort
+                    payload = None
+                ticket.resolve(payload)
+            elif ticket.kind == "prefix_import":
+                adopted = 0
+                try:
+                    if eng.can_import_prefix(ticket.kw["payload"]):
+                        adopted = eng.import_prefix_kv(ticket.kw["payload"])
+                except EngineStateError as e:
+                    ticket.resolve(0)
+                    if not self._engine_failure(e):
+                        raise
+                    return
+                except Exception:  # noqa: BLE001 — decay to a prefill
+                    adopted = 0
+                ticket.resolve(adopted)
+                on_done = ticket.kw.get("on_done")
+                if on_done is not None:
+                    try:
+                        on_done(adopted)
+                    except Exception:  # noqa: BLE001 — an observer only
+                        pass
+            elif ticket.kind == "rebalance":
+                try:
+                    ok = self._rebalance_once(ticket.kw["place_cb"])
+                except Exception:  # noqa: BLE001 — decode in place
+                    ok = False
+                ticket.resolve(bool(ok))
+
+    def _rebalance_once(self, place_cb: Callable) -> bool:
+        """Hand the cheapest decoding request over mid-decode: the batch
+        class first, then the most live blocks' opposite (the fewest, the
+        least to move), then the tenant most over its share, then the
+        newest. Chunked prefills are never picked."""
+        with self._lock:
+            cands = [(slot, req) for slot, req in self._by_slot.items()
+                     if not req.finished]
+        if not cands:
+            return False
+
+        def cheap_key(item):
+            slot, req = item
+            return (req.priority == "batch",
+                    -self.engine.slot_block_count(slot),
+                    (self._fair.tenant_share(req.tenant)
+                     if self._fair is not None else 0.0), req.id)
+
+        slot, req = max(cands, key=cheap_key)
+        return self._handover(req, slot, place_cb, reason="rebalanced")
+
+    def enqueue_migrated(self, req: Request, payload: dict) -> Request:
+        """Take a request handed over by another scheduler (thread-safe):
+        the same :class:`Request` continues here, its tokens, stream
+        callback and waiter with it. It waits for its import in arrival
+        order, ahead of fresh admissions (:meth:`_admit_imports`)."""
+        with self._lock:
+            self._pending_imports.append((req, payload))
+        return req
+
+    def _pop_import_locked(self, req: Request) -> None:
+        if self._pending_imports and self._pending_imports[0][0] is req:
+            self._pending_imports.popleft()
+
+    def _admit_imports(self) -> None:
+        """Land the migrated-in requests in arrival order; a head that
+        cannot land yet (slots or blocks busy) waits, and the rest wait
+        behind it. A payload that can never land here fails its request
+        with :class:`EngineFailed`, so a supervisor replays it elsewhere;
+        an :class:`EngineStateError` goes through the engine-failure
+        boundary."""
+        eng = self.engine
+        while True:
+            with self._lock:
+                if not self._pending_imports:
+                    return
+                req, payload = self._pending_imports[0]
+            if req.finished:
+                with self._lock:
+                    self._pop_import_locked(req)
+                continue
+            remaining = max(1, req.max_new_tokens - len(req.tokens))
+            if not eng.can_import(payload, max_new=remaining):
+                if eng.can_import(payload, max_new=remaining,
+                                  static_only=True):
+                    return            # transient: slots or blocks free up
+                with self._lock:
+                    self._pop_import_locked(req)
+                self._fail([req], RuntimeError(
+                    "the migrated payload can never land on this engine "
+                    "(block layout, position or capacity)"), "kv_import")
+                continue
+            try:
+                slot = eng.import_slot_kv(payload, prompt=req.prompt,
+                                          max_new=remaining,
+                                          ctx={"reqs": [req.id]})
+            except EngineStateError as e:
+                with self._lock:
+                    self._pop_import_locked(req)
+                if not self._engine_failure(e, admitting=[req]):
+                    raise
+                return
+            except Exception:  # noqa: BLE001 — engine intact: retry later
+                return
+            with self._lock:
+                self._pop_import_locked(req)
+                if req.state is RequestState.CANCELLED:
+                    eng.release(slot)
+                    continue
+                req.slot = slot
+                req.state = RequestState.DECODE
+                self._by_slot[slot] = req
+                req.weight_version = eng.weight_version
+            self._events.emit("slot_admit", req=req.id, slot=slot,
+                              prompt_len=len(req.prompt), migrated=True,
+                              tenant=req.tenant, priority=req.priority)
 
     # ------------------------------------------------------------------ #
     # failures                                                            #
@@ -898,7 +1203,8 @@ class FCFSScheduler:
         now = time.perf_counter()
         shed: list[tuple[Request, str]] = []
         with self._lock:
-            if not (self._queue or self._by_slot or self._prefilling):
+            if not (self._queue or self._by_slot or self._prefilling
+                    or self._pending_imports):
                 return
             hint = self._retry_after_locked()
 
@@ -919,7 +1225,18 @@ class FCFSScheduler:
                            "deadline in the admission queue")
                 else:
                     keep.append(req)
-            self._queue = keep
+            self._queue = self._guarded(keep, "_queue")
+            keep_imp: deque = deque()
+            for item in self._pending_imports:
+                if late(item[0]):
+                    expire(item[0], "queue",
+                           f"request {item[0].id} passed its "
+                           f"{item[0].deadline_s}s deadline awaiting its "
+                           "KV migration import")
+                else:
+                    keep_imp.append(item)
+            self._pending_imports = self._guarded(keep_imp,
+                                                  "_pending_imports")
             for where, table in (("decode", self._by_slot),
                                  ("prefill", self._prefilling)):
                 for slot in sorted(table):
@@ -982,7 +1299,7 @@ class FCFSScheduler:
                     dropped.append(req)
                 else:
                     keep.append(req)
-            self._queue = keep
+            self._queue = self._guarded(keep, "_queue")
         for req in dropped:
             self.metrics.record_tenant_shed(req.tenant)
             self._events.emit("shed", req=req.id, where="brownout",
@@ -1029,4 +1346,5 @@ class FCFSScheduler:
 
 
 __all__ = ["DeadlineExceededError", "EngineFailed", "FCFSScheduler",
-           "QueueFullError", "Request", "RequestState", "SwapTicket"]
+           "KvReuseTicket", "QueueFullError", "Request", "RequestState",
+           "SwapTicket"]

@@ -31,7 +31,14 @@ heads) and ResNet-50 (random weights from a seed):
   counts flat, launches exact), and ``serve_restart_swap`` warm-restarts
   a captured engine after an injected decode fault and swaps its
   weights behind the scheduler's fence, each followed by a request that
-  must stream exactly what a fresh engine streams;
+  must stream exactly what a fresh engine streams; ``serve_fleet`` runs
+  two replicas of the LM behind a ``FleetRouter`` (warmed at once on
+  their threads): one prefill and one decode replica with every
+  request's KV migrating between them, prefix sharing on and off, and a
+  mid-decode rebalance, with the migration programs timed; on the f32 LM
+  the fleets' streams must equal a solo engine's (greedy and sampled),
+  an int8 store must migrate bit for bit, and an import planted one
+  block short must fail every request;
 - training: ``TransformerLM(attention='flash')``,
   ``create_communicator('pure_nccl')``, ``create_multi_node_optimizer``
   over ``AdamW`` and ``lm_train_step`` take 12 steps on a [8, 2048] batch;
@@ -1523,6 +1530,456 @@ def phase_serve_restart_swap(device, card):
         raise AssertionError(f"serve_restart_swap: programs or addresses "
                              f"moved: {rec}")
     return rec
+
+
+# -- the serving fleet: KV migration between replicas on one card --
+
+FLEET_WIDTHS = (4, 32, 128)        # kv_gather/kv_scatter widths timed
+FLEET_REBALANCE_NEW = 128
+FLEET_WAIT_S = 120
+
+
+def _block_bytes(engine):
+    """Bytes one store block holds over every layer (all its tensors)."""
+    return sum(t[0].numel() * t.element_size()
+               for layer in engine._store for t in layer.values())
+
+
+def _count_decodes(engines):
+    """Count each engine's decode calls that ran (an instance wrapper of
+    ``decode_round``, which the replica's scheduler calls); returns the
+    boxes and an undo."""
+    boxes = []
+    for eng in engines:
+        box = {"calls": 0}
+        real = eng.decode_round
+
+        def counted(ctx=None, _real=real, _box=box):
+            out = _real(ctx=ctx)
+            if out:
+                _box["calls"] += 1
+            return out
+
+        eng.decode_round = counted
+        boxes.append(box)
+
+    def undo():
+        for eng in engines:
+            del eng.decode_round
+
+    return boxes, undo
+
+
+def _hist_tail(name, count0):
+    """Samples a ``{"engine": "serving"}`` histogram took since its count
+    was ``count0``."""
+    from chainermn_torch.monitor import get_registry
+
+    h = get_registry().histogram(name, {"engine": "serving"}, unit="s")
+    new = h.count - count0
+    return h.samples[-new:] if new else []
+
+
+def _p(samples, q):
+    import numpy as np
+
+    return float(np.percentile(samples, q)) if samples else None
+
+
+def _fleet_run(engines, work, *, seeds=None, first_alone=False,
+               after_first=None, **router_kw):
+    """Serve ``work`` through a ``FleetRouter`` over ``engines`` (each
+    warm-restarted first, so every run starts from empty stores and
+    tries); ``first_alone`` serves the first request before submitting
+    the rest, and ``after_first(router)`` runs between. Returns the
+    streams and a record: tokens/s, pooled TTFT/TPOT, migrations, blocks
+    and bytes moved, export/import seconds, each engine's decode calls
+    and kernel launches, shares, affinity. Fails unless every request
+    finished with its whole budget and no program was built again."""
+    import torch
+
+    from chainermn_torch.fleet import FleetRouter
+    from chainermn_torch.monitor import get_registry
+    from chainermn_torch.parallel.paged_kernel import paged_attend
+
+    for eng in engines:
+        eng.restart()
+    reg = get_registry()
+    lab = {"engine": "serving"}
+    mig = reg.counter("kv_migrations_total", lab)
+    blk = reg.counter("kv_migrated_blocks_total", lab)
+    mig0, blk0 = mig.value, blk.value
+    exp0 = reg.histogram("kv_export_seconds", lab, unit="s").count
+    imp0 = reg.histogram("kv_import_seconds", lab, unit="s").count
+    boxes, undo = _count_decodes(engines)
+    router = FleetRouter(engines, **router_kw)
+    try:
+        if not router.wait_ready(FLEET_WAIT_S):
+            raise AssertionError("serve_fleet: a replica did not warm up")
+        counts = [e.compile_counts_detailed() for e in engines]
+        launches0 = [e._programs.kernel_launches for e in engines]
+        paged_attend.launches = 0
+        t0 = time.perf_counter()
+        frs = []
+        for i, (p, n) in enumerate(work):
+            frs.append(router.submit(p, n, seed=seeds[i] if seeds else 0))
+            if i == 0 and first_alone:
+                frs[0].wait(FLEET_WAIT_S)
+                if after_first is not None:
+                    after_first(router)
+        for fr in frs:
+            if not fr.wait(FLEET_WAIT_S):
+                emit({"phase": "serve_fleet_hang", "request": fr.id,
+                      **_fleet_state(router, frs)})
+                raise AssertionError(f"serve_fleet: request {fr.id} hung")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = paged_attend.launches
+        rep = router.fleet_report()
+        states = [r.state.value for r in router.replicas]
+    finally:
+        router.close()
+        undo()
+    streams = [[int(t) for t in fr.tokens] for fr in frs]
+    for fr, (_, n) in zip(frs, work):
+        if fr.error is not None or len(fr.tokens) != n:
+            raise AssertionError(f"serve_fleet: request {fr.id} ended "
+                                 f"{fr.state} with {len(fr.tokens)} of {n} "
+                                 f"tokens: {fr.error}")
+    for eng, before in zip(engines, counts):
+        if eng.compile_counts_detailed() != before or eng.recompiles \
+                or set(before.values()) != {1}:
+            raise AssertionError(f"serve_fleet: programs rebuilt: {before} "
+                                 f"-> {eng.compile_counts_detailed()} "
+                                 f"{eng.recompiles}")
+    pooled = rep["pooled"]
+    ttft = pooled["histograms"]["serving_ttft_seconds"]
+    tpot = pooled["histograms"]["serving_tpot_seconds"]
+    tokens = sum(len(s) for s in streams)
+    blocks = blk.value - blk0
+    exp_s = _hist_tail("kv_export_seconds", exp0)
+    imp_s = _hist_tail("kv_import_seconds", imp0)
+    rec = {"requests": len(work), "wall_s": wall, "tokens": tokens,
+           "tokens_per_sec": tokens / wall, "ttft_p50_s": ttft.get("p50_s"),
+           "ttft_p99_s": ttft.get("p99_s"), "tpot_p50_s": tpot.get("p50_s"),
+           "migrations": mig.value - mig0, "blocks_moved": blocks,
+           "bytes_moved": blocks * _block_bytes(engines[0]),
+           "export_s_p50": _p(exp_s, 50), "export_s_p99": _p(exp_s, 99),
+           "import_s_p50": _p(imp_s, 50), "import_s_p99": _p(imp_s, 99),
+           "exports": len(exp_s), "imports": len(imp_s),
+           "decode_calls": [b["calls"] for b in boxes],
+           "kernel_launches": [e._programs.kernel_launches - n0
+                               for e, n0 in zip(engines, launches0)],
+           "kernel_launches_total": launches,
+           "affinity": rep["affinity"], "kv_reuse": rep["kv_reuse"],
+           "tiers": rep["tiers"], "states": states}
+    if sum(rec["kernel_launches"]) != launches:
+        raise AssertionError(f"serve_fleet: per-engine launches "
+                             f"{rec['kernel_launches']} do not add up to "
+                             f"the wrapper's count {launches}")
+    for calls, n in zip(rec["decode_calls"], rec["kernel_launches"]):
+        if n != calls * LM["n_layers"]:
+            raise AssertionError(f"serve_fleet: {n} kernel launches on "
+                                 f"{calls} decode calls x "
+                                 f"{LM['n_layers']} layers")
+    return streams, rec
+
+
+def _fleet_state(router, frs):
+    """What a stalled fleet holds: each replica's state, queue, decoding
+    slots, pending imports and KV-reuse tickets, the unfinished
+    requests, the threads' stacks and the newest events."""
+    import sys
+    import traceback
+
+    from chainermn_torch.monitor import get_event_log
+
+    reps = {}
+    for r in router.replicas:
+        sc, eng = r.scheduler, r.engine
+        reps[r.replica_id] = {
+            "state": r.state.value, "thread_alive": r._thread.is_alive(),
+            "queue": len(sc._queue), "by_slot": sorted(sc._by_slot),
+            "prefilling": sorted(sc._prefilling),
+            "pending_imports": [q.id for q, _ in sc._pending_imports],
+            "pending_kv_reuse": len(sc._pending_kv_reuse),
+            "active_slots": eng.active_slots,
+            "free_slots": sorted(eng.free_slots), "kv": eng.kv_stats()}
+    stacks = {str(t): "".join(traceback.format_stack(f))[-1500:]
+              for t, f in sys._current_frames().items()}
+    return {"replicas": reps,
+            "unfinished": [{"id": fr.id, "replica": fr.replica_id,
+                            "tokens": len(fr.tokens),
+                            "inner_state": str(fr._inner.state)
+                            if fr._inner is not None else None}
+                           for fr in frs if not fr.finished],
+            "events": get_event_log().tail(40), "stacks": stacks}
+
+
+def _kv_program_ms(engine):
+    """CUDA-event ms of ``kv_gather_{w}``/``kv_scatter_{w}`` on an idle
+    engine at the widths of ``FLEET_WIDTHS`` (blocks 1..w, the scatter
+    writing them), against the bytes bound (w blocks read and w written)
+    and the plain PyTorch call a caller could make instead (one
+    ``index_select`` a store tensor). Restarts the engine after: the
+    scatters overwrite live blocks."""
+    import numpy as np
+    import torch
+
+    out = {}
+    bb = _block_bytes(engine)
+    for w in FLEET_WIDTHS:
+        ids = np.arange(1, w + 1, dtype=np.int64)
+        ids_t = torch.as_tensor(ids, device=engine.device)
+        g, s = engine._gather_progs[w], engine._scatter_progs[w]
+        stores = [t for layer in engine._store for t in layer.values()]
+        out[str(w)] = {
+            "gather_ms": cuda_ms(lambda: g.run(ids=ids), reps=20),
+            "scatter_ms": cuda_ms(lambda: s.run(ids=ids,
+                                                n_used=np.asarray([w])),
+                                  reps=20),
+            "index_select_ms": cuda_ms(
+                lambda: [t.index_select(0, ids_t) for t in stores], reps=20),
+            "bytes": w * bb, "bound_ms": 2 * w * bb / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
+    engine.restart()
+    return out
+
+
+def _int8_bit_exact(models, device):
+    """An int8 store (bf16 model) migrates bit for bit: a prefilled
+    slot's rows exported from one captured engine, imported into another
+    and exported again are identical, and both decode the same tokens."""
+    import torch
+
+    from chainermn_torch.serving import ServingEngine
+
+    kw = dict(ENGINE, paged_kernel=True, kv_quant="int8")
+    a, b = (ServingEngine(m, device=device, **kw) for m in models)
+    for eng in (a, b):
+        eng.warmup()
+    prompt = _serve_traffic(1, SEED + 70)[0][0]
+    (slot_a, first), = a.admit_batch([a.plan_admission(prompt, max_new=32)])
+    payload = a.export_slot_kv(slot_a)
+    slot_b = b.import_slot_kv(payload, prompt=prompt, max_new=32)
+    back = b.export_slot_kv(slot_b)
+    same_rows = all(torch.equal(lp[kk], lb[kk])
+                    for lp, lb in zip(payload["layers"], back["layers"])
+                    for kk in lp)
+    streams = []
+    for eng, slot in ((a, slot_a), (b, slot_b)):
+        toks = [first]
+        while len(toks) < 32:
+            for s in range(eng.n_slots):
+                while eng.slot_needs_block(s):
+                    eng.append_block(s)
+            toks.extend(eng.decode_round()[slot])
+        streams.append(toks[:32])
+    rec = {"blocks": payload["n_blocks"],
+           "dtypes": sorted({str(t.dtype) for t in payload["layers"][0]
+                             .values()}),
+           "rows_bit_exact": bool(same_rows),
+           "streams_equal": streams[0] == streams[1],
+           "recompiles": [a.recompiles, b.recompiles]}
+    del a, b
+    _empty()
+    if not (same_rows and rec["streams_equal"]
+            and not any(rec["recompiles"])):
+        raise AssertionError(f"serve_fleet: int8 migration not exact: {rec}")
+    return rec
+
+
+def _drop_last_block(engine):
+    """The planted fault: this engine's imports land one block fewer than
+    the payload carries (its last block keeps what it held)."""
+    real = engine._scatter_block_rows
+
+    def short(new, packed, ctx, fused):
+        if len(new) < 2:
+            return real(new, packed, ctx, fused)
+        return real(new[:-1], {kk: rows[:-1] for kk, rows in packed.items()},
+                    ctx, fused)
+
+    engine._scatter_block_rows = short
+    return lambda: delattr(engine, "_scatter_block_rows")
+
+
+def phase_serve_fleet(device, card):
+    """The serving fleet on one card: two replicas of the 220M LM (bf16,
+    captured, the kernel on the decode reads), each on weights of its own
+    from ``SEED``, warmed at once on their threads. ``tiers``: 1 prefill
+    + 1 decode replica serve ``serve``'s 32 requests, every request's KV
+    migrating after its prefill; ``share``: 2 symmetric replicas with
+    prefix sharing on and off over the shared-prefix traffic;
+    ``rebalance``: one live decode moved mid-stream. The migration
+    programs are timed at 4, 32 and 128 blocks. On the f32 LM (8
+    requests, greedy and sampled) the 1P+1D and sharing fleets' streams
+    must equal the solo engine's up to the near-tie rule, as must a
+    rebalanced stream; an int8 store must migrate bit for bit, and the
+    planted fault (an import one block short) must fail 8/8. Fails
+    unless every replica warms, no program is built twice, and each
+    engine's kernel launches are its decode calls x 12."""
+    import torch
+
+    from chainermn_torch.models import TransformerLM
+    from chainermn_torch.serving import ServingEngine
+
+    t_phase = time.perf_counter()
+    kw = dict(ENGINE, paged_kernel=True)
+    models = [TransformerLM(**LM, compute_dtype=torch.bfloat16,
+                            device=device, seed=SEED) for _ in range(2)]
+    engines = [ServingEngine(m, device=device, **kw) for m in models]
+    rec = {"phase": "serve_fleet", "card": card,
+           "model": dict(LM, compute_dtype="bf16"), "engine": kw,
+           "block_bytes": _block_bytes(engines[0])}
+    # the first router warms both replicas at once on their own threads
+    t0 = time.perf_counter()
+    serve = _serve_traffic(N_REQUESTS, SEED)
+    _, tiers = _fleet_run(engines, serve, prefill_replicas=1,
+                          decode_replicas=1)
+    rec["concurrent_warmup"] = {
+        "replicas": 2, "states_after_warmup": tiers["states"],
+        "capture_s": [e._programs.capture_s for e in engines],
+        "programs": len(engines[0].compile_counts_detailed()),
+        "router_s_incl_traffic": time.perf_counter() - t0}
+    rec["tiers"] = tiers
+    rec["kv_programs"] = _kv_program_ms(engines[1])
+    spec = _spec_traffic(N_REQUESTS, SEED + 10)
+    runs = {}
+    for share in (True, False):
+        _, runs[str(share).lower()] = _fleet_run(
+            engines, spec, first_alone=True, share_prefixes=share,
+            prefix_share_min_blocks=2)
+    rec["share"] = runs
+    # rebalance: one long request alone on replica 0, moved to 1 after
+    # its first token; its stream against a solo engine's
+    prompt = serve[0][0]
+    engines[0].restart()
+    solo, _, _ = _drive(engines[0], [(prompt, FLEET_REBALANCE_NEW)])
+    rec["rebalance"] = _rebalance(engines, prompt, FLEET_REBALANCE_NEW,
+                                  solo[0])
+    del engines
+    _empty()
+    rec["int8"] = _int8_bit_exact(models, device)
+    del models
+    _empty()
+    rec["run_s"] = time.perf_counter() - t_phase
+    emit(rec)
+    rec["f32"] = _fleet_f32(device)
+    emit({"phase": "serve_fleet_f32", "card": card, **rec["f32"],
+          "run_s": time.perf_counter() - t_phase})
+    if tiers["states"] != ["healthy", "healthy"]:
+        raise AssertionError(f"serve_fleet: replicas warmed at once ended "
+                             f"{tiers['states']}")
+    if tiers["migrations"] < 1 or tiers["decode_calls"][1] < 1:
+        raise AssertionError(f"serve_fleet: the decode tier decoded "
+                             f"nothing: {tiers}")
+    if not rec["rebalance"]["moved"]:
+        raise AssertionError(f"serve_fleet: rebalance {rec['rebalance']}")
+    f32 = rec["f32"]
+    for name, p in f32["parity"].items():
+        _check_parity(f"serve_fleet f32 {name}", p)
+    planted = f32["planted_fault"]
+    if len(planted["failures"]) != planted["requests"]:
+        raise AssertionError(f"serve_fleet: the planted short import "
+                             f"failed {len(planted['failures'])} of "
+                             f"{planted['requests']}")
+    return rec
+
+
+def _rebalance(engines, prompt, n_new, want):
+    """One request alone on replica 0 of a symmetric fleet; after its
+    first token the router moves it to replica 1."""
+    from chainermn_torch.fleet import FleetRouter
+
+    for eng in engines:
+        eng.restart()
+    router = FleetRouter(engines)
+    try:
+        router.wait_ready(FLEET_WAIT_S)
+        fr = router.submit(prompt, n_new)
+        deadline = time.perf_counter() + FLEET_WAIT_S
+        while not fr.tokens and not fr.finished \
+                and time.perf_counter() < deadline:
+            time.sleep(0.0005)
+        at = len(fr.tokens)
+        t0 = time.perf_counter()
+        ticket = router.rebalance_decode(0, 1)
+        moved = bool(ticket.wait(60)) if ticket is not None else False
+        handshake_s = time.perf_counter() - t0
+        fr.wait(FLEET_WAIT_S)
+        return {"moved": moved, "tokens_before_move": at,
+                "handshake_s": handshake_s,
+                "replica_after": fr.replica_id,
+                "equals_solo": [int(t) for t in fr.tokens] == want,
+                "rebalances": router.fleet_report()["kv_reuse"]["rebalances"]}
+    finally:
+        router.close()
+
+
+def _fleet_f32(device):
+    """The f32 LM at full width, 8 requests, greedy then sampled: the
+    solo engine's streams against 1P+1D and against 2 replicas sharing
+    prefixes (zero-tolerance affinity, so shares happen), a rebalanced
+    stream (greedy), and the planted short import (greedy 1P+1D)."""
+    import torch
+
+    from chainermn_torch.fleet import RoutingPolicy
+    from chainermn_torch.models import TransformerLM
+    from chainermn_torch.serving import ServingEngine
+
+    m32 = [TransformerLM(**LM, compute_dtype=torch.float32, device=device,
+                         seed=SEED) for _ in range(2)]
+    tiers_work = _serve_traffic(PARITY_REQUESTS, SEED + 50)
+    share_work = _spec_traffic(PARITY_REQUESTS, SEED + 60)
+    seeds = [3000 + i for i in range(PARITY_REQUESTS)]
+    out = {"parity": {}, "shares": {}, "migrations": {}}
+    for mode, extra in (("greedy", {}), ("sampled", GRAPH_SAMPLED)):
+        engines = [ServingEngine(m, device=device,
+                                 **dict(ENGINE, paged_kernel=True, **extra))
+                   for m in m32]
+        for eng in engines:
+            eng.warmup()
+        for name, work, kw in (
+                ("tiers", tiers_work,
+                 dict(prefill_replicas=1, decode_replicas=1)),
+                ("share", share_work,
+                 dict(share_prefixes=True, prefix_share_min_blocks=2,
+                      policy=RoutingPolicy(max_imbalance=0.0),
+                      first_alone=True))):
+            engines[0].restart()
+            want, _, _ = _drive(engines[0], work, seeds=seeds)
+            got, rec = _fleet_run(engines, work, seeds=seeds, **kw)
+            out["parity"][f"{name}_{mode}"] = _parity(m32[0], work, got,
+                                                      want)
+            out["shares"][f"{name}_{mode}"] = rec["kv_reuse"]["shares"]
+            out["migrations"][f"{name}_{mode}"] = rec["migrations"]
+            if name == "tiers" and mode == "greedy":
+                want_tiers = want
+        if mode == "greedy":
+            prompt = tiers_work[0][0]
+            engines[0].restart()
+            solo, _, _ = _drive(engines[0], [(prompt, 64)])
+            reb = _rebalance(engines, prompt, 64, solo[0])
+            out["rebalance"] = reb
+            out["parity"]["rebalance_greedy"] = {
+                "requests": 1, "identical": int(reb["equals_solo"]),
+                "near_ties": [], "failures": (
+                    [] if reb["equals_solo"] and reb["moved"]
+                    else [{"moved": reb["moved"]}])}
+            undo = _drop_last_block(engines[1])
+            try:
+                got, _ = _fleet_run(engines, tiers_work,
+                                    prefill_replicas=1, decode_replicas=1)
+            finally:
+                undo()
+            out["planted_fault"] = _parity(m32[0], tiers_work, got,
+                                           want_tiers)
+        del engines
+        _empty()
+    del m32
+    _empty()
+    return out
 
 
 def phase_serve_example(card):
@@ -4150,6 +4607,7 @@ def main() -> int:
     timed("serve_dense", phase_serve_dense, device, smi)
     graphs = timed("serve_graphs", phase_serve_graphs, device, smi)
     timed("serve_restart_swap", phase_serve_restart_swap, device, smi)
+    fleet = timed("serve_fleet", phase_serve_fleet, device, smi)
     timed("serve_example", phase_serve_example, smi)
     flash_err = timed("flash_parity", phase_flash_parity, device)
     timed("flash_ring_blocks", phase_flash_ring_blocks, device)
@@ -4184,6 +4642,9 @@ def main() -> int:
         "launches_captured": {
             name: runs["true"]["kernel_launches"]
             for name, runs in graphs["runs"].items()},
+        "launches_fleet_path": dict(zip(
+            ("prefill_tier", "decode_tier"),
+            fleet["tiers"]["kernel_launches"])),
         "ms_span_cut": timing["ms_span_cut"],
         "max_abs_err": timing["max_abs_err"],
         "parity_max_abs_err": parity_err,

@@ -2,9 +2,10 @@
 (``chainermn_torch/examples/lm/serve_lm.py``) with tiny flags on the CPU:
 its defaults, each single-engine feature with ``--verify-parity``
 (float32, so every checked stream must equal solo ``generate()``
-exactly), the combination ``chip_smoke.py`` runs on the card, its flag
-guards, and ``train_lm.py --serve-samples`` on the dense engine with the
-prefix store."""
+exactly), the combination ``chip_smoke.py`` runs on the card, the fleet
+(two replicas, disaggregated tiers, prefix sharing and the rebalance
+probe), its flag guards, and ``train_lm.py --serve-samples`` on the dense
+engine with the prefix store."""
 
 import pytest
 import torch
@@ -37,6 +38,16 @@ RUNS = {
                          "ngram", "--chunk-tokens", "8", "--tenants", "3",
                          "--priority", "mixed", "--brownout", "2",
                          "--verify-parity"],
+    "fleet_replicas": ["--replicas", "2", "--verify-parity"],
+    "fleet_tiers": ["--prefill-replicas", "1", "--decode-replicas", "1",
+                    "--paged-kv", "--kv-block-size", "4",
+                    "--temperature", "0", "--verify-parity"],
+    "fleet_share": ["--replicas", "2", "--paged-kv", "--kv-block-size", "2",
+                    "--shared-prefix", "8", "--share-prefixes",
+                    "--temperature", "0", "--verify-parity"],
+    "fleet_rebalance": ["--replicas", "2", "--paged-kv", "--rebalance",
+                        "--max-new", "24", "--temperature", "0",
+                        "--verify-parity"],
 }
 
 
@@ -61,12 +72,24 @@ def test_twin_serves_the_burst(name, capsys):
         assert out["kv"]["blocks_reserved"] == 0
     if "--brownout" in RUNS[name]:
         assert out["brownout"]["level"] <= 2
+    if name.startswith("fleet"):
+        fleet = out["fleet"]
+        assert out["report"]["fleet_capacity"] == 2
+        assert sum(r["served"] for r in fleet["replicas"].values()) == 6
+        for r in fleet["replicas"].values():
+            assert r["recompiles"] == {}
+            assert set(r["executables"].values()) == {1}
+        if "--decode-replicas" in RUNS[name]:
+            assert fleet["tiers"] == {"prefill": [0], "decode": [1]}
+            assert fleet["kv_migrations_total"] > 0
+        if "--share-prefixes" in RUNS[name]:
+            assert fleet["kv_reuse"]["share_enabled"]
+        if "--rebalance" in RUNS[name]:
+            assert fleet["rebalanced"] is not None
 
 
 @pytest.mark.parametrize("extra", [
-    ["--replicas", "2"], ["--prefill-replicas", "1"], ["--share-prefixes"],
-    ["--rebalance"], ["--affinity"], ["--no-affinity"], ["--autoscale"],
-    ["--canary"],
+    ["--autoscale"], ["--canary"],
     ["--reshard-from", "snap"], ["--tensor-parallel"], ["--prometheus"],
     ["--trace", "2"], ["--trace-out", "t.json"], ["--slo-ttft-ms", "50"],
     ["--http-port", "0"], ["--health"],
@@ -82,9 +105,18 @@ def test_unported_flags_name_the_roadmap(extra):
     ["--paged-kv", "--speculate", "ngram"],
     ["--chunk-tokens", "4"],
     ["--tenant-weights", "tenant0"],
+    ["--prefill-replicas", "1", "--paged-kv"],
+    ["--prefill-replicas", "1", "--decode-replicas", "1"],
+    ["--replicas", "2", "--share-prefixes"],
+    ["--paged-kv", "--rebalance"],
+    ["--replicas", "2", "--paged-kv", "--share-prefixes", "--no-affinity"],
 ], ids=["paged_prefix_blocks", "spec_dense", "spec_sampled",
-        "chunk_dense", "weights_syntax"])
+        "chunk_dense", "weights_syntax", "tiers_one_side", "tiers_dense",
+        "share_dense", "rebalance_no_fleet", "share_no_affinity"])
 def test_reference_guards(extra):
+    """The guards of ``examples/lm/serve_lm.py:519-540`` among them: the
+    tiers need both sides and the paged store, sharing and rebalancing a
+    paged fleet, sharing the affinity trie."""
     with pytest.raises(SystemExit):
         serve_lm.main(TINY + extra)
 
