@@ -28,6 +28,16 @@ The same single-engine flags with the same defaults as the reference:
   ``--rebalance``: one live decode moved from the busiest replica to a
   peer while the burst is in flight. Each replica's engine has weights of
   its own (the same seed);
+- the control plane: ``--health`` samples every registry series at
+  ``--ts-cadence`` and scores each replica healthy, degraded or critical
+  (TTFT drift, queue depth, decode stall), printed at the end;
+  ``--autoscale`` runs a ``FleetController`` that scales the fleet
+  between ``--min-replicas`` and ``--max-replicas`` on sustained queue
+  pressure or idleness, and with ``--canary`` deploys every float tensor
+  bumped by 0.01 after the burst: one replica takes it, bakes for
+  ``--canary-bake`` seconds against the fleet's health, then the rest
+  roll (or all roll back); ``--slo-ttft-ms`` declares a TTFT p99 SLO and
+  prints its burn rates;
 - ``--verify-parity``: the first three completed requests against solo
   ``generate()`` with the same seed. Under greedy decoding a divergence
   passes only where the reference's top-2 logit gap at that token is
@@ -35,7 +45,7 @@ The same single-engine flags with the same defaults as the reference:
   bfloat16): the engine's and ``generate()``'s products differ in shape,
   so a near-tie may round either way.
 
-The fleet controller, deploy, tensor-parallel and monitor flags raise
+The reshard, tensor-parallel, trace, Prometheus and HTTP flags raise
 ``SystemExit`` naming the ROADMAP.md item they wait for.
 
 Run on the card (the model computes in bfloat16 there, float32 on the
@@ -48,6 +58,8 @@ CPU)::
         --prefill-replicas 1 --decode-replicas 1 --verify-parity
     python -m chainermn_torch.examples.lm.serve_lm --replicas 2 --paged-kv \\
         --kv-block-size 2 --shared-prefix 12 --share-prefixes --rebalance
+    python -m chainermn_torch.examples.lm.serve_lm --autoscale \\
+        --min-replicas 1 --max-replicas 3 --slots 1 --requests 24 --canary
 
 ``main(argv)`` returns a summary dict.
 """
@@ -74,20 +86,12 @@ _TIE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 # flag -> the ROADMAP.md item it waits for
 _UNPORTED = {
-    "autoscale": "the fleet controller (Queue A item 12)",
-    "min_replicas": "the fleet controller (Queue A item 12)",
-    "max_replicas": "the fleet controller (Queue A item 12)",
-    "canary": "the fleet controller and deploy (Queue A item 12)",
-    "canary_bake": "the fleet controller and deploy (Queue A item 12)",
     "reshard_from": "deploy/reshard.py (Queue A item 9.1)",
     "tensor_parallel": "tensor-parallel serving (Queue A item 11.2)",
     "prometheus": "the rest of monitor/ (Queue A item 13)",
     "trace": "monitor/trace (Queue A item 13)",
     "trace_out": "monitor/trace (Queue A item 13)",
-    "slo_ttft_ms": "monitor/slo (Queue A item 13)",
     "http_port": "monitor/http (Queue A item 13)",
-    "health": "monitor/health and timeseries (Queue A item 13)",
-    "ts_cadence": "monitor/timeseries (Queue A item 13)",
 }
 
 
@@ -175,17 +179,38 @@ def _parser() -> argparse.ArgumentParser:
                     default=True, help="prefix-affinity routing (default)")
     ap.add_argument("--no-affinity", dest="affinity", action="store_false",
                     help="pure occupancy-aware least-loaded routing")
-    for flag in ("min_replicas", "max_replicas", "http_port", "trace"):
+    ap.add_argument("--autoscale", action="store_true",
+                    help="a background FleetController scales the fleet "
+                         "between --min-replicas and --max-replicas on "
+                         "sustained queue pressure or idleness (implies "
+                         "the fleet and the --health wiring)")
+    ap.add_argument("--min-replicas", type=int, default=1,
+                    help="autoscale floor (and the starting fleet when "
+                         "--replicas is smaller)")
+    ap.add_argument("--max-replicas", type=int, default=3,
+                    help="autoscale ceiling")
+    ap.add_argument("--canary", action="store_true",
+                    help="after the burst, deploy the weights bumped by "
+                         "0.01 through the controller's canary (needs "
+                         "--autoscale)")
+    ap.add_argument("--canary-bake", type=float, default=1.0,
+                    help="canary bake window in seconds")
+    ap.add_argument("--slo-ttft-ms", type=float, default=0.0,
+                    help="a TTFT p99 SLO at this many ms, its burn rates "
+                         "printed at the end (0: none)")
+    ap.add_argument("--health", action="store_true",
+                    help="continuous telemetry: sampled series, the "
+                         "standard detectors and a health verdict per "
+                         "replica, printed at the end")
+    ap.add_argument("--ts-cadence", type=float, default=0.05,
+                    help="collector sampling cadence in seconds")
+    for flag in ("http_port", "trace"):
         ap.add_argument("--" + flag.replace("_", "-"), type=int,
-                        default=None, help="not ported yet")
-    for flag in ("canary_bake", "slo_ttft_ms", "ts_cadence"):
-        ap.add_argument("--" + flag.replace("_", "-"), type=float,
                         default=None, help="not ported yet")
     for flag in ("reshard_from", "trace_out"):
         ap.add_argument("--" + flag.replace("_", "-"), default=None,
                         help="not ported yet")
-    for flag in ("autoscale", "canary", "tensor_parallel", "prometheus",
-                 "health"):
+    for flag in ("tensor_parallel", "prometheus"):
         ap.add_argument("--" + flag.replace("_", "-"), action="store_true",
                         default=None, help="not ported yet")
     return ap
@@ -210,6 +235,9 @@ def _check_flags(args) -> None:
     if args.chunk_tokens and not args.paged_kv:
         raise SystemExit("--chunk-tokens stages chunks on the shared block "
                          "store; add --paged-kv")
+    if args.canary and not args.autoscale:
+        raise SystemExit("--canary deploys through the controller; add "
+                         "--autoscale")
     tiered = bool(args.prefill_replicas or args.decode_replicas)
     if tiered:
         if not (args.prefill_replicas and args.decode_replicas):
@@ -218,11 +246,14 @@ def _check_flags(args) -> None:
         if not args.paged_kv:
             raise SystemExit("KV migration moves block-store rows; the "
                              "tiers need --paged-kv")
+        if args.autoscale:
+            raise SystemExit("--autoscale resizes a symmetric fleet; "
+                             "static tiers don't mix with it")
     if args.share_prefixes or args.rebalance:
         if not args.paged_kv:
             raise SystemExit("--share-prefixes/--rebalance move "
                              "block-store rows; add --paged-kv")
-        if not (args.replicas > 1 or tiered):
+        if not (args.replicas > 1 or tiered or args.autoscale):
             raise SystemExit("--share-prefixes/--rebalance need a fleet; "
                              "add --replicas 2 (or more)")
         if args.share_prefixes and not args.affinity:
@@ -340,8 +371,10 @@ def main(argv=None) -> dict:
     eos = None if args.eos_id < 0 else args.eos_id
     tiered = bool(args.prefill_replicas)
     n_engines = (args.prefill_replicas + args.decode_replicas if tiered
-                 else args.replicas)
-    if n_engines > 1:
+                 else max(args.replicas, args.min_replicas)
+                 if args.autoscale else args.replicas)
+    fleet_mode = n_engines > 1 or args.autoscale
+    if fleet_mode:
         # each replica on weights of its own (the same seed): a weight
         # swap writes an engine's parameters in place
         engines = [engine] + [new_engine(new_model())
@@ -357,13 +390,41 @@ def main(argv=None) -> dict:
         engines = [engine]
         engine.warmup()      # first-call costs off the burst's clock
         front = ServingClient(engine, eos_id=eos, **sched_kw)
+    collector = (_health(args, front, fleet_mode)
+                 if args.health or args.autoscale else None)
+    controller = None
+    if args.autoscale:
+        from chainermn_torch.fleet import (
+            AutoscalePolicy,
+            CanaryPolicy,
+            FleetController,
+        )
+
+        controller = FleetController(
+            front, collector,
+            engine_factory=lambda: new_engine(new_model()),
+            autoscale=AutoscalePolicy(
+                min_replicas=args.min_replicas,
+                max_replicas=args.max_replicas, queue_high=1.0,
+                idle_low=0.25, up_after_s=0.2, down_after_s=1.0,
+                cooldown_s=0.3),
+            canary=CanaryPolicy(bake_s=args.canary_bake), cadence_s=0.05,
+            sensor_kw=dict(stall_timeout_s=30.0))
+        controller.start()
+    slo_engine = None
+    if args.slo_ttft_ms:
+        from chainermn_torch.monitor import LatencyObjective, SLOEngine
+
+        slo_engine = SLOEngine().add(LatencyObjective(
+            "ttft_p99", "serving_ttft_seconds",
+            threshold_s=args.slo_ttft_ms / 1e3, windows=(30.0, 120.0)))
     shared = (rng.randint(2, args.vocab, args.shared_prefix)
               .astype(np.int32) if args.shared_prefix
               else np.zeros((0,), np.int32))
     t0 = time.time()
     rejected = shed_or_failed = 0
     jobs = []
-    rebalanced = None
+    rebalanced = canary = control = health = None
     with front as client:
         tail_max = max(1, args.prefill_len - len(shared))
         stream_toks: list[int] = []
@@ -408,7 +469,21 @@ def main(argv=None) -> dict:
             except Exception as e:  # noqa: BLE001 — shed past a deadline
                 shed_or_failed += 1
                 print(f"request {h.id}: {type(e).__name__}: {e}")
-        if n_engines > 1:
+        # before a canary can swap the weights the parity reads
+        parity = (_parity(model, jobs, args, eos) if args.verify_parity
+                  else None)
+        if controller is not None:
+            if args.canary:
+                canary = _canary(controller, model)
+            control = _control_summary(controller)
+        if collector is not None:
+            # read while the replicas still serve (a closed router's
+            # replicas are stopped, which scores critical)
+            collector.stop()
+            health = dict(collector.health.report(),
+                          series=len(collector.store.names()),
+                          ticks=collector.ticks)
+        if fleet_mode:
             fleet_rep = client.fleet_report()
             ttft = fleet_rep["pooled"]["histograms"].get(
                 "serving_ttft_seconds", {})
@@ -448,7 +523,7 @@ def main(argv=None) -> dict:
               f"final_level={bj['level']} ({bj['action']}) "
               f"last_reason={bj['last_reason']}")
     if args.verify_parity:
-        summary["parity"] = _parity(model, jobs, args, eos)
+        summary["parity"] = parity
         print(f"parity vs solo generate: OK "
               f"({summary['parity']['checked']} requests, "
               f"{len(summary['parity']['near_ties'])} near-tie(s))")
@@ -460,9 +535,97 @@ def main(argv=None) -> dict:
     summary["recompiles"] = engine.recompiles
     print(f"engine executables: {summary['executables']} "
           f"(captured={engine.capture}, recompiles={summary['recompiles']})")
-    if n_engines > 1:
+    if fleet_mode:
         summary["fleet"] = _fleet_summary(client, fleet_rep, rebalanced)
+    if controller is not None:
+        summary["control"] = dict(control, canary=canary)
+    if slo_engine is not None:
+        summary["slo"] = slo_engine.evaluate()
+        for name, entry in summary["slo"].items():
+            print(f"SLO {name}: compliant={entry['compliant']} "
+                  f"max_burn_rate={entry['max_burn_rate']} "
+                  f"windows={entry['windows']}")
+    if health is not None:
+        summary["health"] = health
+        print(f"health: worst={health['worst']} over "
+              f"{health['n_watched']} replica(s), {health['series']} "
+              f"series, {health['ticks']} ticks")
+        for key, score in sorted(health["replicas"].items()):
+            print(f"  replica {key}: {score['state']} "
+                  f"(contributing: {score['contributing'] or 'none'})")
     return summary
+
+
+def _health(args, front, fleet_mode):
+    """The continuous telemetry, started: per-replica sensors, probes and
+    the routing penalty for a fleet (``fleet_health``), or the standard
+    sensors of the one engine under key ``"0"``."""
+    from chainermn_torch.monitor import (
+        Collector,
+        HealthMonitor,
+        fleet_health,
+        standard_replica_sensors,
+    )
+
+    if fleet_mode:
+        collector = fleet_health(front, cadence_s=args.ts_cadence,
+                                 stall_timeout_s=30.0)
+    else:
+        collector = Collector(cadence_s=args.ts_cadence)
+        sigs, dets = standard_replica_sensors(
+            front.metrics.instance, stall_timeout_s=30.0, tag="0")
+        for sig in sigs:
+            collector.add_signal(sig)
+        for det in dets:
+            collector.add_detector(det)
+        monitor = HealthMonitor(store=collector.store)
+        monitor.watch("0", detectors=dets)
+        collector.attach_health(monitor)
+        front.metrics.attach_health(lambda m=monitor: m.score_json("0"))
+    return collector.start()
+
+
+def _canary(controller, model) -> dict:
+    """The canary end to end, driven by the controller's own thread:
+    every float tensor bumped by 0.01 onto one replica, baked, then
+    promoted or rolled back. Returns the outcome."""
+    with torch.no_grad():
+        bumped = {k: v + 0.01 if v.is_floating_point() else v
+                  for k, v in model.state_dict().items()}
+    controller.deploy(bumped, step=1)
+    deadline = time.time() + 120
+    while time.time() < deadline:
+        rep = controller.report()
+        outcome = rep["canary"]["last_outcome"]
+        if outcome is not None and rep["phase"] == "idle":
+            print(f"canary deploy: {outcome['action']} (replica "
+                  f"{outcome['replica']}, version "
+                  f"{outcome.get('version')})")
+            return outcome
+        time.sleep(0.05)
+    raise AssertionError("canary deploy never resolved")
+
+
+def _control_summary(controller) -> dict:
+    """The controller's capacity, scale actions, decisions and version
+    history, printed as the reference prints them; stops its thread."""
+    rep = controller.report()
+    controller.stop()
+    cur = rep["versions"]["current"]
+    print(f"controller: capacity={rep['capacity']} "
+          f"target={rep['target_replicas']} "
+          f"scale_ups={rep['autoscale']['scale_ups']} "
+          f"scale_downs={rep['autoscale']['scale_downs']}")
+    for d in rep["decisions"]:
+        print(f"  decision: {d}")
+    history = [(h["version"], h["source"])
+               for h in rep["versions"]["history"]]
+    print(f"weights: version={cur['version']} ({cur['source']}) "
+          f"history={history}")
+    return {"capacity": rep["capacity"],
+            "scale_ups": rep["autoscale"]["scale_ups"],
+            "scale_downs": rep["autoscale"]["scale_downs"],
+            "decisions": rep["decisions"], "history": history}
 
 
 def _fleet_summary(router, rep: dict, rebalanced) -> dict:

@@ -19,13 +19,17 @@ CPU over gloo. Weights are random from seed 0, the same on every rank.
 
 ``--serve-samples N`` serves N shared-context continuations of the
 trained model through the dense serving engine with its prefix store
-(bucketed, batched prefill), as the reference does.
+(bucketed, batched prefill), as the reference does. ``--publish-to
+engine`` is the online train-to-serve loop: a live engine on a copy of
+the initial weights serves from a client thread while the plain loop
+trains, and every ``--publish-every`` iterations the trained weights
+enter it through :class:`~chainermn_torch.deploy.WeightPublisher`'s
+swap fence (rank 0), each followed by a sample at the new version.
 
 Not ported yet — each raises ``NotImplementedError`` naming its
 ROADMAP.md item: ``--resume``/``--inject-fault`` (``resilient_fit``),
-``--prefetch-depth``/``--fetch-every`` (``fit``), ``--publish-to``
-(deploy), ``--snapshot-to`` (sharded checkpoints), ``--trace-out``
-(``monitor/trace``).
+``--prefetch-depth``/``--fetch-every`` (``fit``), ``--snapshot-to``
+(sharded checkpoints), ``--trace-out`` (``monitor/trace``).
 
 Run one rank on the card::
 
@@ -318,7 +322,6 @@ def _check_flags(args) -> None:
          "--resume/--inject-fault need resilience.resilient_fit"),
         (args.prefetch_depth or args.fetch_every > 1,
          "--prefetch-depth/--fetch-every need training.fit and LossWindow"),
-        (args.publish_to, "--publish-to needs deploy's WeightPublisher"),
         (args.snapshot_to,
          "--snapshot-to needs extensions.sharded_checkpoint"),
         (args.trace_out, "--trace-out needs monitor.trace"))
@@ -450,6 +453,9 @@ def _run_steps(args, comm, step_comm) -> dict:
               f"tensor_parallel={args.tensor_parallel} devices={n}",
               flush=True)
 
+    publisher = None
+    if args.publish_to and r == 0:
+        publisher = _OnlinePublisher(args, model, tokens_all)
     gen = batches()
     t0, toks = time.time(), 0
     first = None
@@ -459,6 +465,8 @@ def _run_steps(args, comm, step_comm) -> dict:
         loss, stats = step(tok, tgt)
         acc.update(stats)
         losses.append(loss)
+        if publisher is not None and it % publisher.every == 0:
+            publisher.publish(it, model)
         if it == 1:
             first = float(loss)
             t0, toks = time.time(), 0
@@ -479,9 +487,76 @@ def _run_steps(args, comm, step_comm) -> dict:
     out = {"mode": "plain", "losses": [float(x) for x in losses],
            "tokens_per_sec": toks / max(time.time() - t0, 1e-9),
            "moe_drop": acc.summary(), "n_params": n_params}
+    if publisher is not None:
+        out["publish"] = publisher.close()
     if args.serve_samples:
         out["serve_samples"] = _serve_samples(args, comm, model, tokens_all)
     return out
+
+
+def _inference_copy(model) -> TransformerLM:
+    """A model of ``model``'s configuration holding a copy of its weights
+    (an expert-parallel one as its ``moe_impl='gshard'`` twin)."""
+    infer = TransformerLM(
+        model.vocab_size, model.d_model, model.n_heads, model.n_layers,
+        d_ff=model.d_ff, max_len=model.max_len,
+        compute_dtype=model.compute_dtype, moe_experts=model.moe_experts,
+        moe_top_k=model.moe_top_k, device=model.device,
+        moe_impl="gshard" if model.moe_experts else "ep")
+    infer.load_state_dict(model.state_dict())
+    return infer
+
+
+class _OnlinePublisher:
+    """``--publish-to engine``: the online train-to-serve loop (module
+    docstring). The engine serves a copy of the weights (training writes
+    the model's own in place, and a swap writes the engine's); the client
+    thread drives the scheduler, so the blocking publish from the
+    training loop can wait on the fence. No program may be rebuilt across
+    the swaps."""
+
+    def __init__(self, args, model, tokens_all) -> None:
+        from chainermn_torch.deploy import WeightPublisher
+        from chainermn_torch.serving import ServingClient, ServingEngine
+
+        ctx_len = min(args.seq_len // 2, 16)
+        self._ctx = np.asarray(tokens_all[0][:ctx_len], np.int32)
+        self.every = args.publish_every or max(1, args.iterations // 2)
+        self._engine = ServingEngine(
+            _inference_copy(model), n_slots=2, prefill_len=ctx_len,
+            cache_len=ctx_len + 16, paged=False, device=model.device)
+        self._engine.warmup()
+        self._client = ServingClient(self._engine)
+        self._pub = WeightPublisher(self._engine, self._client.scheduler)
+        self._counts = dict(self._engine.compile_counts_detailed())
+        self.samples = []
+        self._sample("serving v0 (initial weights)")
+
+    def _sample(self, label: str) -> None:
+        out = self._client.generate(self._ctx, 12,
+                                    seed=self._engine.weight_version,
+                                    timeout=300)
+        self.samples.append([int(t) for t in out])
+        print(f"{label}: ...{self.samples[-1][-8:]}", flush=True)
+
+    def publish(self, it: int, model) -> None:
+        state = {k: v.detach() for k, v in model.state_dict().items()}
+        v = self._pub.publish(state, step=it, timeout=120.0)
+        self._sample(f"published v{v} at iter {it}")
+
+    def close(self) -> dict:
+        counts = dict(self._engine.compile_counts_detailed())
+        self._client.close()
+        if counts != self._counts:
+            raise AssertionError(f"publish-to engine: programs rebuilt "
+                                 f"across swaps: {self._counts} -> {counts}")
+        print(f"publish-to engine: weight_version="
+              f"{self._engine.weight_version}, zero recompiles across "
+              "swaps", flush=True)
+        return {"weight_version": self._engine.weight_version,
+                "versions": [e.version for e in self._pub.log.history()],
+                "steps": [e.step for e in self._pub.log.history()],
+                "samples": self.samples, "executables": counts}
 
 
 def _serve_samples(args, comm, model, tokens_all) -> Optional[dict]:
@@ -502,15 +577,7 @@ def _serve_samples(args, comm, model, tokens_all) -> Optional[dict]:
         print("serve-samples: skipped (sequence/tensor-sharded training "
               "model; rebuild dense for inference — see serve_lm.py)")
         return None
-    infer = model
-    if model.moe_experts:
-        infer = TransformerLM(
-            model.vocab_size, model.d_model, model.n_heads, model.n_layers,
-            d_ff=model.d_ff, max_len=model.max_len,
-            compute_dtype=model.compute_dtype, moe_experts=model.moe_experts,
-            moe_top_k=model.moe_top_k, moe_impl="gshard",
-            device=model.device)
-        infer.load_state_dict(model.state_dict())
+    infer = _inference_copy(model) if model.moe_experts else model
     ctx_len = min(args.seq_len // 2, 24)
     ctx = np.asarray(tokens_all[0][:ctx_len], np.int32)
     tail_src = np.asarray(tokens_all[1], np.int32)

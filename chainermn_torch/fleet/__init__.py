@@ -15,14 +15,23 @@
 - :mod:`~chainermn_torch.fleet.overload`: :class:`RetryBudget` and
   :class:`TenantBreaker` at the fleet edge;
 - :mod:`~chainermn_torch.fleet.share`: :class:`SharePayloadCache`, the
-  exported prefix payloads.
+  exported prefix payloads;
+- :mod:`~chainermn_torch.fleet.control`: :class:`FleetController`, the
+  closed loop over the telemetry (:class:`AutoscalePolicy`,
+  :class:`CanaryPolicy`, :class:`RebalancePolicy`).
 
 A fleet's streams equal solo ``generate()`` token for token, a killed
 replica loses no accepted request (its work replays on a survivor), and
-no surviving replica rebuilds a step program after its warmup. The
-fleet controller (``control.py``) is not ported yet (ROADMAP.md).
+no surviving replica rebuilds a step program after its warmup, through
+every publish, spawn and retire.
 """
 
+from chainermn_torch.fleet.control import (
+    AutoscalePolicy,
+    CanaryPolicy,
+    FleetController,
+    RebalancePolicy,
+)
 from chainermn_torch.fleet.overload import RetryBudget, TenantBreaker
 from chainermn_torch.fleet.replica import (
     EngineReplica,
@@ -40,10 +49,14 @@ from chainermn_torch.fleet.routing import (
 from chainermn_torch.fleet.share import SharePayloadCache
 
 __all__ = [
+    "AutoscalePolicy",
+    "CanaryPolicy",
     "EngineReplica",
+    "FleetController",
     "FleetRequest",
     "FleetRouter",
     "FleetTrie",
+    "RebalancePolicy",
     "ReplicaHang",
     "ReplicaKilled",
     "ReplicaSnapshot",

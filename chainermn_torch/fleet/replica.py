@@ -194,6 +194,12 @@ class EngineReplica:
         self._work.set()
         return req
 
+    def wake(self) -> None:
+        """Wake an idle drive loop now (work was queued on the scheduler
+        directly, such as a swap fence) instead of at its next idle
+        poll."""
+        self._work.set()
+
     def submit_migrated(self, req, payload: dict):
         """Accept a prefill-complete request handed over from a prefill-
         tier peer (thread-safe). The SAME Request object continues on

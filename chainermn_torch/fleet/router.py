@@ -47,11 +47,16 @@ lowest-id accepting replica), ``fleet.replica`` (the supervisor path),
 ``fleet.breaker``, ``fleet.migrate``, ``fleet.share`` and
 ``fleet.rebalance`` (each decays to doing nothing).
 
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP.md
-item: :meth:`FleetRouter.publish` (deploy), ``spawn_replica``'s
-``checkpoint=`` path (elastic restore), :meth:`FleetRouter.
-attach_controller` (the fleet controller) and :meth:`FleetRouter.
-attach_health` (the health monitor).
+**The control plane's surface.** :meth:`FleetRouter.publish` rolls new
+weights through every replica's swap fence one replica at a time, new
+work steering around the replica inside its fence;
+:meth:`FleetRouter.attach_health` makes a
+:class:`~chainermn_torch.monitor.health.HealthMonitor`'s levels the
+leading routing key; :meth:`FleetRouter.attach_controller` puts a
+:class:`~chainermn_torch.fleet.control.FleetController`'s report in
+:meth:`FleetRouter.fleet_report`. ``spawn_replica``'s ``checkpoint=``
+path (an elastic restore) is not ported and raises
+``NotImplementedError`` naming its ROADMAP.md items.
 """
 
 from __future__ import annotations
@@ -348,6 +353,16 @@ class FleetRouter:
         self.retry_budget = retry_budget
         self.breaker = breaker
         self._labels = labels
+        # replicas inside a publish fence: routing steers new work away
+        # from them (unless nothing else is healthy)
+        self._publishing: set[int] = sanitizer.guarded(
+            set(), lock=self._lock, name="FleetRouter._publishing")
+        # optional HealthMonitor (attach_health): its per-replica level
+        # leads every routing decision
+        self._health = None
+        # optional FleetController (attach_controller): only for the
+        # report; the controller calls into the router, never back
+        self._controller = None
         # per-replica admission weights (the control plane's rebalance
         # actuator): missing key = full weight 1.0
         self._weights: dict[int, float] = sanitizer.guarded(
@@ -400,16 +415,20 @@ class FleetRouter:
         self.replicas[replica_id].kill()
 
     def attach_health(self, monitor) -> None:
-        """The health monitor whose verdict leads routing: not ported."""
-        raise NotImplementedError(
-            "attach_health needs monitor/health, which is not ported yet "
-            "(ROADMAP.md, Queue A item 13)")
+        """Attach a :class:`~chainermn_torch.monitor.health.HealthMonitor`
+        (usually through :func:`~chainermn_torch.monitor.health.
+        fleet_health`): every routing decision then sorts by its
+        per-replica level first, and :meth:`fleet_report` gains a
+        ``health`` block. Detach with ``attach_health(None)``."""
+        with self._lock:
+            self._health = monitor
 
     def attach_controller(self, controller) -> None:
-        """The fleet controller's report block: not ported."""
-        raise NotImplementedError(
-            "attach_controller needs fleet/control.py, which is not ported "
-            "yet (ROADMAP.md, Queue A item 12)")
+        """Attach a :class:`~chainermn_torch.fleet.control.
+        FleetController` so :meth:`fleet_report` carries its state under
+        ``"control"``. Detach with ``attach_controller(None)``."""
+        with self._lock:
+            self._controller = controller
 
     def set_admission_weight(self, replica_id: int, weight: float) -> None:
         """Scale how much new traffic ``replica_id`` attracts (0 < w <=
@@ -585,9 +604,14 @@ class FleetRouter:
     # ------------------------------------------------------------------ #
 
     def _snapshots_locked(self) -> list:
-        """Occupancy snapshots of every replica, with their admission
-        weights."""
+        """Occupancy snapshots of every replica, with the attached health
+        monitor's level (0 without one) and their admission weights. The
+        monitor's lock is a leaf: reading it under the router lock adds
+        no lock-order edge."""
         snaps = [r.snapshot() for r in self.replicas]
+        if self._health is not None:
+            for s in snaps:
+                s.health = self._health.level(str(s.replica_id))
         if self._weights:
             for s in snaps:
                 s.admission_weight = self._weights.get(s.replica_id, 1.0)
@@ -600,7 +624,13 @@ class FleetRouter:
         back to the lowest-id accepting replica — placement degrades,
         the request still lands."""
         candidates = [s for s in snaps if s.healthy
-                      and s.replica_id != exclude]
+                      and s.replica_id != exclude
+                      and s.replica_id not in self._publishing]
+        if not candidates:
+            # every healthy replica is inside a publish fence (or
+            # excluded): queueing through a swap window beats shedding
+            candidates = [s for s in snaps if s.healthy
+                          and s.replica_id != exclude]
         if not candidates:
             candidates = [s for s in snaps if s.healthy]
         if self._prefill_tier is not None:
@@ -697,7 +727,8 @@ class FleetRouter:
                 return False
             snaps = self._snapshots_locked()
             cands = [s for s in snaps
-                     if s.replica_id not in self._prefill_tier]
+                     if s.replica_id not in self._prefill_tier
+                     and s.replica_id not in self._publishing]
             remaining = max(1, fr.max_new_tokens - len(fr.tokens))
             for snap in self._policy.migration_targets(cands):
                 dest = self.replicas[snap.replica_id]
@@ -837,6 +868,7 @@ class FleetRouter:
                 snaps = self._snapshots_locked()
                 cands = [s for s in snaps
                          if s.replica_id != src_rid
+                         and s.replica_id not in self._publishing
                          and (dest_rid is None
                               or s.replica_id == int(dest_rid))
                          and (self._prefill_tier is None
@@ -1020,11 +1052,63 @@ class FleetRouter:
     def publish(self, params, *, step: Optional[int] = None,
                 timeout: float = 60.0, canary: Optional[int] = None,
                 exclude: Sequence = ()) -> dict:
-        """The rolling weight publish over every replica's swap fence:
-        not ported."""
-        raise NotImplementedError(
-            "FleetRouter.publish needs deploy/publish.py and versions.py, "
-            "which are not ported yet (ROADMAP.md, Queue A item 12)")
+        """Rolling weight publish: swap ``params`` (a ``state_dict``
+        mapping) into every replica, one at a time. While a replica is
+        fenced, routing sends new work to its peers, so the fleet serves
+        at N-1 capacity through each window and every accepted request
+        completes on the weights it started with. A replica that fails
+        its swap, or is not accepting, is recorded and passed over: one
+        bad replica never wedges the roll. Returns ``{"ok", "replicas":
+        {rid: outcome}}``; ``ok`` holds when every targeted accepting
+        replica took the new version.
+
+        ``canary=rid`` swaps exactly that replica (the controller's
+        canary); ``exclude=(rid, ...)`` rolls everyone else (the promote,
+        the canary already on the new version); not both. Each replica's
+        own drive loop steps through its fence, so this thread may block:
+        it must not be one that drives a replica's scheduler."""
+        from chainermn_torch.deploy.publish import WeightPublisher
+
+        if canary is not None and exclude:
+            raise ValueError("publish: canary= and exclude= are mutually "
+                             "exclusive")
+        if canary is not None:
+            targets = [self.replicas[int(canary)]]
+        else:
+            skip = {int(i) for i in exclude}
+            targets = [r for r in list(self.replicas)
+                       if r.replica_id not in skip]
+        results: dict[str, dict] = {}
+        for replica in targets:
+            rid = replica.replica_id
+            if not replica.accepting:
+                results[str(rid)] = {"ok": False,
+                                     "skipped": replica.state.value}
+                continue
+            with self._lock:
+                self._publishing.add(rid)
+            try:
+                publisher = WeightPublisher(replica.engine,
+                                            replica.scheduler)
+                handle = publisher.publish_async(params, step=step)
+                replica.wake()
+                version = handle.wait(timeout)
+                results[str(rid)] = {
+                    "ok": True, "version": version,
+                    "commit_s": round(handle.commit_s, 6),
+                    "fence_s": round(handle.fence_s or 0.0, 6)}
+            except Exception as e:  # noqa: BLE001 — roll past one failure
+                results[str(rid)] = {"ok": False,
+                                     "error": f"{type(e).__name__}: {e}"}
+            finally:
+                with self._lock:
+                    self._publishing.discard(rid)
+        ok = all(r.get("ok") for r in results.values()
+                 if "skipped" not in r) and bool(results)
+        self._events.emit("fleet_publish", ok=ok, canary=canary,
+                          replicas={k: v.get("version")
+                                    for k, v in results.items()})
+        return {"ok": ok, "replicas": results}
 
     def spawn_replica(self, engine=None, *, checkpoint=None,
                       engine_factory=None, params_template=None,
@@ -1132,9 +1216,13 @@ class FleetRouter:
         hits = int(self._c_aff_hits.value)
         misses = int(self._c_aff_miss.value)
         with self._lock:
+            hm = self._health
+            ctrl = self._controller
             weights = dict(self._weights)
         for rid, w in weights.items():
             replicas.get(str(rid), {})["admission_weight"] = w
+        health = hm.report() if hm is not None else None
+        control = ctrl.report() if ctrl is not None else None
         overload = None
         if self.retry_budget is not None or self.breaker is not None:
             overload = {
@@ -1144,8 +1232,8 @@ class FleetRouter:
                             if self.breaker is not None else None),
             }
         return {
-            "health": None,             # monitor/health: not ported
-            "control": None,            # fleet/control.py: not ported
+            "health": health,
+            "control": control,
             "costs": None,              # the cost ledger: not ported
             "overload": overload,
             "replicas": replicas,

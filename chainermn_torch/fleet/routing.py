@@ -34,7 +34,7 @@ class ReplicaSnapshot:
     running low on blocks shed affinity traffic before it starts
     preempting. ``health`` is the telemetry verdict (0 healthy /
     1 degraded / 2 critical, from a health monitor when the router has
-    one attached; the monitor is not ported yet): it outranks load,
+    one attached, :meth:`FleetRouter.attach_health`): it outranks load,
     so a degraded replica is deprioritized while it can still serve —
     the step *before* the supervisor would quarantine it.
     ``admission_weight`` (0 < w <= 1) is the control plane's rebalance

@@ -3,9 +3,12 @@ labels (the port's copy of ``chainermn_tpu/monitor/registry.py``, limited
 to what the serving engine, its metrics and the fleet write).
 
 Instruments are get-or-create, keyed by ``name`` + sorted labels.
-Histograms keep a bounded reservoir of raw samples; reports turn them
-into ``mean/p50/p99`` through :func:`latency_report`'s convention
+Histograms keep a bounded reservoir of timestamped raw samples
+(:meth:`Histogram.recent` reads a trailing window, as the time-series
+collector and the SLO engine do); reports turn them into
+``mean/p50/p99`` through :func:`latency_report`'s convention
 (``_s``-suffixed for a ``unit='s'`` series). :meth:`MetricsRegistry.
+instruments` lists every instrument, :meth:`MetricsRegistry.
 snapshot` renders every instrument under its ``name{label="v"}`` key,
 and :func:`merge_rank_payloads` pools per-replica payloads (counters
 sum, gauges mean, reservoirs concatenate) as the fleet report does.
@@ -15,6 +18,7 @@ from __future__ import annotations
 
 import re
 import threading
+import time
 from collections import deque
 from typing import Mapping, Optional
 
@@ -116,7 +120,8 @@ class Gauge(_Instrument):
 
 class Histogram(_Instrument):
     """Distribution with a bounded raw-sample reservoir (the newest
-    ``_MAX_SAMPLES`` observations)."""
+    ``_MAX_SAMPLES`` observations), each sample stamped with its
+    ``time.monotonic()`` observation time for :meth:`recent`."""
 
     kind = "histogram"
 
@@ -124,15 +129,28 @@ class Histogram(_Instrument):
         super().__init__(name, labels_key)
         self.unit = unit
         self._samples: deque = deque(maxlen=_MAX_SAMPLES)
+        # same maxlen, so the two rings stay aligned
+        self._times: deque = deque(maxlen=_MAX_SAMPLES)
         self._count = 0
         self._sum = 0.0
 
-    def observe(self, v: float) -> None:
+    def observe(self, v: float, t: Optional[float] = None) -> None:
         v = float(v)
         with self._lock:
             self._samples.append(v)
+            self._times.append(time.monotonic() if t is None else float(t))
             self._count += 1
             self._sum += v
+
+    def recent(self, window_s: float, now: Optional[float] = None) -> list:
+        """Retained samples observed within the last ``window_s`` seconds
+        (``now`` defaults to ``time.monotonic()``): the collector's and
+        the SLO engine's windowed input. A window wider than the
+        reservoir's history returns what is retained."""
+        cutoff = (time.monotonic() if now is None else now) - float(window_s)
+        with self._lock:
+            return [v for v, t in zip(self._samples, self._times)
+                    if t >= cutoff]
 
     @property
     def count(self) -> int:
@@ -186,12 +204,17 @@ class MetricsRegistry:
                   unit: str = "") -> Histogram:
         return self._get(Histogram, name, labels, unit=unit)
 
+    def instruments(self) -> list:
+        """Every registered instrument, copied out under the registry's
+        lock (the time-series collector and the SLO engine walk it)."""
+        with self._lock:
+            return list(self._instruments.values())
+
     def snapshot(self) -> dict:
         """Every instrument's state: ``{"counters": {key: int}, "gauges":
         {key: float}, "histograms": {key: {count, sum, mean, p50, p99}}}``
         with ``key`` the ``name{label="v",...}`` rendering."""
-        with self._lock:
-            insts = list(self._instruments.values())
+        insts = self.instruments()
         return {
             "counters": {i.key: int(i.value) for i in insts
                          if isinstance(i, Counter)},

@@ -82,6 +82,12 @@ class ServingMetrics:
                              dict(labels, priority=cls))
             for cls in ("interactive", "batch")}
         self._labels = labels
+        # the registry label every series of this scheduler carries (the
+        # health sensors key on it)
+        self.instance = labels["instance"]
+        # continuous telemetry (attach_health): a zero-arg callable whose
+        # result report() embeds as its ``health`` block
+        self._health_fn = None
         # smoothed TTFT: the fleet's routing policy reads it as a load
         # signal (ReplicaSnapshot.ttft_ewma_s)
         self.ttft_ewma: Optional[float] = None
@@ -174,6 +180,13 @@ class ServingMetrics:
         self._g_active.set(active_slots)
         self._g_class_queue["batch"].set(batch_depth)
         self._g_class_queue["interactive"].set(queue_depth - batch_depth)
+
+    def attach_health(self, fn) -> None:
+        """Attach a zero-arg callable returning this instance's health
+        score JSON (wired by :func:`~chainermn_torch.monitor.health.
+        fleet_health`); :meth:`report` then carries a ``health`` block.
+        Detach with ``attach_health(None)``."""
+        self._health_fn = fn
 
     def _record_token_time(self, t: float) -> None:
         if self._t_first_token is None:
@@ -276,6 +289,11 @@ class ServingMetrics:
             accept = self._h_spec_accept.samples
             if accept:
                 out["spec_accept_length_mean"] = float(np.mean(accept))
+        if self._health_fn is not None:
+            try:
+                out["health"] = self._health_fn()
+            except Exception as e:  # noqa: BLE001 — reporting never raises
+                out["health"] = {"error": f"{type(e).__name__}: {e}"}
         return out
 
 

@@ -38,7 +38,13 @@ heads) and ResNet-50 (random weights from a seed):
   mid-decode rebalance, with the migration programs timed; on the f32 LM
   the fleets' streams must equal a solo engine's (greedy and sampled),
   an int8 store must migrate bit for bit, and an import planted one
-  block short must fail every request;
+  block short must fail every request; ``serve_control`` runs the fleet's
+  control plane (``fleet_health``, ``SLOEngine``, ``FleetController`` on
+  their daemon threads) from one replica: a burst scales up, a canary
+  deploy promotes, a canary forced critical rolls back under load, idle
+  scales down, and on the f32 LM every replica's streams after a
+  rollback must equal a solo engine's on the pre-canary weights (the
+  pre-canary copy planted as a reference must fail 8/8);
 - training: ``TransformerLM(attention='flash')``,
   ``create_communicator('pure_nccl')``, ``create_multi_node_optimizer``
   over ``AdamW`` and ``lm_train_step`` take 12 steps on a [8, 2048] batch;
@@ -1979,6 +1985,521 @@ def _fleet_f32(device):
         _empty()
     del m32
     _empty()
+    return out
+
+
+# the control plane on the card: the twin's cadences and autoscale policy
+# (bake_s: the bake clock starts at the tick that begins the canary's
+# publish, and a fence under load outlasts the twin's 1 s default)
+CONTROL = dict(min_replicas=1, max_replicas=2, queue_high=1.0, idle_low=0.25,
+               up_after_s=0.2, down_after_s=1.0, cooldown_s=0.3,
+               cadence_s=0.05, ts_cadence_s=0.05, bake_s=4.0,
+               slo_ttft_s=10.0, load_in_flight=12, wave=16,
+               steady_window_s=1.0, after_window_s=1.0)
+
+
+class _Load:
+    """A closed loop of ``in_flight`` requests through a router on its own
+    thread (a finished one is replaced at once), every token's arrival
+    time kept: the traffic a roll is measured under."""
+
+    def __init__(self, router, work, in_flight):
+        import threading
+
+        self.router, self.work, self.in_flight = router, work, in_flight
+        self.stamps, self.done, self.failed = [], 0, []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="chip-smoke-load")
+        self._thread.start()
+
+    def _run(self):
+        live, i = [], 0
+        while not self._stop.is_set() or live:
+            for fr in list(live):
+                try:
+                    settled = fr.wait(0.001)   # the router settles on waits
+                except Exception:  # noqa: BLE001 — recorded below
+                    settled = True
+                if not settled:
+                    continue
+                live.remove(fr)
+                if fr.error is not None or len(fr.tokens) != \
+                        fr.max_new_tokens:
+                    self.failed.append((fr.id, repr(fr.error)))
+                self.done += 1
+            while not self._stop.is_set() and len(live) < self.in_flight:
+                p, n = self.work[i % len(self.work)]
+                i += 1
+                live.append(self.router.submit(
+                    p, n, stream_cb=lambda _t: self.stamps.append(
+                        time.perf_counter())))
+            time.sleep(0.002)
+
+    def rate(self, t0, t1):
+        """Tokens a second that arrived in ``[t0, t1]``."""
+        n = sum(1 for t in list(self.stamps) if t0 <= t <= t1)
+        return n / max(t1 - t0, 1e-9)
+
+    def stop(self, timeout):
+        self._stop.set()
+        self._thread.join(timeout)
+        if self._thread.is_alive():
+            raise AssertionError("serve_control: the load did not drain")
+
+
+def _record_publishes(router):
+    """Wrap ``router.publish`` to keep every roll's window and per-replica
+    outcome (the controller calls it through the instance)."""
+    pubs = []
+    real = router.publish
+
+    def recorded(params, **kw):
+        t0 = time.perf_counter()
+        out = real(params, **kw)
+        pubs.append({"t0": t0, "t1": time.perf_counter(),
+                     "canary": kw.get("canary"),
+                     "exclude": list(kw.get("exclude", ())),
+                     "ok": out["ok"], "replicas": out["replicas"]})
+        return out
+
+    router.publish = recorded
+    return pubs
+
+
+def _until(pred, timeout, what):
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        out = pred()
+        if out:
+            return out
+        time.sleep(0.005)
+    raise AssertionError(f"serve_control: timed out waiting for {what}")
+
+
+def _bumped(state, delta, pinned):
+    """Every float tensor of ``state`` plus ``delta``, in pinned host
+    memory (``pinned``) or where it lies."""
+    import torch
+
+    with torch.no_grad():
+        out = {}
+        for k, v in state.items():
+            t = v + delta if v.is_floating_point() else v.clone()
+            out[k] = t.cpu().pin_memory() if pinned else t
+        return out
+
+
+def _prefix_counts(engines):
+    return [(e.prefix_stats().get("hits", 0),
+             e.prefix_stats().get("misses", 0)) for e in engines]
+
+
+def _hit_rate(a, b):
+    hits = sum(h1 - h0 for (h0, _), (h1, _) in zip(a, b))
+    misses = sum(m1 - m0 for (_, m0), (_, m1) in zip(a, b))
+    return {"hits": hits, "misses": misses,
+            "hit_rate": hits / max(hits + misses, 1)}
+
+
+def phase_serve_control(device, card):
+    """The fleet's control plane on one card over the 220M LM (bf16,
+    captured, the kernel on every decode read), run as the ``serve_lm.py``
+    twin runs it: ``FleetRouter`` + ``fleet_health`` + ``SLOEngine`` +
+    ``FleetController`` with their daemon threads at the twin's cadences,
+    from one replica (``min_replicas=1, max_replicas=2``). ``serve``'s 32
+    requests as a burst must scale up, and the spawned replica must serve
+    the next wave; a deploy of every tensor bumped by 0.01 must bake and
+    promote (every replica then on one weight version); a second deploy,
+    its canary forced critical through a ``ThresholdDetector``, must roll
+    back, under a closed loop of 12 requests; idle must scale down to 1.
+    Then, on the f32 LM with 8 greedy requests, the streams of every
+    replica after a rollback must equal a solo engine's on the pre-canary
+    weights up to the near-tie rule, and the same rollback with the
+    controller's pre-canary copy planted as a reference to the canary's
+    live tensors must fail 8/8 on every replica. Fails unless no request
+    is lost, no survivor rebuilds a program and each engine's kernel
+    launches are its decode calls x 12. One card and one interpreter:
+    these numbers are the cost and correctness of control, not capacity."""
+    t_phase = time.perf_counter()
+    rec = {"phase": "serve_control", "card": card,
+           "model": dict(LM, compute_dtype="bf16"),
+           "engine": dict(ENGINE, paged_kernel=True), "policy": CONTROL,
+           "note": "one card, one interpreter: the cost and correctness of "
+                   "control, not capacity"}
+    try:
+        _control_bf16(device, rec)  # its engines are freed when it returns
+    except BaseException:
+        emit(dict(rec, phase="serve_control_failed"))
+        raise
+    _empty()
+    rec["run_s"] = time.perf_counter() - t_phase
+    emit(rec)
+    rec["f32"] = _control_f32(device)
+    emit({"phase": "serve_control_f32", "card": card, **rec["f32"],
+          "run_s": time.perf_counter() - t_phase})
+    _check_control(rec)
+    return rec
+
+
+def _control_bf16(device, rec):
+    """The bf16 part of :func:`phase_serve_control`, filling ``rec``."""
+    import torch
+
+    from chainermn_torch.fleet import (
+        AutoscalePolicy,
+        CanaryPolicy,
+        FleetController,
+        FleetRouter,
+    )
+    from chainermn_torch.fleet import control as fleet_control
+    from chainermn_torch.models import TransformerLM
+    from chainermn_torch.monitor import (
+        LatencyObjective,
+        SLOEngine,
+        ThresholdDetector,
+        fleet_health,
+    )
+    from chainermn_torch.parallel.paged_kernel import paged_attend
+    from chainermn_torch.serving import ServingEngine
+
+    kw = dict(ENGINE, paged_kernel=True)
+    engines, boxes, undos, counts = [], [], [], {}
+    t_built = {}
+
+    def make_engine():
+        t0 = time.perf_counter()
+        eng = ServingEngine(TransformerLM(**LM, compute_dtype=torch.bfloat16,
+                                          device=device, seed=SEED),
+                            device=device, **kw)
+        box, undo = _count_decodes([eng])
+        engines.append(eng)
+        boxes.extend(box)
+        undos.append(undo)
+        t_built[len(engines) - 1] = time.perf_counter() - t0
+        return eng
+
+    router = FleetRouter([make_engine()])
+    pubs = _record_publishes(router)
+    load = collector = controller = None
+    try:
+        if not router.wait_ready(FLEET_WAIT_S):
+            raise AssertionError("serve_control: replica 0 did not warm up")
+        counts[0] = engines[0].compile_counts_detailed()
+        launches0 = {0: engines[0]._programs.kernel_launches}
+        collector = fleet_health(router, cadence_s=CONTROL["ts_cadence_s"],
+                                 stall_timeout_s=30.0)
+        slo = SLOEngine().add(LatencyObjective(
+            "ttft_p99", "serving_ttft_seconds",
+            threshold_s=CONTROL["slo_ttft_s"], windows=(5.0, 30.0)))
+        controller = FleetController(
+            router, collector, slo=slo, engine_factory=make_engine,
+            autoscale=AutoscalePolicy(**{
+                k: CONTROL[k] for k in (
+                    "min_replicas", "max_replicas", "queue_high",
+                    "idle_low", "up_after_s", "down_after_s",
+                    "cooldown_s")}),
+            canary=CanaryPolicy(bake_s=CONTROL["bake_s"]),
+            cadence_s=CONTROL["cadence_s"],
+            sensor_kw=dict(stall_timeout_s=30.0))
+        paged_attend.launches = 0
+        collector.start()
+        controller.start()
+
+        # 1. the burst: queue pressure scales up; the next wave, sent at
+        # once, queues on the spawned replica while it warms (the fleet
+        # must not go idle here, or the policy retires it again)
+        burst = [router.submit(p, n)
+                 for p, n in _serve_traffic(N_REQUESTS, SEED)]
+        up = _until(lambda: next((d for d in controller.report()["decisions"]
+                                  if d["action"] == "scale_up"), None),
+                    60, "controller_scale_up")
+        spawned = router.replicas[up["replica"]]
+        wave = [router.submit(p, n)
+                for p, n in _serve_traffic(CONTROL["wave"], SEED + 1)]
+        spawned.ready.wait(FLEET_WAIT_S)
+        t_ready = time.monotonic()
+        if not spawned.accepting:
+            raise AssertionError(f"serve_control: the spawned replica is "
+                                 f"{spawned.state.value}")
+        counts[1] = engines[1].compile_counts_detailed()
+        launches0[1] = engines[1]._programs.kernel_launches
+        rec["scale_up"] = {
+            "decision": up, "ready_s": t_ready - up["t"],
+            "engine_build_s": t_built.get(1),
+            "capture_s": engines[1]._programs.capture_s}
+        for fr in burst + wave:
+            if not fr.wait(FLEET_WAIT_S):
+                raise AssertionError(f"serve_control: request {fr.id} hung")
+        rec["wave_served_by"] = [sum(fr.replica_id == r for fr in wave)
+                                 for r in range(2)]
+
+        # 2. a canary deploy that bakes and promotes (no traffic)
+        v1 = _bumped(engines[0].model.state_dict(), 0.01, pinned=True)
+        t_deploy = time.monotonic()
+        controller.deploy(v1, step=1)
+        promote = _until(
+            lambda: (controller.report()["canary"]["last_outcome"]
+                     if controller.report()["phase"] == "idle" else None),
+            60, "the first canary's outcome")
+        rec["promote"] = {
+            "outcome": promote,
+            "deploy_to_outcome_s": time.monotonic() - t_deploy,
+            "weight_versions": [r.engine.weight_version
+                                for r in router.replicas]}
+
+        # 3. under a closed loop of requests: the steady rate, then a
+        # canary forced critical, rolled back
+        load = _Load(router, _spec_traffic(64, SEED + 90),
+                     CONTROL["load_in_flight"])
+        time.sleep(0.5)
+        t_s0 = time.perf_counter()
+        pre0 = _prefix_counts(engines)
+        time.sleep(CONTROL["steady_window_s"])
+        t_s1 = time.perf_counter()
+        pre1 = _prefix_counts(engines)
+        v2 = _bumped(engines[0].model.state_dict(), 0.01, pinned=True)
+        n_pubs = len(pubs)
+        controller.deploy(v2, step=2)
+        active = _until(lambda: controller.report()["canary"]["active"],
+                        60, "the second canary")
+        rid = active["replica"]
+        collector.health.add_detectors(str(rid), ThresholdDetector(
+            f"planted@{rid}", "planted_regression", 0.5,
+            severity="critical"))
+        collector.store.append("planted_regression", time.monotonic(), 1.0)
+        rollback = _until(
+            lambda: (controller.report()["canary"]["last_outcome"]
+                     if controller.report()["phase"] == "idle" else None),
+            60, "the rollback")
+        post0 = _prefix_counts(engines)
+        time.sleep(CONTROL["after_window_s"])
+        post1 = _prefix_counts(engines)
+        load.stop(FLEET_WAIT_S)
+        rolls = pubs[n_pubs:]
+        steady = load.rate(t_s0, t_s1)
+        rec["rollback"] = {
+            "outcome": rollback,
+            "weight_versions": [r.engine.weight_version
+                                for r in router.replicas],
+            "load_requests": load.done, "load_failed": load.failed,
+            "tokens_per_sec_steady": steady,
+            "rolls": [{"what": ("canary" if p["canary"] is not None
+                                else "rollback"),
+                       "s": p["t1"] - p["t0"],
+                       "tokens_per_sec": load.rate(p["t0"], p["t1"]),
+                       "vs_steady": load.rate(p["t0"], p["t1"]) / steady,
+                       "replicas": p["replicas"]} for p in rolls],
+            "prefix_before": _hit_rate(pre0, pre1),
+            # from the second deploy (each swap clears a replica's trie)
+            # to the end of the after-window
+            "prefix_across_rollback": _hit_rate(pre1, post1),
+            "prefix_after": _hit_rate(post0, post1)}
+
+        # 4. idle: scale down to the floor
+        down = _until(lambda: next((d for d in controller.report()[
+            "decisions"] if d["action"] == "scale_down"), None),
+            30, "controller_scale_down")
+        rec["scale_down"] = {"decision": down, "capacity": router.capacity,
+                             "states": [r.state.value
+                                        for r in router.replicas]}
+        controller.stop()
+        collector.stop()
+        torch.cuda.synchronize()
+        rec["launches_control_path"] = paged_attend.launches
+        rec["decode_calls"] = [b["calls"] for b in boxes]
+        rec["engines_built"] = len(engines)
+        rec["kernel_launches"] = [
+            e._programs.kernel_launches - launches0.get(i, 0)
+            for i, e in enumerate(engines)]
+        rec["warm_run_launches"] = (paged_attend.launches
+                                    - sum(rec["kernel_launches"]))
+        rec["compile_counts_flat"] = [
+            e.compile_counts_detailed() == counts[i] and not e.recompiles
+            for i, e in enumerate(engines)]
+        rec["controller"] = {k: controller.report()[k] for k in (
+            "versions", "decisions", "autoscale")}
+        rec["health"] = router.fleet_report()["health"]
+        rec["slo"] = slo.last
+        rec["requests"] = {"burst": len(burst), "wave": len(wave),
+                           "load": load.done}
+        lost = [fr.id for fr in burst + wave
+                if fr.error is not None or len(fr.tokens)
+                != fr.max_new_tokens] + load.failed
+        rec["lost"] = lost
+    except BaseException:
+        from chainermn_torch.monitor import get_event_log
+
+        keep = ("controller_", "canary_", "fleet_replica", "fleet_spawn",
+                "fleet_retire", "fleet_publish", "publish", "engine_restart",
+                "health_changed", "detector_fired", "slo_breach")
+        rec["failure_state"] = {
+            "decisions": (controller.report()["decisions"]
+                          if controller is not None else None),
+            "replicas": [(r.replica_id, r.state.value, r.restarts,
+                          r.scheduler.queue_depth) for r in router.replicas],
+            "events": [e for e in get_event_log().tail(1024)
+                       if e["kind"].startswith(keep)][-60:]}
+        raise
+    finally:
+        if load is not None:
+            load.stop(FLEET_WAIT_S)
+        for part in (controller, collector):
+            if part is not None:
+                part.stop()
+        router.close()
+        for undo in undos:
+            undo()
+    pub_stats = {}
+    for p in pubs:
+        for r, out in p["replicas"].items():
+            if out.get("ok"):
+                ent = pub_stats.setdefault(r, {"commit_s": [], "fence_s": []})
+                ent["commit_s"].append(out["commit_s"])
+                ent["fence_s"].append(out["fence_s"])
+    rec["publish"] = {
+        r: {"swaps": len(v["commit_s"]),
+            "commit_s_p50": _p(v["commit_s"], 50),
+            "commit_s_p99": _p(v["commit_s"], 99),
+            "fence_s_p50": _p(v["fence_s"], 50),
+            "fence_s_p99": _p(v["fence_s"], 99)}
+        for r, v in sorted(pub_stats.items())}
+    rec["canary_start_to_promote_s"] = promote.get("baked_s")
+    # what one pre-canary copy costs: the controller's clone of a
+    # replica's state_dict, on the card (the router is closed)
+    state = engines[0].model.state_dict()
+    rec["rollback"]["copy_ms"] = cuda_ms(
+        lambda: fleet_control._private_copy(state), reps=5)
+    rec["rollback"]["copy_bytes"] = sum(
+        t.numel() * t.element_size() for t in state.values())
+
+
+def _check_control(rec):
+    bad = []
+    if rec["wave_served_by"][1] < 1:
+        bad.append(f"the spawned replica served none of the wave: "
+                   f"{rec['wave_served_by']}")
+    if rec["promote"]["outcome"]["action"] != "canary_promote" or len(
+            set(rec["promote"]["weight_versions"])) != 1:
+        bad.append(f"the first deploy did not promote onto one version: "
+                   f"{rec['promote']}")
+    if rec["rollback"]["outcome"]["action"] != "canary_rollback":
+        bad.append(f"the planted regression did not roll back: "
+                   f"{rec['rollback']['outcome']}")
+    if rec["scale_down"]["capacity"] != 1:
+        bad.append(f"idle did not scale down to 1: {rec['scale_down']}")
+    acts = [d["action"] for d in rec["controller"]["decisions"]]
+    if rec["engines_built"] != 2 or acts.count("scale_up") != 1 \
+            or acts.count("scale_down") != 1:
+        bad.append(f"one scale-up and one scale-down expected: {acts}")
+    if not all(rec["compile_counts_flat"]):
+        bad.append(f"programs rebuilt: {rec['compile_counts_flat']}")
+    if rec["lost"]:
+        bad.append(f"requests lost: {rec['lost']}")
+    for calls, n in zip(rec["decode_calls"], rec["kernel_launches"]):
+        if n != calls * LM["n_layers"] or not calls:
+            bad.append(f"{n} kernel launches on {calls} decode calls x "
+                       f"{LM['n_layers']} layers")
+    f32 = rec["f32"]
+    for name, p in f32["honest"].items():
+        if p["failures"]:
+            bad.append(f"f32 rollback stream of replica {name} diverges "
+                       f"from the pre-canary weights: {p['failures']}")
+    for name, p in f32["planted_alias"].items():
+        if len(p["failures"]) != p["requests"]:
+            bad.append(f"the planted alias failed {len(p['failures'])} of "
+                       f"{p['requests']} on replica {name}")
+    if bad:
+        raise AssertionError("serve_control: " + "; ".join(bad))
+
+
+def _control_f32(device):
+    """The f32 LM at full width, two replicas under a controller ticked by
+    hand: a deploy promoted (the pre-canary weights v1), then a canary
+    forced critical and rolled back; every replica's 8 greedy streams
+    against a solo engine on v1. Then the same rollback with the
+    controller's pre-canary copy planted as a reference (the alias the
+    port must not keep): every replica must fail 8/8."""
+    import torch
+
+    from chainermn_torch.fleet import CanaryPolicy, FleetController, FleetRouter
+    from chainermn_torch.fleet import control as fleet_control
+    from chainermn_torch.models import TransformerLM
+    from chainermn_torch.monitor import ThresholdDetector, fleet_health
+    from chainermn_torch.serving import ServingEngine
+
+    kw = dict(ENGINE, paged_kernel=True)
+    models = [TransformerLM(**LM, compute_dtype=torch.float32, device=device,
+                            seed=SEED) for _ in range(3)]
+    engines = [ServingEngine(m, device=device, **kw) for m in models]
+    work = _serve_traffic(PARITY_REQUESTS, SEED + 80)
+    v1 = _bumped(models[0].state_dict(), 0.01, pinned=False)
+    solo_model = models[2]
+    with torch.no_grad():
+        for k, t in solo_model.state_dict().items():
+            t.copy_(v1[k])
+    engines[2].warmup()
+    want, _, _ = _drive(engines[2], work)
+    out = {"requests": len(work)}
+    router = FleetRouter(engines[:2])
+    try:
+        if not router.wait_ready(FLEET_WAIT_S):
+            raise AssertionError("serve_control f32: replicas did not warm")
+        col = fleet_health(router, stall_timeout_s=60.0)
+        ctrl = FleetController(router, col, canary=CanaryPolicy(bake_s=1.0))
+        now = [1.0]
+
+        def tick(dt=0.5):
+            now[0] += dt
+            col.tick(now=now[0])
+            return ctrl.tick(now=now[0])
+
+        def cycle(params, planted):
+            ctrl.deploy(params)
+            rid = tick()["actions"][0]["replica"]
+            if planted is None:
+                acts = tick(1.5)["actions"]
+            else:
+                col.health.add_detectors(str(rid), ThresholdDetector(
+                    f"{planted}@{rid}", planted, 0.5, severity="critical"))
+                col.store.append(planted, now[0] + 0.1, 1.0)
+                acts = tick()["actions"]
+                col.store.append(planted, now[0] + 0.1, 0.0)
+                tick()
+            return [a["action"] for a in acts]
+
+        def streams(replica):
+            reqs = [replica.submit(p, n) for p, n in work]
+            for r in reqs:
+                if not r.wait(FLEET_WAIT_S):
+                    raise AssertionError("serve_control f32: request hung")
+            return [[int(t) for t in r.tokens] for r in reqs]
+
+        out["promote"] = cycle(v1, None)
+        v2 = _bumped(v1, 0.01, pinned=False)
+        out["rollback"] = cycle(v2, "f32_regression")
+        out["honest"] = {str(r.replica_id): _parity(
+            solo_model, work, streams(r), want) for r in router.replicas}
+        real = fleet_control._private_copy
+        fleet_control._private_copy = dict
+        try:
+            out["planted_rollback"] = cycle(v2, "f32_planted")
+        finally:
+            fleet_control._private_copy = real
+        out["planted_alias"] = {str(r.replica_id): _parity(
+            solo_model, work, streams(r), want) for r in router.replicas}
+        out["recompiles"] = [e.recompiles for e in engines]
+        out["versions"] = [h["source"] for h in
+                           ctrl.report()["versions"]["history"]]
+    finally:
+        router.close()
+    del engines, models, solo_model
+    _empty()
+    if out["promote"] != ["canary_promote"] or out["rollback"] != [
+            "canary_rollback"] or out["planted_rollback"] != [
+            "canary_rollback"]:
+        raise AssertionError(f"serve_control f32: the canary path went "
+                             f"wrong: {out}")
     return out
 
 
@@ -4608,6 +5129,7 @@ def main() -> int:
     graphs = timed("serve_graphs", phase_serve_graphs, device, smi)
     timed("serve_restart_swap", phase_serve_restart_swap, device, smi)
     fleet = timed("serve_fleet", phase_serve_fleet, device, smi)
+    control = timed("serve_control", phase_serve_control, device, smi)
     timed("serve_example", phase_serve_example, smi)
     flash_err = timed("flash_parity", phase_flash_parity, device)
     timed("flash_ring_blocks", phase_flash_ring_blocks, device)
@@ -4645,6 +5167,8 @@ def main() -> int:
         "launches_fleet_path": dict(zip(
             ("prefill_tier", "decode_tier"),
             fleet["tiers"]["kernel_launches"])),
+        "launches_control_path": control["launches_control_path"],
+        "launches_control_path_by_engine": control["kernel_launches"],
         "ms_span_cut": timing["ms_span_cut"],
         "max_abs_err": timing["max_abs_err"],
         "parity_max_abs_err": parity_err,

@@ -13,6 +13,7 @@ import threading
 
 import numpy as np
 import pytest
+from _torch_isolation import fresh_telemetry
 
 from chainermn_tpu.analysis import sanitizer as jax_sanitizer
 from chainermn_tpu.fleet import overload as jax_overload
@@ -22,6 +23,14 @@ from chainermn_torch.analysis import sanitizer
 from chainermn_torch.fleet import overload, routing, share
 
 SEEDS = range(6)
+
+
+@pytest.fixture(autouse=True)
+def _isolated(monkeypatch):
+    """Fresh registries for both packages: the JAX share cache and
+    breaker report counts from the process-wide registry, which other
+    test files in this worker write too."""
+    fresh_telemetry(monkeypatch)
 
 
 def _snaps(mod, rng):
@@ -183,8 +192,10 @@ def test_tenant_breaker_trips_as_the_reference(seed):
 
 @pytest.fixture
 def sanitized():
-    """Both sanitizers on for one test, their graphs forgotten after."""
+    """Both sanitizers on for one test, their graphs forgotten before and
+    after (a suite run earlier in this worker may have left edges)."""
     for mod in (sanitizer, jax_sanitizer):
+        mod.reset()
         mod.enable()
     yield
     for mod in (sanitizer, jax_sanitizer):

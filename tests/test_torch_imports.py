@@ -43,7 +43,11 @@ def test_the_parallel_modules_are_checked():
             "chainermn_torch.fleet", "chainermn_torch.fleet.routing",
             "chainermn_torch.fleet.replica", "chainermn_torch.fleet.router",
             "chainermn_torch.fleet.overload",
-            "chainermn_torch.fleet.share"} <= names
+            "chainermn_torch.fleet.share", "chainermn_torch.fleet.control",
+            "chainermn_torch.monitor.timeseries",
+            "chainermn_torch.monitor.health", "chainermn_torch.monitor.slo",
+            "chainermn_torch.deploy", "chainermn_torch.deploy.versions",
+            "chainermn_torch.deploy.publish"} <= names
 
 
 def test_importing_every_module_pulls_in_no_jax():

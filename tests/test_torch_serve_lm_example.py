@@ -4,8 +4,10 @@ its defaults, each single-engine feature with ``--verify-parity``
 (float32, so every checked stream must equal solo ``generate()``
 exactly), the combination ``chip_smoke.py`` runs on the card, the fleet
 (two replicas, disaggregated tiers, prefix sharing and the rebalance
-probe), its flag guards, and ``train_lm.py --serve-samples`` on the dense
-engine with the prefix store."""
+probe), the control plane (``--health``, ``--autoscale`` with a
+``--canary`` deploy and ``--slo-ttft-ms``), its flag guards, and
+``train_lm.py --serve-samples`` on the dense engine with the prefix store
+and ``--publish-to engine``."""
 
 import pytest
 import torch
@@ -88,11 +90,49 @@ def test_twin_serves_the_burst(name, capsys):
             assert fleet["rebalanced"] is not None
 
 
+CONTROL = {
+    # one replica, held: a burst on a slow host must not scale it up
+    "autoscale_canary": ["--autoscale", "--max-replicas", "1", "--canary",
+                         "--canary-bake", "0.2", "--slo-ttft-ms", "50",
+                         "--verify-parity"],
+    "autoscale_fleet": ["--autoscale", "--min-replicas", "2",
+                        "--max-replicas", "2", "--paged-kv", "--canary",
+                        "--canary-bake", "0.2", "--temperature", "0"],
+    "health_engine": ["--health", "--ts-cadence", "0.01"],
+    "health_fleet": ["--replicas", "2", "--health", "--ts-cadence", "0.01"],
+}
+
+
+@pytest.mark.parametrize("name", list(CONTROL))
+def test_twin_control_plane(name, capsys):
+    """The telemetry and the controller's canary on the twin: every
+    request served, the canary promoted fleet-wide (nothing regresses on
+    an idle fleet), one health verdict per replica."""
+    out = serve_lm.main(TINY + CONTROL[name])
+    printed = capsys.readouterr().out
+    assert out["served"] == 6 and out["shed_or_failed"] == 0
+    n = 2 if "2" in CONTROL[name] else 1
+    assert out["health"]["n_watched"] == n
+    assert out["health"]["worst"] == "healthy"
+    assert out["health"]["ticks"] >= 1 and out["health"]["series"] > 0
+    assert "health: worst=healthy" in printed
+    if "--canary" in CONTROL[name]:
+        control = out["control"]
+        assert control["canary"]["action"] == "canary_promote"
+        assert control["history"] == [(0, "init"), (1, "canary"),
+                                      (1, "publish")]
+        for r in out["fleet"]["replicas"].values():
+            assert r["recompiles"] == {}
+        assert "canary deploy: canary_promote" in printed
+    if "--verify-parity" in CONTROL[name]:
+        assert out["parity"]["checked"] == 3
+    if "--slo-ttft-ms" in CONTROL[name]:
+        assert set(out["slo"]["ttft_p99"]["windows"]) == {"30s", "120s"}
+
+
 @pytest.mark.parametrize("extra", [
-    ["--autoscale"], ["--canary"],
     ["--reshard-from", "snap"], ["--tensor-parallel"], ["--prometheus"],
-    ["--trace", "2"], ["--trace-out", "t.json"], ["--slo-ttft-ms", "50"],
-    ["--http-port", "0"], ["--health"],
+    ["--trace", "2"], ["--trace-out", "t.json"], ["--http-port", "0"],
 ], ids=lambda e: e[0].strip("-"))
 def test_unported_flags_name_the_roadmap(extra):
     with pytest.raises(SystemExit, match="ROADMAP.md"):
@@ -110,9 +150,13 @@ def test_unported_flags_name_the_roadmap(extra):
     ["--replicas", "2", "--share-prefixes"],
     ["--paged-kv", "--rebalance"],
     ["--replicas", "2", "--paged-kv", "--share-prefixes", "--no-affinity"],
+    ["--canary"],
+    ["--autoscale", "--prefill-replicas", "1", "--decode-replicas", "1",
+     "--paged-kv"],
 ], ids=["paged_prefix_blocks", "spec_dense", "spec_sampled",
         "chunk_dense", "weights_syntax", "tiers_one_side", "tiers_dense",
-        "share_dense", "rebalance_no_fleet", "share_no_affinity"])
+        "share_dense", "rebalance_no_fleet", "share_no_affinity",
+        "canary_without_autoscale", "autoscale_tiers"])
 def test_reference_guards(extra):
     """The guards of ``examples/lm/serve_lm.py:519-540`` among them: the
     tiers need both sides and the paged store, sharing and rebalancing a
@@ -151,3 +195,21 @@ def test_train_lm_serve_samples_on_the_dense_engine():
             16 + 1 + i % 8 + 12 for i in range(5)]
         assert served["prefix"]["hits"] >= 1
         assert served["prefix"]["inserted_blocks"] >= 4
+
+
+def test_train_lm_publish_to_engine():
+    """``train_lm.py --publish-to engine --publish-every 2``: a live engine
+    on a copy of the initial weights takes the trained weights through
+    the swap fence every second iteration, sampling at each version, with
+    no program rebuilt (the closing check)."""
+    tiny = ["--device", "cpu", "--iterations", "4", "--n-tokens", "6000",
+            "--seq-len", "32", "--d-model", "32", "--vocab", "32",
+            "--publish-to", "engine", "--publish-every", "2"]
+    out, = run_ranks(_SERVE_SAMPLES, 1, args=[" ".join(tiny), "dense="],
+                     timeout=300)
+    pub = out["dense"]["publish"]
+    assert pub["weight_version"] == 2
+    assert pub["versions"] == [0, 1, 2] and pub["steps"] == [None, 2, 4]
+    # context min(seq_len // 2, 16) = 16 and 12 new tokens per sample
+    assert [len(s) for s in pub["samples"]] == [28, 28, 28]
+    assert set(pub["executables"].values()) == {1}

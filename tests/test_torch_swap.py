@@ -7,7 +7,7 @@ version, and both sides equal JAX ``generate()`` on the matching flax
 weights. A rejected swap changes no parameter, and neither a swap nor a
 restart moves any tensor the programs read. Ports of
 ``tests/deploy_tests/test_publish.py`` (``WeightPublisher`` itself is
-ROADMAP item 12).
+held to the reference in ``tests/test_torch_deploy.py``).
 """
 
 import jax
