@@ -69,6 +69,7 @@ from chainermn_torch.communicators import (
     ProcessGroupCommunicator,
     PureNcclCommunicator,
     SingleNodeCommunicator,
+    TpuCommunicator,
     TwoDimensionalCommunicator,
     create_communicator,
 )
@@ -110,7 +111,7 @@ __all__ = [
     "NaiveCommunicator",
     "FlatCommunicator", "PureNcclCommunicator", "HierarchicalCommunicator",
     "TwoDimensionalCommunicator", "SingleNodeCommunicator",
-    "create_communicator",
+    "TpuCommunicator", "create_communicator",
     "create_multi_node_optimizer", "create_zero_optimizer",
     "create_component_wise_optimizer",
     "clip_by_global_norm_sharded", "warmup_cosine_decay_schedule",

@@ -7,7 +7,8 @@ name                strategy
 ``naive``           :class:`NaiveCommunicator` (all-reduce a gradient)
 ``flat``            :class:`FlatCommunicator` (packed, one per dtype)
 ``pure_nccl``       :class:`PureNcclCommunicator` — the flagship
-``tpu``             the same (the JAX package's name for it)
+``tpu``             the same (:class:`TpuCommunicator`, the JAX
+                    package's name for it)
 ``pure_ici``        the same
 ``hierarchical``    :class:`HierarchicalCommunicator` (intra, then inter)
 ``two_dimensional`` :class:`TwoDimensionalCommunicator` (RS/AR/AG)
@@ -40,6 +41,10 @@ from chainermn_torch.communicators.process_group_communicator import (
 from chainermn_torch.communicators.pure_nccl_communicator import (
     PureNcclCommunicator,
 )
+
+# the JAX package's one flat class behind "tpu", "pure_ici" and
+# "pure_nccl" (communicators/__init__.py:13-15), under its name
+TpuCommunicator = PureNcclCommunicator
 
 _FLAT = ("pure_nccl", "tpu", "pure_ici")
 _OTHERS = {"naive": NaiveCommunicator, "flat": FlatCommunicator,
@@ -76,5 +81,6 @@ def create_communicator(communicator_name: str = "pure_nccl", *,
 
 __all__ = ["CommunicatorBase", "MeshCommunicator", "ProcessGroupCommunicator",
            "NaiveCommunicator", "FlatCommunicator", "PureNcclCommunicator",
+           "TpuCommunicator",
            "HierarchicalCommunicator", "TwoDimensionalCommunicator",
            "SingleNodeCommunicator", "create_communicator"]

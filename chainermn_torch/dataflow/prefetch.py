@@ -35,9 +35,12 @@ Telemetry (the process registry of :mod:`chainermn_torch.monitor`):
 histogram (staging plus copy per batch, on the producer thread),
 ``prefetch_stall_total`` counter and ``prefetch_stall_seconds`` histogram
 (the consumer found the queue empty: the input pipeline is the
-bottleneck), ``prefetch_batches_total`` counter. The reference's
-sanitizer interleaving points and its ``prefetch_stall`` trace span are
-not ported (the port has no ``analysis`` or ``monitor.trace`` yet).
+bottleneck), ``prefetch_batches_total`` counter. A stall is also a
+``prefetch_stall`` span on the consumer thread's ambient trace (the
+training loop's ``train_step``; the producer thread has no ambient
+trace), and the producer's put and the consumer's empty check are
+interleaving points of :mod:`chainermn_torch.analysis.sanitizer`
+(``prefetch:offer``, ``prefetch:next``).
 """
 
 from __future__ import annotations
@@ -51,7 +54,9 @@ import numpy as np
 import torch
 
 from chainermn_torch._device import resolve_device
+from chainermn_torch.analysis import sanitizer
 from chainermn_torch.monitor import get_registry
+from chainermn_torch.monitor.trace import span as _trace_span
 
 _DONE = "done"
 _ERROR = "error"
@@ -138,6 +143,9 @@ class DevicePrefetcher:
     def _offer(self, item) -> bool:
         """Blocking put that stays interruptible by :meth:`close`."""
         while not self._stop.is_set():
+            # interleaving point: the fuzzer stretches the gap between
+            # the stop check and the put (the close()/producer race)
+            sanitizer.sync_point("prefetch:offer")
             try:
                 self._q.put(item, timeout=0.05)
                 return True
@@ -208,12 +216,16 @@ class DevicePrefetcher:
         if self._finished:
             raise StopIteration
         self._ensure_started()
+        # interleaving point: the empty check against the producer's put
+        sanitizer.sync_point("prefetch:next")
         if self._q.empty():
             # the producer is behind: the input pipeline, not the step,
-            # is the bottleneck right now — count it and time the wait
+            # is the bottleneck right now — count it, time the wait, and
+            # put the stall on the ambient train-step trace (if one is open)
             self._c_stall.inc()
             t0 = time.perf_counter()
-            item = self._q.get()
+            with _trace_span("prefetch_stall"):
+                item = self._q.get()
             self._h_stall.observe(time.perf_counter() - t0)
         else:
             item = self._q.get()

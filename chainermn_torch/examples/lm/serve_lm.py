@@ -45,8 +45,12 @@ The same single-engine flags with the same defaults as the reference:
   bfloat16): the engine's and ``generate()``'s products differ in shape,
   so a near-tie may round either way.
 
-The reshard, tensor-parallel, trace, Prometheus and HTTP flags raise
-``SystemExit`` naming the ROADMAP.md item they wait for.
+``--trace N`` traces every Nth request (the scheduler's span tree:
+queue, admit, prefill, one decode_step a token, retire; shed and errored
+requests are always kept; 0 disables tracing) and ``--trace-out FILE``
+writes the retained traces as Chrome trace-event JSON. The reshard,
+tensor-parallel, Prometheus and HTTP flags raise ``SystemExit`` naming
+the ROADMAP.md item they wait for.
 
 Run on the card (the model computes in bfloat16 there, float32 on the
 CPU)::
@@ -75,7 +79,7 @@ import torch
 from chainermn_torch._device import resolve_device
 from chainermn_torch.fleet import FleetRouter
 from chainermn_torch.models import TransformerLM, generate
-from chainermn_torch.monitor import get_registry
+from chainermn_torch.monitor import get_registry, get_tracer
 from chainermn_torch.serving import (
     QueueFullError,
     ServingClient,
@@ -89,8 +93,6 @@ _UNPORTED = {
     "reshard_from": "deploy/reshard.py (Queue A item 9.1)",
     "tensor_parallel": "tensor-parallel serving (Queue A item 11.2)",
     "prometheus": "the rest of monitor/ (Queue A item 13)",
-    "trace": "monitor/trace (Queue A item 13)",
-    "trace_out": "monitor/trace (Queue A item 13)",
     "http_port": "monitor/http (Queue A item 13)",
 }
 
@@ -204,12 +206,18 @@ def _parser() -> argparse.ArgumentParser:
                          "replica, printed at the end")
     ap.add_argument("--ts-cadence", type=float, default=0.05,
                     help="collector sampling cadence in seconds")
-    for flag in ("http_port", "trace"):
-        ap.add_argument("--" + flag.replace("_", "-"), type=int,
-                        default=None, help="not ported yet")
-    for flag in ("reshard_from", "trace_out"):
-        ap.add_argument("--" + flag.replace("_", "-"), default=None,
-                        help="not ported yet")
+    ap.add_argument("--trace", type=int, default=1, metavar="N",
+                    help="trace every Nth request (span tree: queue -> "
+                         "admit -> prefill -> decode -> retire; "
+                         "shed/errored requests are always kept). "
+                         "0 disables tracing")
+    ap.add_argument("--trace-out", default="",
+                    help="write retained traces as Chrome trace-event "
+                         "JSON to this path (chrome://tracing or "
+                         "ui.perfetto.dev)")
+    ap.add_argument("--http-port", type=int, default=None,
+                    help="not ported yet")
+    ap.add_argument("--reshard-from", default=None, help="not ported yet")
     for flag in ("tensor_parallel", "prometheus"):
         ap.add_argument("--" + flag.replace("_", "-"), action="store_true",
                         default=None, help="not ported yet")
@@ -411,6 +419,7 @@ def main(argv=None) -> dict:
             canary=CanaryPolicy(bake_s=args.canary_bake), cadence_s=0.05,
             sensor_kw=dict(stall_timeout_s=30.0))
         controller.start()
+    get_tracer().configure(sample=args.trace)
     slo_engine = None
     if args.slo_ttft_ms:
         from chainermn_torch.monitor import LatencyObjective, SLOEngine
@@ -545,6 +554,13 @@ def main(argv=None) -> dict:
             print(f"SLO {name}: compliant={entry['compliant']} "
                   f"max_burn_rate={entry['max_burn_rate']} "
                   f"windows={entry['windows']}")
+    tracer = get_tracer()
+    summary["traces_retained"] = len(tracer.finished())
+    if args.trace_out:
+        tracer.export_chrome(args.trace_out)
+        print(f"wrote {summary['traces_retained']} trace(s) to "
+              f"{args.trace_out} (load in chrome://tracing or "
+              "ui.perfetto.dev)")
     if health is not None:
         summary["health"] = health
         print(f"health: worst={health['worst']} over "

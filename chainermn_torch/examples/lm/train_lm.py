@@ -26,10 +26,18 @@ trains, and every ``--publish-every`` iterations the trained weights
 enter it through :class:`~chainermn_torch.deploy.WeightPublisher`'s
 swap fence (rank 0), each followed by a sample at the new version.
 
-Not ported yet — each raises ``NotImplementedError`` naming its
-ROADMAP.md item: ``--resume``/``--inject-fault`` (``resilient_fit``),
-``--prefetch-depth``/``--fetch-every`` (``fit``), ``--snapshot-to``
-(sharded checkpoints), ``--trace-out`` (``monitor/trace``).
+``--prefetch-depth N``/``--fetch-every K`` drive the plain loop through
+:func:`chainermn_torch.training.fit`: batches copied ahead by a device
+prefetcher, losses kept on the device and fetched K at a time.
+``--resume`` drives it through :func:`chainermn_torch.resilience.
+resilient_fit`: snapshots of the model, the optimizer and the iterator
+every ``--save-every`` steps (``--async-save``: written on a writer
+thread), recovery from the newest snapshot on a failed step
+(``--inject-fault K`` raises at step K once), and resume across launches
+from ``--checkpoint-dir``. ``--trace-out FILE`` writes the retained
+``train_step`` span trees (and a recovery's ``failure_episode``) as
+Chrome trace-event JSON. ``--snapshot-to`` (sharded checkpoints) is not
+ported yet and raises ``NotImplementedError`` naming its ROADMAP.md item.
 
 Run one rank on the card::
 
@@ -50,12 +58,26 @@ import numpy as np
 import torch
 
 import chainermn_torch
+from chainermn_torch import monitor
 from chainermn_torch.models import TransformerLM
 from chainermn_torch.parallel.moe import MoeStatsAccumulator
 from chainermn_torch.training import lm_train_step
 
 _SEQUENCE_KINDS = ("ring", "ring_flash", "zigzag", "zigzag_flash", "ulysses",
                    "ulysses_flash")
+
+
+def _dump_traces(args) -> None:
+    """``--trace-out``: export the span trees the run retained (every
+    loop traces its steps through the default tracer) as a Chrome
+    trace-event file."""
+    if not args.trace_out:
+        return
+    tracer = monitor.get_tracer()
+    n = len(tracer.finished())
+    tracer.export_chrome(args.trace_out)
+    print(f"wrote {n} trace(s) to {args.trace_out} "
+          "(load in chrome://tracing or ui.perfetto.dev)", flush=True)
 
 
 def markov_stream(n_tokens: int, vocab: int, order: int = 2, seed: int = 0):
@@ -317,25 +339,18 @@ def _check_flags(args) -> None:
                          "params; the gspmd/pipeline/resume modes own "
                          "their state layouts and would silently ignore "
                          "it")
-    unported = (
-        (args.resume or args.inject_fault,
-         "--resume/--inject-fault need resilience.resilient_fit"),
-        (args.prefetch_depth or args.fetch_every > 1,
-         "--prefetch-depth/--fetch-every need training.fit and LossWindow"),
-        (args.snapshot_to,
-         "--snapshot-to needs extensions.sharded_checkpoint"),
-        (args.trace_out, "--trace-out needs monitor.trace"))
-    for flag_set, what in unported:
-        if flag_set:
-            raise NotImplementedError(
-                f"{what}, which is not ported yet (ROADMAP.md, Queue A)")
+    if args.snapshot_to:
+        raise NotImplementedError(
+            "--snapshot-to needs extensions.sharded_checkpoint, which is "
+            "not ported yet (ROADMAP.md, Queue A)")
 
 
 def main(argv=None) -> dict:
     """Run the example with ``argv`` (``sys.argv[1:]`` when ``None``);
     returns a summary: the mode, the per-step losses, tokens/s after the
     first step, the MoE drop summary, the parameter count and, per mode,
-    the stored fraction (gspmd) or the bubble fraction (pipeline)."""
+    the stored fraction (gspmd), the bubble fraction (pipeline) or the
+    recovery report (resilient)."""
     parser = _parser()
     args = parser.parse_args(argv)
     _check_flags(args)
@@ -379,10 +394,12 @@ def _run(args, parser, comm) -> dict:
         step_comm = chainermn_torch.MeshCommunicator(
             make_3d_mesh(shape=(1, 1, comm.size)), device=comm.device)
     try:
-        return _run_steps(args, comm, step_comm)
+        out = _run_steps(args, comm, step_comm)
     finally:
         if step_comm is not comm:
             step_comm.finalize()
+    _dump_traces(args)
+    return out
 
 
 def _run_steps(args, comm, step_comm) -> dict:
@@ -453,6 +470,13 @@ def _run_steps(args, comm, step_comm) -> dict:
               f"tensor_parallel={args.tensor_parallel} devices={n}",
               flush=True)
 
+    if args.resume:
+        return run_resilient(args, comm, model, optimizer, step, mine,
+                             tokens_all, targets_all, n_seq, batch,
+                             n_params)
+    if args.prefetch_depth or args.fetch_every > 1:
+        return run_fit(args, comm, step, batches(), batch, n_params)
+
     publisher = None
     if args.publish_to and r == 0:
         publisher = _OnlinePublisher(args, model, tokens_all)
@@ -460,9 +484,15 @@ def _run_steps(args, comm, step_comm) -> dict:
     t0, toks = time.time(), 0
     first = None
     acc, losses = MoeStatsAccumulator(), []
+    tracer = monitor.get_tracer()
     for it in range(1, args.iterations + 1):
-        tok, tgt = next(gen)
-        loss, stats = step(tok, tgt)
+        # the span tree training.fit records, so --trace-out has the
+        # same taxonomy from the synchronous loop
+        with tracer.trace("train_step", kind="train", step=it):
+            with tracer.span("prefetch_wait"):
+                tok, tgt = next(gen)
+            with tracer.span("dispatch"):
+                loss, stats = step(tok, tgt)
         acc.update(stats)
         losses.append(loss)
         if publisher is not None and it % publisher.every == 0:
@@ -492,6 +522,101 @@ def _run_steps(args, comm, step_comm) -> dict:
     if args.serve_samples:
         out["serve_samples"] = _serve_samples(args, comm, model, tokens_all)
     return out
+
+
+def run_fit(args, comm, step, data, batch, n_params) -> dict:
+    """``--prefetch-depth``/``--fetch-every``: the plain step driven by
+    :func:`chainermn_torch.training.fit`; batches copied ahead onto the
+    rank's device by a producer thread, losses fetched ``--fetch-every``
+    at a time, so the host runs ahead of the card."""
+    from chainermn_torch.training import fit
+
+    def on_loss(i, v):
+        if (i + 1) % 20 == 0 and comm.rank == 0:
+            print(f"iter {i + 1:4d}  loss {v:.3f}", flush=True)
+
+    t0 = time.time()
+    losses = fit(step, data, args.iterations, fetch_every=args.fetch_every,
+                 prefetch_depth=args.prefetch_depth, device=comm.device,
+                 on_loss=on_loss, name="train_lm")
+    tok_s = args.iterations * batch * args.seq_len / max(
+        time.time() - t0, 1e-9)
+    if comm.rank == 0:
+        print(f"done: {args.iterations} iterations (prefetch_depth="
+              f"{args.prefetch_depth}, fetch_every={args.fetch_every}),"
+              f" loss {losses[0]:.3f} -> {losses[-1]:.3f}  "
+              f"{tok_s:.0f} tok/s incl. the first step", flush=True)
+    return {"mode": "fit", "losses": losses, "tokens_per_sec": tok_s,
+            "n_params": n_params}
+
+
+def run_resilient(args, comm, model, optimizer, step, mine, tokens_all,
+                  targets_all, n_seq, batch, n_params) -> dict:
+    """``--resume``: the same step driven by
+    :func:`chainermn_torch.resilience.resilient_fit`: periodic snapshots
+    of the model, the optimizer and the iterator position, a step-level
+    exception boundary that restores the newest intact snapshot on a
+    failure, and resume across launches: running the command again
+    continues where the last launch stopped, on the same losses."""
+    from chainermn_torch import resilience
+    from chainermn_torch.extensions.checkpoint import to_tensors
+
+    ckpt = chainermn_torch.create_multi_node_checkpointer(
+        "train_lm", comm, path=args.checkpoint_dir)
+    # drop the ragged tail, as the plain loop's generator does: every
+    # batch has exactly `batch` rows
+    it = chainermn_torch.SerialIterator(
+        list(range(n_seq - n_seq % batch)), batch_size=batch,
+        shuffle=True, seed=1)
+
+    def live(loss):
+        # state_dict()s are the live tensors: the snapshot copies them
+        return {"model": model.state_dict(),
+                "optimizer": optimizer.state_dict(), "loss": loss}
+
+    def step_fn(state, sel):
+        sel = np.asarray(sel)
+        loss, _ = step(mine(tokens_all[sel]), mine(targets_all[sel]))
+        return live(loss)
+
+    def restore_hook(state):
+        model.load_state_dict(to_tensors(state["model"]))
+        optimizer.load_state_dict(to_tensors(state["optimizer"]))
+        return live(state["loss"])
+
+    losses = {}
+
+    def on_step(i, state):
+        losses[i] = state["loss"]      # a replayed step overwrites
+        if (i + 1) % 20 == 0 and comm.rank == 0:
+            print(f"iter {i + 1:4d}  loss {float(state['loss']):.3f}",
+                  flush=True)
+
+    injector = None
+    if args.inject_fault:
+        injector = resilience.FaultInjector(seed=0)
+        injector.arm("trainer.step", kind="raise",
+                     after=args.inject_fault, times=1)
+        injector.install()
+    try:
+        state, report = resilience.resilient_fit(
+            step_fn, live(None), it, args.iterations, ckpt,
+            save_every=args.save_every, restore_hook=restore_hook,
+            on_step=on_step, async_save=args.async_save)
+    finally:
+        if injector is not None:
+            injector.uninstall()
+    losses = [float(losses[i]) for i in sorted(losses)]
+    if comm.rank == 0:
+        mttr = (f"  mttr {report['mttr_s'][0] * 1e3:.0f}ms"
+                if report["mttr_s"] else "")
+        last = (f"loss {float(state['loss']):.3f}  "
+                if state["loss"] is not None else "")
+        print(f"done: {last}resumed_from {report['resumed_from']}  "
+              f"failures {report['failures']}  restores "
+              f"{report['restores']}{mttr}", flush=True)
+    return {"mode": "resilient", "losses": losses, "report": report,
+            "n_params": n_params}
 
 
 def _inference_copy(model) -> TransformerLM:

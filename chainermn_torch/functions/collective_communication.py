@@ -54,10 +54,15 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous()
+        # a gloo group stages CUDA tensors through the host, as the
+        # communicator's own collectives do
+        to_wire = getattr(ctx.comm, "_to_wire", None)
+        g, back = (to_wire(g, copy=False) if to_wire is not None
+                   else (g, lambda y: y))
         out = g.new_empty(g.shape[1:])
         dist.reduce_scatter_tensor(out.view(-1), g.view(-1),
                                    group=ctx.comm.group)
-        return out, None
+        return back(out), None
 
 
 class _AllToAll(torch.autograd.Function):

@@ -32,6 +32,10 @@ stage of the pipelined LM's stacked blocks.
 :func:`load_chain_from_flax` loads a ``MultiNodeChainList`` component by
 component from the JAX chain's ``init``.
 
+:func:`parallel_conv_params_from_jax` takes the parallel-convolution
+example's full parameter dict (``{"conv1": {"w": HWIO, "b": ...}, ...}``)
+as the port twin's NCHW/OIHW ``state_dict``.
+
 :func:`kv_payload_from_jax` takes a KV migration or prefix-share payload
 the JAX engine exported (numpy rows) as the port engine's payload, so a
 request prefilled there continues here.
@@ -325,6 +329,23 @@ def kv_payload_from_jax(payload: dict) -> dict:
     return out
 
 
+def parallel_conv_params_from_jax(params) -> dict:
+    """The parallel-convolution example's parameters
+    (``examples/parallel_convolution/train_parallel_conv.py:63``: ``w``
+    HWIO kernels and biases for ``conv1``/``pconv2``/``pconv3``, ``w``
+    ``[feat, classes]`` for the head) as the full, unsharded
+    ``state_dict`` of the port twin's ``ConvNet``: OIHW conv weights and
+    an ``nn.Linear`` head whose input features keep the reference's
+    NHWC flatten order."""
+    sd = {}
+    for name in ("conv1", "pconv2", "pconv3"):
+        sd.update(_conv({"kernel": params[name]["w"],
+                         "bias": params[name]["b"]}, name))
+    sd.update(_linear({"kernel": params["head"]["w"],
+                       "bias": params["head"]["b"]}, "head"))
+    return sd
+
+
 def images_from_nhwc(images, device=None) -> torch.Tensor:
     """NHWC images (numpy or torch, the reference's layout) as the port's
     NCHW tensor in ``channels_last`` memory: a view, not a copy, of a
@@ -341,4 +362,5 @@ __all__ = ["params_from_flax", "resnet_params_from_flax",
            "googlenet_params_from_flax", "vgg16_params_from_flax",
            "gru_params_from_flax", "load_chain_from_flax",
            "images_from_nhwc", "kv_payload_from_jax",
-           "megatron_params_from_flax", "pipeline_params_from_flax"]
+           "megatron_params_from_flax", "parallel_conv_params_from_jax",
+           "pipeline_params_from_flax"]

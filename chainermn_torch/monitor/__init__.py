@@ -2,7 +2,8 @@
 one process-wide default instance; the recompile guard over the serving
 engine's fixed step programs; continuous telemetry (the time-series
 store, collector, derived signals and detectors); per-replica health
-scores; and SLO burn rates."""
+scores; SLO burn rates; and request-scoped tracing (span trees with
+Chrome export)."""
 
 from __future__ import annotations
 
@@ -45,6 +46,14 @@ from chainermn_torch.monitor.slo import (  # noqa: E402
     SLOEngine,
     get_slo_engine,
 )
+from chainermn_torch.monitor.trace import (  # noqa: E402
+    NULL_TRACE,
+    Span,
+    Trace,
+    Tracer,
+    get_tracer,
+    span,
+)
 from chainermn_torch.monitor.timeseries import (  # noqa: E402
     EWMA,
     Collector,
@@ -58,12 +67,12 @@ from chainermn_torch.monitor.timeseries import (  # noqa: E402
     ZScoreDetector,
 )
 
-__all__ = ["Collector", "Counter", "DeadmanDetector", "Detector", "EWMA",
-           "ErrorRateObjective", "EventLog", "Gauge", "HealthMonitor",
-           "HealthScore", "Histogram", "LatencyObjective", "MetricsRegistry",
-           "Rate", "Ratio", "RecompileGuard", "SLOEngine",
-           "ThresholdDetector", "TimeSeriesStore", "WindowPercentile",
-           "ZScoreDetector", "fleet_health", "get_event_log",
-           "get_registry", "get_slo_engine", "latency_report",
-           "merge_rank_payloads", "standard_replica_sensors",
-           "wire_replica"]
+__all__ = ["NULL_TRACE", "Collector", "Counter", "DeadmanDetector",
+           "Detector", "EWMA", "ErrorRateObjective", "EventLog", "Gauge",
+           "HealthMonitor", "HealthScore", "Histogram", "LatencyObjective",
+           "MetricsRegistry", "Rate", "Ratio", "RecompileGuard", "SLOEngine",
+           "Span", "ThresholdDetector", "TimeSeriesStore", "Trace", "Tracer",
+           "WindowPercentile", "ZScoreDetector", "fleet_health",
+           "get_event_log", "get_registry", "get_slo_engine", "get_tracer",
+           "latency_report", "merge_rank_payloads", "span",
+           "standard_replica_sensors", "wire_replica"]

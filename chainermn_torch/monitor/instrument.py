@@ -17,6 +17,7 @@ from typing import Optional
 
 from chainermn_torch.monitor.events import EventLog
 from chainermn_torch.monitor.registry import MetricsRegistry
+from chainermn_torch.monitor.trace import get_tracer
 
 
 def _cache_size(fn) -> Optional[int]:
@@ -75,9 +76,9 @@ class RecompileGuard:
             self._registry.counter(
                 "recompiles_total", {"fn": name}).inc(delta)
             self._events.emit("recompile", fn=name, executables=cur)
-            # the reference also flags the ambient request trace for
-            # retention here; the port has no tracer yet (ROADMAP.md,
-            # Queue A item 13)
+            # a step that recompiled is always worth its trace: flag the
+            # ambient trace (if any) for forced retention
+            get_tracer().mark_current_error(f"recompile:{name}")
             msg = (f"chainermn_torch.monitor.RecompileGuard: {name!r} "
                    f"recompiled ({cur} executables) — a shape or a static "
                    "argument changed on a hot path")

@@ -14,11 +14,10 @@ set of the name pooled); error-rate objectives difference counters
 between :meth:`SLOEngine.evaluate` calls. Each evaluation publishes
 ``slo_burn_rate{slo=,window=}`` and ``slo_compliant{slo=}`` gauges; a
 new breach counts ``slo_breaches_total{slo=}`` and emits one
-``slo_breach`` event. The reference names the offending request traces
-in that event; request tracing (``monitor/trace.py``) is not ported, so
-with ``tracer=None`` the list is empty. A tracer passed in needs the
-reference's ``finished(since=)`` with ``trace_id``, ``duration_s``,
-``error`` and ``deadline_miss`` on what it returns.
+``slo_breach`` event naming the offending trace ids: the tracer's
+retained traces in the longest window that were slow past the
+objective's threshold, errored or missed their deadline. ``tracer=None``
+means the process-wide :func:`~chainermn_torch.monitor.trace.get_tracer`.
 """
 
 from __future__ import annotations
@@ -31,6 +30,7 @@ from typing import Optional
 
 from chainermn_torch.monitor import get_event_log, get_registry
 from chainermn_torch.monitor.registry import Counter, Histogram
+from chainermn_torch.monitor.trace import get_tracer
 
 
 @dataclass
@@ -91,7 +91,7 @@ class SLOEngine:
     def __init__(self, *, registry=None, events=None, tracer=None) -> None:
         self._registry = registry if registry is not None else get_registry()
         self._events = events if events is not None else get_event_log()
-        self._tracer = tracer
+        self._tracer = tracer if tracer is not None else get_tracer()
         self._lock = threading.Lock()
         self._objectives: list = []
         self._breached: dict[str, bool] = {}
@@ -166,10 +166,7 @@ class SLOEngine:
     def _offending_traces(self, obj, window_s: float,
                           limit: int = 16) -> list[str]:
         """Retained traces inside the window that were slow past the
-        threshold, errored or missed a deadline (empty without a
-        tracer)."""
-        if self._tracer is None:
-            return []
+        threshold, errored or missed a deadline."""
         since = time.perf_counter() - float(window_s)
         threshold = getattr(obj, "threshold_s", None)
         ids = [t.trace_id for t in self._tracer.finished(since=since)

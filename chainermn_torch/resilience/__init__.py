@@ -1,7 +1,7 @@
 """Resilience (the port of ``chainermn_tpu/resilience``): fault
-injection over named cut-points and bounded retry, the pieces the
-checkpointer uses. ``resilient_fit`` (``resilience/trainer.py``) waits
-for the training loop ``fit``."""
+injection over named cut-points, bounded retry, and the step-level
+exception boundary with checkpoint-restore recovery
+(:class:`ResilientTrainer`, :func:`resilient_fit`)."""
 
 from chainermn_torch.resilience.faults import (
     FaultInjector,
@@ -11,6 +11,8 @@ from chainermn_torch.resilience.faults import (
     torn_fraction,
 )
 from chainermn_torch.resilience.retry import RetryPolicy
+from chainermn_torch.resilience.trainer import ResilientTrainer, resilient_fit
 
-__all__ = ["FaultInjector", "InjectedFault", "RetryPolicy", "get_injector",
-           "inject", "torn_fraction"]
+__all__ = ["FaultInjector", "InjectedFault", "ResilientTrainer",
+           "RetryPolicy", "get_injector", "inject", "resilient_fit",
+           "torn_fraction"]

@@ -1,7 +1,7 @@
 """Serving statistics: TTFT, TPOT, tokens/s, queue depth, slot occupancy,
-paged-pool occupancy, speculative accept accounting, sheds and
-class-labelled preemptions (the port's subset of
-``chainermn_tpu/serving/metrics.py``).
+paged-pool occupancy, speculative accept accounting, sheds,
+class-labelled preemptions and the request traces' critical path (the
+port's subset of ``chainermn_tpu/serving/metrics.py``).
 
 Every series lives in the metrics registry, labelled ``instance=N`` per
 scheduler. Timestamps are caller-supplied ``time.perf_counter()`` values;
@@ -12,6 +12,9 @@ this class only aggregates.
 - **tokens/s**: generated tokens over the span from the first to the
   last recorded token across all requests.
 - **occupancy**: fraction of the slot pool decoding, sampled per step.
+- **critical path**: each retired traced request's phase durations feed
+  ``trace_phase_seconds{phase=}``; the slowest request's whole breakdown
+  is ``report()["critical_path"]``.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ class ServingMetrics:
 
     def __init__(self, n_slots: int) -> None:
         self.n_slots = n_slots
-        reg = get_registry()
+        reg = self._registry = get_registry()
         self._events = get_event_log()
         labels = {"instance": str(next(_instance_ids))}
         self._c_submitted = reg.counter(
@@ -88,6 +91,8 @@ class ServingMetrics:
         # continuous telemetry (attach_health): a zero-arg callable whose
         # result report() embeds as its ``health`` block
         self._health_fn = None
+        # the slowest traced request's breakdown (record_trace)
+        self._worst_trace: Optional[dict] = None
         # smoothed TTFT: the fleet's routing policy reads it as a load
         # signal (ReplicaSnapshot.ttft_ewma_s)
         self.ttft_ewma: Optional[float] = None
@@ -162,6 +167,21 @@ class ServingMetrics:
         self._c_spec_accepted.inc(accepted)
         for a in lengths:
             self._h_spec_accept.observe(a)
+
+    def record_trace(self, req_id: int, breakdown: dict) -> None:
+        """One retired request's span-tree breakdown
+        (:meth:`~chainermn_torch.monitor.trace.Trace.breakdown`): each
+        phase feeds a ``trace_phase_seconds{phase=}`` histogram, and the
+        slowest request so far is kept whole as the critical-path
+        exemplar."""
+        for phase, dur in breakdown.get("phases_s", {}).items():
+            self._registry.histogram("trace_phase_seconds",
+                          dict(self._labels, phase=phase),
+                          unit="s").observe(dur)
+        total = breakdown.get("total_s", 0.0)
+        if (self._worst_trace is None
+                or total > self._worst_trace.get("total_s", 0.0)):
+            self._worst_trace = dict(breakdown, req=req_id)
 
     def record_kv_pool(self, in_use: int, free: int) -> None:
         """Paged-store occupancy, sampled once per scheduler step."""
@@ -289,6 +309,9 @@ class ServingMetrics:
             accept = self._h_spec_accept.samples
             if accept:
                 out["spec_accept_length_mean"] = float(np.mean(accept))
+        if self._worst_trace is not None:
+            # the slowest traced request's phase attribution
+            out["critical_path"] = self._worst_trace
         if self._health_fn is not None:
             try:
                 out["health"] = self._health_fn()

@@ -61,6 +61,23 @@ EOS or their budget — mid-window, dropping the window's tail.
   :meth:`FCFSScheduler.request_rebalance`); each decays to doing nothing
   when it cannot complete.
 
+Every submission opens a request-scoped
+:class:`~chainermn_torch.monitor.trace.Trace` (``tracer=``, default the
+process-wide tracer; :data:`~chainermn_torch.monitor.trace.NULL_TRACE`
+when tracing is off) that rides the request end to end: ``queue``
+(submit to popped), ``admit`` (host planning, closed when the prefill
+call starts), ``prefill`` (the batched call, on every group member with
+its bucket, batch and cached labels) or ``prefill_chunk`` a chunk, one
+``decode_step`` per token after the first, ``swap`` (a fence it waited
+behind), ``migrate`` and ``import`` (a KV handover), closed at retire,
+cancel, reroute, shed or error with the reason. Spans are host
+timestamps around the engine's calls (a captured decode is one graph
+replay and its token fetch); nothing runs inside a capture. Shed and
+errored requests are kept whatever the sampling, lifecycle events carry
+``trace=`` ids, the watchdog window of every engine call names the
+in-flight request and trace ids, and each retired trace's breakdown
+feeds ``ServingMetrics.report()["critical_path"]``.
+
 ``submit``/``cancel`` are safe from any thread; ``step`` is driven from
 one thread (the engine is not concurrent).
 """
@@ -80,6 +97,7 @@ import numpy as np
 
 from chainermn_torch.analysis import sanitizer
 from chainermn_torch.monitor import get_event_log
+from chainermn_torch.monitor.trace import NULL_TRACE, get_tracer
 from chainermn_torch.resilience.cutpoints import SERVING_ADMIT_FAIR
 from chainermn_torch.resilience.faults import inject
 from chainermn_torch.resilience.retry import RetryPolicy
@@ -214,6 +232,11 @@ class Request:
     t_deadline: Optional[float] = None
     t_last_token: float = 0.0
     weight_version: Optional[int] = None    # stamped at admission
+    # request-scoped trace: queue -> admit -> prefill -> decode -> retire
+    # (NULL_TRACE when tracing is off)
+    trace: object = NULL_TRACE
+    _span_queue: object = None
+    _span_admit: object = None
     _done: threading.Event = field(default_factory=threading.Event)
 
     @property
@@ -268,7 +291,8 @@ class FCFSScheduler:
     ``chunk_tokens_per_step`` are the policies of the module docstring
     (``fair`` may also be a :class:`FairAdmission` to share or inspect).
     ``retry``, ``restart_on_error`` and ``max_restarts`` are its failure
-    handling.
+    handling. ``tracer`` records the request traces (default
+    :func:`~chainermn_torch.monitor.trace.get_tracer`).
     """
 
     def __init__(self, engine, *, eos_id: Optional[int] = None,
@@ -281,7 +305,7 @@ class FCFSScheduler:
                  chunk_tokens_per_step: Optional[int] = None,
                  retry: Optional[RetryPolicy] = None,
                  restart_on_error: bool = True,
-                 max_restarts: int = 8) -> None:
+                 max_restarts: int = 8, tracer=None) -> None:
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         if max_prefills_per_step is not None and max_prefills_per_step < 1:
@@ -317,6 +341,7 @@ class FCFSScheduler:
         self._chunk_tokens = (int(chunk_tokens_per_step)
                               if chunk_tokens_per_step is not None else None)
         self._events = get_event_log()
+        self._tracer = tracer if tracer is not None else get_tracer()
         # the handover hook ``cb(req, payload) -> bool`` a supervising
         # layer sets (the fleet's prefill tier); True: it took the request
         self.migrate_cb: Optional[Callable] = None
@@ -373,12 +398,37 @@ class FCFSScheduler:
                     f"admission queue full ({self.max_queue} queued)",
                     retry_after_s=self._retry_after_locked())
             req.id = next(self._ids)
+            # the trace opens as the request enters the queue: root span =
+            # submit -> retire, first child = the queue wait
+            req.trace = self._tracer.trace(
+                "request", kind="serving", req=req.id,
+                prompt_len=len(prompt), max_new=int(max_new_tokens))
+            req._span_queue = req.trace.start_span("queue")
             self._queue.append(req)
             self.metrics.record_submit()
         self._events.emit("submit", req=req.id, prompt_len=len(prompt),
                           max_new=int(max_new_tokens), tenant=req.tenant,
-                          priority=req.priority)
+                          priority=req.priority, **self._trace_label(req))
         return req
+
+    @staticmethod
+    def _trace_label(req: Request) -> dict:
+        """``{"trace": id}`` when the request is traced, else ``{}``: the
+        join key of event-log entries and exported span trees."""
+        return {"trace": req.trace.trace_id} if req.trace.enabled else {}
+
+    @staticmethod
+    def _traces(reqs) -> list:
+        return [r.trace.trace_id for r in reqs if r.trace.enabled]
+
+    def _ctx(self, reqs) -> dict:
+        """The watchdog labels of an engine call on ``reqs``: request ids
+        and, when traced, trace ids."""
+        ctx = {"reqs": [r.id for r in reqs]}
+        traces = self._traces(reqs)
+        if traces:
+            ctx["traces"] = traces
+        return ctx
 
     def cancel(self, req: Request) -> bool:
         """Cancel: dequeued if QUEUED, slot freed if decoding; a chunked
@@ -409,7 +459,8 @@ class FCFSScheduler:
             req.state = RequestState.CANCELLED
             self.metrics.record_done(cancelled=True)
         self._events.emit("slot_retire", req=req.id, slot=req.slot,
-                          reason="cancelled")
+                          reason="cancelled", **self._trace_label(req))
+        req.trace.finish(reason="cancelled")
         req._done.set()
         return True
 
@@ -441,7 +492,8 @@ class FCFSScheduler:
         caller owns them now), for a supervisor that re-routes work away
         from a failed engine: the admission queue and the migrated-in
         requests still waiting for their import (they never decoded here,
-        so a replay elsewhere loses nothing). Pending KV-reuse tickets
+        so a replay elsewhere loses nothing). Each drained request's trace
+        closes with ``reason="rerouted"``. Pending KV-reuse tickets
         resolve empty-handed at once, so a share waiting on this replica
         falls back to a prefill without sitting out its timeout."""
         with self._lock:
@@ -453,6 +505,9 @@ class FCFSScheduler:
             self._pending_kv_reuse.clear()
         for ticket in reuse:
             ticket.resolve(None)
+        for req in drained:
+            self._end_queue_span(req)
+            req.trace.finish(reason="rerouted")
         return drained
 
     def fail_inflight(self, e: BaseException) -> None:
@@ -534,7 +589,8 @@ class FCFSScheduler:
         # brownout L2: the single-token step instead of a window
         force_single = (self._brownout is not None
                         and self._brownout.force_single_token)
-        ctx = {"reqs": [r.id for r in list(self._by_slot.values())]}
+        ctx = self._flight_ctx()
+        t_dec0 = time.perf_counter()
         try:
             if force_single:
                 decoded = {slot: [tok] for slot, tok in
@@ -545,6 +601,7 @@ class FCFSScheduler:
             if not self._engine_failure(e):
                 raise
             decoded = {}
+        t_dec1 = time.perf_counter()
         for slot, toks in decoded.items():
             for tok in toks:
                 # re-read per token: EOS or budget can retire the slot
@@ -554,6 +611,10 @@ class FCFSScheduler:
                     break
                 now = time.perf_counter()
                 self.metrics.record_token(req.t_last_token, now)
+                # the shared decode call, on every participant's trace:
+                # one span a delivered token (bounded by the span cap)
+                req.trace.add_span("decode_step", t_dec0, t_dec1,
+                                   token=len(req.tokens))
                 self._deliver(req, tok, now)
                 emitted += 1
         if self.engine.spec_enabled and not force_single:
@@ -572,6 +633,13 @@ class FCFSScheduler:
         if self.engine.paged:
             self.metrics.record_kv_pool(*self.engine.kv_pool_stats())
         return emitted
+
+    def _flight_ctx(self) -> dict:
+        """Request and trace ids of the decoding slots: the labels the
+        engine puts on its watchdog window, so a hang dump names who was
+        decoding."""
+        reqs = list(self._by_slot.values())
+        return self._ctx(reqs) if reqs else {}
 
     def run_until_idle(self, max_steps: Optional[int] = None) -> int:
         """Drive :meth:`step` until queue and slots drain; returns tokens
@@ -626,6 +694,7 @@ class FCFSScheduler:
             head = self._pop_head_locked()
         if head is None:
             return []
+        self._span_to_admit(head)
         try:
             inject(SERVING_ADMIT_FAIR, req=head.id, tenant=head.tenant,
                    priority=head.priority)
@@ -678,6 +747,7 @@ class FCFSScheduler:
                         eng.cancel_plan(p)
                         continue
                     req.state = RequestState.PREFILL
+                self._span_to_admit(req)
                 group.append((req, p))
                 if budget is not None:
                     budget -= need
@@ -685,7 +755,30 @@ class FCFSScheduler:
                 eng.cancel_plan(p)
         return group
 
+    def _end_queue_span(self, req: Request) -> None:
+        if req._span_queue is not None:
+            req.trace.end_span(req._span_queue)
+            req._span_queue = None
+
+    def _end_admit_span(self, req: Request) -> None:
+        if req._span_admit is not None:
+            req.trace.end_span(req._span_admit)
+            req._span_admit = None
+
+    def _span_to_admit(self, req: Request) -> None:
+        """The queue wait is over: close ``queue``, open ``admit`` (host
+        planning, closed when the prefill call starts)."""
+        self._end_queue_span(req)
+        req._span_admit = req.trace.start_span("admit")
+
+    def _span_to_queue(self, req: Request) -> None:
+        """Back to waiting (deferred, preempted, handed over): close
+        ``admit`` if open, open a new ``queue`` span."""
+        self._end_admit_span(req)
+        req._span_queue = req.trace.start_span("queue")
+
     def _requeue_head(self, req: Request) -> None:
+        self._span_to_queue(req)
         with self._lock:
             req.state = RequestState.QUEUED
             self._queue.appendleft(req)
@@ -697,7 +790,7 @@ class FCFSScheduler:
         self.engine.cancel_plan(plan)
         self._requeue_head(req)
         self._events.emit("kv_admit_defer", req=req.id, need=need,
-                          available=available)
+                          available=available, **self._trace_label(req))
 
     def _admit_group(self, group: list) -> int:
         """One prefill call for the group, then commit each member.
@@ -705,7 +798,10 @@ class FCFSScheduler:
         group's requests."""
         reqs = [r for r, _ in group]
         plans = [p for _, p in group]
-        ctx = {"reqs": [r.id for r in reqs]}
+        ctx = self._ctx(reqs)
+        t_pre0 = time.perf_counter()
+        for req in reqs:            # planning done; the device call next
+            self._end_admit_span(req)
         try:
             if self._retry is not None:
                 results = self._retry.call(self.engine.admit_batch, plans,
@@ -720,10 +816,15 @@ class FCFSScheduler:
             else:
                 self._fail(reqs, e, "admission")
             return 0
+        t_pre1 = time.perf_counter()
         self.metrics.record_admission(len(group))
         emitted = 0
         for (req, plan), (slot, first) in zip(group, results):
             now = time.perf_counter()
+            # the shared batched call, on every member's trace
+            req.trace.add_span("prefill", t_pre0, t_pre1,
+                               bucket=plan.bucket, batch=len(group),
+                               cached=plan.start, slot=slot)
             with self._lock:
                 if req.state is RequestState.CANCELLED:
                     self.engine.release(slot)
@@ -736,7 +837,7 @@ class FCFSScheduler:
             self._events.emit("slot_admit", req=req.id, slot=slot,
                               prompt_len=len(req.prompt), bucket=plan.bucket,
                               cached=plan.start, tenant=req.tenant,
-                              priority=req.priority)
+                              priority=req.priority, **self._trace_label(req))
             self.metrics.record_first_token(req.t_submit, now, req_id=req.id,
                                             cached_frac=plan.cached_frac)
             self._deliver(req, first, now)
@@ -761,7 +862,8 @@ class FCFSScheduler:
         except Exception as e:  # noqa: BLE001 — retry next step
             self._requeue_head(req)
             self._events.emit("kv_admit_defer", req=req.id,
-                              error=type(e).__name__)
+                              error=type(e).__name__,
+                              **self._trace_label(req))
             return
         with self._lock:
             if req.state is RequestState.CANCELLED:
@@ -770,10 +872,12 @@ class FCFSScheduler:
             req.state = RequestState.PREFILLING
             req.slot = slot
             self._prefilling[slot] = req
+        self._end_admit_span(req)
         self._events.emit("slot_admit", req=req.id, slot=slot,
                           prompt_len=len(req.prompt), bucket=chunks[0][2],
                           cached=plan.start, chunks=len(chunks),
-                          tenant=req.tenant, priority=req.priority)
+                          tenant=req.tenant, priority=req.priority,
+                          **self._trace_label(req))
 
     def _advance_chunks(self) -> int:
         """Advance the oldest PREFILLING request by one chunk. The final
@@ -793,8 +897,11 @@ class FCFSScheduler:
             self.engine.release(slot)
             return 0
         st = self.engine.chunk_state(slot)
+        _, clen, bucket = st.chunks[st.next_idx]
+        idx, total = st.next_idx, len(st.chunks)
+        t0 = time.perf_counter()
         try:
-            first = self.engine.prefill_chunk(slot, ctx={"reqs": [req.id]})
+            first = self.engine.prefill_chunk(slot, ctx=self._ctx([req]))
         except Exception as e:  # noqa: BLE001 — contain to this request
             if isinstance(e, EngineStateError):
                 if not self._engine_failure(e):
@@ -804,6 +911,9 @@ class FCFSScheduler:
                 self._prefilling.pop(slot, None)
             self._fail([req], e, "chunk_prefill")
             return 0
+        req.trace.add_span("prefill_chunk", t0, time.perf_counter(),
+                           bucket=bucket, chunk=idx, of=total, tokens=clen,
+                           slot=slot)
         if first is None:
             return 0
         with self._lock:
@@ -845,13 +955,19 @@ class FCFSScheduler:
         callback raises, the request is bound to its slot again unchanged.
         Shared by the prefill tier's handover (``reason="migrated"``) and
         the mid-decode rebalance (``"rebalanced"``)."""
+        t0 = time.perf_counter()
         try:
-            payload = self.engine.export_slot_kv(slot, ctx={"reqs": [req.id]})
+            payload = self.engine.export_slot_kv(slot, ctx=self._ctx([req]))
         except Exception:  # noqa: BLE001 — fall back to decoding in place
             return False
+        t1 = time.perf_counter()
         n_tokens = len(req.tokens)
-        # the request's own state changes before the callback: on True the
-        # peer owns it at once (maybe admitting it on its own thread)
+        # the request's own state (its trace too) changes before the
+        # callback: on True the peer owns it at once (maybe admitting it
+        # on its own thread)
+        req.trace.add_span("migrate", t0, t1, blocks=payload["n_blocks"],
+                           src_slot=slot)
+        req._span_queue = req.trace.start_span("queue")
         with self._lock:
             self._by_slot.pop(slot, None)
             req.state = RequestState.QUEUED
@@ -861,6 +977,7 @@ class FCFSScheduler:
         except Exception:  # noqa: BLE001 — a failed handshake stays local
             ok = False
         if not ok:
+            self._end_queue_span(req)
             with self._lock:
                 req.state = RequestState.DECODE
                 req.slot = slot
@@ -868,7 +985,8 @@ class FCFSScheduler:
             return False
         self.engine.release(slot)
         self._events.emit("slot_retire", req=req.id, slot=slot,
-                          reason=reason, tokens=n_tokens)
+                          reason=reason, tokens=n_tokens,
+                          **self._trace_label(req))
         return True
 
     def request_prefix_export(self, tokens, *,
@@ -1017,10 +1135,11 @@ class FCFSScheduler:
                     "the migrated payload can never land on this engine "
                     "(block layout, position or capacity)"), "kv_import")
                 continue
+            t0 = time.perf_counter()
             try:
                 slot = eng.import_slot_kv(payload, prompt=req.prompt,
                                           max_new=remaining,
-                                          ctx={"reqs": [req.id]})
+                                          ctx=self._ctx([req]))
             except EngineStateError as e:
                 with self._lock:
                     self._pop_import_locked(req)
@@ -1029,6 +1148,7 @@ class FCFSScheduler:
                 return
             except Exception:  # noqa: BLE001 — engine intact: retry later
                 return
+            t1 = time.perf_counter()
             with self._lock:
                 self._pop_import_locked(req)
                 if req.state is RequestState.CANCELLED:
@@ -1038,9 +1158,13 @@ class FCFSScheduler:
                 req.state = RequestState.DECODE
                 self._by_slot[slot] = req
                 req.weight_version = eng.weight_version
+            self._end_queue_span(req)
+            req.trace.add_span("import", t0, t1, slot=slot,
+                               blocks=payload["n_blocks"])
             self._events.emit("slot_admit", req=req.id, slot=slot,
                               prompt_len=len(req.prompt), migrated=True,
-                              tenant=req.tenant, priority=req.priority)
+                              tenant=req.tenant, priority=req.priority,
+                              **self._trace_label(req))
 
     # ------------------------------------------------------------------ #
     # failures                                                            #
@@ -1048,7 +1172,8 @@ class FCFSScheduler:
 
     def _fail(self, reqs: list, e: BaseException, where: str) -> None:
         """Error ``reqs`` terminally with :class:`EngineFailed` (``wait()``
-        re-raises), freeing any slot they hold."""
+        re-raises), freeing any slot they hold; their traces are kept,
+        closed with ``reason="admission_error"``."""
         with self._lock:
             for req in reqs:
                 if req.finished:
@@ -1066,8 +1191,11 @@ class FCFSScheduler:
                 self.metrics.record_errored()
         self._events.emit("engine_error", where=where,
                           error=type(e).__name__, detail=str(e)[:200],
-                          reqs=[r.id for r in reqs])
+                          reqs=[r.id for r in reqs],
+                          traces=self._traces(reqs))
         for req in reqs:
+            req.trace.mark_error(type(e).__name__)
+            req.trace.finish(reason="admission_error")
             req._done.set()
 
     def _engine_failure(self, e: BaseException, admitting=()) -> bool:
@@ -1098,9 +1226,12 @@ class FCFSScheduler:
                 self.metrics.record_errored()
         self._events.emit("engine_error", where="decode",
                           error=type(e).__name__, detail=str(e)[:200],
-                          reqs=[r.id for r in victims])
+                          reqs=[r.id for r in victims],
+                          traces=self._traces(victims))
         self._events.dump(file=sys.stderr, last=32, once="engine_failure")
         for req in victims:
+            req.trace.mark_error(type(e).__name__)
+            req.trace.finish(reason="engine_error")
             req._done.set()
         if not self._restart_on_error or \
                 self._restarts >= self._max_restarts:
@@ -1121,12 +1252,18 @@ class FCFSScheduler:
             ticket.result = ticket.fn()
         except Exception as e:  # noqa: BLE001 — surfaced on the ticket
             ticket.error = e
-        ticket.t_executed = time.perf_counter()
+        t1 = ticket.t_executed = time.perf_counter()
+        with self._lock:
+            waiting = list(self._queue)
+        for req in waiting:
+            # the fence held these requests back: the swap window itself
+            # shows in their traces
+            req.trace.add_span("swap", t0, t1, ok=ticket.error is None)
         self._events.emit(
             "swap_exec", ok=ticket.error is None,
-            seconds=round(ticket.t_executed - t0, 6),
-            fence_s=round(ticket.t_executed - ticket.t_request, 6),
-            queue_depth=self.queue_depth,
+            seconds=round(t1 - t0, 6),
+            fence_s=round(t1 - ticket.t_request, 6),
+            queue_depth=len(waiting),
             **({"error": type(ticket.error).__name__}
                if ticket.error is not None else {}))
         ticket._done.set()
@@ -1186,9 +1323,11 @@ class FCFSScheduler:
                         if q.id > req.id), len(self._queue))
             self._queue.insert(idx, req)
         self.metrics.record_preemption(priority=req.priority)
+        self._span_to_queue(req)
         self._events.emit("kv_preempt", req=req.id, reason=reason,
                           priority=req.priority, tenant=req.tenant,
-                          queue_depth=self.queue_depth)
+                          queue_depth=self.queue_depth,
+                          **self._trace_label(req))
 
     # ------------------------------------------------------------------ #
     # overload policies                                                   #
@@ -1252,8 +1391,13 @@ class FCFSScheduler:
                            f"request {req.id} passed its {req.deadline_s}s "
                            "deadline mid chunked prefill")
         for req, where in shed:
+            # deadline-missed traces are kept whatever the sampling: the
+            # requests an SLO breach will want to name
+            req.trace.mark_deadline_miss()
+            req.trace.finish(reason="shed")
             self._events.emit("shed", req=req.id, where=where,
-                              waited_s=now - req.t_submit)
+                              waited_s=now - req.t_submit,
+                              **self._trace_label(req))
             req._done.set()
 
     def _retry_after_locked(self) -> float:
@@ -1302,9 +1446,11 @@ class FCFSScheduler:
             self._queue = self._guarded(keep, "_queue")
         for req in dropped:
             self.metrics.record_tenant_shed(req.tenant)
+            req.trace.finish(reason="shed")
             self._events.emit("shed", req=req.id, where="brownout",
                               tenant=req.tenant,
-                              retry_after_s=req.error.retry_after_s)
+                              retry_after_s=req.error.retry_after_s,
+                              **self._trace_label(req))
             req._done.set()
 
     # ------------------------------------------------------------------ #
@@ -1341,7 +1487,12 @@ class FCFSScheduler:
             req.state = RequestState.DONE
             self.metrics.record_done()
         self._events.emit("slot_retire", req=req.id, slot=req.slot,
-                          reason=reason, tokens=len(req.tokens))
+                          reason=reason, tokens=len(req.tokens),
+                          **self._trace_label(req))
+        req.trace.finish(reason=reason, tokens=len(req.tokens))
+        if req.trace.enabled:
+            # the retired trace's critical path into the metrics surface
+            self.metrics.record_trace(req.id, req.trace.breakdown())
         req._done.set()
 
 

@@ -1,6 +1,7 @@
 """The train steps (the port's counterparts of
 ``chainermn_tpu.training.jit_train_step`` and ``jit_lm_train_step``, the
-latter dense, MoE, fused-loss, sequence-parallel and tensor-parallel).
+latter dense, MoE, fused-loss, sequence-parallel and tensor-parallel) and
+the loop that drives them, :func:`fit`.
 
 PyTorch's idiom replaces JAX's pure step: the model and the optimizer are
 updated in place, and each step returns its loss as a device tensor (no
@@ -294,4 +295,80 @@ def _tp_lm_train_step(model, optimizer, comm, shard_sequence: bool):
     return step
 
 
-__all__ = ["classification_loss_fn", "train_step", "lm_train_step"]
+def fit(step: Callable, data, n_steps: int, *, fetch_every: int = 8,
+        prefetch_depth: int = 0, device=None,
+        transform: Optional[Callable] = None,
+        on_loss: Optional[Callable] = None, name: str = "fit") -> list:
+    """The asynchronous hot loop (``training.py:467-558``): drive a step
+    ``n_steps`` times with windowed loss fetches and, optionally, device
+    prefetch.
+
+    The synchronous pattern (``loss = step(x, y); float(loss)`` a step)
+    puts host latency on the critical path twice: the batch's assembly
+    and host-to-device copy after the step instead of under it, and a
+    device-to-host round trip a step. This loop pays neither: batches
+    arrive on the card from a
+    :class:`~chainermn_torch.dataflow.DevicePrefetcher` producer thread,
+    and losses stay on the device in a
+    :class:`~chainermn_torch.dataflow.LossWindow`, fetched together every
+    ``fetch_every`` steps; one copy closes the whole window and bounds the
+    steps in flight at ``fetch_every``.
+
+    - ``step(x, y)`` returns the loss (:func:`train_step`) or ``(loss,
+      stats)`` (:func:`lm_train_step`; ``stats`` is dropped here, as in
+      the reference). Model and optimizer update in place.
+    - ``data`` yields ``(x, y)`` batch pairs. With ``prefetch_depth > 0``
+      it is wrapped in ``DevicePrefetcher(depth=prefetch_depth,
+      device=device, transform=transform, name=name)`` (``device``: the
+      current CUDA card when ``None``, raising when there is none; pass
+      ``"cpu"`` to prefetch on the host); otherwise batches are fed as
+      yielded (pass an already-wrapped prefetcher to keep its
+      ``state_dict`` under your control).
+    - ``fetch_every``: the loss-fetch cadence and the in-flight bound;
+      ``1`` is the synchronous per-step fetch.
+    - ``on_loss(step_index, float_loss)`` runs per loss at fetch time (up
+      to ``fetch_every - 1`` steps late).
+
+    Returns every step's loss as floats, in step order. The closing
+    ``drain`` is the loop's completion barrier: on return all steps have
+    finished on the device.
+
+    Every step runs inside a ``train_step`` trace of the default tracer
+    (:mod:`chainermn_torch.monitor.trace`), with child spans
+    ``prefetch_wait`` (drawing the batch: a stall here means the input
+    pipeline is the bottleneck), ``dispatch`` (enqueueing the step's
+    kernels: asynchronous, so it is not the device's step time) and, on
+    fetching steps, ``loss_fetch`` (the one copy that waits for the
+    device). Sampled per the tracer's configuration; with tracing off it
+    costs a no-op call a span.
+    """
+    from chainermn_torch.dataflow import DevicePrefetcher, LossWindow
+    from chainermn_torch.monitor.trace import get_tracer
+
+    prefetcher = None
+    if prefetch_depth:
+        data = prefetcher = DevicePrefetcher(
+            data, depth=prefetch_depth, device=device, transform=transform,
+            name=name)
+    it = data if hasattr(data, "__next__") else iter(data)
+    window = LossWindow(fetch_every, name=name, on_fetch=on_loss)
+    tracer = get_tracer()
+    try:
+        for i in range(n_steps):
+            with tracer.trace("train_step", kind="train", step=i,
+                              loop=name):
+                with tracer.span("prefetch_wait"):
+                    x, y = next(it)
+                with tracer.span("dispatch"):
+                    out = step(x, y)
+                loss = out[0] if isinstance(out, tuple) else out
+                # a fetch inside push lands as a loss_fetch child span
+                window.push(i, loss)
+        losses = window.drain()
+    finally:
+        if prefetcher is not None:
+            prefetcher.close()
+    return losses
+
+
+__all__ = ["classification_loss_fn", "fit", "train_step", "lm_train_step"]

@@ -44,13 +44,19 @@ heads) and ResNet-50 (random weights from a seed):
   deploy promotes, a canary forced critical rolls back under load, idle
   scales down, and on the f32 LM every replica's streams after a
   rollback must equal a solo engine's on the pre-canary weights (the
-  pre-canary copy planted as a reference must fail 8/8);
+  pre-canary copy planted as a reference must fail 8/8); ``serve_trace``
+  serves the ``serve`` traffic with request tracing off and on: the
+  streams must be identical and every retained trace whole;
 - training: ``TransformerLM(attention='flash')``,
   ``create_communicator('pure_nccl')``, ``create_multi_node_optimizer``
   over ``AdamW`` and ``lm_train_step`` take 12 steps on a [8, 2048] batch;
   every attention forward and backward must go through the flash kernels,
   the loss must fall, and a small f32 LM trained on the kernels must match
-  the same LM trained on plain attention;
+  the same LM trained on plain attention; ``train_fit`` drives the same
+  LM through ``training.fit`` (windowed loss fetches, the device
+  prefetcher, the tracer on and off) and ``train_resilient`` through
+  ``resilient_fit`` with async snapshots and an injected fault: their
+  losses must equal the synchronous loop's bit for bit;
 - data-parallel training (no kernel of its own): ResNet-50 at
   ``bench.py``'s headline configuration (batch 256, 224x224, bf16) through
   ``create_communicator('pure_nccl', allreduce_grad_dtype=bf16)``,
@@ -89,19 +95,23 @@ heads) and ResNet-50 (random weights from a seed):
   f32 out from bf16, block gradients on the final lse, a fully masked
   block). ``sp_train`` and ``tp_train`` run the LM at 4 of its 12 layers;
 - expert, weights-at-rest and pipeline parallelism, ranks as processes
-  on the card over gloo: the 220M LM's widths and 12 layers with 8
+  on the card over gloo: the 220M LM's widths with 8
   experts (top-2) in every second block, expert-parallel over 2 ranks
   against the same weights as a one-process gshard LM trained alike
   (``moe_train``, on the flash kernels, with a planted fault and drop
   fractions at the default capacity); the gshard LM cut to the Megatron
   layout over tp = 2 (``megatron_shard``, ``gspmd_lm_train_step``)
   against the replicated model, with each rank's stored fraction
-  (``gspmd_train``); a 4-stage GPipe pipeline of the LM's block width on
+  (``gspmd_train``); the channel-parallel convolution twin on 2 ranks
+  (``parallel_conv``: its parity check, a falling loss, a planted channel
+  swap failing the check); a 4-stage GPipe pipeline of the LM's block width on
   4 ranks (``jit_pp_lm_train_step``) against the sequential stack, with a
   planted fault (``pp_train``); and in this process the fused chunked CE
   and remat on the 220M LM against the plain step (``lm_fused_remat``)
-  and the ``train_lm.py`` twin's ``main()`` in its MoE and pipeline modes
-  (``lm_example``).
+  and the ``train_lm.py`` twin's ``main()`` in its MoE, pipeline,
+  ``fit`` and resilient modes (``lm_example``). ``moe_train`` runs 6 of
+  the 12 layers and ``serve_graphs`` serves 8 requests eager (32
+  captured), the cuts that keep the script inside its time limit.
 
 Each launch count is set to 0 just before its path runs and read just
 after. Each phase prints one JSON line, then one line gives every
@@ -1242,6 +1252,10 @@ def phase_serve_dense(device, card):
 #    captured CUDA graphs, then warm restart and the weight-swap fence --
 
 GRAPH_PROFILE_STEPS = 10
+# the eager runs serve the first 8 of the 32 requests: the cut that keeps
+# the script inside its time limit (the eager half took ~80 of the
+# phase's 113.7 s); the captured runs serve all 32
+GRAPH_EAGER_REQUESTS = 8
 GRAPH_SAMPLED = dict(temperature=0.8, top_k=50)
 
 
@@ -1357,8 +1371,9 @@ def _graph_run(model, kw, work, capture, device, *, profile=False,
 
 def phase_serve_graphs(device, card):
     """Each serving path (``serve``, ``serve_window``, ``serve_spec``,
-    ``serve_dense``; the 220M LM in bf16, 32 requests) with
-    ``capture=False`` and then captured: tokens/s, TPOT, TTFT, a profiled
+    ``serve_dense``; the 220M LM in bf16, 8 requests eager and 32
+    captured) with ``capture=False`` and then captured: tokens/s, TPOT,
+    TTFT, a profiled
     step's device-busy ms and idle share, the capture seconds and the
     graph pool's bytes. Fails unless every run builds each program once
     (``compile_counts_detailed()`` flat, ``recompiles`` empty), the
@@ -1380,8 +1395,8 @@ def phase_serve_graphs(device, card):
         runs[name] = {}
         for capture in (False, True):
             _, runs[name][str(capture).lower()] = _graph_run(
-                model, kw, work, capture, device, profile=True,
-                per_call=per_call)
+                model, kw, work if capture else work[:GRAPH_EAGER_REQUESTS],
+                capture, device, profile=True, per_call=per_call)
     del model
     _empty()
     m32 = TransformerLM(**LM, compute_dtype=torch.float32, device=device,
@@ -1428,7 +1443,9 @@ def phase_serve_graphs(device, card):
     _empty()
     rec = {"phase": "serve_graphs", "card": card,
            "model": dict(LM, compute_dtype="bf16"),
-           "requests": N_REQUESTS, "profile_steps": GRAPH_PROFILE_STEPS,
+           "requests": {"eager": GRAPH_EAGER_REQUESTS,
+                        "captured": N_REQUESTS},
+           "profile_steps": GRAPH_PROFILE_STEPS,
            "runs": runs, "f32_parity": parity, "planted_fault": planted,
            "run_s": time.perf_counter() - t_phase}
     emit(rec)
@@ -4547,9 +4564,13 @@ def phase_hybrid(card):
 # (0.17 under GSPMD, whose blocks round their partial sums apart). The
 # pre-update loss is held tightly, the trajectory loosely; the gradient
 # gate carries the power, against planted faults that read >= 1.
+# moe_train runs 6 of the 12 layers (3 MoE blocks): the depth cut that
+# keeps the script inside its time limit as the later phases grow it
+# (12 layers took 87.2 s of it)
 MOE = dict(experts=8, top_k=2, ranks=2, batch=2, seq_len=1024,
            warmup_steps=2, timed_steps=5, drop_steps=3, parity_capacity=4.0,
-           first_loss_tol=1e-3, loss_tol=0.25, grad_rel_tol=5e-2)
+           first_loss_tol=1e-3, loss_tol=0.25, grad_rel_tol=5e-2,
+           n_layers=6)
 GSPMD_TOL = dict(first_loss_tol=1e-3, loss_tol=0.25, grad_rel_tol=0.35)
 # GPipe: 4 stages (one block of the 220M LM's width each, 'full'
 # attention as make_pipeline_lm builds them) on 4 ranks, 8 microbatches
@@ -4564,13 +4585,14 @@ LM_EXAMPLE = {"moe": ["--moe-experts", "8", "--moe-top-k", "2",
               "pipeline": ["--pipeline"]}
 
 
-def _moe_lm(**kw):
-    """The MoE LM of MOE (bf16, seed 0) on cuda:0."""
+def _moe_lm(n_layers=LM["n_layers"], **kw):
+    """The MoE LM of MOE (bf16, seed 0) on cuda:0, at ``n_layers``."""
     import torch
 
     from chainermn_torch.models import TransformerLM
 
-    return TransformerLM(**LM, attention="flash", moe_experts=MOE["experts"],
+    return TransformerLM(**dict(LM, n_layers=n_layers), attention="flash",
+                         moe_experts=MOE["experts"],
                          moe_top_k=MOE["top_k"], compute_dtype=torch.bfloat16,
                          device=torch.device("cuda", 0), seed=SEED, **kw)
 
@@ -4619,12 +4641,14 @@ def rank_moe_train():
     mine = slice(r * b, (r + 1) * b)
     ref_drops = []
     ref_losses, ref_grads = _reference_run(
-        _moe_lm(moe_impl="gshard", moe_capacity_factor=MOE["parity_capacity"]),
+        _moe_lm(MOE["n_layers"], moe_impl="gshard",
+                moe_capacity_factor=MOE["parity_capacity"]),
         tokens, targets, n_steps, ref_drops)
     torch.cuda.empty_cache()
 
     def ep(capacity):
-        model = _moe_lm(moe_axis=comm, moe_capacity_factor=capacity)
+        model = _moe_lm(MOE["n_layers"], moe_axis=comm,
+                        moe_capacity_factor=capacity)
         opt = create_multi_node_optimizer(torch.optim.AdamW(
             model.parameters(), lr=TRAIN["lr"],
             weight_decay=TRAIN["weight_decay"]), comm)
@@ -4662,20 +4686,22 @@ def phase_moe_train(card):
     the one-process gshard LM's trained alike, the first
     step's global gradient within ``grad_rel_tol`` of its and the planted
     fault's not, every attention call of the 7 steps went through the
-    flash kernels (12 launches of each a step), and the 3 steps at the
-    default capacity gave finite losses and drop fractions."""
+    flash kernels (6 launches of each a step, one a layer), and the 3
+    steps at the default capacity gave finite losses and drop
+    fractions."""
     t0 = time.perf_counter()
     ranks = _gloo_ranks("rank_moe_train", MOE["ranks"])
     n_steps = MOE["warmup_steps"] + MOE["timed_steps"]
-    want = n_steps * LM["n_layers"]
+    want = n_steps * MOE["n_layers"]
     emit({"phase": "moe_train", "card": card, "ranks": MOE["ranks"],
           "backend": "gloo",
-          "model": dict(LM, compute_dtype="bf16", attention="flash",
-                        moe_experts=MOE["experts"], moe_top_k=MOE["top_k"],
-                        moe_every=2, moe_impl="ep"),
+          "model": dict(LM, n_layers=MOE["n_layers"], compute_dtype="bf16",
+                        attention="flash", moe_experts=MOE["experts"],
+                        moe_top_k=MOE["top_k"], moe_every=2, moe_impl="ep"),
           "train": dict(MOE, lr=TRAIN["lr"],
                         weight_decay=TRAIN["weight_decay"]),
-          "reduced": "none: the 220M LM's widths and 12 layers",
+          "reduced": "6 of the 12 layers (3 MoE blocks); the 220M LM's "
+                     "widths",
           "launches_want": want, "run_s": time.perf_counter() - t0,
           "ranks_out": ranks})
     for rk in ranks:
@@ -5064,30 +5090,600 @@ def phase_lm_fused_remat(device, card):
     return configs
 
 
+# the async loop and the recovery boundary on the train cell: its LM,
+# optimizer and batch shape over 14 distinct seeded [8, 2048] batches
+# (runs a-c take the first 12; the resumed launch the last 2)
+FIT = dict(steps=12, batches=14, fetch_every=8, prefetch_depth=2,
+           warmup_steps=2, profile_steps=8, save_every=6, fault_at=8,
+           resume_to=14, n_retains=2)
+
+
+def _fit_setup(device, comm):
+    """The train phase's LM, AdamW and ``lm_train_step`` over ``comm``,
+    the batches as host arrays, and ``reset()``, which puts the model and
+    the optimizer back to their initial state (a device clone)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from chainermn_torch import create_multi_node_optimizer
+    from chainermn_torch.models import TransformerLM
+    from chainermn_torch.training import lm_train_step
+
+    model = TransformerLM(**LM, attention="flash",
+                          compute_dtype=torch.bfloat16, device=device,
+                          seed=SEED)
+    comm.bcast_data(model)
+    opt = create_multi_node_optimizer(torch.optim.AdamW(
+        model.parameters(), lr=TRAIN["lr"],
+        weight_decay=TRAIN["weight_decay"]), comm)
+    step = lm_train_step(model, opt, comm)
+    gen = torch.Generator().manual_seed(SEED + 20)
+    tokens = torch.randint(0, LM["vocab_size"],
+                           (FIT["batches"], TRAIN["batch"],
+                            TRAIN["seq_len"]), generator=gen).numpy()
+    targets = np.roll(tokens, -1, axis=2)
+    init_model = {k: v.detach().clone()
+                  for k, v in model.state_dict().items()}
+    init_opt = copy.deepcopy(opt.state_dict())      # no state yet
+
+    def reset():
+        model.load_state_dict(init_model)
+        opt.load_state_dict(init_opt)
+        torch.cuda.synchronize()
+
+    return dict(model=model, opt=opt, step=step, tokens=tokens,
+                targets=targets, reset=reset)
+
+
+def _device_idle(fn, n_steps):
+    """``fn()`` (``n_steps`` steps, closed by a device-to-host fetch)
+    under ``torch.profiler``: host wall ms a step, device busy ms a step
+    (CUDA activity without user annotations) and the idle share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t0
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False))
+    return {"step_wall_ms": wall / n_steps * 1e3,
+            "step_device_busy_ms": busy_us / n_steps / 1e3 if busy_us
+            else "not measured",
+            "device_idle_share": 1 - busy_us / 1e6 / wall if busy_us
+            else "not measured"}
+
+
+def _sync_calls(step, tokens, targets, device):
+    """One step on batches the device prefetcher delivered, under
+    ``torch.cuda.set_sync_debug_mode("warn")``: where it synchronized."""
+    import warnings
+
+    import torch
+
+    from chainermn_torch.dataflow import DevicePrefetcher
+
+    with DevicePrefetcher(iter([(tokens, targets)]), depth=1,
+                          device=device) as pre:
+        x, y = next(pre)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(x, y)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    # the mode's own notice that it is a prototype is not a sync
+    return sorted({f"{Path(w.filename).name}:{w.lineno}: "
+                   f"{str(w.message)[:80]}" for w in caught
+                   if "synchroniz" in str(w.message)
+                   and "prototype" not in str(w.message)})
+
+
+def _tracer_host_us():
+    """Host microseconds of one traced step's tracer work (a train_step
+    trace with its two spans), over 2000 steps on a private tracer."""
+    from chainermn_torch.monitor.trace import Tracer
+
+    tr = Tracer(sample=1, ring=256)
+    t0 = time.perf_counter()
+    for i in range(2000):
+        with tr.trace("train_step", kind="train", step=i, loop="bench"):
+            with tr.span("prefetch_wait"):
+                pass
+            with tr.span("dispatch"):
+                pass
+    return (time.perf_counter() - t0) / 2000 * 1e6
+
+
+def phase_train_fit(device, card, comm):
+    """``training.fit`` on the train cell (the 220M LM, ``flash``, bf16
+    over f32, AdamW, the one-rank NCCL ``comm``): from one device clone of
+    the initial state, three runs of FIT['steps'] steps over the same
+    distinct seeded batches — (a) the synchronous loop, one ``float(loss)``
+    a step, twice; (b) ``fit(fetch_every=8, prefetch_depth=2)`` with the
+    tracer at ``sample=1``; (c) the same at ``sample=0``. Fails unless
+    (b)'s and (c)'s losses equal (a)'s bit for bit, each of (b) and (c)
+    fetched the losses ceil(12/8) = 2 times, B1-B3 launched 12 x 12 times
+    in every run, every retained step trace of (b) has ``prefetch_wait``
+    and ``dispatch`` and floor(12/8) = 1 of them ``loss_fetch`` (the
+    closing drain runs after the last step's trace), and (c) retains
+    nothing. Prints each run's wall ms a step (closed by the fetch), the
+    device idle share of (a) and (b) over FIT['profile_steps'] profiled
+    steps, the tracer's host cost a step ((b) - (c), and a host-only
+    measure) and where a (b) step synchronizes."""
+    import torch
+
+    from chainermn_torch.monitor import get_registry, get_tracer
+    from chainermn_torch.training import fit
+
+    t_phase = time.perf_counter()
+    ctx = _fit_setup(device, comm)
+    step, reset = ctx["step"], ctx["reset"]
+    tokens, targets = ctx["tokens"], ctx["targets"]
+    n, every = FIT["steps"], FIT["fetch_every"]
+    batches = [(tokens[i], targets[i]) for i in range(n)]
+    for _ in range(FIT["warmup_steps"]):           # allocator, cuBLAS
+        float(step(tokens[0], targets[0])[0])
+    tracer = get_tracer()
+    fetch_ctr = get_registry().counter("loss_fetch_total",
+                                       {"loop": "train_fit"})
+
+    def sync_run():
+        losses = []
+        for i in range(n):
+            loss, _ = step(tokens[i], targets[i])
+            losses.append(float(loss))
+        return losses
+
+    runs, traces = {}, {}
+    for name, sample in (("a", None), ("a_repeat", None), ("b", 1),
+                         ("c", 0)):
+        reset()
+        if sample is not None:
+            tracer.configure(sample=sample)
+            tracer.clear()
+        _zero_flash_counts()
+        f0 = fetch_ctr.value
+        t0 = time.perf_counter()
+        if sample is None:
+            losses = sync_run()
+        else:
+            losses = fit(step, iter(batches), n, fetch_every=every,
+                         prefetch_depth=FIT["prefetch_depth"], device=device,
+                         name="train_fit")
+        wall = time.perf_counter() - t0
+        runs[name] = {"losses": losses, "step_ms": wall / n * 1e3,
+                      "launches": _flash_counts(),
+                      "loss_fetches": fetch_ctr.value - f0}
+        if sample is not None:
+            traces[name] = [[s.name for s in t.spans]
+                            for t in tracer.finished(kind="train")]
+    tracer.configure(sample=1)
+    reset()
+    k = FIT["profile_steps"]
+    idle = {"a": _device_idle(
+        lambda: [float(step(tokens[i], targets[i])[0]) for i in range(k)],
+        k)}
+    reset()
+    idle["b"] = _device_idle(
+        lambda: fit(step, iter(batches[:k]), k, fetch_every=every,
+                    prefetch_depth=FIT["prefetch_depth"], device=device,
+                    name="train_fit_profile"), k)
+    syncs = _sync_calls(step, tokens[0], targets[0], device)
+    want = {name: n * LM["n_layers"] for name in FLASH_KERNELS}
+    b_traces = traces["b"]
+    rec = {"phase": "train_fit", "card": card,
+           "model": dict(LM, attention="flash", compute_dtype="bf16"),
+           "train": dict(TRAIN, **FIT), "communicator": repr(comm),
+           "runs": runs, "losses_bit_equal": {
+               name: runs[name]["losses"] == runs["a"]["losses"]
+               for name in ("a_repeat", "b", "c")},
+           "first_diff_step": {
+               name: next((i for i, (x, y) in enumerate(zip(
+                   runs[name]["losses"], runs["a"]["losses"])) if x != y),
+                   None) for name in ("a_repeat", "b", "c")},
+           "profiled": idle,
+           "tracer_host_ms_per_step_b_minus_c":
+               runs["b"]["step_ms"] - runs["c"]["step_ms"],
+           "tracer_host_us_per_step_alone": _tracer_host_us(),
+           "b_traces": len(b_traces),
+           "b_spans_per_trace": sorted({len(t) for t in b_traces}),
+           "b_traces_with_loss_fetch": sum("loss_fetch" in t
+                                           for t in b_traces),
+           "c_traces": len(traces["c"]), "sync_calls_in_a_b_step": syncs,
+           "launches_want": want, "run_s": time.perf_counter() - t_phase}
+    emit(rec)
+    for name in ("b", "c"):
+        if runs[name]["losses"] != runs["a"]["losses"]:
+            raise AssertionError(f"train_fit ({name}): losses "
+                                 f"{runs[name]['losses']} != the "
+                                 f"synchronous loop's {runs['a']['losses']}")
+        if runs[name]["loss_fetches"] != -(-n // every):
+            raise AssertionError(f"train_fit ({name}): "
+                                 f"{runs[name]['loss_fetches']} loss "
+                                 f"fetches for {n} steps at {every}")
+    for name, r in runs.items():
+        if r["launches"] != want:
+            raise AssertionError(f"train_fit ({name}): flash launches "
+                                 f"{r['launches']} != {want}")
+    if len(b_traces) != n or not all(
+            t[:3] == ["train_step", "prefetch_wait", "dispatch"]
+            or t[:4] == ["train_step", "prefetch_wait", "prefetch_stall",
+                         "dispatch"] for t in b_traces):
+        raise AssertionError(f"train_fit (b): step traces {b_traces}")
+    if rec["b_traces_with_loss_fetch"] != n // every:
+        raise AssertionError(f"train_fit (b): "
+                             f"{rec['b_traces_with_loss_fetch']} traces "
+                             f"with a loss_fetch, want {n // every}")
+    if traces["c"]:
+        raise AssertionError(f"train_fit (c): sample=0 retained "
+                             f"{len(traces['c'])} traces")
+    ctx["losses_a"] = runs["a"]["losses"]
+    return ctx, rec
+
+
+def phase_train_resilient(device, card, comm, ctx):
+    """``resilient_fit`` over the train_fit model and batches (batch i at
+    step i, device-resident): FIT['steps'] steps with ``save_every=6``
+    and ``async_save=True`` on a ``MultiNodeCheckpointer`` in a temporary
+    directory under ``build/`` (deleted at the end), a ``FaultInjector``
+    raise at ``trainer.step`` step 8 (restored from snapshot 6), then a
+    second ``resilient_fit`` on the same directory to 14 steps. Fails
+    unless the per-step losses equal train_fit's synchronous loop's bit
+    for bit, the report reads failures 1, restores 1, resumed_from 0, the
+    second launch resumes from 12, B1-B3 launched (12 + 2 replayed + 2)
+    x 12 times, and the planted fault (snapshot 6's model and optimizer
+    with snapshot 0's iterator) changes the losses. Prints MTTR, the
+    snapshot bytes, the ``host_state`` copy s on the critical path (the
+    ``checkpoint_enqueue`` spans) and ``get_stats``' save and load s."""
+    import os
+    import tempfile
+
+    import torch
+
+    from chainermn_torch import SerialIterator, create_multi_node_checkpointer
+    from chainermn_torch.extensions.checkpoint import to_tensors
+    from chainermn_torch.monitor import get_tracer
+    from chainermn_torch.resilience import FaultInjector, resilient_fit
+
+    t_phase = time.perf_counter()
+    model, opt, step = ctx["model"], ctx["opt"], ctx["step"]
+    tokens = torch.as_tensor(ctx["tokens"], device=device)
+    targets = torch.as_tensor(ctx["targets"], device=device)
+    n = FIT["steps"]
+
+    def live(loss):
+        # the live tensors: the checkpointer's host_state copies them
+        # before save_async returns
+        return {"model": model.state_dict(), "optimizer": opt.state_dict(),
+                "loss": loss}
+
+    def step_fn(state, sel):
+        i = int(sel[0])
+        return live(step(tokens[i], targets[i])[0])
+
+    def restore_hook(state):
+        model.load_state_dict(to_tensors(state["model"]))
+        opt.load_state_dict(to_tensors(state["optimizer"]))
+        return live(state["loss"])
+
+    def iterator():
+        return SerialIterator(list(range(FIT["batches"])), batch_size=1)
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    path = tempfile.mkdtemp(prefix="train_resilient_", dir=ROOT / "build")
+    tracer = get_tracer()
+    tracer.configure(sample=1)
+    try:
+        ctx["reset"]()
+        tracer.clear()
+        _zero_flash_counts()
+        ckpt = create_multi_node_checkpointer(
+            "train_resilient", comm, path=path, n_retains=FIT["n_retains"])
+        inj = FaultInjector(seed=0)
+        inj.arm("trainer.step", kind="raise", after=FIT["fault_at"],
+                times=1)
+        losses = {}
+        t0 = time.perf_counter()
+        with inj:
+            _, report = resilient_fit(
+                step_fn, live(None), iterator(), n, ckpt,
+                save_every=FIT["save_every"], async_save=True,
+                restore_hook=restore_hook,
+                on_step=lambda i, s: losses.__setitem__(i, s["loss"]))
+        run_s = time.perf_counter() - t0
+        launches = _flash_counts()
+        got = [float(losses[i]) for i in range(n)]
+        enqueue = [s.duration_s for t in tracer.finished(kind="train")
+                   for s in t.spans if s.name == "checkpoint_enqueue"]
+        snap_bytes = os.path.getsize(ckpt.filename(n))
+        stats = ckpt.get_stats()
+        # the planted fault: snapshot 6's state with snapshot 0's iterator
+        restore_hook(ckpt._try_load(FIT["save_every"])["state"]["state"])
+        it = iterator()
+        planted = []
+        for _ in range(2):
+            i = int(next(it)[0])
+            planted.append(float(step(tokens[i], targets[i])[0]))
+        ckpt._shutdown_writer()         # its snapshots stay for the resume
+        _zero_flash_counts()
+        ckpt2 = create_multi_node_checkpointer(
+            "train_resilient", comm, path=path, n_retains=FIT["n_retains"])
+        more = {}
+        t0 = time.perf_counter()
+        _, report2 = resilient_fit(
+            step_fn, live(None), iterator(), FIT["resume_to"], ckpt2,
+            save_every=FIT["save_every"], async_save=True,
+            restore_hook=restore_hook,
+            on_step=lambda i, s: more.__setitem__(i, float(s["loss"])))
+        resume_s = time.perf_counter() - t0
+        launches = {k: v + _flash_counts()[k] for k, v in launches.items()}
+        stats2 = ckpt2.get_stats()
+        ckpt2.finalize()
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    replayed = FIT["fault_at"] - FIT["save_every"]
+    steps_run = n + replayed + (FIT["resume_to"] - n)
+    want = {name: steps_run * LM["n_layers"] for name in FLASH_KERNELS}
+    rec = {"phase": "train_resilient", "card": card,
+           "model": dict(LM, attention="flash", compute_dtype="bf16"),
+           "train": dict(TRAIN, **FIT), "losses": got,
+           "losses_bit_equal": got == ctx["losses_a"],
+           "report": report, "mttr_s": report["mttr_s"],
+           "run_s": run_s, "snapshot_bytes": snap_bytes,
+           "host_state_copy_s": enqueue,
+           "checkpoint_stats": stats, "resume": {
+               "report": report2, "losses": more, "run_s": resume_s,
+               "checkpoint_stats": stats2},
+           "planted_fault_losses": planted,
+           "planted_fault_want": ctx["losses_a"][FIT["save_every"]:
+                                                 FIT["save_every"] + 2],
+           "launches": launches, "launches_want": want,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(rec)
+    if got != ctx["losses_a"]:
+        raise AssertionError(f"train_resilient: losses {got} != the "
+                             f"synchronous loop's {ctx['losses_a']}")
+    if (report["failures"], report["restores"],
+            report["resumed_from"]) != (1, 1, 0):
+        raise AssertionError(f"train_resilient: report {report}")
+    if report2["resumed_from"] != n or report2["failures"] or \
+            sorted(more) != list(range(n, FIT["resume_to"])):
+        raise AssertionError(f"train_resilient: the second launch "
+                             f"{report2} {more}")
+    if launches != want:
+        raise AssertionError(f"train_resilient: flash launches {launches} "
+                             f"!= {want}")
+    if planted == rec["planted_fault_want"]:
+        raise AssertionError("train_resilient: snapshot 6 with snapshot "
+                             "0's iterator reproduces the losses")
+    del ctx["model"], ctx["opt"], ctx["step"], model, opt, step
+    _empty()
+    return rec
+
+
+def phase_serve_trace(device, card):
+    """The serve cell's LM and engine (captured, the kernel on) serving
+    its 32 greedy requests with a tracer at ``sample=0`` and at
+    ``sample=1``, alternating (off, on, off, on). Fails unless the token
+    streams are identical, the compile counts stay flat, B4 launches =
+    decode calls x 12 in every run, every retained trace reads ``request
+    -> queue -> admit -> prefill -> decode_step...`` with a finish reason,
+    ``ServingMetrics``' ``critical_path`` is present when on, and the
+    runs at ``sample=0`` record nothing. Prints tokens/s and TPOT p50 on
+    and off, and the spans a request records."""
+    import torch
+
+    from chainermn_torch.models import TransformerLM
+    from chainermn_torch.monitor import get_registry
+    from chainermn_torch.monitor.trace import Tracer
+    from chainermn_torch.parallel.paged_kernel import paged_attend
+    from chainermn_torch.serving import ServingEngine
+
+    t_phase = time.perf_counter()
+    model = TransformerLM(**LM, compute_dtype=torch.bfloat16, device=device,
+                          seed=SEED)
+    eng = ServingEngine(model, paged=True, paged_kernel=True, device=device,
+                        **ENGINE)
+    eng.warmup()
+    counts = eng.compile_counts_detailed()
+    calls_ctr = get_registry().counter(
+        "serving_decode_steps_total",
+        {"engine": "serving", "paged_kernel": "on"})
+    work = _serve_traffic(N_REQUESTS, SEED)
+    runs, streams = {}, {}
+    for name, sample in (("off", 0), ("on", 1), ("off_2", 0), ("on_2", 1)):
+        tracer = Tracer(sample=sample, ring=256)
+        c0 = calls_ctr.value
+        paged_attend.launches = 0
+        streams[name], sched, wall = _drive(eng, work,
+                                            sched_kw={"tracer": tracer})
+        rep = sched.metrics.report()
+        traces = tracer.finished(kind="serving")
+        runs[name] = {
+            "wall_s": wall, "tokens_per_sec": rep["tokens_per_sec"],
+            "tpot_p50_s": rep["tpot_p50_s"], "ttft_p50_s": rep["ttft_p50_s"],
+            "decode_calls": calls_ctr.value - c0,
+            "kernel_launches": paged_attend.launches,
+            "traces": len(traces),
+            "spans_per_request": sorted(len(t.spans) for t in traces),
+            "dropped_spans": sum(t.dropped_spans for t in traces),
+            "reasons": sorted({t.root.labels.get("reason") for t in traces}),
+            "bad_trees": [t.trace_id for t in traces
+                          if [s.name for s in t.spans][:4] != [
+                              "request", "queue", "admit", "prefill"]
+                          or {s.name for s in t.spans[4:]}
+                          - {"decode_step"}],
+            "critical_path": rep.get("critical_path")}
+    rec = {"phase": "serve_trace", "card": card,
+           "model": dict(LM, compute_dtype="bf16"),
+           "engine": dict(ENGINE, paged_kernel=True, capture=eng.capture),
+           "requests": N_REQUESTS, "runs": runs,
+           "compile_counts": counts,
+           "compile_counts_after": eng.compile_counts_detailed(),
+           "run_s": time.perf_counter() - t_phase}
+    emit(rec)
+    del eng, model
+    _empty()
+    first = streams["off"]
+    for name, r in runs.items():
+        if streams[name] != first:
+            raise AssertionError(f"serve_trace {name}: the streams differ "
+                                 "from the untraced run's")
+        if r["kernel_launches"] != r["decode_calls"] * LM["n_layers"]:
+            raise AssertionError(f"serve_trace {name}: kernel launches "
+                                 f"{r['kernel_launches']} != "
+                                 f"{r['decode_calls']} x {LM['n_layers']}")
+        if name.startswith("on"):
+            if (r["traces"] != N_REQUESTS or r["bad_trees"]
+                    or r["reasons"] != ["length"]
+                    or r["critical_path"] is None):
+                raise AssertionError(f"serve_trace {name}: {r}")
+        elif r["traces"] or r["critical_path"] is not None:
+            raise AssertionError(f"serve_trace {name}: sample=0 recorded "
+                                 f"{r['traces']} traces")
+    if rec["compile_counts_after"] != counts or set(counts.values()) != {1}:
+        raise AssertionError(f"serve_trace: programs rebuilt: {counts} -> "
+                             f"{rec['compile_counts_after']}")
+    return rec
+
+
+_PCONV_RANKS = """
+import contextlib, io, os, time
+import torch
+import torch.distributed as dist
+
+dist.init_process_group("gloo", init_method="env://", rank=RANK,
+                        world_size=int(os.environ["WORLD_SIZE"]))
+torch.cuda.set_device(0)
+from chainermn_torch import create_communicator
+from chainermn_torch.examples.parallel_convolution import (
+    train_parallel_conv as twin)
+
+buf = io.StringIO()
+t0 = time.perf_counter()
+with contextlib.redirect_stdout(buf):
+    summary = twin.main(["--device", "cuda", "--check"])
+summary["run_s"] = time.perf_counter() - t0
+summary["printed"] = buf.getvalue().splitlines()
+# the planted fault: two channels of this rank's pconv2 slice swapped
+comm = create_communicator("tpu", device="cuda")
+full = twin.init_params(32, 10, 0)
+local = twin.shard_params(full, comm.rank, comm.size, comm.device)
+with torch.no_grad():
+    w = local["pconv2.weight"]
+    w[[0, 1]] = w[[1, 0]].clone()
+x, _ = twin.synthetic_cifar(2048, 32, 10)
+try:
+    twin.parity_error(full, local, x[:64], comm)
+    summary["planted_fault_failed"] = False
+except AssertionError:
+    summary["planted_fault_failed"] = True
+comm.finalize()
+save(summary)
+dist.destroy_process_group()
+"""
+
+
+def phase_parallel_conv(card):
+    """The channel-parallel convolution twin's ``main()`` at its own
+    defaults with ``--check`` on 2 ranks as processes on the card over
+    gloo (every collective staged through the host). Fails unless rank 0
+    prints ``parity check OK``, every rank's parity error is within 2e-4
+    and its epoch losses are finite and fall, and the planted fault (two
+    channels of a shard's kernel swapped) fails the check on every rank.
+    Prints ms a step and the share of it staged through the host."""
+    from chainermn_torch.testing import run_ranks
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(_PCONV_RANKS, 2, timeout=600)
+    for rk in ranks:
+        ms = sorted(rk.pop("step_ms"))
+        rk["step_ms_p50"] = ms[len(ms) // 2]
+        rk["staged_share_of_steps"] = rk["staged_s"] / (sum(ms) / 1e3)
+    emit({"phase": "parallel_conv", "card": card, "ranks": 2,
+          "backend": "gloo", "defaults": "batch 64, 5 epochs, 2048 "
+          "images of 32x32, 10 classes", "run_s": time.perf_counter() - t0,
+          "ranks_out": ranks})
+    if not any("parity check OK" in ln for ln in ranks[0]["printed"]):
+        raise AssertionError(f"parallel_conv: {ranks[0]['printed']}")
+    for rk in ranks:
+        losses = rk["epoch_losses"]
+        if not (rk["parity_max_abs_err"] <= 2e-4
+                and all(math.isfinite(v) for v in losses)
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"parallel_conv: {rk}")
+        if not rk["planted_fault_failed"]:
+            raise AssertionError("parallel_conv: the swapped channels pass "
+                                 "the parity check")
+    return ranks
+
+
 def phase_lm_example(card):
     """The LM trainer twin's ``main()`` in this process on one NCCL rank,
     3 iterations at its own defaults, in the MoE mode (8 experts, top-2,
-    flash) and the pipeline mode (one stage). Fails unless each finishes
-    with finite losses, and the MoE mode's attention went through the
-    flash kernels."""
-    from chainermn_torch.examples.lm import train_lm
+    flash), the pipeline mode (one stage), the ``fit`` mode (``flash``,
+    ``--fetch-every 4 --prefetch-depth 2 --trace-out``) and the resilient
+    mode (``flash``, ``--resume --inject-fault 2 --async-save`` in a
+    temporary directory under ``build/``). Fails unless each finishes
+    with finite losses; the MoE and fit modes' attention went through the
+    flash kernels 3 x 2 times, the resilient mode's (3 + 2 replayed) x 2
+    times; the trace file is Chrome JSON with the 3 steps' span trees;
+    and the resilient run recovered once."""
+    import tempfile
 
+    from chainermn_torch.examples.lm import train_lm
+    from chainermn_torch.monitor import get_tracer
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="lm_example_", dir=ROOT / "build")
+    trace_out = str(Path(tmp) / "trace.json")
+    modes = dict(LM_EXAMPLE,
+                 fit=["--attention", "flash", "--fetch-every", "4",
+                      "--prefetch-depth", "2", "--trace-out", trace_out],
+                 resilient=["--attention", "flash", "--resume",
+                            "--inject-fault", "2", "--async-save",
+                            "--checkpoint-dir", str(Path(tmp) / "ckpt")])
     out = {}
-    for name, extra in LM_EXAMPLE.items():
-        t0 = time.perf_counter()
-        _zero_flash_counts()
-        res = train_lm.main(["--iterations", "3", *extra])
-        out[name] = dict(res, run_s=time.perf_counter() - t0,
-                         launches=_flash_counts())
-    emit({"phase": "lm_example", "card": card, "modes": LM_EXAMPLE,
-          "out": out})
+    try:
+        for name, extra in modes.items():
+            t0 = time.perf_counter()
+            _zero_flash_counts()
+            get_tracer().clear()      # the file holds this mode's traces
+            res = train_lm.main(["--iterations", "3", *extra])
+            out[name] = dict(res, run_s=time.perf_counter() - t0,
+                             launches=_flash_counts())
+        events = json.loads(Path(trace_out).read_text())["traceEvents"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    steps = sorted(e["args"]["step"] for e in events
+                   if e["ph"] == "X" and e["name"] == "train_step")
+    emit({"phase": "lm_example", "card": card, "modes": modes,
+          "trace_out_steps": steps, "out": out})
     for name, res in out.items():
         if len(res["losses"]) != 3 or not all(math.isfinite(x)
                                               for x in res["losses"]):
             raise AssertionError(f"lm_example {name}: losses {res['losses']}")
-    if any(v != 3 * 2 for v in out["moe"]["launches"].values()):
-        raise AssertionError(f"lm_example moe: flash launches "
-                             f"{out['moe']['launches']} != 6 each")
+    for name, n_steps in (("moe", 3), ("fit", 3), ("resilient", 5)):
+        if any(v != n_steps * 2 for v in out[name]["launches"].values()):
+            raise AssertionError(f"lm_example {name}: flash launches "
+                                 f"{out[name]['launches']} != "
+                                 f"{n_steps * 2} each")
+    if steps != [0, 1, 2]:
+        raise AssertionError(f"lm_example fit: traced steps {steps}")
+    rep = out["resilient"]["report"]
+    if (rep["failures"], rep["restores"]) != (1, 1):
+        raise AssertionError(f"lm_example resilient: {rep}")
     return out
 
 
@@ -5130,12 +5726,17 @@ def main() -> int:
     timed("serve_restart_swap", phase_serve_restart_swap, device, smi)
     fleet = timed("serve_fleet", phase_serve_fleet, device, smi)
     control = timed("serve_control", phase_serve_control, device, smi)
+    traced = timed("serve_trace", phase_serve_trace, device, smi)
     timed("serve_example", phase_serve_example, smi)
     flash_err = timed("flash_parity", phase_flash_parity, device)
     timed("flash_ring_blocks", phase_flash_ring_blocks, device)
     flash_launches, comm = timed("train", phase_train, device)
     flash_timing = timed("flash_timing", phase_flash_timing, device)
     timed("train_parity", phase_train_parity, device)
+    fit_ctx, fit_rec = timed("train_fit", phase_train_fit, device, smi, comm)
+    resilient = timed("train_resilient", phase_train_resilient, device, smi,
+                      comm, fit_ctx)
+    del fit_ctx
     comm.finalize()
     dp = timed("dp_train", phase_dp_train, device)
     timed("dp_parity", phase_dp_parity, device)
@@ -5144,6 +5745,7 @@ def main() -> int:
     timed("mnist_checkpoint", phase_mnist_checkpoint, smi)
     timed("mnist_mp", phase_mnist_mp, device, smi)
     timed("seq2seq_mp", phase_seq2seq_mp, smi)
+    timed("parallel_conv", phase_parallel_conv, smi)
     timed("sp_parity", phase_sp_parity, smi)
     sp_train = timed("sp_train", phase_sp_train, smi)
     timed("tp_train", phase_tp_train, smi)
@@ -5169,6 +5771,8 @@ def main() -> int:
             fleet["tiers"]["kernel_launches"])),
         "launches_control_path": control["launches_control_path"],
         "launches_control_path_by_engine": control["kernel_launches"],
+        "launches_traced_path": {
+            name: r["kernel_launches"] for name, r in traced["runs"].items()},
         "ms_span_cut": timing["ms_span_cut"],
         "max_abs_err": timing["max_abs_err"],
         "parity_max_abs_err": parity_err,
@@ -5183,6 +5787,10 @@ def main() -> int:
             "launches_ring_path": sp_train[0]["ring_flash"]["launches"][name],
             "launches_moe_path": moe[0]["ep"]["launches"][name],
             "launches_gspmd_path": gspmd[0]["gspmd"]["launches"][name],
+            "launches_fit_path": {
+                run: fit_rec["runs"][run]["launches"][name]
+                for run in ("a", "b", "c")},
+            "launches_resilient_path": resilient["launches"][name],
             "max_abs_err": rec["max_abs_err"],
             "parity_max_abs_err": flash_err[name],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],

@@ -47,7 +47,11 @@ def test_the_parallel_modules_are_checked():
             "chainermn_torch.monitor.timeseries",
             "chainermn_torch.monitor.health", "chainermn_torch.monitor.slo",
             "chainermn_torch.deploy", "chainermn_torch.deploy.versions",
-            "chainermn_torch.deploy.publish"} <= names
+            "chainermn_torch.deploy.publish", "chainermn_torch.monitor.trace",
+            "chainermn_torch.dataflow.dispatch",
+            "chainermn_torch.resilience.trainer",
+            "chainermn_torch.examples.parallel_convolution."
+            "train_parallel_conv"} <= names
 
 
 def test_importing_every_module_pulls_in_no_jax():
@@ -115,7 +119,7 @@ def test_entry_points_raise_without_a_card():
 
 # names of chainermn_tpu.__all__ the port does not have yet; each has its
 # item in ROADMAP.md's Queue A
-STILL_TO_PORT = ("TpuCommunicator",)
+STILL_TO_PORT = ()
 
 
 def test_facade_covers_the_jax_package():

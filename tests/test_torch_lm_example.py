@@ -1,16 +1,19 @@
 """The port's twin of ``examples/lm/train_lm.py``
 (``chainermn_torch/examples/lm/train_lm.py``): the reference's data
-stream draw for draw, its flag guards, the flags whose machinery is not
-ported yet, and two iterations in every mode it ports on two gloo CPU
+stream draw for draw, its flag guards, the flag whose machinery is not
+ported yet, the ``fit``, ``resilient_fit`` and ``--trace-out`` flags on
+one rank, and two iterations in every mode it ports on two gloo CPU
 ranks (started once for the module)."""
 
 import importlib.util
+import json
 from pathlib import Path
 
 import numpy as np
 import pytest
 
 from chainermn_torch.examples.lm import train_lm
+from chainermn_torch.monitor import trace as torch_trace
 from chainermn_torch.testing import run_ranks
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -32,6 +35,12 @@ MODES = {
     "gspmd_dense": ["--gspmd", "--attention", "flash"],
     "pipeline": ["--pipeline", "--microbatches", "2"],
 }
+
+@pytest.fixture(autouse=True)
+def _fresh_tracer(monkeypatch):
+    """A fresh default tracer a test: the twins configure and fill it."""
+    monkeypatch.setattr(torch_trace, "_TRACER", torch_trace.Tracer())
+
 
 _RANKS = """
 from chainermn_torch import create_communicator
@@ -107,13 +116,69 @@ def test_flag_guards_refuse_before_any_rank_starts(extra):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--resume"], ["--inject-fault", "3"], ["--prefetch-depth", "2"],
-    ["--fetch-every", "4"], ["--snapshot-to", "snap"],
-    ["--trace-out", "t.json"],
+    ["--snapshot-to", "snap"],
 ], ids=lambda e: e[0].strip("-"))
 def test_unported_flags_raise_naming_the_roadmap(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         train_lm.main(TINY + extra)
+
+
+LIFTED = ["--iterations", "5"]
+
+
+@pytest.fixture(scope="module")
+def plain_losses():
+    """The synchronous loop's losses over five iterations, one rank."""
+    return train_lm.main(TINY + LIFTED)["losses"]
+
+
+@pytest.mark.parametrize("flag", ["resume", "inject-fault", "prefetch-depth",
+                                  "fetch-every", "trace-out"])
+def test_lifted_flags_run(flag, plain_losses, tmp_path):
+    """The flags that drive ``training.fit``, ``resilient_fit`` and the
+    tracer, on one rank: the windowed loop's losses equal the synchronous
+    loop's bit for bit; ``--resume`` continues a stopped run on an
+    uninterrupted run's losses, and so does a run crashed at step 3 by
+    ``--inject-fault 3``; ``--trace-out`` writes Chrome trace-event
+    JSON with every step's span tree."""
+    ckpt = ["--checkpoint-dir", str(tmp_path / "ck"), "--save-every", "2"]
+    if flag in ("prefetch-depth", "fetch-every"):
+        extra = (["--prefetch-depth", "2"] if flag == "prefetch-depth"
+                 else ["--fetch-every", "4", "--prefetch-depth", "2"])
+        out = train_lm.main(TINY + LIFTED + extra)
+        assert out["mode"] == "fit"
+        assert out["losses"] == plain_losses
+    elif flag == "resume":
+        whole = train_lm.main(TINY + LIFTED + ["--resume", "--checkpoint-dir",
+                                               str(tmp_path / "whole")])
+        assert whole["mode"] == "resilient" and len(whole["losses"]) == 5
+        first = train_lm.main(TINY + ["--iterations", "3", "--resume"]
+                              + ckpt)
+        out = train_lm.main(TINY + LIFTED + ["--resume"] + ckpt)
+        assert out["report"]["resumed_from"] == 3
+        assert first["losses"] + out["losses"] == whole["losses"]
+    elif flag == "inject-fault":
+        whole = train_lm.main(TINY + LIFTED + ["--resume"] + ckpt[:1]
+                              + [str(tmp_path / "whole")])
+        out = train_lm.main(TINY + LIFTED + ["--resume", "--inject-fault",
+                                             "3"] + ckpt)
+        rep = out["report"]
+        assert (rep["failures"], rep["restores"],
+                rep["resumed_from"]) == (1, 1, 0)
+        assert rep["mttr_s"][0] > 0
+        assert out["losses"] == whole["losses"]
+    else:
+        path = tmp_path / "t.json"
+        out = train_lm.main(TINY + LIFTED + ["--fetch-every", "2",
+                                             "--trace-out", str(path)])
+        events = json.loads(path.read_text())["traceEvents"]
+        steps = [e for e in events
+                 if e["ph"] == "X" and e["name"] == "train_step"]
+        assert sorted(e["args"]["step"] for e in steps) == list(range(5))
+        names = {e["name"] for e in events if e["ph"] == "X"}
+        assert {"prefetch_wait", "dispatch", "loss_fetch"} <= names
+        assert all(e["dur"] >= 0 for e in events if e["ph"] == "X")
+        assert out["losses"] == plain_losses
 
 
 @pytest.mark.parametrize("extra", [

@@ -5,14 +5,18 @@ its defaults, each single-engine feature with ``--verify-parity``
 exactly), the combination ``chip_smoke.py`` runs on the card, the fleet
 (two replicas, disaggregated tiers, prefix sharing and the rebalance
 probe), the control plane (``--health``, ``--autoscale`` with a
-``--canary`` deploy and ``--slo-ttft-ms``), its flag guards, and
+``--canary`` deploy and ``--slo-ttft-ms``), its request traces
+(``--trace``, ``--trace-out``), its flag guards, and
 ``train_lm.py --serve-samples`` on the dense engine with the prefix store
 and ``--publish-to engine``."""
+
+import json
 
 import pytest
 import torch
 
 from chainermn_torch.examples.lm import serve_lm
+from chainermn_torch.monitor import trace as torch_trace
 from chainermn_torch.testing import run_ranks
 
 torch.set_num_threads(1)
@@ -51,6 +55,12 @@ RUNS = {
                         "--max-new", "24", "--temperature", "0",
                         "--verify-parity"],
 }
+
+
+@pytest.fixture(autouse=True)
+def _fresh_tracer(monkeypatch):
+    """A fresh default tracer a test: the twins configure and fill it."""
+    monkeypatch.setattr(torch_trace, "_TRACER", torch_trace.Tracer())
 
 
 @pytest.mark.parametrize("name", list(RUNS))
@@ -132,11 +142,38 @@ def test_twin_control_plane(name, capsys):
 
 @pytest.mark.parametrize("extra", [
     ["--reshard-from", "snap"], ["--tensor-parallel"], ["--prometheus"],
-    ["--trace", "2"], ["--trace-out", "t.json"], ["--http-port", "0"],
+    ["--http-port", "0"],
 ], ids=lambda e: e[0].strip("-"))
 def test_unported_flags_name_the_roadmap(extra):
     with pytest.raises(SystemExit, match="ROADMAP.md"):
         serve_lm.main(TINY + extra)
+
+
+@pytest.mark.parametrize("flag", ["trace", "trace-out"])
+def test_trace_flags_run(flag, tmp_path, monkeypatch):
+    """``--trace N`` keeps every Nth request's trace (3 of 6 at N = 2,
+    none at 0) and streams the same tokens; ``--trace-out`` writes Chrome
+    trace-event JSON with each retained request's span tree."""
+    if flag == "trace":
+        def run(n):
+            monkeypatch.setattr(torch_trace, "_TRACER", torch_trace.Tracer())
+            return serve_lm.main(TINY + ["--trace", n, "--verify-parity"])
+
+        every, half, off = run("1"), run("2"), run("0")
+        assert (every["traces_retained"], half["traces_retained"],
+                off["traces_retained"]) == (6, 3, 0)
+        assert "critical_path" in every["report"]
+        assert "critical_path" not in off["report"]
+        assert off["parity"]["checked"] == every["parity"]["checked"] == 3
+        return
+    path = tmp_path / "t.json"
+    out = serve_lm.main(TINY + ["--trace-out", str(path)])
+    events = json.loads(path.read_text())["traceEvents"]
+    roots = [e for e in events if e["ph"] == "X" and e["name"] == "request"]
+    assert len(roots) == out["traces_retained"] == 6
+    names = {e["name"] for e in events if e["ph"] == "X"}
+    assert {"queue", "admit", "prefill", "decode_step"} <= names
+    assert all(e["args"]["reason"] == "length" for e in roots)
 
 
 @pytest.mark.parametrize("extra", [

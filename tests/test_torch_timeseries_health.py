@@ -26,6 +26,7 @@ from chainermn_torch.monitor import MetricsRegistry as TRegistry
 from chainermn_torch.monitor import health as thealth
 from chainermn_torch.monitor import slo as tslo
 from chainermn_torch.monitor import timeseries as tts
+from chainermn_torch.monitor.trace import Tracer as TTracer
 from chainermn_torch.serving.metrics import ServingMetrics as TMetrics
 
 SEEDS = range(3)
@@ -39,7 +40,7 @@ class _Pkg:
 
 
 TORCH = _Pkg("torch", tts, thealth, tslo, TRegistry, TEventLog,
-             lambda: None)
+             lambda: TTracer(sample=1, ring=32))
 JAX = _Pkg("jax", jts, jhealth, jslo, JRegistry, JEventLog,
            lambda: JTracer(sample=1, ring=32))
 
