@@ -1,6 +1,4 @@
-"""The weight lifecycle (the port's ``chainermn_tpu/deploy``, less the
-elastic restore of ``reshard.py``, which waits for the sharded
-checkpointer: ROADMAP.md, Queue A items 9.1 and 9.2).
+"""The weight lifecycle (the port's ``chainermn_tpu/deploy``).
 
 - :mod:`~chainermn_torch.deploy.versions`: :class:`VersionLog` and
   :class:`WeightVersion`, the audit trail of published weights;
@@ -9,7 +7,13 @@ checkpointer: ROADMAP.md, Queue A items 9.1 and 9.2).
   ServingEngine` behind the scheduler's swap fence, with no program
   rebuilt and no request dropped;
   :meth:`~chainermn_torch.fleet.router.FleetRouter.publish` rolls it
-  replica by replica across a fleet.
+  replica by replica across a fleet;
+- :mod:`~chainermn_torch.deploy.reshard`: :func:`elastic_restore` and
+  :func:`restore_train_state`, a
+  :class:`~chainermn_torch.extensions.sharded_checkpoint.
+  ShardedCheckpointer` snapshot restored at another tensor-parallel
+  degree or world size (:func:`snapshot_meta` writes the manifest it
+  reads, :func:`train_state_dict` the name-keyed train state).
 """
 
 from chainermn_torch.deploy.publish import (
@@ -17,7 +21,14 @@ from chainermn_torch.deploy.publish import (
     SwapHandle,
     WeightPublisher,
 )
+from chainermn_torch.deploy.reshard import (
+    elastic_restore,
+    restore_train_state,
+    snapshot_meta,
+    train_state_dict,
+)
 from chainermn_torch.deploy.versions import VersionLog, WeightVersion
 
 __all__ = ["PublishError", "SwapHandle", "VersionLog", "WeightPublisher",
-           "WeightVersion"]
+           "WeightVersion", "elastic_restore", "restore_train_state",
+           "snapshot_meta", "train_state_dict"]

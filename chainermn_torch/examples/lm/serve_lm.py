@@ -48,9 +48,19 @@ The same single-engine flags with the same defaults as the reference:
 ``--trace N`` traces every Nth request (the scheduler's span tree:
 queue, admit, prefill, one decode_step a token, retire; shed and errored
 requests are always kept; 0 disables tracing) and ``--trace-out FILE``
-writes the retained traces as Chrome trace-event JSON. The reshard,
-tensor-parallel, Prometheus and HTTP flags raise ``SystemExit`` naming
-the ROADMAP.md item they wait for.
+writes the retained traces as Chrome trace-event JSON.
+
+``--tensor-parallel``: every rank (one process each, ``RANK``/
+``WORLD_SIZE`` set) builds the LM with its blocks sharded over a tensor
+axis of all the ranks and the same engine over its local heads; rank 0
+serves the burst and prints everything, the others replay its programs
+(``ServingEngine.follow``). ``--reshard-from DIR`` restores the weights
+from a ``train_lm.py --snapshot-to`` snapshot through
+``deploy.elastic_restore``, permuting the qkv columns from the
+snapshot's TP degree to this run's. ``--verify-parity`` of a
+tensor-parallel run holds the streams to solo ``generate()`` of the
+dense LM on the same weights. The Prometheus and HTTP flags raise
+``SystemExit`` naming the ROADMAP.md item they wait for.
 
 Run on the card (the model computes in bfloat16 there, float32 on the
 CPU)::
@@ -64,6 +74,9 @@ CPU)::
         --kv-block-size 2 --shared-prefix 12 --share-prefixes --rebalance
     python -m chainermn_torch.examples.lm.serve_lm --autoscale \\
         --min-replicas 1 --max-replicas 3 --slots 1 --requests 24 --canary
+    # on each of 4 ranks, a snapshot train_lm.py saved at tp = 2:
+    python -m chainermn_torch.examples.lm.serve_lm --tensor-parallel \\
+        --reshard-from snap --verify-parity
 
 ``main(argv)`` returns a summary dict.
 """
@@ -90,8 +103,6 @@ _TIE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 # flag -> the ROADMAP.md item it waits for
 _UNPORTED = {
-    "reshard_from": "deploy/reshard.py (Queue A item 9.1)",
-    "tensor_parallel": "tensor-parallel serving (Queue A item 11.2)",
     "prometheus": "the rest of monitor/ (Queue A item 13)",
     "http_port": "monitor/http (Queue A item 13)",
 }
@@ -217,10 +228,15 @@ def _parser() -> argparse.ArgumentParser:
                          "ui.perfetto.dev)")
     ap.add_argument("--http-port", type=int, default=None,
                     help="not ported yet")
-    ap.add_argument("--reshard-from", default=None, help="not ported yet")
-    for flag in ("tensor_parallel", "prometheus"):
-        ap.add_argument("--" + flag.replace("_", "-"), action="store_true",
-                        default=None, help="not ported yet")
+    ap.add_argument("--reshard-from", default="",
+                    help="restore the weights from a ShardedCheckpointer "
+                         "snapshot (train_lm.py --snapshot-to) through "
+                         "deploy.elastic_restore, at this run's TP degree")
+    ap.add_argument("--tensor-parallel", action="store_true",
+                    help="shard the heads over every rank; rank 0 serves, "
+                         "the others replay its programs")
+    ap.add_argument("--prometheus", action="store_true", default=None,
+                    help="not ported yet")
     return ap
 
 
@@ -243,6 +259,12 @@ def _check_flags(args) -> None:
     if args.chunk_tokens and not args.paged_kv:
         raise SystemExit("--chunk-tokens stages chunks on the shared block "
                          "store; add --paged-kv")
+    if args.tensor_parallel and (args.replicas > 1 or args.prefill_replicas
+                                 or args.decode_replicas or args.autoscale
+                                 or args.share_prefixes or args.rebalance):
+        raise SystemExit("--tensor-parallel serves one engine over all the "
+                         "ranks; the fleet flags do not combine with it "
+                         "here")
     if args.canary and not args.autoscale:
         raise SystemExit("--canary deploys through the controller; add "
                          "--autoscale")
@@ -328,23 +350,92 @@ def _parity(model, jobs, args, eos) -> dict:
     return {"checked": checked, "near_ties": near_ties}
 
 
+def _reshard(args, model, tp) -> dict:
+    """``--reshard-from``: the snapshot's parameters into ``model`` through
+    ``elastic_restore`` (the qkv columns permuted from the snapshot's TP
+    degree to this run's)."""
+    from chainermn_torch.deploy import elastic_restore
+    from chainermn_torch.extensions import ShardedCheckpointer
+
+    is_tp = model.tensor_axis is not None
+    with ShardedCheckpointer(args.reshard_from) as cp:
+        mf = cp.manifest() or {}
+        if bool(mf.get("tensor_parallel", is_tp)) != is_tp:
+            raise SystemExit(
+                f"--reshard-from {args.reshard_from}: the snapshot's blocks "
+                f"are {'tensor-parallel' if not is_tp else 'dense'}; serve "
+                f"it {'with' if not is_tp else 'without'} --tensor-parallel")
+        restored, step = elastic_restore(cp, {"params": model.state_dict()},
+                                         comm=tp, model=model)
+    if restored is None:
+        raise SystemExit(f"--reshard-from {args.reshard_from}: no snapshot "
+                         "found")
+    rec = {"step": step, "save_tp_degree": int(mf.get("tp_degree", 1)),
+           "serve_tp_degree": tp.axis_size("tp") if tp is not None else 1}
+    if tp is None or tp.rank == 0:
+        print(f"resharded snapshot step {step}: save-time tp_degree="
+              f"{rec['save_tp_degree']} -> serving tp_degree="
+              f"{rec['serve_tp_degree']}", flush=True)
+    return rec
+
+
+def _dense_twin(model, n_tp: int):
+    """The dense LM holding a tensor-parallel ``model``'s weights (qkv
+    columns in the dense order): the solo reference of
+    ``--verify-parity``, run on rank 0 alone."""
+    from chainermn_torch.parallel.tensor import reshard_tp_qkv
+
+    sd = reshard_tp_qkv(model.state_dict(), model.n_heads,
+                        model.d_model // model.n_heads, n_tp, 1)
+    dense = TransformerLM(model.vocab_size, model.d_model, model.n_heads,
+                          model.n_layers, model.d_ff, model.max_len,
+                          model.compute_dtype, device=model.device)
+    dense.load_state_dict({k.replace("attn.", "").replace("mlp.", ""): v
+                           for k, v in sd.items()})
+    return dense
+
+
 def main(argv=None) -> dict:
     """Run the demo with ``argv`` (``sys.argv[1:]`` when ``None``); returns
     the served count, the metrics report, the engine's speculative,
     prefix and paged-store statistics, the brownout episode, the parity
-    check and, for a fleet, its report."""
+    check and, for a fleet, its report (a ``--tensor-parallel`` follower
+    rank: the programs it replayed)."""
     args = _parser().parse_args(argv)
     _check_flags(args)
     device = resolve_device(args.device)
+    tp, closers = None, []
+    if args.tensor_parallel:
+        import chainermn_torch
+        from chainermn_torch.parallel.mesh import make_3d_mesh
+
+        base = chainermn_torch.create_communicator("tpu", device=device)
+        tp = chainermn_torch.MeshCommunicator(
+            make_3d_mesh(shape=(1, 1, base.size)), device=device)
+        closers += [tp.finalize, base.finalize]
+    try:
+        return _serve(args, device, tp, closers)
+    finally:
+        for close in closers:
+            close()
+
+
+def _serve(args, device, tp, closers) -> dict:
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     max_len = args.prefill_len + args.max_new
 
     def new_model():
         return TransformerLM(args.vocab, args.d_model, args.heads,
                              args.layers, max_len=max_len,
-                             compute_dtype=dtype, device=device, seed=0)
+                             compute_dtype=dtype,
+                             tensor_axis="tp" if tp is not None else None,
+                             device=device, seed=0)
 
     model = new_model()
+    reshard = _reshard(args, model, tp) if args.reshard_from else None
+    ref_model = model
+    if tp is not None and args.verify_parity and tp.rank == 0:
+        ref_model = _dense_twin(model, tp.axis_size("tp"))
     rng = np.random.RandomState(0)
     buckets = (tuple(int(b) for b in args.prefill_buckets.split(","))
                if args.prefill_buckets else None)
@@ -372,9 +463,14 @@ def main(argv=None) -> dict:
             prefix_cache_blocks=args.prefix_blocks,
             prefix_block_size=args.prefix_block_size, paged=args.paged_kv,
             speculative=spec_cfg, temperature=args.temperature,
-            watchdog=args.watchdog or None, device=device, **paged_kw)
+            watchdog=args.watchdog or None, comm=tp, device=device,
+            **paged_kw)
 
     engine = new_engine(model)
+    if not engine.tp_leader:
+        return {"follower": True, "programs": engine.follow(),
+                "reshard": reshard}
+    closers.insert(0, engine.close)      # release the followers first
     sched_kw, brownout = _scheduler_kw(args)
     eos = None if args.eos_id < 0 else args.eos_id
     tiered = bool(args.prefill_replicas)
@@ -479,7 +575,7 @@ def main(argv=None) -> dict:
                 shed_or_failed += 1
                 print(f"request {h.id}: {type(e).__name__}: {e}")
         # before a canary can swap the weights the parity reads
-        parity = (_parity(model, jobs, args, eos) if args.verify_parity
+        parity = (_parity(ref_model, jobs, args, eos) if args.verify_parity
                   else None)
         if controller is not None:
             if args.canary:
@@ -524,7 +620,9 @@ def main(argv=None) -> dict:
                "streamed_tokens": len(stream_toks),
                "compute_dtype": str(dtype).split(".")[-1],
                "spec": engine.spec_stats(), "prefix": engine.prefix_stats(),
-               "kv": engine.kv_stats()}
+               "kv": engine.kv_stats(),
+               "tensor_parallel": tp.axis_size("tp") if tp is not None
+               else 1, "reshard": reshard}
     if brownout is not None:
         bj = brownout.to_json()
         summary["brownout"] = bj

@@ -36,8 +36,11 @@ thread), recovery from the newest snapshot on a failed step
 (``--inject-fault K`` raises at step K once), and resume across launches
 from ``--checkpoint-dir``. ``--trace-out FILE`` writes the retained
 ``train_step`` span trees (and a recovery's ``failure_episode``) as
-Chrome trace-event JSON. ``--snapshot-to`` (sharded checkpoints) is not
-ported yet and raises ``NotImplementedError`` naming its ROADMAP.md item.
+Chrome trace-event JSON. ``--snapshot-to DIR`` saves the trained
+parameters as a step-stamped sharded snapshot
+(:class:`~chainermn_torch.extensions.ShardedCheckpointer`) with the
+resharding manifest (TP degree, head geometry), which ``serve_lm.py
+--reshard-from DIR`` serves at any TP degree.
 
 Run one rank on the card::
 
@@ -339,10 +342,6 @@ def _check_flags(args) -> None:
                          "params; the gspmd/pipeline/resume modes own "
                          "their state layouts and would silently ignore "
                          "it")
-    if args.snapshot_to:
-        raise NotImplementedError(
-            "--snapshot-to needs extensions.sharded_checkpoint, which is "
-            "not ported yet (ROADMAP.md, Queue A)")
 
 
 def main(argv=None) -> dict:
@@ -475,7 +474,10 @@ def _run_steps(args, comm, step_comm) -> dict:
                              tokens_all, targets_all, n_seq, batch,
                              n_params)
     if args.prefetch_depth or args.fetch_every > 1:
-        return run_fit(args, comm, step, batches(), batch, n_params)
+        out = run_fit(args, comm, step, batches(), batch, n_params)
+        if args.snapshot_to:
+            _save_snapshot(args, step_comm, model)
+        return out
 
     publisher = None
     if args.publish_to and r == 0:
@@ -519,9 +521,28 @@ def _run_steps(args, comm, step_comm) -> dict:
            "moe_drop": acc.summary(), "n_params": n_params}
     if publisher is not None:
         out["publish"] = publisher.close()
+    if args.snapshot_to:
+        out["snapshot"] = _save_snapshot(args, step_comm, model)
     if args.serve_samples:
         out["serve_samples"] = _serve_samples(args, comm, model, tokens_all)
     return out
+
+
+def _save_snapshot(args, comm, model) -> dict:
+    """``--snapshot-to``: a step-stamped sharded snapshot of the trained
+    parameters (every rank writes what it owns; a TP parameter, whole on
+    every rank, is written once) with the resharding manifest — what
+    ``serve_lm.py --reshard-from`` reads, at any TP degree."""
+    from chainermn_torch.deploy import snapshot_meta
+    from chainermn_torch.extensions import ShardedCheckpointer
+
+    meta = snapshot_meta(comm=comm, model=model)
+    with ShardedCheckpointer(args.snapshot_to) as cp:
+        cp.save(args.iterations, {"params": model.state_dict()}, meta=meta)
+    if comm.rank == 0:
+        print(f"snapshot -> {args.snapshot_to} (step {args.iterations}, "
+              f"tp_degree={meta.get('tp_degree', 1)})", flush=True)
+    return meta
 
 
 def run_fit(args, comm, step, data, batch, n_params) -> dict:

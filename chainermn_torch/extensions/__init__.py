@@ -1,9 +1,9 @@
 """Trainer-extension equivalents (the port of
 ``chainermn_tpu/extensions/``): checkpointing, persistence sync, metric
-aggregation and profiling. There is no trainer object: each extension is
-a plain callable or class the training loop invokes at its chosen
-interval. ``ShardedCheckpointer`` (orbax) waits for the parallel
-strategies."""
+aggregation, profiling and sharded snapshots (``ShardedCheckpointer``,
+on ``torch.distributed.checkpoint``). There is no trainer object: each
+extension is a plain callable or class the training loop invokes at its
+chosen interval."""
 
 from chainermn_torch.extensions.allreduce_persistent import AllreducePersistent
 from chainermn_torch.extensions.checkpoint import (
@@ -19,7 +19,9 @@ from chainermn_torch.extensions.profiling import (
     latency_report,
     trace,
 )
+from chainermn_torch.extensions.sharded_checkpoint import ShardedCheckpointer
 
 __all__ = ["AllreducePersistent", "MultiNodeCheckpointer",
            "create_multi_node_checkpointer", "ObservationAggregator",
+           "ShardedCheckpointer",
            "StepTimer", "Watchdog", "latency_report", "trace"]

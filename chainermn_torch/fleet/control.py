@@ -164,11 +164,13 @@ class FleetController:
     engine_factory : callable() -> ServingEngine, optional
         Builds each scale-up's engine, on weights of its own.
     snapshot : dict, optional
-        ``spawn_replica`` keywords for a spawn from a checkpoint. The
-        port's ``spawn_replica(checkpoint=)`` raises (ROADMAP.md, Queue A
-        items 9.1 and 9.2), so with a factory the scale-up falls back to
-        it (``source="factory_fallback"``), as the reference does when a
-        snapshot load fails.
+        ``spawn_replica`` keywords for a spawn from a checkpoint
+        (``checkpoint=``, ``engine_factory=``, ``params_template=``, and
+        ``model=``/``comm=`` for the degree): a scale-up restores its
+        replica from the newest snapshot. When that load fails (no
+        snapshot, a corrupt file, an injected fault) and ``engine_factory``
+        is given, the scale-up falls back to it
+        (``source="factory_fallback"``), as the reference does.
     brownout : BrownoutPolicy, optional
         Sustained pressure steps brownout up before it spends a replica;
         a spawned replica turning ready relieves it.

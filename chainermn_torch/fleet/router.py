@@ -54,9 +54,11 @@ work steering around the replica inside its fence;
 :class:`~chainermn_torch.monitor.health.HealthMonitor`'s levels the
 leading routing key; :meth:`FleetRouter.attach_controller` puts a
 :class:`~chainermn_torch.fleet.control.FleetController`'s report in
-:meth:`FleetRouter.fleet_report`. ``spawn_replica``'s ``checkpoint=``
-path (an elastic restore) is not ported and raises
-``NotImplementedError`` naming its ROADMAP.md items.
+:meth:`FleetRouter.fleet_report`. :meth:`FleetRouter.spawn_replica`
+brings a replica in from a constructed engine, or from a
+:class:`~chainermn_torch.extensions.sharded_checkpoint.ShardedCheckpointer`
+snapshot through :func:`~chainermn_torch.deploy.reshard.elastic_restore`
+(at any tensor-parallel degree).
 """
 
 from __future__ import annotations
@@ -1115,16 +1117,36 @@ class FleetRouter:
                       comm=None, model=None,
                       wait_ready: bool = True,
                       timeout: float = 300.0) -> EngineReplica:
-        """Bring one more replica (a constructed ``engine``, on weights of
-        its own) into the fleet without stopping traffic: it warms up on
-        its own thread and takes routed traffic once healthy. The
-        reference's ``checkpoint=`` path (an elastic resharded restore)
-        is not ported."""
-        if checkpoint is not None or engine is None:
-            raise NotImplementedError(
-                "spawn_replica(checkpoint=...) needs deploy/reshard.py and "
-                "the sharded checkpointer, which are not ported yet "
-                "(ROADMAP.md, Queue A items 9.1 and 9.2); pass engine=")
+        """Bring one more replica into the fleet without stopping traffic:
+        it warms up on its own thread and takes routed traffic once
+        healthy; existing replicas never pause.
+
+        Either pass a constructed ``engine`` (on weights of its own), or a
+        ``checkpoint`` (a :class:`~chainermn_torch.extensions.
+        sharded_checkpoint.ShardedCheckpointer`) with ``params_template``
+        (the new model's ``state_dict()``, filled in place) and
+        ``engine_factory(params) -> ServingEngine``: the snapshot's
+        ``"params"`` come through :func:`~chainermn_torch.deploy.reshard.
+        elastic_restore` at the degree ``model`` and ``comm`` give, which
+        may differ from the snapshot's and from the other replicas'.
+        Raises ``RuntimeError`` when the checkpoint holds no snapshot."""
+        if engine is None:
+            if checkpoint is None or engine_factory is None \
+                    or params_template is None:
+                raise ValueError(
+                    "spawn_replica needs either engine= or all of "
+                    "checkpoint=/engine_factory=/params_template=")
+            from chainermn_torch.deploy.reshard import elastic_restore
+
+            state, ckpt_step = elastic_restore(
+                checkpoint, {"params": params_template},
+                comm=comm, model=model)
+            if state is None:
+                raise RuntimeError(
+                    "spawn_replica: checkpoint has no snapshot to "
+                    "restore from")
+            engine = engine_factory(state["params"])
+            self._events.emit("fleet_spawn_restore", step=ckpt_step)
         with self._lock:
             if self._closed:
                 raise RuntimeError("fleet router is closed")

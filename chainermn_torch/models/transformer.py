@@ -119,7 +119,8 @@ class TransformerBlock(nn.Module):
         without, it runs causal attention of the block's ``attention``
         kind (across ``sequence_axis`` for the sequence-parallel kinds).
         A ``tensor_axis`` block is Megatron's: this rank's heads and FFN
-        columns, one all-reduce each."""
+        columns, one all-reduce each; its ``kv_cache`` holds this rank's
+        local heads only."""
         dt = self.compute_dtype
         if kv_cache is not None and self.sequence_axis is not None:
             raise ValueError(
@@ -131,11 +132,8 @@ class TransformerBlock(nn.Module):
                 "kv_cache decoding supports MoE only via moe_impl='gshard' "
                 "(the 'ep' experts exchange tokens across the expert axis)")
         if self.tensor_axis is not None:
-            if kv_cache is not None:
-                raise NotImplementedError(
-                    "tensor-parallel decoding (the head-sharded KV store) is "
-                    "not ported yet (ROADMAP.md, Queue A: serving)")
-            x = x + self.attn(_layer_norm(self.ln1, x, dt))
+            x = x + self.attn(_layer_norm(self.ln1, x, dt), pos_offset,
+                              kv_cache=kv_cache)
             return x + self.mlp(_layer_norm(self.ln2, x, dt))
         b, t, _ = x.shape
         dh = self.d_model // self.n_heads
@@ -362,14 +360,16 @@ class TransformerLM(nn.Module):
 
 
 def init_kv_caches(model: TransformerLM, batch: int, cache_len: int, *,
+                   local_heads: Optional[int] = None,
                    device=None) -> list[dict]:
     """Zeroed per-layer dense KV buffers for the ``kv_caches`` argument: a
     list of ``{'k','v'}`` dicts shaped ``[batch, cache_len, heads,
     d_head]`` in the model's compute dtype, written in place by the
     blocks (:func:`~chainermn_torch.parallel.sequence.
-    dense_update_cache_and_attend`)."""
+    dense_update_cache_and_attend`). Tensor-parallel decode passes
+    ``local_heads=n_heads // tp`` for a rank's buffers."""
     device = model.device if device is None else torch.device(device)
-    h, dh = model.n_heads, model.d_model // model.n_heads
+    h, dh = local_heads or model.n_heads, model.d_model // model.n_heads
 
     def z():
         return torch.zeros((batch, cache_len, h, dh),
@@ -379,17 +379,20 @@ def init_kv_caches(model: TransformerLM, batch: int, cache_len: int, *,
 
 
 def init_paged_kv_caches(model: TransformerLM, n_blocks: int,
-                         block_size: int, *, quant: str = "none",
-                         device=None) -> list[dict]:
+                         block_size: int, *,
+                         local_heads: Optional[int] = None,
+                         quant: str = "none", device=None) -> list[dict]:
     """Zeroed per-layer paged KV block stores: a list of ``{'k','v'}``
     dicts shaped ``[n_blocks, block_size, heads, d_head]`` in the model's
     compute dtype, shared by every sequence through block tables.
     ``quant='int8'`` stores int8 rows plus per-row-per-head f32
-    ``'k_scale'``/``'v_scale'`` ``[n_blocks, block_size, heads]``."""
+    ``'k_scale'``/``'v_scale'`` ``[n_blocks, block_size, heads]``.
+    Tensor-parallel decode passes ``local_heads=n_heads // tp``: a rank's
+    store holds its own heads of every block."""
     if quant not in ("none", "int8"):
         raise ValueError(f"quant must be 'none' or 'int8', got {quant!r}")
     device = model.device if device is None else torch.device(device)
-    h, dh = model.n_heads, model.d_model // model.n_heads
+    h, dh = local_heads or model.n_heads, model.d_model // model.n_heads
     dt = torch.int8 if quant == "int8" else model.compute_dtype
 
     def layer():
@@ -456,11 +459,32 @@ def _check_sampler(model, temperature, top_k, top_p) -> None:
                          f"{model.vocab_size}], got {top_k}")
 
 
+def tensor_group(model: TransformerLM, comm=None):
+    """The communicator of ``model``'s tensor axis (``None`` without one):
+    ``comm``'s axis of that name when ``comm`` is a mesh communicator,
+    else the axis as it resolves (a communicator, or a name a live mesh
+    binds)."""
+    axis = model.tensor_axis
+    if axis is None:
+        return None
+    if isinstance(axis, str) and hasattr(comm, "axis"):
+        return comm.axis(axis)
+    return tp._tp_axis(axis)
+
+
+def gather_vocab(local_logits, group):
+    """A vocab-parallel head's ``[..., V/n]`` logits, all-gathered over
+    the tensor axis into ``[..., V]`` (rank ``r``'s slice at ``r*V/n``);
+    every rank gets the same row."""
+    parts = group.allgather(local_logits.contiguous())
+    return torch.cat(list(parts.unbind(0)), dim=-1)
+
+
 @torch.no_grad()
 def generate(model: TransformerLM, prompt, n_tokens: int, *,
              temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
              seed: int = 0, eos_id: Optional[int] = None,
-             use_cache: bool = True) -> torch.Tensor:
+             use_cache: bool = True, comm=None) -> torch.Tensor:
     """KV-cached autoregressive decoding (the reference's cached path):
     one prefill over ``prompt [B, T0]`` writes a paged store in which row
     ``b`` owns its own contiguous run of blocks, then one token per step
@@ -475,8 +499,25 @@ def generate(model: TransformerLM, prompt, n_tokens: int, *,
     ``use_cache=False`` is the reference's cacheless decode
     (``_generate_fn``): every token re-runs the whole ``[B, T0 +
     n_tokens]`` buffer through the model and reads the logits one
-    position back — the independent check of the cached path."""
+    position back — the independent check of the cached path.
+
+    A tensor-parallel model (``tensor_axis``) needs ``comm=`` (its
+    communicator, or the mesh that binds its axis) and the cache: every
+    rank of the axis calls ``generate`` on the same prompt and keeps a
+    store of its ``n_heads / tp`` local heads (``_generate_tp_fn``); a
+    vocab-parallel head's last-position logits are all-gathered, one
+    ``[B, V/tp]`` row a rank a step, before sampling. A sampled token is
+    drawn on the axis's rank 0 and broadcast, so every rank feeds the
+    same one."""
     _check_sampler(model, temperature, top_k, top_p)
+    group = None
+    if model.tensor_axis is not None:
+        if comm is None or not use_cache:
+            raise ValueError(
+                "tensor-parallel generate() needs comm= and use_cache=True "
+                "(every rank of the tensor axis runs the decode loop on its "
+                "local heads)")
+        group = tensor_group(model, comm)
     dev = model.device
     prompt = torch.as_tensor(np.asarray(prompt), device=dev).long()
     b, t0 = prompt.shape
@@ -493,16 +534,31 @@ def generate(model: TransformerLM, prompt, n_tokens: int, *,
     if not use_cache:
         return _generate_cacheless(model, buf, t0, sample, gens, eos_id)
     n_max = -(-total // _GENERATE_BLOCK)
-    store = init_paged_kv_caches(model, b * n_max + 1, _GENERATE_BLOCK)
+    store = init_paged_kv_caches(
+        model, b * n_max + 1, _GENERATE_BLOCK,
+        local_heads=None if group is None else model.n_heads // group.size)
     table = (1 + torch.arange(b * n_max, device=dev,
                               dtype=torch.int32)).view(b, n_max)
     caches = [dict(layer, table=table) for layer in store]
-    nxt = sample(model(prompt, 0, kv_caches=caches)[:, -1], gens)
+
+    def last_logits(tokens, offset):
+        lg = model(tokens, offset, kv_caches=caches)[:, -1]
+        if group is not None and model.vocab_parallel_head:
+            lg = gather_vocab(lg, group)
+        return lg
+
+    def draw(lg):
+        if group is None or not temperature:
+            return sample(lg, gens)
+        nxt = (sample(lg, gens) if group.rank == 0
+               else torch.zeros((b,), dtype=torch.long, device=dev))
+        return group.bcast(nxt, 0).to(dev)
+
+    nxt = draw(last_logits(prompt, 0))
     buf[:, t0] = nxt
     done = (nxt == eos_id) if eos_id is not None else None
     for i in range(t0, total - 1):
-        lg = model(buf[:, i:i + 1], i, kv_caches=caches)[:, 0]
-        nxt = sample(lg, gens)
+        nxt = draw(last_logits(buf[:, i:i + 1], i))
         if done is not None:
             nxt = torch.where(done, torch.zeros_like(nxt), nxt)
             done = done | (nxt == eos_id)
@@ -525,5 +581,6 @@ def _generate_cacheless(model, buf, t0: int, sample, gens, eos_id):
     return buf
 
 
-__all__ = ["TransformerBlock", "TransformerLM", "filter_logits", "generate",
-           "init_kv_caches", "init_paged_kv_caches"]
+__all__ = ["TransformerBlock", "TransformerLM", "filter_logits", "gather_vocab",
+           "generate", "init_kv_caches", "init_paged_kv_caches",
+           "tensor_group"]

@@ -165,7 +165,7 @@ class TensorParallelAttention(nn.Module):
             raise ValueError(f"d_model {d_model} not divisible by n_heads "
                              f"{n_heads}")
         self.d_model, self.n_heads = d_model, n_heads
-        self.axis_name = axis_name
+        self.axis_name, self.causal = axis_name, causal
         self.attention, self.sequence_axis = attention, sequence_axis
         self._attend = sequence_parallel_attention(attention, sequence_axis,
                                                    causal=causal)
@@ -173,7 +173,22 @@ class TensorParallelAttention(nn.Module):
         self.qkv = ColumnParallelDense(d_model, 3 * d_model, axis_name, **kw)
         self.proj = RowParallelDense(d_model, d_model, axis_name, **kw)
 
-    def forward(self, x):
+    def forward(self, x, pos_offset=0, kv_cache=None):
+        """``x [B, T, d]`` replicated over the axis. With ``kv_cache`` (a
+        dense or paged layer dict over this rank's ``n_heads / n`` local
+        heads, ``tensor.py:209-214``) the rank writes its heads' K/V rows
+        at ``pos_offset`` in place and attends through the cache — the
+        paged store through the paged-decode kernel when the dict asks
+        for it; without, its ``attention`` kind runs."""
+        if kv_cache is not None and self.sequence_axis is not None:
+            raise ValueError("kv_cache decoding needs an unsharded sequence "
+                             "— rebuild without sequence_axis for "
+                             "inference")
+        if kv_cache is not None and not self.causal:
+            raise ValueError("kv_cache decoding is causal by construction "
+                             "(the position mask); causal=False with a "
+                             "cache would silently mask attention to later "
+                             "cached positions")
         n = _tp_axis(self.axis_name).size
         if self.n_heads % n:
             raise ValueError(f"n_heads {self.n_heads} not divisible by "
@@ -181,7 +196,15 @@ class TensorParallelAttention(nn.Module):
         b, t, _ = x.shape
         lh, dh = self.n_heads // n, self.d_model // self.n_heads
         qkv = self.qkv(x).view(b, t, 3, lh, dh)
-        o = self._attend(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if kv_cache is not None:
+            from chainermn_torch.parallel.sequence import (
+                update_cache_and_attend,
+            )
+
+            o = update_cache_and_attend(kv_cache, q, k, v, pos_offset)
+        else:
+            o = self._attend(q, k, v)
         return self.proj(o.reshape(b, t, lh * dh))
 
 

@@ -42,6 +42,11 @@ The replay's launch count is added under the same lock, so a capture
 counts its own thread's launches only; each :class:`ProgramSet` also
 tallies its own replays' launches (``kernel_launches``), which splits
 the process-wide count by engine.
+
+A tensor-parallel engine's set has a role (:mod:`._tp`): the leader's
+set announces every run (name and operands) before it runs it, and a
+follower's runs a program only when the leader's announcement is
+replayed (``replaying``), never on its own.
 """
 
 from __future__ import annotations
@@ -93,6 +98,10 @@ class ProgramSet:
         self.kernel_launches = 0    # paged_attend launches of its replays
         self._pool = None
         self._stream = None
+        self.programs: dict = {}     # name -> StepProgram
+        self.announce = None         # a TP leader's announce(name, values)
+        self.follower = False        # a TP follower: runs only replays
+        self.replaying = False
 
     @property
     def stream(self):
@@ -114,7 +123,9 @@ class ProgramSet:
                 ) -> "StepProgram":
         """A program over static inputs ``{name: (shape, dtype)}``; the
         body takes the dict of static tensors."""
-        return StepProgram(name, body, inputs, self)
+        prog = StepProgram(name, body, inputs, self)
+        self.programs[name] = prog
+        return prog
 
 
 class StepProgram:
@@ -150,6 +161,14 @@ class StepProgram:
     def run(self, **values):
         """Copy ``values`` (numpy arrays or tensors) into the static
         inputs and run the program; returns its outputs."""
+        owner = self._owner
+        if owner.follower and not owner.replaying:
+            raise RuntimeError(
+                f"step program {self.name!r}: this rank follows the "
+                "tensor-parallel leader's programs (ServingEngine.follow); "
+                "drive the engine on the leader")
+        if owner.announce is not None:
+            owner.announce(self.name, values)
         with torch.inference_mode():
             ins = self.inputs
             for k, v in values.items():

@@ -72,8 +72,29 @@ The stores are written in place, so a failed call leaves them usable;
 there is no donated buffer to lose. :meth:`ServingEngine.restart` and
 :meth:`ServingEngine.swap_params` work in place too (the graphs hold the
 buffers' addresses): nothing a program reads is ever reallocated, an
-import included. Tensor-parallel serving is not part of this port yet
-(ROADMAP.md).
+import included.
+
+**Tensor-parallel serving** (``model.tensor_axis`` set, ``comm=``): every
+rank of the tensor axis builds the same engine over a store of its
+``n_heads / tp`` local heads (paged ``k``/``v`` and int8 scales, or the
+dense slot caches and prefix store), and every program body is the
+single-device one with a vocab-parallel head's logits all-gathered
+before the argmax or the draw. The ranks are processes, so one of them
+decides: the tensor axis's rank 0 runs the scheduler and announces every
+program run to the others, which replay it (:mod:`._tp`; ranks > 0 call
+:meth:`ServingEngine.follow`, the leader ends them with
+:meth:`ServingEngine.close`). Sampling happens on the leader only. Two
+decisions, written down here:
+
+- *capture*: a step's collectives over a gloo group stage through the
+  host, which a CUDA graph cannot hold, and capture between collectives
+  is not built. A tensor-parallel engine runs its programs eagerly
+  (``capture=None`` means ``False``), and ``capture=True`` raises
+  ``ValueError`` naming this;
+- *migration and sharing*: a rank's rows are a head shard, so the
+  KV-migration and prefix-share surface declines (``migration_supported``
+  is False; an export reads ``None``, an import raises), as the
+  reference's does for its head-sharded store.
 
 A migration payload is a dict with the reference's keys (``n_blocks``,
 ``block_size``, ``kv_quant``, ``n_layers``, ``layers``, ``t_start``, and
@@ -104,8 +125,10 @@ from chainermn_torch.extensions.profiling import Watchdog
 from chainermn_torch.models.transformer import (
     _check_sampler,
     _sampler,
+    gather_vocab,
     init_kv_caches,
     init_paged_kv_caches,
+    tensor_group,
 )
 from chainermn_torch.monitor import RecompileGuard, get_event_log, get_registry
 from chainermn_torch.parallel.sequence import chunk_spans
@@ -119,6 +142,7 @@ from chainermn_torch.resilience.cutpoints import (
 )
 from chainermn_torch.resilience.faults import inject
 from chainermn_torch.serving._programs import ProgramSet
+from chainermn_torch.serving._tp import CLOSE, RESTART, SWAP, TPChannel
 from chainermn_torch.serving.prefix_cache import (
     BlockPool,
     PrefixCacheIndex,
@@ -193,8 +217,9 @@ class ServingEngine:
     Parameters
     ----------
     model : TransformerLM
-        On ``device``; not sequence-sharded, not tensor-parallel, MoE only
-        as ``moe_impl='gshard'``. The engine calls
+        On ``device``; not sequence-sharded, MoE only as
+        ``moe_impl='gshard'``; tensor-parallel with ``comm``. The engine
+        calls
         ``model.cast_weights_()`` (matmul weights stored in the compute
         dtype; logits unchanged).
     n_slots : int
@@ -237,8 +262,13 @@ class ServingEngine:
     capture : bool, optional
         Capture each step program into a CUDA graph (``None``: on a CUDA
         device, as the reference always runs compiled programs). ``False``
-        runs the same programs eagerly; ``True`` on the CPU raises
-        ``ValueError``.
+        runs the same programs eagerly; ``True`` on the CPU, or on a
+        tensor-parallel engine, raises ``ValueError``.
+    comm : communicator, optional
+        Required iff ``model.tensor_axis`` is set: the model's tensor-axis
+        communicator, or the mesh communicator binding its axis name.
+        Every rank of the axis builds the engine; rank 0 leads (module
+        docstring).
     device : optional
         Where the engine runs: the current CUDA card when ``None`` (raises
         when there is none); ``"cpu"`` must be asked for.
@@ -257,10 +287,23 @@ class ServingEngine:
                  cache_len: Optional[int] = None, temperature: float = 0.0,
                  top_k: int = 0, top_p: float = 1.0,
                  watchdog: Optional[Union[Watchdog, float]] = None,
-                 capture: Optional[bool] = None, device=None) -> None:
+                 capture: Optional[bool] = None, comm=None,
+                 device=None) -> None:
         self.device = resolve_device(device)
+        if model.tensor_axis is not None and comm is None:
+            raise ValueError("tensor-parallel serving needs comm= (every "
+                             "rank of the tensor axis runs the programs on "
+                             "its local heads)")
+        self._tp = tensor_group(model, comm)
         if capture is None:
-            capture = self.device.type == "cuda"
+            capture = self.device.type == "cuda" and self._tp is None
+        elif capture and self._tp is not None:
+            raise ValueError(
+                "capture=True on a tensor-parallel engine: its step's "
+                "collectives over the tensor group stage through the host "
+                "(a gloo group) and capture between collectives is not "
+                "built, so a CUDA graph cannot hold the step — use "
+                "capture=False")
         elif capture and self.device.type != "cuda":
             raise ValueError("capture=True needs a CUDA device (the step "
                              "programs become CUDA graphs); the CPU runs "
@@ -271,10 +314,12 @@ class ServingEngine:
         if model.sequence_axis is not None:
             raise ValueError("serving does not support sequence-sharded "
                              "models: rebuild with sequence_axis=None")
-        if model.tensor_axis is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving (the head-sharded KV store) is not "
-                "ported yet (ROADMAP.md, Queue A item 11.2)")
+        self._heads = model.n_heads
+        if self._tp is not None:
+            if model.n_heads % self._tp.size:
+                raise ValueError(f"n_heads {model.n_heads} not divisible by "
+                                 f"tensor-axis size {self._tp.size}")
+            self._heads = model.n_heads // self._tp.size
         if model.moe_experts and model.moe_impl != "gshard":
             raise ValueError("serving supports MoE only via "
                              "moe_impl='gshard' (same parameters)")
@@ -383,6 +428,14 @@ class ServingEngine:
         self._g_weight_version = reg.gauge("serving_weight_version", labels)
         self._g_weight_version.set(0)
         self._programs = ProgramSet(self.device, bool(capture))
+        self._channel = None
+        if self._tp is not None:
+            self._channel = TPChannel(self._tp)
+            if self._channel.leader:
+                self._programs.announce = self._channel.announce
+            else:
+                self._programs.follower = True
+        self._closed = False
         self.peak_active = 0
         self._min_insert = max(1, int(prefix_min_insert_blocks))
         self._spec = speculative
@@ -416,8 +469,8 @@ class ServingEngine:
             self._chunking: dict[int, ChunkedPrefill] = {}
             self.caches = None        # the block store is the cache
             self._store = init_paged_kv_caches(
-                model, self.kv_blocks, self.kv_block_size, quant=kv_quant,
-                device=self.device)
+                model, self.kv_blocks, self.kv_block_size,
+                local_heads=self._heads, quant=kv_quant, device=self.device)
         else:
             if prefix_cache_blocks:
                 if not 0 < prefix_block_size <= self.prefill_len:
@@ -430,7 +483,9 @@ class ServingEngine:
                 self._n_prog_blocks = max(
                     1, self.prefill_len // prefix_block_size)
             self.caches = init_kv_caches(model, self.n_slots,
-                                         self.cache_len, device=self.device)
+                                         self.cache_len,
+                                         local_heads=self._heads,
+                                         device=self.device)
             self._store = (self._init_store()
                            if self.prefix_cache is not None else None)
         self._token = np.zeros((self.n_slots,), np.int32)
@@ -455,9 +510,27 @@ class ServingEngine:
 
     @property
     def migration_supported(self) -> bool:
-        """KV migration needs the paged store (the reference also needs a
-        single-device layout; the port has no tensor-parallel engine)."""
-        return self.paged
+        """KV migration needs the paged store and a single-device layout:
+        a tensor-parallel engine's rows are head shards on its ranks."""
+        return self.paged and self._tp is None
+
+    def _migration_error(self) -> str:
+        if self._tp is not None:
+            return ("KV migration needs a single-device store: a tensor-"
+                    "parallel engine's rows are head shards on its ranks")
+        return ("KV migration needs paged=True (the dense engine has no "
+                "block store)")
+
+    @property
+    def tp_leader(self) -> bool:
+        """Whether this engine drives its programs: a single-device engine,
+        or rank 0 of a tensor-parallel one."""
+        return self._channel is None or self._channel.leader
+
+    @property
+    def tp_channel(self) -> Optional[TPChannel]:
+        """A tensor-parallel engine's leader-to-followers channel."""
+        return self._channel
 
     @property
     def capture(self) -> bool:
@@ -475,8 +548,8 @@ class ServingEngine:
         """The dense engine's prefix store: ``[n_blocks, block_size, H,
         D]`` per layer in the compute dtype."""
         pc = self.prefix_cache
-        h = self.model.n_heads
-        dh = self.model.d_model // h
+        h = self._heads
+        dh = self.model.d_model // self.model.n_heads
 
         def z():
             return torch.zeros((pc.n_blocks, pc.block_size, h, dh),
@@ -586,11 +659,19 @@ class ServingEngine:
             ins["table"] = ((self.n_slots, self._n_max), torch.int32)
         return ins
 
+    def _vocab(self, logits):
+        """A vocab-parallel head's local logits all-gathered to the whole
+        vocabulary (on every rank); other logits as they are."""
+        if self._tp is not None and self.model.vocab_parallel_head:
+            return gather_vocab(logits, self._tp)
+        return logits
+
     def _first_tokens(self, logits, ins):
         """Each row's last real position: its greedy token (0 on inactive
         rows), or its logits when sampling (drawn outside the program)."""
         k = logits.shape[0]
-        last = logits[torch.arange(k, device=self.device), ins["last_idx"]]
+        last = self._vocab(
+            logits[torch.arange(k, device=self.device), ins["last_idx"]])
         if self.temperature:
             return last
         nxt = torch.argmax(last, dim=-1)
@@ -649,8 +730,8 @@ class ServingEngine:
                           for layer in self._store]
             else:
                 caches = self.caches
-            lg = self.model(tok[:, None], ins["pos"][i][:, None],
-                            kv_caches=caches)[:, 0]
+            lg = self._vocab(self.model(tok[:, None], ins["pos"][i][:, None],
+                                        kv_caches=caches)[:, 0])
             if self.temperature:
                 return lg
             tok = torch.where(act, torch.argmax(lg, dim=-1),
@@ -662,7 +743,8 @@ class ServingEngine:
         caches = [dict(layer, table=ins["table"], valid=ins["valid"],
                        use_kernel=self.paged_kernel)
                   for layer in self._store]
-        lg = self.model(ins["tokens"], ins["pos"], kv_caches=caches)
+        lg = self._vocab(self.model(ins["tokens"], ins["pos"],
+                                    kv_caches=caches))
         g = torch.argmax(lg, dim=-1)
         return torch.where(ins["active"][:, None], g, torch.zeros_like(g))
 
@@ -1365,8 +1447,7 @@ class ServingEngine:
         (:meth:`import_slot_kv`). Read-only: the slot stays active; the
         caller releases it after the import commits."""
         if not self.migration_supported:
-            raise RuntimeError("KV migration needs paged=True (the dense "
-                               "engine has no block store)")
+            raise RuntimeError(self._migration_error())
         if not self._active[slot]:
             raise RuntimeError(f"slot {slot} is not active")
         t0 = time.perf_counter()
@@ -1416,8 +1497,7 @@ class ServingEngine:
         engine as it was (layout, slots, blocks); the caller's fallback
         is decoding at the source."""
         if not self.migration_supported:
-            raise RuntimeError("KV migration needs paged=True (the dense "
-                               "engine has no block store)")
+            raise RuntimeError(self._migration_error())
         if not self._layout_ok(payload):
             raise RuntimeError(
                 "migration layout mismatch: source and destination "
@@ -1533,8 +1613,7 @@ class ServingEngine:
         ``RuntimeError`` with the engine as it was on a layout mismatch
         or a dry pool (the caller's fallback is a plain prefill)."""
         if not self.migration_supported:
-            raise RuntimeError("prefix sharing needs paged=True (the dense "
-                               "engine has no block store)")
+            raise RuntimeError("prefix sharing: " + self._migration_error())
         if not self._layout_ok(payload):
             raise RuntimeError(
                 "share layout mismatch: source and destination disagree "
@@ -1903,12 +1982,11 @@ class ServingEngine:
         tables, mirrors and generators are cleared, and the drafter is
         reset. The same programs run afterwards with nothing rebuilt. The
         scheduler drives this from its exception boundary; every restart
-        is counted (``serving_engine_restarts_total``) and logged."""
-        with torch.no_grad():
-            for layers in (self._store, self.caches):
-                for layer in layers or ():
-                    for t in layer.values():
-                        t.zero_()
+        is counted (``serving_engine_restarts_total``) and logged. A
+        tensor-parallel leader's followers zero their shards too."""
+        if self._channel is not None:
+            self._channel.send(RESTART)
+        self._zero_stores()
         if self.prefix_cache is not None:
             self.prefix_cache.clear()
         if self.paged:
@@ -1927,6 +2005,52 @@ class ServingEngine:
             self._drafter.reset()
         self._c_restarts.inc()
         self._events.emit("engine_restart")
+
+    def _zero_stores(self) -> None:
+        with torch.no_grad():
+            for layers in (self._store, self.caches):
+                for layer in layers or ():
+                    for t in layer.values():
+                        t.zero_()
+
+    def _copy_params(self, new_state) -> None:
+        with torch.no_grad():
+            for name, old in self.model.state_dict().items():
+                old.copy_(new_state[name])
+
+    def follow(self) -> dict[str, int]:
+        """A tensor-parallel follower's loop (ranks > 0 of the axis):
+        replay each program the leader announces on this rank's shards,
+        zero the stores on its restarts, copy its weight swaps; when the
+        leader closes, return how many times each program ran
+        (:mod:`._tp`)."""
+        if self._channel is None or self._channel.leader:
+            raise RuntimeError("follow() is for ranks > 0 of a tensor-"
+                               "parallel engine; rank 0 drives it")
+        progs, runs = self._programs, {}
+        progs.replaying = True
+        try:
+            while True:
+                name, payload = self._channel.recv()
+                if name == CLOSE:
+                    return runs
+                if name == RESTART:
+                    self._zero_stores()
+                elif name == SWAP:
+                    self._copy_params(payload)
+                else:
+                    progs.programs[name].run(**payload)
+                    runs[name] = runs.get(name, 0) + 1
+        finally:
+            progs.replaying = False
+
+    def close(self) -> None:
+        """End a tensor-parallel engine's followers (the leader's call;
+        idempotent; a no-op for a single-device engine)."""
+        if self._channel is not None and self._channel.leader \
+                and not self._closed:
+            self._channel.send(CLOSE)
+        self._closed = True
 
     def swap_params(self, new_state, *, version: Optional[int] = None
                     ) -> int:
@@ -1963,9 +2087,10 @@ class ServingEngine:
                     f"{tuple(getattr(new, 'shape', ()))}/"
                     f"{getattr(new, 'dtype', type(new).__name__)}, the "
                     f"engine stores {tuple(old.shape)}/{old.dtype}")
-        with torch.no_grad():
-            for name, old in cur.items():
-                old.copy_(new_state[name])
+        if self._channel is not None:
+            self._channel.send(SWAP, {k: v.detach().cpu()
+                                      for k, v in new_state.items()})
+        self._copy_params(new_state)
         if self.prefix_cache is not None:
             self._pending_inserts = []
             self.prefix_cache.clear()

@@ -111,7 +111,22 @@ heads) and ResNet-50 (random weights from a seed):
   and the ``train_lm.py`` twin's ``main()`` in its MoE, pipeline,
   ``fit`` and resilient modes (``lm_example``). ``moe_train`` runs 6 of
   the 12 layers and ``serve_graphs`` serves 8 requests eager (32
-  captured), the cuts that keep the script inside its time limit.
+  captured), the cuts that keep the script inside its time limit;
+- sharded state, ranks as processes on the card over gloo: the serve LM
+  at tp = 2 in the paged engine (``serve_tp``: rank 0 leads, rank 1
+  replays; eager; every decode step's attention through the paged-decode
+  kernel over the rank's 8 local heads), beside the single-card eager
+  engine on the same 16 requests, its f32 twin's streams equal to solo
+  ``generate`` of the dense LM (a store written one head over must fail),
+  and the kernel timed on 8- and 4-head local stores; then ``reshard``:
+  the train LM at 4 layers in f32 trained at tp = 2, saved with
+  ``ShardedCheckpointer``, restored at tp = 4 by ``restore_train_state``
+  (the next step's loss equal to the tp = 2 run's to 1e-4, the restored
+  TP engine's streams equal to solo ``generate``; without the qkv
+  permutation both gates must fail), and a tp = 1 replica spawned from
+  the snapshot into a ``FleetRouter``. ``sp_train``, ``tp_train``,
+  ``moe_train`` and ``gspmd_train`` take 1 + 3 steps (were 2 + 5) to pay
+  for them.
 
 Each launch count is set to 0 just before its path runs and read just
 after. Each phase prints one JSON line, then one line gives every
@@ -2007,9 +2022,13 @@ def _fleet_f32(device):
 
 # the control plane on the card: the twin's cadences and autoscale policy
 # (bake_s: the bake clock starts at the tick that begins the canary's
-# publish, and a fence under load outlasts the twin's 1 s default)
+# publish, and a fence under load outlasts the twin's 1 s default;
+# down_after_s: idle counts from the moment the fleet's load falls to
+# idle_low, 8 of 32 slots, while the wave's last requests still decode,
+# and the twin's 1 s could run out before the first deploy and retire
+# the spawned replica early)
 CONTROL = dict(min_replicas=1, max_replicas=2, queue_high=1.0, idle_low=0.25,
-               up_after_s=0.2, down_after_s=1.0, cooldown_s=0.3,
+               up_after_s=0.2, down_after_s=2.0, cooldown_s=0.3,
                cadence_s=0.05, ts_cadence_s=0.05, bake_s=4.0,
                slo_ttft_s=10.0, load_in_flight=12, wave=16,
                steady_window_s=1.0, after_window_s=1.0)
@@ -2204,6 +2223,11 @@ def _control_bf16(device, rec):
             raise AssertionError("serve_control: replica 0 did not warm up")
         counts[0] = engines[0].compile_counts_detailed()
         launches0 = {0: engines[0]._programs.kernel_launches}
+        # both deploys' weights made before the controller starts: a
+        # pinned copy of the LM takes about a second, which must not sit
+        # between the wave and the first deploy
+        v1 = _bumped(engines[0].model.state_dict(), 0.01, pinned=True)
+        v2 = _bumped(v1, 0.01, pinned=True)
         collector = fleet_health(router, cadence_s=CONTROL["ts_cadence_s"],
                                  stall_timeout_s=30.0)
         slo = SLOEngine().add(LatencyObjective(
@@ -2252,7 +2276,6 @@ def _control_bf16(device, rec):
                                  for r in range(2)]
 
         # 2. a canary deploy that bakes and promotes (no traffic)
-        v1 = _bumped(engines[0].model.state_dict(), 0.01, pinned=True)
         t_deploy = time.monotonic()
         controller.deploy(v1, step=1)
         promote = _until(
@@ -2275,7 +2298,6 @@ def _control_bf16(device, rec):
         time.sleep(CONTROL["steady_window_s"])
         t_s1 = time.perf_counter()
         pre1 = _prefix_counts(engines)
-        v2 = _bumped(engines[0].model.state_dict(), 0.01, pinned=True)
         n_pubs = len(pubs)
         controller.deploy(v2, step=2)
         active = _until(lambda: controller.report()["canary"]["active"],
@@ -2332,7 +2354,8 @@ def _control_bf16(device, rec):
         rec["warm_run_launches"] = (paged_attend.launches
                                     - sum(rec["kernel_launches"]))
         rec["compile_counts_flat"] = [
-            e.compile_counts_detailed() == counts[i] and not e.recompiles
+            e.compile_counts_detailed() == counts.get(i)
+            and not e.recompiles
             for i, e in enumerate(engines)]
         rec["controller"] = {k: controller.report()[k] for k in (
             "versions", "decisions", "autoscale")}
@@ -3915,9 +3938,10 @@ SP_PARITY = dict(batch=8, seq_len=2048, heads=16, head_dim=64,
 # are summed, and the trajectory rises at step 6, which amplifies that
 # SP_LM: the 220M LM's widths at 4 of its 12 layers — the depth cut so
 # that the script, grown by the MoE, GSPMD and pipeline phases, stays
-# well inside its time limit (12 layers took 165 + 54 s of it)
+# well inside its time limit (12 layers took 165 + 54 s of it); 1 + 3
+# steps (were 2 + 5), the cut that pays for serve_tp and reshard
 SP_LM = dict(LM, n_layers=4)
-SP_TRAIN = dict(batch=8, seq_len=2048, warmup_steps=2, timed_steps=5,
+SP_TRAIN = dict(batch=8, seq_len=2048, warmup_steps=1, timed_steps=3,
                 kinds=("ring_flash", "zigzag_flash", "ulysses_flash"),
                 loss_tol={"sp_train": 2e-2, "tp_train": 0.15},
                 grad_rel_tol=5e-2, small_tol=1e-4)
@@ -4568,7 +4592,7 @@ def phase_hybrid(card):
 # keeps the script inside its time limit as the later phases grow it
 # (12 layers took 87.2 s of it)
 MOE = dict(experts=8, top_k=2, ranks=2, batch=2, seq_len=1024,
-           warmup_steps=2, timed_steps=5, drop_steps=3, parity_capacity=4.0,
+           warmup_steps=1, timed_steps=3, drop_steps=3, parity_capacity=4.0,
            first_loss_tol=1e-3, loss_tol=0.25, grad_rel_tol=5e-2,
            n_layers=6)
 GSPMD_TOL = dict(first_loss_tol=1e-3, loss_tol=0.25, grad_rel_tol=0.35)
@@ -4685,7 +4709,7 @@ def phase_moe_train(card):
     loss within ``first_loss_tol`` and every loss within ``loss_tol`` of
     the one-process gshard LM's trained alike, the first
     step's global gradient within ``grad_rel_tol`` of its and the planted
-    fault's not, every attention call of the 7 steps went through the
+    fault's not, every attention call of the 4 steps went through the
     flash kernels (6 launches of each a step, one a layer), and the 3
     steps at the default capacity gave finite losses and drop
     fractions."""
@@ -5687,6 +5711,573 @@ def phase_lm_example(card):
     return out
 
 
+# -- sharded state end to end: tensor-parallel serving on the head-sharded
+#    paged store, the sharded checkpointer and the elastic resharded
+#    restore (ranks as processes on cuda:0 over gloo) ----------------------
+
+# serve_tp: the serve LM and engine at tp = 2 (eager: a gloo step cannot
+# be captured), the serve cell's first 16 requests; its f32 twin at 2 of
+# the 12 layers, 8 requests
+SERVE_TP = dict(tp=2, requests=16, window_steps=8, f32_layers=2,
+                f32_requests=8, f32_max_new=32)
+# B4 on a rank's local-head store: tp = 2 and tp = 4 of the 16 heads
+LOCAL_HEADS = (8, 4)
+# reshard: the train LM at 4 layers (SP_LM) in f32, AdamW; train at
+# tp = 2, snapshot, restore at tp = 4; the batch cut to [2, 2048], the
+# served requests' budgets to 32 tokens
+RESHARD = dict(train_tp=2, serve_tp=4, steps=3, batch=2, seq_len=2048,
+               lr=TRAIN["lr"], weight_decay=TRAIN["weight_decay"], eps=1e-5,
+               loss_tol=1e-4, requests=8, spawn_requests=4, max_new=32)
+
+
+@contextlib.contextmanager
+def _store_heads_rolled():
+    """A planted fault: every rank writes its K/V rows into the store one
+    head over (head h's rows land in head h + 1's place), so each rank
+    attends all its heads' rows of a wrongly sliced store."""
+    from chainermn_torch.parallel import sequence
+
+    real = sequence.update_cache_and_attend
+
+    def faulty(kv_cache, q, k, v, pos_offset, **kw):
+        return real(kv_cache, q, k.roll(1, dims=2), v.roll(1, dims=2),
+                    pos_offset, **kw)
+
+    sequence.update_cache_and_attend = faulty
+    try:
+        yield
+    finally:
+        sequence.update_cache_and_attend = real
+
+
+def _tp_serve_lead(engine, work, comm_bytes):
+    """The leader's drive of ``work``: a plain scheduler stepped dry; once
+    every request is admitted, ``SERVE_TP['window_steps']`` pure decode
+    steps are timed (staged bytes and seconds a step) and one more is
+    profiled. Returns the streams, the metrics report and the window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from chainermn_torch.monitor import get_registry
+    from chainermn_torch.serving import FCFSScheduler
+
+    steps_ctr = get_registry().counter(
+        "serving_decode_steps_total",
+        {"engine": "serving", "paged_kernel": "on"})
+    sched = FCFSScheduler(engine)
+    reqs = [sched.submit(p, n) for p, n in work]
+    steps0 = steps_ctr.value
+    window = profiled = None
+    t0 = time.perf_counter()
+    while sched.has_work:
+        if window is None and not sched.queue_depth \
+                and engine.active_slots == len(work):
+            torch.cuda.synchronize()
+            st0, ch0 = _staged(), comm_bytes()
+            w0 = time.perf_counter()
+            for _ in range(SERVE_TP["window_steps"]):
+                sched.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - w0
+            st1 = _staged()
+            n = SERVE_TP["window_steps"]
+            window = {
+                "steps": n, "active_slots": engine.active_slots,
+                "step_ms": wall / n * 1e3,
+                "staged_bytes_per_step": (st1["bytes"] - st0["bytes"]) / n,
+                "staged_share_of_step": (st1["seconds"] - st0["seconds"])
+                / wall,
+                "operand_bytes_per_step": (comm_bytes() - ch0) / n}
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                p0 = time.perf_counter()
+                sched.step()
+                torch.cuda.synchronize()
+                p_wall = time.perf_counter() - p0
+            busy = sum(e.self_device_time_total
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA) / 1e3
+            profiled = {"step_wall_ms": p_wall * 1e3,
+                        "device_busy_ms": busy if busy else "not measured",
+                        "device_idle_share": 1 - busy / 1e3 / p_wall
+                        if busy else "not measured"}
+            continue
+        sched.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r in reqs:
+        if not (r.finished and r.error is None
+                and len(r.tokens) == r.max_new_tokens):
+            raise AssertionError(f"serve_tp request {r.id} did not serve "
+                                 f"cleanly: {r.state} {r.error}")
+    rep = sched.metrics.report()
+    return ([[int(t) for t in r.tokens] for r in reqs],
+            {"wall_s": wall, "tokens_per_sec": rep["tokens_per_sec"],
+             "tpot_p50_s": rep["tpot_p50_s"], "ttft_p50_s": rep["ttft_p50_s"],
+             "decode_steps": steps_ctr.value - steps0,
+             "window": window, "profiled_step": profiled})
+
+
+def _tp_engine_run(engine, lead, work, comm_bytes=None):
+    """One TP engine's run on this rank: the leader warms it, drives
+    ``work`` and closes it; a follower replays. The paged-decode launch
+    count is zeroed first and read after, beside the decode programs
+    this rank ran."""
+    from chainermn_torch.parallel.paged_kernel import paged_attend
+
+    paged_attend.launches = 0
+    if lead:
+        engine.warmup()
+        warm = paged_attend.launches       # warmup's decode: counted apart
+        paged_attend.launches = 0
+        streams, rec = _tp_serve_lead(engine, work,
+                                      comm_bytes or (lambda: 0))
+        engine.close()
+        rec.update(kernel_launches=paged_attend.launches,
+                   warmup_launches=warm, decode_runs=rec["decode_steps"])
+        return streams, rec
+    runs = engine.follow()
+    return None, {"kernel_launches": paged_attend.launches,
+                  "decode_runs": runs.get("decode", 0), "runs": runs}
+
+
+def rank_serve_tp():
+    """One rank of serve_tp: the serve LM (bf16, 12 layers) at tp = 2 with
+    the vocab-parallel head in the paged engine, eager, the paged-decode
+    kernel on every decode step over this rank's 8 local heads; rank 0
+    serves the serve cell's first 16 requests, rank 1 follows. Then the
+    f32 twin honest and with the store's heads rolled (planted)."""
+    import torch
+
+    from chainermn_torch import MeshCommunicator
+    from chainermn_torch.models import TransformerLM, generate
+    from chainermn_torch.parallel.mesh import make_3d_mesh
+    from chainermn_torch.serving import ServingEngine
+
+    dev = torch.device("cuda", 0)
+    comm = MeshCommunicator(make_3d_mesh(shape=(1, 1, SERVE_TP["tp"])),
+                            device=dev)
+    lead = comm.axis_index("tp") == 0
+    tp_kw = dict(tensor_axis="tp", vocab_parallel_head=True, device=dev)
+    out = {"rank": comm.rank}
+    model = TransformerLM(**LM, **tp_kw, compute_dtype=torch.bfloat16,
+                          seed=SEED)
+    engine = ServingEngine(model, paged=True, paged_kernel=True,
+                           capture=False, comm=comm, device=dev, **ENGINE)
+    work = _serve_traffic(N_REQUESTS, SEED)[:SERVE_TP["requests"]]
+    channel = engine.tp_channel
+    _, out["bf16"] = _tp_engine_run(engine, lead, work,
+                                    lambda: channel.operand_bytes)
+    out["bf16"]["local_heads"] = engine._heads
+    out["bf16"]["store_shape"] = list(engine._store[0]["k"].shape)
+    del engine, model
+    _empty()
+
+    f32_lm = dict(LM, n_layers=SERVE_TP["f32_layers"])
+    small = [(p, min(n, SERVE_TP["f32_max_new"])) for p, n in
+             _serve_traffic(SERVE_TP["f32_requests"], SEED + 16)]
+    model = TransformerLM(**f32_lm, **tp_kw, compute_dtype=torch.float32,
+                          seed=SEED + 16)
+    dense = (_dense_from_tp(model, SERVE_TP["tp"], device=dev) if lead
+             else None)
+    want = None
+    if lead:
+        want = [generate(dense, p[None], n)[0, len(p):].tolist()
+                for p, n in small]
+    for name, fault in (("honest", contextlib.nullcontext),
+                        ("planted_fault", _store_heads_rolled)):
+        engine = ServingEngine(model, paged=True, paged_kernel=True,
+                               capture=False, comm=comm, device=dev,
+                               **ENGINE)
+        with fault():
+            got, rec = _tp_engine_run(engine, lead, small)
+        if lead:
+            rec["parity"] = _parity(dense, small, got, want)
+        out[f"f32_{name}"] = rec
+        del engine
+    comm.finalize()
+    return out
+
+
+def _b4_local_heads(device, lengths, h):
+    """B4 on a rank's local-head store (``h`` of the 16 heads) at the
+    serve phase's decode lengths and the engine's full 128-entry table:
+    kernel, plain version and SDPA on the gathered store, L2 flushed."""
+    import torch
+    import torch.nn.functional as F
+
+    from chainermn_torch.parallel.paged_kernel import (
+        paged_attend,
+        paged_attend_reference,
+        split_plan,
+    )
+
+    d, bs = LM["d_model"] // LM["n_heads"], 16
+    full_w = ENGINE["cache_len"] // bs
+    n_blocks = ENGINE["n_slots"] * full_w + 1
+    gen = torch.Generator().manual_seed(SEED + 3 + h)
+    x = make_paged_inputs(lengths, s_len=1, h=h, d=d, bs=bs,
+                          dtype=torch.bfloat16, q_dtype=torch.bfloat16,
+                          gen=gen, device=device, n_blocks=n_blocks)
+    b, span = len(lengths), x["table"].shape[1]
+    wide = torch.zeros((b, full_w), dtype=torch.int32, device=device)
+    wide[:, :span] = x["table"]
+    args = (x["q"], x["k"], x["v"], wide, x["lengths"])
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8,
+                        device=device).zero_
+    n0 = paged_attend.launches
+    want = paged_attend_reference(*args).float()
+    err = float((paged_attend(*args).float() - want).abs().max())
+    ms = cuda_ms(lambda: paged_attend(*args), flush=flush)
+    plain_ms = cuda_ms(lambda: paged_attend_reference(*args), flush=flush)
+    paged_attend.launches = n0
+    flat = x["table"].reshape(-1).long()
+    mask = (torch.arange(span * bs, device=device)[None, :]
+            <= (x["lengths"].long() - 1)[:, None])[:, None, None, :]
+
+    def library():
+        kk = x["k"].index_select(0, flat).view(b, -1, h, d).transpose(1, 2)
+        vv = x["v"].index_select(0, flat).view(b, -1, h, d).transpose(1, 2)
+        return F.scaled_dot_product_attention(x["q"].transpose(1, 2), kk,
+                                              vv, attn_mask=mask)
+
+    library_ms = cuda_ms(library, flush=flush)
+    kv_rows = sum(lengths)
+    n_bytes = (x["q"].numel() * 2 * 2 + kv_rows * h * d * 2 * 2
+               + sum(-(-n // bs) for n in lengths) * 4 + b * 4)
+    n_ops = 4 * kv_rows * h * d
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / BF16_OPS_PER_S * 1e3
+    return {"H": h, "B": b, "D": d, "table_width": full_w,
+            "split_plan": split_plan(b, h, full_w, bs),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bytes": n_bytes,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "ms_per_head": ms / h}
+
+
+def phase_serve_tp(device, card, lengths):
+    """Tensor-parallel serving on the card (``rank_serve_tp`` on 2 ranks):
+    tokens/s, TPOT p50, the staged bytes and share of a decode step and
+    one profiled step, beside the single-card eager engine on the same 16
+    requests in this process; B4 launches = decode steps x 12 on each
+    rank; the f32 twin's streams equal solo ``generate`` of the dense LM
+    on the converted weights (near-ties aside), and the planted fault
+    must fail that gate. Then B4 against its plain version and SDPA on a
+    rank's local-head store at tp = 2 and tp = 4."""
+    import torch
+
+    from chainermn_torch.models import TransformerLM
+    from chainermn_torch.serving import ServingEngine
+
+    t0 = time.perf_counter()
+    model = TransformerLM(**LM, compute_dtype=torch.bfloat16, device=device,
+                          seed=SEED)
+    engine = ServingEngine(model, paged=True, paged_kernel=True,
+                           capture=False, device=device, **ENGINE)
+    engine.warmup()
+    work = _serve_traffic(N_REQUESTS, SEED)[:SERVE_TP["requests"]]
+    _, sched, wall = _drive(engine, work)
+    rep = sched.metrics.report()
+    single = {"tokens_per_sec": rep["tokens_per_sec"],
+              "tpot_p50_s": rep["tpot_p50_s"], "wall_s": wall}
+    del engine, model, sched
+    _empty()
+    ranks = _gloo_ranks("rank_serve_tp", SERVE_TP["tp"])
+    local = {str(h): _b4_local_heads(device, lengths, h)
+             for h in LOCAL_HEADS}
+    lead = next(r for r in ranks if r["rank"] == 0)
+    rec = {"phase": "serve_tp", "card": card, "ranks": SERVE_TP["tp"],
+           "backend": "gloo", "capture": False,
+           "model": dict(LM, compute_dtype="bf16", tensor_parallel=2,
+                         vocab_parallel_head=True),
+           "engine": dict(ENGINE, paged_kernel=True),
+           "requests": SERVE_TP["requests"],
+           "reduced": "the serve cell's first 16 of 32 requests, eager; "
+                      "f32 twin at 2 of the 12 layers, 8 requests of at "
+                      "most 32 new tokens",
+           "single_card_eager": single,
+           "tp_over_single_tokens_per_sec":
+               lead["bf16"]["tokens_per_sec"] / single["tokens_per_sec"],
+           "ranks_out": ranks, "b4_local_heads": local,
+           "run_s": time.perf_counter() - t0}
+    emit(rec)
+    for r in ranks:
+        b = r["bf16"]
+        if b["kernel_launches"] != b["decode_runs"] * LM["n_layers"] \
+                or not b["decode_runs"]:
+            raise AssertionError(f"serve_tp rank {r['rank']}: B4 launches "
+                                 f"{b['kernel_launches']} != decode steps "
+                                 f"{b['decode_runs']} x {LM['n_layers']}")
+        if r["f32_honest"]["kernel_launches"] != \
+                r["f32_honest"]["decode_runs"] * SERVE_TP["f32_layers"]:
+            raise AssertionError(f"serve_tp f32 rank {r['rank']}: launches")
+    follower = next(r for r in ranks if r["rank"] != 0)
+    if follower["bf16"]["decode_runs"] != lead["bf16"]["decode_runs"] + 1:
+        raise AssertionError("serve_tp: the follower ran other decode steps "
+                             "than the leader (+1 for warmup)")
+    _check_parity("serve_tp f32", lead["f32_honest"]["parity"])
+    if not lead["f32_planted_fault"]["parity"]["failures"]:
+        raise AssertionError("serve_tp: the planted store fault passed the "
+                             "parity gate")
+    for h, r in local.items():
+        if r["max_abs_err"] > TOL["bf16"][1]:
+            raise AssertionError(f"B4 at {h} local heads: max abs err "
+                                 f"{r['max_abs_err']}")
+    return rec
+
+
+@contextlib.contextmanager
+def _qkv_not_permuted():
+    """A planted fault: the elastic restore skips the qkv permutation (a
+    tp = 2 snapshot loaded as if it were tp = 4's)."""
+    from chainermn_torch.deploy import reshard
+
+    real = reshard._permute_qkv
+    reshard._permute_qkv = lambda tree, *a: 1
+    try:
+        yield
+    finally:
+        reshard._permute_qkv = real
+
+
+def _reshard_lm(n_tp_axis, device, seed):
+    import torch
+
+    from chainermn_torch.models import TransformerLM
+
+    return TransformerLM(**SP_LM, attention="flash", tensor_axis=n_tp_axis,
+                         vocab_parallel_head=True,
+                         compute_dtype=torch.float32, device=device,
+                         seed=seed)
+
+
+def _reshard_opt(model):
+    import torch
+
+    return torch.optim.AdamW(model.parameters(), lr=RESHARD["lr"],
+                             weight_decay=RESHARD["weight_decay"],
+                             eps=RESHARD["eps"])
+
+
+def rank_reshard_train(ckpt):
+    """One rank of reshard's first half: the train LM at 4 layers in f32,
+    tp = 2, AdamW, 3 steps on the flash kernels; the train state saved
+    with ``ShardedCheckpointer`` and ``snapshot_meta``; then a 4th step
+    in place (the loss the resharded run must match)."""
+    import torch
+
+    from chainermn_torch import MeshCommunicator
+    from chainermn_torch.deploy import snapshot_meta, train_state_dict
+    from chainermn_torch.extensions import ShardedCheckpointer
+    from chainermn_torch.parallel.mesh import make_3d_mesh
+    from chainermn_torch.training import lm_train_step
+
+    dev = torch.device("cuda", 0)
+    comm = MeshCommunicator(make_3d_mesh(shape=(1, 1, RESHARD["train_tp"])),
+                            device=dev)
+    model = _reshard_lm("tp", dev, SEED + 17)
+    opt = _reshard_opt(model)
+    step = lm_train_step(model, opt, comm)
+    b, t, n = RESHARD["batch"], RESHARD["seq_len"], RESHARD["steps"]
+    batches = [_lm_batch(dev, b, t, LM["vocab_size"], SEED + 20 + i)
+               for i in range(n + 1)]
+    _zero_flash_counts()
+    losses = [float(step(*batches[i])[0]) for i in range(n)]
+    launches = _flash_counts()
+    cp = ShardedCheckpointer(ckpt, keep=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cp.save(n, train_state_dict(model, opt),
+            meta=snapshot_meta(comm=comm, model=model))
+    save_s = time.perf_counter() - t0
+    written = sum(f.stat().st_size for f in (Path(ckpt) / str(n)).iterdir())
+    continued = float(step(*batches[n])[0])
+    comm.finalize()
+    return {"rank": comm.rank, "losses": losses, "launches": launches,
+            "save_s": save_s, "bytes_written": written,
+            "continued_loss": continued, "manifest": cp.manifest()}
+
+
+def rank_reshard_serve(ckpt):
+    """One rank of reshard's second half, tp = 4: restore the train state
+    with ``restore_train_state`` and serve the restored weights in a TP
+    paged engine (8 requests, f32, against solo ``generate`` of a tp = 1
+    restore), then take the 4th training step; the same with the qkv
+    permutation left out (planted). Rank 0 then spawns a tp = 1 replica
+    from the snapshot into a ``FleetRouter`` and serves 4 requests."""
+    import torch
+
+    from chainermn_torch import MeshCommunicator, create_communicator
+    from chainermn_torch.deploy import elastic_restore, restore_train_state
+    from chainermn_torch.extensions import ShardedCheckpointer
+    from chainermn_torch.fleet import FleetRouter
+    from chainermn_torch.models import generate
+    from chainermn_torch.parallel.mesh import make_3d_mesh
+    from chainermn_torch.serving import ServingEngine
+    from chainermn_torch.training import lm_train_step
+
+    dev = torch.device("cuda", 0)
+    base = create_communicator("naive", device=dev)
+    solo = base.split(base.rank)             # a one-rank tensor axis
+    comm = MeshCommunicator(make_3d_mesh(shape=(1, 1, RESHARD["serve_tp"])),
+                            device=dev)
+    lead = comm.axis_index("tp") == 0
+    cp = ShardedCheckpointer(ckpt)
+    # rank 0's own restores (the reference, the spawned replica) read the
+    # snapshot alone: over its one-rank group
+    cp_solo = ShardedCheckpointer(ckpt, process_group=solo.group)
+    b, t, n = RESHARD["batch"], RESHARD["seq_len"], RESHARD["steps"]
+    batch = _lm_batch(dev, b, t, LM["vocab_size"], SEED + 20 + n)
+    work = [(p, min(n, RESHARD["max_new"])) for p, n in
+            _serve_traffic(RESHARD["requests"], SEED + 18)]
+    out = {"rank": comm.rank}
+    want = ref = None
+    if lead:                 # solo generate of a tp = 1 restore
+        one = _reshard_lm(solo, dev, SEED + 98)
+        elastic_restore(cp_solo, {"params": one.state_dict()}, model=one)
+        ref = _dense_from_tp(one, 1, attention="flash", device=dev)
+        want = [generate(ref, p[None], m)[0, len(p):].tolist()
+                for p, m in work]
+        del one
+    for name, fault in (("honest", contextlib.nullcontext),
+                        ("planted_fault", _qkv_not_permuted)):
+        model = _reshard_lm("tp", dev, SEED + 99)
+        opt = _reshard_opt(model)
+        torch.cuda.synchronize()
+        comm.barrier()               # rank 0's reference is done
+        t0 = time.perf_counter()
+        with fault():
+            state, got_step = restore_train_state(cp, model=model,
+                                                  optimizer=opt, comm=comm)
+        torch.cuda.synchronize()
+        rec = {"load_s": time.perf_counter() - t0, "step": got_step}
+        engine = ServingEngine(model, paged=True, paged_kernel=True,
+                               capture=False, comm=comm, device=dev,
+                               **ENGINE)
+        got, srec = _tp_engine_run(engine, lead, work)
+        del engine
+        if lead:
+            rec["parity"] = _parity(ref, work, got, want)
+        rec["serve"] = srec
+        model.train()
+        step = lm_train_step(model, opt, comm)
+        _zero_flash_counts()
+        rec["loss"] = float(step(*batch)[0])
+        rec["launches"] = _flash_counts()
+        out[name] = rec
+        del model, opt, step, state
+        _empty()
+    if lead:
+        router_model = _reshard_lm(solo, dev, SEED + 97)
+        spawn = {}
+        first = ServingEngine(ref, paged=True, paged_kernel=True,
+                              capture=False, device=dev, **ENGINE)
+        with FleetRouter([first]) as router:
+            t0 = time.perf_counter()
+            replica = router.spawn_replica(
+                checkpoint=cp_solo,
+                params_template=router_model.state_dict(),
+                model=router_model,
+                engine_factory=lambda params: ServingEngine(
+                    router_model, paged=True, paged_kernel=True,
+                    capture=False, comm=solo, device=dev, **ENGINE),
+                timeout=120)
+            spawn["ready_s"] = time.perf_counter() - t0
+            router.retire_replica(0, timeout=120)    # only the spawned one
+            hs = [router.submit(p, m) for p, m in
+                  work[:RESHARD["spawn_requests"]]]
+            for h in hs:
+                if not h.wait(120):
+                    raise AssertionError(f"spawned replica: request {h.id} "
+                                         "timed out")
+            streams = [[int(x) for x in h.tokens] for h in hs]
+            spawn["served_by"] = sorted({h.replica_id for h in hs})
+            spawn["replica"] = replica.replica_id
+        spawn["parity"] = _parity(ref, work[:RESHARD["spawn_requests"]],
+                                  streams,
+                                  want[:RESHARD["spawn_requests"]])
+        out["spawn"] = spawn
+    comm.finalize()
+    solo.finalize()
+    base.finalize()
+    return out
+
+
+def phase_reshard(card):
+    """Train at tp = 2, snapshot, restore at tp = 4 (``rank_reshard_train``
+    on 2 ranks, then ``rank_reshard_serve`` on 4, over gloo on the card):
+    the resharded 4th step's loss must match the tp = 2 run continued in
+    place to 1e-4 in f32 and the restored TP engine's f32 streams must
+    equal solo ``generate`` of a tp = 1 restore (near-ties aside); with
+    the qkv permutation left out both gates must fail. B1-B3 launches =
+    steps x 4 layers on each rank; B4 = decode steps x 4 in the engine;
+    the tp = 1 replica spawned from the snapshot serves its 4 requests
+    equal to the same reference."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="reshard_", dir=ROOT / "build")
+    try:
+        train = _gloo_ranks("rank_reshard_train", RESHARD["train_tp"],
+                            str(Path(tmp) / "snap"))
+        serve = _gloo_ranks("rank_reshard_serve", RESHARD["serve_tp"],
+                            str(Path(tmp) / "snap"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lead = next(r for r in serve if r["rank"] == 0)
+    want_loss = train[0]["continued_loss"]
+    rec = {"phase": "reshard", "card": card, "backend": "gloo",
+           "model": dict(SP_LM, compute_dtype="f32", vocab_parallel_head=True,
+                         attention="flash"),
+           "config": RESHARD,
+           "reduced": "4 of the 12 layers (as tp_train); batch [2, 2048]; "
+                      "8 served requests of at most 32 new tokens",
+           "train": train, "serve": serve,
+           "loss_diff": abs(lead["honest"]["loss"] - want_loss),
+           "planted_fault_loss_diff":
+               abs(lead["planted_fault"]["loss"] - want_loss),
+           "run_s": time.perf_counter() - t0}
+    emit(rec)
+    n_layers = SP_LM["n_layers"]
+    for r in train:
+        if any(v != RESHARD["steps"] * n_layers for v in
+               r["launches"].values()):
+            raise AssertionError(f"reshard train rank {r['rank']}: flash "
+                                 f"launches {r['launches']}")
+        if r["manifest"]["tp_degree"] != RESHARD["train_tp"]:
+            raise AssertionError(f"reshard: manifest {r['manifest']}")
+    for r in serve:
+        h = r["honest"]
+        if any(v != n_layers for v in h["launches"].values()):
+            raise AssertionError(f"reshard serve rank {r['rank']}: flash "
+                                 f"launches {h['launches']}")
+        s = h["serve"]
+        if s["kernel_launches"] != s["decode_runs"] * n_layers \
+                or not s["decode_runs"]:
+            raise AssertionError(f"reshard serve rank {r['rank']}: B4 "
+                                 f"launches {s['kernel_launches']} != "
+                                 f"{s['decode_runs']} x {n_layers}")
+    if not rec["loss_diff"] <= RESHARD["loss_tol"]:
+        raise AssertionError(f"reshard: resharded loss off by "
+                             f"{rec['loss_diff']}")
+    if not rec["planted_fault_loss_diff"] > RESHARD["loss_tol"]:
+        raise AssertionError("reshard: the unpermuted restore passed the "
+                             "loss gate")
+    _check_parity("reshard", lead["honest"]["parity"])
+    if not lead["planted_fault"]["parity"]["failures"]:
+        raise AssertionError("reshard: the unpermuted restore passed the "
+                             "parity gate")
+    _check_parity("reshard spawn", lead["spawn"]["parity"])
+    if lead["spawn"]["served_by"] != [lead["spawn"]["replica"]]:
+        raise AssertionError(f"reshard spawn: served by "
+                             f"{lead['spawn']['served_by']}")
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -5749,6 +6340,8 @@ def main() -> int:
     timed("sp_parity", phase_sp_parity, smi)
     sp_train = timed("sp_train", phase_sp_train, smi)
     timed("tp_train", phase_tp_train, smi)
+    serve_tp = timed("serve_tp", phase_serve_tp, device, smi, lengths)
+    reshard = timed("reshard", phase_reshard, smi)
     timed("hybrid", phase_hybrid, smi)
     moe = timed("moe_train", phase_moe_train, smi)
     gspmd = timed("gspmd_train", phase_gspmd_train, smi)
@@ -5773,6 +6366,16 @@ def main() -> int:
         "launches_control_path_by_engine": control["kernel_launches"],
         "launches_traced_path": {
             name: r["kernel_launches"] for name, r in traced["runs"].items()},
+        "launches_tp_path": {
+            f"rank{r['rank']}": r["bf16"]["kernel_launches"]
+            for r in serve_tp["ranks_out"]},
+        "launches_reshard_serve_path": {
+            f"rank{r['rank']}": r["honest"]["serve"]["kernel_launches"]
+            for r in reshard["serve"]},
+        "local_heads": {
+            h: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                  "bound_by", "max_abs_err")}
+            for h, r in serve_tp["b4_local_heads"].items()},
         "ms_span_cut": timing["ms_span_cut"],
         "max_abs_err": timing["max_abs_err"],
         "parity_max_abs_err": parity_err,
@@ -5791,6 +6394,10 @@ def main() -> int:
                 run: fit_rec["runs"][run]["launches"][name]
                 for run in ("a", "b", "c")},
             "launches_resilient_path": resilient["launches"][name],
+            "launches_reshard_path": {
+                "train_tp2": reshard["train"][0]["launches"][name],
+                "restored_tp4": reshard["serve"][0]["honest"]["launches"][
+                    name]},
             "max_abs_err": rec["max_abs_err"],
             "parity_max_abs_err": flash_err[name],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],

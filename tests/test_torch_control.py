@@ -471,18 +471,21 @@ def test_controller_guards_as_the_reference(pkgs):
                         "pending", 5.0, "init")
 
 
-def test_snapshot_spawn_falls_back_to_the_factory(pkgs):
-    """The port's ``spawn_replica(checkpoint=)`` raises; a controller
-    configured with a snapshot scales up from its factory instead,
-    recorded as ``factory_fallback`` (the reference's path for a failed
-    snapshot load)."""
+def test_snapshot_spawn_falls_back_to_the_factory(pkgs, tmp_path):
+    """A controller configured with a snapshot whose load fails (here a
+    checkpoint directory with no snapshot: ``spawn_replica`` raises)
+    scales up from its factory instead, recorded as ``factory_fallback``
+    (the reference's path for a failed snapshot load)."""
+    from chainermn_torch.extensions import ShardedCheckpointer
+
     pkg = pkgs[0]
     f = pkg.fleet
     with f.FleetRouter([pkg.make_engine()], autostart=False) as router:
         col = pkg.health.fleet_health(router, stall_timeout_s=60.0)
         ctrl = f.FleetController(
             router, col, engine_factory=pkg.make_engine,
-            snapshot=dict(checkpoint=object(),
+            snapshot=dict(checkpoint=ShardedCheckpointer(
+                              str(tmp_path / "empty")),
                           engine_factory=lambda p: None,
                           params_template={}),
             autoscale=f.AutoscalePolicy(max_replicas=2, queue_high=0.5,

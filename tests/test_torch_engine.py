@@ -197,8 +197,9 @@ def test_client_thread_serves_and_closes(weights, references):
 def test_engine_rejects_what_is_not_ported(weights):
     """The dense engine (``paged=False``) is ported and builds; requests
     the engine cannot hold are still refused; a tensor-parallel model
-    (head-sharded KV, not ported) still raises on a KV cache, and the
-    engine refuses it up front."""
+    decodes only with its tensor axis bound (its KV cache holds a rank's
+    local heads), and the engine refuses it without ``comm=``
+    (``tests/test_torch_tp_serving.py`` serves it on two ranks)."""
     _, params = weights
     model = _port_model(params)
     dense = ServingEngine(model, device="cpu", **dict(ENGINE, paged=False))
@@ -210,10 +211,11 @@ def test_engine_rejects_what_is_not_ported(weights):
         engine.validate_request(8, 25)
     tp = TransformerLM(**CFG, tensor_axis="tp", compute_dtype=torch.float32,
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+    with pytest.raises(ValueError, match="not bound"):
         tp(torch.zeros((1, 2), dtype=torch.long), 0,
            kv_caches=init_kv_caches(tp, 1, 8))
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+    with pytest.raises(ValueError, match="tensor-parallel serving needs "
+                                         "comm="):
         ServingEngine(tp, device="cpu", **ENGINE)
 
 

@@ -270,15 +270,23 @@ def test_retire_replica_reroutes_queued_work(w1, fleet):
         router.retire_replica(0)
 
 
-def test_unported_router_pieces_name_the_roadmap(w1, fleet):
-    """``spawn_replica(checkpoint=)`` (an elastic restore) is the one
-    router piece still unported; ``publish``, ``attach_health`` and
+def test_unported_router_pieces_name_the_roadmap(w1, fleet, tmp_path):
+    """Every router piece is ported: ``spawn_replica(checkpoint=)`` from a
+    checkpoint with no snapshot raises the reference's error
+    (``tests/test_torch_tp_serving.py`` and ``chip_smoke.py``'s
+    ``reshard`` spawn from a real one), and without ``engine=`` it needs
+    all three restore arguments; ``publish``, ``attach_health`` and
     ``attach_controller`` work (``tests/test_torch_control.py``): a
     publish of the wrong keys fails its commit and is reported."""
+    from chainermn_torch.extensions import ShardedCheckpointer
+
     router = fleet([dense_engine(w1, prefix=False)], autostart=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        router.spawn_replica(checkpoint=object(),
-                             engine_factory=lambda p: p, params_template={})
+    with pytest.raises(RuntimeError, match="no snapshot"):
+        router.spawn_replica(checkpoint=ShardedCheckpointer(
+            str(tmp_path / "empty")), engine_factory=lambda p: p,
+            params_template={})
+    with pytest.raises(ValueError, match="engine= or all of"):
+        router.spawn_replica(checkpoint=object())
     router.attach_health(None)
     router.attach_controller(None)
     out = router.publish({}, timeout=1.0)

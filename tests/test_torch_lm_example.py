@@ -1,9 +1,9 @@
 """The port's twin of ``examples/lm/train_lm.py``
 (``chainermn_torch/examples/lm/train_lm.py``): the reference's data
-stream draw for draw, its flag guards, the flag whose machinery is not
-ported yet, the ``fit``, ``resilient_fit`` and ``--trace-out`` flags on
-one rank, and two iterations in every mode it ports on two gloo CPU
-ranks (started once for the module)."""
+stream draw for draw, its flag guards, ``--snapshot-to``, the ``fit``,
+``resilient_fit`` and ``--trace-out`` flags on one rank, and two
+iterations in every mode it ports on two gloo CPU ranks (started once
+for the module)."""
 
 import importlib.util
 import json
@@ -11,6 +11,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from chainermn_torch.examples.lm import train_lm
 from chainermn_torch.monitor import trace as torch_trace
@@ -115,12 +116,30 @@ def test_flag_guards_refuse_before_any_rank_starts(extra):
         train_lm.main(TINY + extra)
 
 
-@pytest.mark.parametrize("extra", [
-    ["--snapshot-to", "snap"],
-], ids=lambda e: e[0].strip("-"))
-def test_unported_flags_raise_naming_the_roadmap(extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_lm.main(TINY + extra)
+@pytest.mark.parametrize("extra", [[], ["--fetch-every", "2"]],
+                         ids=["plain", "fit"])
+def test_snapshot_to_saves_params_and_manifest(extra, tmp_path):
+    """``--snapshot-to`` (``train_lm.py:178-191``): the trained parameters
+    at step ``--iterations`` with the resharding manifest, from the plain
+    and the ``fit`` loop (``test_torch_serve_lm_example.py`` serves a
+    tensor-parallel one resharded)."""
+    from chainermn_torch.extensions import ShardedCheckpointer
+    from chainermn_torch.models import TransformerLM
+
+    snap = str(tmp_path / "snap")
+    out = train_lm.main(TINY + extra + ["--snapshot-to", snap])
+    cp = ShardedCheckpointer(snap)
+    assert cp.all_steps() == [2]
+    m = cp.manifest()
+    assert (m["tp_degree"], m["tensor_parallel"], m["n_heads"], m["d_head"],
+            m["world_size"], m["step"]) == (1, False, 8, 4, 1, 2)
+    model = TransformerLM(32, 32, 8, 2, max_len=512, device="cpu")
+    restored, step = cp.maybe_restore({"params": model.state_dict()})
+    assert step == 2
+    fresh = TransformerLM(32, 32, 8, 2, max_len=512, device="cpu", seed=0)
+    assert not all(torch.equal(a, b) for a, b in zip(
+        restored["params"].values(), fresh.state_dict().values()))
+    assert len(out["losses"]) == 2
 
 
 LIFTED = ["--iterations", "5"]

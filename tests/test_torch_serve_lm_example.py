@@ -141,8 +141,7 @@ def test_twin_control_plane(name, capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--reshard-from", "snap"], ["--tensor-parallel"], ["--prometheus"],
-    ["--http-port", "0"],
+    ["--prometheus"], ["--http-port", "0"],
 ], ids=lambda e: e[0].strip("-"))
 def test_unported_flags_name_the_roadmap(extra):
     with pytest.raises(SystemExit, match="ROADMAP.md"):
@@ -190,10 +189,11 @@ def test_trace_flags_run(flag, tmp_path, monkeypatch):
     ["--canary"],
     ["--autoscale", "--prefill-replicas", "1", "--decode-replicas", "1",
      "--paged-kv"],
+    ["--tensor-parallel", "--replicas", "2"],
 ], ids=["paged_prefix_blocks", "spec_dense", "spec_sampled",
         "chunk_dense", "weights_syntax", "tiers_one_side", "tiers_dense",
         "share_dense", "rebalance_no_fleet", "share_no_affinity",
-        "canary_without_autoscale", "autoscale_tiers"])
+        "canary_without_autoscale", "autoscale_tiers", "tp_fleet"])
 def test_reference_guards(extra):
     """The guards of ``examples/lm/serve_lm.py:519-540`` among them: the
     tiers need both sides and the paged store, sharing and rebalancing a
@@ -250,3 +250,48 @@ def test_train_lm_publish_to_engine():
     # context min(seq_len // 2, 16) = 16 and 12 new tokens per sample
     assert [len(s) for s in pub["samples"]] == [28, 28, 28]
     assert set(pub["executables"].values()) == {1}
+
+
+_CHAIN = """
+import contextlib, io
+from chainermn_torch import create_communicator
+from chainermn_torch.examples.lm import serve_lm, train_lm
+
+base = create_communicator("naive", device="cpu")   # owns the default group
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    out = (train_lm if ARGS[0] == "train" else serve_lm).main(ARGS[1].split())
+save(dict(out, printed=buf.getvalue()))
+base.finalize()
+"""
+
+
+def test_snapshot_then_serve_resharded(tmp_path):
+    """``tests/examples_tests/test_examples.py:433-461``: a snapshot saved
+    while training tensor-parallel at degree 2 (2 ranks) serves at degree
+    4 (4 ranks) through ``--reshard-from``; the resharded engine's streams
+    equal solo ``generate()`` of the dense LM on the same weights."""
+    ckpt = str(tmp_path / "snap")
+    train = run_ranks(_CHAIN, 2, args=["train", " ".join(
+        ["--device", "cpu", "--iterations", "10", "--tensor-parallel",
+         "--seq-len", "14", "--max-len", "14", "--vocab", "64",
+         "--d-model", "32", "--n-heads", "8", "--n-layers", "1",
+         "--n-tokens", "20000", "--snapshot-to", ckpt])], timeout=240)
+    assert (f"snapshot -> {ckpt} (step 10, tp_degree=2)"
+            in train[0]["printed"])
+    serve = run_ranks(_CHAIN, 4, args=["serve", " ".join(
+        ["--device", "cpu", "--requests", "4", "--slots", "2",
+         "--max-new", "6", "--prefill-len", "8", "--vocab", "64",
+         "--d-model", "32", "--layers", "1", "--heads", "8",
+         "--tensor-parallel", "--reshard-from", ckpt,
+         "--verify-parity"])], timeout=240)
+    lead, followers = serve[0], serve[1:]
+    assert ("resharded snapshot step 10: save-time tp_degree=2 -> "
+            "serving tp_degree=4") in lead["printed"]
+    assert "4/4 requests served" in lead["printed"]
+    assert "parity vs solo generate: OK (3 requests" in lead["printed"]
+    assert lead["recompiles"] == {} and lead["tensor_parallel"] == 4
+    for f in followers:
+        assert f["follower"] and f["programs"]["decode"] >= 1
+        assert f["reshard"] == lead["reshard"] == {
+            "step": 10, "save_tp_degree": 2, "serve_tp_degree": 4}
