@@ -12,6 +12,7 @@ per gradient (``mesh_communicator.py:636-641``).
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import Any, Callable, NamedTuple, Optional
@@ -25,6 +26,7 @@ from chainermn_torch.communicators.communicator_base import (
     CommunicatorBase,
     ReduceOp,
 )
+from chainermn_torch.monitor.annotations import annotate
 
 _OPS = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
         "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN,
@@ -35,6 +37,18 @@ _ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR")
 # the host itself): the bytes copied between the card and the host, both
 # directions, and the seconds from the copy off the card to the copy back
 HOST_STAGED = {"bytes": 0, "seconds": 0.0}
+
+
+def _annotated(name: str):
+    """Run the collective under ``annotate("chainermn.<name>")``: a named
+    host region in a ``torch.profiler`` trace, free when none runs."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(self, *args, **kwargs):
+            with annotate(name):
+                return fn(self, *args, **kwargs)
+        return wrapper
+    return deco
 
 
 class _MessageType(NamedTuple):
@@ -192,8 +206,9 @@ class ProcessGroupCommunicator(CommunicatorBase):
         if op not in _OPS:
             raise ValueError(f"unknown reduce op {op!r}; use one of "
                              f"{sorted(_OPS)}")
-        y = self._all_reduce(x, _OPS[op])
-        return y / self._size if op == "mean" else y
+        with annotate(f"chainermn.allreduce_{op}"):
+            y = self._all_reduce(x, _OPS[op])
+            return y / self._size if op == "mean" else y
 
     def _all_reduce(self, x, op=dist.ReduceOp.SUM, copy: bool = True):
         """The reduction of every rank's ``x``: a new tensor, or, with
@@ -233,6 +248,7 @@ class ProcessGroupCommunicator(CommunicatorBase):
         shape, dtype = self._obj.bcast_obj(head, root)
         return torch.empty(shape, dtype=dtype, device=self.device)
 
+    @_annotated("chainermn.bcast")
     def bcast(self, x, root: int = 0):
         buf = self._like_root(x, root, slice0=False)
         if self._rank == root:
@@ -249,6 +265,7 @@ class ProcessGroupCommunicator(CommunicatorBase):
                     dst=self._global(root), group=self._group)
         return out
 
+    @_annotated("chainermn.allgather")
     def allgather(self, x):
         shape = (self._size,) + tuple(x.shape)
         x, back = self._to_wire(x.contiguous(), copy=False)
@@ -256,6 +273,7 @@ class ProcessGroupCommunicator(CommunicatorBase):
         dist.all_gather_into_tensor(out, x.reshape(-1), group=self._group)
         return back(out).view(shape)
 
+    @_annotated("chainermn.scatter")
     def scatter(self, x, root: int = 0):
         if self._rank == root and x.shape[0] != self._size:
             raise ValueError(f"scatter input leading axis {x.shape[0]} != "
@@ -267,6 +285,7 @@ class ProcessGroupCommunicator(CommunicatorBase):
         dist.scatter(out, parts, src=self._global(root), group=self._group)
         return out
 
+    @_annotated("chainermn.alltoall")
     def alltoall(self, x):
         if x.shape[0] != self._size:
             raise ValueError(f"alltoall input leading axis {x.shape[0]} != "
@@ -276,6 +295,7 @@ class ProcessGroupCommunicator(CommunicatorBase):
         dist.all_to_all_single(out, x, group=self._group)
         return back(out)
 
+    @_annotated("chainermn.ppermute")
     def ppermute(self, x, perm):
         """Each rank's ``x`` moved along ``perm``, a list of ``(source,
         dest)`` pairs of this communicator's ranks (``lax.ppermute``): the

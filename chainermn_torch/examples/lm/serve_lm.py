@@ -50,6 +50,14 @@ queue, admit, prefill, one decode_step a token, retire; shed and errored
 requests are always kept; 0 disables tracing) and ``--trace-out FILE``
 writes the retained traces as Chrome trace-event JSON.
 
+Every scheduler keeps a per-tenant cost ledger: the run prints the
+tenant bill (device seconds by kind, KV block-seconds, queue wait) and
+the goodput split. ``--http-port P`` serves the monitor's scrape
+endpoints (``/metrics``, ``/traces``, ``/slo``, ``/events``, ``/fleet``,
+``/timeseries``, ``/health``, ``/control``, ``/costs``; 0 picks a free
+port) for the burst and scrapes its own ``/costs``; ``--prometheus``
+prints the registry's Prometheus exposition at the end.
+
 ``--tensor-parallel``: every rank (one process each, ``RANK``/
 ``WORLD_SIZE`` set) builds the LM with its blocks sharded over a tensor
 axis of all the ranks and the same engine over its local heads; rank 0
@@ -59,8 +67,7 @@ from a ``train_lm.py --snapshot-to`` snapshot through
 ``deploy.elastic_restore``, permuting the qkv columns from the
 snapshot's TP degree to this run's. ``--verify-parity`` of a
 tensor-parallel run holds the streams to solo ``generate()`` of the
-dense LM on the same weights. The Prometheus and HTTP flags raise
-``SystemExit`` naming the ROADMAP.md item they wait for.
+dense LM on the same weights.
 
 Run on the card (the model computes in bfloat16 there, float32 on the
 CPU)::
@@ -92,6 +99,7 @@ import torch
 from chainermn_torch._device import resolve_device
 from chainermn_torch.fleet import FleetRouter
 from chainermn_torch.models import TransformerLM, generate
+from chainermn_torch import monitor
 from chainermn_torch.monitor import get_registry, get_tracer
 from chainermn_torch.serving import (
     QueueFullError,
@@ -100,12 +108,6 @@ from chainermn_torch.serving import (
 )
 
 _TIE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-
-# flag -> the ROADMAP.md item it waits for
-_UNPORTED = {
-    "prometheus": "the rest of monitor/ (Queue A item 13)",
-    "http_port": "monitor/http (Queue A item 13)",
-}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -226,8 +228,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="write retained traces as Chrome trace-event "
                          "JSON to this path (chrome://tracing or "
                          "ui.perfetto.dev)")
-    ap.add_argument("--http-port", type=int, default=None,
-                    help="not ported yet")
+    ap.add_argument("--http-port", type=int, default=-1,
+                    help="serve the monitor scrape endpoints on this port "
+                         "for the burst (0: a free port; -1: off)")
     ap.add_argument("--reshard-from", default="",
                     help="restore the weights from a ShardedCheckpointer "
                          "snapshot (train_lm.py --snapshot-to) through "
@@ -235,17 +238,13 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--tensor-parallel", action="store_true",
                     help="shard the heads over every rank; rank 0 serves, "
                          "the others replay its programs")
-    ap.add_argument("--prometheus", action="store_true", default=None,
-                    help="not ported yet")
+    ap.add_argument("--prometheus", action="store_true",
+                    help="print the Prometheus text exposition of the "
+                         "process metrics registry at the end")
     return ap
 
 
 def _check_flags(args) -> None:
-    for flag, what in _UNPORTED.items():
-        if getattr(args, flag) is None:
-            continue
-        raise SystemExit(f"--{flag.replace('_', '-')} needs {what}, which "
-                         "is not ported yet (ROADMAP.md)")
     if args.paged_kv and args.prefix_blocks:
         raise SystemExit("--paged-kv keeps the prefix cache on the shared "
                          "block store; drop --prefix-blocks and size it "
@@ -523,6 +522,17 @@ def _serve(args, device, tp, closers) -> dict:
         slo_engine = SLOEngine().add(LatencyObjective(
             "ttft_p99", "serving_ttft_seconds",
             threshold_s=args.slo_ttft_ms / 1e3, windows=(30.0, 120.0)))
+    server = None
+    if args.http_port >= 0:
+        server = monitor.http.serve(
+            port=args.http_port, slo=slo_engine,
+            fleet=front if fleet_mode else None, timeseries=collector,
+            health=collector.health if collector is not None else None,
+            controller=controller,
+            costs=None if fleet_mode else front.metrics.costs)
+        closers.insert(0, server.close)
+        print(f"monitor endpoints at {server.url} (/metrics /traces /slo "
+              "/events /fleet /timeseries /health /control /costs)")
     shared = (rng.randint(2, args.vocab, args.shared_prefix)
               .astype(np.int32) if args.shared_prefix
               else np.zeros((0,), np.int32))
@@ -602,8 +612,11 @@ def _serve(args, device, tp, closers) -> dict:
                 "ttft_p99_s": ttft.get("p99_s"),
                 "tokens_generated": fleet_rep["pooled"]["counters"].get(
                     "serving_tokens_total", 0)}
+            cost_rep = fleet_rep["costs"]
         else:
             report = client.metrics.report()
+            # printed as its own table below
+            cost_rep = report.pop("costs", None)
     wall = time.time() - t0
     print(f"streamed request: {len(stream_toks)} tokens "
           f"(first few: {stream_toks[:8]})")
@@ -614,6 +627,8 @@ def _serve(args, device, tp, closers) -> dict:
           f"{shed_or_failed} shed/failed)", flush=True)
     for k, v in sorted(report.items()):
         print(f"  {k}: {v}")
+    if cost_rep:
+        _print_costs(cost_rep)
     summary = {"served": done, "requests": args.requests,
                "rejected": rejected, "shed_or_failed": shed_or_failed,
                "wall_s": wall, "report": report,
@@ -622,7 +637,7 @@ def _serve(args, device, tp, closers) -> dict:
                "spec": engine.spec_stats(), "prefix": engine.prefix_stats(),
                "kv": engine.kv_stats(),
                "tensor_parallel": tp.axis_size("tp") if tp is not None
-               else 1, "reshard": reshard}
+               else 1, "reshard": reshard, "costs": cost_rep}
     if brownout is not None:
         bj = brownout.to_json()
         summary["brownout"] = bj
@@ -667,7 +682,46 @@ def _serve(args, device, tp, closers) -> dict:
         for key, score in sorted(health["replicas"].items()):
             print(f"  replica {key}: {score['state']} "
                   f"(contributing: {score['contributing'] or 'none'})")
+    if server is not None:
+        summary["http"] = _scrape(server)
+        server.close()
+    if args.prometheus:
+        summary["exposition"] = monitor.exposition()
+        print("\n# process metrics registry (Prometheus exposition)")
+        print(summary["exposition"], end="")
     return summary
+
+
+def _print_costs(cost_rep: dict) -> None:
+    """The tenant bill: who consumed the device, and how much of the
+    measured time did useful work (the goodput split)."""
+    dt, gp = cost_rep["device_time"], cost_rep["goodput"]
+    print(f"cost accounting: measured={dt['measured_s']}s "
+          f"attributed={dt['attributed_s']}s over {dt['dispatches']} "
+          f"dispatches (conservation_error={dt['conservation_error']})")
+    print("  goodput: " + ", ".join(f"{k}={v}" for k, v in gp.items()))
+    for tenant, row in sorted(cost_rep["tenants"].items()):
+        print(f"  tenant {tenant}: device={row['device_total_s']}s "
+              f"{row['device_s']} kv_block_s={row['kv_block_s']} "
+              f"queue_wait_s={row['queue_wait_s']}")
+
+
+def _scrape(server) -> dict:
+    """Scrape this run's own ``/costs`` and ``/metrics`` over the socket,
+    as any outside prober would (10 s timeout each)."""
+    import json
+    from urllib.request import urlopen
+
+    with urlopen(f"{server.url}/costs", timeout=10) as r:
+        costs = json.loads(r.read())
+    with urlopen(f"{server.url}/metrics", timeout=10) as r:
+        metrics_lines = r.read().decode().count("\n")
+    if costs:
+        print(f"scraped /costs: {len(costs['tenants'])} tenant(s), "
+              "conservation_error="
+              f"{costs['device_time']['conservation_error']}")
+    return {"url": server.url, "costs": costs,
+            "metrics_lines": metrics_lines}
 
 
 def _health(args, front, fleet_mode):

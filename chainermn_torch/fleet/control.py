@@ -424,9 +424,9 @@ class FleetController:
             self._pressure_since = self._idle_since = None
 
     def _top_tenant(self) -> Optional[str]:
-        """The tenant using the most device time fleet-wide, from the
-        replicas' cost ledgers (none in the port yet: ROADMAP.md, Queue A
-        item 11.7), or None."""
+        """The tenant using the most device time fleet-wide, summed over
+        the replicas' cost ledgers (``FCFSScheduler(cost_accounting=
+        True)``, the default), or None before any attributed work."""
         totals: dict = {}
         for r in self.router.replicas:
             led = getattr(r.metrics, "costs", None)

@@ -82,6 +82,7 @@ from chainermn_torch.fleet.share import SharePayloadCache
 from chainermn_torch.monitor import (
     get_event_log,
     get_registry,
+    merge_cost_payloads,
     merge_rank_payloads,
 )
 from chainermn_torch.resilience.cutpoints import (
@@ -1235,6 +1236,12 @@ class FleetRouter:
             }
         pooled = merge_rank_payloads(
             [r.metrics.payload() for r in self.replicas])
+        # a tenant's bill is fleet-wide: the ledgers pool (measured and
+        # attributed seconds sum alike, so conservation still holds)
+        cost_payloads = [r.metrics.costs.payload() for r in self.replicas
+                         if r.metrics.costs is not None]
+        costs = (merge_cost_payloads(cost_payloads)
+                 if cost_payloads else None)
         hits = int(self._c_aff_hits.value)
         misses = int(self._c_aff_miss.value)
         with self._lock:
@@ -1256,7 +1263,7 @@ class FleetRouter:
         return {
             "health": health,
             "control": control,
-            "costs": None,              # the cost ledger: not ported
+            "costs": costs,
             "overload": overload,
             "replicas": replicas,
             "capacity": self.capacity,

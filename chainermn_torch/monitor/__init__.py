@@ -1,13 +1,31 @@
-"""Host-side telemetry: the metrics registry and the event ring, each with
-one process-wide default instance; the recompile guard over the serving
-engine's fixed step programs; continuous telemetry (the time-series
-store, collector, derived signals and detectors); per-replica health
-scores; SLO burn rates; and request-scoped tracing (span trees with
-Chrome export)."""
+"""Host-side telemetry (the port's ``chainermn_tpu.monitor``): the metrics
+registry and the event ring, each with one process-wide default
+instance, with Prometheus :func:`exposition`, a JSON :func:`snapshot`
+and the cross-rank :func:`aggregate`; the recompile guard and the
+per-step wrapper :func:`instrument` with the CUDA memory gauges;
+profiler regions (:func:`annotate`); continuous telemetry (the
+time-series store, collector, derived signals and detectors);
+per-replica health scores; SLO burn rates; request-scoped tracing (span
+trees with Chrome export); the per-tenant cost ledger
+(:class:`CostLedger`); and the scrape server (:mod:`.http`).
+
+Usage::
+
+    from chainermn_torch import monitor
+
+    step = monitor.instrument(step, "train")      # events+metrics+recompiles
+    with monitor.annotate("chainermn.eval"):      # profiler region
+        ...
+    monitor.emit("checkpoint", path=p)            # structured event
+    print(monitor.exposition())                   # Prometheus text
+    record["monitor"] = monitor.snapshot()        # JSON block
+    fleet = monitor.aggregate(comm)               # every rank: the merge
+"""
 
 from __future__ import annotations
 
-from chainermn_torch.monitor.events import EventLog
+from chainermn_torch.monitor.annotations import annotate
+from chainermn_torch.monitor.events import EventLog, device_memory_lines
 from chainermn_torch.monitor.registry import (
     Counter,
     Gauge,
@@ -39,7 +57,12 @@ from chainermn_torch.monitor.health import (  # noqa: E402
     standard_replica_sensors,
     wire_replica,
 )
-from chainermn_torch.monitor.instrument import RecompileGuard  # noqa: E402
+from chainermn_torch.monitor.instrument import (  # noqa: E402
+    MonitoredFunction,
+    RecompileGuard,
+    instrument,
+    record_memory_gauges,
+)
 from chainermn_torch.monitor.slo import (  # noqa: E402
     ErrorRateObjective,
     LatencyObjective,
@@ -67,12 +90,51 @@ from chainermn_torch.monitor.timeseries import (  # noqa: E402
     ZScoreDetector,
 )
 
-__all__ = ["NULL_TRACE", "Collector", "Counter", "DeadmanDetector",
-           "Detector", "EWMA", "ErrorRateObjective", "EventLog", "Gauge",
-           "HealthMonitor", "HealthScore", "Histogram", "LatencyObjective",
-           "MetricsRegistry", "Rate", "Ratio", "RecompileGuard", "SLOEngine",
-           "Span", "ThresholdDetector", "TimeSeriesStore", "Trace", "Tracer",
-           "WindowPercentile", "ZScoreDetector", "fleet_health",
-           "get_event_log", "get_registry", "get_slo_engine", "get_tracer",
-           "latency_report", "merge_rank_payloads", "span",
-           "standard_replica_sensors", "wire_replica"]
+from chainermn_torch.monitor.costs import (  # noqa: E402
+    CostLedger,
+    NoisyNeighborDetector,
+    merge_cost_payloads,
+    standard_tenant_sensors,
+)
+from chainermn_torch.monitor import http  # noqa: E402,F401
+
+
+def emit(kind: str, **fields) -> None:
+    """Emit a structured event into the default event ring."""
+    get_event_log().emit(kind, **fields)
+
+
+def snapshot(memory: bool = True) -> dict:
+    """JSON-able snapshot of the default registry, refreshing the CUDA
+    memory gauges first unless ``memory=False``."""
+    if memory:
+        record_memory_gauges(get_registry())
+    return get_registry().snapshot()
+
+
+def exposition() -> str:
+    """Prometheus text exposition of the default registry."""
+    return get_registry().exposition()
+
+
+def aggregate(comm) -> dict:
+    """The default registry merged across ``comm``'s ranks (counters
+    summed, gauges averaged, histogram percentiles over the pooled
+    samples); every rank returns the same dict."""
+    return get_registry().aggregate(comm)
+
+
+__all__ = ["NULL_TRACE", "Collector", "CostLedger", "Counter",
+           "DeadmanDetector", "Detector", "EWMA", "ErrorRateObjective",
+           "EventLog", "Gauge", "HealthMonitor", "HealthScore", "Histogram",
+           "LatencyObjective", "MetricsRegistry", "MonitoredFunction",
+           "NoisyNeighborDetector", "Rate", "Ratio", "RecompileGuard",
+           "SLOEngine", "Span", "ThresholdDetector", "TimeSeriesStore",
+           "Trace", "Tracer", "WindowPercentile", "ZScoreDetector",
+           "aggregate", "annotate", "device_memory_lines", "emit",
+           "exposition", "fleet_health", "get_event_log", "get_registry",
+           "get_slo_engine", "get_tracer", "http", "instrument",
+           "latency_report", "merge_cost_payloads", "merge_rank_payloads",
+           "record_memory_gauges", "snapshot", "span",
+           "standard_replica_sensors", "standard_tenant_sensors",
+           "wire_replica"]

@@ -2,7 +2,8 @@
 timestamped event dicts — the port's copy of
 ``chainermn_tpu/monitor/events.py``. :meth:`EventLog.emit` is one deque
 append under a lock, cheap enough for the decode loop; :meth:`EventLog.dump`
-writes the tail as JSONL when something goes wrong."""
+writes the tail as JSONL, then each CUDA device's allocator memory
+(:func:`device_memory_lines`), when something goes wrong."""
 
 from __future__ import annotations
 
@@ -13,6 +14,41 @@ import threading
 import time
 from collections import deque
 from typing import Optional
+
+
+def device_memory_lines() -> list[str]:
+    """One human line per CUDA device: bytes allocated now, the peak and
+    the device's total memory, from ``torch.cuda.memory_stats`` (the
+    caching allocator's host-side counters: no device sync). With no CUDA
+    device, or none initialised in this process, one line says so. Never
+    raises: this runs inside crash paths, where a dead CUDA context must
+    still let the events dump."""
+    lines: list[str] = []
+    try:
+        import torch
+
+        if not torch.cuda.is_available():
+            return ["device memory unavailable: no CUDA device"]
+        if not torch.cuda.is_initialized():
+            # reading the stats would create a context just to print 0
+            return ["device memory: no CUDA context in this process"]
+        for i in range(torch.cuda.device_count()):
+            try:
+                name = torch.cuda.get_device_name(i)
+                stats = torch.cuda.memory_stats(i)
+                limit = torch.cuda.get_device_properties(i).total_memory
+            except Exception as e:  # noqa: BLE001 — a broken context
+                lines.append(f"device {i}: memory_stats unavailable: "
+                             f"{type(e).__name__}: {e}")
+                continue
+            used = stats.get("allocated_bytes.all.current", 0)
+            peak = stats.get("allocated_bytes.all.peak", 0)
+            lines.append(f"device {i} ({name}): in_use={used / 1e6:.1f}MB "
+                         f"peak={peak / 1e6:.1f}MB "
+                         f"limit={limit / 1e6:.1f}MB")
+    except Exception as e:  # noqa: BLE001 — torch broken mid-crash
+        lines.append(f"device memory unavailable: {type(e).__name__}: {e}")
+    return lines
 
 
 class EventLog:
@@ -35,12 +71,13 @@ class EventLog:
             evs = list(self._ring)
         return evs if n is None else evs[-n:]
 
-    def dump(self, file=None, last: int = 64,
+    def dump(self, file=None, last: int = 64, memory: bool = True,
              once: Optional[str] = None) -> int:
         """Write the last ``last`` events, one JSON object per line (oldest
-        first), to ``file`` (stderr by default); returns the count.
-        ``once`` names a failure episode: a second dump with the same key
-        prints one line instead, until :meth:`reset_dump_guard`."""
+        first), to ``file`` (stderr by default), then with ``memory`` the
+        :func:`device_memory_lines`; returns the event count. ``once``
+        names a failure episode: a second dump with the same key prints
+        one line instead, until :meth:`reset_dump_guard`."""
         sink = file or sys.stderr
         if once is not None:
             with self._lock:
@@ -55,6 +92,10 @@ class EventLog:
               file=sink)
         for ev in evs:
             print(json.dumps(ev, default=str), file=sink)
+        if memory:
+            print("device memory:", file=sink)
+            for line in device_memory_lines():
+                print(f"  {line}", file=sink)
         print("end flight recorder", file=sink)
         return len(evs)
 
@@ -65,4 +106,4 @@ class EventLog:
             self._dumped.clear()
 
 
-__all__ = ["EventLog"]
+__all__ = ["EventLog", "device_memory_lines"]

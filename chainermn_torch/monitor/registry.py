@@ -1,6 +1,5 @@
 """Process-wide metrics registry: counters, gauges and histograms with
-labels (the port's copy of ``chainermn_tpu/monitor/registry.py``, limited
-to what the serving engine, its metrics and the fleet write).
+labels (the port's copy of ``chainermn_tpu/monitor/registry.py``).
 
 Instruments are get-or-create, keyed by ``name`` + sorted labels.
 Histograms keep a bounded reservoir of timestamped raw samples
@@ -10,8 +9,10 @@ collector and the SLO engine do); reports turn them into
 (``_s``-suffixed for a ``unit='s'`` series). :meth:`MetricsRegistry.
 instruments` lists every instrument, :meth:`MetricsRegistry.
 snapshot` renders every instrument under its ``name{label="v"}`` key,
-and :func:`merge_rank_payloads` pools per-replica payloads (counters
-sum, gauges mean, reservoirs concatenate) as the fleet report does.
+:meth:`MetricsRegistry.exposition` as Prometheus text, and
+:func:`merge_rank_payloads` pools per-rank or per-replica payloads
+(counters sum, gauges mean, reservoirs concatenate), as
+:meth:`MetricsRegistry.aggregate` and the fleet report do.
 """
 
 from __future__ import annotations
@@ -169,6 +170,10 @@ class Histogram(_Instrument):
         return dict({"count": self._count, "sum": self._sum},
                     **_sample_stats(self.samples, self.unit))
 
+    def percentile(self, q: float) -> float:
+        samples = self.samples
+        return float(np.percentile(samples, q)) if samples else 0.0
+
 
 class MetricsRegistry:
     """Get-or-create instrument registry. The same ``(name, labels)``
@@ -223,6 +228,62 @@ class MetricsRegistry:
             "histograms": {i.key: i.stats() for i in insts
                            if isinstance(i, Histogram)},
         }
+
+    def _by_kind(self) -> tuple:
+        insts = self.instruments()
+        return ([i for i in insts if isinstance(i, Counter)],
+                [i for i in insts if isinstance(i, Gauge)],
+                [i for i in insts if isinstance(i, Histogram)])
+
+    def exposition(self) -> str:
+        """Prometheus text exposition: counters and gauges verbatim,
+        histograms as summaries (``quantile`` series, then ``_sum`` and
+        ``_count``), each name's ``# TYPE`` line before its first
+        series."""
+        counters, gauges, hists = self._by_kind()
+        lines: list[str] = []
+        seen_type: set[str] = set()
+
+        def type_line(name: str, kind: str) -> None:
+            if name not in seen_type:
+                seen_type.add(name)
+                lines.append(f"# TYPE {name} {kind}")
+
+        for c in sorted(counters, key=lambda i: i.key):
+            type_line(c.name, "counter")
+            lines.append(f"{c.key} {int(c.value)}")
+        for g in sorted(gauges, key=lambda i: i.key):
+            type_line(g.name, "gauge")
+            lines.append(f"{g.key} {float(g.value):g}")
+        for h in sorted(hists, key=lambda i: i.key):
+            type_line(h.name, "summary")
+            for q in (0.5, 0.99):
+                ql = self._with_label(h, "quantile", str(q))
+                lines.append(f"{h.name}{ql} {h.percentile(q * 100):g}")
+            suffix = _render_labels(h.labels_key)
+            lines.append(f"{h.name}_sum{suffix} {h.sum:g}")
+            lines.append(f"{h.name}_count{suffix} {h.count}")
+        return "\n".join(lines) + ("\n" if lines else "")
+
+    @staticmethod
+    def _with_label(inst: _Instrument, k: str, v: str) -> str:
+        return _render_labels(tuple(sorted(inst.labels_key + ((k, v),))))
+
+    def _rank_payload(self) -> dict:
+        counters, gauges, hists = self._by_kind()
+        return {
+            "counters": {c.key: int(c.value) for c in counters},
+            "gauges": {g.key: float(g.value) for g in gauges},
+            "hist": {h.key: {"unit": h.unit, "count": h.count, "sum": h.sum,
+                             "samples": h.samples} for h in hists},
+        }
+
+    def aggregate(self, comm) -> dict:
+        """Fleet-wide snapshot over a communicator: one
+        ``comm.allgather_obj`` of every rank's instruments, merged by
+        :func:`merge_rank_payloads` (counters sum, gauges mean, histogram
+        reservoirs pool). Every rank returns the same dict."""
+        return merge_rank_payloads(comm.allgather_obj(self._rank_payload()))
 
 
 def merge_rank_payloads(payloads: list) -> dict:

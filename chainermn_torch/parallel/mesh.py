@@ -1,6 +1,6 @@
 """Rank meshes and named axes (the port of
-``chainermn_tpu/parallel/mesh.py``'s ``make_3d_mesh`` and
-``RankGeometry``).
+``chainermn_tpu/parallel/mesh.py``: ``make_mesh``,
+``make_hierarchical_mesh``, ``make_3d_mesh`` and ``RankGeometry``).
 
 The JAX package names mesh axes and binds them inside ``shard_map``. The
 port runs one process per rank, so a mesh is a grid of global ranks, and
@@ -21,6 +21,10 @@ import warnings
 from typing import Optional
 
 import numpy as np
+
+DEFAULT_AXIS = "ranks"
+INTER_AXIS = "inter"   # across nodes
+INTRA_AXIS = "intra"   # within a node
 
 _BOUND: dict = {}      # axis name -> the communicator of this rank's group
 
@@ -49,6 +53,41 @@ class RankMesh:
         moved = np.moveaxis(self.ranks, a, -1)
         return [list(map(int, row)) for row in moved.reshape(-1,
                                                              moved.shape[-1])]
+
+
+def _world(world_size: Optional[int]) -> int:
+    return int(world_size if world_size is not None
+               else os.environ.get("WORLD_SIZE", 1))
+
+
+def make_mesh(world_size: Optional[int] = None,
+              axis_name: str = DEFAULT_AXIS) -> RankMesh:
+    """One flat axis over the ranks ``0 .. world_size-1`` (``WORLD_SIZE``
+    when ``None``): the ``pure_nccl`` shape, one ring over every rank."""
+    return RankMesh(np.arange(_world(world_size)), (axis_name,))
+
+
+def make_hierarchical_mesh(world_size: Optional[int] = None,
+                           inter_axis: str = INTER_AXIS,
+                           intra_axis: str = INTRA_AXIS,
+                           local_world_size: Optional[int] = None
+                           ) -> RankMesh:
+    """The two-level ``inter x intra`` grid of the reference's
+    intra-node/inter-node split. With several nodes of
+    ``local_world_size`` ranks (``LOCAL_WORLD_SIZE``) each, ``intra`` is a
+    node's ranks and ``inter`` crosses nodes; with one node (or a
+    ragged count) the rank count is factored into the most square grid,
+    as the reference factors one process's devices."""
+    n = _world(world_size)
+    lws = int(local_world_size or os.environ.get("LOCAL_WORLD_SIZE", n))
+    if 0 < lws < n and n % lws == 0:
+        grid = (n // lws, lws)
+    else:
+        inter = int(np.sqrt(n))
+        while n % inter:
+            inter -= 1
+        grid = (inter, n // inter)
+    return RankMesh(np.arange(n).reshape(grid), (inter_axis, intra_axis))
 
 
 def _straddle_warning(shape, proc_counts: dict, n: int):
@@ -101,8 +140,7 @@ def make_3d_mesh(world_size: Optional[int] = None,
     is factored into the most balanced triple, with the reference's
     warning when its inner axes straddle nodes of ``local_world_size``
     ranks (``LOCAL_WORLD_SIZE``, all ranks when unset)."""
-    n = int(world_size if world_size is not None
-            else os.environ.get("WORLD_SIZE", 1))
+    n = _world(world_size)
     if shape is None:
         shape = balanced_3d_shape(n)
         lws = int(local_world_size or os.environ.get("LOCAL_WORLD_SIZE", n))

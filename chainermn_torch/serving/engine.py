@@ -131,6 +131,7 @@ from chainermn_torch.models.transformer import (
     tensor_group,
 )
 from chainermn_torch.monitor import RecompileGuard, get_event_log, get_registry
+from chainermn_torch.monitor.annotations import annotate
 from chainermn_torch.parallel.sequence import chunk_spans
 from chainermn_torch.resilience.cutpoints import (
     SERVING_CHUNK_PREFILL,
@@ -844,9 +845,10 @@ class ServingEngine:
         """One bucket program over the group's host operands: returns
         each row's first token (device tensor)."""
         prog = self._prefill_progs[bucket]
-        out = prog.run(table=table, tokens=tokens, starts=starts,
-                       last_idx=last_idx, active=active)
-        return self._draw(prog, out, gens)
+        with annotate("chainermn.prefill"):
+            out = prog.run(table=table, tokens=tokens, starts=starts,
+                           last_idx=last_idx, active=active)
+            return self._draw(prog, out, gens)
 
     def _dense_prefill(self, bucket: int, slots, tokens, starts, last_idx,
                        active, gens, fetch_ids=None):
@@ -855,7 +857,8 @@ class ServingEngine:
                     last_idx=last_idx, active=active)
         if fetch_ids is not None:
             feed["fetch"] = fetch_ids
-        return self._draw(prog, prog.run(**feed), gens)
+        with annotate("chainermn.prefill"):
+            return self._draw(prog, prog.run(**feed), gens)
 
     def _decode_round(self, n: int) -> torch.Tensor:
         """``n`` chained one-token steps of every slot from its commit
@@ -867,6 +870,10 @@ class ServingEngine:
         tokens. Dense inactive rows ride along at their stale position,
         past their last prompt, so a pending prefix insert still finds the
         donor's prompt rows intact."""
+        with annotate("chainermn.decode"):
+            return self._decode_round_run(n)
+
+    def _decode_round_run(self, n: int) -> torch.Tensor:
         act = self._active
         pos = self._pos.astype(np.int64)[None, :] + np.arange(n)[:, None]
         feed = {"tok": self._token, "active": act}
@@ -904,8 +911,9 @@ class ServingEngine:
         base = np.where(act, self._pos, 0).astype(np.int64)
         pos = np.minimum(base[:, None] + np.arange(k1)[None, :],
                          self.cache_len - 1)
-        return self._spec_prog.run(tokens=tokens, pos=pos, valid=valid,
-                                   active=act, table=self._tables)
+        with annotate("chainermn.spec_verify"):
+            return self._spec_prog.run(tokens=tokens, pos=pos, valid=valid,
+                                       active=act, table=self._tables)
 
     def warmup(self) -> None:
         """Build every step program on no-op inputs: every prefill bucket,
@@ -1102,7 +1110,8 @@ class ServingEngine:
         slots = sorted(self.free_slots)[:len(plans)]
         n_cached = sum(p.match is not None for p in plans)
         try:
-            with self._watched("serving prefill", **(ctx or {})):
+            with self._watched("serving prefill", **(ctx or {})), \
+                    annotate("chainermn.serving_prefill"):
                 if n_cached:
                     inject(SERVING_PREFIX_COPY, op="fetch", hits=n_cached,
                            batch=len(plans))
@@ -1173,7 +1182,8 @@ class ServingEngine:
         records: list[tuple[int, list]] = []
         try:
             try:
-                with self._watched("serving prefill", **(ctx or {})):
+                with self._watched("serving prefill", **(ctx or {})), \
+                        annotate("chainermn.serving_prefill"):
                     if n_cached:
                         inject(SERVING_PREFIX_COPY, op="share",
                                hits=n_cached, batch=len(plans))
@@ -1287,7 +1297,8 @@ class ServingEngine:
         frontier, clen, bucket = st.chunks[st.next_idx]
         final = st.next_idx == len(st.chunks) - 1
         k = self.prefill_batch
-        with self._watched("serving chunk_prefill", **(ctx or {})):
+        with self._watched("serving chunk_prefill", **(ctx or {})), \
+                annotate("chainermn.serving_chunk_prefill"):
             inject(SERVING_CHUNK_PREFILL, slot=slot, chunk=st.next_idx,
                    of=len(st.chunks), bucket=bucket, frontier=frontier)
             tokens = np.zeros((k, bucket), np.int32)
@@ -1358,7 +1369,8 @@ class ServingEngine:
         for w, chunk, at in plan:
             ids_op = np.zeros((w,), np.int64)
             ids_op[:len(chunk)] = chunk
-            with self._watched(f"serving kv_gather[{w}]", **(ctx or {})):
+            with self._watched(f"serving kv_gather[{w}]", **(ctx or {})), \
+                    annotate("chainermn.kv_gather"):
                 out = self._gather_progs[w].run(ids=ids_op)
                 with torch.no_grad():
                     for kk, t in out.items():
@@ -1381,7 +1393,8 @@ class ServingEngine:
             prog = self._scatter_progs[w]
             ids_op = np.zeros((w,), np.int64)
             ids_op[:len(chunk)] = chunk
-            with self._watched(f"serving kv_scatter[{w}]", **(ctx or {})):
+            with self._watched(f"serving kv_scatter[{w}]", **(ctx or {})), \
+                    annotate("chainermn.kv_scatter"):
                 with torch.inference_mode():
                     for kk, rows in packed.items():
                         prog.inputs[f"rows_{kk}"][:len(chunk)].copy_(
@@ -1717,6 +1730,23 @@ class ServingEngine:
         engine)."""
         return len(self._slot_blocks[slot]) if self.paged else 0
 
+    def slot_block_shares(self, slot: int) -> float:
+        """Refcount-weighted blocks the slot holds now (0.0 when dense):
+        a private block counts 1, a prefix block shared by ``r`` live
+        holders ``1/r``, so the sum over holders is the pool's true
+        occupancy. The cost ledger integrates it into per-tenant KV
+        block-seconds, once a step over every slot: one numpy expression
+        over the slot's block ids, not a Python loop over refcounts."""
+        if not self.paged or not self._slot_blocks[slot]:
+            return 0.0
+        refs = self._pool.refcounts[self._slot_blocks[slot]]
+        return float((1.0 / np.maximum(refs, 1)).sum())
+
+    def slot_tokens_used(self, slot: int) -> int:
+        """Current sequence depth of a slot (prompt plus generated so
+        far); 0 when the slot is free."""
+        return int(self._pos[slot]) + 1 if self._active[slot] else 0
+
     def kv_pool_stats(self) -> tuple[int, int]:
         """(blocks in use, blocks free)."""
         return self._pool.used_blocks, self._pool.free_blocks
@@ -1771,7 +1801,8 @@ class ServingEngine:
             ids[:len(plan.block_ids)] = plan.block_ids
             starts = np.full((nb,), plan.row_starts[0], np.int64)
             starts[:len(plan.row_starts)] = plan.row_starts
-            with self._watched("serving prefix insert"):
+            with self._watched("serving prefix insert"), \
+                    annotate("chainermn.prefix_insert"):
                 self._insert_prog.run(slot=np.array([slot], np.int64),
                                       ids=ids, row_starts=starts)
             self.prefix_cache.commit_insert(plan)
@@ -1791,7 +1822,8 @@ class ServingEngine:
         device-to-host sync, inside the watchdog window."""
         if not self._active.any():
             return {}
-        with self._watched("serving decode_step", **(ctx or {})):
+        with self._watched("serving decode_step", **(ctx or {})), \
+                annotate("chainermn.serving_decode"):
             inject(SERVING_DECODE, active=self.active_slots)
             nxt = device_fetch(self._decode_round(1))[:, 0]
         self._guard.check()
@@ -1820,7 +1852,8 @@ class ServingEngine:
         if not self._active.any():
             return {}
         n = self.decode_window
-        with self._watched("serving decode_steps", **(ctx or {})):
+        with self._watched("serving decode_steps", **(ctx or {})), \
+                annotate("chainermn.serving_decode"):
             inject(SERVING_DECODE, active=self.active_slots, window=n)
             out = device_fetch(self._decode_round(n))
         self._guard.check()
@@ -1855,7 +1888,8 @@ class ServingEngine:
         valid = np.where(self._active,
                          np.clip(self.cache_len - self._pos, 0, k + 1),
                          0).astype(np.int32)
-        with self._watched("serving spec_verify", **(ctx or {})):
+        with self._watched("serving spec_verify", **(ctx or {})), \
+                annotate("chainermn.serving_spec_verify"):
             inject(SERVING_SPEC_VERIFY, active=self.active_slots, k=k)
             g = device_fetch(self._spec_verify(tokens, valid))
         self._guard.check()

@@ -91,6 +91,8 @@ class ServingMetrics:
         # continuous telemetry (attach_health): a zero-arg callable whose
         # result report() embeds as its ``health`` block
         self._health_fn = None
+        # the scheduler's CostLedger (attach_costs); report() embeds it
+        self._costs = None
         # the slowest traced request's breakdown (record_trace)
         self._worst_trace: Optional[dict] = None
         # smoothed TTFT: the fleet's routing policy reads it as a load
@@ -208,6 +210,20 @@ class ServingMetrics:
         Detach with ``attach_health(None)``."""
         self._health_fn = fn
 
+    def attach_costs(self, ledger) -> None:
+        """Attach the scheduler's :class:`~chainermn_torch.monitor.costs.
+        CostLedger`: :meth:`report` then carries a ``costs`` block
+        (per-tenant device, block and queue seconds, the goodput split,
+        the conservation audit) and the fleet report pools its
+        ``payload()`` across replicas. Detach with
+        ``attach_costs(None)``."""
+        self._costs = ledger
+
+    @property
+    def costs(self):
+        """The attached cost ledger, or None (accounting off)."""
+        return self._costs
+
     def _record_token_time(self, t: float) -> None:
         if self._t_first_token is None:
             self._t_first_token = t
@@ -317,6 +333,11 @@ class ServingMetrics:
                 out["health"] = self._health_fn()
             except Exception as e:  # noqa: BLE001 — reporting never raises
                 out["health"] = {"error": f"{type(e).__name__}: {e}"}
+        if self._costs is not None:
+            try:
+                out["costs"] = self._costs.report()
+            except Exception as e:  # noqa: BLE001 — reporting never raises
+                out["costs"] = {"error": f"{type(e).__name__}: {e}"}
         return out
 
 

@@ -61,6 +61,12 @@ class BlockPool:
     def refs(self, block: int) -> int:
         return int(self._refs[block])
 
+    @property
+    def refcounts(self) -> np.ndarray:
+        """Every block's live refcount (the pool's own array: read it,
+        do not write it), for vectorised reads over many blocks."""
+        return self._refs
+
     def alloc(self) -> Optional[int]:
         """One free block at refcount 1, or ``None`` when the pool is dry."""
         if not self._free:

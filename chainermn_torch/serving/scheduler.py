@@ -97,6 +97,8 @@ import numpy as np
 
 from chainermn_torch.analysis import sanitizer
 from chainermn_torch.monitor import get_event_log
+from chainermn_torch.monitor.annotations import annotate
+from chainermn_torch.monitor.costs import CostLedger
 from chainermn_torch.monitor.trace import NULL_TRACE, get_tracer
 from chainermn_torch.resilience.cutpoints import SERVING_ADMIT_FAIR
 from chainermn_torch.resilience.faults import inject
@@ -235,6 +237,9 @@ class Request:
     # request-scoped trace: queue -> admit -> prefill -> decode -> retire
     # (NULL_TRACE when tracing is off)
     trace: object = NULL_TRACE
+    # when the request last (re-)entered the queue: the cost ledger's
+    # queue-wait start (set at submit and at every requeue)
+    _t_enqueue: float = 0.0
     _span_queue: object = None
     _span_admit: object = None
     _done: threading.Event = field(default_factory=threading.Event)
@@ -293,6 +298,13 @@ class FCFSScheduler:
     ``retry``, ``restart_on_error`` and ``max_restarts`` are its failure
     handling. ``tracer`` records the request traces (default
     :func:`~chainermn_torch.monitor.trace.get_tracer`).
+    ``cost_accounting`` (on by default) builds the per-tenant
+    :class:`~chainermn_torch.monitor.costs.CostLedger` (:attr:`costs`,
+    attached to the metrics): every decode round and prefill call's host
+    wall interval is split across the requests that shared it, the KV
+    block-seconds integrate once a step, and ``flush()`` folds the
+    deltas into the registry at the end of each step. The fair policy
+    reads the ledger's per-tenant device seconds as its shares.
     """
 
     def __init__(self, engine, *, eos_id: Optional[int] = None,
@@ -305,7 +317,8 @@ class FCFSScheduler:
                  chunk_tokens_per_step: Optional[int] = None,
                  retry: Optional[RetryPolicy] = None,
                  restart_on_error: bool = True,
-                 max_restarts: int = 8, tracer=None) -> None:
+                 max_restarts: int = 8, tracer=None,
+                 cost_accounting: bool = True) -> None:
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         if max_prefills_per_step is not None and max_prefills_per_step < 1:
@@ -317,6 +330,13 @@ class FCFSScheduler:
         self.engine = engine
         self.eos_id = eos_id
         self.metrics = metrics or ServingMetrics(engine.n_slots)
+        # the per-tenant ledger: host dict arithmetic a step;
+        # cost_accounting=False strips even that (the overhead baseline)
+        self.costs: Optional[CostLedger] = None
+        if cost_accounting:
+            self.costs = CostLedger(instance=self.metrics.instance)
+            self.metrics.attach_costs(self.costs)
+        self._t_block_sample: Optional[float] = None
         self.max_queue = max_queue
         self.default_deadline_s = default_deadline_s
         self._retry = retry
@@ -386,6 +406,7 @@ class FCFSScheduler:
                       tenant=str(tenant), priority=str(priority),
                       deadline_s=deadline_s)
         req.t_submit = time.perf_counter()
+        req._t_enqueue = req.t_submit
         if deadline_s is not None:
             req.t_deadline = req.t_submit + float(deadline_s)
         with self._lock:
@@ -458,6 +479,7 @@ class FCFSScheduler:
             # else: prefill in flight — the admission path releases the slot
             req.state = RequestState.CANCELLED
             self.metrics.record_done(cancelled=True)
+        self._finalize_cost(req)
         self._events.emit("slot_retire", req=req.id, slot=req.slot,
                           reason="cancelled", **self._trace_label(req))
         req.trace.finish(reason="cancelled")
@@ -506,6 +528,7 @@ class FCFSScheduler:
         for ticket in reuse:
             ticket.resolve(None)
         for req in drained:
+            self._finalize_cost(req)
             self._end_queue_span(req)
             req.trace.finish(reason="rerouted")
         return drained
@@ -575,14 +598,16 @@ class FCFSScheduler:
         # weights elsewhere and must finish on them here
         self._serve_kv_reuse()
         self._admit_imports()
-        calls = 0
-        while not swapping and self.engine.free_slots and (
-                self._max_prefills is None or calls < self._max_prefills):
-            group = self._next_group()
-            if not group:
-                break
-            calls += 1
-            emitted += self._admit_group(group)
+        with annotate("chainermn.serving_admit"):
+            calls = 0
+            while not swapping and self.engine.free_slots and (
+                    self._max_prefills is None
+                    or calls < self._max_prefills):
+                group = self._next_group()
+                if not group:
+                    break
+                calls += 1
+                emitted += self._admit_group(group)
         emitted += self._advance_chunks()
         if self.engine.paged:
             self._ensure_decode_blocks()
@@ -590,6 +615,8 @@ class FCFSScheduler:
         force_single = (self._brownout is not None
                         and self._brownout.force_single_token)
         ctx = self._flight_ctx()
+        # who held which slot when the round launched: the ledger's rows
+        rows_snapshot = list(self._by_slot.items())
         t_dec0 = time.perf_counter()
         try:
             if force_single:
@@ -602,6 +629,9 @@ class FCFSScheduler:
                 raise
             decoded = {}
         t_dec1 = time.perf_counter()
+        if self.costs is not None:
+            self._book_decode(rows_snapshot, decoded, t_dec0, t_dec1,
+                              force_single)
         for slot, toks in decoded.items():
             for tok in toks:
                 # re-read per token: EOS or budget can retire the slot
@@ -632,7 +662,47 @@ class FCFSScheduler:
                                  batch_depth=batch_depth)
         if self.engine.paged:
             self.metrics.record_kv_pool(*self.engine.kv_pool_stats())
+        if self.costs is not None:
+            self.costs.flush()
         return emitted
+
+    def _book_decode(self, rows_snapshot: list, decoded: dict,
+                     t_dec0: float, t_dec1: float,
+                     force_single: bool) -> None:
+        """Split the decode round's interval across the ``n_slots`` rows
+        it ran (empty rows book ``idle``, rejected drafts ``wasted``),
+        then advance the paged block-seconds integral to ``t_dec1``."""
+        eng = self.engine
+        if rows_snapshot and decoded:
+            # under brownout L2 no verify window ran: the last round's
+            # draft counts are stale
+            spec = (eng.last_spec_slots
+                    if eng.spec_enabled and not force_single else {})
+            rows = []
+            for slot, req in rows_snapshot:
+                if slot in spec:
+                    kd, a = spec[slot]
+                    rows.append((req.id, req.tenant, a + 1, kd - a))
+                else:
+                    rows.append((req.id, req.tenant,
+                                 max(len(decoded.get(slot, ())), 1), 0))
+            self.costs.record_decode(t_dec1 - t_dec0, n_rows=eng.n_slots,
+                                     rows=rows)
+        if eng.paged:
+            # shared prefix blocks split by live refcount, so a popular
+            # prefix is not billed once per holder
+            if self._t_block_sample is not None and rows_snapshot:
+                self.costs.record_block_seconds(
+                    t_dec1 - self._t_block_sample,
+                    [(req.tenant, eng.slot_block_shares(slot))
+                     for slot, req in rows_snapshot])
+            self._t_block_sample = t_dec1
+
+    def _finalize_cost(self, req: Request) -> None:
+        """Drop the ledger's per-request replay state at a terminal
+        transition."""
+        if self.costs is not None:
+            self.costs.finalize(req.id)
 
     def _flight_ctx(self) -> dict:
         """Request and trace ids of the decoding slots: the labels the
@@ -770,12 +840,22 @@ class FCFSScheduler:
         planning, closed when the prefill call starts)."""
         self._end_queue_span(req)
         req._span_admit = req.trace.start_span("admit")
+        self._book_queue_wait(req)
+
+    def _book_queue_wait(self, req: Request) -> None:
+        """The wall wait since the last (re-)enqueue: a preempted
+        request's second wait books again, since the tenant did wait
+        twice."""
+        if self.costs is not None:
+            self.costs.record_queue_wait(
+                req.tenant, time.perf_counter() - req._t_enqueue)
 
     def _span_to_queue(self, req: Request) -> None:
-        """Back to waiting (deferred, preempted, handed over): close
-        ``admit`` if open, open a new ``queue`` span."""
+        """Back to waiting (deferred, preempted): close ``admit`` if open,
+        open a new ``queue`` span and restart the queue-wait clock."""
         self._end_admit_span(req)
         req._span_queue = req.trace.start_span("queue")
+        req._t_enqueue = time.perf_counter()
 
     def _requeue_head(self, req: Request) -> None:
         self._span_to_queue(req)
@@ -817,6 +897,14 @@ class FCFSScheduler:
                 self._fail(reqs, e, "admission")
             return 0
         t_pre1 = time.perf_counter()
+        if self.costs is not None:
+            # the program runs the whole prefill_batch x bucket grid:
+            # empty rows and each row's pad tail book as padding
+            self.costs.record_prefill(
+                t_pre1 - t_pre0, bucket=plans[0].bucket,
+                batch_rows=self.engine.prefill_batch,
+                members=[(req.id, req.tenant, len(req.prompt) - plan.start)
+                         for req, plan in group])
         self.metrics.record_admission(len(group))
         emitted = 0
         for (req, plan), (slot, first) in zip(group, results):
@@ -911,9 +999,15 @@ class FCFSScheduler:
                 self._prefilling.pop(slot, None)
             self._fail([req], e, "chunk_prefill")
             return 0
-        req.trace.add_span("prefill_chunk", t0, time.perf_counter(),
-                           bucket=bucket, chunk=idx, of=total, tokens=clen,
-                           slot=slot)
+        t1 = time.perf_counter()
+        if self.costs is not None:
+            # one full prefill_batch x bucket call with a single row
+            self.costs.record_prefill(
+                t1 - t0, bucket=bucket,
+                batch_rows=self.engine.prefill_batch,
+                members=[(req.id, req.tenant, clen)])
+        req.trace.add_span("prefill_chunk", t0, t1, bucket=bucket,
+                           chunk=idx, of=total, tokens=clen, slot=slot)
         if first is None:
             return 0
         with self._lock:
@@ -968,6 +1062,7 @@ class FCFSScheduler:
         req.trace.add_span("migrate", t0, t1, blocks=payload["n_blocks"],
                            src_slot=slot)
         req._span_queue = req.trace.start_span("queue")
+        req._t_enqueue = time.perf_counter()
         with self._lock:
             self._by_slot.pop(slot, None)
             req.state = RequestState.QUEUED
@@ -983,6 +1078,10 @@ class FCFSScheduler:
                 req.slot = slot
                 self._by_slot[slot] = req
             return False
+        if self.costs is not None:
+            self.costs.record_migration(t1 - t0, req_id=req.id,
+                                        tenant=req.tenant)
+            self.costs.finalize(req.id)
         self.engine.release(slot)
         self._events.emit("slot_retire", req=req.id, slot=slot,
                           reason=reason, tokens=n_tokens,
@@ -1161,6 +1260,7 @@ class FCFSScheduler:
             self._end_queue_span(req)
             req.trace.add_span("import", t0, t1, slot=slot,
                                blocks=payload["n_blocks"])
+            self._book_queue_wait(req)
             self._events.emit("slot_admit", req=req.id, slot=slot,
                               prompt_len=len(req.prompt), migrated=True,
                               tenant=req.tenant, priority=req.priority,
@@ -1194,6 +1294,7 @@ class FCFSScheduler:
                           reqs=[r.id for r in reqs],
                           traces=self._traces(reqs))
         for req in reqs:
+            self._finalize_cost(req)
             req.trace.mark_error(type(e).__name__)
             req.trace.finish(reason="admission_error")
             req._done.set()
@@ -1230,6 +1331,7 @@ class FCFSScheduler:
                           traces=self._traces(victims))
         self._events.dump(file=sys.stderr, last=32, once="engine_failure")
         for req in victims:
+            self._finalize_cost(req)
             req.trace.mark_error(type(e).__name__)
             req.trace.finish(reason="engine_error")
             req._done.set()
@@ -1316,6 +1418,10 @@ class FCFSScheduler:
             if req.slot >= 0:
                 self.engine.release(req.slot)
                 self._by_slot.pop(req.slot, None)
+            if self.costs is not None:
+                # what was booked useful stays so (monotonic counters);
+                # regenerating the discarded tokens books as replay
+                self.costs.note_preempt(req.id, req.tenant, len(req.tokens))
             req.slot = -1
             req.tokens = []
             req.state = RequestState.QUEUED
@@ -1391,6 +1497,7 @@ class FCFSScheduler:
                            f"request {req.id} passed its {req.deadline_s}s "
                            "deadline mid chunked prefill")
         for req, where in shed:
+            self._finalize_cost(req)
             # deadline-missed traces are kept whatever the sampling: the
             # requests an SLO breach will want to name
             req.trace.mark_deadline_miss()
@@ -1406,9 +1513,13 @@ class FCFSScheduler:
         return round(0.05 + 0.01 * len(self._queue), 3)
 
     def _policy_tick(self) -> None:
-        """Once a step, before admissions: a self-driving brownout policy
-        observes the interactive queue depth (a paused batch backlog must
-        not hold the ladder up), and L4 sheds."""
+        """Once a step, before admissions: the fair policy takes the
+        ledger's measured per-tenant device seconds as its shares, a
+        self-driving brownout policy observes the interactive queue depth
+        (a paused batch backlog must not hold the ladder up), and L4
+        sheds."""
+        if self._fair is not None and self.costs is not None:
+            self._fair.set_shares(self.costs.tenant_device_seconds())
         bo = self._brownout
         if bo is None:
             return
@@ -1445,6 +1556,7 @@ class FCFSScheduler:
                     keep.append(req)
             self._queue = self._guarded(keep, "_queue")
         for req in dropped:
+            self._finalize_cost(req)
             self.metrics.record_tenant_shed(req.tenant)
             req.trace.finish(reason="shed")
             self._events.emit("shed", req=req.id, where="brownout",
@@ -1486,6 +1598,7 @@ class FCFSScheduler:
             self._by_slot.pop(req.slot, None)
             req.state = RequestState.DONE
             self.metrics.record_done()
+        self._finalize_cost(req)
         self._events.emit("slot_retire", req=req.id, slot=req.slot,
                           reason=reason, tokens=len(req.tokens),
                           **self._trace_label(req))

@@ -5,7 +5,11 @@ the loop that drives them, :func:`fit`.
 
 PyTorch's idiom replaces JAX's pure step: the model and the optimizer are
 updated in place, and each step returns its loss as a device tensor (no
-host sync).
+host sync). Every step factory returns the step wrapped by
+:func:`~chainermn_torch.monitor.instrument` (``step_start``/``step_end``
+events, ``steps_total`` and ``step_time_seconds`` under its name, a
+profiler region), and the bare closure with ``monitored=False``; the
+body runs under ``annotate("chainermn.<name>")``.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ from torch import nn
 from chainermn_torch.communicators import CommunicatorBase
 from chainermn_torch.communicators import _memory_utility
 from chainermn_torch.links.batch_normalization import BatchNorm
+from chainermn_torch.monitor.annotations import annotate
+from chainermn_torch.monitor.instrument import instrument
 from chainermn_torch.ops.losses import chunked_softmax_cross_entropy
 from chainermn_torch.parallel.moe import drop_frac_from_sown
 from chainermn_torch.parallel.mesh import resolve_axis
@@ -52,7 +58,8 @@ def _running_buffers(model) -> list:
 
 def train_step(model, optimizer, comm: CommunicatorBase, *,
                train_kwargs: Optional[dict] = None,
-               label_smoothing: float = 0.0) -> Callable:
+               label_smoothing: float = 0.0,
+               monitored: bool = True) -> Callable:
     """The data-parallel classification step (``training.py:62-160``).
     Call as ``step(images, labels) -> loss`` with this rank's batch
     (``[N, C, H, W]`` images, ``channels_last`` for convolutions, and
@@ -67,28 +74,32 @@ def train_step(model, optimizer, comm: CommunicatorBase, *,
        ``comm``): the gradient mean, then the update;
     3. replaces every BatchNorm running buffer by its mean over ranks, in
        one all-reduce;
-    4. returns ``comm.allreduce(loss, "mean")``, a device tensor."""
+    4. returns ``comm.allreduce(loss, "mean")``, a device tensor.
+
+    ``monitored`` (default) returns it as ``instrument(step,
+    "train_step")``."""
     buffers = _running_buffers(model)
 
     def step(images, labels):
-        dev = next(model.parameters()).device
-        images = torch.as_tensor(images, device=dev)
-        labels = torch.as_tensor(labels, device=dev).long()
-        optimizer.zero_grad(set_to_none=True)
-        loss = classification_loss_fn(model, images, labels, train_kwargs,
-                                      label_smoothing)
-        loss.backward()
-        optimizer.step()
-        if buffers:
-            with torch.no_grad():
-                packed, metas = _memory_utility.pack_leaves(buffers)
-                means = [comm.allreduce(b, "mean") for b in packed]
-                for b, m in zip(buffers,
-                                _memory_utility.unpack_leaves(means, metas)):
-                    b.copy_(m)
-        return comm.allreduce(loss.detach(), "mean")
+        with annotate("chainermn.train_step"):
+            dev = next(model.parameters()).device
+            images = torch.as_tensor(images, device=dev)
+            labels = torch.as_tensor(labels, device=dev).long()
+            optimizer.zero_grad(set_to_none=True)
+            loss = classification_loss_fn(model, images, labels,
+                                          train_kwargs, label_smoothing)
+            loss.backward()
+            optimizer.step()
+            if buffers:
+                with torch.no_grad():
+                    packed, metas = _memory_utility.pack_leaves(buffers)
+                    means = [comm.allreduce(b, "mean") for b in packed]
+                    for b, m in zip(buffers, _memory_utility.unpack_leaves(
+                            means, metas)):
+                        b.copy_(m)
+            return comm.allreduce(loss.detach(), "mean")
 
-    return step
+    return instrument(step, "train_step") if monitored else step
 
 
 _SEQUENCE_KINDS = ("ring", "ring_flash", "zigzag", "zigzag_flash", "ulysses",
@@ -117,7 +128,8 @@ def _ce(logits, targets):
 def lm_train_step(model, optimizer, comm: CommunicatorBase, *,
                   shard_sequence: bool = False,
                   moe_aux_weight: float = 0.01,
-                  fused_ce: bool = False) -> Callable:
+                  fused_ce: bool = False,
+                  monitored: bool = True) -> Callable:
     """Next-token-prediction step for a
     :class:`~chainermn_torch.models.TransformerLM`-shaped model. Call as
     ``step(tokens, targets) -> (loss, stats)`` with this rank's ``[B, T]``
@@ -160,7 +172,11 @@ def lm_train_step(model, optimizer, comm: CommunicatorBase, *,
     ``fused_ce=True`` computes the head and the loss together with
     :func:`~chainermn_torch.ops.losses.chunked_softmax_cross_entropy` on
     the model's ``return_hidden`` output and the float32 head weights,
-    as the reference does: the ``[B, T, vocab]`` logits never exist."""
+    as the reference does: the ``[B, T, vocab]`` logits never exist.
+
+    ``monitored`` (default) returns the step as ``instrument(step,
+    "lm_train_step")`` (``"lm_tp_train_step"`` for the tensor-parallel
+    one)."""
     attn = getattr(model, "attention", None)
     seq_axis = getattr(model, "sequence_axis", None)
     moe = bool(getattr(model, "moe_experts", 0))
@@ -171,7 +187,8 @@ def lm_train_step(model, optimizer, comm: CommunicatorBase, *,
             "vocab-parallel paths shard the head and already avoid full "
             "logits (vocab_parallel_cross_entropy)")
     if getattr(model, "tensor_axis", None) is not None:
-        return _tp_lm_train_step(model, optimizer, comm, shard_sequence)
+        return _tp_lm_train_step(model, optimizer, comm, shard_sequence,
+                                 monitored)
     if moe:
         axis = resolve_axis(getattr(model, "moe_axis", None))
         if axis is None or (axis is not comm
@@ -200,6 +217,10 @@ def lm_train_step(model, optimizer, comm: CommunicatorBase, *,
             "mix different batch shards' K/V")
 
     def step(tokens, targets):
+        with annotate("chainermn.lm_train_step"):
+            return body(tokens, targets)
+
+    def body(tokens, targets):
         dev = model.device
         tokens = torch.as_tensor(tokens, device=dev).long()
         targets = torch.as_tensor(targets, device=dev).long()
@@ -227,10 +248,11 @@ def lm_train_step(model, optimizer, comm: CommunicatorBase, *,
         return loss, {"moe_drop_frac": drop_frac_from_sown(
             model.moe_stats())}
 
-    return step
+    return instrument(step, "lm_train_step") if monitored else step
 
 
-def _tp_lm_train_step(model, optimizer, comm, shard_sequence: bool):
+def _tp_lm_train_step(model, optimizer, comm, shard_sequence: bool,
+                      monitored: bool = True):
     """The tensor-parallel LM step (see :func:`lm_train_step`)."""
     tensor_axis = model.tensor_axis
     seq_axis = getattr(model, "sequence_axis", None)
@@ -264,6 +286,10 @@ def _tp_lm_train_step(model, optimizer, comm, shard_sequence: bool):
     params = list(model.parameters())
 
     def step(tokens, targets):
+        with annotate("chainermn.lm_tp_train_step"):
+            return body(tokens, targets)
+
+    def body(tokens, targets):
         dev = model.device
         tokens = torch.as_tensor(tokens, device=dev).long()
         targets = torch.as_tensor(targets, device=dev).long()
@@ -292,7 +318,7 @@ def _tp_lm_train_step(model, optimizer, comm, shard_sequence: bool):
         optimizer.step()
         return global_objective(ce.detach(), comm), {}
 
-    return step
+    return instrument(step, "lm_tp_train_step") if monitored else step
 
 
 def fit(step: Callable, data, n_steps: int, *, fetch_every: int = 8,

@@ -138,6 +138,7 @@ exits non-zero and prints no result. Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import json
 import math
 import re
@@ -308,7 +309,8 @@ def phase_build():
     """Both kernel libraries, one ``nvcc`` each, started together. Fails
     if a bf16 flash instance (``*_sm90``) or a paged-decode instance
     spills registers."""
-    from chainermn_torch.ops import flash_attention
+    flash_attention = importlib.import_module(
+        "chainermn_torch.ops.flash_attention")
     from chainermn_torch.parallel import paged_kernel
 
     libs = {"paged_decode": paged_kernel, "flash_attention": flash_attention}
@@ -494,18 +496,27 @@ def phase_serve(device):
 
 
 def phase_profile(engine, sched, rng, n_steps: int = 20):
-    """Where a decode step's time goes (:func:`_profile_steps`)."""
+    """Where a decode step's time goes (:func:`_profile_steps`). Fails
+    unless the trace holds the engine's ``chainermn.decode`` region."""
     rec = dict(_profile_steps(engine, sched, rng, n_steps), phase="profile")
     emit(rec)
+    if "chainermn.decode" not in rec["annotations"]:
+        raise AssertionError(f"profile: no chainermn.decode region in the "
+                             f"trace: {rec['annotations']}")
     return rec
 
 
-def _profile_steps(engine, sched, rng, n_steps: int = 20):
+def _profile_steps(engine, sched, rng, n_steps: int = 20,
+                   host_events: bool = True):
     """Refill every slot, let admissions finish, then trace ``n_steps``
     pure decode steps with ``torch.profiler``. Device busy time is the sum
     of CUDA activity (kernels, copies; a replayed CUDA graph's kernels
     included) in the window; idle share is what is left of the host wall
-    clock."""
+    clock; user annotations (``chainermn.*`` regions) are left out of it,
+    since they span kernels already counted, and listed by name.
+    ``host_events=False`` traces the device alone: the same busy time,
+    no host regions, and a fraction of the profiler's own cost (the
+    graphs phase profiles eight engines so)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -519,15 +530,17 @@ def _profile_steps(engine, sched, rng, n_steps: int = 20):
     for _ in range(3):
         sched.step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = ([ProfilerActivity.CPU] if host_events else []) + [
+        ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
             sched.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA]
+           if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
     busy_us = sum(e.self_device_time_total for e in dev)
     # the split-K pass and its combine pass
     kern_us = sum(e.self_device_time_total for e in dev
@@ -543,11 +556,24 @@ def _profile_steps(engine, sched, rng, n_steps: int = 20):
            "paged_decode_ms_per_step": kern_us / n_steps / 1e3,
            "paged_decode_share_of_busy": kern_us / busy_us if busy_us
            else "not measured",
+           "annotations": _annotations(prof),
            "top_device": [{"name": e.key[:70], "ms_per_step":
                            e.self_device_time_total / n_steps / 1e3,
                            "calls_per_step": e.count / n_steps}
                           for e in top]}
     return rec
+
+
+def _annotations(prof) -> dict:
+    """``{name: calls}`` of the ``chainermn.*`` host regions in a
+    profile."""
+    from torch.autograd import DeviceType
+
+    out: dict = {}
+    for e in prof.key_averages():
+        if e.key.startswith("chainermn.") and e.device_type == DeviceType.CPU:
+            out[e.key] = out.get(e.key, 0) + e.count
+    return out
 
 
 def phase_timing(device, lengths):
@@ -715,7 +741,8 @@ SERVE_EXAMPLE = {
                                 "--speculate", "ngram", "--chunk-tokens",
                                 "8", "--tenants", "3", "--priority",
                                 "mixed", "--brownout", "2",
-                                "--verify-parity"],
+                                "--verify-parity", "--http-port", "0",
+                                "--prometheus"],
 }
 
 
@@ -752,11 +779,12 @@ def _serve_traffic(n, seed):
     return work
 
 
-def _drive(engine, work, *, seeds=None, sched_kw=None, on_step=None):
+def _drive(engine, work, *, seeds=None, sched_kw=None, on_step=None,
+           step_s=None):
     """Submit ``work`` to a fresh scheduler and step it dry; returns the
     generated streams, the scheduler and the wall seconds (closed by a
-    synchronize). Fails unless every request finished cleanly with its
-    whole budget."""
+    synchronize). ``step_s``, a list, gets each step's host seconds.
+    Fails unless every request finished cleanly with its whole budget."""
     import torch
 
     from chainermn_torch.serving import FCFSScheduler
@@ -768,7 +796,12 @@ def _drive(engine, work, *, seeds=None, sched_kw=None, on_step=None):
     while sched.has_work:
         if on_step is not None:
             on_step(engine)
+        if step_s is None:
+            sched.step()
+            continue
+        t_step = time.perf_counter()
         sched.step()
+        step_s.append(time.perf_counter() - t_step)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     for r in reqs:
@@ -1267,10 +1300,12 @@ def phase_serve_dense(device, card):
 #    captured CUDA graphs, then warm restart and the weight-swap fence --
 
 GRAPH_PROFILE_STEPS = 10
-# the eager runs serve the first 8 of the 32 requests: the cut that keeps
-# the script inside its time limit (the eager half took ~80 of the
-# phase's 113.7 s); the captured runs serve all 32
-GRAPH_EAGER_REQUESTS = 8
+# the eager runs serve the first 4 of the 32 requests, and the f32
+# captured-vs-eager parity 4 requests a path and mode: the cuts that keep
+# the script inside its time limit (the eager runs took ~95 of the
+# phase's 114-120 s at 8 each); the captured bf16 runs serve all 32
+GRAPH_EAGER_REQUESTS = 4
+GRAPH_PARITY_REQUESTS = 4
 GRAPH_SAMPLED = dict(temperature=0.8, top_k=50)
 
 
@@ -1375,7 +1410,7 @@ def _graph_run(model, kw, work, capture, device, *, profile=False,
                              f"{LM['n_layers']}")
     if profile:
         prof = _profile_steps(eng, sched, np.random.default_rng(SEED + 40),
-                              GRAPH_PROFILE_STEPS)
+                              GRAPH_PROFILE_STEPS, host_events=False)
         rec.update({k: prof[k] for k in ("step_wall_ms",
                                          "step_device_busy_ms",
                                          "device_idle_share")})
@@ -1386,14 +1421,14 @@ def _graph_run(model, kw, work, capture, device, *, profile=False,
 
 def phase_serve_graphs(device, card):
     """Each serving path (``serve``, ``serve_window``, ``serve_spec``,
-    ``serve_dense``; the 220M LM in bf16, 8 requests eager and 32
+    ``serve_dense``; the 220M LM in bf16, 4 requests eager and 32
     captured) with ``capture=False`` and then captured: tokens/s, TPOT,
     TTFT, a profiled
     step's device-busy ms and idle share, the capture seconds and the
     graph pool's bytes. Fails unless every run builds each program once
     (``compile_counts_detailed()`` flat, ``recompiles`` empty), the
     kernel launches equal decode calls x window x 12 on both, and, on the
-    f32 LM with 8 requests, each path's captured streams equal its eager
+    f32 LM with 4 requests, each path's captured streams equal its eager
     ones up to the near-tie rule (greedy; sampled at T 0.8 / top-k 50
     except the greedy-only verify window) while a planted fault (the
     captured decode program reading one table block) fails that gate."""
@@ -1417,9 +1452,9 @@ def phase_serve_graphs(device, card):
     m32 = TransformerLM(**LM, compute_dtype=torch.float32, device=device,
                         seed=SEED)
     parity = {}
-    seeds = [2000 + i for i in range(PARITY_REQUESTS)]
+    seeds = [2000 + i for i in range(GRAPH_PARITY_REQUESTS)]
     for name, (kw, work, per_call) in paths.items():
-        pw = work[:PARITY_REQUESTS]
+        pw = work[:GRAPH_PARITY_REQUESTS]
         modes = [("greedy", {}, None)]
         if name != "serve_spec":
             modes.append(("sampled", GRAPH_SAMPLED, seeds))
@@ -1439,7 +1474,7 @@ def phase_serve_graphs(device, card):
     from chainermn_torch.serving import ServingEngine
 
     kw, work, _ = paths["serve"]
-    pw = work[:PARITY_REQUESTS]
+    pw = work[:GRAPH_PARITY_REQUESTS]
     real = paged_kernel.paged_attend
 
     def one_block(*args, **kwargs):
@@ -1459,7 +1494,8 @@ def phase_serve_graphs(device, card):
     rec = {"phase": "serve_graphs", "card": card,
            "model": dict(LM, compute_dtype="bf16"),
            "requests": {"eager": GRAPH_EAGER_REQUESTS,
-                        "captured": N_REQUESTS},
+                        "captured": N_REQUESTS,
+                        "f32_parity": GRAPH_PARITY_REQUESTS},
            "profile_steps": GRAPH_PROFILE_STEPS,
            "runs": runs, "f32_parity": parity, "planted_fault": planted,
            "run_s": time.perf_counter() - t_phase}
@@ -2547,10 +2583,14 @@ def phase_serve_example(card):
     """The ``serve_lm.py`` twin's ``main()`` in this process on the card,
     at its defaults and with the paged store, n-gram speculation, chunked
     prefill, three tenants of mixed classes, brownout up to L2 and
-    ``--verify-parity``; then ``train_lm.py --serve-samples`` (the dense
+    ``--verify-parity``, serving the scrape endpoints and printing the
+    Prometheus exposition; then ``train_lm.py --serve-samples`` (the dense
     engine with the prefix store after three training steps). Fails
     unless each twin run prints its done line and serves every request,
-    and the parity check passes."""
+    the parity check passes, and the scraping run read its own ``/costs``
+    with the three tenants and a conserving ledger, and printed each
+    tenant's ``tenant_device_seconds_total`` and
+    ``serving_decode_steps_total``."""
     import contextlib
     import io
 
@@ -2572,6 +2612,24 @@ def phase_serve_example(card):
                      "spec": res["spec"], "parity": res.get("parity"),
                      "brownout": res.get("brownout"),
                      "run_s": time.perf_counter() - t0}
+        if "--http-port" in extra:
+            scraped = res["http"]["costs"]
+            text = res["exposition"]
+            out[name]["scraped_costs"] = {
+                "tenants": sorted(scraped["tenants"]),
+                "device_time": scraped["device_time"],
+                "goodput": scraped["goodput"]}
+            lines = text.splitlines()
+            out[name]["exposition_lines"] = len(lines)
+            out[name]["exposition_has"] = dict(
+                printed=text in printed,
+                serving_decode_steps_total=any(
+                    ln.startswith("serving_decode_steps_total")
+                    for ln in lines),
+                **{f"tenant{j}": any(
+                    ln.startswith("tenant_device_seconds_total{")
+                    and f'tenant="tenant{j}"' in ln for ln in lines)
+                   for j in range(3)})
     t0 = time.perf_counter()
     res = train_lm.main(["--iterations", "3", "--serve-samples", "4"])
     out["train_lm_serve_samples"] = {
@@ -2588,6 +2646,13 @@ def phase_serve_example(card):
             continue
         if rec["done_line"] is None or rec["served"] != rec["requests"]:
             raise AssertionError(f"serve_example {name}: {rec}")
+        scraped = rec.get("scraped_costs")
+        if scraped is not None and not (
+                {"tenant0", "tenant1", "tenant2"} <= set(scraped["tenants"])
+                and scraped["device_time"]["conservation_error"] < 1e-6
+                and all(rec["exposition_has"].values())):
+            raise AssertionError(f"serve_example {name}: the scrape or the "
+                                 f"exposition: {rec}")
     return out
 
 
@@ -2648,7 +2713,7 @@ def phase_flash_parity(device):
     and their dq and the unseen keys' dk and dv must be 0, exactly."""
     import torch
 
-    from chainermn_torch.ops import flash_attention as fa
+    fa = importlib.import_module("chainermn_torch.ops.flash_attention")
 
     gen = torch.Generator().manual_seed(SEED + 4)
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32,
@@ -2745,7 +2810,7 @@ def phase_flash_ring_blocks(device):
     block's plain version."""
     import torch
 
-    from chainermn_torch.ops import flash_attention as fa
+    fa = importlib.import_module("chainermn_torch.ops.flash_attention")
     from chainermn_torch.parallel.sequence import _zz_merge
 
     gen = torch.Generator().manual_seed(SEED + 7)
@@ -2855,9 +2920,10 @@ def phase_train(device):
     from chainermn_torch import (
         create_communicator,
         create_multi_node_optimizer,
+        monitor,
     )
     from chainermn_torch.models import TransformerLM
-    from chainermn_torch.ops import flash_attention as fa
+    fa = importlib.import_module("chainermn_torch.ops.flash_attention")
     from chainermn_torch.training import lm_train_step
 
     t0 = time.perf_counter()
@@ -2881,6 +2947,11 @@ def phase_train(device):
                in FLASH_KERNELS.items()}
     for fn in counted.values():
         fn.launches = 0
+    steps_ctr = monitor.get_registry().counter(
+        "steps_total", {"step": "lm_train_step"})
+    steps0 = steps_ctr.value
+    tail = monitor.get_event_log().tail(1)
+    seq0 = tail[-1]["i"] if tail else -1
     losses = [step(tokens, targets)[0] for _ in range(TRAIN["warmup_steps"])]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
@@ -2895,6 +2966,8 @@ def phase_train(device):
     losses = [float(x) for x in losses]
 
     n_steps = TRAIN["warmup_steps"] + TRAIN["timed_steps"]
+    monitored = _monitored_step_check(device, step, steps_ctr.value - steps0,
+                                      seq0, n_steps)
     n_params = sum(p.numel() for p in model.parameters())
     n_nonembed = n_params - (LM["vocab_size"] + LM["max_len"]) * LM["d_model"]
     h, dh = LM["n_heads"], LM["d_model"] // LM["n_heads"]
@@ -2914,8 +2987,13 @@ def phase_train(device):
            "mfu_vs_989_tflops": flops / step_s / BF16_OPS_PER_S,
            "peak_memory_allocated_gb": peak / 1e9,
            "first_loss": losses[0], "last_loss": last, "losses": losses,
-           "steps": n_steps, "launches": launches, "stats": stats}
+           "steps": n_steps, "launches": launches, "stats": stats,
+           "monitored": dict(monitored, host_us_share_of_step=(
+               monitored["host_us_per_step"] / 1e3 / (step_s * 1e3)))}
     emit(rec)
+    if monitored["failures"]:
+        raise AssertionError(f"train: the monitored step: "
+                             f"{monitored['failures']}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
     if not losses[-1] < losses[0]:
@@ -2928,6 +3006,67 @@ def phase_train(device):
     del model, opt, step
     torch.cuda.empty_cache()
     return launches, comm
+
+
+def _monitored_step_check(device, step, counted, seq0, n_steps):
+    """What the monitored train step left in the telemetry: the
+    ``steps_total{step="lm_train_step"}`` rise (``counted``, exactly the
+    steps run), its ``step_start``/``step_end`` events since sequence
+    ``seq0``, the CUDA memory gauge against the allocator at that point,
+    the event dump's memory line for device 0, and the wrapper's own host
+    microseconds a call (an instrumented no-op against the bare one,
+    10,000 calls each)."""
+    import io
+
+    import torch
+
+    from chainermn_torch import monitor
+    from chainermn_torch.monitor.registry import MetricsRegistry
+
+    failures = []
+    if not isinstance(step, monitor.MonitoredFunction):
+        failures.append(f"lm_train_step returned {type(step).__name__}")
+    if counted != n_steps:
+        failures.append(f"steps_total rose {counted}, not {n_steps}")
+    evs = [e for e in monitor.get_event_log().tail() if e["i"] > seq0
+           and e.get("step") == "lm_train_step"]
+    starts = sum(e["kind"] == "step_start" for e in evs)
+    ends = sum(e["kind"] == "step_end" for e in evs)
+    if (starts, ends) != (n_steps, n_steps):
+        failures.append(f"step_start/step_end events {starts}/{ends}")
+    reg = monitor.get_registry()
+    torch.cuda.synchronize(device)
+    monitor.record_memory_gauges(reg)
+    want = torch.cuda.memory_stats(device)["allocated_bytes.all.current"]
+    gauge = reg.gauge("device_bytes_in_use", {"device": "0"}).value
+    if gauge != want:
+        failures.append(f"device_bytes_in_use {gauge} != allocator {want}")
+    buf = io.StringIO()
+    monitor.get_event_log().dump(file=buf, last=4, memory=True)
+    mem_lines = [ln.strip() for ln in buf.getvalue().splitlines()
+                 if ln.strip().startswith("device 0 (")]
+    if not mem_lines:
+        failures.append("the event dump has no memory line for device 0")
+    n = 10000
+
+    def noop():
+        return None
+
+    wrapped = monitor.instrument(noop, "probe", registry=MetricsRegistry(),
+                                 events=monitor.EventLog(),
+                                 memory_interval=0)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        noop()
+    bare = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(n):
+        wrapped()
+    host_us = (time.perf_counter() - t0 - bare) / n * 1e6
+    return {"steps_total_rise": counted, "step_events": [starts, ends],
+            "device_bytes_in_use": gauge, "allocator_bytes": want,
+            "memory_line": mem_lines[0] if mem_lines else None,
+            "host_us_per_step": host_us, "failures": failures}
 
 
 def phase_train_profile(step, tokens, targets, n_steps):
@@ -2967,11 +3106,16 @@ def phase_train_profile(step, tokens, targets, n_steps):
                                  for n, us in flash_us.items()},
            "flash_share_of_busy": (sum(flash_us.values()) / busy_us
                                    if measured else "not measured"),
+           "annotations": _annotations(prof),
            "top_device": [{"name": e.key[:70], "ms_per_step":
                            e.self_device_time_total / n_steps / 1e3,
                            "calls_per_step": e.count / n_steps}
                           for e in top]}
     emit(rec)
+    want = {"chainermn.step.lm_train_step", "chainermn.lm_train_step"}
+    if not want <= set(rec["annotations"]):
+        raise AssertionError(f"train_profile: the trace lacks "
+                             f"{sorted(want - set(rec['annotations']))}")
     return rec
 
 
@@ -2992,7 +3136,7 @@ def phase_flash_timing(device):
     import torch
     import torch.nn.functional as F
 
-    from chainermn_torch.ops import flash_attention as fa
+    fa = importlib.import_module("chainermn_torch.ops.flash_attention")
 
     b, t = TRAIN["batch"], TRAIN["seq_len"]
     h, d = LM["n_heads"], LM["d_model"] // LM["n_heads"]
@@ -3588,7 +3732,10 @@ def phase_imagenet(device, step_images_per_sec):
 JAX_CPU = {"mnist_val_accuracy": 1.0, "mnist_mp_val_accuracy": 1.0,
            "seq2seq_token_accuracy": 0.8955}
 MNIST_GATE = 0.9                   # the JAX figure clears it
-CKPT_STOP_AT = 123                 # crash after 123 of 200 iterations
+# the checkpoint twin at 2 of its 5 epochs (80 iterations): each of its
+# three runs is a process of its own, so the iterations are its time
+CKPT_EPOCHS = 2
+CKPT_STOP_AT = 48                  # crash after 48 of 80 iterations
 MP_PARITY_STEPS = 3
 
 
@@ -3667,7 +3814,8 @@ def _snapshot_leaves(path):
 
 def phase_mnist_checkpoint(card):
     """The checkpoint twin (``python -m chainermn_torch.examples.mnist.
-    train_mnist_checkpoint``) at its defaults, three runs on the card: an
+    train_mnist_checkpoint``) at its defaults but ``--epoch CKPT_EPOCHS``,
+    three runs on the card: an
     uninterrupted one, one with ``--stop-at CKPT_STOP_AT`` (must exit
     non-zero after "simulated crash"), and a resumed one (must print
     "resumed from iteration K'", K' the newest snapshot at or before the
@@ -3680,7 +3828,7 @@ def phase_mnist_checkpoint(card):
 
     cmd = [sys.executable, "-m",
            "chainermn_torch.examples.mnist.train_mnist_checkpoint",
-           "--communicator", "pure_nccl"]
+           "--communicator", "pure_nccl", "--epoch", str(CKPT_EPOCHS)]
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, extra, out in (("uninterrupted", [], "a"),
@@ -3977,14 +4125,14 @@ def _gloo_ranks(fn: str, n: int, *args):
 
 
 def _flash_counts():
-    from chainermn_torch.ops import flash_attention as fa
+    fa = importlib.import_module("chainermn_torch.ops.flash_attention")
 
     return {name: getattr(fa, fn).launches
             for name, (fn, *_) in FLASH_KERNELS.items()}
 
 
 def _zero_flash_counts():
-    from chainermn_torch.ops import flash_attention as fa
+    fa = importlib.import_module("chainermn_torch.ops.flash_attention")
 
     for fn, *_ in FLASH_KERNELS.values():
         getattr(fa, fn).launches = 0
@@ -4012,7 +4160,7 @@ def rank_sp_parity():
     import torch
 
     from chainermn_torch import create_communicator
-    from chainermn_torch.ops import flash_attention as fa
+    fa = importlib.import_module("chainermn_torch.ops.flash_attention")
     from chainermn_torch.parallel import sequence as sq
 
     dev = torch.device("cuda", 0)
@@ -4477,6 +4625,11 @@ def rank_tp_train():
                                SP_TRAIN["timed_steps"], _staged,
                                first_grads)}
     out["flash"]["planted_fault_grad_err"] = fault
+    # the fleet-wide telemetry over the group: both ranks' registries
+    # merged, the same dict on each
+    from chainermn_torch import monitor
+
+    out["aggregate"] = monitor.aggregate(comm)
     del model, opt, step
     torch.cuda.empty_cache()
 
@@ -4499,18 +4652,31 @@ def phase_tp_train(card):
     (the planted fault — the sliced leaves without the x tp — must fail
     the gradient gate), the small f32 TP LM against its dense twin to
     1e-4, and one launch of each flash kernel a layer and step on each
-    rank."""
+    rank; and ``monitor.aggregate(comm)`` must return the same dict on
+    both ranks, its ``steps_total`` of the TP step 2 x the steps run."""
     t0 = time.perf_counter()
     ranks = _gloo_ranks("rank_tp_train", 2)
     n_steps = SP_TRAIN["warmup_steps"] + SP_TRAIN["timed_steps"]
     want = {"flash": n_steps * SP_LM["n_layers"]}
+    aggs = [rk.pop("aggregate") for rk in ranks]
+    tp_steps = aggs[0]["counters"].get('steps_total{step="lm_tp_train_step"}')
     emit({"phase": "tp_train", "card": card, "ranks": 2, "backend": "gloo",
           "model": dict(SP_LM, compute_dtype="bf16", tensor_parallel=2,
                         vocab_parallel_head=True, attention="flash"),
           "reduced": "4 of the 12 layers; B=8, T=2048 as the train phase",
           "launches_want": want, "run_s": time.perf_counter() - t0,
+          "aggregate": {"ranks": aggs[0]["ranks"],
+                        "same_on_every_rank": aggs[0] == aggs[1],
+                        "tp_steps_total": tp_steps,
+                        "counters": len(aggs[0]["counters"]),
+                        "histograms": len(aggs[0]["histograms"])},
           "ranks_out": ranks})
     _check_train("tp_train", ranks, want)
+    if aggs[0] != aggs[1] or aggs[0]["ranks"] != 2 or tp_steps != 2 * n_steps:
+        raise AssertionError(f"tp_train: monitor.aggregate: ranks "
+                             f"{aggs[0]['ranks']}, equal {aggs[0] == aggs[1]},"
+                             f" lm_tp_train_step steps {tp_steps} != "
+                             f"2 x {n_steps}")
     return ranks
 
 
@@ -5496,16 +5662,98 @@ def phase_train_resilient(device, card, comm, ctx):
     return rec
 
 
+def _time_engine_calls(engine, box):
+    """Sum into ``box["s"]`` the host seconds of the engine's device
+    calls that the cost ledger books (a decode round that ran, an
+    admission's prefill, a chunk); returns an undo."""
+    names = ("decode_round", "admit_batch", "prefill_chunk")
+    for name in names:
+        real = getattr(engine, name)
+
+        def timed(*args, _real=real, _name=name, **kw):
+            t0 = time.perf_counter()
+            out = _real(*args, **kw)
+            if out or _name != "decode_round":
+                box["s"] += time.perf_counter() - t0
+            return out
+
+        setattr(engine, name, timed)
+
+    def undo():
+        for name in names:
+            delattr(engine, name)
+
+    return undo
+
+
+def _time_ledger(box):
+    """Sum into ``box`` the host seconds and calls of every cost-ledger
+    booking the scheduler makes (its decode split with the block-seconds
+    read, and each ``CostLedger`` method it calls outside that); returns
+    an undo."""
+    from chainermn_torch.monitor.costs import CostLedger
+    from chainermn_torch.serving.scheduler import FCFSScheduler
+
+    patched = []
+    for cls, names in ((FCFSScheduler, ("_book_decode",)),
+                       (CostLedger, ("record_prefill", "record_queue_wait",
+                                     "record_migration", "note_preempt",
+                                     "finalize", "flush",
+                                     "tenant_device_seconds"))):
+        for name in names:
+            real = getattr(cls, name)
+
+            def timed(*args, _real=real, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _real(*args, **kw)
+                finally:
+                    box["s"] += time.perf_counter() - t0
+                    box["calls"] += 1
+
+            setattr(cls, name, timed)
+            patched.append((cls, name, real))
+
+    def undo():
+        for cls, name, real in patched:
+            setattr(cls, name, real)
+
+    return undo
+
+
+def _ledger_pairs(runs) -> dict:
+    """Tokens/s and TPOT p50 of the untraced runs ledger off and on, in
+    the order off, on, on, off (a drift across the four cancels to first
+    order): each run's figure and the means."""
+    out = {}
+    for key in ("tokens_per_sec", "tpot_p50_s"):
+        for side in ("off", "on"):
+            vals = [runs[f"ledger_{side}"][key],
+                    runs[f"ledger_{side}_2"][key]]
+            out[f"{key}_{side}"] = vals
+            out[f"{key}_{side}_mean"] = sum(vals) / 2
+        out[f"{key}_change"] = (out[f"{key}_on_mean"]
+                                / out[f"{key}_off_mean"] - 1)
+    return out
+
+
 def phase_serve_trace(device, card):
     """The serve cell's LM and engine (captured, the kernel on) serving
     its 32 greedy requests with a tracer at ``sample=0`` and at
-    ``sample=1``, alternating (off, on, off, on). Fails unless the token
-    streams are identical, the compile counts stay flat, B4 launches =
-    decode calls x 12 in every run, every retained trace reads ``request
-    -> queue -> admit -> prefill -> decode_step...`` with a finish reason,
-    ``ServingMetrics``' ``critical_path`` is present when on, and the
-    runs at ``sample=0`` record nothing. Prints tokens/s and TPOT p50 on
-    and off, and the spans a request records."""
+    ``sample=1``, alternating (off, on, off, on), every run with the
+    scheduler's cost ledger (the default); then, tracer off, runs with
+    ``cost_accounting=False`` and with it on in the order off, on, on,
+    off (the ledger's cost), and one more with the ledger's bookings
+    timed (its host ms a step).
+    Fails unless the token streams are identical, the compile counts stay
+    flat, B4 launches = decode calls x 12 in every run, every retained
+    trace reads ``request -> queue -> admit -> prefill ->
+    decode_step...`` with a finish reason, ``ServingMetrics``'
+    ``critical_path`` is present when on, the runs at ``sample=0`` record
+    nothing, and every ledger conserves (error < 1e-6) with its measured
+    seconds between the engine calls' summed windows and the steps'
+    summed host time. Prints tokens/s and TPOT p50 traced and not, and
+    ledger off and on."""
     import torch
 
     from chainermn_torch.models import TransformerLM
@@ -5525,16 +5773,35 @@ def phase_serve_trace(device, card):
         "serving_decode_steps_total",
         {"engine": "serving", "paged_kernel": "on"})
     work = _serve_traffic(N_REQUESTS, SEED)
-    runs, streams = {}, {}
-    for name, sample in (("off", 0), ("on", 1), ("off_2", 0), ("on_2", 1)):
+    runs, streams, ledger_box = {}, {}, {"s": 0.0, "calls": 0}
+    for name, sample, ledger in (
+            ("off", 0, True), ("on", 1, True), ("off_2", 0, True),
+            ("on_2", 1, True), ("ledger_off", 0, False),
+            ("ledger_on", 0, True), ("ledger_on_2", 0, True),
+            ("ledger_off_2", 0, False), ("ledger_timed", 0, True)):
         tracer = Tracer(sample=sample, ring=256)
         c0 = calls_ctr.value
         paged_attend.launches = 0
-        streams[name], sched, wall = _drive(eng, work,
-                                            sched_kw={"tracer": tracer})
+        windows, step_s = {"s": 0.0}, []
+        undo = [_time_engine_calls(eng, windows)]
+        if name == "ledger_timed":
+            undo.append(_time_ledger(ledger_box))
+        try:
+            streams[name], sched, wall = _drive(
+                eng, work, step_s=step_s,
+                sched_kw={"tracer": tracer, "cost_accounting": ledger})
+        finally:
+            for fn in undo:
+                fn()
         rep = sched.metrics.report()
         traces = tracer.finished(kind="serving")
+        costs = rep.get("costs")
         runs[name] = {
+            "ledger": ledger,
+            "ledger_device_time": costs["device_time"] if costs else None,
+            "ledger_tenants": sorted(costs["tenants"]) if costs else None,
+            "engine_call_windows_s": windows["s"],
+            "steps": len(step_s), "steps_host_s": sum(step_s),
             "wall_s": wall, "tokens_per_sec": rep["tokens_per_sec"],
             "tpot_p50_s": rep["tpot_p50_s"], "ttft_p50_s": rep["ttft_p50_s"],
             "decode_calls": calls_ctr.value - c0,
@@ -5553,6 +5820,13 @@ def phase_serve_trace(device, card):
            "model": dict(LM, compute_dtype="bf16"),
            "engine": dict(ENGINE, paged_kernel=True, capture=eng.capture),
            "requests": N_REQUESTS, "runs": runs,
+           "ledger_cost": dict(_ledger_pairs(runs), **{
+               "booking_host_ms_per_step": (
+                   ledger_box["s"] / runs["ledger_timed"]["steps"] * 1e3),
+               "booking_calls_per_step": (
+                   ledger_box["calls"] / runs["ledger_timed"]["steps"]),
+               "step_host_ms": (runs["ledger_timed"]["steps_host_s"]
+                                / runs["ledger_timed"]["steps"] * 1e3)}),
            "compile_counts": counts,
            "compile_counts_after": eng.compile_counts_detailed(),
            "run_s": time.perf_counter() - t_phase}
@@ -5568,6 +5842,18 @@ def phase_serve_trace(device, card):
             raise AssertionError(f"serve_trace {name}: kernel launches "
                                  f"{r['kernel_launches']} != "
                                  f"{r['decode_calls']} x {LM['n_layers']}")
+        dt = r["ledger_device_time"]
+        if (dt is None) == r["ledger"]:
+            raise AssertionError(f"serve_trace {name}: ledger "
+                                 f"{'missing' if r['ledger'] else 'present'}")
+        if dt is not None and not (
+                dt["conservation_error"] < 1e-6
+                and dt["max_dispatch_error"] < 1e-6
+                and 0 < r["engine_call_windows_s"] <= dt["measured_s"]
+                + 1e-6 <= r["steps_host_s"] + 2e-6):
+            raise AssertionError(f"serve_trace {name}: the ledger: {dt}, "
+                                 f"engine calls {r['engine_call_windows_s']}"
+                                 f" s, steps {r['steps_host_s']} s")
         if name.startswith("on"):
             if (r["traces"] != N_REQUESTS or r["bad_trees"]
                     or r["reasons"] != ["length"]
@@ -5797,7 +6083,8 @@ def _tp_serve_lead(engine, work, comm_bytes):
                 p_wall = time.perf_counter() - p0
             busy = sum(e.self_device_time_total
                        for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA) / 1e3
+                       if e.device_type == DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False)) / 1e3
             profiled = {"step_wall_ms": p_wall * 1e3,
                         "device_busy_ms": busy if busy else "not measured",
                         "device_idle_share": 1 - busy / 1e3 / p_wall

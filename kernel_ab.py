@@ -17,6 +17,7 @@ card's name and power limit. Both checkouts need
 
 from __future__ import annotations
 
+import importlib
 import json
 import subprocess
 import sys
@@ -28,7 +29,7 @@ def _child(name: str, root: str) -> None:
     import torch
 
     import chip_smoke as cs
-    from chainermn_torch.ops import flash_attention as fa
+    fa = importlib.import_module("chainermn_torch.ops.flash_attention")
     from chainermn_torch.parallel.paged_kernel import paged_attend
 
     dev = torch.device("cuda", 0)

@@ -1,6 +1,7 @@
 """Weighted-fair admission, the brownout ladder, deadlines and
 class-ordered preemption in the port (mirrors
-``tests/serving_tests/test_fairness.py`` without its two fuzzed soaks).
+``tests/serving_tests/test_fairness.py``; its fuzzed soak runs one seed
+in tier-1 and three under ``slow``, as the reference's do).
 
 The policy units drive :class:`FairAdmission` and :class:`BrownoutPolicy`
 with deterministic clocks. The scheduler tests run the port's engines on
@@ -8,6 +9,7 @@ flax weights converted by ``params_from_flax`` (f32, CPU), and every
 token stream they check is solo JAX ``generate()``'s.
 """
 
+import threading
 import time
 
 import jax
@@ -16,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from chainermn_torch.analysis import sanitizer
 from chainermn_tpu.models import TransformerLM as JaxLM
 from chainermn_tpu.models import generate as jax_generate
 from chainermn_torch.interop import params_from_flax
@@ -278,8 +281,12 @@ def test_decode_deadline_retires_at_step_boundary(dense_model):
 
 def test_brownout_l4_sheds_lowest_weight_tenant_queued_work(dense_model):
     bo = BrownoutPolicy(queue_high=None, down_after_s=0.5)
+    # cost_accounting off, as in the reference: the victim is chosen by
+    # the configured weights, not the measured-share shrink the ledger
+    # feeds the fair policy
     _, sched = make(dense_model, n_slots=1, brownout=bo,
-                    tenant_weights={"gold": 2.0, "cheap": 0.5})
+                    tenant_weights={"gold": 2.0, "cheap": 0.5},
+                    cost_accounting=False)
     inflight = sched.submit(np.array([1]), 4, tenant="gold")
     sched.step()
     assert inflight.state is RequestState.DECODE
@@ -435,3 +442,79 @@ def test_class_preemption_replays_batch_to_identical_tokens(paged_rig):
     assert inter.tokens == solo(PROMPTS[0], long_new)
     assert sched.metrics._c_class_preempt["batch"].value == 1
     assert sched.metrics._c_class_preempt["interactive"].value == 0
+
+
+# --------------------------------------------------------------------- #
+# fuzzed interleaving: fair admission under adversarial schedules        #
+# --------------------------------------------------------------------- #
+
+FUZZ_PROMPTS = [[1, 2, 3], [4, 5], [6, 7, 8, 9], [10, 11], [12],
+                [13, 14, 3]]
+FUZZ_CLASSES = ["interactive", "batch", "interactive", "batch",
+                "interactive", "batch"]
+FUZZ_TENANTS = ["quiet", "bulk", "quiet", "bulk", "gold", "bulk"]
+
+
+@pytest.fixture
+def sanitized():
+    """The port's sanitizer on (instrumented locks: the fuzzer's sync
+    points) for the schedulers a test builds."""
+    sanitizer.reset()
+    sanitizer.enable()
+    yield
+    sanitizer.reset()
+    sanitizer.disable()
+
+
+def _run_fuzzed_fair(sched, seed):
+    stop = threading.Event()
+
+    def drive():
+        while not stop.is_set():
+            sched.step()
+
+    with sanitizer.fuzz(seed, p=0.3, sleep_s=0.0005,
+                        points=("lock:", "guarded:", "mutate:")):
+        t = threading.Thread(target=drive, daemon=True)
+        t.start()
+        try:
+            reqs = [sched.submit(np.asarray(p, np.int32), MAX_NEW,
+                                 tenant=tn, priority=cl)
+                    for p, cl, tn in zip(FUZZ_PROMPTS, FUZZ_CLASSES,
+                                         FUZZ_TENANTS)]
+            for r in reqs:
+                assert r.wait(timeout=120)
+        finally:
+            stop.set()
+            t.join(30)
+    assert not t.is_alive()
+    return reqs
+
+
+def _fuzzed_fair(paged_rig, seed):
+    """Mixed-class, mixed-tenant traffic submitted while a driver thread
+    steps the scheduler, with seeded yields at every instrumented sync
+    point. Fair admission may pick any order; every stream must still be
+    solo JAX ``generate()``'s, and the cost ledger (whose per-tenant
+    device seconds feed the fair shares) must stay conserved."""
+    engine, solo = paged_rig
+    sched = FCFSScheduler(engine, fair=True,
+                          tenant_weights={"quiet": 2.0, "bulk": 1.0})
+    reqs = _run_fuzzed_fair(sched, seed)
+    assert [r.state for r in reqs] == [RequestState.DONE] * len(reqs)
+    for r, p in zip(reqs, FUZZ_PROMPTS):
+        assert r.tokens == solo(p, MAX_NEW)
+    assert sched.costs is not None
+    assert sched.costs.conservation_error < 1e-6
+    assert sched.costs.payload()["max_dispatch_error"] < 1e-6
+
+
+def test_fuzzed_mixed_class_traffic_parity_and_conservation(paged_rig,
+                                                            sanitized):
+    _fuzzed_fair(paged_rig, 1234)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("seed", [7, 99, 2024])
+def test_fuzzed_mixed_class_soak(paged_rig, sanitized, seed):
+    _fuzzed_fair(paged_rig, seed)

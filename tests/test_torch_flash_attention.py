@@ -20,6 +20,7 @@ the true head dim. The CUDA kernels are held against the same plain
 versions on the card by ``chip_smoke.py``.
 """
 
+import importlib
 import re
 
 import jax
@@ -33,7 +34,7 @@ from chainermn_tpu.ops.flash_attention import (
     flash_block_grads as jax_block_grads,
     flash_fwd_with_lse as jax_fwd,
 )
-from chainermn_torch.ops import flash_attention as tfa
+tfa = importlib.import_module("chainermn_torch.ops.flash_attention")
 from chainermn_torch.parallel.sequence import full_attention
 
 torch.set_float32_matmul_precision("highest")

@@ -231,7 +231,8 @@ def test_no_affinity_disables_trie_routing(w1, fleet):
 
 
 def test_fleet_report_pools_percentiles(w1, fleet):
-    """The pooled block merges both replicas' reservoirs and counters."""
+    """The pooled block merges both replicas' reservoirs and counters,
+    and the costs block their cost ledgers."""
     router = fleet([dense_engine(w1, prefix=False) for _ in range(2)])
     frs = [router.submit(np.array([1 + i, 2], np.int32), 3)
            for i in range(6)]
@@ -245,7 +246,16 @@ def test_fleet_report_pools_percentiles(w1, fleet):
     assert ttft["p99_s"] >= ttft["p50_s"] > 0
     assert pooled["counters"]["serving_requests_completed_total"] == 6
     assert {v["state"] for v in rep["replicas"].values()} == {"healthy"}
-    assert rep["costs"] is None and rep["health"] is None
+    assert rep["health"] is None
+    # the replicas' cost ledgers, pooled: one tenant, every dispatch of
+    # both replicas, still conserved
+    costs = rep["costs"]
+    ledgers = [r.metrics.costs for r in router.replicas]
+    assert costs["device_time"]["dispatches"] == sum(
+        led.payload()["dispatches"] for led in ledgers)
+    assert costs["device_time"]["conservation_error"] < 1e-6
+    assert set(costs["tenants"]) <= {"default", "-"}
+    assert costs["tenants"]["default"]["device_total_s"] > 0
 
 
 def test_retire_replica_reroutes_queued_work(w1, fleet):

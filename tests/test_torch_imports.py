@@ -39,6 +39,9 @@ def test_the_parallel_modules_are_checked():
             "chainermn_torch.serving.fairness",
             "chainermn_torch.serving._programs",
             "chainermn_torch.monitor.instrument",
+            "chainermn_torch.monitor.costs", "chainermn_torch.monitor.http",
+            "chainermn_torch.monitor.catalog",
+            "chainermn_torch.monitor.annotations",
             "chainermn_torch.analysis", "chainermn_torch.analysis.sanitizer",
             "chainermn_torch.fleet", "chainermn_torch.fleet.routing",
             "chainermn_torch.fleet.replica", "chainermn_torch.fleet.router",
@@ -133,3 +136,79 @@ def test_facade_covers_the_jax_package():
     queue_a = roadmap.split("### Queue A")[1].split("### Queue B")[0]
     for name in STILL_TO_PORT:
         assert f"`{name}`" in queue_a, f"{name} has no item in Queue A"
+
+
+# names of a subpackage's __all__ the port leaves out: on purpose (the
+# JAX-only mechanisms of ROADMAP.md's standing constraints), or until
+# the ROADMAP item named beside them lands
+LEFT_OUT = {
+    "extensions": {"parse_hlo_collectives", "collective_stats"},
+    "utils": {"apply_env_platform", "axis_size", "pcast_varying"},
+}
+WAITING = {   # Queue A item 13.3: analysis/'s static checkers
+    "analysis": {"AnalysisResult", "Checker", "Finding", "Module",
+                 "Project", "analyze_source", "load_baseline",
+                 "run_analysis"},
+}
+
+
+def _kind(obj) -> str:
+    import inspect
+    import types
+
+    if isinstance(obj, types.ModuleType):
+        return "module"
+    if inspect.isclass(obj):
+        return "class"
+    return "function" if callable(obj) else "constant"
+
+
+def _subpackages():
+    import pkgutil
+
+    import chainermn_tpu
+
+    return sorted(m.name for m in pkgutil.iter_modules(chainermn_tpu.__path__)
+                  if m.ispkg)
+
+
+@pytest.mark.parametrize("sub", _subpackages())
+def test_subpackage_facade_matches_the_reference(sub):
+    """Every name of ``chainermn_tpu.<sub>.__all__`` is in the port's
+    ``<sub>`` and of the same kind (function, class, module or constant),
+    but for the names left out on purpose or waiting for their item."""
+    import importlib
+
+    ref = importlib.import_module(f"chainermn_tpu.{sub}")
+    names = getattr(ref, "__all__", None)
+    if names is None:       # native/: no facade names on either side
+        return
+    port = importlib.import_module(f"chainermn_torch.{sub}")
+    skip = LEFT_OUT.get(sub, set()) | WAITING.get(sub, set())
+    missing = {n for n in names if not hasattr(port, n)}
+    assert missing == skip
+    for n in set(names) - skip:
+        assert _kind(getattr(port, n)) == _kind(getattr(ref, n)), n
+    if sub in WAITING:
+        roadmap = (PKG.parent / "ROADMAP.md").read_text()
+        queue_a = roadmap.split("### Queue A")[1].split("### Queue B")[0]
+        assert "13.3" in queue_a, "analysis/ has no item in Queue A"
+
+
+def test_function_facades_shadow_their_submodules():
+    """As in the reference, ``monitor.instrument`` and
+    ``ops.flash_attention`` are functions; their modules stay importable
+    by path."""
+    import importlib
+    import inspect
+
+    from chainermn_torch import monitor, ops
+    from chainermn_torch.monitor.instrument import RecompileGuard
+
+    assert inspect.isfunction(monitor.instrument)
+    assert inspect.isfunction(ops.flash_attention)
+    assert RecompileGuard is monitor.RecompileGuard
+    mod = importlib.import_module("chainermn_torch.ops.flash_attention")
+    assert mod.flash_attention is ops.flash_attention
+    mod = importlib.import_module("chainermn_torch.monitor.instrument")
+    assert mod.instrument is monitor.instrument

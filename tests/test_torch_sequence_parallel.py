@@ -10,6 +10,7 @@ On the CPU the port's ``_flash`` kinds run the flash kernels' plain
 versions, wired by the same autograd functions as on the card.
 """
 
+import importlib
 import types
 
 import jax
@@ -29,7 +30,7 @@ from chainermn_tpu.ops.flash_attention import (
 from chainermn_tpu.parallel import sequence as jsq
 from chainermn_tpu.training import jit_lm_train_step
 from chainermn_torch.interop import params_from_flax
-from chainermn_torch.ops import flash_attention as tfa
+tfa = importlib.import_module("chainermn_torch.ops.flash_attention")
 from chainermn_torch.parallel import sequence as tsq
 from chainermn_torch.testing import run_ranks
 

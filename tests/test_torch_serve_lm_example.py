@@ -143,9 +143,39 @@ def test_twin_control_plane(name, capsys):
 @pytest.mark.parametrize("extra", [
     ["--prometheus"], ["--http-port", "0"],
 ], ids=lambda e: e[0].strip("-"))
-def test_unported_flags_name_the_roadmap(extra):
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        serve_lm.main(TINY + extra)
+def test_unported_flags_name_the_roadmap(extra, capsys):
+    """The two flags that waited for ``monitor/`` (they raised, naming
+    their ROADMAP item, until it was ported) now run: ``--prometheus``
+    prints the registry's exposition, with the ledger's per-tenant
+    device seconds; ``--http-port 0`` serves the scrape endpoints for the
+    burst and scrapes its own ``/costs``, which agrees with the printed
+    tenant bill and conserves."""
+    out = serve_lm.main(TINY + ["--tenants", "3"] + extra)
+    printed = capsys.readouterr().out
+    assert out["served"] == out["requests"]
+    costs = out["costs"]
+    assert costs["device_time"]["conservation_error"] < 1e-6
+    assert {"tenant0", "tenant1", "tenant2"} <= set(costs["tenants"])
+    assert "cost accounting: measured=" in printed
+    assert "  tenant tenant0: device=" in printed
+    if extra[0] == "--prometheus":
+        text = out["exposition"]
+        assert "# process metrics registry (Prometheus exposition)" in printed
+        assert text in printed
+        for t in ("tenant0", "tenant1", "tenant2"):
+            assert f'tenant="{t}"' in text
+        assert "tenant_device_seconds_total{" in text
+        assert "serving_decode_steps_total" in text
+        assert "http" not in out
+    else:
+        scraped = out["http"]["costs"]
+        assert scraped["tenants"].keys() == costs["tenants"].keys()
+        assert scraped["device_time"] == costs["device_time"]
+        assert out["http"]["metrics_lines"] > 0
+        assert (f"scraped /costs: {len(costs['tenants'])} tenant(s)"
+                in printed)
+        assert out["http"]["url"] in printed
+        assert "exposition" not in out
 
 
 @pytest.mark.parametrize("flag", ["trace", "trace-out"])
