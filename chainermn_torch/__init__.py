@@ -58,6 +58,8 @@ The package imports ``torch`` and numpy only; weights cross over from
 flax through :mod:`chainermn_torch.interop`.
 """
 
+# communicators first: functions and links import each other through it
+from chainermn_torch import communicators
 from chainermn_torch import dataflow, fleet, functions, monitor, resilience
 from chainermn_torch.global_except_hook import add_hook as add_global_except_hook
 from chainermn_torch.communicators import (

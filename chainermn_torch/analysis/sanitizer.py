@@ -20,8 +20,10 @@
 
 :func:`dump_artifact` writes the observed graph only to a path given to
 it or named by ``CHAINERMN_TORCH_SANITIZER_ARTIFACT``; nothing in the
-port writes one by default. The static checkers of the reference's
-``analysis`` package are not part of the port yet.
+port writes one by default. ``python -m chainermn_torch.analysis
+--runtime-report FILE chainermn_torch/`` then asserts that every
+observed edge is in the static lock-order graph
+(:func:`chainermn_torch.analysis.checkers.locks.static_lock_graph`).
 """
 
 from __future__ import annotations
@@ -38,12 +40,25 @@ ENV_FLAG = "CHAINERMN_TORCH_SANITIZER"
 ARTIFACT_ENV = "CHAINERMN_TORCH_SANITIZER_ARTIFACT"
 
 
-class LockOrderViolation(RuntimeError):
+class _Violation(RuntimeError):
+    """A violation is recorded when it is raised, so that one raised in a
+    thread whose supervisor catches it (a fleet replica's) still counts
+    (:func:`violations`)."""
+
+    def __init__(self, *args) -> None:
+        super().__init__(*args)
+        # list.append is atomic; no lock (a violation may be raised with
+        # the graph lock held)
+        _S.violations.append(f"{type(self).__name__}: {args[0]}"
+                             if args else type(self).__name__)
+
+
+class LockOrderViolation(_Violation):
     """Observed lock acquisition that can deadlock (cycle) or that the
     static lock-order graph did not predict."""
 
 
-class GuardViolation(RuntimeError):
+class GuardViolation(_Violation):
     """Guarded state mutated without its lock / by a second thread."""
 
 
@@ -65,6 +80,7 @@ class _State:
         self.contended: dict = {}      # name -> count
         self.hist_cache: dict = {}     # name -> monitor Histogram
         self.fuzz: Optional["_Fuzz"] = None
+        self.violations: list = []     # messages, in the order raised
 
 
 _S = _State()
@@ -109,6 +125,7 @@ def reset() -> None:
         _S.hold.clear()
         _S.contended.clear()
         _S.hist_cache.clear()
+        _S.violations.clear()
     _S.static_edges = None
 
 
@@ -169,6 +186,12 @@ def _record_contended(name: str, waited_s: float) -> None:
         pass
     finally:
         _TLS.in_telemetry = False
+
+
+def violations() -> list:
+    """Every violation raised since the last :func:`reset`, in order
+    (each message starts with its class name)."""
+    return list(_S.violations)
 
 
 def hold_stats() -> dict:
@@ -611,7 +634,7 @@ def sync_point(tag: str) -> None:
 
 def dump_artifact(path: Optional[str] = None) -> Optional[str]:
     """Write (merge-union) the observed graph as JSON. Default path:
-    ``$CHAINERMN_TPU_SANITIZER_ARTIFACT``; returns the path written, or
+    ``$CHAINERMN_TORCH_SANITIZER_ARTIFACT``; returns the path written, or
     None when no path is configured."""
     path = path or os.environ.get(ARTIFACT_ENV) or None
     if not path:
@@ -682,4 +705,5 @@ __all__ = [
     "observed_edges",
     "reset",
     "sync_point",
+    "violations",
 ]

@@ -55,6 +55,15 @@ class CommunicatorBase(abc.ABC):
     def inter_size(self) -> int:
         """Number of nodes."""
 
+    @property
+    def process_size(self) -> int:
+        """Number of processes the host-side data distribution shards
+        over (dataset scattering, per-rank checkpoints, object
+        communication). Each rank of the port is a process of its own,
+        so it is :attr:`size`; the reference counts host processes,
+        which hold several devices each."""
+        return self.size
+
     # ------------------------------------------------------------------ #
     # Array collectives: this rank's tensor in, this rank's result out    #
     # ------------------------------------------------------------------ #

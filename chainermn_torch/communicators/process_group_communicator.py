@@ -3,7 +3,11 @@ contract over one ``torch.distributed`` process group (the port's
 counterpart of ``chainermn_tpu/communicators/mesh_communicator.py``).
 
 The group is NCCL for a CUDA device and gloo for the CPU; object
-communication rides a gloo group over the same ranks. The topology is
+communication rides a gloo group over the same ranks, or the C++
+sidecar store when ``CHAINERMN_TORCH_OBJSTORE`` names one
+(:func:`~chainermn_torch.communicators._object_comm.create_object_comm`;
+:attr:`ProcessGroupCommunicator.object_transport` says which). The
+topology is
 ChainerMN's: ``LOCAL_WORLD_SIZE`` consecutive ranks form a node (all
 ranks when it is unset). Strategy subclasses differ only in
 :meth:`_mean_leaves`; this class's is the naive strategy, one all-reduce
@@ -21,12 +25,17 @@ import torch
 import torch.distributed as dist
 
 from chainermn_torch._device import resolve_device
-from chainermn_torch.communicators._object_comm import ObjectComm
+from chainermn_torch.communicators._object_comm import (
+    KVObjectComm,
+    create_object_comm,
+)
 from chainermn_torch.communicators.communicator_base import (
     CommunicatorBase,
     ReduceOp,
 )
 from chainermn_torch.monitor.annotations import annotate
+from chainermn_torch.resilience.cutpoints import COMM_ALLGATHER_OBJ
+from chainermn_torch.resilience.faults import inject
 
 _OPS = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
         "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN,
@@ -130,11 +139,12 @@ class ProcessGroupCommunicator(CommunicatorBase):
     def _attach(self, group, obj_group, ranks: list[int], *,
                 split: bool) -> None:
         """Bind this communicator to ``group`` over the global ``ranks``,
-        with ``obj_group`` for object communication."""
+        with ``obj_group`` for object communication (or the sidecar
+        store, when ``CHAINERMN_TORCH_OBJSTORE`` names one)."""
         self._group = group
         self._ranks = ranks
         self._split = split
-        self._obj = ObjectComm(obj_group, ranks)
+        self._obj = create_object_comm(obj_group, ranks)
         self._rank = self._obj.rank
         self._size = len(ranks)
         self._mailbox: dict[int, list] = {}
@@ -185,6 +195,12 @@ class ProcessGroupCommunicator(CommunicatorBase):
     @property
     def inter_size(self) -> int:
         return dist.get_world_size() // self._intra_size
+
+    @property
+    def object_transport(self) -> str:
+        """The object communication this communicator took:
+        ``"objstore"`` (the C++ sidecar) or ``"gloo"``."""
+        return "objstore" if isinstance(self._obj, KVObjectComm) else "gloo"
 
     @property
     def group(self):
@@ -373,6 +389,9 @@ class ProcessGroupCommunicator(CommunicatorBase):
         return self._obj.gather_obj(obj, root)
 
     def allgather_obj(self, obj):
+        # cut-point: the host object channel the checkpoint agreement and
+        # registry aggregation ride (a raise here = a lost peer)
+        inject(COMM_ALLGATHER_OBJ)
         return self._obj.allgather_obj(obj)
 
     def allreduce_obj(self, obj, reduce_func: Optional[Callable] = None):
@@ -452,7 +471,7 @@ class ProcessGroupCommunicator(CommunicatorBase):
     def finalize(self) -> None:
         if not dist.is_initialized():
             return
-        self._obj.wait_sends()
+        self._obj.close()
         for g in self._created:
             dist.destroy_process_group(g)
         self._created = []

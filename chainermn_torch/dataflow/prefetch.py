@@ -133,9 +133,11 @@ class DevicePrefetcher:
         reg = get_registry()
         labels = {"name": name}
         self._g_depth = reg.gauge("prefetch_queue_depth", labels)
-        self._h_h2d = reg.histogram("prefetch_h2d_seconds", labels)
+        self._h_h2d = reg.histogram("prefetch_h2d_seconds", labels,
+                                     unit="s")
         self._c_stall = reg.counter("prefetch_stall_total", labels)
-        self._h_stall = reg.histogram("prefetch_stall_seconds", labels)
+        self._h_stall = reg.histogram("prefetch_stall_seconds", labels,
+                                       unit="s")
         self._c_batches = reg.counter("prefetch_batches_total", labels)
 
     # -- producer -------------------------------------------------------- #

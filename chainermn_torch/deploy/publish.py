@@ -39,8 +39,6 @@ import threading
 import time
 from typing import Mapping, Optional
 
-import torch
-
 from chainermn_torch.deploy.versions import VersionLog
 from chainermn_torch.monitor import get_event_log, get_registry
 from chainermn_torch.resilience.cutpoints import DEPLOY_PUBLISH
@@ -51,9 +49,11 @@ _COMMIT_STREAMS: dict = {}
 _COMMIT_LOCK = threading.Lock()
 
 
-def _commit_stream(device: torch.device):
+def _commit_stream(device: "torch.device"):
     """The device's commit stream (module docstring), taken from the pool
     at the first publish and held for the process."""
+    import torch
+
     from chainermn_torch.serving._programs import _own_stream
 
     index = (device.index if device.index is not None
@@ -133,6 +133,8 @@ class WeightPublisher:
     def _commit(self, params) -> dict:
         """Copy ``params`` onto the engine's device in its stored dtypes
         and wait until the copies landed (module docstring, step 1)."""
+        import torch
+
         inject(DEPLOY_PUBLISH, version=self.engine.weight_version + 1)
         cur = self.engine.model.state_dict()
         if not isinstance(params, Mapping):
@@ -175,6 +177,8 @@ class WeightPublisher:
         box = [committed]
 
         def run():
+            import torch
+
             committed = box.pop()
             stream = engine.stream
             ctx = contextlib.nullcontext()

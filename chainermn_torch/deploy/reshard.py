@@ -34,10 +34,6 @@ from __future__ import annotations
 
 from typing import Any, Optional, Tuple
 
-import torch
-
-from chainermn_torch.parallel.mesh import resolve_axis
-from chainermn_torch.parallel.tensor import reshard_tp_qkv
 from chainermn_torch.resilience.cutpoints import DEPLOY_RESHARD
 from chainermn_torch.resilience.faults import inject
 
@@ -73,6 +69,8 @@ def _tp_degree(model, comm=None) -> int:
         return 1
     if isinstance(axis, str) and hasattr(comm, "axis_size"):
         return int(comm.axis_size(axis))
+    from chainermn_torch.parallel.mesh import resolve_axis
+
     group = resolve_axis(axis)
     if group is None:
         raise ValueError(f"tensor axis {axis!r} is not bound: pass comm= or "
@@ -85,6 +83,10 @@ def _permute_qkv(tree: Any, heads: int, dh: int, old_tp: int,
     """Permute, in place, every tensor leaf of ``tree`` whose path names a
     qkv parameter (its weight, its bias, their optimizer moments); 0-dim
     leaves (a step count) stay. Returns how many were permuted."""
+    import torch
+
+    from chainermn_torch.parallel.tensor import reshard_tp_qkv
+
     n = 0
 
     def walk(node, path):
@@ -145,6 +147,8 @@ def elastic_restore(
     state, got_step = checkpointer.maybe_restore(template, step=step)
     if state is None:
         return None, None
+    import torch
+
     with torch.no_grad():
         if not _permute_qkv(state, int(heads), int(dh), old_tp, new_tp):
             raise ValueError(

@@ -23,13 +23,21 @@ over all its chips), so:
 
 Images are NCHW ``channels_last`` views of the NHWC batches the loaders
 assemble (:func:`~chainermn_torch.interop.images_from_nhwc`, no copy);
-the model casts them to its compute dtype (bf16) on the device.
-``--train-dir`` (JPEG directories) is not ported yet: it raises. The
+the model casts them to its compute dtype (bf16) on the device. The
 ``done:`` line's images/s counts the training loop alone (the
 reference's also spans the closing evaluation).
 
 Data: ``--train-npz`` with arrays ``x`` (N, H, W, 3 uint8) and ``y``
-(N,), or synthetic ImageNet-shaped data (default).
+(N,), synthetic ImageNet-shaped data (default), or ``--train-dir``, a
+directory of JPEGs in class subfolders read by
+:class:`~chainermn_torch.native.jpeg.JpegDirectoryLoader`: each rank
+takes its shard of the file list, the class count comes from the tree,
+and the decoded NHWC float32 batches arrive normalized, go through the
+``DevicePrefetcher``'s pinned staging with ``--device-prefetch``, and
+become the model's layout on the device. ``--jpeg-decoder`` declares the
+decoder (``native``: the C++ libjpeg path, raising when it does not
+build; ``pil``); by default the C++ decoder runs when it builds, and the
+loader says so on stderr when PIL decodes instead.
 
 Run one rank on the card (throughput mode)::
 
@@ -167,8 +175,15 @@ def _parser() -> argparse.ArgumentParser:
                         help="multi-node BatchNorm (cross-rank statistics)")
     parser.add_argument("--train-npz", default=None)
     parser.add_argument("--train-dir", default=None,
-                        help="directory of JPEGs in class subfolders (not "
-                             "ported yet)")
+                        help="directory of JPEGs in class subfolders "
+                             "(ImageFolder layout), decoded by the native "
+                             "libjpeg pipeline (PIL when it does not "
+                             "build); classes come from the tree")
+    parser.add_argument("--jpeg-decoder", default=None,
+                        choices=["native", "pil"],
+                        help="declare --train-dir's decoder (default: the "
+                             "native one when it builds, saying so when "
+                             "PIL decodes instead)")
     parser.add_argument("--n-synthetic", type=int, default=100000)
     parser.add_argument("--image-size", type=int, default=224)
     parser.add_argument("--classes", type=int, default=1000)
@@ -225,18 +240,20 @@ def main(argv=None, *, step_callback=None) -> dict:
         # FSDP's BatchNorm is already global-batch, and double buffering
         # configures the explicit gradient collective FSDP does not use
         raise SystemExit("--fsdp is incompatible with --mnbn/--double-buffering")
-    if args.train_dir:
-        raise SystemExit(
-            "--train-dir needs the JPEG loader (chainermn_tpu/native/jpeg.py"
-            "), which is not ported yet (ROADMAP.md, Queue A: host pieces)")
+    if args.train_dir and args.train_npz:
+        raise SystemExit("--train-dir and --train-npz are exclusive")
+    if args.train_dir and args.val_frac:
+        raise SystemExit("--val-frac needs an array dataset and was "
+                         "passed explicitly; with --train-dir hold out "
+                         "a separate val/ tree instead")
 
     if args.recipe:
         if args.warmup_epochs is None:
             args.warmup_epochs = 5.0
         if args.label_smoothing is None:
             args.label_smoothing = 0.1
-        if args.val_frac is None:
-            args.val_frac = 0.02
+        if args.val_frac is None and not args.train_dir:
+            args.val_frac = 0.02  # --train-dir has no array split
     # None = unspecified: the recipe defaults the native loader ON; an
     # explicit True keeps hard errors, an explicit False forces numpy
     native_explicit = args.native_loader is True
@@ -259,19 +276,41 @@ def main(argv=None, *, step_callback=None) -> dict:
               f"wire-dtype={wire} double_buffering={args.double_buffering} "
               f"devices={comm.size}", flush=True)
 
-    dataset = (NpzImageNet(args.train_npz) if args.train_npz
-               else SyntheticImageNet(args.n_synthetic, args.image_size,
-                                      args.classes))
-    val = None
-    if args.val_frac:
-        # hold out the tail (a split every rank agrees on before scattering)
-        n_val = max(1, int(len(dataset) * args.val_frac))
-        val = SubDataset(dataset, range(len(dataset) - n_val, len(dataset)))
-        dataset = SubDataset(dataset, range(len(dataset) - n_val))
-    train = equal_shards(chainermn_torch.scatter_dataset(
-        dataset, comm, shuffle=True, seed=0), comm)
-    val_shard = (chainermn_torch.scatter_dataset(val, comm, shuffle=False)
-                 if val is not None else None)
+    jpeg_it = train = val_shard = None
+    if args.train_dir:
+        # the loader shards the FILE LIST by rank and decodes it, so the
+        # array-dataset scatter is bypassed
+        from chainermn_torch.native import jpeg as jpeg_mod
+
+        jpeg_it = jpeg_mod.JpegDirectoryLoader(
+            args.train_dir, args.batchsize, image_size=args.image_size,
+            shuffle=True, seed=1, rank=comm.rank, size=comm.process_size,
+            decoder=args.jpeg_decoder)
+        args.classes = len(jpeg_it.class_names)  # labels come from the tree
+        if comm.rank == 0:
+            decoder = ("native libjpeg" if jpeg_it.decoder == "native"
+                       else "PIL")
+            print(f"input pipeline: JPEG directory, {decoder}, "
+                  f"{args.classes} classes, "
+                  f"{len(jpeg_it) * args.batchsize * comm.size} "
+                  "imgs/shard-epoch", flush=True)
+    else:
+        dataset = (NpzImageNet(args.train_npz) if args.train_npz
+                   else SyntheticImageNet(args.n_synthetic, args.image_size,
+                                          args.classes))
+        val = None
+        if args.val_frac:
+            # hold out the tail (a split every rank agrees on before
+            # scattering)
+            n_val = max(1, int(len(dataset) * args.val_frac))
+            val = SubDataset(dataset,
+                             range(len(dataset) - n_val, len(dataset)))
+            dataset = SubDataset(dataset, range(len(dataset) - n_val))
+        train = equal_shards(chainermn_torch.scatter_dataset(
+            dataset, comm, shuffle=True, seed=0), comm)
+        val_shard = (chainermn_torch.scatter_dataset(val, comm,
+                                                     shuffle=False)
+                     if val is not None else None)
 
     kw = dict(device=device, seed=0)
     if args.mnbn and args.arch.startswith("resnet"):
@@ -287,8 +326,14 @@ def main(argv=None, *, step_callback=None) -> dict:
     comm.bcast_data(model)
 
     global_batch = args.batchsize * comm.size
-    ensure_batch_fits(train, args.batchsize)
     batches = None
+    if jpeg_it is not None:
+        # ready float32 batches, like the native loader's
+        it = jpeg_it
+        batches = iter(it)
+        args.native_loader = False
+    else:
+        ensure_batch_fits(train, args.batchsize)
     if args.native_loader:
         try:
             from chainermn_torch.native.dataloader import NativeBatchLoader
@@ -317,16 +362,17 @@ def main(argv=None, *, step_callback=None) -> dict:
         if args.native_loader:
             it = native_it
             batches = iter(it)
-    if not args.native_loader:
+    if not args.native_loader and jpeg_it is None:
         it = chainermn_torch.SerialIterator(train, args.batchsize,
                                             shuffle=True, seed=1)
-    pre_normalized = args.native_loader
-    if comm.rank == 0:
+    pre_normalized = args.native_loader or jpeg_it is not None
+    if comm.rank == 0 and jpeg_it is None:
         print(f"input pipeline: "
               f"{'native C++ prefetch' if args.native_loader else 'numpy'}",
               flush=True)
 
-    steps_per_epoch = max(1, (len(train) * comm.size) // global_batch)
+    steps_per_epoch = (max(1, len(jpeg_it)) if jpeg_it is not None else
+                       max(1, (len(train) * comm.size) // global_batch))
     schedule = None
     if args.warmup_epochs:
         # linear scaling rule + warmup (arXiv:1711.04325); the
@@ -403,13 +449,14 @@ def main(argv=None, *, step_callback=None) -> dict:
         if not pre_normalized:
             raise SystemExit(
                 "--device-prefetch wraps the pre-normalized input stream "
-                "(native C++ loader); the numpy SerialIterator path collates "
-                "inside the loop — use --native-loader")
+                "(native C++ or JPEG loader); the numpy SerialIterator path "
+                "collates inside the loop — use --native-loader or "
+                "--train-dir")
         from chainermn_torch.dataflow import DevicePrefetcher
         from chainermn_torch.monitor import get_registry
 
         h2d = get_registry().histogram("prefetch_h2d_seconds",
-                                       {"name": "imagenet"})
+                                       {"name": "imagenet"}, unit="s")
         h2d_seen = len(h2d.samples)
         # epoch/is_new_epoch on the wrapper track DELIVERED batches
         batches = it = DevicePrefetcher(it, depth=args.device_prefetch,
@@ -475,6 +522,9 @@ def main(argv=None, *, step_callback=None) -> dict:
                "images_per_sec": imgs / dt if imgs else None,
                "losses": [float(x) for x in losses], "losses_finite": finite,
                "top1": top1, "native_loader": bool(args.native_loader),
+               "jpeg_decoder": jpeg_it.decoder if jpeg_it else None,
+               "failed_decodes": jpeg_it.failed_decodes if jpeg_it else None,
+               "classes": args.classes,
                "h2d_seconds_per_batch": h2d_s, "params": n_params,
                "global_batch": global_batch}
     comm.finalize()

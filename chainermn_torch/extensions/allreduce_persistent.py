@@ -24,6 +24,11 @@ class AllreducePersistent:
     ``num_batches_tracked``) are counters, not statistics, and stay.
     Every rank calls it."""
 
+    # the reference extension's default trigger (every epoch), carried as
+    # metadata for loops that honor it
+    trigger = (1, "epoch")
+    priority = -100  # run after optimizer updates, like the reference
+
     def __init__(self, communicator: CommunicatorBase) -> None:
         self._comm = communicator
 

@@ -159,11 +159,13 @@ class MultiNodeCheckpointer:
             "save": [], "load": [], "save_async": []}
         reg = get_registry()
         labels = {"name": name}
-        self._h_save = reg.histogram("checkpoint_save_seconds", labels)
-        self._h_load = reg.histogram("checkpoint_load_seconds", labels)
+        self._h_save = reg.histogram("checkpoint_save_seconds", labels,
+                                     unit="s")
+        self._h_load = reg.histogram("checkpoint_load_seconds", labels,
+                                     unit="s")
         self._c_corrupt = reg.counter("checkpoint_corrupt_total", labels)
         self._h_async = reg.histogram("checkpoint_async_save_seconds",
-                                      labels)
+                                      labels, unit="s")
         self._c_async_err = reg.counter("checkpoint_async_errors_total",
                                         labels)
         self._events = get_event_log()
@@ -246,6 +248,7 @@ class MultiNodeCheckpointer:
             # _io_lock IS the I/O serializer: sync and async savers must
             # not interleave writes, so disk work under it is the
             # invariant, not a bug
+            # graftlint: blocking-ok
             with open(tmp, "wb") as f:
                 f.write(data[: len(data) // 2])
                 # mid-write cut-point: a raise here leaves a torn .tmp —
@@ -253,7 +256,7 @@ class MultiNodeCheckpointer:
                 inject(CHECKPOINT_WRITE, iteration=int(iteration))
                 f.write(data[len(data) // 2:])
             # atomic publish belongs inside the same _io_lock hold as
-            # the bytes it publishes
+            # the bytes it publishes  # graftlint: blocking-ok
             os.replace(tmp, target)
 
         with self._io_lock:
@@ -357,7 +360,7 @@ class MultiNodeCheckpointer:
             try:
                 # GC under the write lock is deliberate: a snapshot
                 # must never be deleted while its successor is still a
-                # torn .tmp
+                # torn .tmp  # graftlint: blocking-ok
                 os.remove(self.filename(it))
             except OSError:
                 pass  # already gone; never fail training over GC

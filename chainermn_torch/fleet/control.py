@@ -53,8 +53,6 @@ from collections import deque
 from dataclasses import asdict, dataclass
 from typing import Callable, Optional
 
-import torch
-
 from chainermn_torch.analysis import sanitizer
 from chainermn_torch.deploy.versions import VersionLog
 from chainermn_torch.monitor import get_event_log, get_registry
@@ -107,6 +105,8 @@ def _private_copy(state) -> dict:
     """A copy of a ``state_dict`` mapping that nobody else writes: each
     tensor cloned where it lies (pinned host memory stays pinned, so a
     later commit from it stays asynchronous)."""
+    import torch
+
     out = {}
     with torch.no_grad():
         for name, t in state.items():
@@ -288,6 +288,7 @@ class FleetController:
         self._c_ticks.inc()
         if self._target is not None:
             self._g_target.set(self._target)
+        # graftlint: unguarded-ok — atomic reference read (writers lock)
         self._g_phase.set(0 if self._canary is None else 1)
         if summary["actions"]:
             with self._lock:
@@ -390,6 +391,7 @@ class FleetController:
         p = self.autoscale
         if p is None:
             return
+        # graftlint: unguarded-ok — atomic reference read (writers lock)
         if self._canary is not None:
             # a bake compares against a stable baseline: no resizing
             self._pressure_since = self._idle_since = None

@@ -156,7 +156,7 @@ class EngineReplica:
 
     @property
     def state(self) -> ReplicaState:
-        return self._state  # one atomic enum read
+        return self._state  # graftlint: unguarded-ok — atomic enum read
 
     @property
     def accepting(self) -> bool:
@@ -164,6 +164,7 @@ class EngineReplica:
         recovery — don't pile new work onto it; QUARANTINED/STOPPED are
         out of the fleet)."""
         # the lock exists for check-then-set transitions, not snapshots
+        # graftlint: unguarded-ok — one atomic enum read
         return self._state in (ReplicaState.STARTING, ReplicaState.HEALTHY)
 
     @property
@@ -185,6 +186,7 @@ class EngineReplica:
         mechanism only."""
         if not self.accepting:
             raise RuntimeError(
+                # graftlint: unguarded-ok — diagnostic read only
                 f"replica {self.replica_id} is {self._state.value}, "
                 "not accepting work")
         req = self.scheduler.submit(prompt, max_new_tokens, seed=seed,
@@ -208,6 +210,7 @@ class EngineReplica:
         place (the migration handshake never loses a request)."""
         if not self.accepting:
             raise RuntimeError(
+                # graftlint: unguarded-ok — diagnostic read only
                 f"replica {self.replica_id} is {self._state.value}, "
                 "not accepting migrated work")
         out = self.scheduler.enqueue_migrated(req, payload)
@@ -222,6 +225,7 @@ class EngineReplica:
         holder has nothing shareable)."""
         if not self.accepting:
             raise RuntimeError(
+                # graftlint: unguarded-ok — diagnostic read only
                 f"replica {self.replica_id} is {self._state.value}, "
                 "not accepting export work")
         ticket = self.scheduler.request_prefix_export(
@@ -237,6 +241,7 @@ class EngineReplica:
         failure decays to a plain prefill). Raises when not accepting."""
         if not self.accepting:
             raise RuntimeError(
+                # graftlint: unguarded-ok — diagnostic read only
                 f"replica {self.replica_id} is {self._state.value}, "
                 "not accepting import work")
         ticket = self.scheduler.enqueue_prefix_import(payload,
@@ -251,6 +256,7 @@ class EngineReplica:
         through the supervisor drain instead."""
         if not self.accepting:
             raise RuntimeError(
+                # graftlint: unguarded-ok — diagnostic read only
                 f"replica {self.replica_id} is {self._state.value}, "
                 "not accepting rebalance work")
         ticket = self.scheduler.request_rebalance(place_cb)
@@ -392,6 +398,7 @@ class EngineReplica:
                     self._work.wait(self._idle_wait_s)
             except Exception as e:  # noqa: BLE001 — the supervisor boundary
                 self._supervise_failure(e)
+                # graftlint: unguarded-ok — own-thread read after verdict
                 if self._state is not ReplicaState.HEALTHY:
                     return
 
@@ -414,6 +421,7 @@ class EngineReplica:
         # a failure while DRAINING must not warm-restart the replica back
         # into the accepting pool — the retire decision stands, so the
         # failure is terminal (quarantine; in-flight work re-routes)
+        # graftlint: unguarded-ok — atomic read on the replica's own thread
         fatal_drain = self._state is ReplicaState.DRAINING
         self._set_state(ReplicaState.RESTARTING)
         self.scheduler.fail_inflight(e)

@@ -93,12 +93,6 @@ from chainermn_torch.resilience.cutpoints import (
     FLEET_SHARE,
 )
 from chainermn_torch.resilience.faults import inject
-from chainermn_torch.serving.scheduler import (
-    DeadlineExceededError,
-    EngineFailed,
-    QueueFullError,
-    RequestState,
-)
 
 
 _fleet_ids = itertools.count()
@@ -159,6 +153,8 @@ class FleetRequest:
         """Fleet-level request state (the serving ``RequestState``
         enum). Before a terminal decision this mirrors the current
         binding; after, the router's verdict."""
+        from chainermn_torch.serving.scheduler import RequestState
+
         if self._final_state is not None:
             return self._final_state
         inner = self._inner
@@ -456,6 +452,8 @@ class FleetRouter:
     def close(self, timeout: float = 10.0) -> None:
         """Stop every replica thread and settle every outstanding request
         (CANCELLED) so no waiter hangs."""
+        from chainermn_torch.serving.scheduler import RequestState
+
         with self._lock:
             self._closed = True
         for r in self.replicas:
@@ -490,6 +488,7 @@ class FleetRouter:
         replica is accepting work. ``retrying`` is the client's honesty
         bit — mark resubmissions of previously-shed work so the budget
         can bound retry-storm amplification at the edge."""
+        from chainermn_torch.serving.scheduler import QueueFullError
 
         tenant = str(tenant)
         if self.breaker is not None or self.retry_budget is not None:
@@ -592,6 +591,7 @@ class FleetRouter:
         return fr.output
 
     def cancel(self, fr: FleetRequest) -> bool:
+        from chainermn_torch.serving.scheduler import RequestState
 
         with self._lock:
             if fr.finished:
@@ -934,6 +934,11 @@ class FleetRouter:
         DONE/CANCELLED settle the fleet request; an engine-failure error
         re-routes (replay on a healthy replica) within the deadline and
         re-route budgets, anything else settles ERRORED."""
+        from chainermn_torch.serving.scheduler import (
+            DeadlineExceededError,
+            EngineFailed,
+            RequestState,
+        )
 
         with self._lock:
             if fr.finished or fr._inner is not inner:
@@ -1015,6 +1020,11 @@ class FleetRouter:
                 self._resolve(fr, inner)
 
     def _rebind_drained(self, fr: FleetRequest, inner) -> None:
+        from chainermn_torch.serving.scheduler import (
+            DeadlineExceededError,
+            EngineFailed,
+            RequestState,
+        )
 
         with self._lock:
             if fr.finished or fr._inner is not inner:

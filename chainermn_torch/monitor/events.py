@@ -66,6 +66,10 @@ class EventLog:
         with self._lock:
             self._ring.append(ev)
 
+    def clear(self) -> None:
+        with self._lock:
+            self._ring.clear()
+
     def tail(self, n: Optional[int] = None) -> list[dict]:
         with self._lock:
             evs = list(self._ring)

@@ -114,6 +114,10 @@ class Gauge(_Instrument):
         with self._lock:
             self._value = float(v)
 
+    def inc(self, n: float = 1.0) -> None:
+        with self._lock:
+            self._value += n
+
     @property
     def value(self) -> float:
         return self._value

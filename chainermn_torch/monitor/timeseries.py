@@ -250,8 +250,12 @@ class Detector:
         if events is not None and firing != was:
             fields = {k: v for k, v in verdict.items()
                       if isinstance(v, (int, float, str, bool))}
-            events.emit("detector_fired" if firing else "detector_cleared",
-                        detector=self.name, series=self.series, **fields)
+            if firing:
+                events.emit("detector_fired", detector=self.name,
+                            series=self.series, **fields)
+            else:
+                events.emit("detector_cleared", detector=self.name,
+                            series=self.series, **fields)
         return verdict
 
 

@@ -18,8 +18,8 @@ This loader does the same work as:
 
 Falls back to a numpy implementation of the same arithmetic when the g++
 build fails (``native_available()`` says which path runs), as the
-reference does. The reference's fault-injection cut point in
-``_assemble`` is not ported (the port has no ``resilience`` package).
+reference does. Each batch's assembly injects the ``dataloader.assemble``
+fault cut-point, so a chaos plan can fail the input pipeline.
 """
 
 from __future__ import annotations
@@ -150,6 +150,10 @@ class NativeBatchLoader:
 
     def _assemble(self, row_idx: np.ndarray) -> np.ndarray:
         """Gather base rows -> normalized float32 images."""
+        from chainermn_torch.resilience.cutpoints import DATALOADER_ASSEMBLE
+        from chainermn_torch.resilience.faults import inject
+
+        inject(DATALOADER_ASSEMBLE, batch=len(row_idx))
         out = np.empty((len(row_idx),) + self._x.shape[1:], np.float32)
         if self._native:
             lib = _load()
@@ -211,12 +215,18 @@ class NativeBatchLoader:
             return False
 
         def producer():
-            for sel, last in self._index_batches():
-                if stop.is_set():
-                    return
-                if not offer((self._assemble_sel(sel), last)):
-                    return
-            offer(None)
+            # a failure must reach the consumer: a dead producer with no
+            # sentinel would leave the training loop on q.get() forever
+            # (the reference's loader does; the JPEG loader does not)
+            try:
+                for sel, last in self._index_batches():
+                    if stop.is_set():
+                        return
+                    if not offer((self._assemble_sel(sel), last)):
+                        return
+                offer(None)
+            except BaseException as e:  # noqa: BLE001
+                offer(e)
 
         worker = threading.Thread(target=producer, daemon=True)
         self._producers = [t for t in self._producers if t.is_alive()]
@@ -227,6 +237,9 @@ class NativeBatchLoader:
                 item = q.get()
                 if item is None:
                     return
+                if isinstance(item, BaseException):
+                    raise RuntimeError(
+                        "NativeBatchLoader producer failed") from item
                 batch, last = item
                 self.is_new_epoch = last
                 if last:

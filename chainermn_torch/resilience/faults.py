@@ -14,9 +14,9 @@ Fault kinds: ``raise`` (:class:`InjectedFault` or a given exception),
 by :meth:`FaultInjector.release`) and ``torn_write`` (a write-shaped
 cut-point keeps only ``frac`` of its bytes, see :func:`torn_fraction`).
 
-The port's cut-points so far are the checkpointer's
-(``checkpoint.save`` before any I/O, ``checkpoint.write`` mid-write,
-``checkpoint.load`` in ``maybe_load``).
+The cut-points are the constants of
+:mod:`chainermn_torch.resilience.cutpoints` (listed in the README's port
+section); the port's graftlint checks each is injected somewhere.
 
 Usage::
 

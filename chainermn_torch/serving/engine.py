@@ -137,6 +137,7 @@ from chainermn_torch.resilience.cutpoints import (
     SERVING_CHUNK_PREFILL,
     SERVING_DECODE,
     SERVING_KV_APPEND,
+    SERVING_PREFILL,
     SERVING_PREFILL_BATCH,
     SERVING_PREFIX_COPY,
     SERVING_SPEC_VERIFY,
@@ -407,6 +408,7 @@ class ServingEngine:
             for b in buckets}
         self._c_appends = reg.counter("kv_block_appends_total", labels)
         self._c_chunks = reg.counter("prefill_chunks_total", labels)
+        self._h_chunk_tokens = reg.histogram("chunk_tokens", labels)
         decode_labels = dict(labels)
         if self.paged:
             decode_labels["paged_kernel"] = ("on" if self.paged_kernel
@@ -1046,14 +1048,29 @@ class ServingEngine:
                     f"pool holds {self._pool.capacity} — raise kv_blocks "
                     "or shrink the request")
 
+    def prefill(self, prompt, seed: Optional[int] = None,
+                ctx: Optional[dict] = None) -> tuple[int, int]:
+        """Admit one prompt into a free slot with no prefix reuse: runs
+        the smallest covering bucket's prefill and returns ``(slot,
+        first_token)``. ``seed`` is the request's own sampler seed (its
+        draws match a solo ``generate()``). Raises ``RuntimeError`` when
+        no slot is free — admission control is the scheduler's job."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        self.validate_request(len(prompt), 1)
+        plan = AdmitPlan(prompt=prompt, seed=int(seed or 0), match=None,
+                         start=0, bucket=self.bucket_for(len(prompt)))
+        return self.admit_batch([plan], point=SERVING_PREFILL, ctx=ctx)[0]
+
     def admit_batch(self, plans: Sequence[AdmitPlan], *,
+                    point: str = SERVING_PREFILL_BATCH,
                     ctx: Optional[dict] = None) -> list[tuple[int, int]]:
         """Admit a same-bucket group in ONE prefill call; returns
         ``[(slot, first_token), ...]`` in plan order. Slot mirrors commit
         only after the call succeeds: a failure (an injected fault
         included) rolls the allocations back, leaves every decoding slot
-        untouched, and re-raises. ``ctx`` labels the watchdog window and
-        the prefill event."""
+        untouched, and re-raises. ``point`` is the fault cut-point the
+        call injects; ``ctx`` labels the watchdog window and the prefill
+        event."""
         if not plans:
             return []
         if len(plans) > self.prefill_batch:
@@ -1065,8 +1082,8 @@ class ServingEngine:
         if len(buckets) != 1:
             raise ValueError(f"admission group mixes buckets "
                              f"{sorted(buckets)}")
-        out = (self._paged_admit(plans, ctx) if self.paged
-               else self._dense_admit(plans, ctx))
+        out = (self._paged_admit(plans, ctx, point) if self.paged
+               else self._dense_admit(plans, ctx, point))
         self._guard.check()
         return out
 
@@ -1103,7 +1120,7 @@ class ServingEngine:
         if self._drafter is not None:
             self._drafter.on_admit(slot, plan.prompt, first)
 
-    def _dense_admit(self, plans, ctx) -> list[tuple[int, int]]:
+    def _dense_admit(self, plans, ctx, point) -> list[tuple[int, int]]:
         bucket = plans[0].bucket
         if self._pending_inserts:
             self.flush_inserts()   # before slots are picked: no donor reuse
@@ -1115,8 +1132,7 @@ class ServingEngine:
                 if n_cached:
                     inject(SERVING_PREFIX_COPY, op="fetch", hits=n_cached,
                            batch=len(plans))
-                inject(SERVING_PREFILL_BATCH, batch=len(plans),
-                       bucket=bucket, slots=slots)
+                inject(point, batch=len(plans), bucket=bucket, slots=slots)
                 tokens, starts, last, active, gens = self._group_arrays(
                     plans, bucket)
                 # the rows past the group ride on distinct unused slots,
@@ -1172,7 +1188,8 @@ class ServingEngine:
                                      + self._spec_headroom)
         return shared + new
 
-    def _paged_admit(self, plans, ctx) -> list[tuple[int, int]]:
+    # graftlint: hot — the paged-path body of admit_batch
+    def _paged_admit(self, plans, ctx, point) -> list[tuple[int, int]]:
         """Allocate table rows (prefix hits are shared entries), run the
         prefill through them, then commit the slot mirrors and adopt each
         prompt's full blocks into the trie (zero copy)."""
@@ -1187,8 +1204,8 @@ class ServingEngine:
                     if n_cached:
                         inject(SERVING_PREFIX_COPY, op="share",
                                hits=n_cached, batch=len(plans))
-                    inject(SERVING_PREFILL_BATCH, batch=len(plans),
-                           bucket=bucket, slots=slots)
+                    inject(point, batch=len(plans), bucket=bucket,
+                           slots=slots)
                     tokens, starts, last, active, gens = self._group_arrays(
                         plans, bucket)
                     table = np.zeros((self.prefill_batch, self._n_max),
@@ -1320,6 +1337,7 @@ class ServingEngine:
         self._guard.check()
         st.next_idx += 1
         self._c_chunks.inc()
+        self._h_chunk_tokens.observe(clen)
         self._events.emit("prefill_chunk", slot=slot, chunk=st.next_idx,
                           of=len(st.chunks), tokens=clen, bucket=bucket,
                           frontier=frontier, final=final)

@@ -85,9 +85,6 @@ class ServingMetrics:
                              dict(labels, priority=cls))
             for cls in ("interactive", "batch")}
         self._labels = labels
-        # the registry label every series of this scheduler carries (the
-        # health sensors key on it)
-        self.instance = labels["instance"]
         # continuous telemetry (attach_health): a zero-arg callable whose
         # result report() embeds as its ``health`` block
         self._health_fn = None
@@ -234,8 +231,30 @@ class ServingMetrics:
         return self._c_tokens.value
 
     @property
+    def instance(self) -> str:
+        """The ``instance=`` label every series of this scheduler carries
+        (the health sensors and the cost ledger key on it)."""
+        return self._labels["instance"]
+
+    @property
+    def requests_submitted(self) -> int:
+        return self._c_submitted.value
+
+    @property
     def requests_completed(self) -> int:
         return self._c_completed.value
+
+    @property
+    def requests_cancelled(self) -> int:
+        return self._c_cancelled.value
+
+    @property
+    def requests_rejected(self) -> int:
+        return self._c_rejected.value
+
+    @property
+    def requests_shed(self) -> int:
+        return self._c_shed.value
 
     @property
     def requests_errored(self) -> int:

@@ -616,7 +616,8 @@ class FCFSScheduler:
                         and self._brownout.force_single_token)
         ctx = self._flight_ctx()
         # who held which slot when the round launched: the ledger's rows
-        rows_snapshot = list(self._by_slot.items())
+        # (a GIL-atomic snapshot, same contract as _flight_ctx)
+        rows_snapshot = list(self._by_slot.items())  # graftlint: unguarded-ok
         t_dec0 = time.perf_counter()
         try:
             if force_single:
@@ -708,7 +709,8 @@ class FCFSScheduler:
         """Request and trace ids of the decoding slots: the labels the
         engine puts on its watchdog window, so a hang dump names who was
         decoding."""
-        reqs = list(self._by_slot.values())
+        # GIL-atomic snapshot; labels-only consumer tolerates staleness
+        reqs = list(self._by_slot.values())  # graftlint: unguarded-ok
         return self._ctx(reqs) if reqs else {}
 
     def run_until_idle(self, max_steps: Optional[int] = None) -> int:
@@ -1272,8 +1274,9 @@ class FCFSScheduler:
 
     def _fail(self, reqs: list, e: BaseException, where: str) -> None:
         """Error ``reqs`` terminally with :class:`EngineFailed` (``wait()``
-        re-raises), freeing any slot they hold; their traces are kept,
-        closed with ``reason="admission_error"``."""
+        re-raises), freeing any slot they hold, with the engine intact:
+        one ``admission_error`` event for the group, and their traces
+        kept, closed with ``reason="admission_error"``."""
         with self._lock:
             for req in reqs:
                 if req.finished:
@@ -1289,9 +1292,9 @@ class FCFSScheduler:
                 req.error = failure
                 req.state = RequestState.ERRORED
                 self.metrics.record_errored()
-        self._events.emit("engine_error", where=where,
+        self._events.emit("admission_error", where=where,
                           error=type(e).__name__, detail=str(e)[:200],
-                          reqs=[r.id for r in reqs],
+                          group=len(reqs), reqs=[r.id for r in reqs],
                           traces=self._traces(reqs))
         for req in reqs:
             self._finalize_cost(req)
@@ -1382,7 +1385,9 @@ class FCFSScheduler:
         retry; an injected ``serving.kv_append`` fault preempts only that
         slot's request."""
         eng = self.engine
-        for slot in sorted(self._by_slot):
+        # drive-thread read; concurrent release is caught by the .get
+        # None check, same contract as the step() token loop
+        for slot in sorted(self._by_slot):  # graftlint: unguarded-ok
             req = self._by_slot.get(slot)
             if req is None:
                 continue

@@ -69,8 +69,11 @@ heads) and ResNet-50 (random weights from a seed):
   process at full width (ResNet-50, 224x224, 1000 classes, batch 256,
   one NCCL rank) with the recipe on the native C++ loader and the device
   prefetcher, with the numpy collate, with FSDP and with multi-node
-  BatchNorm and double buffering; every loss must be finite and the
-  native loader must run where it was asked for;
+  BatchNorm and double buffering, and from a directory of 512 seeded
+  JPEGs it writes first (``d_jpeg_dir``, on the decoder it declares);
+  every loss must be finite, the native loader must run where it was
+  asked for, and the declared JPEG decoder alone must decode, with no
+  failed decode;
 - the MNIST and seq2seq twins (no kernel of their own), each at its JAX
   script's defaults: data-parallel MNIST in process on one NCCL rank
   (finite, falling losses, val accuracy at least 0.9); the checkpoint
@@ -109,9 +112,20 @@ heads) and ResNet-50 (random weights from a seed):
   planted fault (``pp_train``); and in this process the fused chunked CE
   and remat on the 220M LM against the plain step (``lm_fused_remat``)
   and the ``train_lm.py`` twin's ``main()`` in its MoE, pipeline,
-  ``fit`` and resilient modes (``lm_example``). ``moe_train`` runs 6 of
-  the 12 layers and ``serve_graphs`` serves 8 requests eager (32
-  captured), the cuts that keep the script inside its time limit;
+  ``fit`` and resilient modes (``lm_example``). ``moe_train`` and
+  ``gspmd_train`` run 6 of the 12 layers and ``serve_graphs`` serves 8
+  requests eager (32 captured), the cuts that keep the script inside its
+  time limit;
+- the host pieces of the last slice, inside phases that already run:
+  ``mnist_mp``'s two rank processes then run the object traffic
+  (``scatter_dataset``, a 64 MB ``bcast_obj``, ``allgather_obj``,
+  ``scatter_obj``, object and tensor send/recv) over the C++ object-store
+  sidecar and over gloo (``objstore_sidecar``: the sidecar taken, every
+  result equal to gloo's, no key left after the ack-GC); ``serve_fleet``
+  runs its f32 fleet under the runtime sanitizer with the static lock
+  graph of ``chainermn_torch/`` (``graftlint``: no violation, observed
+  edges within the static graph, and the static checkers clean over the
+  tree);
 - sharded state, ranks as processes on the card over gloo: the serve LM
   at tp = 2 in the paged engine (``serve_tp``: rank 0 leads, rank 1
   replays; eager; every decode step's attention through the paged-decode
@@ -1939,9 +1953,22 @@ def phase_serve_fleet(device, card):
     _empty()
     rec["run_s"] = time.perf_counter() - t_phase
     emit(rec)
-    rec["f32"] = _fleet_f32(device)
+    rec["f32"], lint = _fleet_f32_sanitized(device)
     emit({"phase": "serve_fleet_f32", "card": card, **rec["f32"],
           "run_s": time.perf_counter() - t_phase})
+    emit({"phase": "graftlint", "card": card, **lint})
+    if lint["violations"]:
+        raise AssertionError(f"serve_fleet: {len(lint['violations'])} "
+                             f"sanitizer violations: "
+                             f"{lint['violations'][:2]}")
+    if lint["runtime_report_rc"] != 0:
+        raise AssertionError("serve_fleet: an observed lock-order edge is "
+                             "not in the static graph:\n"
+                             + lint["runtime_report"])
+    if lint["static"]["errors"] or lint["static"]["warnings"] \
+            or lint["static"]["parse_errors"]:
+        raise AssertionError(f"serve_fleet: graftlint over the port's "
+                             f"tree: {lint['static']}")
     if tiers["states"] != ["healthy", "healthy"]:
         raise AssertionError(f"serve_fleet: replicas warmed at once ended "
                              f"{tiers['states']}")
@@ -1989,6 +2016,57 @@ def _rebalance(engines, prompt, n_new, want):
                 "rebalances": router.fleet_report()["kv_reuse"]["rebalances"]}
     finally:
         router.close()
+
+
+def _fleet_f32_sanitized(device):
+    """``_fleet_f32`` with the port's runtime sanitizer on (every fleet
+    and scheduler lock instrumented), given the static lock-order graph
+    of ``chainermn_torch/``: the artifact of observed edges is dumped and
+    checked with ``--runtime-report``'s code (observed within static),
+    and graftlint's static run over the tree is counted. Returns the f32
+    record and the lint record."""
+    import contextlib
+    import io
+    import tempfile
+
+    from chainermn_torch.analysis import run_analysis, sanitizer
+    from chainermn_torch.analysis.__main__ import _runtime_report
+    from chainermn_torch.analysis.checkers import all_checkers
+    from chainermn_torch.analysis.checkers.locks import static_lock_graph
+    from chainermn_torch.analysis.core import load_project
+
+    pkg = str(ROOT / "chainermn_torch")
+    t0 = time.perf_counter()
+    static = run_analysis([pkg], all_checkers()).to_json()["counts"]
+    project, _ = load_project([pkg])
+    graph = static_lock_graph(project)
+    static_s = time.perf_counter() - t0
+    sanitizer.reset()
+    sanitizer.enable(static_graph=graph)
+    try:
+        t0 = time.perf_counter()
+        f32 = _fleet_f32(device)
+        f32_s = time.perf_counter() - t0
+        observed = sorted(sanitizer.observed_class_edges(leaf=True))
+        holds = sanitizer.hold_stats()
+    finally:
+        sanitizer.disable()
+    tmp = tempfile.mkdtemp(prefix="sanitizer_")
+    try:
+        art = sanitizer.dump_artifact(str(Path(tmp) / "serve_fleet.json"))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = _runtime_report(art, [pkg])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lint = {"static": static, "static_s": static_s,
+            "static_edges": sorted(graph), "observed_class_edges": observed,
+            "locks_instrumented": sorted(holds),
+            "violations": sanitizer.violations(),
+            "runtime_report_rc": rc, "runtime_report": buf.getvalue(),
+            "sanitized_f32_s": f32_s}
+    sanitizer.reset()
+    return f32, lint
 
 
 def _fleet_f32(device):
@@ -3596,7 +3674,8 @@ def phase_dp_parity(device):
 
 # the ImageNet trainer twin at full width (ResNet-50, 224x224, 1000
 # classes, batch 256 a rank, one NCCL rank, a bf16 wire) in each mode:
-# name -> (flags, native loader asked for)
+# name -> (flags, native loader asked for, profiled). The two c_ layouts
+# are not profiled since PR 17 (their idle share paid for d_jpeg_dir).
 IMAGENET = ["--arch", "resnet50", "--classes", "1000", "--image-size", "224",
             "--communicator", "pure_nccl", "--dtype", "bfloat16",
             "--n-synthetic", "16384"]
@@ -3606,16 +3685,30 @@ IMAGENET_MODES = {
     "a_recipe_native_prefetch": (
         ["--batchsize", "256", "--recipe", "--epoch", "90", "--val-frac",
          "0.02", "--native-loader", "--device-prefetch", "2",
-         "--iterations", "30"], True),
+         "--iterations", "30"], True, True),
     # the numpy collate on the loop's thread
     "b_numpy_collate": (["--batchsize", "256", "--no-native-loader",
-                         "--iterations", "8"], False),
+                         "--iterations", "8"], False, True),
     # the two other layouts run on NCCL
-    "c_fsdp": (["--batchsize", "64", "--fsdp", "--iterations", "5"], False),
+    "c_fsdp": (["--batchsize", "64", "--fsdp", "--iterations", "5"], False,
+               False),
     "c_mnbn_double_buffering": (["--batchsize", "64", "--mnbn",
                                  "--double-buffering", "--iterations", "5"],
-                                False),
+                                False, False),
+    # JPEGs from a directory (JPEG_TREE, written at the phase's start),
+    # through the device prefetcher; the tree sets the class count. Its
+    # classes are noise, so LR 0.01: at the default 0.1 the loss climbed
+    # 2.15 -> 25 in the 12 steps. The decoder is declared: PIL, because
+    # the card host has no libjpeg headers or library for the native one
+    # (PERF.md, PR 17)
+    "d_jpeg_dir": (["--batchsize", "256", "--train-dir", "{jpeg_tree}",
+                    "--jpeg-decoder", "pil", "--device-prefetch", "2",
+                    "--epoch", "1000", "--lr", "0.01", "--iterations", "12"],
+                   False, True),
 }
+# d_jpeg_dir's tree: seeded JPEGs about the size of an ImageNet file
+JPEG_TREE = dict(files=512, classes=8, width=500, height=375, quality=90,
+                 seed=SEED)
 IMAGENET_PROFILE = dict(wait=2, active=3)   # loop iterations
 
 
@@ -3661,65 +3754,204 @@ def _profiled_twin(argv, wait, active):
     return kernels / 1e6, copies / 1e6, wall
 
 
-def phase_imagenet(device, step_images_per_sec):
+def _jpeg_tree(root):
+    """JPEG_TREE under ``root``: ``classes`` folders of seeded 500x375
+    JPEGs (a smooth base plus noise, quality 90: ~100 KB a file, about an
+    ImageNet file's size), written by PIL. 32 distinct images, each under
+    16 names, keep the write short; the decoder does the same work for
+    each file. Returns the bytes written."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    t = JPEG_TREE
+    rs = np.random.RandomState(t["seed"])
+    h, w = t["height"], t["width"]
+    blobs = []
+    for _ in range(32):
+        base = np.kron(rs.rand(h // 8 + 1, w // 8 + 1, 3),
+                       np.ones((8, 8, 1)))[:h, :w] * 255
+        img = np.clip(base + rs.randn(h, w, 3) * 16, 0, 255).astype(np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "JPEG", quality=t["quality"])
+        blobs.append(buf.getvalue())
+    per_class = t["files"] // t["classes"]
+    total = 0
+    for c in range(t["classes"]):
+        d = Path(root) / f"class_{c:02d}"
+        d.mkdir(parents=True)
+        for i in range(per_class):
+            data = blobs[(c * per_class + i) % len(blobs)]
+            (d / f"{i:04d}.jpg").write_bytes(data)
+            total += len(data)
+    return total
+
+
+def _jpeg_host() -> dict:
+    """What the host offers the JPEG decoders: PIL's version, libjpeg's
+    header and shared library, and whether that library is
+    libjpeg-turbo."""
+    import ctypes.util
+    import importlib.util
+
+    pil = None
+    if importlib.util.find_spec("PIL"):
+        import PIL
+
+        pil = PIL.__version__
+    lib = ctypes.util.find_library("jpeg")
+    turbo = None
+    for d in ("/usr/lib/x86_64-linux-gnu", "/usr/lib64", "/usr/lib",
+              "/usr/local/lib"):
+        for name in ("libjpeg.so", "libjpeg.so.8", "libjpeg.so.62"):
+            path = Path(d) / name
+            if path.exists():
+                turbo = b"libjpeg-turbo" in path.read_bytes()
+                lib = str(path.resolve())
+                break
+        if turbo is not None:
+            break
+    return {"pil": pil, "jpeglib_h": Path("/usr/include/jpeglib.h").exists(),
+            "libjpeg": lib, "libjpeg_turbo": turbo}
+
+
+def _decode_alone(root, batch, image_size):
+    """One batch of the tree decoded alone, by each decoder the host has:
+    ms a batch, and the native decoder's thread count."""
+    import importlib.util
+    import os
+
+    from chainermn_torch.native import jpeg
+
+    paths, _, _ = jpeg.scan_image_directory(str(root))
+    blobs = [Path(p).read_bytes() for p in paths[:batch]]
+    out = {"batch": len(blobs), "threads": min(8, os.cpu_count() or 1)}
+    decoders = []
+    if jpeg.native_available():
+        decoders.append("native")
+    else:
+        out["native_ms_per_batch"] = ("not measured: the C++ decoder does "
+                                      "not build here")
+    if importlib.util.find_spec("PIL"):
+        decoders.append("pil")
+    for dec in decoders:
+        jpeg.decode_jpeg_batch(blobs[:8], image_size, decoder=dec)  # warm
+        t0 = time.perf_counter()
+        _, nfail = jpeg.decode_jpeg_batch(blobs, image_size, decoder=dec)
+        out[f"{dec}_ms_per_batch"] = (time.perf_counter() - t0) * 1e3
+        out[f"{dec}_failed"] = nfail
+    return out
+
+
+def phase_imagenet(device, step_images_per_sec, card):
     """The ImageNet trainer twin (``chainermn_torch.examples.imagenet.
     train_imagenet.main``) in process at full width, in each of
     IMAGENET_MODES: a timed run (the loop's images/s excludes the first
-    iteration, as the reference's does), then a profiled run of
-    IMAGENET_PROFILE's iterations for the device idle share (kernel time
-    over the window's wall time; the copies are reported beside it). One
-    JSON line per mode, beside dp_train's step-only images/s. Fails if a
-    loss is not finite, a mode prints no ``done:`` line, or the native
-    loader was asked for and did not run."""
+    iteration, as the reference's does), then, for the profiled modes, a
+    run of IMAGENET_PROFILE's iterations for the device idle share
+    (kernel time over the window's wall time; the copies are reported
+    beside it). One JSON line per mode, beside dp_train's step-only
+    images/s. ``d_jpeg_dir`` reads JPEG_TREE, written at the start, on
+    the native decoder it declares, and also reports a batch decoded
+    alone by each decoder the host has. Fails if a loss is not finite, a
+    mode prints no ``done:`` line, the native loader was asked for and
+    did not run, or the JPEG mode's native decoder did not run or a
+    decode failed."""
+    import os
+    import tempfile
+
     import torch
 
+    from chainermn_torch.native import jpeg
+
     torch.backends.cudnn.benchmark = True
+    tree = tempfile.mkdtemp(prefix="jpeg_tree_")
     records = []
-    for mode, (flags, native) in IMAGENET_MODES.items():
-        argv = IMAGENET + flags
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(device)
+    try:
         t0 = time.perf_counter()
-        summary, printed = _twin(argv)
-        run_s = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated(device)
-        cut = argv.index("--iterations")
-        kernel_s, copy_s, wall = _profiled_twin(
-            argv[:cut] + argv[cut + 2:], **IMAGENET_PROFILE)
-        done = [ln for ln in printed if ln.startswith("done: ")]
-        rec = {"phase": "imagenet", "mode": mode, "argv": argv,
-               "printed": printed, "run_s": run_s,
-               "iterations": summary["iterations"],
-               "loop_images_per_sec": summary["images_per_sec"],
-               "dp_train_step_images_per_sec": step_images_per_sec,
-               "loop_over_step": (summary["images_per_sec"]
-                                  / step_images_per_sec
-                                  if summary["images_per_sec"] else None),
-               "native_loader": summary["native_loader"],
-               "h2d_seconds_per_batch": summary["h2d_seconds_per_batch"],
-               "profiled_iterations": IMAGENET_PROFILE["active"],
-               "profiled_wall_ms_per_iter":
-                   wall / IMAGENET_PROFILE["active"] * 1e3,
-               "device_kernel_ms_per_iter":
-                   kernel_s / IMAGENET_PROFILE["active"] * 1e3,
-               "device_copy_ms_per_iter":
-                   copy_s / IMAGENET_PROFILE["active"] * 1e3,
-               "device_idle_share": (1 - kernel_s / wall) if kernel_s > 0
-               else "not measured",
-               "peak_memory_allocated_gb": peak / 1e9,
-               "top1": summary["top1"], "params": summary["params"],
-               "losses": summary["losses"],
-               "losses_finite": summary["losses_finite"]}
-        emit(rec)
-        records.append(rec)
-        if not summary["losses_finite"]:
-            raise AssertionError(f"imagenet {mode}: a loss is not finite")
-        if not done:
-            raise AssertionError(f"imagenet {mode}: no 'done:' line")
-        if native and not summary["native_loader"]:
-            raise AssertionError(f"imagenet {mode}: the native loader was "
-                                 "asked for and did not run")
-        torch.cuda.empty_cache()
+        tree_bytes = _jpeg_tree(tree)
+        tree_s = time.perf_counter() - t0
+        for mode, (flags, native, profiled) in IMAGENET_MODES.items():
+            argv = IMAGENET + [f.format(jpeg_tree=tree) for f in flags]
+            decoded0 = dict(jpeg.DECODED)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            summary, printed = _twin(argv)
+            run_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated(device)
+            decoded = {k: jpeg.DECODED[k] - decoded0[k] for k in decoded0}
+            cut = argv.index("--iterations")
+            kernel_s = copy_s = wall = None
+            if profiled:
+                kernel_s, copy_s, wall = _profiled_twin(
+                    argv[:cut] + argv[cut + 2:], **IMAGENET_PROFILE)
+            done = [ln for ln in printed if ln.startswith("done: ")]
+            per = IMAGENET_PROFILE["active"]
+            rec = {"phase": "imagenet", "mode": mode, "card": card,
+                   "argv": argv, "printed": printed, "run_s": run_s,
+                   "iterations": summary["iterations"],
+                   "loop_images_per_sec": summary["images_per_sec"],
+                   "dp_train_step_images_per_sec": step_images_per_sec,
+                   "loop_over_step": (summary["images_per_sec"]
+                                      / step_images_per_sec
+                                      if summary["images_per_sec"]
+                                      else None),
+                   "native_loader": summary["native_loader"],
+                   "h2d_seconds_per_batch": summary["h2d_seconds_per_batch"],
+                   "profiled_iterations": per if profiled else 0,
+                   "profiled_wall_ms_per_iter":
+                       wall / per * 1e3 if profiled else "not measured",
+                   "device_kernel_ms_per_iter":
+                       kernel_s / per * 1e3 if profiled else "not measured",
+                   "device_copy_ms_per_iter":
+                       copy_s / per * 1e3 if profiled else "not measured",
+                   "device_idle_share": (1 - kernel_s / wall)
+                   if profiled and kernel_s > 0 else "not measured",
+                   "peak_memory_allocated_gb": peak / 1e9,
+                   "top1": summary["top1"], "params": summary["params"],
+                   "losses": summary["losses"],
+                   "losses_finite": summary["losses_finite"]}
+            if summary["jpeg_decoder"] is not None:
+                rec.update({
+                    "jpeg_tree": dict(JPEG_TREE, bytes=tree_bytes,
+                                      write_s=tree_s),
+                    "classes": summary["classes"],
+                    "jpeg_decoder": summary["jpeg_decoder"],
+                    "images_decoded": decoded,
+                    "failed_decodes": summary["failed_decodes"],
+                    "decode_alone": _decode_alone(tree, 256, 224),
+                    "host": _jpeg_host(), "cpu_count": os.cpu_count()})
+            emit(rec)
+            records.append(rec)
+            if not summary["losses_finite"]:
+                raise AssertionError(f"imagenet {mode}: a loss is not "
+                                     "finite")
+            if not done:
+                raise AssertionError(f"imagenet {mode}: no 'done:' line")
+            if native and not summary["native_loader"]:
+                raise AssertionError(f"imagenet {mode}: the native loader "
+                                     "was asked for and did not run")
+            if "--train-dir" in argv:
+                want = argv[argv.index("--jpeg-decoder") + 1]
+                other = ({"native", "pil"} - {want}).pop()
+                if summary["jpeg_decoder"] != want \
+                        or decoded[want] < summary["iterations"] * 256 \
+                        or decoded[other]:
+                    raise AssertionError(f"imagenet {mode}: the declared "
+                                         f"{want} decoder did not run "
+                                         f"alone: {decoded}")
+                if summary["failed_decodes"] != 0:
+                    raise AssertionError(f"imagenet {mode}: "
+                                         f"{summary['failed_decodes']} "
+                                         "failed decodes")
+                if summary["classes"] != JPEG_TREE["classes"]:
+                    raise AssertionError(f"imagenet {mode}: "
+                                         f"{summary['classes']} classes")
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tree, ignore_errors=True)
     torch.backends.cudnn.benchmark = False
     return records
 
@@ -3927,16 +4159,124 @@ if len(ARGS) > 1:
         # one way, averaged over 50 round trips
         summary["pingpong_ms"][name] = (time.perf_counter() - t0) / 100 * 1e3
     comm.finalize()
+if "objstore" in ARGS[2:]:
+    summary["objstore"] = OBJSTORE_PART()
 save(summary)
 dist.destroy_process_group()
 """
 
 
-def _two_ranks(module, *pingpong_shape):
+# the object-store sidecar inside mnist_mp's two ranks, after the twin:
+# rank 0 starts the C++ store, both ranks make a communicator with
+# CHAINERMN_TORCH_OBJSTORE set, and the same object traffic runs over the
+# sidecar and over gloo (the dataset scatter ships the twin's training
+# set; a 64 MB bcast_obj). Digests of every result, each op's ms on both
+# transports, and the store's keys after the ack-GC's flush.
+_OBJSTORE_PART = """
+def OBJSTORE_PART():
+    import hashlib, pickle
+    import numpy as np
+    from chainermn_torch import create_communicator
+    from chainermn_torch.datasets import scatter_dataset
+    from chainermn_torch.examples.mnist.train_mnist import (
+        ArrayDataset, load_mnist)
+    from chainermn_torch.native import objstore
+
+    def digest(obj):
+        if isinstance(obj, torch.Tensor):
+            obj = (str(obj.dtype), tuple(obj.shape),
+                   obj.detach().cpu().contiguous().view(-1)
+                   .view(torch.uint8).numpy().tobytes())
+        return hashlib.sha1(pickle.dumps(obj)).hexdigest()
+
+    (x, y), _ = load_mnist(None, 8000, 1000)
+    data = ArrayDataset(x, y)
+    big = np.random.RandomState(7).bytes(64 << 20)
+
+    def ops(comm):
+        out, ms = {}, {}
+
+        def timed(name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) * 1e3
+            out[name] = res
+
+        timed("scatter_dataset", lambda: digest([
+            (a.tobytes(), int(b)) for a, b in scatter_dataset(
+                data, comm, shuffle=True, seed=0, force_transport=True)]))
+        timed("bcast_obj_64mb", lambda: digest(comm.bcast_obj(
+            big if comm.rank == 0 else None)))
+        timed("allgather_obj", lambda: comm.allgather_obj(
+            ("rank", comm.rank, list(range(comm.rank + 3)))))
+        timed("scatter_obj", lambda: comm.scatter_obj(
+            [{"part": r} for r in range(comm.size)]
+            if comm.rank == 0 else None))
+        peer = 1 - comm.rank
+
+        def p2p_obj():
+            if comm.rank == 0:
+                comm.send_obj({"ping": np.arange(5)}, peer, tag=11)
+                return digest(comm.recv_obj(peer, tag=12))
+            got = comm.recv_obj(peer, tag=11)
+            comm.send_obj({"pong": got["ping"] * 2}, peer, tag=12)
+            return digest(got)
+
+        timed("send_recv_obj", p2p_obj)
+        g = torch.Generator(device="cuda").manual_seed(5)
+        t = torch.randn(100, 500, device="cuda", generator=g)
+
+        def p2p_tensor():
+            if comm.rank == 0:
+                comm.send({"x": t, "y": [t.to(torch.bfloat16)]}, peer,
+                          tag=13)
+                return digest(t)
+            got = comm.recv(peer, tag=13)
+            return [digest(got["x"]), digest(got["y"][0]),
+                    str(got["x"].device)]
+
+        timed("send_recv_tensor", p2p_tensor)
+        comm.barrier()
+        return out, ms
+
+    gloo = create_communicator("naive", device="cuda")
+    plain, plain_ms = ops(gloo)
+    server = objstore.ObjStoreServer() if gloo.rank == 0 else None
+    port = gloo.bcast_obj(server.port if server is not None else None)
+    os.environ["CHAINERMN_TORCH_OBJSTORE"] = f"127.0.0.1:{port}"
+    comm = create_communicator("naive", device="cuda")
+    native, native_ms = ops(comm)
+    left = comm._obj.flush_gc(60)
+    gloo.barrier()
+    keys = (comm._obj._store.list_prefix("chainermn_torch/obj/")
+            if server is not None else None)
+    gloo.barrier()
+    rec = {"transport": comm.object_transport,
+           "gloo_transport": gloo.object_transport,
+           "equal": {k: native[k] == plain[k] for k in plain},
+           "results": native, "gloo_ms": plain_ms, "objstore_ms": native_ms,
+           "pending_rounds_after_flush": left, "keys_left": keys}
+    comm.finalize()
+    del os.environ["CHAINERMN_TORCH_OBJSTORE"]
+    gloo.finalize()
+    if server is not None:
+        server.stop()
+    return rec
+"""
+
+
+def _two_ranks(module, *pingpong_shape, objstore=False):
     from chainermn_torch.testing import run_ranks
 
-    return run_ranks(_TWO_RANKS_ON_ONE_CARD, 2,
-                     args=[module, *pingpong_shape], timeout=600)
+    script = _TWO_RANKS_ON_ONE_CARD
+    extra = []
+    if objstore:
+        script = _OBJSTORE_PART + script
+        extra = ["objstore"]
+    return run_ranks(script, 2, args=[module, *pingpong_shape, *extra],
+                     timeout=600)
 
 
 def _mp_one_process(device, n_steps):
@@ -3983,7 +4323,8 @@ def phase_mnist_mp(device, card):
     other stage)."""
     t0 = time.perf_counter()
     ranks = _two_ranks("chainermn_torch.examples.mnist."
-                       "train_mnist_model_parallel", "100,500")
+                       "train_mnist_model_parallel", "100,500",
+                       objstore=True)
     run_s = time.perf_counter() - t0
     ref = _mp_one_process(device, MP_PARITY_STEPS)
     stage1 = ranks[1]
@@ -4016,6 +4357,29 @@ def phase_mnist_mp(device, card):
            "first_losses": losses[:MP_PARITY_STEPS],
            "one_process_losses": ref, "parity_max_abs_diff": parity}
     emit(rec)
+    sidecar = [out["objstore"] for out in ranks]
+    emit({"phase": "objstore_sidecar", "card": card, "ranks": 2,
+          "host": "mnist_mp's two rank processes, after the twin",
+          "payload_bcast_bytes": 64 << 20,
+          "ranks_out": [{k: v for k, v in r.items() if k != "results"}
+                        for r in sidecar]})
+    for r, side in enumerate(sidecar):
+        if side["transport"] != "objstore" or \
+                side["gloo_transport"] != "gloo":
+            raise AssertionError(f"objstore_sidecar rank {r}: transports "
+                                 f"{side['transport']}/"
+                                 f"{side['gloo_transport']}")
+        if not all(side["equal"].values()):
+            raise AssertionError(f"objstore_sidecar rank {r}: results "
+                                 f"differ from gloo's: {side['equal']}")
+        if side["pending_rounds_after_flush"]:
+            raise AssertionError(f"objstore_sidecar rank {r}: "
+                                 f"{side['pending_rounds_after_flush']} "
+                                 "rounds never collected")
+    if sidecar[0]["keys_left"] != []:
+        raise AssertionError(f"objstore_sidecar: keys left in the store "
+                             f"after the last round: "
+                             f"{sidecar[0]['keys_left'][:8]}")
     for p in per_rank:
         if p["param_devices"] != ["cuda"]:
             raise AssertionError(f"mnist_mp: rank {p['rank']} holds "
@@ -4087,9 +4451,11 @@ SP_PARITY = dict(batch=8, seq_len=2048, heads=16, head_dim=64,
 # SP_LM: the 220M LM's widths at 4 of its 12 layers — the depth cut so
 # that the script, grown by the MoE, GSPMD and pipeline phases, stays
 # well inside its time limit (12 layers took 165 + 54 s of it); 1 + 3
-# steps (were 2 + 5), the cut that pays for serve_tp and reshard
+# steps (were 2 + 5), the cut that pays for serve_tp and reshard; batch
+# 4 of the train phase's 8 (since PR 17: the host-staged transfers, 0.95
+# of each step, halve with it)
 SP_LM = dict(LM, n_layers=4)
-SP_TRAIN = dict(batch=8, seq_len=2048, warmup_steps=1, timed_steps=3,
+SP_TRAIN = dict(batch=4, seq_len=2048, warmup_steps=1, timed_steps=3,
                 kinds=("ring_flash", "zigzag_flash", "ulysses_flash"),
                 loss_tol={"sp_train": 2e-2, "tp_train": 0.15},
                 grad_rel_tol=5e-2, small_tol=1e-4)
@@ -4573,7 +4939,8 @@ def phase_sp_train(card):
           "model": dict(SP_LM, compute_dtype="bf16"),
           "train": dict(SP_TRAIN, lr=TRAIN["lr"],
                         weight_decay=TRAIN["weight_decay"]),
-          "reduced": "4 of the 12 layers; B=8, T=2048 as the train phase",
+          "reduced": "4 of the 12 layers; B=4 of the train phase's 8, "
+                     "T=2048",
           "launches_want": want, "run_s": time.perf_counter() - t0,
           "ranks_out": ranks})
     _check_train("sp_train", ranks, want)
@@ -4663,7 +5030,8 @@ def phase_tp_train(card):
     emit({"phase": "tp_train", "card": card, "ranks": 2, "backend": "gloo",
           "model": dict(SP_LM, compute_dtype="bf16", tensor_parallel=2,
                         vocab_parallel_head=True, attention="flash"),
-          "reduced": "4 of the 12 layers; B=8, T=2048 as the train phase",
+          "reduced": "4 of the 12 layers; B=4 of the train phase's 8, "
+                     "T=2048",
           "launches_want": want, "run_s": time.perf_counter() - t0,
           "aggregate": {"ranks": aggs[0]["ranks"],
                         "same_on_every_rank": aggs[0] == aggs[1],
@@ -4762,6 +5130,9 @@ MOE = dict(experts=8, top_k=2, ranks=2, batch=2, seq_len=1024,
            first_loss_tol=1e-3, loss_tol=0.25, grad_rel_tol=5e-2,
            n_layers=6)
 GSPMD_TOL = dict(first_loss_tol=1e-3, loss_tol=0.25, grad_rel_tol=0.35)
+# gspmd_train's depth: 6 of the 220M LM's 12 layers (cut in PR 17 to pay
+# for that slice's parts; the widths stay the LM's)
+GSPMD_LAYERS = 6
 # GPipe: 4 stages (one block of the 220M LM's width each, 'full'
 # attention as make_pipeline_lm builds them) on 4 ranks, 8 microbatches
 # of 2 x 1024, remat (the step's default), 5 AdamW steps
@@ -4970,11 +5341,12 @@ def rank_gspmd_train():
                                 MOE["seq_len"], LM["vocab_size"], SEED + 11)
     ref_drops = []
     kw = dict(moe_impl="gshard", moe_capacity_factor=MOE["parity_capacity"])
-    ref_losses, ref_grads = _reference_run(_moe_lm(**kw), tokens, targets,
-                                           n_steps, ref_drops)
+    ref_losses, ref_grads = _reference_run(_moe_lm(GSPMD_LAYERS, **kw),
+                                           tokens, targets, n_steps,
+                                           ref_drops)
     torch.cuda.empty_cache()
     def sharded():
-        model = gspmd.megatron_shard(_moe_lm(**kw), comm)
+        model = gspmd.megatron_shard(_moe_lm(GSPMD_LAYERS, **kw), comm)
         opt = torch.optim.AdamW(model.parameters(), lr=TRAIN["lr"],
                                 weight_decay=TRAIN["weight_decay"])
         return model, opt, gspmd.gspmd_lm_train_step(model, opt, comm)
@@ -5013,18 +5385,20 @@ def phase_gspmd_train(card):
     ``grad_rel_tol`` of the replicated model's and the planted fault's
     not, the stored parameter and optimizer fractions at most 1/2 plus
     the replicated leaves' share, and every attention call on the flash
-    kernels (12 launches of each a step)."""
+    kernels (GSPMD_LAYERS launches of each a step)."""
     t0 = time.perf_counter()
     ranks = _gloo_ranks("rank_gspmd_train", MOE["ranks"])
-    want = (MOE["warmup_steps"] + MOE["timed_steps"]) * LM["n_layers"]
+    want = (MOE["warmup_steps"] + MOE["timed_steps"]) * GSPMD_LAYERS
     emit({"phase": "gspmd_train", "card": card, "ranks": MOE["ranks"],
           "backend": "gloo",
-          "model": dict(LM, compute_dtype="bf16", attention="flash",
-                        moe_experts=MOE["experts"], moe_top_k=MOE["top_k"],
-                        moe_impl="gshard", layout="megatron, tp=2",
+          "model": dict(LM, n_layers=GSPMD_LAYERS, compute_dtype="bf16",
+                        attention="flash", moe_experts=MOE["experts"],
+                        moe_top_k=MOE["top_k"], moe_impl="gshard",
+                        layout="megatron, tp=2",
                         moe_capacity_factor=MOE["parity_capacity"]),
           "tolerances": GSPMD_TOL,
-          "reduced": "none: the 220M LM's widths and 12 layers",
+          "reduced": f"{GSPMD_LAYERS} of the 220M LM's 12 layers, its "
+                     "widths",
           "launches_want": want, "run_s": time.perf_counter() - t0,
           "ranks_out": ranks})
     for rk in ranks:
@@ -6618,7 +6992,7 @@ def main() -> int:
     comm.finalize()
     dp = timed("dp_train", phase_dp_train, device)
     timed("dp_parity", phase_dp_parity, device)
-    timed("imagenet", phase_imagenet, device, dp["images_per_sec"])
+    timed("imagenet", phase_imagenet, device, dp["images_per_sec"], smi)
     timed("mnist", phase_mnist, device, smi)
     timed("mnist_checkpoint", phase_mnist_checkpoint, smi)
     timed("mnist_mp", phase_mnist_mp, device, smi)

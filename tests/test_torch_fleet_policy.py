@@ -10,6 +10,7 @@ lock-order, guard and single-writer checks (ports of
 cases). Host logic only: no engine, no device."""
 
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -151,7 +152,7 @@ def test_retry_budget_allows_as_the_reference(seed):
 
 
 @pytest.mark.parametrize("seed", SEEDS)
-def test_tenant_breaker_trips_as_the_reference(seed):
+def test_tenant_breaker_trips_as_the_reference(seed, monkeypatch):
     rng = np.random.default_rng(seed)
     kw = dict(window_s=float(rng.choice([2.0, 5.0])),
               shed_threshold=float(rng.choice([0.3, 0.5])),
@@ -182,6 +183,11 @@ def test_tenant_breaker_trips_as_the_reference(seed):
         elif kind == "noisy":
             ours.note_noisy(tenant)
             theirs.note_noisy(tenant)
+    # to_json reports each open breaker's time left against the clock it
+    # reads then: one clock reading for both, or two readings straddling
+    # a millisecond round apart
+    clock = time.monotonic()
+    monkeypatch.setattr(time, "monotonic", lambda: clock)
     assert ours.to_json() == theirs.to_json()
 
 

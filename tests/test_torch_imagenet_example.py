@@ -85,6 +85,7 @@ def _reference_example():
 _WORKER = """
 import contextlib
 import io
+import os
 import numpy as np
 import torch
 from chainermn_torch import (
@@ -124,10 +125,30 @@ for name, flags in spec["flags"].items():
     with contextlib.redirect_stdout(buf):
         summary = twin.main(flags + ["--device", "cpu"])
     out["main"][name] = (buf.getvalue(), summary)
+# a seeded JPEG tree (the same bytes on both ranks): 2 classes x 8
+import tempfile
+from PIL import Image
+
+tree = tempfile.mkdtemp()
+rs = np.random.RandomState(0)
+for cname in ("class_a", "class_b"):
+    os.makedirs(os.path.join(tree, cname))
+    for i in range(8):
+        arr = (np.kron(rs.rand(6, 6, 3), np.ones((8, 8, 1)))[:48, :48]
+               * 255).astype(np.uint8)
+        Image.fromarray(arr).save(os.path.join(tree, cname, f"{i}.jpg"),
+                                  "JPEG")
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    summary = twin.main(["--arch", "resnet18", "--batchsize", "2",
+                         "--iterations", "2", "--image-size", "32",
+                         "--train-dir", tree, "--device-prefetch", "2",
+                         "--device", "cpu"])
+out["train_dir"] = (buf.getvalue(), summary)
 try:
-    twin.main(["--train-dir", "/nonexistent", "--device", "cpu"])
+    twin.main(["--train-dir", tree, "--val-frac", "0.1", "--device", "cpu"])
 except SystemExit as e:
-    out["train_dir"] = str(e)
+    out["train_dir_val_frac"] = str(e)
 world.finalize()
 save(out)
 """
@@ -207,7 +228,9 @@ def test_main_prints_what_the_reference_prints(runs, name):
 def test_recipe_and_native_loader_paths(runs):
     """The recipe evaluates every epoch through the multi-node evaluator
     and runs the native C++ loader; --native-loader takes it explicitly;
-    --train-dir names its ROADMAP item."""
+    --train-dir trains from a JPEG tree on the native decoder (each rank
+    its shard of the files, through the device prefetcher) and refuses
+    --val-frac, as the reference does."""
     _, got = runs
     main = got[0]["main"]
     assert main["recipe"][1]["native_loader"]
@@ -216,4 +239,15 @@ def test_recipe_and_native_loader_paths(runs):
     assert main["native_loader"][1]["native_loader"]
     assert not main["plain"][1]["native_loader"]
     assert main["fsdp"][1]["top1"] is not None
-    assert "ROADMAP" in got[0]["train_dir"]
+    stdout, summary = got[0]["train_dir"]
+    assert "input pipeline: JPEG directory, native libjpeg, 2 classes" \
+        in stdout
+    assert "done: 2 iterations" in stdout
+    assert summary["jpeg_decoder"] == "native"
+    assert summary["failed_decodes"] == 0 and summary["classes"] == 2
+    assert summary["iterations"] == 2 and summary["losses_finite"]
+    assert "device prefetch: depth 2" in stdout
+    assert got[1]["train_dir"][0] == ""            # rank 0 prints alone
+    assert got[1]["train_dir"][1]["losses"] == summary["losses"]
+    for r in range(2):
+        assert "--val-frac" in got[r]["train_dir_val_frac"]
