@@ -22,8 +22,8 @@
 //   - f32 inputs use plain f32 FMA (never TF32).
 //
 // What it takes: f32, bf16 or f16 inputs (one type for all four), outputs
-// in that type or f32 (f32 inputs may also write bf16), D = 64 or 128
-// (the wrapper pads other head dims up to 128 with zero lanes), any Tq and
+// in that type or f32 (f32 inputs may also write bf16), D = 64, 128 or 256
+// (the wrapper pads other head dims up to 256 with zero lanes), any Tq and
 // Tk, and any B * H: the (batch, head) pairs run on grid y and, past
 // 65535 of them, on grid z as well (flash_grid).
 //
@@ -93,7 +93,8 @@ using bf16 = __nv_bfloat16;
 
 // Tile rows and shared-memory row padding of the f32 kernels: an odd pitch
 // lets the scalar products read columns without bank conflicts, and 32-row
-// tiles keep the dk/dv block inside shared memory at D = 128.
+// tiles keep the dk/dv block inside shared memory up to D = 256 (216,064 B
+// there; the forward 141,056 and dq 178,560).
 constexpr int kTile = 32;
 constexpr int kPad = 1;
 
@@ -232,6 +233,7 @@ struct Layout {
       4 * kTileBytes + 2 * kScoreBytes + kPBytes + kAccBytes + 2 * kStatBytes;
   static constexpr size_t kDkv = 4 * kTileBytes + 2 * kScoreBytes +
                                  2 * kPBytes + 2 * kAccBytes + 2 * kStatBytes;
+  static_assert(kDkv <= 232448, "f32 dk/dv tiles exceed shared memory");
 };
 
 // ---------------------------------------------------------------- forward --
@@ -571,6 +573,8 @@ int dispatch(const FlashArgs* a, void* stream) {
     err = dispatch_types<KIND, 64>(*a, st);
   else if (a->head_dim == 128)
     err = dispatch_types<KIND, 128>(*a, st);
+  else if (a->head_dim == 256)
+    err = dispatch_types<KIND, 256>(*a, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -12,7 +12,7 @@
 // the same contract (flash_attention.cu's header).
 //
 // Design (two consumer warpgroups, 256 threads; a CTA owns 128 rows of its
-// sequence, each warpgroup 64 of them):
+// sequence, each warpgroup 64 of them; D = 256 differs as noted):
 //   - dk/dv: a CTA per (batch*head, 128-key tile). K and V are loaded once.
 //     Q, dO, lse and delta tiles stream through a 3-stage ring, starting at
 //     the first query tile that sees the keys. Each warpgroup computes
@@ -36,6 +36,18 @@
 //   - Interior tiles take no mask; the diagonal and tail tiles zero p by
 //     predicate from each accumulator element's (row, col).
 //   - Every gradient is written once, with no atomics: deterministic.
+//   - D = 256 (bf16/f16). The register file, not shared memory, sets the
+//     tiles: a warpgroup's 64 x 256 f32 accumulator is 128 registers a
+//     thread, and dK plus dV of the same 64 rows would be 256, past the
+//     255 a thread may hold. So dk/dv takes 64 keys a CTA, and each
+//     warpgroup holds dK and dV for 128 of the 256 columns (128 registers);
+//     both warpgroups compute the whole S^T and dP^T of the 64 keys (their
+//     products are a third of the kernel's, so half of them are repeated),
+//     then multiply by their own column half of Q and dO. dq keeps 128
+//     query rows and its 128-register dQ, with 32-key K/V stages so that
+//     Q, dO and the 3-stage ring fit in 230,400 B of shared memory. An
+//     N = 256 product with A in registers runs as two N = 128 wgmmas on
+//     the two column halves (gemm_rs).
 
 #pragma once
 
@@ -43,6 +55,7 @@ constexpr int kSm90Threads = 256;  // two warpgroups
 constexpr int kSm90Rows = 128;     // rows of its own sequence a CTA owns
 constexpr int kStages = 3;         // depth of the load ring
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr size_t kSmemLimit = 232448;  // dynamic shared memory a CTA may use
 
 // ------------------------------------------------------------ PTX helpers --
 
@@ -182,24 +195,24 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
       " %32, %33, %34, %35, %36, %37, %38, %39, "                         \
       " %40, %41, %42, %43, %44, %45, %46, %47, "                         \
       " %48, %49, %50, %51, %52, %53, %54, %55, "                         \
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "                         \
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "                        \
       "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                       \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                   \
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                   \
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                 \
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),               \
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),               \
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),               \
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),               \
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),               \
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),               \
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),               \
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),               \
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),               \
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),               \
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),               \
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),               \
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                \
+      : "+f"(d[O + 0]), "+f"(d[O + 1]), "+f"(d[O + 2]), "+f"(d[O + 3]),   \
+        "+f"(d[O + 4]), "+f"(d[O + 5]), "+f"(d[O + 6]), "+f"(d[O + 7]),   \
+        "+f"(d[O + 8]), "+f"(d[O + 9]), "+f"(d[O + 10]), "+f"(d[O + 11]), \
+        "+f"(d[O + 12]), "+f"(d[O + 13]), "+f"(d[O + 14]), "+f"(d[O + 15]), \
+        "+f"(d[O + 16]), "+f"(d[O + 17]), "+f"(d[O + 18]), "+f"(d[O + 19]), \
+        "+f"(d[O + 20]), "+f"(d[O + 21]), "+f"(d[O + 22]), "+f"(d[O + 23]), \
+        "+f"(d[O + 24]), "+f"(d[O + 25]), "+f"(d[O + 26]), "+f"(d[O + 27]), \
+        "+f"(d[O + 28]), "+f"(d[O + 29]), "+f"(d[O + 30]), "+f"(d[O + 31]), \
+        "+f"(d[O + 32]), "+f"(d[O + 33]), "+f"(d[O + 34]), "+f"(d[O + 35]), \
+        "+f"(d[O + 36]), "+f"(d[O + 37]), "+f"(d[O + 38]), "+f"(d[O + 39]), \
+        "+f"(d[O + 40]), "+f"(d[O + 41]), "+f"(d[O + 42]), "+f"(d[O + 43]), \
+        "+f"(d[O + 44]), "+f"(d[O + 45]), "+f"(d[O + 46]), "+f"(d[O + 47]), \
+        "+f"(d[O + 48]), "+f"(d[O + 49]), "+f"(d[O + 50]), "+f"(d[O + 51]), \
+        "+f"(d[O + 52]), "+f"(d[O + 53]), "+f"(d[O + 54]), "+f"(d[O + 55]), \
+        "+f"(d[O + 56]), "+f"(d[O + 57]), "+f"(d[O + 58]), "+f"(d[O + 59]), \
+        "+f"(d[O + 60]), "+f"(d[O + 61]), "+f"(d[O + 62]), "+f"(d[O + 63]) \
       : "r"(f[0]), "r"(f[1]), "r"(f[2]), "r"(f[3]), "l"(b), "r"(1))
 
 template <typename T>
@@ -233,14 +246,24 @@ __device__ __forceinline__ void mma_rs(float (&d)[32],
     CMN_MMA_RS_N64("bf16");
 }
 
-template <typename T>
-__device__ __forceinline__ void mma_rs(float (&d)[64],
-                                       const uint32_t (&f)[4],
-                                       uint64_t b) {
+// N = 128 into the accumulator's elements O .. O + 63 (O = 64: the second
+// column half of an N = 256 accumulator, gemm_rs).
+template <typename T, int O, int NR>
+__device__ __forceinline__ void mma_rs128(float (&d)[NR],
+                                          const uint32_t (&f)[4],
+                                          uint64_t b) {
+  static_assert(O + 64 <= NR, "accumulator half");
   if constexpr (kIsHalf<T>)
     CMN_MMA_RS_N128("f16");
   else
     CMN_MMA_RS_N128("bf16");
+}
+
+template <typename T>
+__device__ __forceinline__ void mma_rs(float (&d)[64],
+                                       const uint32_t (&f)[4],
+                                       uint64_t b) {
+  mma_rs128<T, 0>(d, f, b);
 }
 
 // ------------------------------------------------------------ tile layout --
@@ -330,13 +353,25 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&f)[KS][4],
 }
 
 // d += A B: A the register fragments, B an R_B-row tile read MN-major.
+// N = 256 (NR = 128) runs as two N = 128 products, one on each column
+// half: B's panels 0-1 and 2-3, d's elements 0..63 and 64..127 (element i
+// of an N = 256 fragment is element i - 64 of the second half's, 128
+// columns on: frag_col(i) = 128 + frag_col(i - 64)).
 template <typename T, int R_B, int KS, int NR>
 __device__ __forceinline__ void gemm_rs(float (&d)[NR],
                                         const uint32_t (&f)[KS][4],
                                         uint32_t b_tile) {
+  if constexpr (NR == 128) {
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-    mma_rs<T>(d, f[kk], desc_mn<R_B>(b_tile, kk));
+    for (int kk = 0; kk < KS; ++kk) {
+      mma_rs128<T, 0>(d, f[kk], desc_mn<R_B>(b_tile, kk));
+      mma_rs128<T, 64>(d, f[kk], desc_mn<R_B>(b_tile + 2 * R_B * 128, kk));
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      mma_rs<T>(d, f[kk], desc_mn<R_B>(b_tile, kk));
+  }
 }
 
 // Accumulator element i of a thread: row (within the warpgroup's 64) and
@@ -366,18 +401,23 @@ __device__ __forceinline__ void store2(half* p, float x, float y) {
 
 template <int D>
 struct DkvTiles {
+  // D = 256: 64 keys a CTA, each warpgroup dK and dV of half the columns
+  static constexpr bool kColSplit = D > 128;
+  static constexpr int kRows = kColSplit ? 64 : kSm90Rows;  // keys a CTA
+  static constexpr int kCols = kColSplit ? D / 2 : D;  // dK/dV columns a wg
   static constexpr int kBq = D == 64 ? 64 : 32;  // query rows a stage
-  static constexpr uint32_t kKv = kSm90Rows * D * 2;  // bytes of K or V
+  static constexpr uint32_t kKv = kRows * D * 2;      // bytes of K or V
   static constexpr uint32_t kQ = kBq * D * 2;         // of Q or dO
   static constexpr uint32_t kStage = (2 * kQ + 2 * kBq * 4 + 1023) / 1024 * 1024;
   static constexpr size_t kSmem = 2 * kKv + kStages * kStage + 1024;
+  static_assert(kSmem <= kSmemLimit, "dk/dv tiles exceed shared memory");
 };
 
 template <typename T, typename OT, int D>
 __global__ void __launch_bounds__(kSm90Threads, 1)
     flash_dkv_kernel_sm90(const FlashArgs a) {
   using L = DkvTiles<D>;
-  constexpr int BQ = L::kBq;
+  constexpr int BQ = L::kBq, NC = L::kCols;
   extern __shared__ __align__(128) unsigned char smem90[];
   const uint32_t raw = smem_addr(smem90);
   const uint32_t ks = (raw + 1023) & ~1023u, vs = ks + L::kKv,
@@ -387,8 +427,13 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
   const int H = static_cast<int>(a.heads);
   const int bh = blockIdx.z * gridDim.y + blockIdx.y, b = bh / H, h = bh % H;
   if (bh >= a.batch * a.heads) return;  // the last z-slice's spare CTAs
-  const int k0 = blockIdx.x * kSm90Rows;  // low keys: most causal work
-  const int wg = threadIdx.x / 128, kw0 = k0 + wg * 64;
+  const int k0 = blockIdx.x * L::kRows;  // low keys: most causal work
+  const int wg = threadIdx.x / 128;
+  // the warpgroup's 64 keys (their first row in the K/V tile) and its
+  // dK/dV columns c0 .. c0 + NC - 1 (their panels' offset in a Q/dO stage)
+  const int kr0 = L::kColSplit ? 0 : wg * 64, kw0 = k0 + kr0;
+  const int c0 = L::kColSplit ? wg * NC : 0;
+  const uint32_t c_off = (c0 / 64) * BQ * 128;
   const float scale = static_cast<float>(a.scale), sl2 = scale * kLog2e;
   const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
   const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
@@ -410,8 +455,8 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
     load_stat_async<BQ>(st + 2 * L::kQ + 4 * BQ, delta, q0, g.tq);
   };
   if (n_tiles > 0) {
-    load_tile<kSm90Rows, D>(ks, kb, a.k_st, k0, g.tk);
-    load_tile<kSm90Rows, D>(vs, vb, a.v_st, k0, g.tk);
+    load_tile<L::kRows, D>(ks, kb, a.k_st, k0, g.tk);
+    load_tile<L::kRows, D>(vs, vb, a.v_st, k0, g.tk);
   }
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
@@ -419,9 +464,9 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
     cp_async_commit();
   }
 
-  float dk[D / 2], dv[D / 2];
+  float dk[NC / 2], dv[NC / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < NC / 2; ++i) dk[i] = dv[i] = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
     if (it + kStages - 1 < n_tiles) load_stage(it + kStages - 1);
@@ -444,9 +489,9 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
                                                                  kw0 + 63);
       float s[BQ / 2], dp[BQ / 2];
       wgmma_fence();
-      gemm_ss<T, kSm90Rows, BQ, D / 16>(s, ks, wg * 64, qs);    // S^T = K Q^T
+      gemm_ss<T, L::kRows, BQ, D / 16>(s, ks, kr0, qs);    // S^T = K Q^T
       wgmma_commit();
-      gemm_ss<T, kSm90Rows, BQ, D / 16>(dp, vs, wg * 64, dos);  // dP^T = V dO^T
+      gemm_ss<T, L::kRows, BQ, D / 16>(dp, vs, kr0, dos);  // dP^T = V dO^T
       wgmma_commit();
       wgmma_wait<1>();
       reg_fence(s);
@@ -468,8 +513,8 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
       to_a_frags<T, BQ / 16>(pa, s);   // p rounded to do's type
       to_a_frags<T, BQ / 16>(da, dp);  // ds rounded to q's type
       wgmma_fence();
-      gemm_rs<T, BQ, BQ / 16>(dv, pa, dos);  // dV += P^T dO
-      gemm_rs<T, BQ, BQ / 16>(dk, da, qs);   // dK += dS^T Q
+      gemm_rs<T, BQ, BQ / 16>(dv, pa, dos + c_off);  // dV += P^T dO
+      gemm_rs<T, BQ, BQ / 16>(dk, da, qs + c_off);   // dK += dS^T Q
       wgmma_commit();
       wgmma_wait<0>();
       reg_fence(dk);
@@ -484,11 +529,11 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
   OT* dkp = static_cast<OT*>(a.dk);
   OT* dvp = static_cast<OT*>(a.dv);
 #pragma unroll
-  for (int i = 0; i < D / 2; i += 2) {
+  for (int i = 0; i < NC / 2; i += 2) {
     const int kj = kw0 + frag_row(i);
     if (kj >= g.tk) continue;
     const int64_t o =
-        ((static_cast<int64_t>(b) * g.tk + kj) * H + h) * D + frag_col(i);
+        ((static_cast<int64_t>(b) * g.tk + kj) * H + h) * D + c0 + frag_col(i);
     store2(dkp + o, dk[i] * scale, dk[i + 1] * scale);
     store2(dvp + o, dv[i], dv[i + 1]);
   }
@@ -498,11 +543,12 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
 
 template <int D>
 struct DqTiles {
-  static constexpr int kBk = 64;                     // key rows a stage
+  static constexpr int kBk = D > 128 ? 32 : 64;      // key rows a stage
   static constexpr uint32_t kQ = kSm90Rows * D * 2;  // bytes of Q or dO
   static constexpr uint32_t kK = kBk * D * 2;        // of K or V
   static constexpr uint32_t kStage = 2 * kK;
   static constexpr size_t kSmem = 2 * kQ + kStages * kStage + 1024;
+  static_assert(kSmem <= kSmemLimit, "dq tiles exceed shared memory");
 };
 
 template <typename T, typename OT, int D>
@@ -623,25 +669,27 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
 
 // -------------------------------------------------------------- launchers --
 
+// Launches kern with `smem` bytes of dynamic shared memory (each
+// instance's own size), a CTA per `tile` of the `rows`.
 template <typename K>
-cudaError_t launch_sm90(K kern, size_t smem, int64_t rows, const FlashArgs& a,
-                        cudaStream_t stream) {
+cudaError_t launch_sm90(K kern, size_t smem, int64_t rows, int tile,
+                        const FlashArgs& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kern<<<flash_grid(rows, kSm90Rows, a), kSm90Threads, smem, stream>>>(a);
+  kern<<<flash_grid(rows, tile, a), kSm90Threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T, typename OT, int D>
 cudaError_t launch_dq_sm90(const FlashArgs& a, cudaStream_t stream) {
   return launch_sm90(flash_dq_kernel_sm90<T, OT, D>, DqTiles<D>::kSmem, a.tq,
-                     a, stream);
+                     kSm90Rows, a, stream);
 }
 
 template <typename T, typename OT, int D>
 cudaError_t launch_dkv_sm90(const FlashArgs& a, cudaStream_t stream) {
   return launch_sm90(flash_dkv_kernel_sm90<T, OT, D>, DkvTiles<D>::kSmem,
-                     a.tk, a, stream);
+                     a.tk, DkvTiles<D>::kRows, a, stream);
 }

@@ -35,16 +35,23 @@
 //     p is exactly 0: exp2(-inf - m) with m finite (m starts at the -1e30
 //     sentinel, so a row that has seen no visible key yet gets p = 0 too).
 //   - Every output is written once, with no atomics: deterministic.
+//   - D = 256 keeps 128 query rows and the 3-stage ring with 32-key
+//     stages: Q (64 KB) and three 32 KB K/V stages take 164,864 B of shared
+//     memory (64-key stages would take 263,168), and a thread holds its
+//     128-register O, 16 scores and 8 registers of T(P) (64-key stages
+//     would add 24 more). O += T(P) V runs as two N = 128 wgmmas
+//     (gemm_rs), Q K^T as an N = 32 one.
 
 #pragma once
 
 template <int D>
 struct FwdTiles {
-  static constexpr int kBk = 64;                     // key rows a stage
+  static constexpr int kBk = D > 128 ? 32 : 64;      // key rows a stage
   static constexpr uint32_t kQ = kSm90Rows * D * 2;  // bytes of Q
   static constexpr uint32_t kK = kBk * D * 2;        // of K or V
   static constexpr uint32_t kStage = 2 * kK;
   static constexpr size_t kSmem = kQ + kStages * kStage + 1024;
+  static_assert(kSmem <= kSmemLimit, "forward tiles exceed shared memory");
 };
 
 constexpr float kLn2 = 0.6931471805599453f;
@@ -227,5 +234,5 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
 template <typename T, typename OT, int D>
 cudaError_t launch_fwd_sm90(const FlashArgs& a, cudaStream_t stream) {
   return launch_sm90(flash_fwd_kernel_sm90<T, OT, D>, FwdTiles<D>::kSmem,
-                     a.tq, a, stream);
+                     a.tq, kSm90Rows, a, stream);
 }

@@ -36,9 +36,12 @@
 //     chunks of 8;
 //   - a group of G lanes covers one key row with 16-byte loads (8 bf16, 4
 //     f32 or 16 int8 elements a lane; 8 int8 when S > 1, so that q and the
-//     accumulator stay in registers), so one warp load covers 32 / G keys.
-//     The head dim D is any of 1 .. 128: the lanes are laid out for the
-//     tile width DP (16, 32, 64 or 128, the least that holds D), lanes
+//     accumulator stay in registers; two 16-byte loads, 8 f32 elements, for
+//     an f32 store at DP = 256, so that a row still takes at most 32
+//     lanes), so one warp load covers 32 / G keys (one key for bf16 and f32
+//     at DP = 256, and int8 when S > 1). The head dim D is any of 1 .. 256:
+//     the lanes are laid out for the tile width DP (16, 32, 64, 128 or 256,
+//     the least that holds D), lanes
 //     whose elements lie at or past D load nothing and hold zeros, and
 //     when D is not a whole number of a lane's elements every lane loads
 //     element by element (the store is never padded or copied),
@@ -77,18 +80,27 @@ __device__ __forceinline__ void store_f32(float x, bf16* p) {
   *p = __float2bfloat16(x);
 }
 
+// A lane's two 16-byte loads (8 f32 elements of an f32 store at DP = 256).
+struct alignas(16) Raw32 {
+  uint4 lo, hi;
+};
+
 // How the lanes of a warp cover key rows of a KVT store with a tile width
 // of DP dimensions when NQ query registers are live (NQ = 1 for S = 1,
 // else kMaxQueries).
 template <typename KVT, int DP, int NQ>
 struct Lanes {
-  static constexpr int kBytes = sizeof(KVT) == 1 && NQ > 1 ? 8 : 16;
+  static constexpr int kBytes = sizeof(KVT) == 1 && NQ > 1   ? 8
+                                : sizeof(KVT) == 4 && DP > 128 ? 32
+                                                               : 16;
   static constexpr int kElems = kBytes / static_cast<int>(sizeof(KVT));
   static constexpr int kGroup = DP / kElems;        // lanes per key row
   static constexpr int kKeysPerLoad = 32 / kGroup;  // keys a warp load covers
   static constexpr int kUnroll = NQ == 1 ? 4 : 1;   // loads in flight
   static constexpr int kKeysPerStep = kKeysPerLoad * kUnroll;
-  using Raw = typename std::conditional<kBytes == 16, uint4, uint2>::type;
+  using Raw = typename std::conditional<
+      kBytes == 32, Raw32,
+      typename std::conditional<kBytes == 16, uint4, uint2>::type>::type;
   static_assert(kGroup >= 1 && kGroup <= 32 && 32 % kGroup == 0,
                 "lane group");
 };
@@ -361,6 +373,15 @@ cudaError_t launch(int D, const Call& c) {
   const unsigned bh = static_cast<unsigned>(c.B) * static_cast<unsigned>(c.H);
   const dim3 grid(bh, c.n_split);
   const size_t smem = sizeof(int) * (c.split_keys / c.bs);
+  // the warps' partials are static shared memory (33,024 B at DP = 256,
+  // NQ = 8); past 48 KB with the table entries the kernel must ask for it
+  constexpr size_t kStatic = sizeof(float) * kWarps * NQ * (DP + 2);
+  if (kStatic + smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_decode_kernel<QT, KVT, DP, NQ, QUANT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
   paged_decode_kernel<QT, KVT, DP, NQ, QUANT>
       <<<grid, kThreads, smem, c.stream>>>(
           static_cast<const QT*>(c.q), static_cast<const KVT*>(c.k),
@@ -384,13 +405,14 @@ cudaError_t launch_s(int D, const Call& c) {
                   : launch<QT, KVT, DP, kMaxQueries, QUANT>(D, c);
 }
 
-// The tile width: the least of 16, 32, 64 and 128 that holds D.
+// The tile width: the least of 16, 32, 64, 128 and 256 that holds D.
 template <typename QT, typename KVT, bool QUANT>
 cudaError_t launch_d(int D, const Call& c) {
   if (D <= 16) return launch_s<QT, KVT, 16, QUANT>(D, c);
   if (D <= 32) return launch_s<QT, KVT, 32, QUANT>(D, c);
   if (D <= 64) return launch_s<QT, KVT, 64, QUANT>(D, c);
-  return launch_s<QT, KVT, 128, QUANT>(D, c);
+  if (D <= 128) return launch_s<QT, KVT, 128, QUANT>(D, c);
+  return launch_s<QT, KVT, 256, QUANT>(D, c);
 }
 
 template <typename QT>
@@ -410,7 +432,7 @@ cudaError_t launch_kv(int kv_dtype, int D, const Call& c) {
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (stores only). D is
-// any of 1 .. 128; S at most kMaxQueries (8). With
+// any of 1 .. 256; S at most kMaxQueries (8). With
 // n_split > 1, `partial` is an f32 workspace of B * H * n_split * S * (D + 2)
 // floats; split i covers keys [i * split_keys, (i + 1) * split_keys).
 // Returns 0 on a successful launch, else the cudaError_t of the launch.
@@ -422,7 +444,7 @@ extern "C" int paged_decode_launch(
     int kv_dtype, void* stream) {
   if (B < 1 || H < 1 ||
       static_cast<int64_t>(B) * H > 0x7fffffff ||  // grid x
-      D < 1 || D > 128 || S < 1 || S > kMaxQueries ||
+      D < 1 || D > 256 || S < 1 || S > kMaxQueries ||
       bs < 1 || n_j < 1 || n_split < 1 || n_split > 65535 ||
       split_keys < bs || split_keys % bs != 0 ||
       split_keys / bs > kMaxSplitBlocks ||

@@ -22,11 +22,13 @@ to its ``launches`` count); for CPU tensors it runs the plain version
 the kernel's casts. There is no fallback on the card and no switch to
 turn the kernels off. On the card they take what the reference takes:
 float32, bfloat16 or float16 inputs of one dtype, any ``Tq``/``Tk``, any
-``B * H``, and every head dim ``D`` up to 128 — the kernels are built for
-``D`` of 64 and 128, and :func:`pad_head_dim` runs any other ``D`` on the
-next of the two with zero lanes (exact; it costs one padded copy of the
-inputs). ``D > 128`` raises ``ValueError``: the 128-row tiles of the
-16-bit kernels would not fit in shared memory. The reference's
+``B * H``, and every head dim ``D`` up to 256 — the kernels are built for
+``D`` of 64, 128 and 256, and :func:`pad_head_dim` runs any other ``D`` on
+the next of the three with zero lanes (exact; it costs one padded copy of
+the inputs). ``D > 256`` raises ``ValueError``: at ``D = 256`` a 16-bit
+kernel's 64-row f32 accumulator already takes 128 of a thread's 255
+registers, and dk/dv holds two of them (``csrc/flash_bwd_sm90.cuh``). The
+reference's
 ``full_attention`` fallback for untileable lengths has no counterpart;
 its ``block_q``/``block_k`` tuning knobs have none either.
 
@@ -51,7 +53,7 @@ from chainermn_torch._build import load_library
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention.cu"
 _NEG_BIG = -1e30
-_HEAD_DIMS = (64, 128)       # the widths the kernels are built for
+_HEAD_DIMS = (64, 128, 256)  # the widths the kernels are built for
 _MAX_HEAD_DIM = _HEAD_DIMS[-1]
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the output dtypes each input dtype's kernels write; any other output
@@ -105,7 +107,7 @@ def _check(cond: bool, msg: str) -> None:
 
 def kernel_head_dim(d: int) -> int:
     """The head dim the kernels run ``d`` at: the least of
-    ``_HEAD_DIMS`` that holds it. Raises ``ValueError`` past 128."""
+    ``_HEAD_DIMS`` that holds it. Raises ``ValueError`` past 256."""
     _check(1 <= d <= _MAX_HEAD_DIM,
            f"head dim {d} (the kernels take 1 .. {_MAX_HEAD_DIM})")
     return next(w for w in _HEAD_DIMS if w >= d)
@@ -225,7 +227,7 @@ def flash_fwd_with_lse(q, k, v, *, causal: bool = False,
     for rows that see no key. ``q_offset``/``k_offset`` are the global
     positions of ``q[:, 0]``/``k[:, 0]`` for causal masking. On CUDA
     tensors this launches the forward kernel; it takes float32, bfloat16
-    or float16 inputs of one dtype, ``D`` up to 128, any lengths."""
+    or float16 inputs of one dtype, ``D`` up to 256, any lengths."""
     scale = _scale(q, scale)
     kw = dict(causal=causal, scale=scale, q_offset=q_offset,
               k_offset=k_offset, out_dtype=out_dtype)

@@ -7,7 +7,7 @@ keeps the reference's signature and ``[B, S, H, D]`` layout. It launches
 the CUDA kernel for CUDA tensors; for CPU tensors it runs
 :func:`paged_attend_reference`. There is no fallback on the card and no
 switch to turn the kernel off. On the card it takes every head dim up to
-128 (the kernel masks the lanes past ``D``; the store is never copied),
+256 (the kernel masks the lanes past ``D``; the store is never copied),
 any ``B`` and ``H``, and any number of queries per row: the kernel holds
 at most 8 in registers, so :func:`chunk_queries` runs longer windows as
 chunks of 8, each with its rows' lengths cut to the chunk's last query.
@@ -34,7 +34,7 @@ from chainermn_torch.parallel.sequence import (
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "paged_decode.cu"
 _MAX_QUERIES = 8          # kMaxQueries in the CUDA source
-_MAX_HEAD_DIM = 128
+_MAX_HEAD_DIM = 256       # the widest tile of paged_decode.cu's launch_d
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -100,43 +100,15 @@ def split_plan(batch: int, heads: int, n_j: int, bs: int) -> tuple:
     return -(-n_j // blocks), blocks * bs
 
 
-def paged_attend(q, store_k, store_v, table, lengths, *,
-                 k_scale=None, v_scale=None, scale: Optional[float] = None,
-                 max_blocks: Optional[int] = None):
-    """Paged-attention decode over the shared block store.
-
-    - ``q``: ``[B, S, H, D]`` queries for positions ``lengths[b]-S ..
-      lengths[b]-1`` of each row;
-    - ``store_k``/``store_v``: ``[n_blocks, bs, H, D]``, already holding
-      this step's writes;
-    - ``table``: ``[B, max_blocks]`` integer block table;
-    - ``lengths``: ``[B]`` valid KV rows per row after the write;
-    - ``k_scale``/``v_scale``: ``[n_blocks, bs, H]`` f32, present iff the
-      store is int8;
-    - ``max_blocks``: optional cap on the table entries read.
-
-    Returns ``[B, S, H, D]`` in ``q.dtype``. On CUDA tensors this launches
-    the hand-written kernel (adding one to ``paged_attend.launches`` for
-    each launch; more than 8 queries a row take one launch per chunk of
-    8, :func:`chunk_queries`; a CUDA graph that captured launches adds
-    them on every replay, :mod:`chainermn_torch.serving._programs`) and
-    raises ``ValueError`` for inputs it does
-    not take: q in f32/bf16, a store in f32/bf16/int8, ``D`` up to 128,
-    contiguous tensors on one device, a 16-byte-aligned store. Long rows
-    are split
-    across CTAs as :func:`split_plan` says; with more than one split the
-    kernel's partials go to a float32 workspace allocated here, and a
-    second kernel combines them (both count as one launch). On CPU
-    tensors it runs :func:`paged_attend_reference`."""
-    if not q.is_cuda:
-        return paged_attend_reference(q, store_k, store_v, table, lengths,
-                                      k_scale=k_scale, v_scale=v_scale,
-                                      scale=scale, max_blocks=max_blocks)
-    kw = dict(k_scale=k_scale, v_scale=v_scale, scale=scale,
-              max_blocks=max_blocks)
-    if q.shape[1] > _MAX_QUERIES:
-        return chunk_queries(paged_attend, q, store_k, store_v, table,
-                             lengths, **kw)
+def _check_args(q, store_k, store_v, table, lengths, *, k_scale=None,
+                v_scale=None) -> None:
+    """Raise ``ValueError`` unless the kernel takes these inputs: q in
+    f32/bf16 ``[B, S, H, D]`` with ``D`` up to 256, a ``[n_blocks, bs, H,
+    D]`` store in f32/bf16/int8 (int8 with f32 ``[n_blocks, bs, H]``
+    scales), a ``[B, max_blocks]`` table and ``[B]`` lengths, all on q's
+    device, q, store and scales contiguous, the store 16-byte aligned.
+    :func:`paged_attend` calls it before every launch; it reads shapes,
+    dtypes and pointers only, so it runs on tensors anywhere."""
     b, s_len, h, d = q.shape
     n_blocks, bs = store_k.shape[0], store_k.shape[1]
     quant = store_k.dtype == torch.int8
@@ -170,6 +142,51 @@ def paged_attend(q, store_k, store_v, table, lengths, *,
                and t is not lengths), "q, store and scales must be contiguous")
     _check(store_k.data_ptr() % 16 == 0 == store_v.data_ptr() % 16,
            "the store must be 16-byte aligned")
+
+
+def paged_attend(q, store_k, store_v, table, lengths, *,
+                 k_scale=None, v_scale=None, scale: Optional[float] = None,
+                 max_blocks: Optional[int] = None):
+    """Paged-attention decode over the shared block store.
+
+    - ``q``: ``[B, S, H, D]`` queries for positions ``lengths[b]-S ..
+      lengths[b]-1`` of each row;
+    - ``store_k``/``store_v``: ``[n_blocks, bs, H, D]``, already holding
+      this step's writes;
+    - ``table``: ``[B, max_blocks]`` integer block table;
+    - ``lengths``: ``[B]`` valid KV rows per row after the write;
+    - ``k_scale``/``v_scale``: ``[n_blocks, bs, H]`` f32, present iff the
+      store is int8;
+    - ``max_blocks``: optional cap on the table entries read.
+
+    Returns ``[B, S, H, D]`` in ``q.dtype``. On CUDA tensors this launches
+    the hand-written kernel (adding one to ``paged_attend.launches`` for
+    each launch; more than 8 queries a row take one launch per chunk of
+    8, :func:`chunk_queries`; a CUDA graph that captured launches adds
+    them on every replay, :mod:`chainermn_torch.serving._programs`) and
+    raises ``ValueError`` for inputs it does
+    not take: q in f32/bf16, a store in f32/bf16/int8, ``D`` up to 256,
+    contiguous tensors on one device, a 16-byte-aligned store. Long rows
+    are split
+    across CTAs as :func:`split_plan` says; with more than one split the
+    kernel's partials go to a float32 workspace allocated here, and a
+    second kernel combines them (both count as one launch). On CPU
+    tensors it runs :func:`paged_attend_reference`."""
+    if not q.is_cuda:
+        return paged_attend_reference(q, store_k, store_v, table, lengths,
+                                      k_scale=k_scale, v_scale=v_scale,
+                                      scale=scale, max_blocks=max_blocks)
+    kw = dict(k_scale=k_scale, v_scale=v_scale, scale=scale,
+              max_blocks=max_blocks)
+    if q.shape[1] > _MAX_QUERIES:
+        return chunk_queries(paged_attend, q, store_k, store_v, table,
+                             lengths, **kw)
+    _check_args(q, store_k, store_v, table, lengths, k_scale=k_scale,
+                v_scale=v_scale)
+    b, s_len, h, d = q.shape
+    bs = store_k.shape[1]
+    quant = store_k.dtype == torch.int8
+    dev = q.device
     # an int32 contiguous table (the serving engine's static one) is
     # used as it is: a CUDA graph keeps reading the same buffer
     table32 = table.to(torch.int32).contiguous()

@@ -57,6 +57,15 @@ heads) and ResNet-50 (random weights from a seed):
   prefetcher, the tracer on and off) and ``train_resilient`` through
   ``resilient_fit`` with async snapshots and an injected fault: their
   losses must equal the synchronous loop's bit for bit;
+- head dim 256 (``lm_d256``): the same LM at 4 heads of 256, served by
+  the captured paged engine (16 requests, every decode step's attention
+  through the paged-decode kernel at H = 4, D = 256; its 2-layer f32
+  twin's streams equal the plain engine's) and trained through the flash
+  kernels at D = 256 (1 + 3 steps, exact launches, a falling loss; an f32
+  D = 256 LM's first step on the f32 kernels equal to plain attention's
+  to 1e-4); the parity phases hold every kernel at D 256 and at the
+  padded or masked 160 and 192, and the timing phases add a D = 256 row
+  at the same work;
 - data-parallel training (no kernel of its own): ResNet-50 at
   ``bench.py``'s headline configuration (batch 256, 224x224, bf16) through
   ``create_communicator('pure_nccl', allreduce_grad_dtype=bf16)``,
@@ -174,6 +183,10 @@ SPIN_CYCLES = 4_000_000            # ~2 ms of device spin at H100 clocks
 # the served model: scripts/onchip_lm.py's full-width LM
 LM = dict(vocab_size=32768, d_model=1024, n_heads=16, n_layers=12,
           d_ff=4096, max_len=2048)
+# the same LM at 4 heads of 256 (the reference's d_head = d_model //
+# n_heads): the same parameters, the flash kernels' FLOPs and the paged
+# read's bytes at the serve and train shapes (lm_d256)
+LM_D256 = dict(LM, n_heads=4)
 ENGINE = dict(n_slots=16, kv_block_size=16, cache_len=2048,
               prefill_buckets=(128, 512), prefill_batch=4)
 N_REQUESTS = 32
@@ -362,10 +375,11 @@ PAGED_LENGTHS = {
 
 # (D, S) of the paged parity cases: the kernel's own widths with up to
 # the 8 queries one launch holds, then head dims it masks inside (8, 32,
-# 96) and windows of 12 queries (two launches, chunk_queries)
+# 96, 160) and windows of 12 queries (two launches, chunk_queries); D =
+# 256 at S = 1, the verify window's 5 and 12
 PAGED_SHAPES = ((64, 1), (64, 4), (64, 8), (128, 1), (128, 8),
                 (8, 1), (8, 12), (32, 4), (32, 12), (96, 8), (96, 12),
-                (64, 12))
+                (64, 12), (256, 1), (256, 5), (256, 12), (160, 8))
 # more (row, head) pairs than one grid axis of 65535 holds, for each kernel
 GRID_BH = 70_000
 
@@ -598,9 +612,9 @@ def phase_timing(device, lengths):
     the engine's captured decode program reads (``cache_len / bs`` = 128
     entries, the split plan fixed by that width); ``ms_span_cut`` is the
     table cut to the longest row, as the eager engine of earlier versions
-    read it."""
+    read it; ``d256`` is the same read at H = 4, D = 256 (``lm_d256``'s
+    shape: the same bytes)."""
     import torch
-    import torch.nn.functional as F
 
     from chainermn_torch.parallel.paged_kernel import (
         paged_attend,
@@ -611,9 +625,15 @@ def phase_timing(device, lengths):
     h, d, bs = LM["n_heads"], LM["d_model"] // LM["n_heads"], 16
     n_blocks = ENGINE["n_slots"] * (ENGINE["cache_len"] // bs) + 1
     gen = torch.Generator().manual_seed(SEED + 1)
-    x = make_paged_inputs(lengths, s_len=1, h=h, d=d, bs=bs,
-                          dtype=torch.bfloat16, q_dtype=torch.bfloat16,
-                          gen=gen, device=device, n_blocks=n_blocks)
+
+    def inputs(h, d, s_len=1):
+        return make_paged_inputs([max(n, s_len) for n in lengths],
+                                 s_len=s_len, h=h, d=d, bs=bs,
+                                 dtype=torch.bfloat16,
+                                 q_dtype=torch.bfloat16, gen=gen,
+                                 device=device, n_blocks=n_blocks)
+
+    x = inputs(h, d)
     args, kw = attend_args(x)
     span = x["table"].shape[1]
     scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=device)
@@ -625,74 +645,94 @@ def phase_timing(device, lengths):
     span_ms = cuda_ms(lambda: paged_attend(*args, **kw), flush=flush)
     span_plain_ms = cuda_ms(lambda: paged_attend_reference(*args, **kw),
                             flush=flush)
-    # the captured decode program's read: the whole table
-    full_w = ENGINE["cache_len"] // bs
-    wide = torch.zeros((len(lengths), full_w), dtype=torch.int32,
-                       device=device)
-    wide[:, :span] = x["table"]
-    f_args = (args[0], args[1], args[2], wide, args[4])
-    err_full = float((paged_attend(*f_args, **kw).float()
-                      - paged_attend_reference(*f_args, **kw).float())
-                     .abs().max())
-    kernel_ms = cuda_ms(lambda: paged_attend(*f_args, **kw), flush=flush)
-    plain_ms = cuda_ms(lambda: paged_attend_reference(*f_args, **kw),
-                       flush=flush)
+    full = _paged_full_table_row(x, lengths, flush)
     # the same rows at a head dim the kernel masks inside (D = 8, the
     # repo's small LM configurations) and with a 12-query window (two
     # launches of chunk_queries)
     wider = {}
     for tag, s_len, dd in (("D8", 1, 8), ("S12", 12, d)):
-        y = make_paged_inputs([max(n, s_len) for n in lengths], s_len=s_len,
-                              h=h, d=dd, bs=bs, dtype=torch.bfloat16,
-                              q_dtype=torch.bfloat16, gen=gen, device=device,
-                              n_blocks=n_blocks)
+        y = inputs(h, dd, s_len)
         y_args, y_kw = attend_args(y)
         wider[f"ms_{tag}"] = cuda_ms(lambda: paged_attend(*y_args, **y_kw),
                                      flush=flush)
         del y, y_args, y_kw
+    h4 = LM_D256["n_heads"]
+    d256 = _paged_full_table_row(inputs(h4, LM_D256["d_model"] // h4),
+                                 lengths, flush)
     paged_attend.launches = launches0
-
     b = len(lengths)
-    q = x["q"]
-    flat = x["table"].reshape(-1).long()
-    k_pos = torch.arange(span * bs, device=device)
-    mask = (k_pos[None, :] <= (x["lengths"].long() - 1)[:, None])
-    mask = mask[:, None, None, :]                       # [B,1,S=1,T]
-
-    def library():
-        kk = x["k"].index_select(0, flat).view(b, -1, h, d).transpose(1, 2)
-        vv = x["v"].index_select(0, flat).view(b, -1, h, d).transpose(1, 2)
-        return F.scaled_dot_product_attention(q.transpose(1, 2), kk, vv,
-                                              attn_mask=mask)
-
-    lib_err = float((library().transpose(1, 2).float() - want).abs().max())
-    library_ms = cuda_ms(library, flush=flush)
-    # least work: q read, each row's live KV rows read once, its table
-    # entries and length read, the output written
-    kv_rows = sum(lengths)
-    n_bytes = (q.numel() * 2 * 2 + kv_rows * h * d * 2 * 2
-               + sum(-(-n // bs) for n in lengths) * 4 + b * 4)
-    n_ops = 4 * kv_rows * h * d                         # QK and PV, S = 1
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / BF16_OPS_PER_S * 1e3
-    n_split, split_keys = split_plan(b, h, full_w, bs)
+    n_split, split_keys = full["split_plan"]
     rec = {"phase": "timing", "kernel": "paged_decode", "B": b, "S": 1,
-           "H": h, "D": d, "bs": bs, "store": "bf16", "lengths": lengths,
-           "table_width": full_w, "n_split": n_split,
-           "split_keys": split_keys,
+           "bs": bs, "store": "bf16", "lengths": lengths, **full,
+           "n_split": n_split, "split_keys": split_keys,
            "span_cut": {"table_width": span,
                         "split_plan": split_plan(b, h, span, bs),
                         "max_abs_err": err, "ms": span_ms,
                         "plain_ms": span_plain_ms},
-           "max_abs_err": err_full, "library_max_abs_err": lib_err,
-           "ms": kernel_ms, "ms_span_cut": span_ms, **wider,
-           "plain_ms": plain_ms,
-           "library_ms": library_ms,
-           "bytes": n_bytes, "ops": n_ops,
-           "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+           "ms_span_cut": span_ms, **wider, "d256": d256}
     emit(rec)
+    bad = [r for r in (full, d256) if not r["within_tol"]]
+    if bad:
+        raise AssertionError(f"paged_decode disagrees with its plain version "
+                             f"at the decode shape: {bad}")
     return rec
+
+
+def _paged_full_table_row(x, lengths, flush):
+    """Kernel, plain version and SDPA on the gathered store for the paged
+    inputs ``x`` (``make_paged_inputs`` at the serve lengths, S = 1) read
+    through the captured decode program's full table (``cache_len / bs``
+    entries); the bound counts q read, each row's live KV rows read once,
+    its table entries and length read, and the output written."""
+    import torch
+    import torch.nn.functional as F
+
+    from chainermn_torch.parallel.paged_kernel import (
+        paged_attend,
+        paged_attend_reference,
+        split_plan,
+    )
+
+    b, _, h, d = x["q"].shape
+    bs = x["k"].shape[1]
+    span = x["table"].shape[1]
+    full_w = ENGINE["cache_len"] // bs
+    table = torch.zeros((b, full_w), dtype=torch.int32, device=x["q"].device)
+    table[:, :span] = x["table"]
+    args, kw = attend_args(dict(x, table=table))
+    got = paged_attend(*args, **kw).float()
+    want = paged_attend_reference(*args, **kw).float()
+    rtol, atol = TOL["bf16"]
+    err = (got - want).abs()
+    flat = x["table"].reshape(-1).long()
+    mask = (torch.arange(span * bs, device=flat.device)[None, :]
+            <= (x["lengths"].long() - 1)[:, None])[:, None, None, :]
+
+    def library():
+        kk = x["k"].index_select(0, flat).view(b, -1, h, d).transpose(1, 2)
+        vv = x["v"].index_select(0, flat).view(b, -1, h, d).transpose(1, 2)
+        return F.scaled_dot_product_attention(x["q"].transpose(1, 2), kk, vv,
+                                              attn_mask=mask)
+
+    kv_rows = sum(lengths)
+    n_bytes = (b * h * d * 2 * 2 + kv_rows * h * d * 2 * 2
+               + sum(-(-n // bs) for n in lengths) * 4 + b * 4)
+    n_ops = 4 * kv_rows * h * d                         # QK and PV, S = 1
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / BF16_OPS_PER_S * 1e3
+    return {"H": h, "D": d, "table_width": full_w,
+            "split_plan": split_plan(b, h, full_w, bs),
+            "max_abs_err": float(err.max()),
+            "within_tol": bool((err <= atol + rtol * want.abs()).all()),
+            "library_max_abs_err": float(
+                (library().transpose(1, 2).float() - want).abs().max()),
+            "ms": cuda_ms(lambda: paged_attend(*args, **kw), flush=flush),
+            "plain_ms": cuda_ms(lambda: paged_attend_reference(*args, **kw),
+                                flush=flush),
+            "library_ms": cuda_ms(library, flush=flush),
+            "bytes": n_bytes, "ops": n_ops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def phase_engine_parity(device):
@@ -2774,15 +2814,17 @@ def _compare(got, want, rtol, atol):
                                   .all())
 
 
-# the FLASH_CASES run at head dims the wrapper pads (8, 32, 96)
+# the FLASH_CASES run at head dims the wrapper pads (8, 32, 96 and 192)
 FLASH_PAD_CASES = ("square_causal", "ragged_full", "rect_causal",
                    "offset_k300")
+FLASH_HEAD_DIMS = (64, 128, 256)   # the kernels' own widths
+FLASH_PAD_DIMS = (8, 32, 96, 192)
 
 
 def phase_flash_parity(device):
     """Each flash kernel against its plain version on the card: B=2,
-    H=16, D in {64, 128} with the FLASH_CASES shapes (ragged tails,
-    Tq != Tk, offsets, a sequence below one tile) and D in {8, 32, 96}
+    H=16, D in FLASH_HEAD_DIMS with the FLASH_CASES shapes (ragged tails,
+    Tq != Tk, offsets, a sequence below one tile) and D in FLASH_PAD_DIMS
     with the FLASH_PAD_CASES, bf16, f32 and f16 each; then one case with
     B * H past 65535 (B = 4375, H = 16, T = 8, bf16, causal). The backward
     kernels take the plain forward's lse and delta, so each kernel sees
@@ -2801,8 +2843,8 @@ def phase_flash_parity(device):
     worst = dict.fromkeys(FLASH_KERNELS, 0.0)
     padded = [c for c in FLASH_CASES if c[0] in FLASH_PAD_CASES]
     # (B, D, dtypes, cases)
-    groups = ([(2, d, dtypes, FLASH_CASES) for d in (64, 128)]
-              + [(2, d, dtypes, padded) for d in (8, 32, 96)]
+    groups = ([(2, d, dtypes, FLASH_CASES) for d in FLASH_HEAD_DIMS]
+              + [(2, d, dtypes, padded) for d in FLASH_PAD_DIMS]
               + [(-(-GRID_BH // 16), 64, {"bf16": torch.bfloat16},
                   [grid_case])])
     for b, d, group_dtypes, cases in groups:
@@ -3197,34 +3239,19 @@ def phase_train_profile(step, tokens, targets, n_steps):
     return rec
 
 
-def phase_flash_timing(device):
-    """Each flash kernel, its plain version and a library yardstick at the
-    training shape (B=8, T=2048, H=16, D=64, bf16, causal; q, k and v
-    sliced from one fused qkv tensor as the model passes them), L2
-    flushed before each timed call. Each kernel's outputs must agree with
-    its plain version's within the bf16 tolerance, so the strided reads
-    of the training path are held to a limit. The yardstick, which the port never
-    calls, is ``F.scaled_dot_product_attention(is_causal=True)`` forward,
-    and its backward as one number for dq, dk and dv together. The bound
-    is the larger of the causal FLOPs this run needs (visible (q, k)
-    pairs x 4 D for fwd, 6 D for dq, 8 D for dk/dv) at 989 TFLOP/s and
-    each input read once plus each output written once at 3.35 TB/s.
-    Each kernel runs twice on the same inputs and must give bitwise-equal
-    outputs: no atomics, so the results are deterministic."""
+def _flash_rows(b, t, h, d, gen, device, flush):
+    """The three flash kernels, their plain versions and the library
+    yardstick at one causal bf16 shape (q, k and v sliced from one fused
+    qkv tensor), as :func:`phase_flash_timing` describes. Returns ``{name:
+    record}``; the launches are counted here and the caller restores
+    them."""
     import torch
     import torch.nn.functional as F
 
     fa = importlib.import_module("chainermn_torch.ops.flash_attention")
 
-    b, t = TRAIN["batch"], TRAIN["seq_len"]
-    h, d = LM["n_heads"], LM["d_model"] // LM["n_heads"]
-    gen = torch.Generator().manual_seed(SEED + 5)
     q, k, v, do = _flash_inputs(b, t, t, h, d, torch.bfloat16, gen, device,
                                 fused=True)
-    scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=device)
-    flush = scratch.zero_
-    saved = {fn: getattr(fa, fn).launches for fn, *_
-             in FLASH_KERNELS.values()}
     kw = dict(causal=True)
     gkw = dict(kw, grad_dtype=torch.bfloat16)
     out, lse = fa.flash_fwd_with_lse(q, k, v, **kw)
@@ -3264,6 +3291,7 @@ def phase_flash_timing(device):
     library = {"flash_fwd": cuda_ms(lib_fwd, flush=flush)}
     library["flash_dq"] = library["flash_dkv"] = cuda_ms(lib_bwd,
                                                          flush=flush)
+    del lib_out, qt, kt, vt
     rtol, atol = TOL["bf16"]
     recs = {}
     for name, (kern, plain) in calls.items():
@@ -3282,19 +3310,62 @@ def phase_flash_timing(device):
                       "within_tol": all(c[1] for c in checks),
                       "deterministic": same, "ms": kernel_ms,
                       "plain_ms": plain_ms, "library_ms": library[name],
+                      "library_max_abs_err": lib_err,
                       "bytes": n_bytes, "ops": n_ops,
                       "bound_ms": max(t_bytes, t_ops),
                       "bound_by": "bytes" if t_bytes >= t_ops
                       else "operations",
                       "tflops": n_ops / kernel_ms / 1e9}
         torch.cuda.empty_cache()
+    return recs
+
+
+def phase_flash_timing(device):
+    """Each flash kernel, its plain version and a library yardstick at the
+    training shape (B=8, T=2048, H=16, D=64, bf16, causal; q, k and v
+    sliced from one fused qkv tensor as the model passes them), L2
+    flushed before each timed call; then the same at H=4, D=256 (the
+    ``lm_d256`` shape: the same FLOPs and bytes) and at D=8 (padded to
+    64). Each kernel's outputs must agree with its plain version's within
+    the bf16 tolerance, so the strided reads of the training path are held
+    to a limit. The yardstick, which the port never calls, is
+    ``F.scaled_dot_product_attention(is_causal=True)`` forward, and its
+    backward as one number for dq, dk and dv together. The bound is the
+    larger of the causal FLOPs this run needs (visible (q, k) pairs x 4 D
+    for fwd, 6 D for dq, 8 D for dk/dv) at 989 TFLOP/s and each input
+    read once plus each output written once at 3.35 TB/s. Each kernel runs
+    twice on the same inputs and must give bitwise-equal outputs: no
+    atomics, so the results are deterministic."""
+    import torch
+
+    fa = importlib.import_module("chainermn_torch.ops.flash_attention")
+
+    b, t = TRAIN["batch"], TRAIN["seq_len"]
+    h, d = LM["n_heads"], LM["d_model"] // LM["n_heads"]
+    gen = torch.Generator().manual_seed(SEED + 5)
+    scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=device)
+    flush = scratch.zero_
+    saved = {fn: getattr(fa, fn).launches for fn, *_
+             in FLASH_KERNELS.values()}
+    recs = _flash_rows(b, t, h, d, gen, device, flush)
+    h256 = LM_D256["n_heads"]
+    d256 = _flash_rows(b, t, h256, LM_D256["d_model"] // h256, gen, device,
+                       flush)
+    for name, rec in d256.items():
+        recs[name]["d256"] = dict(rec, H=h256, D=LM_D256["d_model"] // h256)
     # the same shape at D = 8 (the repo's small LM configurations), which
     # the wrapper runs padded to 64
     q, k, v, do = _flash_inputs(b, t, t, h, 8, torch.bfloat16, gen, device,
                                 fused=True)
+    kw = dict(causal=True)
+    gkw = dict(kw, grad_dtype=torch.bfloat16)
     out, lse = fa.flash_fwd_with_lse(q, k, v, **kw)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    for name, (kern, _) in calls.items():
+    small = {"flash_fwd": lambda: fa.flash_fwd_with_lse(q, k, v, **kw),
+             "flash_dq": lambda: fa.flash_dq(q, k, v, do, lse, delta, **gkw),
+             "flash_dkv": lambda: fa.flash_dkv(q, k, v, do, lse, delta,
+                                               **gkw)}
+    for name, kern in small.items():
         recs[name]["ms_D8"] = cuda_ms(kern, flush=flush)
     for fn, n in saved.items():
         getattr(fa, fn).launches = n
@@ -3302,12 +3373,14 @@ def phase_flash_timing(device):
           "dtype": "bf16", "causal": True, "tol": TOL["bf16"],
           "library_call": "F.scaled_dot_product_attention(is_causal=True); "
                           "dq and dkv rows share its backward (dq, dk, dv)",
-          "library_max_abs_err": lib_err, "kernels": recs})
-    bad = [n for n, r in recs.items() if not r["within_tol"]]
+          "kernels": recs})
+    rows = [(n, r) for n, r in recs.items()] + [
+        (f"{n} D=256", r["d256"]) for n, r in recs.items()]
+    bad = [n for n, r in rows if not r["within_tol"]]
     if bad:
         raise AssertionError(f"flash kernels {bad} disagree with their plain "
                              f"versions at the training shape")
-    bad = [n for n, r in recs.items() if not r["deterministic"]]
+    bad = [n for n, r in rows if not r["deterministic"]]
     if bad:
         raise AssertionError(f"flash kernels {bad} gave different outputs "
                              f"for the same inputs")
@@ -3364,6 +3437,193 @@ def phase_train_parity(device):
     if not ok:
         raise AssertionError("flash-kernel training diverged from plain "
                              "attention training")
+
+
+LM_D256_REQUESTS = 16
+LM_D256_STEPS = dict(warmup=1, timed=3)
+LM_D256_TWIN = dict(LM_D256, n_layers=2)        # the f32 serving twin
+LM_D256_PARITY = dict(vocab_size=1000, d_model=1024, n_heads=4, n_layers=2,
+                      max_len=256, batch=4, seq_len=256, tol=1e-4)
+
+
+def phase_lm_d256(device, card, comm):
+    """The slice's paths at head dim 256: ``LM_D256`` (the 220M LM at 4
+    heads, ``d_head = d_model // n_heads`` = 256, the same parameters).
+
+    - serve: the captured paged ``ServingEngine`` (``ENGINE``'s settings,
+      greedy) under ``FCFSScheduler`` answers 16 of ``_serve_traffic``'s
+      requests; every decode step's attention runs B4 at H = 4, D = 256
+      (launches = decode steps x 12, a replay counted), then 10 decode
+      steps are profiled for the device's idle share. Its f32 twin at 2
+      layers streams 8 requests through the kernel engine and the plain
+      engine: equal up to a recorded near-tie.
+    - train: ``attention='flash'``, ``lm_train_step``, AdamW, 1 warm-up and
+      3 timed steps at [8, 2048] (B1-B3 at D = 256, 12 launches a step
+      each); the loss must fall. Then ``LM_D256_PARITY`` (f32, D = 256,
+      the f32 kernels) takes one SGD step at lr 1 with ``'flash'`` and
+      with ``'full'`` from one seed: the loss and every gradient (the
+      step's parameter change) agree to ``train_parity``'s 1e-4."""
+    import numpy as np
+    import torch
+
+    from chainermn_torch import create_multi_node_optimizer
+    from chainermn_torch.models import TransformerLM
+    from chainermn_torch.monitor import get_registry
+    from chainermn_torch.parallel.paged_kernel import paged_attend
+    from chainermn_torch.serving import ServingEngine
+    from chainermn_torch.training import lm_train_step
+    fa = importlib.import_module("chainermn_torch.ops.flash_attention")
+
+    t_phase = time.perf_counter()
+    h, dh = LM_D256["n_heads"], LM_D256["d_model"] // LM_D256["n_heads"]
+    n_layers = LM_D256["n_layers"]
+    # -- serve
+    work = _serve_traffic(LM_D256_REQUESTS, SEED)
+    model = TransformerLM(**LM_D256, compute_dtype=torch.bfloat16,
+                          device=device, seed=SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    engine = ServingEngine(model, paged=True, paged_kernel=True,
+                           device=device, **ENGINE)
+    t0 = time.perf_counter()
+    engine.warmup()
+    warmup_s = time.perf_counter() - t0
+    steps_ctr = get_registry().counter(
+        "serving_decode_steps_total",
+        {"engine": "serving", "paged_kernel": "on"})
+    steps0 = steps_ctr.value
+    paged_attend.launches = 0
+    _, sched, wall = _drive(engine, work)
+    serve_launches = paged_attend.launches
+    decode_steps = steps_ctr.value - steps0
+    rep = sched.metrics.report()
+    _check_pool(engine, "lm_d256")
+    prof = _profile_steps(engine, sched, np.random.default_rng(SEED + 40),
+                          n_steps=10, host_events=False)
+    del engine, sched, model
+    _empty()
+    m32 = TransformerLM(**LM_D256_TWIN, compute_dtype=torch.float32,
+                        device=device, seed=SEED)
+    pw = work[:PARITY_REQUESTS]
+    streams = {}
+    for kernel in (True, False):
+        eng = ServingEngine(m32, paged_kernel=kernel, device=device,
+                            **ENGINE)
+        streams[kernel], _, _ = _drive(eng, pw)
+        del eng
+    parity = _parity(m32, pw, streams[True], streams[False])
+    del m32
+    _empty()
+
+    # -- train
+    model = TransformerLM(**LM_D256, attention="flash",
+                          compute_dtype=torch.bfloat16, device=device,
+                          seed=SEED)
+    opt = create_multi_node_optimizer(torch.optim.AdamW(
+        model.parameters(), lr=TRAIN["lr"],
+        weight_decay=TRAIN["weight_decay"]), comm)
+    step = lm_train_step(model, opt, comm)
+    b, t = TRAIN["batch"], TRAIN["seq_len"]
+    gen = torch.Generator().manual_seed(SEED)
+    tokens = torch.randint(0, LM_D256["vocab_size"], (b, t),
+                           generator=gen).to(device)
+    targets = torch.roll(tokens, -1, dims=1)
+    counted = {name: getattr(fa, fn) for name, (fn, *_)
+               in FLASH_KERNELS.items()}
+    for fn in counted.values():
+        fn.launches = 0
+    losses = [step(tokens, targets)[0]
+              for _ in range(LM_D256_STEPS["warmup"])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    for _ in range(LM_D256_STEPS["timed"]):
+        loss, _ = step(tokens, targets)
+        losses.append(loss)
+    float(loss)                     # the device->host fetch closes the window
+    step_s = (time.perf_counter() - t0) / LM_D256_STEPS["timed"]
+    train_launches = {name: fn.launches for name, fn in counted.items()}
+    peak = torch.cuda.max_memory_allocated(device)
+    losses = [float(x) for x in losses]
+    n_nonembed = n_params - (LM_D256["vocab_size"]
+                             + LM_D256["max_len"]) * LM_D256["d_model"]
+    flops = (6.0 * n_nonembed * b * t
+             + 12.0 * b * h * t * t * dh / 2 * n_layers)
+    del model, opt, step
+    _empty()
+
+    # -- the f32 twin's first step, flash against full attention
+    cfg = {k: v for k, v in LM_D256_PARITY.items()
+           if k not in ("batch", "seq_len", "tol")}
+    gen = torch.Generator().manual_seed(SEED + 3)
+    tok2 = torch.randint(0, cfg["vocab_size"], (LM_D256_PARITY["batch"],
+                                                LM_D256_PARITY["seq_len"]),
+                         generator=gen).to(device)
+    tgt2 = torch.roll(tok2, -1, dims=1)
+    first = {}
+    for attention in ("flash", "full"):
+        m = TransformerLM(**cfg, attention=attention,
+                          compute_dtype=torch.float32, device=device,
+                          seed=SEED + 3)
+        before = {n: w.detach().clone() for n, w in m.named_parameters()}
+        sgd = create_multi_node_optimizer(
+            torch.optim.SGD(m.parameters(), lr=1.0), comm)
+        loss = float(lm_train_step(m, sgd, comm, monitored=False)(
+            tok2, tgt2)[0])
+        first[attention] = (loss, {n: before[n] - w.detach()
+                                   for n, w in m.named_parameters()})
+        del m, sgd, before
+    (l_f, g_f), (l_p, g_p) = first["flash"], first["full"]
+    grad_err = {n: float((g_f[n] - g_p[n]).abs().max()) for n in g_f}
+    worst = max(grad_err, key=grad_err.get)
+    tol = LM_D256_PARITY["tol"]
+    train_parity = {"model": dict(cfg, compute_dtype="f32"),
+                    "B": LM_D256_PARITY["batch"],
+                    "T": LM_D256_PARITY["seq_len"],
+                    "loss_flash": l_f, "loss_full": l_p,
+                    "loss_abs_err": abs(l_f - l_p),
+                    "grad_max_abs_err": grad_err[worst],
+                    "worst_grad": worst, "tol": tol,
+                    "ok": abs(l_f - l_p) <= tol and grad_err[worst] <= tol}
+    del first, g_f, g_p
+    _empty()
+
+    rec = {"phase": "lm_d256", "card": card,
+           "model": dict(LM_D256, params=n_params, d_head=dh),
+           "serve": {"engine": dict(ENGINE, paged_kernel=True,
+                                    capture=True),
+                     "requests": len(work), "warmup_s": warmup_s,
+                     "wall_s": wall, "decode_steps": decode_steps,
+                     "kernel_launches": serve_launches,
+                     "tokens_generated": rep["tokens_generated"],
+                     "tokens_per_sec": rep["tokens_per_sec"],
+                     "ttft_p50_s": rep["ttft_p50_s"],
+                     "tpot_p50_s": rep["tpot_p50_s"],
+                     "profile": prof,
+                     "f32_twin": dict(LM_D256_TWIN, parity=parity)},
+           "train": {"B": b, "T": t, "steps": LM_D256_STEPS,
+                     "step_ms": step_s * 1e3,
+                     "tokens_per_sec": b * t / step_s,
+                     "analytic_flop_per_step": flops,
+                     "mfu_vs_989_tflops": flops / step_s / BF16_OPS_PER_S,
+                     "peak_memory_allocated_gb": peak / 1e9,
+                     "losses": losses, "launches": train_launches,
+                     "parity": train_parity},
+           "run_s": time.perf_counter() - t_phase}
+    emit(rec)
+    if serve_launches != decode_steps * n_layers:
+        raise AssertionError(f"lm_d256: kernel launches {serve_launches} != "
+                             f"decode steps {decode_steps} x {n_layers}")
+    _check_parity("lm_d256 f32 twin", parity)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"lm_d256: the loss did not fall: {losses}")
+    want = (LM_D256_STEPS["warmup"] + LM_D256_STEPS["timed"]) * n_layers
+    if any(n != want for n in train_launches.values()):
+        raise AssertionError(f"lm_d256: flash launches {train_launches} != "
+                             f"{want}")
+    if not train_parity["ok"]:
+        raise AssertionError(f"lm_d256: the flash step diverges from plain "
+                             f"attention: {train_parity}")
+    return rec
 
 
 def _resnet_flops(model, images) -> float:
@@ -4051,7 +4311,9 @@ def phase_mnist_checkpoint(card):
     uninterrupted one, one with ``--stop-at CKPT_STOP_AT`` (must exit
     non-zero after "simulated crash"), and a resumed one (must print
     "resumed from iteration K'", K' the newest snapshot at or before the
-    crash). Fails unless the resumed run's last snapshot equals the
+    crash). The first two share nothing (each its own output directory
+    and one-rank group) and run at once; the resumed run starts after
+    the crash. Fails unless the resumed run's last snapshot equals the
     uninterrupted run's, leaf by leaf (the largest difference is
     reported; the target is 0)."""
     import tempfile
@@ -4062,19 +4324,23 @@ def phase_mnist_checkpoint(card):
            "chainermn_torch.examples.mnist.train_mnist_checkpoint",
            "--communicator", "pure_nccl", "--epoch", str(CKPT_EPOCHS)]
     runs = {}
+
+    def run(name, extra, out):
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd + ["--out", str(Path(tmp) / out)] + extra,
+                           cwd=ROOT, capture_output=True, text=True,
+                           timeout=600)
+        printed = r.stdout.splitlines()
+        runs[name] = {"rc": r.returncode, "s": time.perf_counter() - t0,
+                      "printed": printed[:2] + printed[-2:],
+                      "stderr_tail": r.stderr[-2000:]}
+
     with tempfile.TemporaryDirectory() as tmp:
-        for name, extra, out in (("uninterrupted", [], "a"),
-                                 ("crash", ["--stop-at", str(CKPT_STOP_AT)],
-                                  "b"),
-                                 ("resumed", [], "b")):
-            t0 = time.perf_counter()
-            r = subprocess.run(cmd + ["--out", str(Path(tmp) / out)] + extra,
-                               cwd=ROOT, capture_output=True, text=True,
-                               timeout=600)
-            printed = r.stdout.splitlines()
-            runs[name] = {"rc": r.returncode, "s": time.perf_counter() - t0,
-                          "printed": printed[:2] + printed[-2:],
-                          "stderr_tail": r.stderr[-2000:]}
+        with ThreadPoolExecutor(2) as pool:
+            list(pool.map(lambda a: run(*a), (
+                ("uninterrupted", [], "a"),
+                ("crash", ["--stop-at", str(CKPT_STOP_AT)], "b"))))
+        run("resumed", [], "b")
         snaps = {k: sorted(Path(tmp, k).glob("snapshot_mnist_example_*.0"),
                            key=lambda p: int(p.name.split("_")[-1][:-2]))
                  for k in ("a", "b")}
@@ -6985,6 +7251,7 @@ def main() -> int:
     flash_launches, comm = timed("train", phase_train, device)
     flash_timing = timed("flash_timing", phase_flash_timing, device)
     timed("train_parity", phase_train_parity, device)
+    d256 = timed("lm_d256", phase_lm_d256, device, smi, comm)
     fit_ctx, fit_rec = timed("train_fit", phase_train_fit, device, smi, comm)
     resilient = timed("train_resilient", phase_train_resilient, device, smi,
                       comm, fit_ctx)
@@ -7037,6 +7304,10 @@ def main() -> int:
             h: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                   "bound_by", "max_abs_err")}
             for h, r in serve_tp["b4_local_heads"].items()},
+        "launches_lm_d256_path": d256["serve"]["kernel_launches"],
+        "d256": {k: timing["d256"][k] for k in (
+            "H", "D", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err")},
         "ms_span_cut": timing["ms_span_cut"],
         "max_abs_err": timing["max_abs_err"],
         "parity_max_abs_err": parity_err,
@@ -7055,6 +7326,10 @@ def main() -> int:
                 run: fit_rec["runs"][run]["launches"][name]
                 for run in ("a", "b", "c")},
             "launches_resilient_path": resilient["launches"][name],
+            "launches_lm_d256_path": d256["train"]["launches"][name],
+            "d256": {k: rec["d256"][k] for k in (
+                "H", "D", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "max_abs_err")},
             "launches_reshard_path": {
                 "train_tp2": reshard["train"][0]["launches"][name],
                 "restored_tp4": reshard["serve"][0]["honest"]["launches"][

@@ -13,8 +13,9 @@ softmax over all keys against an online softmax over 8-key blocks); bf16
 atol 2e-2 (p is rounded to bf16 before PV on both sides, but relative to
 the global row max on one and the running max on the other, so a few
 values land one bf16 ulp apart); float16 atol 2e-2 as bf16 (a 16-bit
-type with the same casts). Head dims other than the kernels' 64 and 128
-(8, 32, 96) and float16 are held to the JAX kernels too, and the
+type with the same casts). Head dims other than the kernels' 64, 128 and
+256 (8, 32, 96, 160), the widest one (256) and float16 are held to the JAX
+kernels too, and the
 wrapper's zero-lane padding (``pad_head_dim``) to the plain versions at
 the true head dim. The CUDA kernels are held against the same plain
 versions on the card by ``chip_smoke.py``.
@@ -307,9 +308,11 @@ def test_edited_header_changes_the_library_name(tmp_path, monkeypatch):
 # What the reference takes beyond the kernels' own widths and types      #
 # --------------------------------------------------------------------- #
 
-# head dims the kernels run padded (D -> 64 or 128), and float16
+# head dims the kernels run padded (D -> 64, 128 or 256), the widest
+# they take (256), and float16
 WIDE = {"D8": (8, "f32"), "D32": (32, "f32"), "D96": (96, "f32"),
-        "D32_f16": (32, "f16"), "D64_f16": (64, "f16")}
+        "D32_f16": (32, "f16"), "D64_f16": (64, "f16"),
+        "D160": (160, "f32"), "D256": (256, "f32"), "D256_f16": (256, "f16")}
 WIDE_DTYPES = dict(DTYPES, f16=(jnp.float16, torch.float16, 2e-2))
 
 
@@ -346,7 +349,7 @@ def test_plain_versions_match_jax_at_any_head_dim_and_float16(case):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("d", [1, 8, 32, 65, 96])
+@pytest.mark.parametrize("d", [1, 8, 32, 65, 96, 129, 192])
 def test_pad_head_dim_is_exact(d):
     """The wrapper-side padding, run over the plain versions: out, lse,
     dq, dk and dv at the padded width, cut back to D, equal the plain
@@ -371,11 +374,32 @@ def test_pad_head_dim_is_exact(d):
     torch.testing.assert_close(dv, r_dv, atol=1e-6, rtol=0)
 
 
-def test_kernel_head_dim_rounds_up_and_stops_at_128():
-    assert [tfa.kernel_head_dim(d) for d in (1, 8, 63, 64, 65, 96, 128)] == \
-        [64, 64, 64, 64, 128, 128, 128]
-    with pytest.raises(ValueError, match="head dim 160"):
-        tfa.kernel_head_dim(160)
+def test_kernel_head_dim_rounds_up_and_stops_at_256():
+    assert [tfa.kernel_head_dim(d) for d in
+            (1, 8, 63, 64, 65, 96, 128, 129, 160, 192, 256)] == \
+        [64, 64, 64, 64, 128, 128, 128, 256, 256, 256, 256]
+    with pytest.raises(ValueError, match=r"head dim 257 .*1 \.\. 256"):
+        tfa.kernel_head_dim(257)
+
+
+@pytest.mark.parametrize("case", ["D160", "D256_f16"])
+def test_autograd_matches_jax_past_128(case):
+    """The differentiable entry at head dims past 128 (160 runs padded
+    to 256 on the card; 256 in float16) against ``jax_flash``."""
+    d, dtype = WIDE[case]
+    (jq, jk, jv, jg), tqkvg = _wide_inputs(d, dtype, seed=9)
+    g = np.array(jg, np.float32)
+    j_out, j_grads = _jax_value_and_grads(jq, jk, jv, jnp.asarray(g),
+                                          causal=True, **BLOCKS)
+    tqkv = [t.requires_grad_() for t in tqkvg[:3]]
+    t_out = tfa.flash_attention(*tqkv, causal=True)
+    t_grads = torch.autograd.grad(t_out.float(), tqkv, torch.from_numpy(g))
+    atol = WIDE_DTYPES[dtype][2]
+    assert t_out.dtype == WIDE_DTYPES[dtype][1] and t_out.shape[-1] == d
+    np.testing.assert_allclose(_np(t_out), _np(j_out), atol=atol, rtol=0)
+    for got, want, name in zip(t_grads, j_grads, "qkv"):
+        np.testing.assert_allclose(_np(got), _np(want), atol=atol, rtol=0,
+                                   err_msg=f"d{name}")
 
 
 def test_float16_autograd_matches_jax():

@@ -7,8 +7,9 @@ the table span, then the position-masked cached attention); the JAX side
 runs the Pallas kernel in interpret mode, as the JAX package's own tests
 do. Inputs come from numpy with a fixed seed. Tolerance: f32 atol 1e-5
 (the two sides sum in different orders: online softmax vs one softmax).
-Head dims the kernel masks inside (8, 32, 96) and windows of more than
-the 8 queries a launch takes are held to the JAX kernel too, and the
+Head dims the kernel masks inside (8, 32, 96, 160), its widest tile
+(256) and windows of more than the 8 queries a launch takes are held to
+the JAX kernel too, and the
 wrapper's chunking (``chunk_queries``) to one plain call over the whole
 window. The CUDA kernel itself is held against the same plain version on
 the card by ``chip_smoke.py``.
@@ -178,11 +179,13 @@ def test_bytes_read_model_matches_jax(kv_quant):
 
 @pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
 @pytest.mark.parametrize("d,s_len", [(8, 1), (32, 4), (96, 8), (32, 12),
-                                     (8, 12)])
+                                     (8, 12), (256, 1), (256, 5),
+                                     (160, 12)])
 def test_paged_attend_matches_jax_at_any_head_dim_and_window(d, s_len,
                                                              quant):
-    """Head dims the kernel masks inside (8, 32, 96) and query windows
-    past the kernel's 8 a launch (S = 12), against the Pallas kernel."""
+    """Head dims the kernel masks inside (8, 32, 96, 160), its widest
+    tile (256), and query windows past the kernel's 8 a launch (S = 12),
+    against the Pallas kernel."""
     x = _inputs(s_len, [13, 17, 20], quant=quant, seed=2, d=d)
     np.testing.assert_allclose(_torch(tpk.paged_attend, x), _jax(x),
                                atol=ATOL, rtol=0)

@@ -8,6 +8,14 @@ and residual adds, but not at the same points (XLA keeps f32 inside its
 fusions; torch fuses the bias into the matmul epilogue and computes GELU
 in f32 internally), so the bf16 logits land up to a few ulps apart.
 Greedy tokens must be equal.
+
+The D = 256 LM (``d_model 512, n_heads 2``: the head width of the
+reference's ``TransformerLM(d_model=1024, n_heads=4)``) is held to flax
+at f32: logits atol 1e-4; one ``attention='flash'`` train step's loss
+atol 1e-5 (a mean over 32 tokens) and every gradient atol 1e-5 (the
+flax flash LM's Pallas kernels in interpret mode against the port's
+flash wrappers, both summing over 8-key blocks or all keys at once);
+the paged engine's greedy streams equal the JAX paged engine's.
 """
 
 import jax
@@ -16,11 +24,18 @@ import numpy as np
 import pytest
 import torch
 
+import optax
+
 from chainermn_tpu.models import TransformerLM as JaxLM
 from chainermn_tpu.models import transformer as jtr
+from chainermn_tpu.serving import FCFSScheduler as JaxScheduler
+from chainermn_tpu.serving import ServingEngine as JaxEngine
+from chainermn_torch import create_communicator, create_multi_node_optimizer
 from chainermn_torch.interop import params_from_flax
 from chainermn_torch.models import TransformerLM, generate
 from chainermn_torch.models import transformer as ttr
+from chainermn_torch.serving import FCFSScheduler, ServingEngine
+from chainermn_torch.training import lm_train_step
 
 torch.set_float32_matmul_precision("highest")
 # tiny shapes: one intra-op thread, so parallel test workers do not
@@ -159,3 +174,92 @@ def test_sampled_tokens_stay_inside_the_mask():
     allowed = torch.topk(lg, 3, dim=-1).indices
     assert all(int(t) in allowed[i] for i in range(4) for t in toks[:, i])
     torch.testing.assert_close(draw(), toks)
+
+
+# ------------------------------------------------------------------ #
+# Head dim 256                                                        #
+# ------------------------------------------------------------------ #
+
+D256 = dict(vocab_size=256, d_model=512, n_heads=2, n_layers=2, max_len=64)
+
+
+@pytest.fixture(scope="module")
+def d256_params():
+    lm = JaxLM(**D256, compute_dtype=jnp.float32)
+    params = lm.init(jax.random.PRNGKey(5), jnp.zeros((1, 4), jnp.int32))
+    return jax.device_get(params)
+
+
+def _d256_port(params, **kw):
+    model = TransformerLM(**D256, compute_dtype=torch.float32, device="cpu",
+                          **kw)
+    model.load_state_dict(params_from_flax(params))
+    return model
+
+
+def _d256_tokens(b, t, seed):
+    return np.random.default_rng(seed).integers(
+        1, D256["vocab_size"], (b, t)).astype(np.int32)
+
+
+def test_d256_logits_match_flax(d256_params):
+    assert D256["d_model"] // D256["n_heads"] == 256
+    toks = _d256_tokens(2, 13, seed=6)
+    want = np.asarray(jax.jit(JaxLM(**D256, compute_dtype=jnp.float32)
+                              .apply)(d256_params, jnp.asarray(toks)))
+    with torch.no_grad():
+        got = _d256_port(d256_params)(torch.from_numpy(toks).long()).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+def test_d256_flash_train_step_matches_flax(d256_params):
+    """One ``lm_train_step`` of the flash LM (SGD at lr 1, so the step
+    moves each parameter by exactly its gradient) against the flax flash
+    LM's loss and ``jax.grad`` on the same tokens."""
+    toks = _d256_tokens(2, 16, seed=7)
+    tgts = np.roll(toks, -1, axis=1)
+    jlm = JaxLM(**D256, attention="flash", compute_dtype=jnp.float32)
+
+    def loss_fn(params):
+        logits = jlm.apply(params, jnp.asarray(toks))
+        return optax.softmax_cross_entropy_with_integer_labels(
+            logits.astype(jnp.float32), jnp.asarray(tgts)).mean()
+
+    jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(d256_params)
+    want = params_from_flax(jax.device_get(jgrads))
+
+    model = _d256_port(d256_params, attention="flash")
+    before = {n: w.detach().clone() for n, w in model.named_parameters()}
+    comm = create_communicator("pure_nccl", device="cpu")
+    try:
+        opt = create_multi_node_optimizer(
+            torch.optim.SGD(model.parameters(), lr=1.0), comm)
+        loss, _ = lm_train_step(model, opt, comm)(toks, tgts)
+    finally:
+        comm.finalize()
+    np.testing.assert_allclose(float(loss), float(jloss), atol=1e-5, rtol=0)
+    for name, w in model.named_parameters():
+        np.testing.assert_allclose((before[name] - w.detach()).numpy(),
+                                   want[name].numpy(), atol=1e-5, rtol=0,
+                                   err_msg=name)
+
+
+def test_d256_paged_engine_streams_match_jax_engine(d256_params):
+    """The port's paged engine, reading through ``paged_attend``, against
+    the JAX paged engine on its Pallas kernel: the same greedy tokens."""
+    kw = dict(n_slots=2, prefill_buckets=(8, 16), prefill_batch=2,
+              paged=True, kv_block_size=4, cache_len=32, paged_kernel=True)
+    prompts = [np.array([3, 5, 2, 9]), np.array([1, 2, 3, 4, 6, 7, 8]),
+               np.array([7, 11])]
+    jsched = JaxScheduler(JaxEngine(
+        JaxLM(**D256, compute_dtype=jnp.float32), d256_params, **kw))
+    jreqs = [jsched.submit(p, 6) for p in prompts]
+    jsched.run_until_idle()
+    engine = ServingEngine(_d256_port(d256_params), device="cpu", **kw)
+    sched = FCFSScheduler(engine)
+    reqs = [sched.submit(p, 6) for p in prompts]
+    sched.run_until_idle()
+    assert all(r.finished and r.error is None for r in reqs)
+    assert engine.model.d_model // engine.model.n_heads == 256
+    assert [list(map(int, r.output)) for r in reqs] == \
+        [list(map(int, r.output)) for r in jreqs]
