@@ -22,10 +22,11 @@
 //   - f32 inputs use plain f32 FMA (never TF32).
 //
 // What it takes: f32, bf16 or f16 inputs (one type for all four), outputs
-// in that type or f32 (f32 inputs may also write bf16), D = 64, 128 or 256
-// (the wrapper pads other head dims up to 256 with zero lanes), any Tq and
-// Tk, and any B * H: the (batch, head) pairs run on grid y and, past
-// 65535 of them, on grid z as well (flash_grid).
+// in that type or f32 (f32 inputs may also write bf16), D = 64, 128, 256 or
+// any multiple of 64 past 256 (flash_wide.cuh; the wrapper pads every
+// other head dim up to the next of these with zero lanes), any Tq and Tk,
+// and any B * H: the (batch, head) pairs run on grid y and, past 65535 of
+// them, on grid z as well (flash_grid).
 //
 // What bounds it: causal attention does about T / 3 flops per byte it must
 // move (~680 at the LM's T = 2048), above the H100's ridge of ~295, so the
@@ -497,14 +498,18 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
+
 // ------------------------ bf16 / f16 forward, dq and dk/dv (Hopper) --
 
 #include "flash_bwd_sm90.cuh"
 #include "flash_fwd_sm90.cuh"
 
-// --------------------------------------------------------------- launchers --
+// ------------------ head dims past 256, every input type (flash_wide.cuh) --
 
-enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
+#include "flash_wide.cuh"
+
+// --------------------------------------------------------------- launchers --
 
 // The f32 forward, dq and dk/dv kernels.
 template <int KIND, typename OT, int D>
@@ -534,10 +539,15 @@ cudaError_t launch_simple(const FlashArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// D = kWide: any multiple of 64 past 256 (flash_wide.cuh).
+constexpr int kWide = 0;
+
 template <int KIND, typename T, typename OT, int D>
 cudaError_t launch(const FlashArgs& a, cudaStream_t stream) {
   constexpr bool k16 = !std::is_same<T, float>::value;
-  if constexpr (k16 && KIND == kFwd)
+  if constexpr (D == kWide)
+    return launch_wide<KIND, T, OT>(a, stream);
+  else if constexpr (k16 && KIND == kFwd)
     return launch_fwd_sm90<T, OT, D>(a, stream);
   else if constexpr (k16 && KIND == kDq)
     return launch_dq_sm90<T, OT, D>(a, stream);
@@ -575,6 +585,8 @@ int dispatch(const FlashArgs* a, void* stream) {
     err = dispatch_types<KIND, 128>(*a, st);
   else if (a->head_dim == 256)
     err = dispatch_types<KIND, 256>(*a, st);
+  else if (a->head_dim > 256 && a->head_dim % kChunk == 0)
+    err = dispatch_types<KIND, kWide>(*a, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -329,15 +329,17 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   }
 }
 
-// d = A B over K = 16 * KS: A = rows a_row0 .. +63 of an R_A-row tile, B
-// all rows of an R_B-row tile, both K-major. Issues; the caller commits.
+// d = A B (d += A B when acc) over K = 16 * KS: A = rows a_row0 .. +63 of
+// an R_A-row tile, B all rows of an R_B-row tile, both K-major. Issues;
+// the caller commits.
 template <typename T, int R_A, int R_B, int KS, int NR>
 __device__ __forceinline__ void gemm_ss(float (&d)[NR], uint32_t a_tile,
-                                        int a_row0, uint32_t b_tile) {
+                                        int a_row0, uint32_t b_tile,
+                                        bool acc = false) {
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk)
     mma_ss<T>(d, desc_k<R_A>(a_tile, a_row0, kk), desc_k<R_B>(b_tile, 0, kk),
-           kk > 0);
+           kk > 0 || acc);
 }
 
 // The A fragments of p rounded to T: p is an f32 accumulator fragment

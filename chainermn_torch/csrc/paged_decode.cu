@@ -34,14 +34,15 @@
 //     own online-softmax state (m, l and the accumulator, for all S <= 8
 //     queries) in registers; the wrapper runs longer query windows as
 //     chunks of 8;
-//   - a group of G lanes covers one key row with 16-byte loads (8 bf16, 4
-//     f32 or 16 int8 elements a lane; 8 int8 when S > 1, so that q and the
-//     accumulator stay in registers; two 16-byte loads, 8 f32 elements, for
-//     an f32 store at DP = 256, so that a row still takes at most 32
-//     lanes), so one warp load covers 32 / G keys (one key for bf16 and f32
-//     at DP = 256, and int8 when S > 1). The head dim D is any of 1 .. 256:
-//     the lanes are laid out for the tile width DP (16, 32, 64, 128 or 256,
-//     the least that holds D), lanes
+//   - a group of G lanes covers one key row with 16-byte loads (8 bf16 or
+//     f16, 4 f32 or 16 int8 elements a lane; 8 int8 when S > 1, so that q
+//     and the accumulator stay in registers; two 16-byte loads, 8 f32
+//     elements, for an f32 store at DP = 256, so that a row still takes at
+//     most 32 lanes), so one warp load covers 32 / G keys (one key for
+//     bf16, f16 and f32 at DP = 256, and int8 when S > 1). The head dim D
+//     is any of 1 .. 256 in one tile, and any D past 256 in slices
+//     (below): the lanes are laid out for the tile width DP (16, 32, 64,
+//     128 or 256, the least that holds D), lanes
 //     whose elements lie at or past D load nothing and hold zeros, and
 //     when D is not a whole number of a lane's elements every lane loads
 //     element by element (the store is never padded or copied),
@@ -49,6 +50,16 @@
 //     first is used. Scores are the lane's q (f32 registers) times its K
 //     elements, reduced over the group by shuffles; each lane accumulates
 //     p * v for its own dimensions;
+//   - D > 256 (WIDE): the output's columns are split into 256-column
+//     slices, one CTA each on grid z, so a lane's accumulator and the
+//     warps' partials stay those of the 256-wide tile. Each CTA computes
+//     the whole scores: for each piece of 256 columns of the row it has
+//     its U key loads in flight, then multiplies them by q's elements of
+//     the piece (read from global memory, L1-resident: q is S x D), and
+//     reduces over the group once per key; then it reads V's row in its
+//     own slice only. So K is read once per slice and V once: at D = 512
+//     (two slices) 1.5x the K and V bytes of one read. Every slice
+//     computes the same m and l; slice 0 writes them to the workspace;
 //   - at the end the key groups of a warp combine by shuffles and the
 //     warps through shared memory, in a fixed order; with several splits
 //     each CTA writes its (m, l, acc) to an f32 workspace and a second
@@ -56,6 +67,7 @@
 //     results are bitwise reproducible.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -71,13 +83,18 @@ constexpr int kMaxSplitBlocks = 4096;  // table entries a CTA stages
 constexpr float kNegBig = -1e30f;
 
 using bf16 = __nv_bfloat16;
+using half = __half;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(half x) { return __half2float(x); }
 
 __device__ __forceinline__ void store_f32(float x, float* p) { *p = x; }
 __device__ __forceinline__ void store_f32(float x, bf16* p) {
   *p = __float2bfloat16(x);
+}
+__device__ __forceinline__ void store_f32(float x, half* p) {
+  *p = __float2half(x);
 }
 
 // A lane's two 16-byte loads (8 f32 elements of an f32 store at DP = 256).
@@ -137,6 +154,14 @@ __device__ __forceinline__ void widen(const Raw& r, float (&f)[E]) {
       f[2 * j] = __uint_as_float(w[j] << 16);
       f[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
     }
+  } else if constexpr (std::is_same<KVT, half>::value) {
+#pragma unroll
+    for (int j = 0; j < E / 2; ++j) {
+      f[2 * j] = __half2float(__ushort_as_half(
+          static_cast<unsigned short>(w[j] & 0xffffu)));
+      f[2 * j + 1] = __half2float(__ushort_as_half(
+          static_cast<unsigned short>(w[j] >> 16)));
+    }
   } else {
 #pragma unroll
     for (int j = 0; j < E / 4; ++j)
@@ -147,7 +172,7 @@ __device__ __forceinline__ void widen(const Raw& r, float (&f)[E]) {
   }
 }
 
-template <typename QT, typename KVT, int DP, int NQ, bool QUANT>
+template <typename QT, typename KVT, int DP, int NQ, bool QUANT, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
                     const KVT* __restrict__ v,
@@ -169,6 +194,11 @@ paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int grp = lane / G, d0 = (lane % G) * E;
   const bool vec = D % E == 0;
+  // WIDE (D > DP = 256): the CTA's slice of output columns col0 .. col0 +
+  // DP - 1; the scores run over the row's n_pc pieces of DP columns
+  const int col0 = WIDE ? blockIdx.z * DP : 0;
+  const int n_pc = WIDE ? (D + DP - 1) / DP : 1;
+  const int64_t q_row = (static_cast<int64_t>(b) * S * H + h) * D;
 
   // the range's table entries do not depend on the row's length, so they
   // load while the length does
@@ -180,12 +210,12 @@ paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
   const int hi = min(max(len, 0), r_end);
   const int q_pos0 = len - S;  // query sq sees keys 0 .. q_pos0 + sq
 
-  float qr[NQ][E];
+  float qr[NQ][E];  // WIDE: q is read piece by piece in the key loop
 #pragma unroll
   for (int sq = 0; sq < NQ; ++sq)
 #pragma unroll
     for (int e = 0; e < E; ++e)
-      qr[sq][e] = sq < S && d0 + e < D
+      qr[sq][e] = !WIDE && sq < S && d0 + e < D
                       ? to_f32(q[((static_cast<int64_t>(b) * S + sq) * H +
                                   h) * D + d0 + e])
                       : 0.f;
@@ -203,21 +233,57 @@ paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
     Raw kr[U], vr[U];
     float ksc[U], vsc[U];
     int t[U];
+    int64_t roff[U];  // the key row's element offset in the store
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       t[u] = base + u * KPL + grp;
       kr[u] = vr[u] = Raw{};
       ksc[u] = vsc[u] = 0.f;
+      roff[u] = 0;
       if (t[u] < hi) {
         const int j = (t[u] - lo) / bs;
         const int64_t row =
             static_cast<int64_t>(blk[j]) * bs + (t[u] - lo - j * bs);
-        const int64_t off = (row * H + h) * D + d0;
-        kr[u] = load_lane<KVT, E, Raw>(k + off, d0, D, vec);
-        vr[u] = load_lane<KVT, E, Raw>(v + off, d0, D, vec);
+        roff[u] = (row * H + h) * D;
+        const int64_t off = roff[u] + col0 + d0;
+        if (!WIDE) kr[u] = load_lane<KVT, E, Raw>(k + off, d0, D, vec);
+        vr[u] = load_lane<KVT, E, Raw>(v + off, col0 + d0, D, vec);
         if (QUANT) {
           ksc[u] = k_scale[row * H + h];
           vsc[u] = v_scale[row * H + h];
+        }
+      }
+    }
+    // WIDE: this lane's share of each score, piece by piece: U key loads
+    // of the piece in flight, then q's elements of the piece (L1-resident)
+    float wdot[WIDE ? NQ : 1][WIDE ? U : 1];
+    if constexpr (WIDE) {
+#pragma unroll
+      for (int sq = 0; sq < NQ; ++sq)
+#pragma unroll
+        for (int u = 0; u < U; ++u) wdot[sq][u] = 0.f;
+      for (int pc = 0; pc < n_pc; ++pc) {
+        const int c = pc * DP + d0;
+        float kf[U][E];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const Raw r = t[u] < hi
+                            ? load_lane<KVT, E, Raw>(k + roff[u] + c, c, D, vec)
+                            : Raw{};
+          widen<KVT, E>(r, kf[u]);
+        }
+#pragma unroll
+        for (int sq = 0; sq < NQ; ++sq) {
+          if (sq >= S) break;
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            const float qv =
+                c + e < D ? to_f32(q[q_row + sq * int64_t{H} * D + c + e])
+                          : 0.f;
+#pragma unroll
+            for (int u = 0; u < U; ++u)
+              wdot[sq][u] = fmaf(qv, kf[u][e], wdot[sq][u]);
+          }
         }
       }
     }
@@ -225,12 +291,16 @@ paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       float kf[E];
-      widen<KVT, E>(kr[u], kf);
+      if (!WIDE) widen<KVT, E>(kr[u], kf);
 #pragma unroll
       for (int sq = 0; sq < NQ; ++sq) {
         float dot = 0.f;
+        if constexpr (WIDE) {
+          dot = wdot[sq][u];
+        } else {
 #pragma unroll
-        for (int e = 0; e < E; ++e) dot = fmaf(qr[sq][e], kf[e], dot);
+          for (int e = 0; e < E; ++e) dot = fmaf(qr[sq][e], kf[e], dot);
+        }
 #pragma unroll
         for (int o = G / 2; o > 0; o >>= 1)
           dot += __shfl_xor_sync(0xffffffffu, dot, o);
@@ -300,10 +370,12 @@ paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
   }
   __syncthreads();
 
-  // the warps, in order
+  // the warps, in order (WIDE: over the slice's columns)
   const int n_split = gridDim.y;
-  for (int i = threadIdx.x; i < S * D; i += kThreads) {
-    const int sq = i / D, d = i % D;
+  const int DW = WIDE ? DP : D;
+  for (int i = threadIdx.x; i < S * DW; i += kThreads) {
+    const int sq = i / DW, dd = i % DW, d = col0 + dd;
+    if (WIDE && d >= D) continue;
     float mx = kNegBig;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, w_m[w][sq]);
@@ -312,20 +384,21 @@ paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ k,
     for (int w = 0; w < kWarps; ++w) {
       const float c = expf(w_m[w][sq] - mx);
       sum += w_l[w][sq] * c;
-      a += w_acc[w][sq][d] * c;
+      a += w_acc[w][sq][dd] * c;
     }
     if (n_split == 1) {
       store_f32(a / (sum == 0.f ? 1.f : sum),
                 out + ((static_cast<int64_t>(b) * S + sq) * H + h) * D + d);
     } else {
-      // [m (S), l (S), acc (S x D)]; acc only where the split saw a key
+      // [m (S), l (S), acc (S x D)]; acc only where the split saw a key;
+      // m and l from column 0 (the slices' scores are the same)
       float* part = partial + ((static_cast<int64_t>(b) * H + h) * n_split +
                                split) * S * (D + 2);
       if (d == 0) {
         part[sq] = mx;
         part[S + sq] = sum;
       }
-      if (sum != 0.f) part[2 * S + i] = a;
+      if (sum != 0.f) part[2 * S + sq * D + d] = a;
     }
   }
 }
@@ -368,21 +441,22 @@ struct Call {
   cudaStream_t stream;
 };
 
-template <typename QT, typename KVT, int DP, int NQ, bool QUANT>
+template <typename QT, typename KVT, int DP, int NQ, bool QUANT, bool WIDE>
 cudaError_t launch(int D, const Call& c) {
   const unsigned bh = static_cast<unsigned>(c.B) * static_cast<unsigned>(c.H);
-  const dim3 grid(bh, c.n_split);
+  // WIDE: one CTA per DP-column slice of the output on grid z
+  const dim3 grid(bh, c.n_split, WIDE ? (D + DP - 1) / DP : 1);
   const size_t smem = sizeof(int) * (c.split_keys / c.bs);
   // the warps' partials are static shared memory (33,024 B at DP = 256,
   // NQ = 8); past 48 KB with the table entries the kernel must ask for it
   constexpr size_t kStatic = sizeof(float) * kWarps * NQ * (DP + 2);
   if (kStatic + smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_kernel<QT, KVT, DP, NQ, QUANT>,
+        paged_decode_kernel<QT, KVT, DP, NQ, QUANT, WIDE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  paged_decode_kernel<QT, KVT, DP, NQ, QUANT>
+  paged_decode_kernel<QT, KVT, DP, NQ, QUANT, WIDE>
       <<<grid, kThreads, smem, c.stream>>>(
           static_cast<const QT*>(c.q), static_cast<const KVT*>(c.k),
           static_cast<const KVT*>(c.v), static_cast<const float*>(c.k_scale),
@@ -399,40 +473,47 @@ cudaError_t launch(int D, const Call& c) {
   return cudaGetLastError();
 }
 
-template <typename QT, typename KVT, int DP, bool QUANT>
+template <typename QT, typename KVT, int DP, bool QUANT, bool WIDE = false>
 cudaError_t launch_s(int D, const Call& c) {
-  return c.S == 1 ? launch<QT, KVT, DP, 1, QUANT>(D, c)
-                  : launch<QT, KVT, DP, kMaxQueries, QUANT>(D, c);
+  return c.S == 1 ? launch<QT, KVT, DP, 1, QUANT, WIDE>(D, c)
+                  : launch<QT, KVT, DP, kMaxQueries, QUANT, WIDE>(D, c);
 }
 
-// The tile width: the least of 16, 32, 64, 128 and 256 that holds D.
+// The tile width: the least of 16, 32, 64, 128 and 256 that holds D; past
+// 256, 256-column slices of the output (WIDE).
 template <typename QT, typename KVT, bool QUANT>
 cudaError_t launch_d(int D, const Call& c) {
   if (D <= 16) return launch_s<QT, KVT, 16, QUANT>(D, c);
   if (D <= 32) return launch_s<QT, KVT, 32, QUANT>(D, c);
   if (D <= 64) return launch_s<QT, KVT, 64, QUANT>(D, c);
   if (D <= 128) return launch_s<QT, KVT, 128, QUANT>(D, c);
-  return launch_s<QT, KVT, 256, QUANT>(D, c);
+  if (D <= 256) return launch_s<QT, KVT, 256, QUANT>(D, c);
+  return launch_s<QT, KVT, 256, QUANT, true>(D, c);
 }
 
+// Store types by query type: f32 queries read every store type, bf16
+// queries f32, bf16 or int8 stores, f16 queries f16 or int8 stores (the
+// wrapper runs other pairs with q widened to f32, which is exact: q is
+// widened to f32 here anyway, and the output is rounded once either way).
 template <typename QT>
 cudaError_t launch_kv(int kv_dtype, int D, const Call& c) {
-  switch (kv_dtype) {
-    case 0:
-      return launch_d<QT, float, false>(D, c);
-    case 1:
-      return launch_d<QT, bf16, false>(D, c);
-    case 2:
-      return launch_d<QT, int8_t, true>(D, c);
-    default:
-      return cudaErrorInvalidValue;
+  constexpr bool kHalfQ = std::is_same<QT, half>::value;
+  if (kv_dtype == 2) return launch_d<QT, int8_t, true>(D, c);
+  if constexpr (!std::is_same<QT, bf16>::value) {
+    if (kv_dtype == 3) return launch_d<QT, half, false>(D, c);
   }
+  if constexpr (!kHalfQ) {
+    if (kv_dtype == 0) return launch_d<QT, float, false>(D, c);
+    if (kv_dtype == 1) return launch_d<QT, bf16, false>(D, c);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (stores only). D is
-// any of 1 .. 256; S at most kMaxQueries (8). With
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (stores only), 3 =
+// float16 (q code 2); the pairs launch_kv takes. D is any of 1 ..
+// 65535 * 256; S at most kMaxQueries (8). With
 // n_split > 1, `partial` is an f32 workspace of B * H * n_split * S * (D + 2)
 // floats; split i covers keys [i * split_keys, (i + 1) * split_keys).
 // Returns 0 on a successful launch, else the cudaError_t of the launch.
@@ -444,7 +525,8 @@ extern "C" int paged_decode_launch(
     int kv_dtype, void* stream) {
   if (B < 1 || H < 1 ||
       static_cast<int64_t>(B) * H > 0x7fffffff ||  // grid x
-      D < 1 || D > 256 || S < 1 || S > kMaxQueries ||
+      D < 1 || (D + 255) / 256 > 65535 ||  // grid z of the slices
+      S < 1 || S > kMaxQueries ||
       bs < 1 || n_j < 1 || n_split < 1 || n_split > 65535 ||
       split_keys < bs || split_keys % bs != 0 ||
       split_keys / bs > kMaxSplitBlocks ||
@@ -462,6 +544,8 @@ extern "C" int paged_decode_launch(
     err = launch_kv<float>(kv_dtype, D, c);
   else if (q_dtype == 1)
     err = launch_kv<bf16>(kv_dtype, D, c);
+  else if (q_dtype == 2)
+    err = launch_kv<half>(kv_dtype, D, c);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -40,7 +40,6 @@ from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
-import torch.distributed.checkpoint as dcp
 
 from chainermn_torch.extensions.checkpoint import _add_footer, _strip_footer
 from chainermn_torch.resilience.cutpoints import (
@@ -48,6 +47,16 @@ from chainermn_torch.resilience.cutpoints import (
     SHARDED_CHECKPOINT_SAVE,
 )
 from chainermn_torch.resilience.faults import inject
+
+
+def _dcp():
+    """``torch.distributed.checkpoint``, imported at the first save or
+    load: importing it takes 1.4 s on a workstation and ~6 s on the card
+    host (``torch.distributed.tensor``, sympy), which every process that
+    imports ``chainermn_torch`` would otherwise pay."""
+    import torch.distributed.checkpoint as dcp
+
+    return dcp
 
 
 def _map_tensors(tree: Any, fn) -> Any:
@@ -123,6 +132,7 @@ class ShardedCheckpointer:
         target = self._step_dir(step)
 
         def write():
+            dcp = _dcp()
             inject(SHARDED_CHECKPOINT_SAVE, step=step)
             if wait:
                 dcp.save(state, checkpoint_id=target, **self._dcp_kw())
@@ -241,6 +251,7 @@ class ShardedCheckpointer:
         state = _map_tensors(template, lambda t: t)    # a new tree, same leaves
 
         def load():
+            dcp = _dcp()
             inject(SHARDED_CHECKPOINT_LOAD, step=step)
             with warnings.catch_warnings():
                 warnings.filterwarnings("ignore", message=".*single process.*")

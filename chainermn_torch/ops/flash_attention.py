@@ -22,12 +22,13 @@ to its ``launches`` count); for CPU tensors it runs the plain version
 the kernel's casts. There is no fallback on the card and no switch to
 turn the kernels off. On the card they take what the reference takes:
 float32, bfloat16 or float16 inputs of one dtype, any ``Tq``/``Tk``, any
-``B * H``, and every head dim ``D`` up to 256 — the kernels are built for
-``D`` of 64, 128 and 256, and :func:`pad_head_dim` runs any other ``D`` on
-the next of the three with zero lanes (exact; it costs one padded copy of
-the inputs). ``D > 256`` raises ``ValueError``: at ``D = 256`` a 16-bit
-kernel's 64-row f32 accumulator already takes 128 of a thread's 255
-registers, and dk/dv holds two of them (``csrc/flash_bwd_sm90.cuh``). The
+``B * H``, and any head dim ``D``. The kernels are built for ``D`` of 64,
+128 and 256, and past 256 for every multiple of 64 (``csrc/flash_wide.cuh``:
+each CTA owns 256 columns of the output and streams the products that
+reduce over ``D`` in 64-column chunks, so nothing it holds grows with
+``D``); :func:`pad_head_dim` runs any other ``D`` on the next of these
+widths (:func:`kernel_head_dim`) with zero lanes (exact; it costs one
+padded copy of the inputs). The
 reference's
 ``full_attention`` fallback for untileable lengths has no counterpart;
 its ``block_q``/``block_k`` tuning knobs have none either.
@@ -53,8 +54,8 @@ from chainermn_torch._build import load_library
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention.cu"
 _NEG_BIG = -1e30
-_HEAD_DIMS = (64, 128, 256)  # the widths the kernels are built for
-_MAX_HEAD_DIM = _HEAD_DIMS[-1]
+_HEAD_DIMS = (64, 128, 256)  # the widths of the one-tile kernels
+_WIDE_STEP = 64  # past 256 the kernels take every multiple of this
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the output dtypes each input dtype's kernels write; any other output
 # dtype is written as float32 and cast, which rounds the same f32 value once
@@ -106,10 +107,12 @@ def _check(cond: bool, msg: str) -> None:
 
 
 def kernel_head_dim(d: int) -> int:
-    """The head dim the kernels run ``d`` at: the least of
-    ``_HEAD_DIMS`` that holds it. Raises ``ValueError`` past 256."""
-    _check(1 <= d <= _MAX_HEAD_DIM,
-           f"head dim {d} (the kernels take 1 .. {_MAX_HEAD_DIM})")
+    """The head dim the kernels run ``d`` at: the least of ``_HEAD_DIMS``
+    that holds it, and past 256 the next multiple of 64 (257 runs at
+    320)."""
+    _check(d >= 1, f"head dim {d}")
+    if d > _HEAD_DIMS[-1]:
+        return -(-d // _WIDE_STEP) * _WIDE_STEP
     return next(w for w in _HEAD_DIMS if w >= d)
 
 
@@ -172,7 +175,9 @@ def _prepare(q, k, v, do=None, lse=None, delta=None):
            f"dtype {q.dtype} (want float32, bfloat16 or float16)")
     _check(all(t.dtype == q.dtype for t in ins.values()),
            "q, k, v and do must share one dtype")
-    _check(d in _HEAD_DIMS, f"head dim {d} (want one of {_HEAD_DIMS})")
+    _check(d == kernel_head_dim(d),
+           f"head dim {d} (want one of {_HEAD_DIMS} or a multiple of "
+           f"{_WIDE_STEP} past {_HEAD_DIMS[-1]})")
     _check(tuple(k.shape) == (b, tk, h, d) and v.shape == k.shape,
            f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} vs q "
            f"{tuple(q.shape)}")
@@ -227,13 +232,13 @@ def flash_fwd_with_lse(q, k, v, *, causal: bool = False,
     for rows that see no key. ``q_offset``/``k_offset`` are the global
     positions of ``q[:, 0]``/``k[:, 0]`` for causal masking. On CUDA
     tensors this launches the forward kernel; it takes float32, bfloat16
-    or float16 inputs of one dtype, ``D`` up to 256, any lengths."""
+    or float16 inputs of one dtype, any ``D``, any lengths."""
     scale = _scale(q, scale)
     kw = dict(causal=causal, scale=scale, q_offset=q_offset,
               k_offset=k_offset, out_dtype=out_dtype)
     if not q.is_cuda:
         return flash_fwd_reference(q, k, v, **kw)
-    if q.shape[-1] not in _HEAD_DIMS:
+    if q.shape[-1] != kernel_head_dim(q.shape[-1]):
         return pad_head_dim(flash_fwd_with_lse, q, k, v, **kw)
     views, _, args = _prepare(q, k, v)   # held until the launch is queued
     b, tq, h, d = q.shape
@@ -262,7 +267,7 @@ def flash_dq(q, k, v, do, lse, delta, *, causal: bool = False,
               k_offset=k_offset, grad_dtype=grad_dtype)
     if not q.is_cuda:
         return flash_dq_reference(q, k, v, do, lse, delta, **kw)
-    if q.shape[-1] not in _HEAD_DIMS:
+    if q.shape[-1] != kernel_head_dim(q.shape[-1]):
         return pad_head_dim(flash_dq, q, k, v, do, lse, delta, **kw)
     views, stats, args = _prepare(q, k, v, do, lse, delta)
     dq = torch.empty(q.shape, dtype=_out_dtype(q.dtype, grad_dtype),
@@ -288,7 +293,7 @@ def flash_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
               k_offset=k_offset, grad_dtype=grad_dtype)
     if not q.is_cuda:
         return flash_dkv_reference(q, k, v, do, lse, delta, **kw)
-    if q.shape[-1] not in _HEAD_DIMS:
+    if q.shape[-1] != kernel_head_dim(q.shape[-1]):
         return pad_head_dim(flash_dkv, q, k, v, do, lse, delta, **kw)
     views, stats, args = _prepare(q, k, v, do, lse, delta)
     kernel_dtype = _out_dtype(q.dtype, grad_dtype)

@@ -6,11 +6,16 @@ Port of ``chainermn_tpu/parallel/paged_kernel.py``. :func:`paged_attend`
 keeps the reference's signature and ``[B, S, H, D]`` layout. It launches
 the CUDA kernel for CUDA tensors; for CPU tensors it runs
 :func:`paged_attend_reference`. There is no fallback on the card and no
-switch to turn the kernel off. On the card it takes every head dim up to
-256 (the kernel masks the lanes past ``D``; the store is never copied),
-any ``B`` and ``H``, and any number of queries per row: the kernel holds
-at most 8 in registers, so :func:`chunk_queries` runs longer windows as
-chunks of 8, each with its rows' lengths cut to the chunk's last query.
+switch to turn the kernel off. On the card it takes every head dim (up
+to 256 in one tile whose lanes past ``D`` are masked, past 256 in
+256-column slices of the output, one CTA each; the store is never
+copied), float32, bfloat16 and float16 queries over float32, bfloat16,
+float16 or int8 stores (the pairs the kernel is not built for,
+``_PAIRS``, run with q widened to float32: exact), any ``B`` and ``H``,
+and any number of queries
+per row: the kernel holds at most 8 in registers, so
+:func:`chunk_queries` runs longer windows as chunks of 8, each with its
+rows' lengths cut to the chunk's last query.
 
 The kernel library is compiled with ``nvcc`` at first use from the source
 in this checkout into ``build/`` at the repository root and loaded with
@@ -34,9 +39,14 @@ from chainermn_torch.parallel.sequence import (
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "paged_decode.cu"
 _MAX_QUERIES = 8          # kMaxQueries in the CUDA source
-_MAX_HEAD_DIM = 256       # the widest tile of paged_decode.cu's launch_d
-_Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_Q_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+             torch.float16: 3}
+# the store dtypes each query dtype's kernels read (paged_decode.cu's
+# launch_kv); float32 queries read every store dtype
+_PAIRS = {torch.float32: tuple(_KV_CODES),
+          torch.bfloat16: (torch.float32, torch.bfloat16, torch.int8),
+          torch.float16: (torch.float16, torch.int8)}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"paged_decode_launch": (
     [_P] * 9 + [_I] * 9 + [ctypes.c_float, _I, _I, _P], _I)}
@@ -103,8 +113,8 @@ def split_plan(batch: int, heads: int, n_j: int, bs: int) -> tuple:
 def _check_args(q, store_k, store_v, table, lengths, *, k_scale=None,
                 v_scale=None) -> None:
     """Raise ``ValueError`` unless the kernel takes these inputs: q in
-    f32/bf16 ``[B, S, H, D]`` with ``D`` up to 256, a ``[n_blocks, bs, H,
-    D]`` store in f32/bf16/int8 (int8 with f32 ``[n_blocks, bs, H]``
+    f32/bf16/f16 ``[B, S, H, D]``, a ``[n_blocks, bs, H, D]`` store of a
+    dtype ``_PAIRS`` gives q's (int8 with f32 ``[n_blocks, bs, H]``
     scales), a ``[B, max_blocks]`` table and ``[B]`` lengths, all on q's
     device, q, store and scales contiguous, the store 16-byte aligned.
     :func:`paged_attend` calls it before every launch; it reads shapes,
@@ -113,11 +123,13 @@ def _check_args(q, store_k, store_v, table, lengths, *, k_scale=None,
     n_blocks, bs = store_k.shape[0], store_k.shape[1]
     quant = store_k.dtype == torch.int8
     dev = q.device
-    _check(q.dtype in _Q_CODES, f"q dtype {q.dtype} (want f32 or bf16)")
-    _check(store_k.dtype in _KV_CODES and store_v.dtype == store_k.dtype,
-           f"store dtypes {store_k.dtype}/{store_v.dtype}")
-    _check(1 <= d <= _MAX_HEAD_DIM,
-           f"head dim {d} (the kernel takes 1 .. {_MAX_HEAD_DIM})")
+    _check(q.dtype in _Q_CODES, f"q dtype {q.dtype} (want f32, bf16 or "
+           f"f16)")
+    _check(store_k.dtype in _PAIRS[q.dtype]
+           and store_v.dtype == store_k.dtype,
+           f"store dtypes {store_k.dtype}/{store_v.dtype} for q "
+           f"{q.dtype} (want one of {_PAIRS[q.dtype]})")
+    _check(d >= 1 and -(-d // 256) <= 65535, f"head dim {d}")
     _check(s_len >= 1, "no queries")
     _check(tuple(store_k.shape) == (n_blocks, bs, h, d)
            and store_v.shape == store_k.shape,
@@ -165,9 +177,13 @@ def paged_attend(q, store_k, store_v, table, lengths, *,
     8, :func:`chunk_queries`; a CUDA graph that captured launches adds
     them on every replay, :mod:`chainermn_torch.serving._programs`) and
     raises ``ValueError`` for inputs it does
-    not take: q in f32/bf16, a store in f32/bf16/int8, ``D`` up to 256,
-    contiguous tensors on one device, a 16-byte-aligned store. Long rows
-    are split
+    not take: q and store in other dtypes than f32/bf16/f16 (and int8
+    stores), non-contiguous tensors, tensors on several devices, a store
+    not 16-byte aligned. A (q, store) dtype pair the kernel is not built
+    for (``_PAIRS``) runs with q widened to float32 and the output
+    rounded back to q's dtype: the kernel widens q to float32 and rounds
+    the output once anyway, so the result is the same. Long rows are
+    split
     across CTAs as :func:`split_plan` says; with more than one split the
     kernel's partials go to a float32 workspace allocated here, and a
     second kernel combines them (both count as one launch). On CPU
@@ -178,6 +194,10 @@ def paged_attend(q, store_k, store_v, table, lengths, *,
                                       scale=scale, max_blocks=max_blocks)
     kw = dict(k_scale=k_scale, v_scale=v_scale, scale=scale,
               max_blocks=max_blocks)
+    if q.dtype in _Q_CODES and store_k.dtype not in _PAIRS[q.dtype] \
+            and store_k.dtype in _KV_CODES:
+        return paged_attend(q.float(), store_k, store_v, table, lengths,
+                            **kw).to(q.dtype)
     if q.shape[1] > _MAX_QUERIES:
         return chunk_queries(paged_attend, q, store_k, store_v, table,
                              lengths, **kw)

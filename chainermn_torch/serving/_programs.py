@@ -51,6 +51,7 @@ replayed (``replaying``), never on its own.
 
 from __future__ import annotations
 
+import gc
 import threading
 import time
 import weakref
@@ -212,6 +213,11 @@ class StepProgram:
         counter = paged_kernel.paged_attend
         n0 = counter.launches
         graph = torch.cuda.CUDAGraph()
+        # the cyclic collector, run inside the capture, would destroy the
+        # graphs of engines already unreachable there, which a capturing
+        # stream does not permit (the capture fails): it waits until after
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self._owner.pool, stream=own,
                                   capture_error_mode="thread_local"):
@@ -220,6 +226,9 @@ class StepProgram:
             counter.launches = n0
             raise RuntimeError(f"step program {self.name!r}: CUDA graph "
                                f"capture failed: {e}") from e
+        finally:
+            if collecting:
+                gc.enable()
         self._launches = counter.launches - n0
         counter.launches = n0            # a capture launches nothing
         self._counter = counter

@@ -8,8 +8,9 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
 It builds the port's CUDA kernels from the sources in the checkout (one
 ``nvcc`` per source, started together), holds each against its plain
 PyTorch version on the card (at the kernels' own head dims and at those
-the wrappers pad or mask, in f32, bf16 and f16, with more than 65535
-(row, head) pairs), times it, and drives the port's four paths with the
+the wrappers pad or mask, up to D = 1024, in f32, bf16 and f16, with
+more than 65535 (row, head) pairs, and with a planted fault that must
+fail), times it, and drives the port's four paths with the
 220M-parameter TransformerLM (vocab 32768, d_model 1024, 12 layers, 16
 heads) and ResNet-50 (random weights from a seed):
 
@@ -57,15 +58,21 @@ heads) and ResNet-50 (random weights from a seed):
   prefetcher, the tracer on and off) and ``train_resilient`` through
   ``resilient_fit`` with async snapshots and an injected fault: their
   losses must equal the synchronous loop's bit for bit;
-- head dim 256 (``lm_d256``): the same LM at 4 heads of 256, served by
-  the captured paged engine (16 requests, every decode step's attention
-  through the paged-decode kernel at H = 4, D = 256; its 2-layer f32
-  twin's streams equal the plain engine's) and trained through the flash
-  kernels at D = 256 (1 + 3 steps, exact launches, a falling loss; an f32
-  D = 256 LM's first step on the f32 kernels equal to plain attention's
-  to 1e-4); the parity phases hold every kernel at D 256 and at the
-  padded or masked 160 and 192, and the timing phases add a D = 256 row
-  at the same work;
+- head dims 256 and 512 (``lm_d256``, ``lm_wide``): the same LM at 4
+  heads of 256 (run at 4 of its 12 layers) and at 2 heads of 512, each
+  served by the captured paged engine (16 requests, every decode step's
+  attention through the paged-decode kernel at the head dim; its 2-layer
+  f32 twin's streams equal the plain engine's) and trained through the
+  flash kernels (1 + 3 steps, exact launches, a falling loss; an f32 LM
+  at the head dim takes its first step on the f32 kernels equal to plain
+  attention's to 1e-4); then ``lm_wide`` serves the serve LM at
+  ``compute_dtype=float16`` (16 requests captured, every decode step
+  through the paged-decode kernel on its float16 store; its 2-layer
+  float16 twin's streams equal the plain engine's up to a recorded
+  near-tie); the parity phases hold every kernel at D 256, 320, 512 and
+  1024 and at the padded or masked 160, 192, 257 and 384, and B4 on
+  float16 queries and stores, and the timing phases add D = 256 and
+  D = 512 rows at the same work and a float16 B4 row;
 - data-parallel training (no kernel of its own): ResNet-50 at
   ``bench.py``'s headline configuration (batch 256, 224x224, bf16) through
   ``create_communicator('pure_nccl', allreduce_grad_dtype=bf16)``,
@@ -84,7 +91,8 @@ heads) and ResNet-50 (random weights from a seed):
   asked for, and the declared JPEG decoder alone must decode, with no
   failed decode;
 - the MNIST and seq2seq twins (no kernel of their own), each at its JAX
-  script's defaults: data-parallel MNIST in process on one NCCL rank
+  script's defaults but the MNIST twins' epochs (MNIST_EPOCHS, MP_EPOCHS,
+  CKPT_EPOCHS): data-parallel MNIST in process on one NCCL rank
   (finite, falling losses, val accuracy at least 0.9); the checkpoint
   twin crashed and resumed in three runs (the resumed run's last snapshot
   must equal an uninterrupted run's, leaf for leaf); the model-parallel
@@ -105,7 +113,7 @@ heads) and ResNet-50 (random weights from a seed):
   = 2 x 2 x 2 LM on 8 ranks (``hybrid``). The flash kernels are also held
   to their plain versions as the ring calls them (``flash_ring_blocks``:
   f32 out from bf16, block gradients on the final lse, a fully masked
-  block). ``sp_train`` and ``tp_train`` run the LM at 4 of its 12 layers;
+  block). ``sp_train`` and ``tp_train`` run the LM at 2 of its 12 layers;
 - expert, weights-at-rest and pipeline parallelism, ranks as processes
   on the card over gloo: the 220M LM's widths with 8
   experts (top-2) in every second block, expert-parallel over 2 ranks
@@ -122,9 +130,9 @@ heads) and ResNet-50 (random weights from a seed):
   and remat on the 220M LM against the plain step (``lm_fused_remat``)
   and the ``train_lm.py`` twin's ``main()`` in its MoE, pipeline,
   ``fit`` and resilient modes (``lm_example``). ``moe_train`` and
-  ``gspmd_train`` run 6 of the 12 layers and ``serve_graphs`` serves 8
-  requests eager (32 captured), the cuts that keep the script inside its
-  time limit;
+  ``gspmd_train`` run 4 of the 12 layers and ``serve_graphs`` serves 4
+  requests eager (32 captured; its f32 twin at 2 layers), the cuts that
+  keep the script inside its time limit;
 - the host pieces of the last slice, inside phases that already run:
   ``mnist_mp``'s two rank processes then run the object traffic
   (``scatter_dataset``, a 64 MB ``bcast_obj``, ``allgather_obj``,
@@ -136,26 +144,38 @@ heads) and ResNet-50 (random weights from a seed):
   edges within the static graph, and the static checkers clean over the
   tree);
 - sharded state, ranks as processes on the card over gloo: the serve LM
-  at tp = 2 in the paged engine (``serve_tp``: rank 0 leads, rank 1
-  replays; eager; every decode step's attention through the paged-decode
+  at 4 of its 12 layers at tp = 2 in the paged engine (``serve_tp``: rank
+  0 leads, rank 1 replays; eager; every decode step's attention through the paged-decode
   kernel over the rank's 8 local heads), beside the single-card eager
   engine on the same 16 requests, its f32 twin's streams equal to solo
   ``generate`` of the dense LM (a store written one head over must fail),
   and the kernel timed on 8- and 4-head local stores; then ``reshard``:
-  the train LM at 4 layers in f32 trained at tp = 2, saved with
+  the train LM at 2 layers in f32 trained at tp = 2, saved with
   ``ShardedCheckpointer``, restored at tp = 4 by ``restore_train_state``
   (the next step's loss equal to the tp = 2 run's to 1e-4, the restored
   TP engine's streams equal to solo ``generate``; without the qkv
   permutation both gates must fail), and a tp = 1 replica spawned from
   the snapshot into a ``FleetRouter``. ``sp_train``, ``tp_train``,
   ``moe_train`` and ``gspmd_train`` take 1 + 3 steps (were 2 + 5) to pay
-  for them.
+  for them. The 2-rank ranks of ``mnist_mp``, ``seq2seq_mp``,
+  ``parallel_conv``, ``sp_parity``, ``sp_train``, ``tp_train``,
+  ``serve_tp``, ``moe_train``, ``gspmd_train`` and ``reshard``'s first
+  half run one after another in one pair of processes (``gloo_batch``),
+  which starts once.
 
 Each launch count is set to 0 just before its path runs and read just
-after. Each phase prints one JSON line, then one line gives every
-phase's seconds; the line before the last two is the kernel summary, then the card's name and power limit, then ``{"ok":
-true, "device": {...}}``. Without a CUDA device, or outside a checkout, it
-exits non-zero and prints no result. Imports nothing of JAX.
+after. Each phase is preceded by one flushed line ``{"phase_start":
+name, "elapsed_s": s}`` and prints one JSON line, then one line gives
+every phase's seconds; the line before the last two is the kernel
+summary, then the card's name and power limit, then ``{"ok": true,
+"device": {...}}``. Phases run one after another, never two at once. A
+rank group (or ``mnist_checkpoint``'s subprocess) fails after 3x its
+phase's seconds in a whole run (GROUP_SECONDS), with an error naming the
+phase and carrying the ranks' last output; past DEADLINE_S (1140 s) of
+wall time the script exits 1 at the next phase boundary, naming it, and
+a phase still running at WATCHDOG_S (1175 s) ends it with exit 1, named.
+Without a CUDA device, or outside a checkout, it exits non-zero and
+prints no result. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -174,6 +194,25 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.monotonic()         # the script's wall clock starts here
+
+# The whole script's limit is 1200 s of wall time. Past DEADLINE_S the
+# script exits 1 at the next phase boundary, naming the phase; a phase
+# still running at WATCHDOG_S ends the process with exit 1, naming it.
+DEADLINE_S = 1140.0
+WATCHDOG_S = 1175.0
+# The seconds of each phase that starts processes, in a whole run of the
+# script from a clean checkout (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
+# section 4): a rank group or subprocess of the phase is failed after
+# GROUP_TIMEOUT_FACTOR times them, or at the deadline if that comes first
+GROUP_SECONDS = {"mnist_checkpoint": 53.9, "gloo_batch": 105.0,
+                 "mnist_mp": 40.8, "seq2seq_mp": 37.6, "parallel_conv": 36.1,
+                 "sp_parity": 33.8, "sp_train": 58.0, "tp_train": 29.6,
+                 "serve_tp": 43.8, "reshard": 65.3, "hybrid": 25.6,
+                 "moe_train": 59.2, "gspmd_train": 39.7, "pp_train": 35.2}
+GROUP_TIMEOUT_FACTOR = 3.0
+GROUP_UNTIMED_S = 900.0
+_RUNNING = {"phase": None}          # the phase main() is in
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate
 BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor-core peak
@@ -187,6 +226,8 @@ LM = dict(vocab_size=32768, d_model=1024, n_heads=16, n_layers=12,
 # n_heads): the same parameters, the flash kernels' FLOPs and the paged
 # read's bytes at the serve and train shapes (lm_d256)
 LM_D256 = dict(LM, n_heads=4)
+# ... and at 2 heads of 512 (lm_wide)
+LM_D512 = dict(LM, n_heads=2)
 ENGINE = dict(n_slots=16, kv_block_size=16, cache_len=2048,
               prefill_buckets=(128, 512), prefill_batch=4)
 N_REQUESTS = 32
@@ -223,6 +264,34 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def _keep_seeded_weights() -> None:
+    """``TransformerLM(seed=s)`` draws its weights on the host, some 3 s
+    for the 220M LM, and the phases build that LM some thirty times: keep
+    the first draw of each (seed, parameter names, shapes and dtypes) on
+    the host and copy it into every later build. Each build gets exactly
+    the weights its own draw would give."""
+    import torch
+
+    from chainermn_torch.models import transformer
+
+    draw = transformer.TransformerLM.reset_parameters
+    kept = {}
+
+    @torch.no_grad()
+    def reset_parameters(self, seed: int) -> None:
+        params = [p for _, p in self.named_parameters()]
+        key = (int(seed), tuple((n, tuple(p.shape), p.dtype)
+                                for n, p in self.named_parameters()))
+        if key not in kept:
+            draw(self, seed)
+            kept[key] = [p.detach().to("cpu", copy=True) for p in params]
+            return
+        for p, w in zip(params, kept[key]):
+            p.copy_(w)
+
+    transformer.TransformerLM.reset_parameters = reset_parameters
+
+
 def cuda_ms(fn, reps: int = 50, flush=None) -> float:
     """Median of ``reps`` CUDA-event timings of ``fn()``; ``flush()`` runs
     before each timed call, outside the timed region. A device spin of
@@ -252,7 +321,9 @@ def make_paged_inputs(lengths, *, s_len, h, d, bs, dtype, q_dtype, gen,
                       device, n_blocks=None):
     """A random store whose rows own disjoint random blocks (unused table
     entries and the store's spare blocks hold junk, so a read past a
-    row's length would show), int8 scales when ``dtype`` is int8."""
+    row's length would show), int8 scales when ``dtype`` is int8. Drawn
+    on the generator's device (a CUDA generator draws the store where it
+    lives)."""
     import torch
 
     b = len(lengths)
@@ -260,8 +331,9 @@ def make_paged_inputs(lengths, *, s_len, h, d, bs, dtype, q_dtype, gen,
     n_max = max(need)
     if n_blocks is None:
         n_blocks = sum(need) + 1 + 8
-    perm = torch.randperm(n_blocks - 1, generator=gen)[:sum(need)] + 1
-    table = torch.zeros((b, n_max), dtype=torch.int32)
+    at_gen = dict(generator=gen, device=gen.device)
+    perm = torch.randperm(n_blocks - 1, **at_gen)[:sum(need)] + 1
+    table = torch.zeros((b, n_max), dtype=torch.int32, device=gen.device)
     at = 0
     for i, n in enumerate(need):
         table[i, :n] = perm[at:at + n].int()
@@ -270,18 +342,18 @@ def make_paged_inputs(lengths, *, s_len, h, d, bs, dtype, q_dtype, gen,
     out = {"table": table.to(device),
            "lengths": torch.as_tensor(lengths, dtype=torch.int32,
                                       device=device),
-           "q": torch.randn((b, s_len, h, d), generator=gen).to(
+           "q": torch.randn((b, s_len, h, d), **at_gen).to(
                device=device, dtype=q_dtype)}
     if dtype == torch.int8:
         for kk in ("k", "v"):
-            out[kk] = torch.randint(-127, 128, shape, generator=gen,
-                                    dtype=torch.int8).to(device)
-            out[kk + "_scale"] = (torch.rand((n_blocks, bs, h), generator=gen)
+            out[kk] = torch.randint(-127, 128, shape, dtype=torch.int8,
+                                    **at_gen).to(device)
+            out[kk + "_scale"] = (torch.rand((n_blocks, bs, h), **at_gen)
                                   * 0.05 + 1e-3).to(device)
     else:
         for kk in ("k", "v"):
-            out[kk] = torch.randn(shape, generator=gen).to(device=device,
-                                                           dtype=dtype)
+            out[kk] = torch.randn(shape, **at_gen).to(device=device,
+                                                      dtype=dtype)
         out["k_scale"] = out["v_scale"] = None
     return out
 
@@ -335,21 +407,35 @@ def _ptxas(log: str) -> list:
 def phase_build():
     """Both kernel libraries, one ``nvcc`` each, started together. Fails
     if a bf16 flash instance (``*_sm90``) or a paged-decode instance
-    spills registers."""
-    flash_attention = importlib.import_module(
-        "chainermn_torch.ops.flash_attention")
-    from chainermn_torch.parallel import paged_kernel
+    spills registers. The builds start from ``chainermn_torch/_build.py``
+    loaded on its own, so the port's package is imported (~6 s on the
+    card host) while ``nvcc`` runs; the kernel modules then load the
+    libraries built."""
+    import importlib.util
 
-    libs = {"paged_decode": paged_kernel, "flash_attention": flash_attention}
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke_build", ROOT / "chainermn_torch" / "_build.py")
+    builder = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(builder)
+    csrc = ROOT / "chainermn_torch" / "csrc"
+    srcs = {"paged_decode": csrc / "paged_decode.cu",
+            "flash_attention": csrc / "flash_attention.cu"}
 
-    def build(mod):
+    def build(src):
         t0 = time.perf_counter()
-        mod.build_library()
-        return time.perf_counter() - t0
+        _, log = builder.load_library(src, {})
+        return time.perf_counter() - t0, log
 
-    with ThreadPoolExecutor(len(libs)) as pool:
-        seconds = dict(zip(libs, pool.map(build, libs.values())))
-    ptxas = {name: _ptxas(mod.build_library.log) for name, mod in libs.items()}
+    with ThreadPoolExecutor(len(srcs)) as pool:
+        done = pool.map(build, srcs.values())
+        flash_attention = importlib.import_module(
+            "chainermn_torch.ops.flash_attention")
+        from chainermn_torch.parallel import paged_kernel
+        seconds, logs = (dict(zip(srcs, x)) for x in zip(*done))
+    libs = {"paged_decode": paged_kernel, "flash_attention": flash_attention}
+    for mod in libs.values():
+        mod.build_library()
+    ptxas = {name: _ptxas(logs[name]) for name in libs}
     for name in libs:
         emit({"phase": "build", "kernel": name, "seconds": seconds[name],
               "ptxas": ptxas[name]})
@@ -380,6 +466,15 @@ PAGED_LENGTHS = {
 PAGED_SHAPES = ((64, 1), (64, 4), (64, 8), (128, 1), (128, 8),
                 (8, 1), (8, 12), (32, 4), (32, 12), (96, 8), (96, 12),
                 (64, 12), (256, 1), (256, 5), (256, 12), (160, 8))
+# past 256 (256-column slices of the output), over bf16, f32, int8 and
+# f16 stores: D = 512 at S = 1, 5 and 12, 384 at 12, 320 at 8, and 257
+# and 1024
+PAGED_WIDE_SHAPES = ((512, 1), (512, 5), (512, 12), (384, 12), (320, 8),
+                     (257, 4), (1024, 1))
+# float16 queries over every store type and float16 stores under every
+# query type (the pairs the kernel is not built for run with q widened to
+# f32), at the serve shape (D = 64) and at 256 and 512
+PAGED_F16_SHAPES = ((64, 1), (64, 8), (256, 5), (512, 1))
 # more (row, head) pairs than one grid axis of 65535 holds, for each kernel
 GRID_BH = 70_000
 
@@ -387,8 +482,14 @@ GRID_BH = 70_000
 def phase_parity(device):
     """paged_attend vs paged_attend_reference on the card: B=16, H=16,
     bs=16, the PAGED_LENGTHS sets (split-K and one-CTA paths), the
-    PAGED_SHAPES (D, S) pairs, bf16 / f32 / int8 stores; then one case
-    with B * H = 70000 rows and heads (B = 70000, H = 1, a bf16 store)."""
+    PAGED_SHAPES (D, S) pairs over bf16 / f32 / int8 stores, the
+    PAGED_WIDE_SHAPES over those and f16, and the PAGED_F16_SHAPES over
+    f16 queries on f16 / int8 / f32 / bf16 stores and f32 or bf16 queries
+    on an f16 store (the 16-bit tolerance); then one case with B * H =
+    70000 rows and heads (B = 70000, H = 1, a bf16 store). Inputs are drawn on the card.
+    A planted fault must fail: at D = 512 the plain version on K with its
+    columns past the first 256 zeroed (scores reduced over one slice's
+    columns only)."""
     import torch
 
     from chainermn_torch.parallel.paged_kernel import (
@@ -397,51 +498,84 @@ def phase_parity(device):
         split_plan,
     )
 
-    gen = torch.Generator().manual_seed(SEED)
+    gen = torch.Generator(device=device).manual_seed(SEED)
     cases = {"bf16": (torch.bfloat16, torch.bfloat16),
              "f32": (torch.float32, torch.float32),
              "int8": (torch.int8, torch.float32)}
+    wide_cases = dict(cases, f16=(torch.float16, torch.float16))
+    f16_cases = {"f16": (torch.float16, torch.float16),
+                 "int8_f16q": (torch.int8, torch.float16),
+                 "f32_f16q": (torch.float32, torch.float16),
+                 "f16_f32q": (torch.float16, torch.float32),
+                 "f16_bf16q": (torch.float16, torch.bfloat16),
+                 "bf16_f16q": (torch.bfloat16, torch.float16)}
     results = []
-    for d, s_len in PAGED_SHAPES:
-        for path, base in PAGED_LENGTHS.items():
-            lengths = [max(n, s_len) for n in base]
-            for name, (dtype, q_dtype) in cases.items():
-                x = make_paged_inputs(lengths, s_len=s_len, h=16, d=d,
-                                      bs=16, dtype=dtype, q_dtype=q_dtype,
-                                      gen=gen, device=device)
-                args, kw = attend_args(x)
-                got = paged_attend(*args, **kw).float()
-                want = paged_attend_reference(*args, **kw).float()
-                torch.cuda.synchronize()
-                rtol, atol = TOL[name]
-                err = (got - want).abs()
-                ok = bool((err <= atol + rtol * want.abs()).all())
-                plan = split_plan(len(lengths), 16, x["table"].shape[1], 16)
-                results.append({"store": name, "D": d, "S": s_len,
-                                "path": path, "n_split": plan[0],
-                                "split_keys": plan[1],
-                                "max_abs_err": float(err.max()),
-                                "rtol": rtol, "atol": atol, "ok": ok})
+
+    def check(got, want, name):
+        rtol, atol = TOL["f16" if name in f16_cases else name]
+        err = (got - want).abs()
+        return (float(err.max()), rtol, atol,
+                bool((err <= atol + rtol * want.abs()).all()))
+
+    for shapes, group in ((PAGED_SHAPES, cases),
+                          (PAGED_WIDE_SHAPES, wide_cases),
+                          (PAGED_F16_SHAPES, f16_cases)):
+        for d, s_len in shapes:
+            for path, base in PAGED_LENGTHS.items():
+                lengths = [max(n, s_len) for n in base]
+                for name, (dtype, q_dtype) in group.items():
+                    x = make_paged_inputs(lengths, s_len=s_len, h=16, d=d,
+                                          bs=16, dtype=dtype,
+                                          q_dtype=q_dtype, gen=gen,
+                                          device=device)
+                    args, kw = attend_args(x)
+                    got = paged_attend(*args, **kw).float()
+                    want = paged_attend_reference(*args, **kw).float()
+                    torch.cuda.synchronize()
+                    err, rtol, atol, ok = check(got, want, name)
+                    plan = split_plan(len(lengths), 16, x["table"].shape[1],
+                                      16)
+                    results.append({"store": name, "D": d, "S": s_len,
+                                    "path": path, "n_split": plan[0],
+                                    "split_keys": plan[1],
+                                    "max_abs_err": err, "rtol": rtol,
+                                    "atol": atol, "ok": ok})
     # the grid: B * H past 65535 (B = GRID_BH rows of one head)
-    lengths = torch.randint(1, 40, (GRID_BH,), generator=gen).tolist()
+    lengths = torch.randint(1, 40, (GRID_BH,), generator=gen,
+                            device=device).tolist()
     x = make_paged_inputs(lengths, s_len=1, h=1, d=64, bs=16,
                           dtype=torch.bfloat16, q_dtype=torch.bfloat16,
                           gen=gen, device=device)
     args, kw = attend_args(x)
-    got = paged_attend(*args, **kw).float()
-    want = paged_attend_reference(*args, **kw).float()
-    rtol, atol = TOL["bf16"]
-    err = (got - want).abs()
+    err, rtol, atol, ok = check(paged_attend(*args, **kw).float(),
+                                paged_attend_reference(*args, **kw).float(),
+                                "bf16")
     results.append({"store": "bf16", "D": 64, "S": 1, "path": "grid",
-                    "B": GRID_BH, "H": 1, "max_abs_err": float(err.max()),
-                    "rtol": rtol, "atol": atol,
-                    "ok": bool((err <= atol + rtol * want.abs()).all())})
-    del x, args, got, want, err
-    emit({"phase": "parity", "kernel": "paged_decode", "cases": results})
+                    "B": GRID_BH, "H": 1, "max_abs_err": err,
+                    "rtol": rtol, "atol": atol, "ok": ok})
+    # the planted fault: scores over the first 256 of 512 columns only
+    x = make_paged_inputs(PAGED_LENGTHS["split"], s_len=1, h=16, d=512,
+                          bs=16, dtype=torch.bfloat16,
+                          q_dtype=torch.bfloat16, gen=gen, device=device)
+    args, kw = attend_args(x)
+    cut = x["k"].clone()
+    cut[..., 256:] = 0
+    err, rtol, atol, ok = check(
+        paged_attend(*args, **kw).float(),
+        paged_attend_reference(args[0], cut, *args[2:], **kw).float(),
+        "bf16")
+    planted = {"store": "bf16", "D": 512, "S": 1, "path": "split",
+               "fault": "K columns 256.. zeroed in the plain version",
+               "max_abs_err": err, "ok": ok}
+    del x, args, cut
+    emit({"phase": "parity", "kernel": "paged_decode", "cases": results,
+          "planted_fault": planted})
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"paged_decode disagrees with its plain "
                              f"version: {bad}")
+    if planted["ok"]:
+        raise AssertionError(f"parity: the planted fault passes: {planted}")
     return max(r["max_abs_err"] for r in results)
 
 
@@ -612,8 +746,9 @@ def phase_timing(device, lengths):
     the engine's captured decode program reads (``cache_len / bs`` = 128
     entries, the split plan fixed by that width); ``ms_span_cut`` is the
     table cut to the longest row, as the eager engine of earlier versions
-    read it; ``d256`` is the same read at H = 4, D = 256 (``lm_d256``'s
-    shape: the same bytes)."""
+    read it; ``d256`` and ``d512`` are the same read at H = 4, D = 256 and
+    H = 2, D = 512 (``lm_d256``'s and ``lm_wide``'s shapes: the same
+    bytes), ``f16`` at the serve shape with float16 queries and store."""
     import torch
 
     from chainermn_torch.parallel.paged_kernel import (
@@ -626,12 +761,11 @@ def phase_timing(device, lengths):
     n_blocks = ENGINE["n_slots"] * (ENGINE["cache_len"] // bs) + 1
     gen = torch.Generator().manual_seed(SEED + 1)
 
-    def inputs(h, d, s_len=1):
+    def inputs(h, d, s_len=1, dtype=torch.bfloat16):
         return make_paged_inputs([max(n, s_len) for n in lengths],
-                                 s_len=s_len, h=h, d=d, bs=bs,
-                                 dtype=torch.bfloat16,
-                                 q_dtype=torch.bfloat16, gen=gen,
-                                 device=device, n_blocks=n_blocks)
+                                 s_len=s_len, h=h, d=d, bs=bs, dtype=dtype,
+                                 q_dtype=dtype, gen=gen, device=device,
+                                 n_blocks=n_blocks)
 
     x = inputs(h, d)
     args, kw = attend_args(x)
@@ -656,9 +790,13 @@ def phase_timing(device, lengths):
         wider[f"ms_{tag}"] = cuda_ms(lambda: paged_attend(*y_args, **y_kw),
                                      flush=flush)
         del y, y_args, y_kw
-    h4 = LM_D256["n_heads"]
-    d256 = _paged_full_table_row(inputs(h4, LM_D256["d_model"] // h4),
-                                 lengths, flush)
+    wide = {}
+    for name, cfg in (("d256", LM_D256), ("d512", LM_D512)):
+        hh = cfg["n_heads"]
+        wide[name] = _paged_full_table_row(
+            inputs(hh, cfg["d_model"] // hh), lengths, flush)
+    wide["f16"] = _paged_full_table_row(inputs(h, d, dtype=torch.float16),
+                                        lengths, flush)
     paged_attend.launches = launches0
     b = len(lengths)
     n_split, split_keys = full["split_plan"]
@@ -669,9 +807,9 @@ def phase_timing(device, lengths):
                         "split_plan": split_plan(b, h, span, bs),
                         "max_abs_err": err, "ms": span_ms,
                         "plain_ms": span_plain_ms},
-           "ms_span_cut": span_ms, **wider, "d256": d256}
+           "ms_span_cut": span_ms, **wider, **wide}
     emit(rec)
-    bad = [r for r in (full, d256) if not r["within_tol"]]
+    bad = [r for r in (full, *wide.values()) if not r["within_tol"]]
     if bad:
         raise AssertionError(f"paged_decode disagrees with its plain version "
                              f"at the decode shape: {bad}")
@@ -683,7 +821,8 @@ def _paged_full_table_row(x, lengths, flush):
     inputs ``x`` (``make_paged_inputs`` at the serve lengths, S = 1) read
     through the captured decode program's full table (``cache_len / bs``
     entries); the bound counts q read, each row's live KV rows read once,
-    its table entries and length read, and the output written."""
+    its table entries and length read, and the output written.
+    ``library_backend`` is the backend SDPA picks for those inputs."""
     import torch
     import torch.nn.functional as F
 
@@ -720,7 +859,13 @@ def _paged_full_table_row(x, lengths, flush):
     n_ops = 4 * kv_rows * h * d                         # QK and PV, S = 1
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / BF16_OPS_PER_S * 1e3
-    return {"H": h, "D": d, "table_width": full_w,
+    # what the kernel reads: past D = 256 every 256-column slice's CTA
+    # reads q and K whole, V its own slice
+    extra = (-(-d // 256) - 1) * (b * h * d * 2 + kv_rows * h * d * 2)
+    kv_lib = [x[n].index_select(0, flat).view(b, -1, h, d).transpose(1, 2)
+              for n in ("k", "v")]
+    return {"H": h, "D": d, "dtype": str(x["q"].dtype).split(".")[-1],
+            "table_width": full_w,
             "split_plan": split_plan(b, h, full_w, bs),
             "max_abs_err": float(err.max()),
             "within_tol": bool((err <= atol + rtol * want.abs()).all()),
@@ -730,9 +875,26 @@ def _paged_full_table_row(x, lengths, flush):
             "plain_ms": cuda_ms(lambda: paged_attend_reference(*args, **kw),
                                 flush=flush),
             "library_ms": cuda_ms(library, flush=flush),
-            "bytes": n_bytes, "ops": n_ops,
+            "library_backend": _sdpa_backend(x["q"].transpose(1, 2),
+                                             *kv_lib, mask),
+            "bytes": n_bytes, "design_bytes": n_bytes + extra, "ops": n_ops,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _sdpa_backend(q, k, v, attn_mask=None, is_causal=False):
+    """The name of the backend ``F.scaled_dot_product_attention`` picks
+    for these inputs (its own dispatch rule, ``torch._fused_sdp_choice``),
+    or ``"unknown"`` where this torch has no such rule."""
+    import torch
+
+    try:
+        from torch.nn.attention import SDPBackend
+
+        return SDPBackend(torch._fused_sdp_choice(
+            q, k, v, attn_mask, 0.0, is_causal)).name
+    except (AttributeError, ImportError, RuntimeError, ValueError):
+        return "unknown"
 
 
 def phase_engine_parity(device):
@@ -867,11 +1029,11 @@ def _drive(engine, work, *, seeds=None, sched_kw=None, on_step=None,
     return [[int(t) for t in r.tokens] for r in reqs], sched, wall
 
 
-def _parity(model, work, got, want):
+def _parity(model, work, got, want, near_tie=NEAR_TIE):
     """Token streams ``got`` against ``want`` (the same requests): a
     stream passes when it is identical, or when its first divergence sits
     where ``model``'s logits (a cacheless forward over the prompt and the
-    reference's tokens before it) have a top-2 gap below ``NEAR_TIE``."""
+    reference's tokens before it) have a top-2 gap below ``near_tie``."""
     import numpy as np
     import torch
 
@@ -888,7 +1050,7 @@ def _parity(model, work, got, want):
         top2 = torch.topk(lg[0, -1].float(), 2).values
         rec = {"request": i, "position": at,
                "top2_gap": float(top2[0] - top2[1])}
-        (ties if rec["top2_gap"] < NEAR_TIE else bad).append(rec)
+        (ties if rec["top2_gap"] < near_tie else bad).append(rec)
     return {"requests": len(work), "identical": same, "near_ties": ties,
             "failures": bad}
 
@@ -1360,6 +1522,9 @@ GRAPH_PROFILE_STEPS = 10
 # phase's 114-120 s at 8 each); the captured bf16 runs serve all 32
 GRAPH_EAGER_REQUESTS = 4
 GRAPH_PARITY_REQUESTS = 4
+# the f32 twin of that parity at 2 of the 12 layers: its eager runs step
+# layer by layer on the host (~40 of the phase's 74-80 s at 12 layers)
+GRAPH_F32_LM = dict(LM, n_layers=2)
 GRAPH_SAMPLED = dict(temperature=0.8, top_k=50)
 
 
@@ -1416,7 +1581,8 @@ def _graph_run(model, kw, work, capture, device, *, profile=False,
     """One engine of a path, eager or captured: warmup, the traffic, and
     (``profile``) a traced steady window. Fails unless the programs are
     built once each and never again, and, on a kernel path, the kernel
-    launched ``per_call`` x 12 times for every engine decode call."""
+    launched ``per_call`` x the model's layers times for every engine
+    decode call."""
     import numpy as np
     import torch
 
@@ -1458,10 +1624,10 @@ def _graph_run(model, kw, work, capture, device, *, profile=False,
         raise AssertionError(f"serve_graphs: programs rebuilt: {counts} -> "
                              f"{eng.compile_counts_detailed()} "
                              f"{eng.recompiles}")
-    if launches != calls * per_call * LM["n_layers"]:
+    n_layers = len(model.blocks)
+    if launches != calls * per_call * n_layers:
         raise AssertionError(f"serve_graphs: kernel launches {launches} != "
-                             f"{calls} calls x {per_call} x "
-                             f"{LM['n_layers']}")
+                             f"{calls} calls x {per_call} x {n_layers}")
     if profile:
         prof = _profile_steps(eng, sched, np.random.default_rng(SEED + 40),
                               GRAPH_PROFILE_STEPS, host_events=False)
@@ -1481,8 +1647,8 @@ def phase_serve_graphs(device, card):
     step's device-busy ms and idle share, the capture seconds and the
     graph pool's bytes. Fails unless every run builds each program once
     (``compile_counts_detailed()`` flat, ``recompiles`` empty), the
-    kernel launches equal decode calls x window x 12 on both, and, on the
-    f32 LM with 4 requests, each path's captured streams equal its eager
+    kernel launches equal decode calls x window x layers on both, and, on
+    the f32 LM at 2 layers with 4 requests, each path's captured streams equal its eager
     ones up to the near-tie rule (greedy; sampled at T 0.8 / top-k 50
     except the greedy-only verify window) while a planted fault (the
     captured decode program reading one table block) fails that gate."""
@@ -1503,8 +1669,8 @@ def phase_serve_graphs(device, card):
                 capture, device, profile=True, per_call=per_call)
     del model
     _empty()
-    m32 = TransformerLM(**LM, compute_dtype=torch.float32, device=device,
-                        seed=SEED)
+    m32 = TransformerLM(**GRAPH_F32_LM, compute_dtype=torch.float32,
+                        device=device, seed=SEED)
     parity = {}
     seeds = [2000 + i for i in range(GRAPH_PARITY_REQUESTS)]
     for name, (kw, work, per_call) in paths.items():
@@ -1550,6 +1716,7 @@ def phase_serve_graphs(device, card):
            "requests": {"eager": GRAPH_EAGER_REQUESTS,
                         "captured": N_REQUESTS,
                         "f32_parity": GRAPH_PARITY_REQUESTS},
+           "f32_model": GRAPH_F32_LM,
            "profile_steps": GRAPH_PROFILE_STEPS,
            "runs": runs, "f32_parity": parity, "planted_fault": planted,
            "run_s": time.perf_counter() - t_phase}
@@ -2797,8 +2964,8 @@ def _flash_inputs(b, tq, tk, h, d, dtype, gen, device, fused=False):
     import torch
 
     def draw(shape):
-        return torch.randn(shape, generator=gen).to(device=device,
-                                                    dtype=dtype)
+        return torch.randn(shape, generator=gen, device=gen.device).to(
+            device=device, dtype=dtype)
 
     if fused:
         qkv = draw((b, tq, 3, h, d))
@@ -2817,25 +2984,38 @@ def _compare(got, want, rtol, atol):
 # the FLASH_CASES run at head dims the wrapper pads (8, 32, 96 and 192)
 FLASH_PAD_CASES = ("square_causal", "ragged_full", "rect_causal",
                    "offset_k300")
-FLASH_HEAD_DIMS = (64, 128, 256)   # the kernels' own widths
+FLASH_HEAD_DIMS = (64, 128, 256)   # the one-tile kernels' own widths
 FLASH_PAD_DIMS = (8, 32, 96, 192)
+# past 256 (256-column slices of the output, the score products in
+# 64-column chunks), each width at a few FLASH_CASES only: D = 512, the
+# wide LM's, at three (the blind rows of offset_k300 among them), 320 and
+# 1024 at one each, and 257 (padded to 320) and 384 (a slice of 128
+# columns beside a whole one) at one each
+FLASH_WIDE_CASES = {512: ("square_causal", "ragged_full", "offset_k300"),
+                    320: ("rect_causal",), 1024: ("square_causal",),
+                    257: ("offset_k300",), 384: ("ragged_full",)}
 
 
 def phase_flash_parity(device):
     """Each flash kernel against its plain version on the card: B=2,
     H=16, D in FLASH_HEAD_DIMS with the FLASH_CASES shapes (ragged tails,
-    Tq != Tk, offsets, a sequence below one tile) and D in FLASH_PAD_DIMS
-    with the FLASH_PAD_CASES, bf16, f32 and f16 each; then one case with
-    B * H past 65535 (B = 4375, H = 16, T = 8, bf16, causal). The backward
+    Tq != Tk, offsets, a sequence below one tile), D in FLASH_PAD_DIMS
+    with the FLASH_PAD_CASES and the widths past 256 with their
+    FLASH_WIDE_CASES, bf16, f32 and f16 each; then one case with
+    B * H past 65535 (B = 4375, H = 16, T = 8, bf16, causal). Inputs are
+    drawn on the card. The backward
     kernels take the plain forward's lse and delta, so each kernel sees
     its plain version's inputs; gradients come back in the input dtype, as
     in training. Rows that see no key must hold out == 0 and lse == -1e30,
-    and their dq and the unseen keys' dk and dv must be 0, exactly."""
+    and their dq and the unseen keys' dk and dv must be 0, exactly. A
+    planted fault must fail: the D = 512 bf16 ``square_causal`` kernels
+    against the plain versions on K with its columns past the first 256
+    zeroed (scores reduced over one slice's columns only)."""
     import torch
 
     fa = importlib.import_module("chainermn_torch.ops.flash_attention")
 
-    gen = torch.Generator().manual_seed(SEED + 4)
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32,
               "f16": torch.float16}
     grid_case = ("grid_bh", 8, 8, True, 0, 0)
@@ -2845,6 +3025,8 @@ def phase_flash_parity(device):
     # (B, D, dtypes, cases)
     groups = ([(2, d, dtypes, FLASH_CASES) for d in FLASH_HEAD_DIMS]
               + [(2, d, dtypes, padded) for d in FLASH_PAD_DIMS]
+              + [(2, d, dtypes, [c for c in FLASH_CASES if c[0] in names])
+                 for d, names in FLASH_WIDE_CASES.items()]
               + [(-(-GRID_BH // 16), 64, {"bf16": torch.bfloat16},
                   [grid_case])])
     for b, d, group_dtypes, cases in groups:
@@ -2894,15 +3076,49 @@ def phase_flash_parity(device):
                 worst["flash_dq"] = max(worst["flash_dq"], checks["dq"][0])
                 worst["flash_dkv"] = max(worst["flash_dkv"], checks["dk"][0],
                                          checks["dv"][0])
+    planted = _flash_planted_fault(fa, gen, device)
     emit({"phase": "flash_parity", "H": 16, "tol": TOL,
           "shapes": {c[0]: c[1:] for c in FLASH_CASES + [grid_case]},
           "shape_fields": ["Tq", "Tk", "causal", "q_offset", "k_offset"],
-          "cases": results})
+          "cases": results, "planted_fault": planted})
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"flash kernels disagree with their plain "
                              f"versions: {bad}")
+    if planted["ok"]:
+        raise AssertionError(f"flash_parity: the planted fault passes: "
+                             f"{planted}")
     return worst
+
+
+def _flash_planted_fault(fa, gen, device):
+    """The D = 512 bf16 ``square_causal`` kernels against the plain
+    versions on K with columns 256.. zeroed; ``ok`` is the parity gate's
+    verdict (every output inside the tolerance), which must be False."""
+    import torch
+
+    _, tq, tk, causal, qo, ko = FLASH_CASES[0]
+    q, k, v, do = _flash_inputs(2, tq, tk, 16, 512, torch.bfloat16, gen,
+                                device)
+    kw = dict(causal=causal, q_offset=qo, k_offset=ko)
+    gkw = dict(kw, grad_dtype=torch.bfloat16)
+    cut = k.clone()
+    cut[..., 256:] = 0
+    out, _ = fa.flash_fwd_with_lse(q, k, v, **kw)
+    r_out, r_lse = fa.flash_fwd_reference(q, cut, v, **kw)
+    delta = (do.float() * r_out.float()).sum(-1).transpose(1, 2).contiguous()
+    got = {"out": out, "dq": fa.flash_dq(q, k, v, do, r_lse, delta, **gkw)}
+    got["dk"], got["dv"] = fa.flash_dkv(q, k, v, do, r_lse, delta, **gkw)
+    want = {"out": r_out,
+            "dq": fa.flash_dq_reference(q, cut, v, do, r_lse, delta, **gkw)}
+    want["dk"], want["dv"] = fa.flash_dkv_reference(q, cut, v, do, r_lse,
+                                                    delta, **gkw)
+    rtol, atol = TOL["bf16"]
+    checks = {n: _compare(got[n], want[n], rtol, atol) for n in got}
+    return {"D": 512, "dtype": "bf16", "case": FLASH_CASES[0][0],
+            "fault": "K columns 256.. zeroed in the plain versions",
+            "err": {n: c[0] for n, c in checks.items()},
+            "ok": all(c[1] for c in checks.values())}
 
 
 # flash_ring_blocks holds f32 outputs of bf16 inputs: absolute
@@ -3288,6 +3504,7 @@ def _flash_rows(b, t, h, d, gen, device, flush):
 
     lib_err = float((lib_out.detach().transpose(1, 2).float()
                      - out.float()).abs().max())
+    backend = _sdpa_backend(qt, kt, vt, is_causal=True)
     library = {"flash_fwd": cuda_ms(lib_fwd, flush=flush)}
     library["flash_dq"] = library["flash_dkv"] = cuda_ms(lib_bwd,
                                                          flush=flush)
@@ -3311,6 +3528,7 @@ def _flash_rows(b, t, h, d, gen, device, flush):
                       "deterministic": same, "ms": kernel_ms,
                       "plain_ms": plain_ms, "library_ms": library[name],
                       "library_max_abs_err": lib_err,
+                      "library_backend": backend,
                       "bytes": n_bytes, "ops": n_ops,
                       "bound_ms": max(t_bytes, t_ops),
                       "bound_by": "bytes" if t_bytes >= t_ops
@@ -3324,11 +3542,11 @@ def phase_flash_timing(device):
     """Each flash kernel, its plain version and a library yardstick at the
     training shape (B=8, T=2048, H=16, D=64, bf16, causal; q, k and v
     sliced from one fused qkv tensor as the model passes them), L2
-    flushed before each timed call; then the same at H=4, D=256 (the
-    ``lm_d256`` shape: the same FLOPs and bytes) and at D=8 (padded to
-    64). Each kernel's outputs must agree with its plain version's within
-    the bf16 tolerance, so the strided reads of the training path are held
-    to a limit. The yardstick, which the port never calls, is
+    flushed before each timed call; then the same at H=4, D=256 and H=2,
+    D=512 (the ``lm_d256`` and ``lm_wide`` shapes: the same FLOPs and
+    bytes) and at D=8 (padded to 64). Each kernel's outputs must agree
+    with its plain version's within the bf16 tolerance, so the strided
+    reads of the training path are held to a limit. The yardstick, which the port never calls, is
     ``F.scaled_dot_product_attention(is_causal=True)`` forward, and its
     backward as one number for dq, dk and dv together. The bound is the
     larger of the causal FLOPs this run needs (visible (q, k) pairs x 4 D
@@ -3348,11 +3566,11 @@ def phase_flash_timing(device):
     saved = {fn: getattr(fa, fn).launches for fn, *_
              in FLASH_KERNELS.values()}
     recs = _flash_rows(b, t, h, d, gen, device, flush)
-    h256 = LM_D256["n_heads"]
-    d256 = _flash_rows(b, t, h256, LM_D256["d_model"] // h256, gen, device,
-                       flush)
-    for name, rec in d256.items():
-        recs[name]["d256"] = dict(rec, H=h256, D=LM_D256["d_model"] // h256)
+    for tag, cfg in (("d256", LM_D256), ("d512", LM_D512)):
+        hh = cfg["n_heads"]
+        rows = _flash_rows(b, t, hh, cfg["d_model"] // hh, gen, device, flush)
+        for name, rec in rows.items():
+            recs[name][tag] = dict(rec, H=hh, D=cfg["d_model"] // hh)
     # the same shape at D = 8 (the repo's small LM configurations), which
     # the wrapper runs padded to 64
     q, k, v, do = _flash_inputs(b, t, t, h, 8, torch.bfloat16, gen, device,
@@ -3375,7 +3593,8 @@ def phase_flash_timing(device):
                           "dq and dkv rows share its backward (dq, dk, dv)",
           "kernels": recs})
     rows = [(n, r) for n, r in recs.items()] + [
-        (f"{n} D=256", r["d256"]) for n, r in recs.items()]
+        (f"{n} D={r[tag]['D']}", r[tag]) for n, r in recs.items()
+        for tag in ("d256", "d512")]
     bad = [n for n, r in rows if not r["within_tol"]]
     if bad:
         raise AssertionError(f"flash kernels {bad} disagree with their plain "
@@ -3439,30 +3658,61 @@ def phase_train_parity(device):
                              "attention training")
 
 
-LM_D256_REQUESTS = 16
-LM_D256_STEPS = dict(warmup=1, timed=3)
-LM_D256_TWIN = dict(LM_D256, n_layers=2)        # the f32 serving twin
+LM_WIDE_REQUESTS = 16
+LM_WIDE_STEPS = dict(warmup=1, timed=3)
+# lm_d256 serves and trains its LM at 4 of the 12 layers (its D = 256
+# coverage stays whole in parity, flash_parity and the timing rows): the
+# cut that pays for lm_wide
+LM_D256_RUN = dict(LM_D256, n_layers=4)
+LM_D256_TWIN = dict(LM_D256, n_layers=2)        # the f32 serving twins
+LM_D512_TWIN = dict(LM_D512, n_layers=2)
 LM_D256_PARITY = dict(vocab_size=1000, d_model=1024, n_heads=4, n_layers=2,
                       max_len=256, batch=4, seq_len=256, tol=1e-4)
+LM_D512_PARITY = dict(LM_D256_PARITY, n_heads=2)
+# the float16 serve: the serve LM at compute_dtype=float16, and its
+# 2-layer twin for the kernel-against-plain streams
+SERVE_F16_TWIN = dict(LM, n_layers=2)
+# float16 logits carry 11 bits: a top-2 gap of a few ulps at the LM's
+# logit scale (|x| < 8: ulp <= 2**-8) is a tie the two read paths may
+# break either way
+NEAR_TIE_F16 = 2e-2
 
 
 def phase_lm_d256(device, card, comm):
     """The slice's paths at head dim 256: ``LM_D256`` (the 220M LM at 4
-    heads, ``d_head = d_model // n_heads`` = 256, the same parameters).
+    heads, ``d_head = d_model // n_heads`` = 256, the same parameters),
+    run by :func:`_lm_wide` at 4 of its 12 layers (``LM_D256_RUN``)."""
+    return _lm_wide("lm_d256", LM_D256_RUN, LM_D256_TWIN, LM_D256_PARITY,
+                    device, card, comm)
+
+
+def phase_lm_wide(device, card, comm):
+    """The slice's last input ranges at full width: ``LM_D512`` (the 220M
+    LM at 2 heads of 512, the same parameters), run by :func:`_lm_wide` at
+    all 12 layers; then the serve LM at ``compute_dtype=float16``
+    (:func:`_serve_f16`)."""
+    return _lm_wide("lm_wide", LM_D512, LM_D512_TWIN, LM_D512_PARITY,
+                    device, card, comm, extra=_serve_f16)
+
+
+def _lm_wide(name, cfg, twin, parity_cfg, device, card, comm, extra=None):
+    """One LM ``cfg`` at a wide head dim, ``d_head = d_model // n_heads``:
 
     - serve: the captured paged ``ServingEngine`` (``ENGINE``'s settings,
       greedy) under ``FCFSScheduler`` answers 16 of ``_serve_traffic``'s
-      requests; every decode step's attention runs B4 at H = 4, D = 256
-      (launches = decode steps x 12, a replay counted), then 10 decode
-      steps are profiled for the device's idle share. Its f32 twin at 2
-      layers streams 8 requests through the kernel engine and the plain
-      engine: equal up to a recorded near-tie.
+      requests; every decode step's attention runs B4 (launches = decode
+      steps x layers, a replay counted), then 10 decode steps are
+      profiled for the device's idle share. Its f32 ``twin`` streams 8
+      requests through the kernel engine and the plain engine: equal up
+      to a recorded near-tie.
     - train: ``attention='flash'``, ``lm_train_step``, AdamW, 1 warm-up and
-      3 timed steps at [8, 2048] (B1-B3 at D = 256, 12 launches a step
-      each); the loss must fall. Then ``LM_D256_PARITY`` (f32, D = 256,
-      the f32 kernels) takes one SGD step at lr 1 with ``'flash'`` and
-      with ``'full'`` from one seed: the loss and every gradient (the
-      step's parameter change) agree to ``train_parity``'s 1e-4."""
+      3 timed steps at [8, 2048] (B1-B3 at the head dim, a launch a layer
+      a step each); the loss must fall. Then ``parity_cfg`` (f32, the f32
+      kernels) takes one SGD step at lr 1 with ``'flash'`` and with
+      ``'full'`` from one seed: the loss and every gradient (the step's
+      parameter change) agree to ``train_parity``'s 1e-4.
+    - ``extra()``, when given, returns ``(key, record, check)``: its record
+      joins the phase's and ``check(record)`` gates it."""
     import numpy as np
     import torch
 
@@ -3475,11 +3725,11 @@ def phase_lm_d256(device, card, comm):
     fa = importlib.import_module("chainermn_torch.ops.flash_attention")
 
     t_phase = time.perf_counter()
-    h, dh = LM_D256["n_heads"], LM_D256["d_model"] // LM_D256["n_heads"]
-    n_layers = LM_D256["n_layers"]
+    h, dh = cfg["n_heads"], cfg["d_model"] // cfg["n_heads"]
+    n_layers = cfg["n_layers"]
     # -- serve
-    work = _serve_traffic(LM_D256_REQUESTS, SEED)
-    model = TransformerLM(**LM_D256, compute_dtype=torch.bfloat16,
+    work = _serve_traffic(LM_WIDE_REQUESTS, SEED)
+    model = TransformerLM(**cfg, compute_dtype=torch.bfloat16,
                           device=device, seed=SEED)
     n_params = sum(p.numel() for p in model.parameters())
     engine = ServingEngine(model, paged=True, paged_kernel=True,
@@ -3496,13 +3746,13 @@ def phase_lm_d256(device, card, comm):
     serve_launches = paged_attend.launches
     decode_steps = steps_ctr.value - steps0
     rep = sched.metrics.report()
-    _check_pool(engine, "lm_d256")
+    _check_pool(engine, name)
     prof = _profile_steps(engine, sched, np.random.default_rng(SEED + 40),
                           n_steps=10, host_events=False)
     del engine, sched, model
     _empty()
-    m32 = TransformerLM(**LM_D256_TWIN, compute_dtype=torch.float32,
-                        device=device, seed=SEED)
+    m32 = TransformerLM(**twin, compute_dtype=torch.float32, device=device,
+                        seed=SEED)
     pw = work[:PARITY_REQUESTS]
     streams = {}
     for kernel in (True, False):
@@ -3515,7 +3765,7 @@ def phase_lm_d256(device, card, comm):
     _empty()
 
     # -- train
-    model = TransformerLM(**LM_D256, attention="flash",
+    model = TransformerLM(**cfg, attention="flash",
                           compute_dtype=torch.bfloat16, device=device,
                           seed=SEED)
     opt = create_multi_node_optimizer(torch.optim.AdamW(
@@ -3524,44 +3774,43 @@ def phase_lm_d256(device, card, comm):
     step = lm_train_step(model, opt, comm)
     b, t = TRAIN["batch"], TRAIN["seq_len"]
     gen = torch.Generator().manual_seed(SEED)
-    tokens = torch.randint(0, LM_D256["vocab_size"], (b, t),
+    tokens = torch.randint(0, cfg["vocab_size"], (b, t),
                            generator=gen).to(device)
     targets = torch.roll(tokens, -1, dims=1)
-    counted = {name: getattr(fa, fn) for name, (fn, *_)
-               in FLASH_KERNELS.items()}
+    counted = {k: getattr(fa, fn) for k, (fn, *_) in FLASH_KERNELS.items()}
     for fn in counted.values():
         fn.launches = 0
     losses = [step(tokens, targets)[0]
-              for _ in range(LM_D256_STEPS["warmup"])]
+              for _ in range(LM_WIDE_STEPS["warmup"])]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    for _ in range(LM_D256_STEPS["timed"]):
+    for _ in range(LM_WIDE_STEPS["timed"]):
         loss, _ = step(tokens, targets)
         losses.append(loss)
     float(loss)                     # the device->host fetch closes the window
-    step_s = (time.perf_counter() - t0) / LM_D256_STEPS["timed"]
-    train_launches = {name: fn.launches for name, fn in counted.items()}
+    step_s = (time.perf_counter() - t0) / LM_WIDE_STEPS["timed"]
+    train_launches = {k: fn.launches for k, fn in counted.items()}
     peak = torch.cuda.max_memory_allocated(device)
     losses = [float(x) for x in losses]
-    n_nonembed = n_params - (LM_D256["vocab_size"]
-                             + LM_D256["max_len"]) * LM_D256["d_model"]
+    n_nonembed = n_params - (cfg["vocab_size"]
+                             + cfg["max_len"]) * cfg["d_model"]
     flops = (6.0 * n_nonembed * b * t
              + 12.0 * b * h * t * t * dh / 2 * n_layers)
     del model, opt, step
     _empty()
 
     # -- the f32 twin's first step, flash against full attention
-    cfg = {k: v for k, v in LM_D256_PARITY.items()
-           if k not in ("batch", "seq_len", "tol")}
+    pcfg = {k: v for k, v in parity_cfg.items()
+            if k not in ("batch", "seq_len", "tol")}
     gen = torch.Generator().manual_seed(SEED + 3)
-    tok2 = torch.randint(0, cfg["vocab_size"], (LM_D256_PARITY["batch"],
-                                                LM_D256_PARITY["seq_len"]),
+    tok2 = torch.randint(0, pcfg["vocab_size"], (parity_cfg["batch"],
+                                                 parity_cfg["seq_len"]),
                          generator=gen).to(device)
     tgt2 = torch.roll(tok2, -1, dims=1)
     first = {}
     for attention in ("flash", "full"):
-        m = TransformerLM(**cfg, attention=attention,
+        m = TransformerLM(**pcfg, attention=attention,
                           compute_dtype=torch.float32, device=device,
                           seed=SEED + 3)
         before = {n: w.detach().clone() for n, w in m.named_parameters()}
@@ -3575,10 +3824,9 @@ def phase_lm_d256(device, card, comm):
     (l_f, g_f), (l_p, g_p) = first["flash"], first["full"]
     grad_err = {n: float((g_f[n] - g_p[n]).abs().max()) for n in g_f}
     worst = max(grad_err, key=grad_err.get)
-    tol = LM_D256_PARITY["tol"]
-    train_parity = {"model": dict(cfg, compute_dtype="f32"),
-                    "B": LM_D256_PARITY["batch"],
-                    "T": LM_D256_PARITY["seq_len"],
+    tol = parity_cfg["tol"]
+    train_parity = {"model": dict(pcfg, compute_dtype="f32"),
+                    "B": parity_cfg["batch"], "T": parity_cfg["seq_len"],
                     "loss_flash": l_f, "loss_full": l_p,
                     "loss_abs_err": abs(l_f - l_p),
                     "grad_max_abs_err": grad_err[worst],
@@ -3587,8 +3835,8 @@ def phase_lm_d256(device, card, comm):
     del first, g_f, g_p
     _empty()
 
-    rec = {"phase": "lm_d256", "card": card,
-           "model": dict(LM_D256, params=n_params, d_head=dh),
+    rec = {"phase": name, "card": card,
+           "model": dict(cfg, params=n_params, d_head=dh),
            "serve": {"engine": dict(ENGINE, paged_kernel=True,
                                     capture=True),
                      "requests": len(work), "warmup_s": warmup_s,
@@ -3599,31 +3847,123 @@ def phase_lm_d256(device, card, comm):
                      "ttft_p50_s": rep["ttft_p50_s"],
                      "tpot_p50_s": rep["tpot_p50_s"],
                      "profile": prof,
-                     "f32_twin": dict(LM_D256_TWIN, parity=parity)},
-           "train": {"B": b, "T": t, "steps": LM_D256_STEPS,
+                     "f32_twin": dict(twin, parity=parity)},
+           "train": {"B": b, "T": t, "steps": LM_WIDE_STEPS,
                      "step_ms": step_s * 1e3,
                      "tokens_per_sec": b * t / step_s,
                      "analytic_flop_per_step": flops,
                      "mfu_vs_989_tflops": flops / step_s / BF16_OPS_PER_S,
                      "peak_memory_allocated_gb": peak / 1e9,
                      "losses": losses, "launches": train_launches,
-                     "parity": train_parity},
-           "run_s": time.perf_counter() - t_phase}
+                     "parity": train_parity}}
+    if extra is not None:
+        key, extra_rec, extra_check = extra(device)
+        rec[key] = extra_rec
+    rec["run_s"] = time.perf_counter() - t_phase
     emit(rec)
     if serve_launches != decode_steps * n_layers:
-        raise AssertionError(f"lm_d256: kernel launches {serve_launches} != "
+        raise AssertionError(f"{name}: kernel launches {serve_launches} != "
                              f"decode steps {decode_steps} x {n_layers}")
-    _check_parity("lm_d256 f32 twin", parity)
+    _check_parity(f"{name} f32 twin", parity)
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"lm_d256: the loss did not fall: {losses}")
-    want = (LM_D256_STEPS["warmup"] + LM_D256_STEPS["timed"]) * n_layers
+        raise AssertionError(f"{name}: the loss did not fall: {losses}")
+    want = (LM_WIDE_STEPS["warmup"] + LM_WIDE_STEPS["timed"]) * n_layers
     if any(n != want for n in train_launches.values()):
-        raise AssertionError(f"lm_d256: flash launches {train_launches} != "
+        raise AssertionError(f"{name}: flash launches {train_launches} != "
                              f"{want}")
     if not train_parity["ok"]:
-        raise AssertionError(f"lm_d256: the flash step diverges from plain "
+        raise AssertionError(f"{name}: the flash step diverges from plain "
                              f"attention: {train_parity}")
+    if extra is not None:
+        extra_check(extra_rec)
     return rec
+
+
+def _serve_f16(device):
+    """The serve LM (``LM``, 16 heads of 64) at
+    ``compute_dtype=torch.float16``: its paged store is float16, so every
+    decode step's attention runs B4 on float16 queries and store. The
+    captured engine answers ``LM_WIDE_REQUESTS`` of ``_serve_traffic``'s
+    requests with ``paged_kernel=True`` (launches = decode steps x 12, a
+    replay counted); then its 2-layer float16 twin (``SERVE_F16_TWIN``)
+    streams ``PARITY_REQUESTS`` requests through the kernel engine and the
+    plain-read engine: equal up to a recorded near-tie
+    (``NEAR_TIE_F16``). Returns ``(key, record, check)`` for
+    :func:`_lm_wide`."""
+    import torch
+
+    from chainermn_torch.models import TransformerLM
+    from chainermn_torch.monitor import get_registry
+    from chainermn_torch.parallel.paged_kernel import paged_attend
+    from chainermn_torch.serving import ServingEngine
+
+    def serve(model, work, kernel):
+        steps_ctr = get_registry().counter(
+            "serving_decode_steps_total",
+            {"engine": "serving", "paged_kernel": "on" if kernel else "off"})
+        eng = ServingEngine(model, paged=True, paged_kernel=kernel,
+                            device=device, **ENGINE)
+        t0 = time.perf_counter()
+        eng.warmup()
+        warmup_s = time.perf_counter() - t0
+        steps0 = steps_ctr.value
+        paged_attend.launches = 0
+        streams, sched, wall = _drive(eng, work)
+        rep = sched.metrics.report()
+        run = {"store_dtype": str(eng._store[0]["k"].dtype).split(".")[-1],
+               "layers": len(model.blocks), "requests": len(work),
+               "decode_steps": steps_ctr.value - steps0,
+               "kernel_launches": paged_attend.launches,
+               "warmup_s": warmup_s, "wall_s": wall,
+               "tokens_per_sec": rep["tokens_per_sec"],
+               "ttft_p50_s": rep["ttft_p50_s"],
+               "tpot_p50_s": rep["tpot_p50_s"]}
+        del eng, sched
+        _empty()
+        return streams, run
+
+    work = _serve_traffic(LM_WIDE_REQUESTS, SEED + 19)
+    model = TransformerLM(**LM, compute_dtype=torch.float16, device=device,
+                          seed=SEED)
+    _, full = serve(model, work, True)
+    del model
+    _empty()
+    twin = TransformerLM(**SERVE_F16_TWIN, compute_dtype=torch.float16,
+                         device=device, seed=SEED)
+    pw = work[:PARITY_REQUESTS]
+    streams, twin_runs = {}, {}
+    for kernel in (True, False):
+        streams[kernel], twin_runs["kernel" if kernel else "plain"] = serve(
+            twin, pw, kernel)
+    parity = _parity(twin, pw, streams[True], streams[False],
+                     near_tie=NEAR_TIE_F16)
+    del twin
+    _empty()
+    rec = {"model": dict(LM, compute_dtype="f16"),
+           "engine": dict(ENGINE, capture=True), "serve": full,
+           "twin": dict(SERVE_F16_TWIN, compute_dtype="f16",
+                        runs=twin_runs, near_tie=NEAR_TIE_F16,
+                        parity=parity)}
+
+    def check(r):
+        runs = [("serve", r["serve"])] + [
+            (f"twin {k}", v) for k, v in r["twin"]["runs"].items()]
+        for what, run in runs:
+            if run["store_dtype"] != "float16":
+                raise AssertionError(f"serve_f16 {what}: store is "
+                                     f"{run['store_dtype']}")
+        for what, run in runs[:2]:
+            if run["kernel_launches"] != run["decode_steps"] * run["layers"] \
+                    or not run["kernel_launches"]:
+                raise AssertionError(
+                    f"serve_f16 {what}: kernel launches "
+                    f"{run['kernel_launches']} != decode steps "
+                    f"{run['decode_steps']} x {run['layers']}")
+        if r["twin"]["runs"]["plain"]["kernel_launches"]:
+            raise AssertionError("serve_f16: the plain engine launched B4")
+        _check_parity("serve_f16 twin", r["twin"]["parity"])
+
+    return "f16_serve", rec, check
 
 
 def _resnet_flops(model, images) -> float:
@@ -3936,16 +4276,18 @@ def phase_dp_parity(device):
 # classes, batch 256 a rank, one NCCL rank, a bf16 wire) in each mode:
 # name -> (flags, native loader asked for, profiled). The two c_ layouts
 # are not profiled since PR 17 (their idle share paid for d_jpeg_dir).
+# Cut to pay for the script's time limit: 4,096 synthetic images (of
+# 16,384), 12 recipe iterations (of 30), 6 JPEG-tree iterations (of 12).
 IMAGENET = ["--arch", "resnet50", "--classes", "1000", "--image-size", "224",
             "--communicator", "pure_nccl", "--dtype", "bfloat16",
-            "--n-synthetic", "16384"]
+            "--n-synthetic", "4096"]
 IMAGENET_MODES = {
     # the recipe (warmup-cosine LR over 90 epochs, label smoothing,
     # held-out top-1) on the native C++ loader and the device prefetcher
     "a_recipe_native_prefetch": (
         ["--batchsize", "256", "--recipe", "--epoch", "90", "--val-frac",
          "0.02", "--native-loader", "--device-prefetch", "2",
-         "--iterations", "30"], True, True),
+         "--iterations", "12"], True, True),
     # the numpy collate on the loop's thread
     "b_numpy_collate": (["--batchsize", "256", "--no-native-loader",
                          "--iterations", "8"], False, True),
@@ -3963,7 +4305,7 @@ IMAGENET_MODES = {
     # (PERF.md, PR 17)
     "d_jpeg_dir": (["--batchsize", "256", "--train-dir", "{jpeg_tree}",
                     "--jpeg-decoder", "pil", "--device-prefetch", "2",
-                    "--epoch", "1000", "--lr", "0.01", "--iterations", "12"],
+                    "--epoch", "1000", "--lr", "0.01", "--iterations", "6"],
                    False, True),
 }
 # d_jpeg_dir's tree: seeded JPEGs about the size of an ImageNet file
@@ -4224,10 +4566,21 @@ def phase_imagenet(device, step_images_per_sec, card):
 JAX_CPU = {"mnist_val_accuracy": 1.0, "mnist_mp_val_accuracy": 1.0,
            "seq2seq_token_accuracy": 0.8955}
 MNIST_GATE = 0.9                   # the JAX figure clears it
-# the checkpoint twin at 2 of its 5 epochs (80 iterations): each of its
+# the MNIST twins' epochs: the data-parallel one at 5 of its 20 and the
+# model-parallel one at 3 of its 10 (both reach validation accuracy 1.0,
+# the JAX figure, in the first); the seq2seq twin keeps its 20, the
+# channel-parallel one runs 2 of its 5 (the loss falls 2.08 -> 0.77)
+MNIST_EPOCHS = 5
+MP_EPOCHS = 3
+SEQ2SEQ_EPOCHS = 20
+PCONV_EPOCHS = 2
+MP_TWIN = "chainermn_torch.examples.mnist.train_mnist_model_parallel"
+MP_PINGPONG = "100,500"            # the boundary tensor's shape
+SEQ2SEQ_TWIN = "chainermn_torch.examples.seq2seq.seq2seq"
+# the checkpoint twin at 1 of its 5 epochs (40 iterations): each of its
 # three runs is a process of its own, so the iterations are its time
-CKPT_EPOCHS = 2
-CKPT_STOP_AT = 48                  # crash after 48 of 80 iterations
+CKPT_EPOCHS = 1
+CKPT_STOP_AT = 24                  # crash after 24 of 40 iterations
 MP_PARITY_STEPS = 3
 
 
@@ -4245,7 +4598,8 @@ def _lines(run):
 def phase_mnist(device, card):
     """The data-parallel MNIST twin (``chainermn_torch.examples.mnist.
     train_mnist.main``) in process on one NCCL rank at its defaults
-    (batch 100, unit 1000, 20 epochs, 10,000/2,000 synthetic images).
+    (batch 100, unit 1000, 10,000/2,000 synthetic images) but
+    MNIST_EPOCHS epochs.
     Fails unless every loss is finite, the last epoch's loss is below the
     first step's and the final validation accuracy is at least
     MNIST_GATE."""
@@ -4255,7 +4609,8 @@ def phase_mnist(device, card):
 
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    summary, printed = _lines(lambda: twin(["--communicator", "pure_nccl"]))
+    summary, printed = _lines(lambda: twin(["--communicator", "pure_nccl",
+                                            "--epoch", str(MNIST_EPOCHS)]))
     run_s = time.perf_counter() - t0
     epochs = summary["epochs"]
     losses = [summary["first_loss"]] + [e["loss"] for e in epochs]
@@ -4327,9 +4682,18 @@ def phase_mnist_checkpoint(card):
 
     def run(name, extra, out):
         t0 = time.perf_counter()
-        r = subprocess.run(cmd + ["--out", str(Path(tmp) / out)] + extra,
-                           cwd=ROOT, capture_output=True, text=True,
-                           timeout=600)
+        timeout = _group_timeout()
+        try:
+            r = subprocess.run(cmd + ["--out", str(Path(tmp) / out)]
+                               + extra, cwd=ROOT, capture_output=True,
+                               text=True, timeout=timeout)
+        except subprocess.TimeoutExpired as e:
+            tail = "\n".join(
+                (x.decode(errors="replace") if isinstance(x, bytes)
+                 else x or "")[-3000:] for x in (e.stdout, e.stderr))
+            raise RuntimeError(f"phase mnist_checkpoint: its {name} run ran "
+                               f"out of its {timeout:.0f} s; its last "
+                               f"output:\n{tail}") from None
         printed = r.stdout.splitlines()
         runs[name] = {"rc": r.returncode, "s": time.perf_counter() - t0,
                       "printed": printed[:2] + printed[-2:],
@@ -4383,53 +4747,57 @@ def phase_mnist_checkpoint(card):
 # two ranks on one card: a gloo default group (NCCL refuses two ranks on
 # one device), which the twin's communicator joins; parameters and compute
 # stay on the card, the boundary tensors are staged through the host
-_TWO_RANKS_ON_ONE_CARD = """
-import contextlib, io, os, time
-import torch
-import torch.distributed as dist
+def rank_twin(module, epochs, pingpong="", objstore=""):
+    """One rank of a two-process twin: ``module``'s ``main`` for
+    ``epochs`` epochs on the card; then, when ``pingpong`` names the
+    boundary tensor's shape ("100,500"), round trips of that tensor alone
+    (and of one float, the fixed cost) over the same host-staged
+    send/recv; then, when ``objstore`` is set, the object-store part.
+    The twin's summary, with what was added."""
+    import contextlib
+    import io
 
-dist.init_process_group("gloo", init_method="env://", rank=RANK,
-                        world_size=int(os.environ["WORLD_SIZE"]))
-import importlib
-main = importlib.import_module(ARGS[0]).main
-torch.cuda.reset_peak_memory_stats()
-buf = io.StringIO()
-t0 = time.perf_counter()
-with contextlib.redirect_stdout(buf):
-    summary = main(["--device", "cuda"])
-summary["run_s"] = time.perf_counter() - t0
-summary["printed"] = buf.getvalue().splitlines()
-summary["peak_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
-summary["backend"] = dist.get_backend()
-if len(ARGS) > 1:
-    # the host-staged transfer alone: round trips of the boundary tensor
-    # (and of one float, the fixed cost) over the same comm.send/recv
-    from chainermn_torch import create_communicator
+    import torch
+    import torch.distributed as dist
 
-    comm = create_communicator("naive", device="cuda")
-    peer = 1 - comm.rank
-    summary["pingpong_ms"] = {}
-    for name, shape in (("boundary", [int(n) for n in ARGS[1].split(",")]),
-                        ("one_float", [1])):
-        x = torch.randn(shape, device="cuda")
-        for i in range(53):
-            if i == 3:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-            if comm.rank == 0:
-                comm.send(x, peer)
-                x = comm.recv(peer)
-            else:
-                comm.send(comm.recv(peer), peer)
-        torch.cuda.synchronize()
-        # one way, averaged over 50 round trips
-        summary["pingpong_ms"][name] = (time.perf_counter() - t0) / 100 * 1e3
-    comm.finalize()
-if "objstore" in ARGS[2:]:
-    summary["objstore"] = OBJSTORE_PART()
-save(summary)
-dist.destroy_process_group()
-"""
+    main = importlib.import_module(module).main
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        summary = main(["--device", "cuda", "--epoch", str(epochs)])
+    summary["run_s"] = time.perf_counter() - t0
+    summary["printed"] = buf.getvalue().splitlines()
+    summary["peak_memory_allocated_gb"] = \
+        torch.cuda.max_memory_allocated() / 1e9
+    summary["backend"] = dist.get_backend()
+    if pingpong:
+        from chainermn_torch import create_communicator
+
+        comm = create_communicator("naive", device="cuda")
+        peer = 1 - comm.rank
+        summary["pingpong_ms"] = {}
+        for name, shape in (("boundary", [int(n) for n in
+                                          pingpong.split(",")]),
+                            ("one_float", [1])):
+            x = torch.randn(shape, device="cuda")
+            for i in range(53):
+                if i == 3:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                if comm.rank == 0:
+                    comm.send(x, peer)
+                    x = comm.recv(peer)
+                else:
+                    comm.send(comm.recv(peer), peer)
+            torch.cuda.synchronize()
+            # one way, averaged over 50 round trips
+            summary["pingpong_ms"][name] = \
+                (time.perf_counter() - t0) / 100 * 1e3
+        comm.finalize()
+    if objstore:
+        summary["objstore"] = _objstore_part()
+    return summary
 
 
 # the object-store sidecar inside mnist_mp's two ranks, after the twin:
@@ -4438,10 +4806,16 @@ dist.destroy_process_group()
 # sidecar and over gloo (the dataset scatter ships the twin's training
 # set; a 64 MB bcast_obj). Digests of every result, each op's ms on both
 # transports, and the store's keys after the ack-GC's flush.
-_OBJSTORE_PART = """
-def OBJSTORE_PART():
-    import hashlib, pickle
+def _objstore_part():
+    """mnist_mp's object traffic over gloo and over the sidecar, on
+    this rank: the record phase_mnist_mp prints."""
+    import hashlib
+    import os
+    import pickle
+
     import numpy as np
+    import torch
+
     from chainermn_torch import create_communicator
     from chainermn_torch.datasets import scatter_dataset
     from chainermn_torch.examples.mnist.train_mnist import (
@@ -4530,19 +4904,14 @@ def OBJSTORE_PART():
     if server is not None:
         server.stop()
     return rec
-"""
 
 
-def _two_ranks(module, *pingpong_shape, objstore=False):
-    from chainermn_torch.testing import run_ranks
-
-    script = _TWO_RANKS_ON_ONE_CARD
-    extra = []
-    if objstore:
-        script = _OBJSTORE_PART + script
-        extra = ["objstore"]
-    return run_ranks(script, 2, args=[module, *pingpong_shape, *extra],
-                     timeout=600)
+def _two_ranks(module, epochs, pingpong="", objstore=False):
+    """``rank_twin`` of the twin ``module`` on 2 gloo ranks on the card
+    (from phase_gloo_batch's run when it ran there): each rank's
+    summary."""
+    return _gloo_ranks("rank_twin", 2, module, str(epochs), pingpong,
+                       "objstore" if objstore else "")
 
 
 def _mp_one_process(device, n_steps):
@@ -4579,7 +4948,7 @@ def _mp_one_process(device, n_steps):
 def phase_mnist_mp(device, card):
     """The model-parallel MNIST twin as two processes on the card (stage 0
     on rank 0, stage 1 on rank 1) at its defaults (unit 500, batch 100,
-    10 epochs, 8,000/1,000 images). Fails unless every parameter is on
+    8,000/1,000 images) but MP_EPOCHS epochs. Fails unless every parameter is on
     the card, the losses are finite and fall, the final validation
     accuracy is at least MNIST_GATE, the first MP_PARITY_STEPS losses
     match the two stages in one process to 1e-5, and each rank ran one
@@ -4588,9 +4957,7 @@ def phase_mnist_mp(device, card):
     host-staged path (the transfer's own cost, apart from waiting for the
     other stage)."""
     t0 = time.perf_counter()
-    ranks = _two_ranks("chainermn_torch.examples.mnist."
-                       "train_mnist_model_parallel", "100,500",
-                       objstore=True)
+    ranks = _two_ranks(MP_TWIN, MP_EPOCHS, MP_PINGPONG, objstore=True)
     run_s = time.perf_counter() - t0
     ref = _mp_one_process(device, MP_PARITY_STEPS)
     stage1 = ranks[1]
@@ -4671,7 +5038,7 @@ def phase_seq2seq_mp(card):
     seq 8, batch 64, 20 epochs, 2,048 pairs). Fails unless every loss is
     finite and the last epoch's token accuracy is above the first's."""
     t0 = time.perf_counter()
-    ranks = _two_ranks("chainermn_torch.examples.seq2seq.seq2seq")
+    ranks = _two_ranks(SEQ2SEQ_TWIN, SEQ2SEQ_EPOCHS)
     epochs = ranks[0]["epochs"]
     acc = [e["token_accuracy"] for e in epochs]
     losses = [e["loss"] for e in epochs]
@@ -4700,11 +5067,12 @@ def phase_seq2seq_mp(card):
 
 SP_KINDS = ("ring", "ring_flash", "zigzag", "zigzag_flash", "ulysses",
             "ulysses_flash")
-# sp_parity: the 220M LM's attention shape, global T over 2 ranks;
+# sp_parity: the 220M LM's attention shape, global T over 2 ranks, at
+# batch 4 (8 before the script's last time cut; PERF.md section 4);
 # (rtol, atol). bf16 is flash_parity's: one bf16 ulp is 1.6e-2 at
 # |x| >= 2, and the plain kinds do not round p to bf16 before PV as the
 # kernels do, so an absolute 2e-2 alone fails on a 1-ulp difference
-SP_PARITY = dict(batch=8, seq_len=2048, heads=16, head_dim=64,
+SP_PARITY = dict(batch=4, seq_len=2048, heads=16, head_dim=64,
                  tol={"f32": (0.0, 1e-4), "bf16": TOL["bf16"]})
 # sp_train / tp_train: the train phase's LM, batch and AdamW over 2 ranks,
 # held to the one-process flash LM trained alike: every step's loss
@@ -4714,13 +5082,14 @@ SP_PARITY = dict(batch=8, seq_len=2048, heads=16, head_dim=64,
 # exceed grad_rel_tol (readings in PERF.md section 6). TP's losses drift
 # further: its row-parallel partial sums are rounded to bf16 before they
 # are summed, and the trajectory rises at step 6, which amplifies that
-# SP_LM: the 220M LM's widths at 4 of its 12 layers — the depth cut so
+# SP_LM: the 220M LM's widths at 2 of its 12 layers — the depth cut so
 # that the script, grown by the MoE, GSPMD and pipeline phases, stays
-# well inside its time limit (12 layers took 165 + 54 s of it); 1 + 3
-# steps (were 2 + 5), the cut that pays for serve_tp and reshard; batch
-# 4 of the train phase's 8 (since PR 17: the host-staged transfers, 0.95
-# of each step, halve with it)
-SP_LM = dict(LM, n_layers=4)
+# well inside its time limit (12 layers took 165 + 54 s of it; 4 layers
+# until the whole script had to fall well under 1200 s on a slower card
+# host); 1 + 3 steps (were 2 + 5), the cut that pays for serve_tp and
+# reshard; batch 4 of the train phase's 8 (the host-staged transfers,
+# 0.95 of each step, halve with it)
+SP_LM = dict(LM, n_layers=2)
 SP_TRAIN = dict(batch=4, seq_len=2048, warmup_steps=1, timed_steps=3,
                 kinds=("ring_flash", "zigzag_flash", "ulysses_flash"),
                 loss_tol={"sp_train": 2e-2, "tp_train": 0.15},
@@ -4743,17 +5112,124 @@ dist.init_process_group("gloo", init_method="env://", rank=RANK,
 torch.cuda.set_device(0)
 torch.backends.cuda.matmul.allow_tf32 = False
 import chip_smoke
+chip_smoke._keep_seeded_weights()
 save(getattr(chip_smoke, ARGS[0])(*ARGS[1:]))
 dist.destroy_process_group()
 """
 
+# the 2-rank phases' ranks run one after another in one pair of
+# processes (phase_gloo_batch), so the pair starts once instead of ten
+# times: a start is 10-15 s of imports and CUDA set-up on the card host
+_GLOO_BATCH = """
+import gc, json, os, time
+import torch
+import torch.distributed as dist
+
+dist.init_process_group("gloo", init_method="env://", rank=RANK,
+                        world_size=int(os.environ["WORLD_SIZE"]))
+torch.cuda.set_device(0)
+torch.backends.cuda.matmul.allow_tf32 = False
+import chip_smoke
+chip_smoke._keep_seeded_weights()
+out = []
+for phase, fn, *args in json.loads(ARGS[0]):
+    # names the call a group cut at its time limit was in
+    print(json.dumps({"phase_start": phase, "rank": RANK, "fn": fn}),
+          flush=True)
+    t0 = time.perf_counter()
+    out.append((getattr(chip_smoke, fn)(*args), time.perf_counter() - t0))
+    gc.collect()
+    torch.cuda.empty_cache()
+save(out)
+dist.destroy_process_group()
+"""
+_GLOO_DONE = {}
+_RESHARD_SNAP = {}     # the batch's reshard snapshot directory
+
+
+def _gloo_batch_calls(snap):
+    """phase_gloo_batch's calls in the phases' order: (phase, rank
+    function, its string arguments)."""
+    return [
+        ("mnist_mp", "rank_twin", (MP_TWIN, str(MP_EPOCHS), MP_PINGPONG,
+                                   "objstore")),
+        ("seq2seq_mp", "rank_twin", (SEQ2SEQ_TWIN, str(SEQ2SEQ_EPOCHS), "",
+                                     "")),
+        ("parallel_conv", "rank_pconv", (str(PCONV_EPOCHS),)),
+        ("sp_parity", "rank_sp_parity", ()),
+        ("sp_train", "rank_sp_train", ()),
+        ("tp_train", "rank_tp_train", ()),
+        ("serve_tp", "rank_serve_tp", ()),
+        ("moe_train", "rank_moe_train", ()),
+        ("gspmd_train", "rank_gspmd_train", ()),
+        ("reshard", "rank_reshard_train", (snap,)),
+    ]
+
+
+def _group_timeout() -> float:
+    """Seconds a rank group or subprocess of the running phase may take:
+    GROUP_TIMEOUT_FACTOR times the phase's GROUP_SECONDS, cut so that it
+    ends by DEADLINE_S (at least 10 s). A phase called on its own, outside
+    main(), gets GROUP_UNTIMED_S."""
+    phase = _RUNNING["phase"]
+    if phase not in GROUP_SECONDS:
+        return GROUP_UNTIMED_S
+    left = DEADLINE_S - (time.monotonic() - T_START)
+    return max(10.0, min(GROUP_TIMEOUT_FACTOR * GROUP_SECONDS[phase], left))
+
+
+def _run_group(code: str, n: int, args) -> list:
+    """``run_ranks(code, n, args)`` under the running phase's
+    :func:`_group_timeout`. A group that fails or runs out of time raises
+    ``RuntimeError`` naming the phase, with the end of the ranks'
+    output."""
+    from chainermn_torch.testing import run_ranks
+
+    phase, timeout = _RUNNING["phase"], _group_timeout()
+    t0 = time.monotonic()
+    try:
+        return run_ranks(code, n, args=list(args), timeout=timeout)
+    except RuntimeError as e:
+        took = time.monotonic() - t0
+        what = (f"ran out of its {timeout:.0f} s" if took >= timeout
+                else "failed")
+        raise RuntimeError(f"phase {phase}: its {n}-rank group {what} after "
+                           f"{took:.1f} s; the ranks' last output:\n"
+                           f"{str(e)[-6000:]}") from None
+
 
 def _gloo_ranks(fn: str, n: int, *args):
     """``chip_smoke.<fn>(*args)`` in ``n`` processes on cuda:0 joined by a
-    gloo group; what each returned, by rank."""
-    from chainermn_torch.testing import run_ranks
+    gloo group; what each returned, by rank (from phase_gloo_batch's run
+    when ``fn`` ran there with these arguments)."""
+    if (fn, n, args) in _GLOO_DONE:
+        return _GLOO_DONE.pop((fn, n, args))
+    return _run_group(_GLOO_RANKS, n, [fn, *args])
 
-    return run_ranks(_GLOO_RANKS, n, args=[fn, *args], timeout=900)
+
+def phase_gloo_batch(card):
+    """The 2-rank phases' rank functions (``_gloo_batch_calls``) in order
+    in one pair of gloo ranks on the card; each of those phases then
+    reads its ranks' results from here instead of starting a pair of its
+    own (reshard's first half writes its snapshot into a directory under
+    ``build/`` that phase_reshard reads and deletes). Prints each call's
+    seconds on each rank."""
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    _RESHARD_SNAP["dir"] = tempfile.mkdtemp(prefix="reshard_",
+                                            dir=ROOT / "build")
+    calls = _gloo_batch_calls(str(Path(_RESHARD_SNAP["dir"]) / "snap"))
+    t0 = time.perf_counter()
+    ranks = _run_group(_GLOO_BATCH, 2, [json.dumps(
+        [[phase, fn, *args] for phase, fn, args in calls])])
+    seconds = {}
+    for i, (phase, fn, args) in enumerate(calls):
+        _GLOO_DONE[(fn, 2, args)] = [r[i][0] for r in ranks]
+        seconds[phase] = [r[i][1] for r in ranks]
+    emit({"phase": "gloo_batch", "card": card, "ranks": 2,
+          "backend": "gloo", "rank_seconds": seconds,
+          "run_s": time.perf_counter() - t0})
 
 
 def _flash_counts():
@@ -5076,7 +5552,7 @@ def _small_parity(build, comm, shard):
 
 
 def rank_sp_train():
-    """One rank of sp_train: the 220M LM at 4 layers (SP_LM; bf16, seed 0)
+    """One rank of sp_train: the 220M LM at 2 layers (SP_LM; bf16, seed 0)
     with each
     ``SP_TRAIN['kinds']`` over a 2-rank flat communicator,
     ``create_multi_node_optimizer(AdamW)`` and
@@ -5184,7 +5660,7 @@ def _check_train(name, per_rank, want_launches):
 
 
 def phase_sp_train(card):
-    """The 220M LM's context-parallel training (at 4 layers) on 2 ranks of
+    """The 220M LM's context-parallel training (at 2 layers) on 2 ranks of
     the card
     (``rank_sp_train``). Fails unless, for each kind on each rank, the
     losses are finite and fall, every step's loss is within ``loss_tol``
@@ -5205,7 +5681,8 @@ def phase_sp_train(card):
           "model": dict(SP_LM, compute_dtype="bf16"),
           "train": dict(SP_TRAIN, lr=TRAIN["lr"],
                         weight_decay=TRAIN["weight_decay"]),
-          "reduced": "4 of the 12 layers; B=4 of the train phase's 8, "
+          "reduced": f"{SP_LM['n_layers']} of the 12 layers; B=4 of the "
+                     "train phase's 8, "
                      "T=2048",
           "launches_want": want, "run_s": time.perf_counter() - t0,
           "ranks_out": ranks})
@@ -5214,7 +5691,7 @@ def phase_sp_train(card):
 
 
 def rank_tp_train():
-    """One rank of tp_train: the 220M LM at 4 layers (SP_LM) with
+    """One rank of tp_train: the 220M LM at 2 layers (SP_LM) with
     ``tensor_axis`` over tp = 2
     (a ``MeshCommunicator`` of shape (1, 1, 2)), the vocab-parallel head
     and local ``attention='flash'``, plain AdamW (the step assembles the
@@ -5277,7 +5754,7 @@ def rank_tp_train():
 
 
 def phase_tp_train(card):
-    """The 220M LM's tensor-parallel training (at 4 layers) on 2 ranks of
+    """The 220M LM's tensor-parallel training (at 2 layers) on 2 ranks of
     the card
     (``rank_tp_train``), held as sp_train is: finite falling losses,
     every step's loss and the first step's global gradient against the
@@ -5296,7 +5773,8 @@ def phase_tp_train(card):
     emit({"phase": "tp_train", "card": card, "ranks": 2, "backend": "gloo",
           "model": dict(SP_LM, compute_dtype="bf16", tensor_parallel=2,
                         vocab_parallel_head=True, attention="flash"),
-          "reduced": "4 of the 12 layers; B=4 of the train phase's 8, "
+          "reduced": f"{SP_LM['n_layers']} of the 12 layers; B=4 of the "
+                     "train phase's 8, "
                      "T=2048",
           "launches_want": want, "run_s": time.perf_counter() - t0,
           "aggregate": {"ranks": aggs[0]["ranks"],
@@ -5388,21 +5866,22 @@ def phase_hybrid(card):
 # (0.17 under GSPMD, whose blocks round their partial sums apart). The
 # pre-update loss is held tightly, the trajectory loosely; the gradient
 # gate carries the power, against planted faults that read >= 1.
-# moe_train runs 6 of the 12 layers (3 MoE blocks): the depth cut that
+# moe_train runs 4 of the 12 layers (2 MoE blocks): the depth cut that
 # keeps the script inside its time limit as the later phases grow it
-# (12 layers took 87.2 s of it)
+# (12 layers took 87.2 s of it; 6 before the script's last time cut)
 MOE = dict(experts=8, top_k=2, ranks=2, batch=2, seq_len=1024,
            warmup_steps=1, timed_steps=3, drop_steps=3, parity_capacity=4.0,
            first_loss_tol=1e-3, loss_tol=0.25, grad_rel_tol=5e-2,
-           n_layers=6)
+           n_layers=4)
 GSPMD_TOL = dict(first_loss_tol=1e-3, loss_tol=0.25, grad_rel_tol=0.35)
-# gspmd_train's depth: 6 of the 220M LM's 12 layers (cut in PR 17 to pay
-# for that slice's parts; the widths stay the LM's)
-GSPMD_LAYERS = 6
+# gspmd_train's depth: 4 of the 220M LM's 12 layers (6, then 4 in the
+# script's time cuts; the widths stay the LM's)
+GSPMD_LAYERS = 4
 # GPipe: 4 stages (one block of the 220M LM's width each, 'full'
 # attention as make_pipeline_lm builds them) on 4 ranks, 8 microbatches
-# of 2 x 1024, remat (the step's default), 5 AdamW steps
-PP = dict(stages=4, microbatches=8, micro_batch=2, seq_len=1024, steps=5,
+# of 2 x 1024, remat (the step's default), 3 AdamW steps (of 5 before
+# the script's time limit called for the cut)
+PP = dict(stages=4, microbatches=8, micro_batch=2, seq_len=1024, steps=3,
           loss_tol=2e-2, grad_rel_tol=5e-2)
 # fused CE and remat on the 220M dense LM at the train phase's batch
 FUSED = dict(batch=8, seq_len=2048, steps=3, loss_tol=2e-2)
@@ -5527,7 +6006,8 @@ def phase_moe_train(card):
                         moe_top_k=MOE["top_k"], moe_every=2, moe_impl="ep"),
           "train": dict(MOE, lr=TRAIN["lr"],
                         weight_decay=TRAIN["weight_decay"]),
-          "reduced": "6 of the 12 layers (3 MoE blocks); the 220M LM's "
+          "reduced": f"{MOE['n_layers']} of the 12 layers "
+                     f"({MOE['n_layers'] // 2} MoE blocks); the 220M LM's "
                      "widths",
           "launches_want": want, "run_s": time.perf_counter() - t0,
           "ranks_out": ranks})
@@ -5924,7 +6404,7 @@ def phase_lm_fused_remat(device, card):
 # optimizer and batch shape over 14 distinct seeded [8, 2048] batches
 # (runs a-c take the first 12; the resumed launch the last 2)
 FIT = dict(steps=12, batches=14, fetch_every=8, prefetch_depth=2,
-           warmup_steps=2, profile_steps=8, save_every=6, fault_at=8,
+           warmup_steps=2, profile_steps=4, save_every=6, fault_at=8,
            resume_to=14, n_retains=2)
 
 
@@ -6508,62 +6988,60 @@ def phase_serve_trace(device, card):
     return rec
 
 
-_PCONV_RANKS = """
-import contextlib, io, os, time
-import torch
-import torch.distributed as dist
+def rank_pconv(epochs):
+    """One rank of parallel_conv: the channel-parallel twin's ``main``
+    with ``--check`` for ``epochs`` epochs on the card, then the planted
+    fault (two channels of this rank's pconv2 slice swapped) through the
+    same parity check: the twin's summary, with what was added."""
+    import contextlib
+    import io
 
-dist.init_process_group("gloo", init_method="env://", rank=RANK,
-                        world_size=int(os.environ["WORLD_SIZE"]))
-torch.cuda.set_device(0)
-from chainermn_torch import create_communicator
-from chainermn_torch.examples.parallel_convolution import (
-    train_parallel_conv as twin)
+    import torch
 
-buf = io.StringIO()
-t0 = time.perf_counter()
-with contextlib.redirect_stdout(buf):
-    summary = twin.main(["--device", "cuda", "--check"])
-summary["run_s"] = time.perf_counter() - t0
-summary["printed"] = buf.getvalue().splitlines()
-# the planted fault: two channels of this rank's pconv2 slice swapped
-comm = create_communicator("tpu", device="cuda")
-full = twin.init_params(32, 10, 0)
-local = twin.shard_params(full, comm.rank, comm.size, comm.device)
-with torch.no_grad():
-    w = local["pconv2.weight"]
-    w[[0, 1]] = w[[1, 0]].clone()
-x, _ = twin.synthetic_cifar(2048, 32, 10)
-try:
-    twin.parity_error(full, local, x[:64], comm)
-    summary["planted_fault_failed"] = False
-except AssertionError:
-    summary["planted_fault_failed"] = True
-comm.finalize()
-save(summary)
-dist.destroy_process_group()
-"""
+    from chainermn_torch import create_communicator
+    from chainermn_torch.examples.parallel_convolution import (
+        train_parallel_conv as twin)
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        summary = twin.main(["--device", "cuda", "--check", "--epoch",
+                             str(epochs)])
+    summary["run_s"] = time.perf_counter() - t0
+    summary["printed"] = buf.getvalue().splitlines()
+    comm = create_communicator("tpu", device="cuda")
+    full = twin.init_params(32, 10, 0)
+    local = twin.shard_params(full, comm.rank, comm.size, comm.device)
+    with torch.no_grad():
+        w = local["pconv2.weight"]
+        w[[0, 1]] = w[[1, 0]].clone()
+    x, _ = twin.synthetic_cifar(2048, 32, 10)
+    try:
+        twin.parity_error(full, local, x[:64], comm)
+        summary["planted_fault_failed"] = False
+    except AssertionError:
+        summary["planted_fault_failed"] = True
+    comm.finalize()
+    return summary
 
 
 def phase_parallel_conv(card):
     """The channel-parallel convolution twin's ``main()`` at its own
-    defaults with ``--check`` on 2 ranks as processes on the card over
+    defaults but PCONV_EPOCHS epochs, with ``--check``, on 2 ranks as processes on the card over
     gloo (every collective staged through the host). Fails unless rank 0
     prints ``parity check OK``, every rank's parity error is within 2e-4
     and its epoch losses are finite and fall, and the planted fault (two
     channels of a shard's kernel swapped) fails the check on every rank.
     Prints ms a step and the share of it staged through the host."""
-    from chainermn_torch.testing import run_ranks
-
     t0 = time.perf_counter()
-    ranks = run_ranks(_PCONV_RANKS, 2, timeout=600)
+    ranks = _gloo_ranks("rank_pconv", 2, str(PCONV_EPOCHS))
     for rk in ranks:
         ms = sorted(rk.pop("step_ms"))
         rk["step_ms_p50"] = ms[len(ms) // 2]
         rk["staged_share_of_steps"] = rk["staged_s"] / (sum(ms) / 1e3)
     emit({"phase": "parallel_conv", "card": card, "ranks": 2,
-          "backend": "gloo", "defaults": "batch 64, 5 epochs, 2048 "
-          "images of 32x32, 10 classes", "run_s": time.perf_counter() - t0,
+          "backend": "gloo", "defaults": "batch 64, 2048 images of 32x32, "
+          "10 classes", "epochs": PCONV_EPOCHS, "run_s": time.perf_counter() - t0,
           "ranks_out": ranks})
     if not any("parity check OK" in ln for ln in ranks[0]["printed"]):
         raise AssertionError(f"parallel_conv: {ranks[0]['printed']}")
@@ -6646,14 +7124,18 @@ def phase_lm_example(card):
 # the 12 layers, 8 requests
 SERVE_TP = dict(tp=2, requests=16, window_steps=8, f32_layers=2,
                 f32_requests=8, f32_max_new=32)
+# ... its bf16 LM at 4 of the 12 layers: a decode step's host-staged
+# collectives scale with the layers (12 layers took 25-41 s of the pair's
+# time for the 16 requests)
+SERVE_TP_LM = dict(LM, n_layers=4)
 # B4 on a rank's local-head store: tp = 2 and tp = 4 of the 16 heads
 LOCAL_HEADS = (8, 4)
-# reshard: the train LM at 4 layers (SP_LM) in f32, AdamW; train at
+# reshard: the train LM at 2 layers (SP_LM) in f32, AdamW; train at
 # tp = 2, snapshot, restore at tp = 4; the batch cut to [2, 2048], the
-# served requests' budgets to 32 tokens
+# served requests' budgets to 16 tokens
 RESHARD = dict(train_tp=2, serve_tp=4, steps=3, batch=2, seq_len=2048,
                lr=TRAIN["lr"], weight_decay=TRAIN["weight_decay"], eps=1e-5,
-               loss_tol=1e-4, requests=8, spawn_requests=4, max_new=32)
+               loss_tol=1e-4, requests=8, spawn_requests=4, max_new=16)
 
 
 @contextlib.contextmanager
@@ -6770,7 +7252,7 @@ def _tp_engine_run(engine, lead, work, comm_bytes=None):
 
 
 def rank_serve_tp():
-    """One rank of serve_tp: the serve LM (bf16, 12 layers) at tp = 2 with
+    """One rank of serve_tp: the serve LM (bf16, 4 layers) at tp = 2 with
     the vocab-parallel head in the paged engine, eager, the paged-decode
     kernel on every decode step over this rank's 8 local heads; rank 0
     serves the serve cell's first 16 requests, rank 1 follows. Then the
@@ -6788,8 +7270,8 @@ def rank_serve_tp():
     lead = comm.axis_index("tp") == 0
     tp_kw = dict(tensor_axis="tp", vocab_parallel_head=True, device=dev)
     out = {"rank": comm.rank}
-    model = TransformerLM(**LM, **tp_kw, compute_dtype=torch.bfloat16,
-                          seed=SEED)
+    model = TransformerLM(**SERVE_TP_LM, **tp_kw,
+                          compute_dtype=torch.bfloat16, seed=SEED)
     engine = ServingEngine(model, paged=True, paged_kernel=True,
                            capture=False, comm=comm, device=dev, **ENGINE)
     work = _serve_traffic(N_REQUESTS, SEED)[:SERVE_TP["requests"]]
@@ -6889,9 +7371,9 @@ def phase_serve_tp(device, card, lengths):
     """Tensor-parallel serving on the card (``rank_serve_tp`` on 2 ranks):
     tokens/s, TPOT p50, the staged bytes and share of a decode step and
     one profiled step, beside the single-card eager engine on the same 16
-    requests in this process; B4 launches = decode steps x 12 on each
-    rank; the f32 twin's streams equal solo ``generate`` of the dense LM
-    on the converted weights (near-ties aside), and the planted fault
+    requests in this process (SERVE_TP_LM: 4 of the 12 layers); B4
+    launches = decode steps x 4 on each rank; the f32 twin's streams equal
+    solo ``generate`` of the dense LM on the converted weights (near-ties aside), and the planted fault
     must fail that gate. Then B4 against its plain version and SDPA on a
     rank's local-head store at tp = 2 and tp = 4."""
     import torch
@@ -6900,8 +7382,8 @@ def phase_serve_tp(device, card, lengths):
     from chainermn_torch.serving import ServingEngine
 
     t0 = time.perf_counter()
-    model = TransformerLM(**LM, compute_dtype=torch.bfloat16, device=device,
-                          seed=SEED)
+    model = TransformerLM(**SERVE_TP_LM, compute_dtype=torch.bfloat16,
+                          device=device, seed=SEED)
     engine = ServingEngine(model, paged=True, paged_kernel=True,
                            capture=False, device=device, **ENGINE)
     engine.warmup()
@@ -6918,13 +7400,13 @@ def phase_serve_tp(device, card, lengths):
     lead = next(r for r in ranks if r["rank"] == 0)
     rec = {"phase": "serve_tp", "card": card, "ranks": SERVE_TP["tp"],
            "backend": "gloo", "capture": False,
-           "model": dict(LM, compute_dtype="bf16", tensor_parallel=2,
-                         vocab_parallel_head=True),
+           "model": dict(SERVE_TP_LM, compute_dtype="bf16",
+                         tensor_parallel=2, vocab_parallel_head=True),
            "engine": dict(ENGINE, paged_kernel=True),
            "requests": SERVE_TP["requests"],
-           "reduced": "the serve cell's first 16 of 32 requests, eager; "
-                      "f32 twin at 2 of the 12 layers, 8 requests of at "
-                      "most 32 new tokens",
+           "reduced": "4 of the 12 layers; the serve cell's first 16 of 32 "
+                      "requests, eager; f32 twin at 2 of the 12 layers, 8 "
+                      "requests of at most 32 new tokens",
            "single_card_eager": single,
            "tp_over_single_tokens_per_sec":
                lead["bf16"]["tokens_per_sec"] / single["tokens_per_sec"],
@@ -6933,11 +7415,12 @@ def phase_serve_tp(device, card, lengths):
     emit(rec)
     for r in ranks:
         b = r["bf16"]
-        if b["kernel_launches"] != b["decode_runs"] * LM["n_layers"] \
+        n_layers = SERVE_TP_LM["n_layers"]
+        if b["kernel_launches"] != b["decode_runs"] * n_layers \
                 or not b["decode_runs"]:
             raise AssertionError(f"serve_tp rank {r['rank']}: B4 launches "
                                  f"{b['kernel_launches']} != decode steps "
-                                 f"{b['decode_runs']} x {LM['n_layers']}")
+                                 f"{b['decode_runs']} x {n_layers}")
         if r["f32_honest"]["kernel_launches"] != \
                 r["f32_honest"]["decode_runs"] * SERVE_TP["f32_layers"]:
             raise AssertionError(f"serve_tp f32 rank {r['rank']}: launches")
@@ -6970,7 +7453,9 @@ def _qkv_not_permuted():
         reshard._permute_qkv = real
 
 
-def _reshard_lm(n_tp_axis, device, seed):
+def _reshard_lm(n_tp_axis, device, seed=None):
+    """reshard's LM; ``seed=None`` (no host draw) for a model whose every
+    parameter a restore then replaces."""
     import torch
 
     from chainermn_torch.models import TransformerLM
@@ -6990,7 +7475,7 @@ def _reshard_opt(model):
 
 
 def rank_reshard_train(ckpt):
-    """One rank of reshard's first half: the train LM at 4 layers in f32,
+    """One rank of reshard's first half: the train LM at 2 layers in f32,
     tp = 2, AdamW, 3 steps on the flash kernels; the train state saved
     with ``ShardedCheckpointer`` and ``snapshot_meta``; then a 4th step
     in place (the loss the resharded run must match)."""
@@ -7063,7 +7548,7 @@ def rank_reshard_serve(ckpt):
     out = {"rank": comm.rank}
     want = ref = None
     if lead:                 # solo generate of a tp = 1 restore
-        one = _reshard_lm(solo, dev, SEED + 98)
+        one = _reshard_lm(solo, dev)
         elastic_restore(cp_solo, {"params": one.state_dict()}, model=one)
         ref = _dense_from_tp(one, 1, attention="flash", device=dev)
         want = [generate(ref, p[None], m)[0, len(p):].tolist()
@@ -7071,7 +7556,7 @@ def rank_reshard_serve(ckpt):
         del one
     for name, fault in (("honest", contextlib.nullcontext),
                         ("planted_fault", _qkv_not_permuted)):
-        model = _reshard_lm("tp", dev, SEED + 99)
+        model = _reshard_lm("tp", dev)
         opt = _reshard_opt(model)
         torch.cuda.synchronize()
         comm.barrier()               # rank 0's reference is done
@@ -7098,7 +7583,7 @@ def rank_reshard_serve(ckpt):
         del model, opt, step, state
         _empty()
     if lead:
-        router_model = _reshard_lm(solo, dev, SEED + 97)
+        router_model = _reshard_lm(solo, dev)
         spawn = {}
         first = ServingEngine(ref, paged=True, paged_kernel=True,
                               capture=False, device=dev, **ENGINE)
@@ -7140,14 +7625,15 @@ def phase_reshard(card):
     place to 1e-4 in f32 and the restored TP engine's f32 streams must
     equal solo ``generate`` of a tp = 1 restore (near-ties aside); with
     the qkv permutation left out both gates must fail. B1-B3 launches =
-    steps x 4 layers on each rank; B4 = decode steps x 4 in the engine;
+    steps x 2 layers on each rank; B4 = decode steps x 2 in the engine;
     the tp = 1 replica spawned from the snapshot serves its 4 requests
     equal to the same reference."""
     import tempfile
 
     t0 = time.perf_counter()
     (ROOT / "build").mkdir(exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="reshard_", dir=ROOT / "build")
+    tmp = _RESHARD_SNAP.pop("dir", None) or tempfile.mkdtemp(
+        prefix="reshard_", dir=ROOT / "build")
     try:
         train = _gloo_ranks("rank_reshard_train", RESHARD["train_tp"],
                             str(Path(tmp) / "snap"))
@@ -7161,8 +7647,10 @@ def phase_reshard(card):
            "model": dict(SP_LM, compute_dtype="f32", vocab_parallel_head=True,
                          attention="flash"),
            "config": RESHARD,
-           "reduced": "4 of the 12 layers (as tp_train); batch [2, 2048]; "
-                      "8 served requests of at most 32 new tokens",
+           "reduced": f"{SP_LM['n_layers']} of the 12 layers (as tp_train); "
+                      "batch [2, 2048]; "
+                      f"8 served requests of at most {RESHARD['max_new']} "
+                      "new tokens",
            "train": train, "serve": serve,
            "loss_diff": abs(lead["honest"]["loss"] - want_loss),
            "planted_fault_loss_diff":
@@ -7205,6 +7693,43 @@ def phase_reshard(card):
     return rec
 
 
+def _exit_now(code: int) -> None:
+    """Kill this process's child processes, then end the process at once
+    with ``code``: a thread that still runs cannot hold the exit up."""
+    import os
+    import signal
+
+    sys.stdout.flush()
+    me = os.getpid()
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            ppid = int(stat.read_text().rsplit(")", 1)[1].split()[1])
+            if ppid == me:
+                os.kill(int(stat.parent.name), signal.SIGKILL)
+        except (OSError, ValueError, IndexError):
+            continue
+    os._exit(code)
+
+
+def _start_watchdog() -> None:
+    """A daemon thread that ends the process with exit 1 at WATCHDOG_S of
+    wall time, naming the phase still running: a phase that hangs in
+    this process then fails with its name instead of being cut."""
+    import threading
+
+    def watch():
+        time.sleep(max(0.0, WATCHDOG_S - (time.monotonic() - T_START)))
+        msg = (f"chip_smoke: phase {_RUNNING['phase']!r} still running at "
+               f"{time.monotonic() - T_START:.1f} s of wall time "
+               f"(watchdog {WATCHDOG_S:.0f} s)")
+        print(msg, flush=True)
+        print(msg, file=sys.stderr, flush=True)
+        _exit_now(1)
+
+    threading.Thread(target=watch, name="chip_smoke-watchdog",
+                     daemon=True).start()
+
+
 def main() -> int:
     try:
         import torch
@@ -7222,9 +7747,20 @@ def main() -> int:
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    _keep_seeded_weights()
     seconds = {}
+    _start_watchdog()
 
     def timed(name, fn, *args):
+        elapsed = time.monotonic() - T_START
+        if elapsed > DEADLINE_S:
+            print(f"chip_smoke: past the {DEADLINE_S:.0f} s deadline at "
+                  f"{elapsed:.1f} s, before phase {name!r} (the last to "
+                  f"end: {_RUNNING['phase']!r})", file=sys.stderr,
+                  flush=True)
+            _exit_now(1)
+        emit({"phase_start": name, "elapsed_s": round(elapsed, 3)})
+        _RUNNING["phase"] = name
         t0 = time.perf_counter()
         out = fn(*args)
         seconds[name] = time.perf_counter() - t0
@@ -7252,6 +7788,7 @@ def main() -> int:
     flash_timing = timed("flash_timing", phase_flash_timing, device)
     timed("train_parity", phase_train_parity, device)
     d256 = timed("lm_d256", phase_lm_d256, device, smi, comm)
+    wide = timed("lm_wide", phase_lm_wide, device, smi, comm)
     fit_ctx, fit_rec = timed("train_fit", phase_train_fit, device, smi, comm)
     resilient = timed("train_resilient", phase_train_resilient, device, smi,
                       comm, fit_ctx)
@@ -7262,6 +7799,7 @@ def main() -> int:
     timed("imagenet", phase_imagenet, device, dp["images_per_sec"], smi)
     timed("mnist", phase_mnist, device, smi)
     timed("mnist_checkpoint", phase_mnist_checkpoint, smi)
+    timed("gloo_batch", phase_gloo_batch, smi)
     timed("mnist_mp", phase_mnist_mp, device, smi)
     timed("seq2seq_mp", phase_seq2seq_mp, smi)
     timed("parallel_conv", phase_parallel_conv, smi)
@@ -7305,9 +7843,15 @@ def main() -> int:
                                   "bound_by", "max_abs_err")}
             for h, r in serve_tp["b4_local_heads"].items()},
         "launches_lm_d256_path": d256["serve"]["kernel_launches"],
-        "d256": {k: timing["d256"][k] for k in (
-            "H", "D", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-            "max_abs_err")},
+        "launches_lm_wide_path": {
+            "d512": wide["serve"]["kernel_launches"],
+            "f16": wide["f16_serve"]["serve"]["kernel_launches"],
+            "f16_twin": wide["f16_serve"]["twin"]["runs"]["kernel"][
+                "kernel_launches"]},
+        **{tag: {k: timing[tag][k] for k in (
+            "H", "D", "dtype", "ms", "plain_ms", "library_ms",
+            "library_backend", "bound_ms", "bound_by", "max_abs_err")}
+           for tag in ("d256", "d512", "f16")},
         "ms_span_cut": timing["ms_span_cut"],
         "max_abs_err": timing["max_abs_err"],
         "parity_max_abs_err": parity_err,
@@ -7327,9 +7871,11 @@ def main() -> int:
                 for run in ("a", "b", "c")},
             "launches_resilient_path": resilient["launches"][name],
             "launches_lm_d256_path": d256["train"]["launches"][name],
-            "d256": {k: rec["d256"][k] for k in (
-                "H", "D", "ms", "plain_ms", "library_ms", "bound_ms",
-                "bound_by", "max_abs_err")},
+            "launches_lm_wide_path": wide["train"]["launches"][name],
+            **{tag: {k: rec[tag][k] for k in (
+                "H", "D", "ms", "plain_ms", "library_ms", "library_backend",
+                "bound_ms", "bound_by", "max_abs_err")}
+               for tag in ("d256", "d512")},
             "launches_reshard_path": {
                 "train_tp2": reshard["train"][0]["launches"][name],
                 "restored_tp4": reshard["serve"][0]["honest"]["launches"][
@@ -7348,4 +7894,14 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        status = main()
+    except BaseException:
+        # a failed phase ends the process here, whatever threads it left
+        import traceback
+
+        traceback.print_exc()
+        sys.stderr.flush()
+        _exit_now(1)
+    sys.stderr.flush()
+    _exit_now(status)

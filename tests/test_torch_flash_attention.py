@@ -14,8 +14,10 @@ atol 2e-2 (p is rounded to bf16 before PV on both sides, but relative to
 the global row max on one and the running max on the other, so a few
 values land one bf16 ulp apart); float16 atol 2e-2 as bf16 (a 16-bit
 type with the same casts). Head dims other than the kernels' 64, 128 and
-256 (8, 32, 96, 160), the widest one (256) and float16 are held to the JAX
-kernels too, and the
+256 (8, 32, 96, 160), 256, the widths past 256 that the kernels split
+into 256-column slices (320, 512; f32, bf16 and, at 512, f16) and
+float16 are held to
+the JAX kernels too, and the
 wrapper's zero-lane padding (``pad_head_dim``) to the plain versions at
 the true head dim. The CUDA kernels are held against the same plain
 versions on the card by ``chip_smoke.py``.
@@ -271,7 +273,8 @@ def test_flash_library_hash_covers_both_hopper_headers():
     from chainermn_torch import _build
 
     names = [p.name for p in _build._included(tfa._SRC)]
-    assert names == ["flash_bwd_sm90.cuh", "flash_fwd_sm90.cuh"]
+    assert names == ["flash_bwd_sm90.cuh", "flash_fwd_sm90.cuh",
+                     "flash_wide.cuh"]
 
 
 def test_edited_header_changes_the_library_name(tmp_path, monkeypatch):
@@ -309,10 +312,14 @@ def test_edited_header_changes_the_library_name(tmp_path, monkeypatch):
 # --------------------------------------------------------------------- #
 
 # head dims the kernels run padded (D -> 64, 128 or 256), the widest
-# they take (256), and float16
+# one-tile width (256), widths past it (320, 512: the kernels' 256-column
+# slices), and float16
 WIDE = {"D8": (8, "f32"), "D32": (32, "f32"), "D96": (96, "f32"),
         "D32_f16": (32, "f16"), "D64_f16": (64, "f16"),
-        "D160": (160, "f32"), "D256": (256, "f32"), "D256_f16": (256, "f16")}
+        "D160": (160, "f32"), "D256": (256, "f32"), "D256_f16": (256, "f16"),
+        "D320": (320, "f32"), "D320_bf16": (320, "bf16"),
+        "D512": (512, "f32"), "D512_bf16": (512, "bf16"),
+        "D512_f16": (512, "f16")}
 WIDE_DTYPES = dict(DTYPES, f16=(jnp.float16, torch.float16, 2e-2))
 
 
@@ -349,18 +356,22 @@ def test_plain_versions_match_jax_at_any_head_dim_and_float16(case):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("d", [1, 8, 32, 65, 96, 129, 192])
+@pytest.mark.parametrize("d", [1, 8, 32, 65, 96, 129, 192, 257, 320, 513])
 def test_pad_head_dim_is_exact(d):
     """The wrapper-side padding, run over the plain versions: out, lse,
     dq, dk and dv at the padded width, cut back to D, equal the plain
-    versions at the true D (the softmax scale stays D ** -0.5)."""
+    versions at the true D (the softmax scale stays D ** -0.5). Atol
+    1e-6 a 256 columns of D: zero lanes add nothing, but the plain
+    versions' f32 dot products over D and over the padded width are
+    summed in blocks of another order (at 513 against 576: 1.1e-6)."""
     (_, _, _, _), (q, k, v, do) = _wide_inputs(d, "f32", seed=7)
+    atol = 1e-6 * -(-d // 256)
     kw = dict(causal=True, q_offset=0, k_offset=3)
     out, lse = tfa.pad_head_dim(tfa.flash_fwd_reference, q, k, v, **kw)
     r_out, r_lse = tfa.flash_fwd_reference(q, k, v, **kw)
     assert out.shape == q.shape
-    torch.testing.assert_close(out, r_out, atol=1e-6, rtol=0)
-    torch.testing.assert_close(lse, r_lse, atol=1e-6, rtol=0)
+    torch.testing.assert_close(out, r_out, atol=atol, rtol=0)
+    torch.testing.assert_close(lse, r_lse, atol=atol, rtol=0)
     delta = (do * r_out).sum(-1).transpose(1, 2).contiguous()
     dq = tfa.pad_head_dim(tfa.flash_dq_reference, q, k, v, do, r_lse,
                           delta, **kw)
@@ -369,23 +380,31 @@ def test_pad_head_dim_is_exact(d):
     r_dk, r_dv = tfa.flash_dkv_reference(q, k, v, do, r_lse, delta, **kw)
     torch.testing.assert_close(
         dq, tfa.flash_dq_reference(q, k, v, do, r_lse, delta, **kw),
-        atol=1e-6, rtol=0)
-    torch.testing.assert_close(dk, r_dk, atol=1e-6, rtol=0)
-    torch.testing.assert_close(dv, r_dv, atol=1e-6, rtol=0)
+        atol=atol, rtol=0)
+    torch.testing.assert_close(dk, r_dk, atol=atol, rtol=0)
+    torch.testing.assert_close(dv, r_dv, atol=atol, rtol=0)
 
 
 def test_kernel_head_dim_rounds_up_and_stops_at_256():
+    """Up to 256 the one-tile widths 64, 128 and 256; past 256 the next
+    multiple of 64 (the wide kernels' chunk), so 257 runs at 320, not
+    512."""
     assert [tfa.kernel_head_dim(d) for d in
             (1, 8, 63, 64, 65, 96, 128, 129, 160, 192, 256)] == \
         [64, 64, 64, 64, 128, 128, 128, 256, 256, 256, 256]
-    with pytest.raises(ValueError, match=r"head dim 257 .*1 \.\. 256"):
-        tfa.kernel_head_dim(257)
+    assert [tfa.kernel_head_dim(d) for d in
+            (257, 320, 321, 384, 512, 1000, 1024)] == \
+        [320, 320, 384, 384, 512, 1024, 1024]
+    with pytest.raises(ValueError, match="head dim 0"):
+        tfa.kernel_head_dim(0)
 
 
-@pytest.mark.parametrize("case", ["D160", "D256_f16"])
+@pytest.mark.parametrize("case", ["D160", "D256_f16", "D320", "D320_bf16",
+                                  "D512", "D512_bf16", "D512_f16"])
 def test_autograd_matches_jax_past_128(case):
     """The differentiable entry at head dims past 128 (160 runs padded
-    to 256 on the card; 256 in float16) against ``jax_flash``."""
+    to 256 on the card; 256 in float16; 320 and 512 in two 256-column
+    slices on the card, 512 also in float16) against ``jax_flash``."""
     d, dtype = WIDE[case]
     (jq, jk, jv, jg), tqkvg = _wide_inputs(d, dtype, seed=9)
     g = np.array(jg, np.float32)

@@ -8,8 +8,11 @@ runs the Pallas kernel in interpret mode, as the JAX package's own tests
 do. Inputs come from numpy with a fixed seed. Tolerance: f32 atol 1e-5
 (the two sides sum in different orders: online softmax vs one softmax).
 Head dims the kernel masks inside (8, 32, 96, 160), its widest tile
-(256) and windows of more than the 8 queries a launch takes are held to
-the JAX kernel too, and the
+(256), widths past it (320, 384, 512: 256-column slices on the card, in
+f32, bf16, int8 and f16 stores; bf16 atol 2e-2, the output's rounding to
+bf16 on both sides), float16 queries over float16 and int8 stores (atol 5e-3,
+about two float16 ulps of the outputs) and windows of more than the 8
+queries a launch takes are held to the JAX kernel too, and the
 wrapper's chunking (``chunk_queries``) to one plain call over the whole
 window. The CUDA kernel itself is held against the same plain version on
 the card by ``chip_smoke.py``.
@@ -203,3 +206,72 @@ def test_chunk_queries_is_exact(s_len, quant):
     got = _torch(lambda *a, **kw: tpk.chunk_queries(
         tpk.paged_attend_reference, *a, **kw), x)
     np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
+def _jax_and_port(x, q_dtype, store):
+    """The JAX kernel's and the port's ``paged_attend`` outputs (as f32)
+    on ``x`` (from :func:`_inputs`) with q in ``q_dtype`` and a float store
+    in ``store`` (an int8 store stays int8 with its f32 scales)."""
+    import ml_dtypes
+
+    np_dt = {"f32": np.float32, "bf16": ml_dtypes.bfloat16,
+             "f16": np.float16}
+    t_dt = {"f32": torch.float32, "bf16": torch.bfloat16,
+            "f16": torch.float16}
+    jx, tx = dict(x), dict(x)
+    jx["q"] = x["q"].astype(np_dt[q_dtype])
+    tx["q"] = torch.from_numpy(x["q"]).to(t_dt[q_dtype])
+    for kk in ("k", "v"):
+        if x[kk].dtype != np.int8:
+            jx[kk] = x[kk].astype(np_dt[store])
+            tx[kk] = torch.from_numpy(x[kk]).to(t_dt[store])
+        else:
+            tx[kk] = torch.from_numpy(x[kk])
+    for kk in ("table", "lengths"):
+        tx[kk] = torch.from_numpy(x[kk])
+    for kk in ("ks", "vs"):
+        tx[kk] = None if x[kk] is None else torch.from_numpy(x[kk])
+    got = tpk.paged_attend(tx["q"], tx["k"], tx["v"], tx["table"],
+                           tx["lengths"], k_scale=tx["ks"], v_scale=tx["vs"])
+    assert got.dtype == t_dt[q_dtype]
+    return _jax(jx).astype(np.float32), got.float().numpy()
+
+
+@pytest.mark.parametrize("store", ["bf16", "f32", "int8", "f16"])
+@pytest.mark.parametrize("d,s_len", [(512, 1), (512, 5), (512, 12),
+                                     (384, 12)])
+def test_paged_attend_matches_jax_past_256(store, d, s_len):
+    """Head dims past 256 (256-column slices on the card): D = 512 at the
+    decode step (S = 1), a verify window (S = 5) and a window past one
+    launch's 8 queries (S = 12), and D = 384 (a slice of 128 live columns
+    beside a whole one) at S = 12, over bf16, f32, int8 and f16 stores
+    (q in the store's float type, f32 over int8)."""
+    x = _inputs(s_len, [13, 17, 20], quant=store == "int8", seed=4, d=d)
+    q_dtype = "f32" if store == "int8" else store
+    want, got = _jax_and_port(x, q_dtype, store)
+    atol = {"bf16": 2e-2, "f16": 5e-3}.get(store, ATOL)
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("store", ["f16", "int8"])
+@pytest.mark.parametrize("d,s_len", [(64, 1), (64, 5), (320, 1), (320, 5)])
+def test_paged_attend_float16_matches_jax(store, d, s_len):
+    """float16 queries over a float16 store (an LM served at
+    ``compute_dtype=float16``) and over an int8 store; the output comes
+    back in float16."""
+    x = _inputs(s_len, [13, 17, 20], quant=store == "int8", seed=5, d=d)
+    want, got = _jax_and_port(x, "f16", store)
+    np.testing.assert_allclose(got, want, atol=5e-3, rtol=0)
+
+
+@pytest.mark.parametrize("q_dtype,store", [("bf16", "f16"), ("f16", "bf16"),
+                                           ("f32", "f16"), ("f16", "f32")])
+def test_paged_attend_mixed_dtypes_match_jax(q_dtype, store):
+    """Queries and store in different float types (on the card, pairs
+    the kernel is not built for run with q widened to float32); the output
+    comes back in q's type. Tolerance: bf16's where either side is bf16,
+    else float16's."""
+    x = _inputs(5, [13, 17, 20], quant=False, seed=6, d=64)
+    want, got = _jax_and_port(x, q_dtype, store)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-2 if "bf16" in (
+        q_dtype, store) else 5e-3)

@@ -10,12 +10,15 @@ in f32 internally), so the bf16 logits land up to a few ulps apart.
 Greedy tokens must be equal.
 
 The D = 256 LM (``d_model 512, n_heads 2``: the head width of the
-reference's ``TransformerLM(d_model=1024, n_heads=4)``) is held to flax
-at f32: logits atol 1e-4; one ``attention='flash'`` train step's loss
-atol 1e-5 (a mean over 32 tokens) and every gradient atol 1e-5 (the
-flax flash LM's Pallas kernels in interpret mode against the port's
-flash wrappers, both summing over 8-key blocks or all keys at once);
-the paged engine's greedy streams equal the JAX paged engine's.
+reference's ``TransformerLM(d_model=1024, n_heads=4)``) and the D = 512
+LM (``d_model 512, n_heads 1``: that of ``TransformerLM(d_model=1024,
+n_heads=2)``) are held to flax at f32: logits atol 1e-4; one
+``attention='flash'`` train step's loss atol 1e-5 (a mean over 32
+tokens) and every gradient atol 1e-5 (the flax flash LM's Pallas kernels
+in interpret mode against the port's flash wrappers, both summing over
+8-key blocks or all keys at once); the paged engine's greedy streams
+equal the JAX paged engine's. The small LM at ``compute_dtype=float16``
+(a float16 paged store) streams the JAX float16 engine's greedy tokens.
 """
 
 import jax
@@ -177,58 +180,68 @@ def test_sampled_tokens_stay_inside_the_mask():
 
 
 # ------------------------------------------------------------------ #
-# Head dim 256                                                        #
+# Head dims 256 and 512                                               #
 # ------------------------------------------------------------------ #
 
 D256 = dict(vocab_size=256, d_model=512, n_heads=2, n_layers=2, max_len=64)
+D512 = dict(D256, n_heads=1)
+WIDE_LMS = {256: D256, 512: D512}
+
+
+def _wide_params(cfg, seed):
+    lm = JaxLM(**cfg, compute_dtype=jnp.float32)
+    params = lm.init(jax.random.PRNGKey(seed), jnp.zeros((1, 4), jnp.int32))
+    return jax.device_get(params)
 
 
 @pytest.fixture(scope="module")
 def d256_params():
-    lm = JaxLM(**D256, compute_dtype=jnp.float32)
-    params = lm.init(jax.random.PRNGKey(5), jnp.zeros((1, 4), jnp.int32))
-    return jax.device_get(params)
+    return _wide_params(D256, 5)
 
 
-def _d256_port(params, **kw):
-    model = TransformerLM(**D256, compute_dtype=torch.float32, device="cpu",
+@pytest.fixture(scope="module")
+def d512_params():
+    return _wide_params(D512, 8)
+
+
+def _wide_port(cfg, params, **kw):
+    model = TransformerLM(**cfg, compute_dtype=torch.float32, device="cpu",
                           **kw)
     model.load_state_dict(params_from_flax(params))
     return model
 
 
-def _d256_tokens(b, t, seed):
+def _wide_tokens(b, t, seed):
     return np.random.default_rng(seed).integers(
         1, D256["vocab_size"], (b, t)).astype(np.int32)
 
 
-def test_d256_logits_match_flax(d256_params):
-    assert D256["d_model"] // D256["n_heads"] == 256
-    toks = _d256_tokens(2, 13, seed=6)
-    want = np.asarray(jax.jit(JaxLM(**D256, compute_dtype=jnp.float32)
-                              .apply)(d256_params, jnp.asarray(toks)))
+def _check_logits(cfg, params, seed):
+    toks = _wide_tokens(2, 13, seed=seed)
+    want = np.asarray(jax.jit(JaxLM(**cfg, compute_dtype=jnp.float32)
+                              .apply)(params, jnp.asarray(toks)))
     with torch.no_grad():
-        got = _d256_port(d256_params)(torch.from_numpy(toks).long()).numpy()
+        got = _wide_port(cfg, params)(torch.from_numpy(toks).long()).numpy()
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
-def test_d256_flash_train_step_matches_flax(d256_params):
+def _check_flash_train_step(cfg, params, seed):
     """One ``lm_train_step`` of the flash LM (SGD at lr 1, so the step
     moves each parameter by exactly its gradient) against the flax flash
     LM's loss and ``jax.grad`` on the same tokens."""
-    toks = _d256_tokens(2, 16, seed=7)
+    toks = _wide_tokens(2, 16, seed=seed)
     tgts = np.roll(toks, -1, axis=1)
-    jlm = JaxLM(**D256, attention="flash", compute_dtype=jnp.float32)
+    jlm = JaxLM(**cfg, attention="flash", compute_dtype=jnp.float32)
 
     def loss_fn(params):
         logits = jlm.apply(params, jnp.asarray(toks))
         return optax.softmax_cross_entropy_with_integer_labels(
             logits.astype(jnp.float32), jnp.asarray(tgts)).mean()
 
-    jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(d256_params)
+    jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(params)
     want = params_from_flax(jax.device_get(jgrads))
 
-    model = _d256_port(d256_params, attention="flash")
+    model = _wide_port(cfg, params, attention="flash")
     before = {n: w.detach().clone() for n, w in model.named_parameters()}
     comm = create_communicator("pure_nccl", device="cpu")
     try:
@@ -244,22 +257,76 @@ def test_d256_flash_train_step_matches_flax(d256_params):
                                    err_msg=name)
 
 
-def test_d256_paged_engine_streams_match_jax_engine(d256_params):
-    """The port's paged engine, reading through ``paged_attend``, against
-    the JAX paged engine on its Pallas kernel: the same greedy tokens."""
-    kw = dict(n_slots=2, prefill_buckets=(8, 16), prefill_batch=2,
-              paged=True, kv_block_size=4, cache_len=32, paged_kernel=True)
-    prompts = [np.array([3, 5, 2, 9]), np.array([1, 2, 3, 4, 6, 7, 8]),
-               np.array([7, 11])]
-    jsched = JaxScheduler(JaxEngine(
-        JaxLM(**D256, compute_dtype=jnp.float32), d256_params, **kw))
-    jreqs = [jsched.submit(p, 6) for p in prompts]
+PAGED_KW = dict(n_slots=2, prefill_buckets=(8, 16), prefill_batch=2,
+                paged=True, kv_block_size=4, cache_len=32, paged_kernel=True)
+PROMPTS = [np.array([3, 5, 2, 9]), np.array([1, 2, 3, 4, 6, 7, 8]),
+           np.array([7, 11])]
+
+
+def _jax_streams(jlm, params, n_new=6):
+    jsched = JaxScheduler(JaxEngine(jlm, params, **PAGED_KW))
+    jreqs = [jsched.submit(p, n_new) for p in PROMPTS]
     jsched.run_until_idle()
-    engine = ServingEngine(_d256_port(d256_params), device="cpu", **kw)
+    return [list(map(int, r.output)) for r in jreqs]
+
+
+def _port_streams(model, n_new=6):
+    """The greedy streams of the port's paged engine, and the engine."""
+    engine = ServingEngine(model, device="cpu", **PAGED_KW)
     sched = FCFSScheduler(engine)
-    reqs = [sched.submit(p, 6) for p in prompts]
+    reqs = [sched.submit(p, n_new) for p in PROMPTS]
     sched.run_until_idle()
     assert all(r.finished and r.error is None for r in reqs)
-    assert engine.model.d_model // engine.model.n_heads == 256
-    assert [list(map(int, r.output)) for r in reqs] == \
-        [list(map(int, r.output)) for r in jreqs]
+    return [list(map(int, r.output)) for r in reqs], engine
+
+
+def _check_paged_streams(cfg, params):
+    """The port's paged engine, reading through ``paged_attend``, against
+    the JAX paged engine on its Pallas kernel: the same greedy tokens."""
+    want = _jax_streams(JaxLM(**cfg, compute_dtype=jnp.float32), params)
+    model = _wide_port(cfg, params)
+    assert model.d_model // model.n_heads == cfg["d_model"] // cfg["n_heads"]
+    assert _port_streams(model)[0] == want
+
+
+def test_d256_logits_match_flax(d256_params):
+    assert D256["d_model"] // D256["n_heads"] == 256
+    _check_logits(D256, d256_params, seed=6)
+
+
+def test_d256_flash_train_step_matches_flax(d256_params):
+    _check_flash_train_step(D256, d256_params, seed=7)
+
+
+def test_d256_paged_engine_streams_match_jax_engine(d256_params):
+    _check_paged_streams(D256, d256_params)
+
+
+def test_d512_logits_match_flax(d512_params):
+    """One head of 512: the head width of the reference's
+    ``TransformerLM(d_model=1024, n_heads=2)``."""
+    assert D512["d_model"] // D512["n_heads"] == 512
+    _check_logits(D512, d512_params, seed=9)
+
+
+def test_d512_flash_train_step_matches_flax(d512_params):
+    _check_flash_train_step(D512, d512_params, seed=10)
+
+
+def test_d512_paged_engine_streams_match_jax_engine(d512_params):
+    _check_paged_streams(D512, d512_params)
+
+
+def test_float16_paged_engine_streams_match_jax_engine(flax_params):
+    """The small LM at ``compute_dtype=float16``: its paged store is
+    float16 (the model's compute dtype), read through ``paged_attend``
+    with float16 queries, against the JAX paged engine at
+    ``compute_dtype=jnp.float16`` on its Pallas kernel; the same greedy
+    tokens."""
+    want = _jax_streams(JaxLM(**CFG, compute_dtype=jnp.float16),
+                        flax_params)
+    model = TransformerLM(**CFG, compute_dtype=torch.float16, device="cpu")
+    model.load_state_dict(params_from_flax(flax_params))
+    got, engine = _port_streams(model)
+    assert all(layer["k"].dtype == torch.float16 for layer in engine._store)
+    assert got == want
