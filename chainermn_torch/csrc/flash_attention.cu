@@ -578,6 +578,7 @@ int dispatch(const FlashArgs* a, void* stream) {
       a->batch * a->heads > int64_t{65535} * 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  last_cluster = 1;
   cudaError_t err;
   if (a->head_dim == 64)
     err = dispatch_types<KIND, 64>(*a, st);
@@ -606,3 +607,7 @@ extern "C" int flash_dq_launch(const FlashArgs* a, void* stream) {
 extern "C" int flash_dkv_launch(const FlashArgs* a, void* stream) {
   return dispatch<kDkv>(a, stream);
 }
+
+// The thread-block cluster size of the last successful launch above (1:
+// the kernel ran without a cluster).
+extern "C" int flash_last_cluster() { return last_cluster; }

@@ -216,6 +216,7 @@ _RUNNING = {"phase": None}          # the phase main() is in
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate
 BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor-core peak
+F32_OPS_PER_S = 67e12              # H100 SXM f32 peak outside the tensor cores
 SEED = 0
 SPIN_CYCLES = 4_000_000            # ~2 ms of device spin at H100 clocks
 
@@ -245,16 +246,17 @@ RESNET50_PARAMS = 25_557_032       # the flax ResNet50(num_classes=1000)
 DP_PARITY = dict(model=dict(stage_sizes=[1, 1, 1, 1], width=8,
                             num_classes=10),
                  image_size=32, batch=8, steps=3, clip=0.05, tol=1e-4)
-# name: (wrapper, kernel name in traces, TPU kernel it replaces, source of
-# the bf16 kernel the training path runs)
+# name: (wrapper, the prefix of its kernels' names in traces at every
+# head dim and dtype, TPU kernel it replaces, source of the bf16 kernel
+# the training path runs)
 FLASH_KERNELS = {
-    "flash_fwd": ("flash_fwd_with_lse", "flash_fwd_kernel",
+    "flash_fwd": ("flash_fwd_with_lse", "flash_fwd_",
                   "chainermn_tpu/ops/flash_attention.py:195",
                   "chainermn_torch/csrc/flash_fwd_sm90.cuh"),
-    "flash_dq": ("flash_dq", "flash_dq_kernel",
+    "flash_dq": ("flash_dq", "flash_dq_",
                  "chainermn_tpu/ops/flash_attention.py:355",
                  "chainermn_torch/csrc/flash_bwd_sm90.cuh"),
-    "flash_dkv": ("flash_dkv", "flash_dkv_kernel",
+    "flash_dkv": ("flash_dkv", "flash_dkv_",
                   "chainermn_tpu/ops/flash_attention.py:412",
                   "chainermn_torch/csrc/flash_bwd_sm90.cuh"),
 }
@@ -2986,14 +2988,18 @@ FLASH_PAD_CASES = ("square_causal", "ragged_full", "rect_causal",
                    "offset_k300")
 FLASH_HEAD_DIMS = (64, 128, 256)   # the one-tile kernels' own widths
 FLASH_PAD_DIMS = (8, 32, 96, 192)
-# past 256 (256-column slices of the output, the score products in
-# 64-column chunks), each width at a few FLASH_CASES only: D = 512, the
-# wide LM's, at three (the blind rows of offset_k300 among them), 320 and
-# 1024 at one each, and 257 (padded to 320) and 384 (a slice of 128
-# columns beside a whole one) at one each
+# past 256 (256-column slices of the output; the 16-bit forward and dk/dv
+# as clusters of the slices up to D = 2048), each width at a few
+# FLASH_CASES only: D = 512, the wide LM's, at three (the blind rows of
+# offset_k300 among them), 320 and 1024 (a cluster of 4) at one each, 257
+# (padded to 320) and 384 (a slice of 128 columns beside a whole one) at
+# one each, 2048 (a cluster of 8, the portable cluster size) at one, and
+# 2112 (9 slices: past the portable cluster size, the unclustered route)
+# at one
 FLASH_WIDE_CASES = {512: ("square_causal", "ragged_full", "offset_k300"),
                     320: ("rect_causal",), 1024: ("square_causal",),
-                    257: ("offset_k300",), 384: ("ragged_full",)}
+                    257: ("offset_k300",), 384: ("ragged_full",),
+                    2048: ("square_causal",), 2112: ("square_causal",)}
 
 
 def phase_flash_parity(device):
@@ -3406,11 +3412,24 @@ def _monitored_step_check(device, step, counted, seq0, n_steps):
 
 
 def phase_train_profile(step, tokens, targets, n_steps):
-    """Where a train step's time goes: ``torch.profiler`` over
-    ``n_steps`` steps. Device busy time is the sum of CUDA activity in the
-    window, without user annotations (the optimizer's
-    ``Optimizer.step#AdamW.step`` range spans kernels already counted);
-    idle share is what is left of the host wall clock."""
+    """Where a train step's time goes (:func:`_train_step_profile`), with
+    the monitored step's annotations in the trace."""
+    rec = dict(phase="train_profile",
+               **_train_step_profile(step, tokens, targets, n_steps))
+    emit(rec)
+    want = {"chainermn.step.lm_train_step", "chainermn.lm_train_step"}
+    if not want <= set(rec["annotations"]):
+        raise AssertionError(f"train_profile: the trace lacks "
+                             f"{sorted(want - set(rec['annotations']))}")
+    return rec
+
+
+def _train_step_profile(step, tokens, targets, n_steps):
+    """``torch.profiler`` over ``n_steps`` train steps. Device busy time
+    is the sum of CUDA activity in the window, without user annotations
+    (the optimizer's ``Optimizer.step#AdamW.step`` range spans kernels
+    already counted); idle share is what is left of the host wall
+    clock."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3432,44 +3451,79 @@ def phase_train_profile(step, tokens, targets, n_steps):
                 for name, (_, kern, *_) in FLASH_KERNELS.items()}
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:10]
     measured = busy_us > 0
-    rec = {"phase": "train_profile", "steps": n_steps,
-           "step_wall_ms": wall / n_steps * 1e3,
-           "step_device_busy_ms": busy_us / n_steps / 1e3 if measured
-           else "not measured",
-           "device_idle_share": 1 - busy_us / 1e6 / wall if measured
-           else "not measured",
-           "flash_ms_per_step": {n: us / n_steps / 1e3
-                                 for n, us in flash_us.items()},
-           "flash_share_of_busy": (sum(flash_us.values()) / busy_us
-                                   if measured else "not measured"),
-           "annotations": _annotations(prof),
-           "top_device": [{"name": e.key[:70], "ms_per_step":
-                           e.self_device_time_total / n_steps / 1e3,
-                           "calls_per_step": e.count / n_steps}
-                          for e in top]}
-    emit(rec)
-    want = {"chainermn.step.lm_train_step", "chainermn.lm_train_step"}
-    if not want <= set(rec["annotations"]):
-        raise AssertionError(f"train_profile: the trace lacks "
-                             f"{sorted(want - set(rec['annotations']))}")
-    return rec
+    return {"steps": n_steps, "step_wall_ms": wall / n_steps * 1e3,
+            "step_device_busy_ms": busy_us / n_steps / 1e3 if measured
+            else "not measured",
+            "device_idle_share": 1 - busy_us / 1e6 / wall if measured
+            else "not measured",
+            "flash_ms_per_step": {n: us / n_steps / 1e3
+                                  for n, us in flash_us.items()},
+            "flash_share_of_busy": (sum(flash_us.values()) / busy_us
+                                    if measured else "not measured"),
+            "annotations": _annotations(prof),
+            "top_device": [{"name": e.key[:70], "ms_per_step":
+                            e.self_device_time_total / n_steps / 1e3,
+                            "calls_per_step": e.count / n_steps}
+                           for e in top]}
 
 
-def _flash_rows(b, t, h, d, gen, device, flush):
+def _launched_kernels(calls):
+    """What one call of each flash wrapper in ``calls`` (``{name: call}``)
+    ran on the card: ``{name: (kernel, cluster_size)}``, the kernel's name
+    in a ``torch.profiler`` trace (matched by its FLASH_KERNELS prefix; a
+    call whose kernel the trace missed runs once more in a second trace,
+    and is "not measured" if that misses it too) and the thread-block
+    cluster size the library launched it with (``flash_last_cluster``: 1
+    for none)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fa = importlib.import_module("chainermn_torch.ops.flash_attention")
+    lib = fa.build_library()
+    found, clusters = {}, {}
+    for _ in range(2):
+        todo = [n for n in calls if n not in found]
+        if not todo:
+            break
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.empty(1, device="cuda").zero_()
+            torch.cuda.synchronize()
+            for name in todo:
+                calls[name]()
+                clusters[name] = int(lib.flash_last_cluster())
+                torch.cuda.synchronize()
+        keys = [e.key for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        for name in todo:
+            hit = sorted({m for k in keys for m in
+                          re.findall(FLASH_KERNELS[name][1] + r"\w*", k)})
+            if hit:
+                found[name] = ",".join(hit)
+    return {n: (found.get(n, "not measured"), clusters[n]) for n in calls}
+
+
+def _flash_rows(b, t, h, d, gen, device, flush, dname="bf16", reps=50,
+                plain_reps=5):
     """The three flash kernels, their plain versions and the library
-    yardstick at one causal bf16 shape (q, k and v sliced from one fused
-    qkv tensor), as :func:`phase_flash_timing` describes. Returns ``{name:
-    record}``; the launches are counted here and the caller restores
-    them."""
+    yardstick at one causal shape in dtype ``dname`` (q, k and v sliced
+    from one fused qkv tensor), as :func:`phase_flash_timing` describes:
+    ``reps`` timed calls a kernel, ``plain_reps`` of each plain version
+    (0: not timed). Returns ``{name: record}``; the launches are counted
+    here and the caller restores them."""
     import torch
     import torch.nn.functional as F
 
     fa = importlib.import_module("chainermn_torch.ops.flash_attention")
 
-    q, k, v, do = _flash_inputs(b, t, t, h, d, torch.bfloat16, gen, device,
+    dtype = {"bf16": torch.bfloat16, "f16": torch.float16,
+             "f32": torch.float32}[dname]
+    q, k, v, do = _flash_inputs(b, t, t, h, d, dtype, gen, device,
                                 fused=True)
     kw = dict(causal=True)
-    gkw = dict(kw, grad_dtype=torch.bfloat16)
+    gkw = dict(kw, grad_dtype=dtype)
     out, lse = fa.flash_fwd_with_lse(q, k, v, **kw)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     calls = {
@@ -3483,10 +3537,12 @@ def _flash_rows(b, t, h, d, gen, device, flush):
                                                      delta, **gkw)),
     }
     pairs = b * h * t * (t + 1) // 2
-    elem, rows = b * t * h * d, b * h * t
-    work = {"flash_fwd": (4 * elem * 2 + rows * 4, 4 * d * pairs),
-            "flash_dq": (5 * elem * 2 + 2 * rows * 4, 6 * d * pairs),
-            "flash_dkv": (6 * elem * 2 + 2 * rows * 4, 8 * d * pairs)}
+    elem, rows, size = b * t * h * d, b * h * t, q.element_size()
+    work = {"flash_fwd": (4 * elem * size + rows * 4, 4 * d * pairs),
+            "flash_dq": (5 * elem * size + 2 * rows * 4, 6 * d * pairs),
+            "flash_dkv": (6 * elem * size + 2 * rows * 4, 8 * d * pairs)}
+    # f32 runs on the FMA units, not the tensor cores
+    ops_per_s = F32_OPS_PER_S if dname == "f32" else BF16_OPS_PER_S
 
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
@@ -3505,11 +3561,12 @@ def _flash_rows(b, t, h, d, gen, device, flush):
     lib_err = float((lib_out.detach().transpose(1, 2).float()
                      - out.float()).abs().max())
     backend = _sdpa_backend(qt, kt, vt, is_causal=True)
-    library = {"flash_fwd": cuda_ms(lib_fwd, flush=flush)}
-    library["flash_dq"] = library["flash_dkv"] = cuda_ms(lib_bwd,
+    library = {"flash_fwd": cuda_ms(lib_fwd, reps=reps, flush=flush)}
+    library["flash_dq"] = library["flash_dkv"] = cuda_ms(lib_bwd, reps=reps,
                                                          flush=flush)
     del lib_out, qt, kt, vt
-    rtol, atol = TOL["bf16"]
+    rtol, atol = TOL[dname]
+    launched = _launched_kernels({n: kern for n, (kern, _) in calls.items()})
     recs = {}
     for name, (kern, plain) in calls.items():
         got, again, want = kern(), kern(), plain()
@@ -3518,11 +3575,12 @@ def _flash_rows(b, t, h, d, gen, device, flush):
         checks = [_compare(g, w, rtol, atol) for g, w in zip(got, want)]
         same = all(torch.equal(g, x) for g, x in zip(got, again))
         del got, again, want
-        kernel_ms = cuda_ms(kern, flush=flush)
-        plain_ms = cuda_ms(plain, reps=5, flush=flush)
+        kernel_ms = cuda_ms(kern, reps=reps, flush=flush)
+        plain_ms = (cuda_ms(plain, reps=plain_reps, flush=flush)
+                    if plain_reps else None)
         n_bytes, n_ops = work[name]
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = n_ops / BF16_OPS_PER_S * 1e3
+        t_ops = n_ops / ops_per_s * 1e3
         recs[name] = {"max_abs_err": max(c[0] for c in checks),
                       "within_tol": all(c[1] for c in checks),
                       "deterministic": same, "ms": kernel_ms,
@@ -3533,7 +3591,9 @@ def _flash_rows(b, t, h, d, gen, device, flush):
                       "bound_ms": max(t_bytes, t_ops),
                       "bound_by": "bytes" if t_bytes >= t_ops
                       else "operations",
-                      "tflops": n_ops / kernel_ms / 1e9}
+                      "tflops": n_ops / kernel_ms / 1e9, "dtype": dname,
+                      "kernel": launched[name][0],
+                      "cluster_size": launched[name][1], "reps": reps}
         torch.cuda.empty_cache()
     return recs
 
@@ -3544,9 +3604,15 @@ def phase_flash_timing(device):
     sliced from one fused qkv tensor as the model passes them), L2
     flushed before each timed call; then the same at H=4, D=256 and H=2,
     D=512 (the ``lm_d256`` and ``lm_wide`` shapes: the same FLOPs and
-    bytes) and at D=8 (padded to 64). Each kernel's outputs must agree
-    with its plain version's within the bf16 tolerance, so the strided
-    reads of the training path are held to a limit. The yardstick, which the port never calls, is
+    bytes), at the training shape in float16 and float32 (20 calls each,
+    the plain versions not timed, SDPA in the same dtype; the f32 bound
+    at 67 TFLOP/s, the FMA units' peak) and at D=8 (padded to 64). Each
+    row names the kernel one profiled call ran and the cluster size the
+    library launched it with; the D=512 forward and dk/dv must have run
+    as clusters (``*_cluster_sm90``, 2 CTAs). Each
+    kernel's outputs must agree with its plain version's within its
+    dtype's tolerance, so the strided reads of the training path are held
+    to a limit. The yardstick, which the port never calls, is
     ``F.scaled_dot_product_attention(is_causal=True)`` forward, and its
     backward as one number for dq, dk and dv together. The bound is the
     larger of the causal FLOPs this run needs (visible (q, k) pairs x 4 D
@@ -3571,6 +3637,13 @@ def phase_flash_timing(device):
         rows = _flash_rows(b, t, hh, cfg["d_model"] // hh, gen, device, flush)
         for name, rec in rows.items():
             recs[name][tag] = dict(rec, H=hh, D=cfg["d_model"] // hh)
+    # the main shape in float16 and float32 (the f32 kernels are
+    # flash_attention.cu's first versions), each beside SDPA in its dtype
+    for dname in ("f16", "f32"):
+        rows = _flash_rows(b, t, h, d, gen, device, flush, dname=dname,
+                           reps=20, plain_reps=0)
+        for name, rec in rows.items():
+            recs[name][dname] = dict(rec, H=h, D=d)
     # the same shape at D = 8 (the repo's small LM configurations), which
     # the wrapper runs padded to 64
     q, k, v, do = _flash_inputs(b, t, t, h, 8, torch.bfloat16, gen, device,
@@ -3593,8 +3666,8 @@ def phase_flash_timing(device):
                           "dq and dkv rows share its backward (dq, dk, dv)",
           "kernels": recs})
     rows = [(n, r) for n, r in recs.items()] + [
-        (f"{n} D={r[tag]['D']}", r[tag]) for n, r in recs.items()
-        for tag in ("d256", "d512")]
+        (f"{n} {tag}", r[tag]) for n, r in recs.items()
+        for tag in ("d256", "d512", "f16", "f32")]
     bad = [n for n, r in rows if not r["within_tol"]]
     if bad:
         raise AssertionError(f"flash kernels {bad} disagree with their plain "
@@ -3603,6 +3676,15 @@ def phase_flash_timing(device):
     if bad:
         raise AssertionError(f"flash kernels {bad} gave different outputs "
                              f"for the same inputs")
+    # the wide forward and dk/dv run as clusters of the 256-column slices
+    # (the trace's kernel name, where it has one, must say so too)
+    bad = [n for n in ("flash_fwd", "flash_dkv")
+           if recs[n]["d512"]["cluster_size"] < 2
+           or recs[n]["d512"]["kernel"] != "not measured"
+           and "cluster" not in recs[n]["d512"]["kernel"]]
+    if bad:
+        raise AssertionError(f"flash kernels {bad} at D = 512 launched "
+                             f"without a cluster")
     return recs
 
 
@@ -3707,7 +3789,8 @@ def _lm_wide(name, cfg, twin, parity_cfg, device, card, comm, extra=None):
       to a recorded near-tie.
     - train: ``attention='flash'``, ``lm_train_step``, AdamW, 1 warm-up and
       3 timed steps at [8, 2048] (B1-B3 at the head dim, a launch a layer
-      a step each); the loss must fall. Then ``parity_cfg`` (f32, the f32
+      a step each); the loss must fall; then one step profiled for its
+      device time by kernel. Then ``parity_cfg`` (f32, the f32
       kernels) takes one SGD step at lr 1 with ``'flash'`` and with
       ``'full'`` from one seed: the loss and every gradient (the step's
       parameter change) agree to ``train_parity``'s 1e-4.
@@ -3792,6 +3875,10 @@ def _lm_wide(name, cfg, twin, parity_cfg, device, card, comm, extra=None):
     step_s = (time.perf_counter() - t0) / LM_WIDE_STEPS["timed"]
     train_launches = {k: fn.launches for k, fn in counted.items()}
     peak = torch.cuda.max_memory_allocated(device)
+    # where the step's time goes: one more step, profiled (its wall clock
+    # carries the profiler's host cost; the device times do not)
+    train_prof = _train_step_profile(step, tokens, targets, 1)
+    train_prof.pop("annotations")
     losses = [float(x) for x in losses]
     n_nonembed = n_params - (cfg["vocab_size"]
                              + cfg["max_len"]) * cfg["d_model"]
@@ -3855,7 +3942,7 @@ def _lm_wide(name, cfg, twin, parity_cfg, device, card, comm, extra=None):
                      "mfu_vs_989_tflops": flops / step_s / BF16_OPS_PER_S,
                      "peak_memory_allocated_gb": peak / 1e9,
                      "losses": losses, "launches": train_launches,
-                     "parity": train_parity}}
+                     "profile": train_prof, "parity": train_parity}}
     if extra is not None:
         key, extra_rec, extra_check = extra(device)
         rec[key] = extra_rec
@@ -7873,9 +7960,11 @@ def main() -> int:
             "launches_lm_d256_path": d256["train"]["launches"][name],
             "launches_lm_wide_path": wide["train"]["launches"][name],
             **{tag: {k: rec[tag][k] for k in (
-                "H", "D", "ms", "plain_ms", "library_ms", "library_backend",
-                "bound_ms", "bound_by", "max_abs_err")}
-               for tag in ("d256", "d512")},
+                "H", "D", "dtype", "kernel", "cluster_size", "ms",
+                "plain_ms",
+                "library_ms", "library_backend", "bound_ms", "bound_by",
+                "max_abs_err")}
+               for tag in ("d256", "d512", "f16", "f32")},
             "launches_reshard_path": {
                 "train_tp2": reshard["train"][0]["launches"][name],
                 "restored_tp4": reshard["serve"][0]["honest"]["launches"][

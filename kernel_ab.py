@@ -10,9 +10,11 @@ prints one JSON line a run: CUDA-event medians (``chip_smoke.cuda_ms``, L2
 flushed before each call) of the flash forward, dq and dk/dv kernels in
 bf16 and f32 at B=2, T=1024, H=16, D=64, causal, q/k/v sliced from one
 fused tensor, of the bf16 forward at the training shape (B=8, T=2048),
-and of the paged-decode kernel on 16 rows of 64..639 keys; then the
-card's name and power limit. Both checkouts need
-``chip_smoke.py``; two versions are only compared inside one such call.
+of the bf16 forward, dq and dk/dv past D = 256 at the wide LM's shape
+(B=8, T=2048, H=2, D=512) and at H=1, D=1024 (the same FLOPs), and of
+the paged-decode kernel on 16 rows of 64..639 keys; then the card's name and power limit. Both
+checkouts need ``chip_smoke.py``; two versions are only compared inside
+one such call.
 """
 
 from __future__ import annotations
@@ -55,6 +57,21 @@ def _child(name: str, root: str) -> None:
     rec["fwd_bf16_train_shape_ms"] = cs.cuda_ms(
         lambda: fa.flash_fwd_with_lse(q, k, v, causal=True), flush=flush)
     del q, k, v
+    for h, d in ((2, 512), (1, 1024)):
+        q, k, v, do = cs._flash_inputs(8, 2048, 2048, h, d, torch.bfloat16,
+                                       torch.Generator().manual_seed(9), dev,
+                                       fused=True)
+        kw = dict(causal=True)
+        gkw = dict(kw, grad_dtype=torch.bfloat16)
+        out, lse = fa.flash_fwd_with_lse(q, k, v, **kw)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+        delta = delta.contiguous()
+        wide = {"fwd": lambda: fa.flash_fwd_with_lse(q, k, v, **kw),
+                "dq": lambda: fa.flash_dq(q, k, v, do, lse, delta, **gkw),
+                "dkv": lambda: fa.flash_dkv(q, k, v, do, lse, delta, **gkw)}
+        for kname, fn in wide.items():
+            rec[f"{kname}_bf16_d{d}_ms"] = cs.cuda_ms(fn, flush=flush)
+        del q, k, v, do, out, lse, delta
     lengths = [int(n) for n in torch.randint(64, 640, (16,), generator=gen)]
     x = cs.make_paged_inputs(lengths, s_len=1, h=16, d=64, bs=16,
                              dtype=torch.bfloat16, q_dtype=torch.bfloat16,

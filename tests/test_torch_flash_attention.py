@@ -313,13 +313,15 @@ def test_edited_header_changes_the_library_name(tmp_path, monkeypatch):
 
 # head dims the kernels run padded (D -> 64, 128 or 256), the widest
 # one-tile width (256), widths past it (320, 512: the kernels' 256-column
-# slices), and float16
+# slices, a cluster of two in the 16-bit forward and dk/dv; 2112: nine
+# slices, past the portable cluster size), and float16
 WIDE = {"D8": (8, "f32"), "D32": (32, "f32"), "D96": (96, "f32"),
         "D32_f16": (32, "f16"), "D64_f16": (64, "f16"),
         "D160": (160, "f32"), "D256": (256, "f32"), "D256_f16": (256, "f16"),
         "D320": (320, "f32"), "D320_bf16": (320, "bf16"),
         "D512": (512, "f32"), "D512_bf16": (512, "bf16"),
-        "D512_f16": (512, "f16")}
+        "D512_f16": (512, "f16"), "D2112": (2112, "f32"),
+        "D2112_bf16": (2112, "bf16")}
 WIDE_DTYPES = dict(DTYPES, f16=(jnp.float16, torch.float16, 2e-2))
 
 

@@ -4,8 +4,12 @@ without one.
 The four Hopper kernels run every head dim ``D``: the flash wrappers pad
 ``D`` up to 64, 128 or 256, and past 256 up to the next multiple of 64,
 which the wide kernels (``csrc/flash_wide.cuh``) run as 256-column
-slices of the output, one CTA each, with the products that reduce over
-``D`` streamed in 64-column chunks; the paged kernel masks lanes past
+slices of the output, one CTA each. The 16-bit forward and dk/dv run the
+slices of a tile as one thread-block cluster up to the portable cluster
+size (8 slices, D <= 2048), each CTA contracting the score products over
+its own columns and summing the cluster's partials through distributed
+shared memory; dq, the f32 kernels and wider D stream the products that
+reduce over ``D`` in 64-column chunks. The paged kernel masks lanes past
 ``D`` up to 256 and splits wider outputs into 256-column slices too. The
 paged kernel takes float16 queries over float16 and int8 stores beside
 float32 and bfloat16 queries over float32, bfloat16 and int8 stores.
@@ -15,7 +19,7 @@ The CUDA tile structs size each kernel's dynamic shared memory; their
 formulas are mirrored below, pinned to the source lines they copy, and
 every instance must fit the 232,448 B a CTA may use on an H100, with its
 f32 accumulators inside the 255 registers a thread may hold. Past 256
-neither grows with ``D``. ``nvcc`` checks the same limits with
+neither grows with ``D`` along one route. ``nvcc`` checks the same limits with
 ``static_assert`` when it builds the card's library
 (``csrc/flash_bwd_sm90.cuh``, ``csrc/flash_wide.cuh``,
 ``csrc/flash_attention.cu``).
@@ -35,18 +39,38 @@ CSRC = Path(tfa.__file__).resolve().parents[1] / "csrc"
 SMEM_LIMIT = 232_448      # kSmemLimit: dynamic shared memory a CTA may use
 REG_LIMIT = 255           # registers a thread may hold
 SM90_ROWS, STAGES = 128, 3
+RING = 4                    # kRing: the cluster kernels' stages
 WIDE_COLS, CHUNK = 256, 64  # kWideCols, kChunk of flash_wide.cuh
-HEAD_DIMS = (64, 128, 256, 320, 512, 1024)
+PART = 64 * 32 * 4          # kPartBytes: a warpgroup's partial scores
+MAX_CLUSTER = 8             # kMaxCluster: the portable cluster size
+HEAD_DIMS = (64, 128, 256, 320, 512, 1024, 2112)
 
 
 def _up(n, to):
     return -(-n // to) * to
 
 
-# the 16-bit (wgmma) kernels: FwdTiles, DqTiles, DkvTiles up to 256 and
-# FwdWide, DqWide, DkvWide past it; 64-row f32 accumulators over a
+def wide_cluster(kind, dtype, d):
+    """The cluster size ``launch_wide`` launches kernel ``kind`` with
+    (1: no cluster): its pinned ``cluster`` line over ``wide_slices``."""
+    ns = -(-d // WIDE_COLS)
+    cluster = dtype != "f32" and kind != "dq" and ns <= MAX_CLUSTER
+    return ns if d > 256 and cluster else 1
+
+
+# the 16-bit (wgmma) kernels: FwdTiles, DqTiles, DkvTiles up to 256,
+# FwdCluster and DkvCluster past it up to the cluster limit, and FwdWide,
+# DqWide, DkvWide past that (dq: past 256); 64-row f32 accumulators over a
 # warpgroup's 128 threads hold cols / 2 floats a thread
 def fwd_sm90(d):
+    if d > 256 and wide_cluster("fwd", "bf16", d) > 1:
+        # Q's slice, K and V slices of 32 keys in each of the 4 stages,
+        # two buffers of both warpgroups' partial S; O, S and the next
+        # tile's partial, T(P)
+        bk = 32
+        smem = (SM90_ROWS * WIDE_COLS * 2 + RING * 2 * bk * WIDE_COLS * 2
+                + 2 * 2 * PART + 1024)
+        return smem, WIDE_COLS // 2 + bk + bk // 4
     if d > 256:     # Q and K chunks, or V's slice, a stage
         bk = 32
         stage = _up(max(SM90_ROWS * CHUNK * 2 + bk * CHUNK * 2,
@@ -70,6 +94,14 @@ def dq_sm90(d):
 
 def dkv_sm90(d):
     bq = 64 if d == 64 else 32
+    if d > 256 and wide_cluster("dkv", "bf16", d) > 1:
+        # K's and V's slices, Q and dO slices of 32 rows in each of the
+        # 4 stages with their lse and delta, two buffers of the partial
+        # S^T and dP^T; dK and dV, S^T, dP^T and the next tile's partial,
+        # T(P), T(dS)
+        stage = 2 * bq * WIDE_COLS * 2 + 2 * bq * 4
+        smem = 2 * 64 * WIDE_COLS * 2 + RING * stage + 2 * 2 * PART + 1024
+        return smem, WIDE_COLS // 2 + 3 * (bq // 2) + bq // 2
     if d > 256:     # K, V, Q and dO chunks, or Q's and dO's slices, a stage
         stage = _up(max(2 * 64 * CHUNK * 2 + 2 * bq * CHUNK * 2,
                         2 * bq * WIDE_COLS * 2 + 2 * bq * 4), 1024)
@@ -129,6 +161,24 @@ PINNED = {
     "flash_wide.cuh": [
         "constexpr int kWideCols = 256;",
         "constexpr int kChunk = 64;",
+        "constexpr int kMaxCluster = 8;",
+        "constexpr int kRing = 4;",
+        "constexpr uint32_t kPartBytes = 64 * 32 * 4;",
+        "const bool cluster = k16 && KIND != kDq && ns <= kMaxCluster;",
+        # FwdCluster
+        "static constexpr uint32_t kQ = kSm90Rows * kWideCols * 2;",
+        "static constexpr uint32_t kKv = kBk * kWideCols * 2;",
+        "static constexpr uint32_t kStage = 2 * kKv;",
+        "static constexpr uint32_t kX = 2 * kPartBytes;",
+        "static constexpr size_t kSmem = kQ + kRing * kStage + 2 * kX + "
+        "1024;",
+        # DkvCluster
+        "static constexpr uint32_t kKv = kRows * kWideCols * 2;",
+        "static constexpr uint32_t kQ = kBq * kWideCols * 2;",
+        "static constexpr uint32_t kStage = 2 * kQ;",
+        "static constexpr uint32_t kStat = 2 * kBq * 4;",
+        "static constexpr size_t kSmem = 2 * kKv + kRing * (kStage + "
+        "kStat) + 2 * kX + 1024;",
         # FwdWide and DqWide
         "static constexpr int kBk = 32;",
         "static constexpr uint32_t kQc = kSm90Rows * kChunk * 2;",
@@ -186,12 +236,14 @@ def test_mirrored_formulas_are_the_sources(name):
 @pytest.mark.parametrize("kernel", sorted(TILES))
 def test_every_instance_fits_a_cta(kernel, d):
     """Every instance fits a CTA; past 256 the wide kernels' shared
-    memory and registers are the same at every D."""
+    memory and registers are the same at every D of one route (the
+    clusters up to 2048, the unclustered kernels past it)."""
     smem, regs = TILES[kernel](d)
     assert smem <= SMEM_LIMIT, (kernel, d, smem)
     assert regs < REG_LIMIT, (kernel, d, regs)
     if d > 256:
-        assert (smem, regs) == TILES[kernel](4096), (kernel, d)
+        same_route = 2048 if d <= 2048 else 4096
+        assert (smem, regs) == TILES[kernel](same_route), (kernel, d)
 
 
 def test_d256_figures():
@@ -206,17 +258,40 @@ def test_d256_figures():
 
 
 def test_wide_figures():
-    """The sizes PERF.md and ``flash_wide.cuh`` quote past 256, and why
-    the D <= 256 tiles could not simply widen: at D = 512 a 128-row Q
-    tile alone takes 131,072 B and three K/V stages of 32 keys 196,608
-    B, and the f32 dk/dv layout would not fit."""
+    """The sizes PERF.md and ``flash_wide.cuh`` quote past 256 (the
+    cluster kernels at 512, the unclustered ones at 2112), and why the
+    D <= 256 tiles could not simply widen: at D = 512 a 128-row Q tile
+    alone takes 131,072 B and three K/V stages of 32 keys 196,608 B, and
+    the f32 dk/dv layout would not fit."""
     assert [TILES[k](512) for k in ("fwd_sm90", "dq_sm90", "dkv_sm90")] \
+        == [(230_400, 168), (123_904, 168), (231_424, 192)]
+    assert [TILES[k](2112) for k in ("fwd_sm90", "dq_sm90", "dkv_sm90")] \
         == [(62_464, 152), (123_904, 168), (102_400, 176)]
     assert _f32_layout(512) == {"fwd": 91_904, "dq": 113_152,
                                 "dkv": 183_552}
     assert SM90_ROWS * 512 * 2 == 131_072
     assert STAGES * 2 * 32 * 512 * 2 == 196_608
     assert 4 * _up(4 * 32 * 513, 128) > SMEM_LIMIT  # f32 Layout<512> tiles
+
+
+@pytest.mark.parametrize("d", [320, 512, 1024, 2048, 2112, 4096])
+def test_cluster_rule_pinned_to_launch_wide(d):
+    """``launch_wide``'s route (the pinned ``cluster`` line): ceil(D /
+    256) slices; the 16-bit forward and dk/dv run them as one cluster up
+    to ``kMaxCluster`` (8), so D = 2112 (9 slices) takes the unclustered
+    kernels; dq and the f32 kernels never cluster."""
+    ns = {320: 2, 512: 2, 1024: 4, 2048: 8, 2112: 9, 4096: 16}[d]
+    want = ns if ns <= 8 else 1
+    assert [wide_cluster(k, "bf16", d) for k in ("fwd", "dq", "dkv")] \
+        == [want, 1, want]
+    assert wide_cluster("fwd", "f16", d) == wide_cluster("dkv", "f16", d) \
+        == want
+    assert {wide_cluster(k, "f32", d) for k in ("fwd", "dq", "dkv")} == {1}
+    text = " ".join((CSRC / "flash_wide.cuh").read_text().split())
+    assert "return static_cast<int>((d + kWideCols - 1) / kWideCols);" \
+        in text
+    assert "const bool cluster = k16 && KIND != kDq && ns <= kMaxCluster;" \
+        in text and f"constexpr int kMaxCluster = {MAX_CLUSTER};" in text
 
 
 def test_head_dims_are_64_128_256():
