@@ -18,16 +18,16 @@
 //     slices of a row tile sit next to each other on grid x (tile * ns +
 //     slice, ns = ceil(D / 256)); the last slice of a D that is not a
 //     multiple of 256 computes zero columns past D and does not write them.
-//   - The 16-bit forward and dk/dv, for ns <= kMaxCluster (8, the portable
-//     cluster size: D <= 2048), run the ns slices of a row (or key) tile as
+//   - The 16-bit kernels, for ns <= kMaxCluster (8, the portable cluster
+//     size: D <= 2048), run the ns slices of a row (or key) tile as
 //     one thread-block cluster (*_cluster_sm90, launched with
 //     cudaLaunchKernelEx and a {ns, 1, 1} cluster; launch_wide checks at an
 //     instance's first launch that such a cluster fits on the card and
 //     returns the error if it does not). Each CTA loads only its own
 //     256-column slice of every operand and keeps the D = 256 kernels'
 //     tiles (flash_fwd_sm90.cuh / flash_bwd_sm90.cuh), but the products
-//     that reduce over D (S = Q K^T, and dP = dO V^T in dk/dv) run over
-//     the CTA's own columns into f32 registers, each CTA writes
+//     that reduce over D (S = Q K^T, and dP = dO V^T in dq and dk/dv)
+//     run over the CTA's own columns into f32 registers, each CTA writes
 //     that partial to its shared memory, and after a cluster barrier
 //     every CTA reads all ns partials through distributed shared memory
 //     (mapa + ld.shared::cluster) and adds them in rank order 0 .. ns-1.
@@ -45,9 +45,9 @@
 //     CTAs, depends only on what the cluster's CTAs share (the row tile
 //     and bh), so every CTA meets every barrier.
 //   - The tensor cores stay busy across the exchange: in step j the
-//     previous tile's output product (P V, or dK and dV) and the next
+//     previous tile's output product (P V, dQ, or dK and dV) and the next
 //     tile's partial run while tile j's partials are read and its softmax
-//     (P^T and dS^T) runs; the step waits for the partial (wgmma_wait<1>)
+//     (P and dS) runs; the step waits for the partial (wgmma_wait<1>)
 //     and then for the product, so no wgmma is in flight across the
 //     loop's back edge (ptxas would serialise them). A tile's stage is
 //     read one step after its partial, so the rings hold kRing = 4
@@ -67,19 +67,25 @@
 //     holds dK and dV of 128 of the slice's columns, as at D = 256. That
 //     is 255 registers a thread with no spill: the operand pointers are
 //     rebuilt in the loader, and lse and delta are read after the
-//     exchange, so neither holds registers across it.
-//   - Past D = 2048, and for dq (flash_dq_wide_sm90) at every wide D, the
-//     first wide kernels run: every CTA of a row tile recomputes the
-//     tile's scores, streaming the operands that reduce over D through
-//     shared memory in kChunk-column (64) chunks into the same f32
-//     accumulators, then applies P (or dS) to its own columns of V, K, or
-//     Q and dO. The score products run ns times (at D = 512, 5/3x dq's
-//     FLOPs). They keep the D <= 256 kernels' two consumer warpgroups,
-//     128 query rows (forward, dq) or 64 keys (dk/dv), the 3-stage
-//     cp.async ring walking "items" (for each tile of the other sequence,
-//     the D / 64 chunks, then the slice's operand of the output product),
-//     and 32-key tiles: 64-key tiles would add 24 registers to the
-//     forward's 128-register O and spill.
+//     exchange, so neither holds registers across it. dq mirrors dk/dv
+//     with query rows for keys: the 64 x 256 Q and dO slices resident, K
+//     and V slices of 32 keys through the ring; warpgroup 0 contracts the
+//     partial S = Q K^T, warpgroup 1 dP = dO V^T, each sums its own over
+//     the cluster and hands it to the other, and each holds dQ of the
+//     CTA's 64 rows and 128 of the slice's columns (64 registers); lse
+//     and delta of the fixed rows are read once; 230,400 B. (128 rows
+//     with 32-key tiles would need 262,144 B before the exchange.)
+//   - Past D = 2048 the first wide kernels run: every CTA of a row tile
+//     recomputes the tile's scores, streaming the operands that reduce
+//     over D through shared memory in kChunk-column (64) chunks into the
+//     same f32 accumulators, then applies P (or dS) to its own columns of
+//     V, K, or Q and dO. The score products run ns times (at D = 512,
+//     5/3x dq's FLOPs). They keep the D <= 256 kernels' two consumer
+//     warpgroups, 128 query rows (forward, dq) or 64 keys (dk/dv), the
+//     3-stage cp.async ring walking "items" (for each tile of the other
+//     sequence, the D / 64 chunks, then the slice's operand of the output
+//     product), and 32-key tiles: 64-key tiles would add 24 registers to
+//     the forward's 128-register O and spill.
 //   - The f32 kernels keep the D <= 256 f32 kernels' 32-row tiles, 4
 //     warps and shared-memory products, with the same chunking and
 //     slicing; one CTA an SM is what their shared memory allows anyway,
@@ -576,6 +582,193 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
         ((static_cast<int64_t>(b) * g.tk + kj) * H + h) * D + col;
     store2(dkp + o, dk[i] * scale, dk[i + 1] * scale);
     store2(dvp + o, dv[i], dv[i + 1]);
+  }
+}
+
+// -------------------------------------- 16-bit dq, a cluster of slices --
+
+struct DqCluster {
+  static constexpr int kRows = 64;                          // rows a CTA
+  static constexpr int kBk = 32;                            // keys a tile
+  static constexpr uint32_t kQ = kRows * kWideCols * 2;    // Q's or dO's slice
+  static constexpr uint32_t kK = kBk * kWideCols * 2;      // K's or V's slice
+  static constexpr uint32_t kStage = 2 * kK;
+  static constexpr uint32_t kX = 2 * kPartBytes;  // a buffer: S and dP
+  static constexpr size_t kSmem = 2 * kQ + kRing * kStage + 2 * kX + 1024;
+  static_assert(kSmem <= kSmemLimit, "cluster dq exceeds shared memory");
+};
+
+template <typename T, typename OT>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+    flash_dq_cluster_sm90(const FlashArgs a) {
+  using L = DqCluster;
+  constexpr int BK = L::kBk, NC = kWideCols / 2;  // dQ columns a wg
+  extern __shared__ __align__(128) unsigned char smem90[];
+  const uint32_t qs = (smem_addr(smem90) + 1023) & ~1023u, dos = qs + L::kQ,
+                 ring = dos + L::kQ, xch = ring + kRing * L::kStage;
+
+  const Geo g = make_geo(a);
+  const int H = static_cast<int>(a.heads), D = static_cast<int>(a.head_dim);
+  const int bh = blockIdx.z * gridDim.y + blockIdx.y, b = bh / H, h = bh % H;
+  if (bh >= a.batch * a.heads) return;  // as the forward's: the cluster's
+  const int ns = wide_slices(D), col0 = cluster_rank() * kWideCols;
+  const int q0 = (gridDim.x / ns - 1 - blockIdx.x / ns) * L::kRows;
+  const int wg = threadIdx.x / 128;
+  // both warpgroups own the CTA's 64 rows; warpgroup 0 contracts the
+  // partial S = Q K^T, warpgroup 1 the partial dP = dO V^T, and each
+  // holds dQ of the slice's columns c0 .. c0 + NC - 1 (their panels'
+  // offset in a K slice tile)
+  const int c0 = wg * NC;
+  const uint32_t c_off = (c0 / 64) * BK * 128;
+  const uint32_t a_tile = wg == 0 ? qs : dos, b_off = wg == 0 ? 0 : L::kK;
+  const float scale = static_cast<float>(a.scale), sl2 = scale * kLog2e;
+
+  // the row tile's key tiles, the same in every CTA of the cluster
+  const int q_last = min(q0 + L::kRows, g.tq) - 1;
+  const int k_end =
+      g.causal ? max(0, min(g.tk, g.q_offset + q_last - g.k_offset + 1))
+               : g.tk;
+  const int n_tiles = (k_end + BK - 1) / BK;
+  auto stage = [&](int it) { return ring + (it % kRing) * L::kStage; };
+  auto xbuf = [&](int it) { return xch + (it % 2) * L::kX; };
+  auto load_stage = [&](int it) {
+    const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
+    const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
+    load_cols<BK, kWideCols>(stage(it), kb, a.k_st, it * BK, g.tk, col0, D);
+    load_cols<BK, kWideCols>(stage(it) + L::kK, vb, a.v_st, it * BK, g.tk,
+                             col0, D);
+  };
+
+  float dq[NC / 2], s[BK / 2], dp[BK / 2], pn[BK / 2];
+#pragma unroll
+  for (int i = 0; i < NC / 2; ++i) dq[i] = 0.f;
+  uint32_t da[BK / 16][4];  // T(dS) of the tile whose dQ product is next
+  float lse2[2], dl[2];     // this thread's two rows' statistics
+  // The loads and the next tile's partial of step it, ordered as the
+  // forward's: tile it + 2's copies into tile it - 2's stage start after
+  // the CTA barrier that follows every thread's wait for step it - 1's
+  // dQ product on that stage.
+  auto begin_step = [&](int it) {
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();
+    if (it + 2 < n_tiles) load_stage(it + 2);
+    cp_async_commit();
+    wgmma_fence();
+    gemm_ss<T, L::kRows, BK, kWideCols / 16>(pn, a_tile, 0,
+                                             stage(it + 1) + b_off);
+    wgmma_commit();
+  };
+  // Tile it's P and dS. Each warpgroup sums its own product's partials
+  // over the cluster and hands the sum to the other through tile it + 1's
+  // buffer, as dk/dv's scores do.
+  auto scores = [&](int it) {
+    const int k0 = it * BK;
+    cluster_wait();  // every CTA's partial S and dP of tile it
+    float own[BK / 2];
+    sum_parts<2>(own, xbuf(it) + wg * kPartBytes, ns);
+    put_part(xbuf(it + 1) + (1 - wg) * kPartBytes, own);
+    __syncthreads();
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) s[i] = own[i];
+      load_part(dp, xbuf(it + 1), cluster_rank());
+    } else {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) dp[i] = own[i];
+      load_part(s, xbuf(it + 1) + kPartBytes, cluster_rank());
+    }
+    const bool interior = q0 + L::kRows <= g.tq && k0 + BK <= g.tk &&
+                          (!g.causal || g.q_offset + q0 >= g.k_offset +
+                                                               k0 + BK - 1);
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i)
+      s[i] = exp2f(fmaf(s[i], sl2, -lse2[(i / 2) % 2]));
+    // masked p is exactly 0, also when lse is the -1e30 sentinel
+    if (!interior) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i)
+        if (!g.visible(q0 + frag_row(i), k0 + frag_col(i))) s[i] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i)
+      dp[i] = s[i] * (dp[i] - dl[(i / 2) % 2]);
+  };
+  auto end_step = [&](int it) {
+    reg_fence(pn);
+    if (it + 1 < n_tiles) put_part(xbuf(it + 1) + wg * kPartBytes, pn);
+    cluster_arrive();
+  };
+  // dQ += T(dS) K on tile it's stage (the warpgroup's columns of K)
+  auto product = [&](int it) {
+    gemm_rs<T, BK, BK / 16>(dq, da, stage(it) + c_off);
+    wgmma_commit();
+  };
+  if (n_tiles > 0) {
+    // tile 0's partials, then tile 0's step without a product
+    const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
+    const T* dob = static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh;
+    load_cols<L::kRows, kWideCols>(qs, qb, a.q_st, q0, g.tq, col0, D);
+    load_cols<L::kRows, kWideCols>(dos, dob, a.do_st, q0, g.tq, col0, D);
+    load_stage(0);
+    cp_async_commit();
+    if (n_tiles > 1) load_stage(1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_async_smem();
+    __syncthreads();
+    wgmma_fence();
+    gemm_ss<T, L::kRows, BK, kWideCols / 16>(pn, a_tile, 0, stage(0) + b_off);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(pn);
+    put_part(xbuf(0) + wg * kPartBytes, pn);
+    cluster_arrive();
+    // lse and delta of the CTA's fixed rows, read once (0 past Tq)
+    const float* lse = a.lse + static_cast<int64_t>(bh) * g.tq;
+    const float* delta = a.delta + static_cast<int64_t>(bh) * g.tq;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int qi = q0 + frag_row(2 * e);
+      lse2[e] = qi < g.tq ? lse[qi] * kLog2e : 0.f;
+      dl[e] = qi < g.tq ? delta[qi] : 0.f;
+    }
+    begin_step(0);
+    scores(0);
+    wgmma_wait<0>();
+    end_step(0);
+    to_a_frags<T, BK / 16>(da, dp);  // ds rounded to k's type
+  }
+  // step it: tile it - 1's dQ product and tile it + 1's partial run while
+  // tile it's partials are summed and its P and dS computed
+  for (int it = 1; it < n_tiles; ++it) {
+    begin_step(it);
+    product(it - 1);
+    scores(it);
+    wgmma_wait<1>();  // tile it + 1's partial
+    end_step(it);
+    wgmma_wait<0>();  // tile it - 1's product
+    reg_fence(dq);
+    reg_fence(da);
+    to_a_frags<T, BK / 16>(da, dp);
+  }
+  if (n_tiles > 0) {  // the last tile's product
+    wgmma_fence();
+    product(n_tiles - 1);
+    wgmma_wait<0>();
+    reg_fence(dq);
+    cluster_wait();  // no peer reads this CTA's partials now
+  }
+  cp_async_wait<0>();
+
+  OT* dqp = static_cast<OT*>(a.dq);
+#pragma unroll
+  for (int i = 0; i < NC / 2; i += 2) {
+    const int qi = q0 + frag_row(i), col = col0 + c0 + frag_col(i);
+    if (qi >= g.tq || col >= D) continue;
+    const int64_t o =
+        ((static_cast<int64_t>(b) * g.tq + qi) * H + h) * D + col;
+    store2(dqp + o, dq[i] * scale, dq[i + 1] * scale);
   }
 }
 
@@ -1368,16 +1561,16 @@ inline cudaError_t launch_cluster(void (*kern)(const FlashArgs), dim3 grid,
   return err;
 }
 
-// The route is chosen by the input type and D alone: the 16-bit forward
-// and dk/dv run as clusters while the slices fit a portable cluster
-// (D <= 2048); dq, the f32 kernels and wider D take the first wide kernels.
+// The route is chosen by the input type and D alone: the 16-bit kernels
+// run as clusters while the slices fit a portable cluster (D <= 2048); the
+// f32 kernels and wider D take the first wide kernels.
 template <int KIND, typename T, typename OT>
 cudaError_t launch_wide(const FlashArgs& a, cudaStream_t stream) {
   constexpr bool k16 = !std::is_same<T, float>::value;
   static_assert(DkvCluster::kRows == DkvWide::kRows, "one dk/dv key tile");
   static bool fits[kMaxCluster + 1] = {};  // this instance's cluster sizes
   const int ns = wide_slices(a.head_dim);
-  const bool cluster = k16 && KIND != kDq && ns <= kMaxCluster;
+  const bool cluster = k16 && ns <= kMaxCluster;
   void (*kern)(const FlashArgs);
   size_t smem;
   int tile, threads = k16 ? kSm90Threads : kThreads;
@@ -1394,6 +1587,11 @@ cudaError_t launch_wide(const FlashArgs& a, cudaStream_t stream) {
     kern = flash_dq_wide_sm90<T, OT>;
     smem = DqWide::kSmem;
     tile = kSm90Rows;
+    if (cluster) {
+      kern = flash_dq_cluster_sm90<T, OT>;
+      smem = DqCluster::kSmem;
+      tile = DqCluster::kRows;
+    }
   } else if constexpr (k16) {
     kern = flash_dkv_wide_sm90<T, OT>;
     smem = DkvWide::kSmem;

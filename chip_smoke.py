@@ -156,12 +156,14 @@ heads) and ResNet-50 (random weights from a seed):
   TP engine's streams equal to solo ``generate``; without the qkv
   permutation both gates must fail), and a tp = 1 replica spawned from
   the snapshot into a ``FleetRouter``. ``sp_train``, ``tp_train``,
-  ``moe_train`` and ``gspmd_train`` take 1 + 3 steps (were 2 + 5) to pay
-  for them. The 2-rank ranks of ``mnist_mp``, ``seq2seq_mp``,
-  ``parallel_conv``, ``sp_parity``, ``sp_train``, ``tp_train``,
-  ``serve_tp``, ``moe_train``, ``gspmd_train`` and ``reshard``'s first
-  half run one after another in one pair of processes (``gloo_batch``),
-  which starts once.
+  ``moe_train`` and ``gspmd_train`` take 1 + 2 steps (were 2 + 5, then
+  1 + 3) to pay for them. The ranks of every multi-rank phase run in one
+  group of 8 processes (``gloo_batch``), which starts once: first the
+  2-rank calls of ``mnist_mp``, ``seq2seq_mp``, ``parallel_conv``,
+  ``sp_parity``, ``sp_train``, ``tp_train``, ``serve_tp``,
+  ``moe_train``, ``gspmd_train`` and ``reshard``'s first half on two of
+  them, then ``reshard``'s second half and ``pp_train`` on four, then
+  ``hybrid`` on all eight.
 
 Each launch count is set to 0 just before its path runs and read just
 after. Each phase is preceded by one flushed line ``{"phase_start":
@@ -204,12 +206,9 @@ WATCHDOG_S = 1175.0
 # The seconds of each phase that starts processes, in a whole run of the
 # script from a clean checkout (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
 # section 4): a rank group or subprocess of the phase is failed after
-# GROUP_TIMEOUT_FACTOR times them, or at the deadline if that comes first
-GROUP_SECONDS = {"mnist_checkpoint": 53.9, "gloo_batch": 105.0,
-                 "mnist_mp": 40.8, "seq2seq_mp": 37.6, "parallel_conv": 36.1,
-                 "sp_parity": 33.8, "sp_train": 58.0, "tp_train": 29.6,
-                 "serve_tp": 43.8, "reshard": 65.3, "hybrid": 25.6,
-                 "moe_train": 59.2, "gspmd_train": 39.7, "pp_train": 35.2}
+# GROUP_TIMEOUT_FACTOR times them, or at the deadline if that comes first.
+# Every multi-rank phase reads its ranks' results from gloo_batch's group
+GROUP_SECONDS = {"mnist_checkpoint": 31.4, "gloo_batch": 129.8}
 GROUP_TIMEOUT_FACTOR = 3.0
 GROUP_UNTIMED_S = 900.0
 _RUNNING = {"phase": None}          # the phase main() is in
@@ -984,6 +983,11 @@ def _spec_traffic(n, seed):
     return work
 
 
+def _capped(work, n_new):
+    """``work``'s requests, each asking at most ``n_new`` new tokens."""
+    return [(prompt, min(n, n_new)) for prompt, n in work]
+
+
 def _serve_traffic(n, seed):
     """The ``serve`` phase's requests (its prompt and budget ranges)."""
     import numpy as np
@@ -1524,6 +1528,10 @@ GRAPH_PROFILE_STEPS = 10
 # phase's 114-120 s at 8 each); the captured bf16 runs serve all 32
 GRAPH_EAGER_REQUESTS = 4
 GRAPH_PARITY_REQUESTS = 4
+# ... and each of those asks at most 32 new tokens (of its 64-128): the
+# parity gate and a planted fault part within a few tokens, and an eager
+# step's times come from its first tens of steps as well as from its last
+GRAPH_NEW_TOKENS = 32
 # the f32 twin of that parity at 2 of the 12 layers: its eager runs step
 # layer by layer on the host (~40 of the phase's 74-80 s at 12 layers)
 GRAPH_F32_LM = dict(LM, n_layers=2)
@@ -1643,17 +1651,18 @@ def _graph_run(model, kw, work, capture, device, *, profile=False,
 
 def phase_serve_graphs(device, card):
     """Each serving path (``serve``, ``serve_window``, ``serve_spec``,
-    ``serve_dense``; the 220M LM in bf16, 4 requests eager and 32
-    captured) with ``capture=False`` and then captured: tokens/s, TPOT,
-    TTFT, a profiled
-    step's device-busy ms and idle share, the capture seconds and the
-    graph pool's bytes. Fails unless every run builds each program once
+    ``serve_dense``; the 220M LM in bf16, 4 requests of at most
+    GRAPH_NEW_TOKENS eager and 32 captured) with ``capture=False`` and
+    then captured: tokens/s, TPOT, TTFT, a profiled step's device-busy
+    ms and idle share, the capture seconds and the graph pool's bytes.
+    Fails unless every run builds each program once
     (``compile_counts_detailed()`` flat, ``recompiles`` empty), the
     kernel launches equal decode calls x window x layers on both, and, on
-    the f32 LM at 2 layers with 4 requests, each path's captured streams equal its eager
-    ones up to the near-tie rule (greedy; sampled at T 0.8 / top-k 50
-    except the greedy-only verify window) while a planted fault (the
-    captured decode program reading one table block) fails that gate."""
+    the f32 LM at 2 layers with 4 requests of at most GRAPH_NEW_TOKENS,
+    each path's captured streams equal its eager ones up to the near-tie
+    rule (greedy; sampled at T 0.8 / top-k 50 except the greedy-only
+    verify window) while a planted fault (the captured decode program
+    reading one table block) fails that gate."""
     import torch
 
     from chainermn_torch.models import TransformerLM
@@ -1667,7 +1676,8 @@ def phase_serve_graphs(device, card):
         runs[name] = {}
         for capture in (False, True):
             _, runs[name][str(capture).lower()] = _graph_run(
-                model, kw, work if capture else work[:GRAPH_EAGER_REQUESTS],
+                model, kw, work if capture else
+                _capped(work[:GRAPH_EAGER_REQUESTS], GRAPH_NEW_TOKENS),
                 capture, device, profile=True, per_call=per_call)
     del model
     _empty()
@@ -1676,7 +1686,7 @@ def phase_serve_graphs(device, card):
     parity = {}
     seeds = [2000 + i for i in range(GRAPH_PARITY_REQUESTS)]
     for name, (kw, work, per_call) in paths.items():
-        pw = work[:GRAPH_PARITY_REQUESTS]
+        pw = _capped(work[:GRAPH_PARITY_REQUESTS], GRAPH_NEW_TOKENS)
         modes = [("greedy", {}, None)]
         if name != "serve_spec":
             modes.append(("sampled", GRAPH_SAMPLED, seeds))
@@ -1696,7 +1706,7 @@ def phase_serve_graphs(device, card):
     from chainermn_torch.serving import ServingEngine
 
     kw, work, _ = paths["serve"]
-    pw = work[:GRAPH_PARITY_REQUESTS]
+    pw = _capped(work[:GRAPH_PARITY_REQUESTS], GRAPH_NEW_TOKENS)
     real = paged_kernel.paged_attend
 
     def one_block(*args, **kwargs):
@@ -1717,7 +1727,8 @@ def phase_serve_graphs(device, card):
            "model": dict(LM, compute_dtype="bf16"),
            "requests": {"eager": GRAPH_EAGER_REQUESTS,
                         "captured": N_REQUESTS,
-                        "f32_parity": GRAPH_PARITY_REQUESTS},
+                        "f32_parity": GRAPH_PARITY_REQUESTS,
+                        "eager_and_f32_max_new": GRAPH_NEW_TOKENS},
            "f32_model": GRAPH_F32_LM,
            "profile_steps": GRAPH_PROFILE_STEPS,
            "runs": runs, "f32_parity": parity, "planted_fault": planted,
@@ -1833,6 +1844,10 @@ def phase_serve_restart_swap(device, card):
 
 FLEET_WIDTHS = (4, 32, 128)        # kv_gather/kv_scatter widths timed
 FLEET_REBALANCE_NEW = 128
+# the f32 fleets' requests ask at most 32 new tokens each (of 64-128), as
+# serve_graphs' f32 ones: the short import fails at a request's first
+# tokens; the rebalanced stream keeps its 64
+FLEET_F32_NEW_TOKENS = 32
 FLEET_WAIT_S = 120
 
 
@@ -2110,10 +2125,11 @@ def phase_serve_fleet(device, card):
     prefix sharing on and off over the shared-prefix traffic;
     ``rebalance``: one live decode moved mid-stream. The migration
     programs are timed at 4, 32 and 128 blocks. On the f32 LM (8
-    requests, greedy and sampled) the 1P+1D and sharing fleets' streams
-    must equal the solo engine's up to the near-tie rule, as must a
-    rebalanced stream; an int8 store must migrate bit for bit, and the
-    planted fault (an import one block short) must fail 8/8. Fails
+    requests of at most FLEET_F32_NEW_TOKENS new tokens, greedy and
+    sampled) the 1P+1D and sharing fleets' streams must equal the solo
+    engine's up to the near-tie rule, as must a rebalanced stream; an
+    int8 store must migrate bit for bit, and the planted fault (an
+    import one block short) must fail 8/8. Fails
     unless every replica warms, no program is built twice, and each
     engine's kernel launches are its decode calls x 12."""
     import torch
@@ -2279,7 +2295,8 @@ def _fleet_f32_sanitized(device):
 
 
 def _fleet_f32(device):
-    """The f32 LM at full width, 8 requests, greedy then sampled: the
+    """The f32 LM at full width, 8 requests (each asking at most
+    FLEET_F32_NEW_TOKENS), greedy then sampled: the
     solo engine's streams against 1P+1D and against 2 replicas sharing
     prefixes (zero-tolerance affinity, so shares happen), a rebalanced
     stream (greedy), and the planted short import (greedy 1P+1D)."""
@@ -2291,8 +2308,10 @@ def _fleet_f32(device):
 
     m32 = [TransformerLM(**LM, compute_dtype=torch.float32, device=device,
                          seed=SEED) for _ in range(2)]
-    tiers_work = _serve_traffic(PARITY_REQUESTS, SEED + 50)
-    share_work = _spec_traffic(PARITY_REQUESTS, SEED + 60)
+    tiers_work = _capped(_serve_traffic(PARITY_REQUESTS, SEED + 50),
+                         FLEET_F32_NEW_TOKENS)
+    share_work = _capped(_spec_traffic(PARITY_REQUESTS, SEED + 60),
+                         FLEET_F32_NEW_TOKENS)
     seeds = [3000 + i for i in range(PARITY_REQUESTS)]
     out = {"parity": {}, "shares": {}, "migrations": {}}
     for mode, extra in (("greedy", {}), ("sampled", GRAPH_SAMPLED)):
@@ -3016,7 +3035,8 @@ def phase_flash_parity(device):
     and their dq and the unseen keys' dk and dv must be 0, exactly. A
     planted fault must fail: the D = 512 bf16 ``square_causal`` kernels
     against the plain versions on K with its columns past the first 256
-    zeroed (scores reduced over one slice's columns only)."""
+    zeroed (scores reduced over one slice's columns only): each of out,
+    dq, dk and dv must fail its tolerance."""
     import torch
 
     fa = importlib.import_module("chainermn_torch.ops.flash_attention")
@@ -3091,7 +3111,7 @@ def phase_flash_parity(device):
     if bad:
         raise AssertionError(f"flash kernels disagree with their plain "
                              f"versions: {bad}")
-    if planted["ok"]:
+    if planted["ok"] or planted["passed"]:
         raise AssertionError(f"flash_parity: the planted fault passes: "
                              f"{planted}")
     return worst
@@ -3100,7 +3120,8 @@ def phase_flash_parity(device):
 def _flash_planted_fault(fa, gen, device):
     """The D = 512 bf16 ``square_causal`` kernels against the plain
     versions on K with columns 256.. zeroed; ``ok`` is the parity gate's
-    verdict (every output inside the tolerance), which must be False."""
+    verdict (every output inside the tolerance), which must be False, and
+    ``passed`` the outputs inside it, which must be none."""
     import torch
 
     _, tq, tk, causal, qo, ko = FLASH_CASES[0]
@@ -3124,6 +3145,7 @@ def _flash_planted_fault(fa, gen, device):
     return {"D": 512, "dtype": "bf16", "case": FLASH_CASES[0][0],
             "fault": "K columns 256.. zeroed in the plain versions",
             "err": {n: c[0] for n, c in checks.items()},
+            "passed": [n for n, c in checks.items() if c[1]],
             "ok": all(c[1] for c in checks.values())}
 
 
@@ -3470,19 +3492,20 @@ def _train_step_profile(step, tokens, targets, n_steps):
 def _launched_kernels(calls):
     """What one call of each flash wrapper in ``calls`` (``{name: call}``)
     ran on the card: ``{name: (kernel, cluster_size)}``, the kernel's name
-    in a ``torch.profiler`` trace (matched by its FLASH_KERNELS prefix; a
-    call whose kernel the trace missed runs once more in a second trace,
-    and is "not measured" if that misses it too) and the thread-block
-    cluster size the library launched it with (``flash_last_cluster``: 1
-    for none)."""
+    in a ``torch.profiler`` trace (matched by its FLASH_KERNELS prefix;
+    each call runs inside a ``record_function`` range, and a call whose
+    kernel the trace missed runs again in a new trace, up to three, and
+    is "not measured" if they all miss it) and the thread-block cluster
+    size the library launched it with (``flash_last_cluster``: 1 for
+    none)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     fa = importlib.import_module("chainermn_torch.ops.flash_attention")
     lib = fa.build_library()
     found, clusters = {}, {}
-    for _ in range(2):
+    for _ in range(3):
         todo = [n for n in calls if n not in found]
         if not todo:
             break
@@ -3492,7 +3515,8 @@ def _launched_kernels(calls):
             torch.empty(1, device="cuda").zero_()
             torch.cuda.synchronize()
             for name in todo:
-                calls[name]()
+                with record_function(f"chip_smoke.{name}"):
+                    calls[name]()
                 clusters[name] = int(lib.flash_last_cluster())
                 torch.cuda.synchronize()
         keys = [e.key for e in prof.key_averages()
@@ -3608,8 +3632,8 @@ def phase_flash_timing(device):
     the plain versions not timed, SDPA in the same dtype; the f32 bound
     at 67 TFLOP/s, the FMA units' peak) and at D=8 (padded to 64). Each
     row names the kernel one profiled call ran and the cluster size the
-    library launched it with; the D=512 forward and dk/dv must have run
-    as clusters (``*_cluster_sm90``, 2 CTAs). Each
+    library launched it with; the D=512 forward, dq and dk/dv must have
+    run as clusters (``*_cluster_sm90``, 2 CTAs). Each
     kernel's outputs must agree with its plain version's within its
     dtype's tolerance, so the strided reads of the training path are held
     to a limit. The yardstick, which the port never calls, is
@@ -3676,9 +3700,9 @@ def phase_flash_timing(device):
     if bad:
         raise AssertionError(f"flash kernels {bad} gave different outputs "
                              f"for the same inputs")
-    # the wide forward and dk/dv run as clusters of the 256-column slices
-    # (the trace's kernel name, where it has one, must say so too)
-    bad = [n for n in ("flash_fwd", "flash_dkv")
+    # the wide kernels run as clusters of the 256-column slices (the
+    # trace's kernel name, where it has one, must say so too)
+    bad = [n for n in ("flash_fwd", "flash_dq", "flash_dkv")
            if recs[n]["d512"]["cluster_size"] < 2
            or recs[n]["d512"]["kernel"] != "not measured"
            and "cluster" not in recs[n]["d512"]["kernel"]]
@@ -4364,7 +4388,9 @@ def phase_dp_parity(device):
 # name -> (flags, native loader asked for, profiled). The two c_ layouts
 # are not profiled since PR 17 (their idle share paid for d_jpeg_dir).
 # Cut to pay for the script's time limit: 4,096 synthetic images (of
-# 16,384), 12 recipe iterations (of 30), 6 JPEG-tree iterations (of 12).
+# 16,384), 12 recipe iterations (of 30), 4 JPEG-tree iterations (of 12),
+# 5 numpy-collate ones (of 8) and 3 for each c_ layout (of 5); a profile
+# skips one iteration, then traces three.
 IMAGENET = ["--arch", "resnet50", "--classes", "1000", "--image-size", "224",
             "--communicator", "pure_nccl", "--dtype", "bfloat16",
             "--n-synthetic", "4096"]
@@ -4377,12 +4403,12 @@ IMAGENET_MODES = {
          "--iterations", "12"], True, True),
     # the numpy collate on the loop's thread
     "b_numpy_collate": (["--batchsize", "256", "--no-native-loader",
-                         "--iterations", "8"], False, True),
+                         "--iterations", "5"], False, True),
     # the two other layouts run on NCCL
-    "c_fsdp": (["--batchsize", "64", "--fsdp", "--iterations", "5"], False,
+    "c_fsdp": (["--batchsize", "64", "--fsdp", "--iterations", "3"], False,
                False),
     "c_mnbn_double_buffering": (["--batchsize", "64", "--mnbn",
-                                 "--double-buffering", "--iterations", "5"],
+                                 "--double-buffering", "--iterations", "3"],
                                 False, False),
     # JPEGs from a directory (JPEG_TREE, written at the phase's start),
     # through the device prefetcher; the tree sets the class count. Its
@@ -4392,13 +4418,13 @@ IMAGENET_MODES = {
     # (PERF.md, PR 17)
     "d_jpeg_dir": (["--batchsize", "256", "--train-dir", "{jpeg_tree}",
                     "--jpeg-decoder", "pil", "--device-prefetch", "2",
-                    "--epoch", "1000", "--lr", "0.01", "--iterations", "6"],
+                    "--epoch", "1000", "--lr", "0.01", "--iterations", "4"],
                    False, True),
 }
 # d_jpeg_dir's tree: seeded JPEGs about the size of an ImageNet file
 JPEG_TREE = dict(files=512, classes=8, width=500, height=375, quality=90,
                  seed=SEED)
-IMAGENET_PROFILE = dict(wait=2, active=3)   # loop iterations
+IMAGENET_PROFILE = dict(wait=1, active=3)   # loop iterations
 
 
 def _twin(argv, step_callback=None):
@@ -4654,12 +4680,13 @@ JAX_CPU = {"mnist_val_accuracy": 1.0, "mnist_mp_val_accuracy": 1.0,
            "seq2seq_token_accuracy": 0.8955}
 MNIST_GATE = 0.9                   # the JAX figure clears it
 # the MNIST twins' epochs: the data-parallel one at 5 of its 20 and the
-# model-parallel one at 3 of its 10 (both reach validation accuracy 1.0,
-# the JAX figure, in the first); the seq2seq twin keeps its 20, the
-# channel-parallel one runs 2 of its 5 (the loss falls 2.08 -> 0.77)
+# model-parallel one at 1 of its 10 (both reach validation accuracy 1.0,
+# the JAX figure, in the first); the seq2seq twin at 5 of its 20 (token
+# accuracy 0.21 -> 0.63 by the fifth; the JAX figure is the twentieth's),
+# the channel-parallel one at 2 of its 5 (the loss falls 2.08 -> 0.77)
 MNIST_EPOCHS = 5
-MP_EPOCHS = 3
-SEQ2SEQ_EPOCHS = 20
+MP_EPOCHS = 1
+SEQ2SEQ_EPOCHS = 5
 PCONV_EPOCHS = 2
 MP_TWIN = "chainermn_torch.examples.mnist.train_mnist_model_parallel"
 MP_PINGPONG = "100,500"            # the boundary tensor's shape
@@ -4746,6 +4773,24 @@ def _snapshot_leaves(path):
     return out
 
 
+# the resumed checkpoint run's process: it imports the twin and sets up
+# CUDA while the crash run runs, then waits for the file argv[1] (made
+# once the crash run has ended) and only then runs the twin's main() as
+# ``python -m`` would, with the remaining arguments
+_RESUME_AFTER = """
+import os, runpy, sys, time
+import torch
+import chainermn_torch.examples.mnist.train_mnist_checkpoint
+del sys.modules["chainermn_torch.examples.mnist.train_mnist_checkpoint"]
+torch.cuda.init()
+while not os.path.exists(sys.argv[1]):
+    time.sleep(0.01)
+sys.argv = sys.argv[:1] + sys.argv[2:]
+runpy.run_module("chainermn_torch.examples.mnist.train_mnist_checkpoint",
+                 run_name="__main__", alter_sys=True)
+"""
+
+
 def phase_mnist_checkpoint(card):
     """The checkpoint twin (``python -m chainermn_torch.examples.mnist.
     train_mnist_checkpoint``) at its defaults but ``--epoch CKPT_EPOCHS``,
@@ -4754,24 +4799,26 @@ def phase_mnist_checkpoint(card):
     non-zero after "simulated crash"), and a resumed one (must print
     "resumed from iteration K'", K' the newest snapshot at or before the
     crash). The first two share nothing (each its own output directory
-    and one-rank group) and run at once; the resumed run starts after
-    the crash. Fails unless the resumed run's last snapshot equals the
-    uninterrupted run's, leaf by leaf (the largest difference is
-    reported; the target is 0)."""
+    and one-rank group) and run at once; the resumed run's process starts
+    beside them, imports the twin and waits, and its run starts after the
+    crash run's process has ended. Fails unless the resumed run's last
+    snapshot equals the uninterrupted run's, leaf by leaf (the largest
+    difference is reported; the target is 0)."""
     import tempfile
 
     import numpy as np
 
-    cmd = [sys.executable, "-m",
-           "chainermn_torch.examples.mnist.train_mnist_checkpoint",
-           "--communicator", "pure_nccl", "--epoch", str(CKPT_EPOCHS)]
+    module = "chainermn_torch.examples.mnist.train_mnist_checkpoint"
+    args = ["--communicator", "pure_nccl", "--epoch", str(CKPT_EPOCHS)]
     runs = {}
 
-    def run(name, extra, out):
+    def run(name, extra, out, pre=None):
         t0 = time.perf_counter()
         timeout = _group_timeout()
+        cmd = ([sys.executable, "-c", _RESUME_AFTER, pre] if pre else
+               [sys.executable, "-m", module])
         try:
-            r = subprocess.run(cmd + ["--out", str(Path(tmp) / out)]
+            r = subprocess.run(cmd + args + ["--out", str(Path(tmp) / out)]
                                + extra, cwd=ROOT, capture_output=True,
                                text=True, timeout=timeout)
         except subprocess.TimeoutExpired as e:
@@ -4787,11 +4834,20 @@ def phase_mnist_checkpoint(card):
                       "stderr_tail": r.stderr[-2000:]}
 
     with tempfile.TemporaryDirectory() as tmp:
-        with ThreadPoolExecutor(2) as pool:
-            list(pool.map(lambda a: run(*a), (
-                ("uninterrupted", [], "a"),
-                ("crash", ["--stop-at", str(CKPT_STOP_AT)], "b"))))
-        run("resumed", [], "b")
+        crashed = str(Path(tmp) / "crashed")
+
+        def crash():
+            try:
+                run("crash", ["--stop-at", str(CKPT_STOP_AT)], "b")
+            finally:
+                Path(crashed).touch()
+
+        with ThreadPoolExecutor(3) as pool:
+            done = [pool.submit(run, "uninterrupted", [], "a"),
+                    pool.submit(crash),
+                    pool.submit(run, "resumed", [], "b", crashed)]
+            for f in done:
+                f.result()
         snaps = {k: sorted(Path(tmp, k).glob("snapshot_mnist_example_*.0"),
                            key=lambda p: int(p.name.split("_")[-1][:-2]))
                  for k in ("a", "b")}
@@ -5122,8 +5178,9 @@ def phase_mnist_mp(device, card):
 def phase_seq2seq_mp(card):
     """The seq2seq twin as two processes on the card (the GRU encoder on
     rank 0, the decoder on rank 1) at its defaults (unit 64, vocab 16,
-    seq 8, batch 64, 20 epochs, 2,048 pairs). Fails unless every loss is
-    finite and the last epoch's token accuracy is above the first's."""
+    seq 8, batch 64, 2,048 pairs) but SEQ2SEQ_EPOCHS epochs (of its 20).
+    Fails unless every loss is finite and the last epoch's token accuracy
+    is above the first's."""
     t0 = time.perf_counter()
     ranks = _two_ranks(SEQ2SEQ_TWIN, SEQ2SEQ_EPOCHS)
     epochs = ranks[0]["epochs"]
@@ -5173,11 +5230,11 @@ SP_PARITY = dict(batch=4, seq_len=2048, heads=16, head_dim=64,
 # that the script, grown by the MoE, GSPMD and pipeline phases, stays
 # well inside its time limit (12 layers took 165 + 54 s of it; 4 layers
 # until the whole script had to fall well under 1200 s on a slower card
-# host); 1 + 3 steps (were 2 + 5), the cut that pays for serve_tp and
-# reshard; batch 4 of the train phase's 8 (the host-staged transfers,
-# 0.95 of each step, halve with it)
+# host); 1 + 2 steps (were 2 + 5, then 1 + 3), the cuts that keep the
+# script inside its limit; batch 4 of the train phase's 8 (the
+# host-staged transfers, 0.95 of each step, halve with it)
 SP_LM = dict(LM, n_layers=2)
-SP_TRAIN = dict(batch=4, seq_len=2048, warmup_steps=1, timed_steps=3,
+SP_TRAIN = dict(batch=4, seq_len=2048, warmup_steps=1, timed_steps=2,
                 kinds=("ring_flash", "zigzag_flash", "ulysses_flash"),
                 loss_tol={"sp_train": 2e-2, "tp_train": 0.15},
                 grad_rel_tol=5e-2, small_tol=1e-4)
@@ -5188,6 +5245,7 @@ SMALL_BATCH = (4, 256)
 HYBRID = dict(shape=(2, 2, 2), vocab_size=16, d_model=16, n_heads=8,
               n_layers=1, max_len=128, batch=4, seq_len=12, steps=5,
               lr=1e-2)
+HYBRID_RANKS = math.prod(HYBRID["shape"])
 
 _GLOO_RANKS = """
 import os
@@ -5204,53 +5262,82 @@ save(getattr(chip_smoke, ARGS[0])(*ARGS[1:]))
 dist.destroy_process_group()
 """
 
-# the 2-rank phases' ranks run one after another in one pair of
-# processes (phase_gloo_batch), so the pair starts once instead of ten
-# times: a start is 10-15 s of imports and CUDA set-up on the card host
+# every multi-rank phase's ranks run in one group of 8 processes
+# (phase_gloo_batch), which starts once instead of once a phase: a start
+# is 10-15 s of imports and CUDA set-up on the card host, more for 4 or 8
+# processes. The calls run in stages of 2, 4 and 8 ranks, one after
+# another; for each stage its first ``world`` processes form a gloo group
+# of their own (a fresh port), run the stage's calls in order and end the
+# group. The others wait, asleep and without a CUDA context, until rank 0
+# starts the next stage they belong to (a file beside the ranks' results
+# says so)
 _GLOO_BATCH = """
-import gc, json, os, time
+import datetime, gc, json, os, time
 import torch
 import torch.distributed as dist
 
-dist.init_process_group("gloo", init_method="env://", rank=RANK,
-                        world_size=int(os.environ["WORLD_SIZE"]))
-torch.cuda.set_device(0)
 torch.backends.cuda.matmul.allow_tf32 = False
 import chip_smoke
 chip_smoke._keep_seeded_weights()
+stages, timeout = json.loads(ARGS[0]), float(ARGS[1])
+setup = {"ready_unix_s": time.time(), "group_init_s": {}}
 out = []
-for phase, fn, *args in json.loads(ARGS[0]):
-    # names the call a group cut at its time limit was in
-    print(json.dumps({"phase_start": phase, "rank": RANK, "fn": fn}),
-          flush=True)
+for world, port, calls in stages:
+    if RANK >= world:
+        continue
+    go = os.path.join(sys.argv[2], f"stage{world}")
+    if RANK == 0:
+        open(go, "w").close()
+    while not os.path.exists(go):
+        time.sleep(0.05)
+    torch.cuda.set_device(0)   # a rank's CUDA context from its first stage
+    os.environ.update(WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_PORT=str(port))
     t0 = time.perf_counter()
-    out.append((getattr(chip_smoke, fn)(*args), time.perf_counter() - t0))
-    gc.collect()
-    torch.cuda.empty_cache()
-save(out)
-dist.destroy_process_group()
+    dist.init_process_group("gloo", init_method="env://", rank=RANK,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=timeout))
+    setup["group_init_s"][world] = time.perf_counter() - t0
+    for phase, fn, *args in calls:
+        # names the call a group cut at its time limit was in
+        print(json.dumps({"phase_start": phase, "rank": RANK, "fn": fn}),
+              flush=True)
+        t0 = time.perf_counter()
+        out.append((getattr(chip_smoke, fn)(*args),
+                    time.perf_counter() - t0))
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+save((out, setup))
 """
 _GLOO_DONE = {}
 _RESHARD_SNAP = {}     # the batch's reshard snapshot directory
+_PP_REF = {}           # the losses of the batch's pipeline reference
 
 
-def _gloo_batch_calls(snap):
-    """phase_gloo_batch's calls in the phases' order: (phase, rank
-    function, its string arguments)."""
-    return [
-        ("mnist_mp", "rank_twin", (MP_TWIN, str(MP_EPOCHS), MP_PINGPONG,
-                                   "objstore")),
-        ("seq2seq_mp", "rank_twin", (SEQ2SEQ_TWIN, str(SEQ2SEQ_EPOCHS), "",
-                                     "")),
-        ("parallel_conv", "rank_pconv", (str(PCONV_EPOCHS),)),
-        ("sp_parity", "rank_sp_parity", ()),
-        ("sp_train", "rank_sp_train", ()),
-        ("tp_train", "rank_tp_train", ()),
-        ("serve_tp", "rank_serve_tp", ()),
-        ("moe_train", "rank_moe_train", ()),
-        ("gspmd_train", "rank_gspmd_train", ()),
-        ("reshard", "rank_reshard_train", (snap,)),
+def _gloo_batch_stages(snap, pp_ref):
+    """phase_gloo_batch's calls by stage, each stage's in the phases'
+    order: [(ranks, [(phase, rank function, its string arguments)])],
+    the stages by their number of ranks."""
+    calls = [
+        (2, "mnist_mp", "rank_twin", (MP_TWIN, str(MP_EPOCHS), MP_PINGPONG,
+                                      "objstore")),
+        (2, "seq2seq_mp", "rank_twin", (SEQ2SEQ_TWIN, str(SEQ2SEQ_EPOCHS),
+                                        "", "")),
+        (2, "parallel_conv", "rank_pconv", (str(PCONV_EPOCHS),)),
+        (2, "sp_parity", "rank_sp_parity", ()),
+        (2, "sp_train", "rank_sp_train", ()),
+        (2, "tp_train", "rank_tp_train", ()),
+        (SERVE_TP["tp"], "serve_tp", "rank_serve_tp", ()),
+        (MOE["ranks"], "moe_train", "rank_moe_train", ()),
+        (MOE["ranks"], "gspmd_train", "rank_gspmd_train", ()),
+        (RESHARD["train_tp"], "reshard", "rank_reshard_train", (snap,)),
+        (RESHARD["serve_tp"], "reshard", "rank_reshard_serve", (snap,)),
+        (PP["stages"], "pp_train", "rank_pp_train", (pp_ref,)),
+        (HYBRID_RANKS, "hybrid", "rank_hybrid", ()),
     ]
+    return [(world, [c[1:] for c in calls if c[0] == world])
+            for world in sorted({c[0] for c in calls})]
 
 
 def _group_timeout() -> float:
@@ -5295,28 +5382,50 @@ def _gloo_ranks(fn: str, n: int, *args):
 
 
 def phase_gloo_batch(card):
-    """The 2-rank phases' rank functions (``_gloo_batch_calls``) in order
-    in one pair of gloo ranks on the card; each of those phases then
-    reads its ranks' results from here instead of starting a pair of its
-    own (reshard's first half writes its snapshot into a directory under
-    ``build/`` that phase_reshard reads and deletes). Prints each call's
-    seconds on each rank."""
+    """The multi-rank phases' rank functions (``_gloo_batch_stages``) in
+    one group of 8 processes on the card, by stage of 2, 4 and 8 ranks;
+    each of those phases then reads its ranks' results from here instead
+    of starting a group of its own (reshard's first half writes its
+    snapshot into a directory under ``build/`` that its second half
+    reads and phase_reshard deletes; pp_train's sequential reference runs
+    in this process first, into a file its ranks read). Prints each
+    call's seconds on each of its ranks."""
     import tempfile
+
+    from chainermn_torch.testing import free_port
 
     (ROOT / "build").mkdir(exist_ok=True)
     _RESHARD_SNAP["dir"] = tempfile.mkdtemp(prefix="reshard_",
                                             dir=ROOT / "build")
-    calls = _gloo_batch_calls(str(Path(_RESHARD_SNAP["dir"]) / "snap"))
     t0 = time.perf_counter()
-    ranks = _run_group(_GLOO_BATCH, 2, [json.dumps(
-        [[phase, fn, *args] for phase, fn, args in calls])])
-    seconds = {}
-    for i, (phase, fn, args) in enumerate(calls):
-        _GLOO_DONE[(fn, 2, args)] = [r[i][0] for r in ranks]
-        seconds[phase] = [r[i][1] for r in ranks]
-    emit({"phase": "gloo_batch", "card": card, "ranks": 2,
-          "backend": "gloo", "rank_seconds": seconds,
-          "run_s": time.perf_counter() - t0})
+    path = ROOT / "build" / "pp_reference.pt"
+    _PP_REF["losses"] = _pp_reference(path)
+    reference_s = time.perf_counter() - t0
+    stages = _gloo_batch_stages(str(Path(_RESHARD_SNAP["dir"]) / "snap"),
+                                str(path))
+    n = max(world for world, _ in stages)
+    timeout = _group_timeout()
+    t_start = time.time()
+    ranks = _run_group(_GLOO_BATCH, n, [json.dumps(
+        [[world, free_port(), [[phase, fn, *args]
+                               for phase, fn, args in calls]]
+         for world, calls in stages]), str(timeout)])
+    seconds, at = {}, [0] * n
+    for world, calls in stages:
+        for phase, fn, args in calls:
+            got = [ranks[r][0][at[r]] for r in range(world)]
+            _GLOO_DONE[(fn, world, args)] = [x[0] for x in got]
+            seconds[f"{phase}:{fn}"] = [x[1] for x in got]
+            for r in range(world):
+                at[r] += 1
+    # each rank's start (imports, CUDA, the seeded-weight hook) and the
+    # seconds its stages' groups took to form
+    setup = [{"start_s": s["ready_unix_s"] - t_start,
+              "group_init_s": s["group_init_s"]} for _, s in ranks]
+    emit({"phase": "gloo_batch", "card": card, "ranks": n,
+          "stages": [world for world, _ in stages], "backend": "gloo",
+          "pp_reference_s": reference_s, "rank_setup": setup,
+          "rank_seconds": seconds, "run_s": time.perf_counter() - t0})
 
 
 def _flash_counts():
@@ -5921,7 +6030,7 @@ def phase_hybrid(card):
     fall over the 5 steps, and every rank launched each flash kernel
     2 (ring steps) x 5 steps times."""
     t0 = time.perf_counter()
-    ranks = _gloo_ranks("rank_hybrid", 8)
+    ranks = _gloo_ranks("rank_hybrid", HYBRID_RANKS)
     want = 2 * HYBRID["steps"] * HYBRID["n_layers"]
     emit({"phase": "hybrid", "card": card, "ranks": 8, "backend": "gloo",
           "config": HYBRID, "launches_want": want,
@@ -5955,9 +6064,11 @@ def phase_hybrid(card):
 # gate carries the power, against planted faults that read >= 1.
 # moe_train runs 4 of the 12 layers (2 MoE blocks): the depth cut that
 # keeps the script inside its time limit as the later phases grow it
-# (12 layers took 87.2 s of it; 6 before the script's last time cut)
+# (12 layers took 87.2 s of it; 6 before the script's last time cut);
+# 1 + 2 steps at the parity capacity and 2 at the default one (were
+# 1 + 3 and 3), as gspmd_train's 1 + 2
 MOE = dict(experts=8, top_k=2, ranks=2, batch=2, seq_len=1024,
-           warmup_steps=1, timed_steps=3, drop_steps=3, parity_capacity=4.0,
+           warmup_steps=1, timed_steps=2, drop_steps=2, parity_capacity=4.0,
            first_loss_tol=1e-3, loss_tol=0.25, grad_rel_tol=5e-2,
            n_layers=4)
 GSPMD_TOL = dict(first_loss_tol=1e-3, loss_tol=0.25, grad_rel_tol=0.35)
@@ -5966,9 +6077,9 @@ GSPMD_TOL = dict(first_loss_tol=1e-3, loss_tol=0.25, grad_rel_tol=0.35)
 GSPMD_LAYERS = 4
 # GPipe: 4 stages (one block of the 220M LM's width each, 'full'
 # attention as make_pipeline_lm builds them) on 4 ranks, 8 microbatches
-# of 2 x 1024, remat (the step's default), 3 AdamW steps (of 5 before
-# the script's time limit called for the cut)
-PP = dict(stages=4, microbatches=8, micro_batch=2, seq_len=1024, steps=3,
+# of 2 x 1024, remat (the step's default), 2 AdamW steps (of 5, then 3,
+# before the script's time limit called for the cuts)
+PP = dict(stages=4, microbatches=8, micro_batch=2, seq_len=1024, steps=2,
           loss_tol=2e-2, grad_rel_tol=5e-2)
 # fused CE and remat on the 220M dense LM at the train phase's batch
 FUSED = dict(batch=8, seq_len=2048, steps=3, loss_tol=2e-2)
@@ -6386,17 +6497,20 @@ def rank_pp_train(ref_path):
 def phase_pp_train(card):
     """The 220M LM's width as a 4-stage GPipe pipeline on 4 ranks of the
     card (``rank_pp_train``; the sequential reference runs in this process
-    first). Fails unless the first (pre-update) loss and all 5 losses are
-    within ``loss_tol`` of the unpipelined four-block stack's trained
+    first, in gloo_batch when that ran the ranks). Fails unless the first
+    (pre-update) loss and every later one are within ``loss_tol`` of the
+    unpipelined four-block stack's trained
     alike (the dry run's b6 check), every rank's first-step gradients
     within ``grad_rel_tol`` of it, and the planted fault (the embedding
     gradient left unsummed) fails that gate."""
     t0 = time.perf_counter()
     path = ROOT / "build" / "pp_reference.pt"
-    path.parent.mkdir(exist_ok=True)
-    ref_losses = _pp_reference(path)
+    ref_losses = _PP_REF.pop("losses", None)     # gloo_batch's reference
+    if ref_losses is None:
+        path.parent.mkdir(exist_ok=True)
+        ref_losses = _pp_reference(path)
     ranks = _gloo_ranks("rank_pp_train", PP["stages"], str(path))
-    path.unlink()
+    path.unlink(missing_ok=True)
     emit({"phase": "pp_train", "card": card, "ranks": PP["stages"],
           "backend": "gloo",
           "model": dict(vocab_size=LM["vocab_size"], d_model=LM["d_model"],

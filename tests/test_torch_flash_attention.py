@@ -313,7 +313,7 @@ def test_edited_header_changes_the_library_name(tmp_path, monkeypatch):
 
 # head dims the kernels run padded (D -> 64, 128 or 256), the widest
 # one-tile width (256), widths past it (320, 512: the kernels' 256-column
-# slices, a cluster of two in the 16-bit forward and dk/dv; 2112: nine
+# slices, a cluster of two in the 16-bit kernels; 2112: nine
 # slices, past the portable cluster size), and float16
 WIDE = {"D8": (8, "f32"), "D32": (32, "f32"), "D96": (96, "f32"),
         "D32_f16": (32, "f16"), "D64_f16": (64, "f16"),

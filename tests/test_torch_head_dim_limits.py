@@ -4,15 +4,16 @@ without one.
 The four Hopper kernels run every head dim ``D``: the flash wrappers pad
 ``D`` up to 64, 128 or 256, and past 256 up to the next multiple of 64,
 which the wide kernels (``csrc/flash_wide.cuh``) run as 256-column
-slices of the output, one CTA each. The 16-bit forward and dk/dv run the
-slices of a tile as one thread-block cluster up to the portable cluster
-size (8 slices, D <= 2048), each CTA contracting the score products over
-its own columns and summing the cluster's partials through distributed
-shared memory; dq, the f32 kernels and wider D stream the products that
-reduce over ``D`` in 64-column chunks. The paged kernel masks lanes past
-``D`` up to 256 and splits wider outputs into 256-column slices too. The
-paged kernel takes float16 queries over float16 and int8 stores beside
-float32 and bfloat16 queries over float32, bfloat16 and int8 stores.
+slices of the output, one CTA each. The 16-bit forward, dq and dk/dv run
+the slices of a tile as one thread-block cluster up to the portable
+cluster size (8 slices, D <= 2048), each CTA contracting the score
+products over its own columns and summing the cluster's partials through
+distributed shared memory; the f32 kernels and wider D stream the
+products that reduce over ``D`` in 64-column chunks. The paged kernel
+masks lanes past ``D`` up to 256 and splits wider outputs into
+256-column slices too. The paged kernel takes float16 queries over
+float16 and int8 stores beside float32 and bfloat16 queries over
+float32, bfloat16 and int8 stores.
 The wrappers' argument checks run on CPU tensors here.
 
 The CUDA tile structs size each kernel's dynamic shared memory; their
@@ -54,13 +55,13 @@ def wide_cluster(kind, dtype, d):
     """The cluster size ``launch_wide`` launches kernel ``kind`` with
     (1: no cluster): its pinned ``cluster`` line over ``wide_slices``."""
     ns = -(-d // WIDE_COLS)
-    cluster = dtype != "f32" and kind != "dq" and ns <= MAX_CLUSTER
+    cluster = dtype != "f32" and ns <= MAX_CLUSTER
     return ns if d > 256 and cluster else 1
 
 
 # the 16-bit (wgmma) kernels: FwdTiles, DqTiles, DkvTiles up to 256,
-# FwdCluster and DkvCluster past it up to the cluster limit, and FwdWide,
-# DqWide, DkvWide past that (dq: past 256); 64-row f32 accumulators over a
+# FwdCluster, DqCluster and DkvCluster past it up to the cluster limit, and
+# FwdWide, DqWide, DkvWide past that; 64-row f32 accumulators over a
 # warpgroup's 128 threads hold cols / 2 floats a thread
 def fwd_sm90(d):
     if d > 256 and wide_cluster("fwd", "bf16", d) > 1:
@@ -82,6 +83,14 @@ def fwd_sm90(d):
 
 
 def dq_sm90(d):
+    if d > 256 and wide_cluster("dq", "bf16", d) > 1:
+        # the CTA's 64 rows of Q's and dO's slices, K and V slices of 32
+        # keys in each of the 4 stages, two buffers of the partial S and
+        # dP; dQ of 128 columns, S, dP and the next tile's partial, T(dS)
+        bk = 32
+        smem = (2 * 64 * WIDE_COLS * 2 + RING * 2 * bk * WIDE_COLS * 2
+                + 2 * 2 * PART + 1024)
+        return smem, WIDE_COLS // 4 + 3 * (bk // 2) + bk // 4
     if d > 256:     # Q, dO, K and V chunks, or K's slice, a stage
         bk = 32
         stage = _up(max(2 * SM90_ROWS * CHUNK * 2 + 2 * bk * CHUNK * 2,
@@ -164,7 +173,7 @@ PINNED = {
         "constexpr int kMaxCluster = 8;",
         "constexpr int kRing = 4;",
         "constexpr uint32_t kPartBytes = 64 * 32 * 4;",
-        "const bool cluster = k16 && KIND != kDq && ns <= kMaxCluster;",
+        "const bool cluster = k16 && ns <= kMaxCluster;",
         # FwdCluster
         "static constexpr uint32_t kQ = kSm90Rows * kWideCols * 2;",
         "static constexpr uint32_t kKv = kBk * kWideCols * 2;",
@@ -179,6 +188,12 @@ PINNED = {
         "static constexpr uint32_t kStat = 2 * kBq * 4;",
         "static constexpr size_t kSmem = 2 * kKv + kRing * (kStage + "
         "kStat) + 2 * kX + 1024;",
+        # DqCluster
+        "static constexpr uint32_t kQ = kRows * kWideCols * 2;",
+        "static constexpr uint32_t kStage = 2 * kK;",
+        "static constexpr size_t kSmem = 2 * kQ + kRing * kStage + 2 * kX + "
+        "1024;",
+        "tile = DqCluster::kRows;",
         # FwdWide and DqWide
         "static constexpr int kBk = 32;",
         "static constexpr uint32_t kQc = kSm90Rows * kChunk * 2;",
@@ -264,7 +279,7 @@ def test_wide_figures():
     alone takes 131,072 B and three K/V stages of 32 keys 196,608 B, and
     the f32 dk/dv layout would not fit."""
     assert [TILES[k](512) for k in ("fwd_sm90", "dq_sm90", "dkv_sm90")] \
-        == [(230_400, 168), (123_904, 168), (231_424, 192)]
+        == [(230_400, 168), (230_400, 120), (231_424, 192)]
     assert [TILES[k](2112) for k in ("fwd_sm90", "dq_sm90", "dkv_sm90")] \
         == [(62_464, 152), (123_904, 168), (102_400, 176)]
     assert _f32_layout(512) == {"fwd": 91_904, "dq": 113_152,
@@ -274,23 +289,42 @@ def test_wide_figures():
     assert 4 * _up(4 * 32 * 513, 128) > SMEM_LIMIT  # f32 Layout<512> tiles
 
 
+def test_dq_cluster_figures():
+    """The cluster dq's layout (``DqCluster``): the CTA's 64 rows of Q and
+    dO resident (65,536 B), a 4-stage ring of 32-key K and V slices
+    (131,072 B) and two exchange buffers (32,768 B) make 230,400 B with
+    the 1,024 B of alignment; keeping the D = 256 kernel's 128 rows with
+    32-key tiles would not fit, while 128 rows with 16-key tiles (the
+    fallback layout) would fill the same 230,400 B."""
+    assert 2 * 64 * WIDE_COLS * 2 == 65_536
+    assert RING * 2 * 32 * WIDE_COLS * 2 == 131_072
+    assert 2 * 2 * PART == 32_768
+    assert dq_sm90(512)[0] == 230_400 <= SMEM_LIMIT
+    assert 2 * SM90_ROWS * WIDE_COLS * 2 + RING * 2 * 32 * WIDE_COLS * 2 \
+        > SMEM_LIMIT
+    assert (2 * SM90_ROWS * WIDE_COLS * 2 + RING * 2 * 16 * WIDE_COLS * 2
+            + 2 * 2 * PART + 1024) == 230_400
+    # one 128-column accumulator a warpgroup, against dk/dv's two
+    assert dq_sm90(512)[1] == 120 < dkv_sm90(512)[1]
+
+
 @pytest.mark.parametrize("d", [320, 512, 1024, 2048, 2112, 4096])
 def test_cluster_rule_pinned_to_launch_wide(d):
     """``launch_wide``'s route (the pinned ``cluster`` line): ceil(D /
-    256) slices; the 16-bit forward and dk/dv run them as one cluster up
-    to ``kMaxCluster`` (8), so D = 2112 (9 slices) takes the unclustered
-    kernels; dq and the f32 kernels never cluster."""
+    256) slices; the 16-bit forward, dq and dk/dv run them as one
+    cluster up to ``kMaxCluster`` (8), so D = 2112 (9 slices) takes the
+    unclustered kernels; the f32 kernels never cluster."""
     ns = {320: 2, 512: 2, 1024: 4, 2048: 8, 2112: 9, 4096: 16}[d]
     want = ns if ns <= 8 else 1
     assert [wide_cluster(k, "bf16", d) for k in ("fwd", "dq", "dkv")] \
-        == [want, 1, want]
-    assert wide_cluster("fwd", "f16", d) == wide_cluster("dkv", "f16", d) \
-        == want
+        == [want, want, want]
+    assert [wide_cluster(k, "f16", d) for k in ("fwd", "dq", "dkv")] \
+        == [want, want, want]
     assert {wide_cluster(k, "f32", d) for k in ("fwd", "dq", "dkv")} == {1}
     text = " ".join((CSRC / "flash_wide.cuh").read_text().split())
     assert "return static_cast<int>((d + kWideCols - 1) / kWideCols);" \
         in text
-    assert "const bool cluster = k16 && KIND != kDq && ns <= kMaxCluster;" \
+    assert "const bool cluster = k16 && ns <= kMaxCluster;" \
         in text and f"constexpr int kMaxCluster = {MAX_CLUSTER};" in text
 
 
