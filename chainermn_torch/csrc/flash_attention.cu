@@ -1,10 +1,11 @@
 // Flash attention for Hopper (sm_90a): the forward, dq and dk/dv kernels,
 // bound to Python with ctypes by chainermn_torch/ops/flash_attention.py.
 //
-// Replaces the Pallas TPU kernels of chainermn_tpu/ops/flash_attention.py:
-//   flash_fwd_kernel  <- _fwd_kernel      (launched by _fwd)
-//   flash_dq_kernel   <- _bwd_dq_kernel   (launched by _dq_call)
-//   flash_dkv_kernel  <- _bwd_dkv_kernel  (launched by _dkv_call)
+// Replaces the Pallas TPU kernels of chainermn_tpu/ops/flash_attention.py
+// (f32 kernels named; the bf16 and f16 ones in the headers below):
+//   flash_fwd_kernel    <- _fwd_kernel      (launched by _fwd)
+//   flash_dq_f32_sm90   <- _bwd_dq_kernel   (launched by _dq_call)
+//   flash_dkv_f32_sm90  <- _bwd_dkv_kernel  (launched by _dkv_call)
 // and computes the same functions, in the model layout [B, T, H, D] read
 // through strides (no fold copies), with lse and delta as f32 [B, H, Tq]:
 //   fwd: out = softmax(scale * q k^T, masked) v and lse = m + log(l);
@@ -37,20 +38,21 @@
 // runs wgmma products whose f32 accumulators stay in registers (S, P, dP,
 // dS never reach shared memory, and O, dQ, dK, dV are written once), two
 // warpgroups a CTA, and a 3-stage cp.async ring that loads the next tiles
-// while the current one is computed. The f32 kernels below keep the first,
-// simple design:
+// while the current one is computed. f32 has no tensor-core path: its dq
+// and dk/dv (flash_f32_sm90.cuh) run register-tiled FMA products, S and
+// dP in registers, fed by a 2-stage cp.async ring. The f32 forward below
+// keeps the first, simple design:
 //   - one thread block (4 warps) per (batch*head, 32-row tile); the TPU's
-//     sequential grid axis becomes a loop inside the block over the other
-//     sequence's tiles, so no state crosses blocks and every gradient is
-//     written once, with no atomics (deterministic);
-//   - causal blocks stop at the last key tile a query tile can see (fwd,
-//     dq) or start at the first query tile that sees the key tile (dkv):
-//     fully masked tiles are neither read nor computed;
+//     sequential grid axis becomes a loop inside the block over the key
+//     tiles, so no state crosses blocks and every output is written once,
+//     with no atomics (deterministic);
+//   - causal blocks stop at the last key tile a query tile can see: fully
+//     masked tiles are neither read nor computed;
 //   - ragged Tq / Tk are masked in the tail tile, so any length works;
 //   - tiles live in shared memory; products run on plain f32 FMA, with
-//     scores, softmax and the f32 accumulators staged in shared memory
+//     scores, softmax and the f32 accumulator staged in shared memory
 //     between the products;
-//   - blocks with the most causal work are issued first (fwd, dq).
+//   - blocks with the most causal work are issued first.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -230,11 +232,7 @@ struct Layout {
   static constexpr size_t kStatBytes = round128(sizeof(float) * kB);
   static constexpr size_t kFwd =
       3 * kTileBytes + kScoreBytes + kPBytes + kAccBytes + 2 * kStatBytes;
-  static constexpr size_t kDq =
-      4 * kTileBytes + 2 * kScoreBytes + kPBytes + kAccBytes + 2 * kStatBytes;
-  static constexpr size_t kDkv = 4 * kTileBytes + 2 * kScoreBytes +
-                                 2 * kPBytes + 2 * kAccBytes + 2 * kStatBytes;
-  static_assert(kDkv <= 232448, "f32 dk/dv tiles exceed shared memory");
+  static_assert(kFwd <= 232448, "f32 forward tiles exceed shared memory");
 };
 
 // ---------------------------------------------------------------- forward --
@@ -341,163 +339,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// --------------------------------------------------------------------- dq --
-
-template <typename OT, int D>
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel(const FlashArgs a) {
-  using L = Layout<D>;
-  constexpr int B = L::kB;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carver cv{smem};
-  float* qs = cv.take<float>(B * L::kLd);
-  float* dos = cv.take<float>(B * L::kLd);
-  float* ks = cv.take<float>(B * L::kLd);
-  float* vs = cv.take<float>(B * L::kLd);
-  float* S = cv.take<float>(B * L::kLds);
-  float* dP = cv.take<float>(B * L::kLds);
-  float* dS = cv.take<float>(B * L::kLdp);
-  float* dQ = cv.take<float>(B * L::kLdo);
-  float* lse_s = cv.take<float>(B);
-  float* dl_s = cv.take<float>(B);
-
-  const Geo g = make_geo(a);
-  const int H = static_cast<int>(a.heads);
-  const int bh = blockIdx.z * gridDim.y + blockIdx.y, b = bh / H, h = bh % H;
-  if (bh >= a.batch * a.heads) return;  // the last z-slice's spare CTAs
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * B;
-  const float scale = static_cast<float>(a.scale);
-  const float* qb = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const float* dob = static_cast<const float*>(a.dout) + b * a.do_sb + h * a.do_sh;
-
-  load_rows<D, B>(qs, qb, a.q_st, q0, g.tq);
-  load_rows<D, B>(dos, dob, a.do_st, q0, g.tq);
-  load_stat<B>(lse_s, a.lse + static_cast<int64_t>(bh) * g.tq, q0, g.tq);
-  load_stat<B>(dl_s, a.delta + static_cast<int64_t>(bh) * g.tq, q0, g.tq);
-  for (int i = threadIdx.x; i < B * D; i += kThreads)
-    dQ[(i / D) * L::kLdo + i % D] = 0.f;
-  const int q_last = min(q0 + B, g.tq) - 1;
-  const int k_end =
-      g.causal ? max(0, min(g.tk, g.q_offset + q_last - g.k_offset + 1))
-               : g.tk;
-  __syncthreads();
-
-  for (int k0 = 0; k0 < k_end; k0 += B) {
-    load_rows<D, B>(ks, kb, a.k_st, k0, g.tk);
-    load_rows<D, B>(vs, vb, a.v_st, k0, g.tk);
-    __syncthreads();
-    block_mm<B, B, D, false, true, false>(qs, L::kLd, ks, L::kLd, S,
-                                             L::kLds);
-    block_mm<B, B, D, false, true, false>(dos, L::kLd, vs, L::kLd, dP,
-                                             L::kLds);
-    __syncthreads();
-    for (int i = threadIdx.x; i < B * B; i += kThreads) {
-      const int r = i / B, j = i % B;
-      const float s = S[r * L::kLds + j] * scale;
-      // masked p is exactly 0, also when lse is the -1e30 sentinel
-      const float p = g.visible(q0 + r, k0 + j) ? expf(s - lse_s[r]) : 0.f;
-      dS[r * L::kLdp + j] = p * (dP[r * L::kLds + j] - dl_s[r]);
-    }
-    __syncthreads();
-    block_mm<B, D, B, false, false, true>(dS, L::kLdp, ks, L::kLd, dQ,
-                                             L::kLdo);
-    __syncthreads();
-  }
-
-  OT* dq = static_cast<OT*>(a.dq);
-  for (int i = threadIdx.x; i < B * D; i += kThreads) {
-    const int r = i / D, d = i % D, qi = q0 + r;
-    if (qi >= g.tq) continue;
-    dq[((static_cast<int64_t>(b) * g.tq + qi) * H + h) * D + d] =
-        from_f32<OT>(dQ[r * L::kLdo + d] * scale);
-  }
-}
-
-// -------------------------------------------------------------------- dkv --
-
-template <typename OT, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_dkv_kernel(const FlashArgs a) {
-  using L = Layout<D>;
-  constexpr int B = L::kB;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carver cv{smem};
-  float* ks = cv.take<float>(B * L::kLd);
-  float* vs = cv.take<float>(B * L::kLd);
-  float* qs = cv.take<float>(B * L::kLd);
-  float* dos = cv.take<float>(B * L::kLd);
-  float* S = cv.take<float>(B * L::kLds);
-  float* dP = cv.take<float>(B * L::kLds);
-  float* P = cv.take<float>(B * L::kLdp);
-  float* dS = cv.take<float>(B * L::kLdp);
-  float* dK = cv.take<float>(B * L::kLdo);
-  float* dV = cv.take<float>(B * L::kLdo);
-  float* lse_s = cv.take<float>(B);
-  float* dl_s = cv.take<float>(B);
-
-  const Geo g = make_geo(a);
-  const int H = static_cast<int>(a.heads);
-  const int bh = blockIdx.z * gridDim.y + blockIdx.y, b = bh / H, h = bh % H;
-  if (bh >= a.batch * a.heads) return;  // the last z-slice's spare CTAs
-  const int k0 = (gridDim.x - 1 - blockIdx.x) * B;
-  const float scale = static_cast<float>(a.scale);
-  const float* qb = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const float* dob = static_cast<const float*>(a.dout) + b * a.do_sb + h * a.do_sh;
-  const float* lse = a.lse + static_cast<int64_t>(bh) * g.tq;
-  const float* delta = a.delta + static_cast<int64_t>(bh) * g.tq;
-
-  load_rows<D, B>(ks, kb, a.k_st, k0, g.tk);
-  load_rows<D, B>(vs, vb, a.v_st, k0, g.tk);
-  for (int i = threadIdx.x; i < B * D; i += kThreads) {
-    dK[(i / D) * L::kLdo + i % D] = 0.f;
-    dV[(i / D) * L::kLdo + i % D] = 0.f;
-  }
-  // causal: query rows before the first that sees key k0 see none of the
-  // tile
-  const int q_begin =
-      g.causal ? max(0, k0 + g.k_offset - g.q_offset) / B * B : 0;
-
-  for (int q0 = q_begin; q0 < g.tq; q0 += B) {
-    __syncthreads();  // the previous products are done with qs, dos, P, dS
-    load_rows<D, B>(qs, qb, a.q_st, q0, g.tq);
-    load_rows<D, B>(dos, dob, a.do_st, q0, g.tq);
-    load_stat<B>(lse_s, lse, q0, g.tq);
-    load_stat<B>(dl_s, delta, q0, g.tq);
-    __syncthreads();
-    block_mm<B, B, D, false, true, false>(qs, L::kLd, ks, L::kLd, S,
-                                             L::kLds);
-    block_mm<B, B, D, false, true, false>(dos, L::kLd, vs, L::kLd, dP,
-                                             L::kLds);
-    __syncthreads();
-    for (int i = threadIdx.x; i < B * B; i += kThreads) {
-      const int r = i / B, j = i % B;
-      const float s = S[r * L::kLds + j] * scale;
-      const float p = g.visible(q0 + r, k0 + j) ? expf(s - lse_s[r]) : 0.f;
-      P[r * L::kLdp + j] = p;
-      dS[r * L::kLdp + j] = p * (dP[r * L::kLds + j] - dl_s[r]);
-    }
-    __syncthreads();
-    block_mm<B, D, B, true, false, true>(P, L::kLdp, dos, L::kLd, dV,
-                                            L::kLdo);
-    block_mm<B, D, B, true, false, true>(dS, L::kLdp, qs, L::kLd, dK,
-                                            L::kLdo);
-  }
-  __syncthreads();
-
-  OT* dk = static_cast<OT*>(a.dk);
-  OT* dv = static_cast<OT*>(a.dv);
-  for (int i = threadIdx.x; i < B * D; i += kThreads) {
-    const int r = i / D, d = i % D, kj = k0 + r;
-    if (kj >= g.tk) continue;
-    const int64_t o = ((static_cast<int64_t>(b) * g.tk + kj) * H + h) * D + d;
-    dk[o] = from_f32<OT>(dK[r * L::kLdo + d] * scale);
-    dv[o] = from_f32<OT>(dV[r * L::kLdo + d]);
-  }
-}
-
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
 // ------------------------ bf16 / f16 forward, dq and dk/dv (Hopper) --
@@ -505,37 +346,26 @@ enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 #include "flash_bwd_sm90.cuh"
 #include "flash_fwd_sm90.cuh"
 
+// ----------------------------- f32 dq and dk/dv up to D = 256 (Hopper) --
+
+#include "flash_f32_sm90.cuh"
+
 // ------------------ head dims past 256, every input type (flash_wide.cuh) --
 
 #include "flash_wide.cuh"
 
 // --------------------------------------------------------------- launchers --
 
-// The f32 forward, dq and dk/dv kernels.
-template <int KIND, typename OT, int D>
-cudaError_t launch_simple(const FlashArgs& a, cudaStream_t stream) {
+// The f32 forward up to D = 256.
+template <typename OT, int D>
+cudaError_t launch_fwd_f32(const FlashArgs& a, cudaStream_t stream) {
   using L = Layout<D>;
-  void (*kern)(const FlashArgs);
-  size_t smem;
-  int64_t rows;
-  if constexpr (KIND == kFwd) {
-    kern = flash_fwd_kernel<OT, D>;
-    smem = L::kFwd;
-    rows = a.tq;
-  } else if constexpr (KIND == kDq) {
-    kern = flash_dq_kernel<OT, D>;
-    smem = L::kDq;
-    rows = a.tq;
-  } else {
-    kern = flash_dkv_kernel<OT, D>;
-    smem = L::kDkv;
-    rows = a.tk;
-  }
+  void (*kern)(const FlashArgs) = flash_fwd_kernel<OT, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(L::kFwd));
   if (err != cudaSuccess) return err;
-  kern<<<flash_grid(rows, L::kB, a), kThreads, smem, stream>>>(a);
+  kern<<<flash_grid(a.tq, L::kB, a), kThreads, L::kFwd, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -553,8 +383,12 @@ cudaError_t launch(const FlashArgs& a, cudaStream_t stream) {
     return launch_dq_sm90<T, OT, D>(a, stream);
   else if constexpr (k16 && KIND == kDkv)
     return launch_dkv_sm90<T, OT, D>(a, stream);
+  else if constexpr (KIND == kDq)
+    return launch_dq_f32_sm90<OT, D>(a, stream);
+  else if constexpr (KIND == kDkv)
+    return launch_dkv_f32_sm90<OT, D>(a, stream);
   else
-    return launch_simple<KIND, OT, D>(a, stream);
+    return launch_fwd_f32<OT, D>(a, stream);
 }
 
 // (input, output) type codes: f32 -> f32 or bf16; bf16 -> bf16 or f32;

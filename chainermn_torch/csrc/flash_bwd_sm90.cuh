@@ -8,7 +8,7 @@
 // element type T a template parameter (wgmma has the f16 form of every
 // bf16 shape used here) (TPU: _bwd_dq_kernel /
 // _bwd_dkv_kernel of chainermn_tpu/ops/flash_attention.py; f32 inputs take
-// flash_dq_kernel / flash_dkv_kernel) and compute the same functions under
+// flash_dq_f32_sm90 / flash_dkv_f32_sm90) and compute the same functions under
 // the same contract (flash_attention.cu's header).
 //
 // Design (two consumer warpgroups, 256 threads; a CTA owns 128 rows of its

@@ -16,7 +16,8 @@ as float32 ``[B, H, Tq]``:
   the ring layer builds its own backward on.
 
 Each kernel wrapper launches its CUDA kernel for CUDA tensors (adding one
-to its ``launches`` count); for CPU tensors it runs the plain version
+to its ``launches`` count, and to ``launches_f32`` as well for float32
+inputs); for CPU tensors it runs the plain version
 (:func:`flash_fwd_reference`, :func:`flash_dq_reference`,
 :func:`flash_dkv_reference`), which materialises the scores and repeats
 the kernel's casts. There is no fallback on the card and no switch to
@@ -26,9 +27,10 @@ float32, bfloat16 or float16 inputs of one dtype, any ``Tq``/``Tk``, any
 128 and 256, and past 256 for every multiple of 64 (``csrc/flash_wide.cuh``:
 each CTA owns 256 columns of the output and streams the products that
 reduce over ``D`` in 64-column chunks, so nothing it holds grows with
-``D``); :func:`pad_head_dim` runs any other ``D`` on the next of these
-widths (:func:`kernel_head_dim`) with zero lanes (exact; it costs one
-padded copy of the inputs). The
+``D``); float32 dq and dk/dv up to 256 run register-tiled FMA products
+(``csrc/flash_f32_sm90.cuh``). :func:`pad_head_dim` runs any other ``D``
+on the next of these widths (:func:`kernel_head_dim`) with zero lanes
+(exact; it costs one padded copy of the inputs). The
 reference's
 ``full_attention`` fallback for untileable lengths has no counterpart;
 its ``block_q``/``block_k`` tuning knobs have none either.
@@ -250,10 +252,12 @@ def flash_fwd_with_lse(q, k, v, *, causal: bool = False,
     _launch("flash_fwd_launch", args, out.dtype, causal=causal, scale=scale,
             q_offset=q_offset, k_offset=k_offset, device=q.device)
     flash_fwd_with_lse.launches += 1
+    flash_fwd_with_lse.launches_f32 += q.dtype == torch.float32
     return out.to(want), lse
 
 
 flash_fwd_with_lse.launches = 0
+flash_fwd_with_lse.launches_f32 = 0
 
 
 def flash_dq(q, k, v, do, lse, delta, *, causal: bool = False,
@@ -276,10 +280,12 @@ def flash_dq(q, k, v, do, lse, delta, *, causal: bool = False,
     _launch("flash_dq_launch", args, dq.dtype, causal=causal, scale=scale,
             q_offset=q_offset, k_offset=k_offset, device=q.device)
     flash_dq.launches += 1
+    flash_dq.launches_f32 += q.dtype == torch.float32
     return dq.to(grad_dtype)
 
 
 flash_dq.launches = 0
+flash_dq.launches_f32 = 0
 
 
 def flash_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
@@ -304,10 +310,12 @@ def flash_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
             scale=scale, q_offset=q_offset, k_offset=k_offset,
             device=q.device)
     flash_dkv.launches += 1
+    flash_dkv.launches_f32 += q.dtype == torch.float32
     return dk.to(grad_dtype), dv.to(grad_dtype)
 
 
 flash_dkv.launches = 0
+flash_dkv.launches_f32 = 0
 
 
 def flash_block_grads(q, k, v, do, lse, delta, *, causal: bool = False,

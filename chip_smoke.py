@@ -265,6 +265,14 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def _f32_flash_launches() -> dict:
+    """Each flash wrapper's launches on float32 inputs in this process so
+    far (0 before the port's flash module is imported)."""
+    fa = sys.modules.get("chainermn_torch.ops.flash_attention")
+    return {name: getattr(fa, fn).launches_f32 if fa else 0
+            for name, (fn, *_) in FLASH_KERNELS.items()}
+
+
 def _keep_seeded_weights() -> None:
     """``TransformerLM(seed=s)`` draws its weights on the host, some 3 s
     for the 220M LM, and the phases build that LM some thirty times: keep
@@ -407,11 +415,11 @@ def _ptxas(log: str) -> list:
 
 def phase_build():
     """Both kernel libraries, one ``nvcc`` each, started together. Fails
-    if a bf16 flash instance (``*_sm90``) or a paged-decode instance
-    spills registers. The builds start from ``chainermn_torch/_build.py``
-    loaded on its own, so the port's package is imported (~6 s on the
-    card host) while ``nvcc`` runs; the kernel modules then load the
-    libraries built."""
+    if a bf16 or f32 flash instance named ``*_sm90`` or a paged-decode
+    instance spills registers. The builds start from
+    ``chainermn_torch/_build.py`` loaded on its own, so the port's package
+    is imported (~6 s on the card host) while ``nvcc`` runs; the kernel
+    modules then load the libraries built."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
@@ -440,8 +448,9 @@ def phase_build():
     for name in libs:
         emit({"phase": "build", "kernel": name, "seconds": seconds[name],
               "ptxas": ptxas[name]})
-    # the bf16 flash kernels and the paged kernel keep their accumulators
-    # in registers: a spill would put them in local memory
+    # the bf16 and f32 (``*_f32_sm90``) flash kernels and the paged kernel
+    # keep their accumulators in registers: a spill would put them in
+    # local memory
     spilled = [e for e in ptxas["flash_attention"] + ptxas["paged_decode"]
                if ("_sm90" in e["entry"] or "paged_decode" in e["entry"])
                and e.get("spill_stores", 0)]
@@ -3036,7 +3045,9 @@ def phase_flash_parity(device):
     planted fault must fail: the D = 512 bf16 ``square_causal`` kernels
     against the plain versions on K with its columns past the first 256
     zeroed (scores reduced over one slice's columns only): each of out,
-    dq, dk and dv must fail its tolerance."""
+    dq, dk and dv must fail its tolerance; and the D = 64 f32
+    ``square_causal`` dq and dk/dv against the plain versions on K with
+    its last 64 keys zeroed: dq and dk must fail ``TOL["f32"]``."""
     import torch
 
     fa = importlib.import_module("chainermn_torch.ops.flash_attention")
@@ -3103,10 +3114,12 @@ def phase_flash_parity(device):
                 worst["flash_dkv"] = max(worst["flash_dkv"], checks["dk"][0],
                                          checks["dv"][0])
     planted = _flash_planted_fault(fa, gen, device)
+    planted_f32 = _flash_planted_fault_f32(fa, gen, device)
     emit({"phase": "flash_parity", "H": 16, "tol": TOL,
           "shapes": {c[0]: c[1:] for c in FLASH_CASES + [grid_case]},
           "shape_fields": ["Tq", "Tk", "causal", "q_offset", "k_offset"],
-          "cases": results, "planted_fault": planted})
+          "cases": results, "planted_fault": planted,
+          "planted_fault_f32": planted_f32})
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"flash kernels disagree with their plain "
@@ -3114,6 +3127,9 @@ def phase_flash_parity(device):
     if planted["ok"] or planted["passed"]:
         raise AssertionError(f"flash_parity: the planted fault passes: "
                              f"{planted}")
+    if {"dq", "dk"} & set(planted_f32["passed"]):
+        raise AssertionError(f"flash_parity: the f32 planted fault passes: "
+                             f"{planted_f32}")
     return worst
 
 
@@ -3147,6 +3163,35 @@ def _flash_planted_fault(fa, gen, device):
             "err": {n: c[0] for n, c in checks.items()},
             "passed": [n for n, c in checks.items() if c[1]],
             "ok": all(c[1] for c in checks.values())}
+
+
+def _flash_planted_fault_f32(fa, gen, device):
+    """The f32 dq and dk/dv kernels at D = 64, ``square_causal``, against
+    the plain versions on K with its last 64 keys zeroed (lse and delta
+    from the plain forward on that K); ``passed`` lists the outputs inside
+    ``TOL["f32"]``, which must hold neither dq nor dk."""
+    import torch
+
+    _, tq, tk, causal, qo, ko = FLASH_CASES[0]
+    q, k, v, do = _flash_inputs(2, tq, tk, 16, 64, torch.float32, gen,
+                                device)
+    kw = dict(causal=causal, q_offset=qo, k_offset=ko)
+    gkw = dict(kw, grad_dtype=torch.float32)
+    cut = k.clone()
+    cut[:, -64:] = 0
+    r_out, r_lse = fa.flash_fwd_reference(q, cut, v, **kw)
+    delta = (do.float() * r_out.float()).sum(-1).transpose(1, 2).contiguous()
+    got = {"dq": fa.flash_dq(q, k, v, do, r_lse, delta, **gkw)}
+    got["dk"], got["dv"] = fa.flash_dkv(q, k, v, do, r_lse, delta, **gkw)
+    want = {"dq": fa.flash_dq_reference(q, cut, v, do, r_lse, delta, **gkw)}
+    want["dk"], want["dv"] = fa.flash_dkv_reference(q, cut, v, do, r_lse,
+                                                    delta, **gkw)
+    rtol, atol = TOL["f32"]
+    checks = {n: _compare(got[n], want[n], rtol, atol) for n in got}
+    return {"D": 64, "dtype": "f32", "case": FLASH_CASES[0][0],
+            "fault": "the last 64 keys of K zeroed in the plain versions",
+            "err": {n: c[0] for n, c in checks.items()},
+            "passed": [n for n, c in checks.items() if c[1]]}
 
 
 # flash_ring_blocks holds f32 outputs of bf16 inputs: absolute
@@ -3633,7 +3678,8 @@ def phase_flash_timing(device):
     at 67 TFLOP/s, the FMA units' peak) and at D=8 (padded to 64). Each
     row names the kernel one profiled call ran and the cluster size the
     library launched it with; the D=512 forward, dq and dk/dv must have
-    run as clusters (``*_cluster_sm90``, 2 CTAs). Each
+    run as clusters (``*_cluster_sm90``, 2 CTAs), and the f32 dq and
+    dk/dv as ``flash_dq_f32_sm90`` / ``flash_dkv_f32_sm90``. Each
     kernel's outputs must agree with its plain version's within its
     dtype's tolerance, so the strided reads of the training path are held
     to a limit. The yardstick, which the port never calls, is
@@ -3661,8 +3707,9 @@ def phase_flash_timing(device):
         rows = _flash_rows(b, t, hh, cfg["d_model"] // hh, gen, device, flush)
         for name, rec in rows.items():
             recs[name][tag] = dict(rec, H=hh, D=cfg["d_model"] // hh)
-    # the main shape in float16 and float32 (the f32 kernels are
-    # flash_attention.cu's first versions), each beside SDPA in its dtype
+    # the main shape in float16 and float32 (the f32 forward is
+    # flash_attention.cu's first version, dq and dk/dv the register-tiled
+    # kernels of flash_f32_sm90.cuh), each beside SDPA in its dtype
     for dname in ("f16", "f32"):
         rows = _flash_rows(b, t, h, d, gen, device, flush, dname=dname,
                            reps=20, plain_reps=0)
@@ -3709,6 +3756,14 @@ def phase_flash_timing(device):
     if bad:
         raise AssertionError(f"flash kernels {bad} at D = 512 launched "
                              f"without a cluster")
+    # f32 dq and dk/dv run the register-tiled kernels wherever the trace
+    # names one
+    bad = [n for n in ("flash_dq", "flash_dkv")
+           if recs[n]["f32"]["kernel"] != "not measured"
+           and f"{n}_f32_sm90" not in recs[n]["f32"]["kernel"]]
+    if bad:
+        raise AssertionError(f"f32 flash kernels {bad} did not run "
+                             f"flash_dq_f32_sm90 / flash_dkv_f32_sm90")
     return recs
 
 
@@ -7949,7 +8004,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _keep_seeded_weights()
-    seconds = {}
+    seconds, f32_launches = {}, {}
     _start_watchdog()
 
     def timed(name, fn, *args):
@@ -7963,8 +8018,12 @@ def main() -> int:
         emit({"phase_start": name, "elapsed_s": round(elapsed, 3)})
         _RUNNING["phase"] = name
         t0 = time.perf_counter()
+        before = _f32_flash_launches()
         out = fn(*args)
         seconds[name] = time.perf_counter() - t0
+        after = _f32_flash_launches()
+        if after != before:
+            f32_launches[name] = {n: after[n] - before[n] for n in after}
         return out
 
     smi = timed("device", phase_device)
@@ -8073,6 +8132,9 @@ def main() -> int:
             "launches_resilient_path": resilient["launches"][name],
             "launches_lm_d256_path": d256["train"]["launches"][name],
             "launches_lm_wide_path": wide["train"]["launches"][name],
+            "launches_f32_by_phase": {
+                phase: n[name] for phase, n in f32_launches.items()
+                if n[name]},
             **{tag: {k: rec[tag][k] for k in (
                 "H", "D", "dtype", "kernel", "cluster_size", "ms",
                 "plain_ms",

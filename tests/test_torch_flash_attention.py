@@ -268,13 +268,14 @@ def test_build_error_carries_the_compiler_output(tmp_path, monkeypatch):
 
 
 def test_flash_library_hash_covers_both_hopper_headers():
-    """The bf16 forward and backward kernels live in headers that
-    ``flash_attention.cu`` includes: both count in the library's name."""
+    """The bf16 forward and backward kernels, the f32 dq and dk/dv and the
+    kernels past D = 256 live in headers that ``flash_attention.cu``
+    includes: each counts in the library's name."""
     from chainermn_torch import _build
 
     names = [p.name for p in _build._included(tfa._SRC)]
-    assert names == ["flash_bwd_sm90.cuh", "flash_fwd_sm90.cuh",
-                     "flash_wide.cuh"]
+    assert names == ["flash_bwd_sm90.cuh", "flash_f32_sm90.cuh",
+                     "flash_fwd_sm90.cuh", "flash_wide.cuh"]
 
 
 def test_edited_header_changes_the_library_name(tmp_path, monkeypatch):

@@ -22,13 +22,15 @@ every instance must fit the 232,448 B a CTA may use on an H100, with its
 f32 accumulators inside the 255 registers a thread may hold. Past 256
 neither grows with ``D`` along one route. ``nvcc`` checks the same limits with
 ``static_assert`` when it builds the card's library
-(``csrc/flash_bwd_sm90.cuh``, ``csrc/flash_wide.cuh``,
-``csrc/flash_attention.cu``).
+(``csrc/flash_bwd_sm90.cuh``, ``csrc/flash_f32_sm90.cuh``,
+``csrc/flash_wide.cuh``, ``csrc/flash_attention.cu``).
 """
 
+import ast
 import importlib
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -123,8 +125,20 @@ def dkv_sm90(d):
     return smem, cols + bq + bq // 2
 
 
-# the f32 kernels: Layout<D> up to 256, WideLayout past it; scores and
-# accumulators in shared memory
+F32_THREADS, F32_GROUP, F32_PAD, F32_STAGES = 256, 128, 4, 2  # kF32*
+
+
+def f32_tiles(kind, d):
+    """The f32 dq and dk/dv kernels' tiles up to D = 256 (``DqF32Tiles``,
+    ``DkvF32Tiles``): rows a CTA and rows a ring stage."""
+    if kind == "dq":
+        return (128 if d == 64 else 32 if d > 128 else 64,
+                32 if d > 128 else 64)
+    return 32 if d > 128 else 64, (64 if d == 64 else 32)
+
+
+# the f32 kernels: Layout<D>'s forward and the register-tiled dq and
+# dk/dv of flash_f32_sm90.cuh up to 256, WideLayout past it
 def _f32_layout(d):
     tile, pad = 32, 1
     r = (lambda n: _up(4 * n, 128))
@@ -136,15 +150,32 @@ def _f32_layout(d):
                 "dq": 4 * c + w + 2 * sc + p + acc + 2 * st,
                 "dkv": 4 * c + 2 * w + 2 * sc + 2 * p + 2 * acc + 2 * st}
     t, acc = r(tile * (d + pad)), r(tile * (d + 4))
-    return {"fwd": 3 * t + sc + p + acc + 2 * st,
-            "dq": 4 * t + 2 * sc + p + acc + 2 * st,
-            "dkv": 4 * t + 2 * sc + 2 * p + 2 * acc + 2 * st}
+    rows, bk = f32_tiles("dq", d)
+    dq = (2 * r(rows * (d + F32_PAD)) + F32_STAGES * 2 * r(bk * (d + F32_PAD))
+          + r(rows * (bk + F32_PAD)))
+    rows, bq = f32_tiles("dkv", d)
+    stage = 2 * r(bq * (d + F32_PAD)) + 2 * r(bq)
+    dkv = (2 * r(rows * (d + F32_PAD)) + F32_STAGES * stage
+           + 2 * r(rows * (bq + F32_PAD)))
+    return {"fwd": 3 * t + sc + p + acc + 2 * st, "dq": dq, "dkv": dkv}
+
+
+def _f32_regs(kind, d):
+    """f32 accumulators a thread holds up to D = 256 (0 past it, where
+    they live in shared memory): dq's dQ, S and dP over the CTA's 256
+    threads; dk/dv's dV and S^T over one group of 128, dK and dP^T over
+    the other."""
+    if d > 256 or kind == "fwd":
+        return 0
+    rows, tile = f32_tiles(kind, d)
+    if kind == "dq":
+        return (rows * d + 2 * rows * tile) // F32_THREADS
+    return (rows * d + rows * tile) // F32_GROUP
 
 
 TILES = {"fwd_sm90": fwd_sm90, "dq_sm90": dq_sm90, "dkv_sm90": dkv_sm90,
-         "fwd_f32": lambda d: (_f32_layout(d)["fwd"], 0),
-         "dq_f32": lambda d: (_f32_layout(d)["dq"], 0),
-         "dkv_f32": lambda d: (_f32_layout(d)["dkv"], 0)}
+         **{f"{k}_f32": (lambda d, k=k: (_f32_layout(d)[k], _f32_regs(k, d)))
+            for k in ("fwd", "dq", "dkv")}}
 
 # the source lines the formulas above copy (whitespace-normalised)
 PINNED = {
@@ -222,11 +253,52 @@ PINNED = {
         "constexpr int kPad = 1;",
         "static constexpr size_t kFwd = 3 * kTileBytes + kScoreBytes + "
         "kPBytes + kAccBytes + 2 * kStatBytes;",
-        "static constexpr size_t kDkv = 4 * kTileBytes + 2 * kScoreBytes + "
-        "2 * kPBytes + 2 * kAccBytes + 2 * kStatBytes;",
+        "else if constexpr (KIND == kDq) "
+        "return launch_dq_f32_sm90<OT, D>(a, stream);",
+        "else if constexpr (KIND == kDkv) "
+        "return launch_dkv_f32_sm90<OT, D>(a, stream);",
         "else if (a->head_dim == 256) err = dispatch_types<KIND, 256>(*a, st);",
         "else if (a->head_dim > 256 && a->head_dim % kChunk == 0) "
         "err = dispatch_types<KIND, kWide>(*a, st);"],
+    "flash_f32_sm90.cuh": [
+        "constexpr int kF32Threads = 256;",
+        "constexpr int kF32Group = 128;",
+        "constexpr int kF32Pad = 4;",
+        "constexpr int kF32Stages = 2;",
+        # DqF32Tiles
+        "static constexpr int kRows = D == 64 ? 128 : D > 128 ? 32 : 64;",
+        "static constexpr int kBk = D > 128 ? 32 : 64;",
+        "static constexpr size_t kSmem = 2 * kQ + kF32Stages * 2 * kK + kDs;",
+        "constexpr int QTM = R / 4, QTN = kF32Threads / QTM, "
+        "NV = D / (4 * QTN);",
+        "float dq[4][4 * NV];",
+        "constexpr int SM = R / 16, SN = BK / 16;",
+        "float s[SM][SN], dp[SM][SN];",
+        # DkvF32Tiles
+        "static constexpr int kRows = D > 128 ? 32 : 64;",
+        "static constexpr int kBq = D == 64 ? 64 : 32;",
+        "static constexpr size_t kStage = 2 * kQ + 2 * kStat;",
+        "static constexpr size_t kSmem = 2 * kKv + kF32Stages * kStage + "
+        "2 * kP;",
+        "constexpr int KM = R / 8, KTM = R / KM, KTN = kF32Group / KTM, "
+        "NV = D / (4 * KTN);",
+        "float acc[KM][4 * NV];",
+        "constexpr int SM = R / 16, SN = BQ / 8;",
+        "float x[SM][SN];",
+        # the tile ranges (test_f32_tile_ranges_skip_only_masked_tiles)
+        "const int q0 = (gridDim.x - 1 - blockIdx.x) * R;",
+        "const int q_last = min(q0 + R, g.tq) - 1;",
+        "g.causal ? max(0, min(g.tk, g.q_offset + q_last - g.k_offset + 1)) "
+        ": g.tk;",
+        "const int n_tiles = (k_end + BK - 1) / BK;",
+        "const int k0 = blockIdx.x * R;",
+        "g.causal ? max(0, k0 + g.k_offset - g.q_offset) / BQ * BQ : 0;",
+        "const int n_tiles = q_begin < g.tq ? (g.tq - q_begin + BQ - 1) / BQ "
+        ": 0;",
+        "return launch_sm90(flash_dq_f32_sm90<OT, D>, DqF32Tiles<D>::kSmem, "
+        "a.tq, DqF32Tiles<D>::kRows, a, stream);",
+        "return launch_sm90(flash_dkv_f32_sm90<OT, D>, DkvF32Tiles<D>::kSmem, "
+        "a.tk, DkvF32Tiles<D>::kRows, a, stream);"],
     "paged_decode.cu": [
         "if (D <= 128) return launch_s<QT, KVT, 128, QUANT>(D, c);",
         "if (D <= 256) return launch_s<QT, KVT, 256, QUANT>(D, c);",
@@ -262,14 +334,84 @@ def test_every_instance_fits_a_cta(kernel, d):
 
 
 def test_d256_figures():
-    """The sizes PERF.md and the sources quote for D = 256."""
+    """The sizes PERF.md and the sources quote for D = 256, and the f32
+    dq and dk/dv sizes ``flash_f32_sm90.cuh`` quotes at 64 and 128."""
     assert [TILES[k](256)[0] for k in ("fwd_sm90", "dq_sm90", "dkv_sm90")] \
         == [164_864, 230_400, 167_936]
-    assert _f32_layout(256) == {"fwd": 141_056, "dq": 178_560,
-                                "dkv": 216_064}
+    assert _f32_layout(256) == {"fwd": 141_056, "dq": 204_288,
+                                "dkv": 209_408}
+    assert [TILES[k](256)[1] for k in ("dq_f32", "dkv_f32")] == [40, 72]
+    # the f32 dq and dk/dv at 64 and 128 (flash_f32_sm90.cuh's header)
+    assert [(_f32_layout(d)["dq"], _f32_layout(d)["dkv"]) for d in (64, 128)] \
+        == [(174_080, 140_288), (220_160, 154_112)]
+    assert [TILES[k](d)[1] for d in (64, 128) for k in ("dq_f32", "dkv_f32")] \
+        == [96, 64, 64, 80]
     # 128-row tiles at D = 256 would not fit: why the tiles changed
     assert SM90_ROWS * 256 * 2 + STAGES * 2 * 64 * 256 * 2 + 1024 > SMEM_LIMIT
     assert 2 * (64 * 256 // 128) > REG_LIMIT      # dK + dV of 64 full rows
+
+
+def _smoke_flash_cases():
+    """``chip_smoke.py``'s ``FLASH_CASES`` (read, not imported)."""
+    tree = ast.parse((CSRC.parents[1] / "chip_smoke.py").read_text())
+    for node in tree.body:
+        if (isinstance(node, ast.Assign) and len(node.targets) == 1
+                and getattr(node.targets[0], "id", None) == "FLASH_CASES"):
+            return ast.literal_eval(node.value)
+    raise AssertionError("no FLASH_CASES in chip_smoke.py")
+
+
+def f32_visited(kind, d, tq, tk, causal, q_offset, k_offset):
+    """The (query, key) pairs the f32 dq or dk/dv kernel visits at D <= 256,
+    by the pinned tile-range lines of ``flash_f32_sm90.cuh``: dq's CTA
+    ``bx`` takes query rows from ``q0``, longest first, and key tiles up
+    to ``k_end``; dk/dv's takes keys from ``k0`` and query tiles from
+    ``q_begin``. Returns the visited mask and, for each CTA, the tiles of
+    its row range it skips, as (query slice, key slice)."""
+    rows, tile = f32_tiles(kind, d)
+    visited = np.zeros((tq, tk), dtype=bool)
+    skipped = []
+    if kind == "dq":
+        grid = -(-tq // rows)
+        for bx in range(grid):
+            q0 = (grid - 1 - bx) * rows
+            q_last = min(q0 + rows, tq) - 1
+            k_end = (max(0, min(tk, q_offset + q_last - k_offset + 1))
+                     if causal else tk)
+            n_tiles = (k_end + tile - 1) // tile
+            visited[q0:q0 + rows, :n_tiles * tile] = True
+            skipped += [(slice(q0, q0 + rows), slice(t, t + tile))
+                        for t in range(n_tiles * tile, tk, tile)]
+    else:
+        for bx in range(-(-tk // rows)):
+            k0 = bx * rows
+            q_begin = (max(0, k0 + k_offset - q_offset) // tile * tile
+                       if causal else 0)
+            n_tiles = (tq - q_begin + tile - 1) // tile if q_begin < tq else 0
+            visited[q_begin:q_begin + n_tiles * tile, k0:k0 + rows] = True
+            skipped += [(slice(t, t + tile), slice(k0, k0 + rows))
+                        for t in range(0, min(q_begin, tq), tile)]
+    return visited, skipped
+
+
+@pytest.mark.parametrize("kind", ["dq", "dkv"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("case", _smoke_flash_cases(), ids=lambda c: c[0])
+def test_f32_tile_ranges_skip_only_masked_tiles(case, d, kind):
+    """For every ``FLASH_CASES`` shape and offset the f32 kernels' tile
+    ranges visit every visible (q, k) pair and skip only tiles in which
+    no pair is visible, although dq's key tiles and dk/dv's query tiles
+    differ in size from the CTA's own rows at some D."""
+    _, tq, tk, causal, q_offset, k_offset = case
+    q_pos = q_offset + np.arange(tq)[:, None]
+    k_pos = k_offset + np.arange(tk)[None, :]
+    visible = q_pos >= k_pos if causal else np.ones((tq, tk), dtype=bool)
+    visited, skipped = f32_visited(kind, d, tq, tk, causal, q_offset,
+                                   k_offset)
+    assert not (visible & ~visited).any()
+    assert all(not visible[qs, ks].any() for qs, ks in skipped)
+    if causal and q_offset + tq - 1 < k_offset:    # no row sees a key
+        assert not visited.any()
 
 
 def test_wide_figures():
