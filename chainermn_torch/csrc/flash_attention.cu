@@ -3,7 +3,7 @@
 //
 // Replaces the Pallas TPU kernels of chainermn_tpu/ops/flash_attention.py
 // (f32 kernels named; the bf16 and f16 ones in the headers below):
-//   flash_fwd_kernel    <- _fwd_kernel      (launched by _fwd)
+//   flash_fwd_f32_sm90  <- _fwd_kernel      (launched by _fwd)
 //   flash_dq_f32_sm90   <- _bwd_dq_kernel   (launched by _dq_call)
 //   flash_dkv_f32_sm90  <- _bwd_dkv_kernel  (launched by _dkv_call)
 // and computes the same functions, in the model layout [B, T, H, D] read
@@ -38,21 +38,19 @@
 // runs wgmma products whose f32 accumulators stay in registers (S, P, dP,
 // dS never reach shared memory, and O, dQ, dK, dV are written once), two
 // warpgroups a CTA, and a 3-stage cp.async ring that loads the next tiles
-// while the current one is computed. f32 has no tensor-core path: its dq
-// and dk/dv (flash_f32_sm90.cuh) run register-tiled FMA products, S and
-// dP in registers, fed by a 2-stage cp.async ring. The f32 forward below
-// keeps the first, simple design:
-//   - one thread block (4 warps) per (batch*head, 32-row tile); the TPU's
-//     sequential grid axis becomes a loop inside the block over the key
-//     tiles, so no state crosses blocks and every output is written once,
-//     with no atomics (deterministic);
-//   - causal blocks stop at the last key tile a query tile can see: fully
-//     masked tiles are neither read nor computed;
-//   - ragged Tq / Tk are masked in the tail tile, so any length works;
-//   - tiles live in shared memory; products run on plain f32 FMA, with
-//     scores, softmax and the f32 accumulator staged in shared memory
-//     between the products;
-//   - blocks with the most causal work are issued first.
+// while the current one is computed. f32 has no tensor-core path, so its
+// floor is the FMA units' rate: the f32 forward, dq and dk/dv
+// (flash_f32_sm90.cuh: flash_fwd_f32_sm90, flash_dq_f32_sm90,
+// flash_dkv_f32_sm90) run register-tiled FMA products fed by a 2-stage
+// cp.async ring, with S (and dP) in registers, the forward's online
+// softmax in registers and O there for the whole key loop; past D = 256
+// the f32 forward (flash_wide.cuh: flash_fwd_wide_f32_sm90) runs the same
+// tiles on 256-column slices of O. Every kernel is one thread block per
+// (batch*head, row or key tile, and past 256 column slice) with the TPU's
+// sequential grid axis as a loop inside it, so no state crosses blocks and every output is written once,
+// with no atomics (deterministic); causal blocks stop at the last key
+// tile a query tile can see, ragged Tq / Tk are masked in the tail tiles,
+// and the blocks with the most causal work are issued first.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -89,15 +87,13 @@ struct FlashArgs {
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
 constexpr float kNegBig = -1e30f;
 
 using bf16 = __nv_bfloat16;
 
-// Tile rows and shared-memory row padding of the f32 kernels: an odd pitch
-// lets the scalar products read columns without bank conflicts, and 32-row
-// tiles keep the dk/dv block inside shared memory up to D = 256 (216,064 B
-// there; the forward 141,056 and dq 178,560).
+// Tile rows and shared-memory row padding of the f32 dq and dk/dv past
+// D = 256 (flash_wide.cuh's WideLayout): an odd pitch lets their scalar
+// products read columns without bank conflicts.
 constexpr int kTile = 32;
 constexpr int kPad = 1;
 
@@ -110,19 +106,6 @@ __device__ __forceinline__ float from_f32<float>(float x) {
 template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
 }
 
 __host__ __device__ constexpr size_t round128(size_t bytes) {
@@ -167,28 +150,6 @@ __device__ __forceinline__ Geo make_geo(const FlashArgs& a) {
              a.causal != 0};
 }
 
-// Rows row0 .. row0+R-1 of one (batch, head) slice of a [B, T, H, D] f32
-// input into a shared tile of pitch D + kPad; rows at or past n_rows read
-// as 0. 16-byte loads: neighbouring threads read neighbouring pieces of a
-// row.
-template <int D, int R>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int64_t st, int row0, int n_rows) {
-  constexpr int kLd = D + kPad;
-  constexpr int kPerRow = D / 4;
-  for (int i = threadIdx.x; i < R * kPerRow; i += kThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * 4;
-    const int t = row0 + r;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (t < n_rows) x = *reinterpret_cast<const float4*>(src + t * st + c);
-    float* d = dst + r * kLd + c;
-    d[0] = x.x;
-    d[1] = x.y;
-    d[2] = x.z;
-    d[3] = x.w;
-  }
-}
-
 // Rows row0 .. row0+R-1 of a [B, H, Tq] row statistic (0 past n_rows).
 template <int R>
 __device__ __forceinline__ void load_stat(float* dst, const float* src,
@@ -217,128 +178,6 @@ __device__ __forceinline__ void block_mm(const float* a, int lda,
   }
 }
 
-// Shared-memory pitches and sizes, one place for kernels and launchers.
-template <int D>
-struct Layout {
-  static constexpr int kB = kTile;        // rows of every tile
-  static constexpr int kLd = D + kPad;    // q, k, v, do tiles
-  static constexpr int kLds = kB + 4;     // scores
-  static constexpr int kLdp = kB + kPad;  // p / ds
-  static constexpr int kLdo = D + 4;      // accumulators
-  static constexpr size_t kTileBytes = round128(sizeof(float) * kB * kLd);
-  static constexpr size_t kScoreBytes = round128(sizeof(float) * kB * kLds);
-  static constexpr size_t kPBytes = round128(sizeof(float) * kB * kLdp);
-  static constexpr size_t kAccBytes = round128(sizeof(float) * kB * kLdo);
-  static constexpr size_t kStatBytes = round128(sizeof(float) * kB);
-  static constexpr size_t kFwd =
-      3 * kTileBytes + kScoreBytes + kPBytes + kAccBytes + 2 * kStatBytes;
-  static_assert(kFwd <= 232448, "f32 forward tiles exceed shared memory");
-};
-
-// ---------------------------------------------------------------- forward --
-
-template <typename OT, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const FlashArgs a) {
-  using L = Layout<D>;
-  constexpr int B = L::kB;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carver cv{smem};
-  float* qs = cv.take<float>(B * L::kLd);
-  float* ks = cv.take<float>(B * L::kLd);
-  float* vs = cv.take<float>(B * L::kLd);
-  float* S = cv.take<float>(B * L::kLds);
-  float* P = cv.take<float>(B * L::kLdp);
-  float* O = cv.take<float>(B * L::kLdo);
-  float* m_s = cv.take<float>(B);
-  float* l_s = cv.take<float>(B);
-
-  const Geo g = make_geo(a);
-  const int H = static_cast<int>(a.heads);
-  const int bh = blockIdx.z * gridDim.y + blockIdx.y, b = bh / H, h = bh % H;
-  if (bh >= a.batch * a.heads) return;  // the last z-slice's spare CTAs
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * B;  // longest blocks first
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float scale = static_cast<float>(a.scale);
-  const float* qb = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
-
-  load_rows<D, B>(qs, qb, a.q_st, q0, g.tq);
-  for (int i = threadIdx.x; i < B * D; i += kThreads)
-    O[(i / D) * L::kLdo + i % D] = 0.f;
-  for (int r = threadIdx.x; r < B; r += kThreads) {
-    m_s[r] = kNegBig;
-    l_s[r] = 0.f;
-  }
-  // causal: keys past the tile's last query position are never visible
-  const int q_last = min(q0 + B, g.tq) - 1;
-  const int k_end =
-      g.causal ? max(0, min(g.tk, g.q_offset + q_last - g.k_offset + 1))
-               : g.tk;
-  __syncthreads();
-
-  for (int k0 = 0; k0 < k_end; k0 += B) {
-    load_rows<D, B>(ks, kb, a.k_st, k0, g.tk);
-    load_rows<D, B>(vs, vb, a.v_st, k0, g.tk);
-    __syncthreads();
-    block_mm<B, B, D, false, true, false>(qs, L::kLd, ks, L::kLd, S,
-                                             L::kLds);
-    __syncthreads();
-    // online softmax: one warp per row, B / 32 keys per lane
-    for (int r = warp; r < B; r += kWarps) {
-      const int qi = q0 + r;
-      const float m_old = m_s[r];
-      float s[B / 32];
-      float mx = m_old;
-#pragma unroll
-      for (int c = 0; c < B / 32; ++c) {
-        const int j = lane + 32 * c;
-        const float x = S[r * L::kLds + j] * scale;
-        s[c] = g.visible(qi, k0 + j) ? x : kNegBig;
-        mx = fmaxf(mx, s[c]);
-      }
-      mx = warp_max(mx);
-      float p_sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < B / 32; ++c) {
-        // explicit 0: in a row with no visible key so far s == mx == the
-        // sentinel, and exp(s - mx) would be 1
-        const float p = s[c] <= 0.5f * kNegBig ? 0.f : expf(s[c] - mx);
-        p_sum += p;
-        P[r * L::kLdp + lane + 32 * c] = p;
-      }
-      p_sum = warp_sum(p_sum);
-      const float corr = expf(m_old - mx);
-      for (int d = lane; d < D; d += 32) O[r * L::kLdo + d] *= corr;
-      if (lane == 0) {
-        l_s[r] = l_s[r] * corr + p_sum;
-        m_s[r] = mx;
-      }
-    }
-    __syncthreads();
-    block_mm<B, D, B, false, false, true>(P, L::kLdp, vs, L::kLd, O,
-                                             L::kLdo);
-    __syncthreads();
-  }
-
-  OT* out = static_cast<OT*>(a.out);
-  for (int i = threadIdx.x; i < B * D; i += kThreads) {
-    const int r = i / D, d = i % D, qi = q0 + r;
-    if (qi >= g.tq) continue;
-    const float l = l_s[r];
-    out[((static_cast<int64_t>(b) * g.tq + qi) * H + h) * D + d] =
-        from_f32<OT>(O[r * L::kLdo + d] / (l == 0.f ? 1.f : l));
-  }
-  for (int r = threadIdx.x; r < B; r += kThreads) {
-    const int qi = q0 + r;
-    if (qi >= g.tq) continue;
-    const float l = l_s[r];
-    a.lse_out[static_cast<int64_t>(bh) * g.tq + qi] =
-        l == 0.f ? kNegBig : m_s[r] + logf(l);
-  }
-}
-
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
 // ------------------------ bf16 / f16 forward, dq and dk/dv (Hopper) --
@@ -346,7 +185,7 @@ enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 #include "flash_bwd_sm90.cuh"
 #include "flash_fwd_sm90.cuh"
 
-// ----------------------------- f32 dq and dk/dv up to D = 256 (Hopper) --
+// ------------------------ f32 forward, dq and dk/dv up to D = 256 (Hopper) --
 
 #include "flash_f32_sm90.cuh"
 
@@ -355,19 +194,6 @@ enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 #include "flash_wide.cuh"
 
 // --------------------------------------------------------------- launchers --
-
-// The f32 forward up to D = 256.
-template <typename OT, int D>
-cudaError_t launch_fwd_f32(const FlashArgs& a, cudaStream_t stream) {
-  using L = Layout<D>;
-  void (*kern)(const FlashArgs) = flash_fwd_kernel<OT, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(L::kFwd));
-  if (err != cudaSuccess) return err;
-  kern<<<flash_grid(a.tq, L::kB, a), kThreads, L::kFwd, stream>>>(a);
-  return cudaGetLastError();
-}
 
 // D = kWide: any multiple of 64 past 256 (flash_wide.cuh).
 constexpr int kWide = 0;
@@ -388,7 +214,7 @@ cudaError_t launch(const FlashArgs& a, cudaStream_t stream) {
   else if constexpr (KIND == kDkv)
     return launch_dkv_f32_sm90<OT, D>(a, stream);
   else
-    return launch_fwd_f32<OT, D>(a, stream);
+    return launch_fwd_f32_sm90<OT, D>(a, stream);
 }
 
 // (input, output) type codes: f32 -> f32 or bf16; bf16 -> bf16 or f32;

@@ -8,7 +8,8 @@
 // gemm_ss / gemm_rs, to_a_frags, frag_row / frag_col and launch_sm90 it
 // uses; it includes nothing itself. It is the forward for bf16 and f16
 // inputs, the element type T a template parameter (TPU: _fwd_kernel of
-// chainermn_tpu/ops/flash_attention.py; f32 inputs take flash_fwd_kernel)
+// chainermn_tpu/ops/flash_attention.py; f32 inputs take
+// flash_fwd_f32_sm90 of flash_f32_sm90.cuh)
 // and computes the same function under the same contract
 // (flash_attention.cu's header).
 //

@@ -1,12 +1,14 @@
 // Flash forward, dq and dk/dv at head dims past 256: D any multiple of 64
 // (the wrapper pads other widths up to the next one with zero lanes), in
-// bf16/f16 (wgmma, *_wide_sm90) and f32 (plain FMA, *_wide_kernel).
+// bf16/f16 (wgmma, *_cluster_sm90 and *_wide_sm90) and f32 (plain FMA:
+// flash_fwd_wide_f32_sm90, flash_dq_wide_kernel, flash_dkv_wide_kernel).
 //
 // Included by flash_attention.cu inside its anonymous namespace, after
 // flash_bwd_sm90.cuh and flash_fwd_sm90.cuh, whose PTX helpers, swizzled
 // tiles, gemm_ss / gemm_rs, softmax_step, frag_row / frag_col and store2
-// it uses, and after the f32 kernels' Carver, block_mm, load_stat and warp
-// reductions. It includes nothing itself. The kernels compute the same
+// it uses, and after the f32 kernels' Carver, block_mm and load_stat and
+// flash_f32_sm90.cuh's register-tiled products and forward softmax. It
+// includes nothing itself. The kernels compute the same
 // functions under the same contract as the D <= 256 kernels
 // (flash_attention.cu's header): the -1e30 sentinel, a masked p exactly 0,
 // p and ds rounded to the operand's type, f32 softmax state and
@@ -86,11 +88,19 @@
 //     sequence, the D / 64 chunks, then the slice's operand of the output
 //     product), and 32-key tiles: 64-key tiles would add 24 registers to
 //     the forward's 128-register O and spill.
-//   - The f32 kernels keep the D <= 256 f32 kernels' 32-row tiles, 4
-//     warps and shared-memory products, with the same chunking and
-//     slicing; one CTA an SM is what their shared memory allows anyway,
-//     and saying so (__launch_bounds__(kThreads, 1)) lets the compiler
-//     keep the chunk loops' pointers and strides in registers.
+//   - The f32 forward (flash_fwd_wide_f32_sm90, FwdWideF32) runs
+//     flash_fwd_f32_sm90's register tiles on one slice: 64 query rows a
+//     CTA, 64-key tiles, S reduced over D in register tiles from Q and K
+//     chunks and V's slice streamed through a 3-stage cp.async ring, the
+//     online softmax and the slice of O in registers (64 floats a thread);
+//     220,160 B. It repeats the score product in every slice (at D = 512
+//     1.5x the needed FLOPs, at 1024 2.5x).
+//   - The f32 dq and dk/dv keep the first wide design: 32-row tiles, 4
+//     warps and scalar shared-memory products (block_mm), with the same
+//     chunking and slicing; one CTA an SM is what their shared memory
+//     allows anyway, and saying so (__launch_bounds__(kThreads, 1)) lets
+//     the compiler keep the chunk loops' pointers and strides in
+//     registers.
 
 #pragma once
 
@@ -1213,7 +1223,7 @@ __device__ __forceinline__ void load_rows_cols(float* dst, const float* src,
   }
 }
 
-// Shared-memory pitches and sizes of the f32 wide kernels.
+// Shared-memory pitches and sizes of the f32 wide dq and dk/dv.
 struct WideLayout {
   static constexpr int kB = kTile;               // rows of every tile
   static constexpr int kLdc = kChunk + kPad;     // reduction chunks
@@ -1227,9 +1237,6 @@ struct WideLayout {
   static constexpr size_t kPBytes = round128(sizeof(float) * kB * kLdp);
   static constexpr size_t kAccBytes = round128(sizeof(float) * kB * kLdo);
   static constexpr size_t kStatBytes = round128(sizeof(float) * kB);
-  static constexpr size_t kFwd = 2 * kChunkBytes + kSliceBytes +
-                                 kScoreBytes + kPBytes + kAccBytes +
-                                 2 * kStatBytes;
   static constexpr size_t kDq = 4 * kChunkBytes + kSliceBytes +
                                 2 * kScoreBytes + kPBytes + kAccBytes +
                                 2 * kStatBytes;
@@ -1265,103 +1272,130 @@ __device__ __forceinline__ void zero_tile(float* t, int ld) {
     t[(i / B) * ld + i % B] = 0.f;
 }
 
+// The f32 forward past 256: flash_fwd_f32_sm90's register tiles on one
+// 256-column slice of O a CTA, unclustered. Q is not resident: S = Q K^T
+// is reduced over D in kChunk-column chunks of Q and K that stream through
+// a 3-stage cp.async ring of "items" (for each key tile, its D / 64
+// chunks, then the tile's V slice), one CTA barrier an item, the copies of
+// item i + 2 in flight while item i is computed. Every slice of a row tile
+// repeats the score product (ns times the score FLOPs).
+struct FwdWideF32 {
+  static constexpr int kRows = 64;  // query rows a CTA
+  static constexpr int kBk = 64;    // keys a tile
+  static constexpr int kTn = 16;    // threads of a row
+  static constexpr int kStages = 3;
+  static constexpr int kLdc = kChunk + kF32Pad;     // Q and K chunks
+  static constexpr int kLdv = kWideCols + kF32Pad;  // V slices
+  static constexpr int kLdp = kBk + kTn;            // P rows
+  static constexpr size_t kQc = round128(sizeof(float) * kRows * kLdc);
+  static constexpr size_t kKc = round128(sizeof(float) * kBk * kLdc);
+  static constexpr size_t kV = round128(sizeof(float) * kBk * kLdv);
+  static constexpr size_t kStage = kQc + kKc > kV ? kQc + kKc : kV;
+  static constexpr size_t kP = round128(sizeof(float) * kRows * kLdp);
+  static constexpr size_t kSmem = kStages * kStage + kP;
+  static_assert(kSmem <= kSmemLimit, "f32 wide forward exceeds shared memory");
+};
+
 template <typename OT>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_fwd_wide_kernel(const FlashArgs a) {
-  using L = WideLayout;
-  constexpr int B = L::kB, W = kWideCols;
+__global__ void __launch_bounds__(kF32Threads, 1)
+    flash_fwd_wide_f32_sm90(const FlashArgs a) {
+  using L = FwdWideF32;
+  constexpr int R = L::kRows, BK = L::kBk, TN = L::kTn, W = kWideCols,
+                LDC = L::kLdc, LDP = L::kLdp, NS = L::kStages;
+  constexpr int RS = kF32Threads / TN, SM = R / RS, SN = BK / TN,
+                NV = W / (4 * TN);
   extern __shared__ __align__(128) unsigned char smem[];
   Carver cv{smem};
-  float* qc = cv.take<float>(B * L::kLdc);
-  float* kc = cv.take<float>(B * L::kLdc);
-  float* vs = cv.take<float>(B * L::kLdw);
-  float* S = cv.take<float>(B * L::kLds);
-  float* P = cv.take<float>(B * L::kLdp);
-  float* O = cv.take<float>(B * L::kLdo);
-  float* m_s = cv.take<float>(B);
-  float* l_s = cv.take<float>(B);
+  // an item's stage: Q's chunk, K's kQcf floats on; or V's slice
+  constexpr int kQcf = L::kQc / sizeof(float),
+                kStage = L::kStage / sizeof(float);
+  float* ring = cv.take<float>(NS * kStage);
+  float* ps = cv.take<float>(R * LDP);
 
   const Geo g = make_geo(a);
   const int H = static_cast<int>(a.heads), D = static_cast<int>(a.head_dim);
   const int bh = blockIdx.z * gridDim.y + blockIdx.y, b = bh / H, h = bh % H;
   if (bh >= a.batch * a.heads) return;  // the last z-slice's spare CTAs
-  const int ns = wide_slices(D);
-  const int q0 = (gridDim.x / ns - 1 - blockIdx.x / ns) * B;
+  const int ns = wide_slices(D), nc = D / kChunk;
+  const int q0 = (gridDim.x / ns - 1 - blockIdx.x / ns) * R;  // longest first
   const int col0 = (blockIdx.x % ns) * W;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const float scale = static_cast<float>(a.scale);
   const float* qb = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
   const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
   const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
 
-  for (int i = threadIdx.x; i < B * W; i += kThreads)
-    O[(i / W) * L::kLdo + i % W] = 0.f;
-  for (int r = threadIdx.x; r < B; r += kThreads) {
-    m_s[r] = kNegBig;
-    l_s[r] = 0.f;
-  }
-  const int q_last = min(q0 + B, g.tq) - 1;
+  const int q_last = min(q0 + R, g.tq) - 1;
   const int k_end =
       g.causal ? max(0, min(g.tk, g.q_offset + q_last - g.k_offset + 1))
                : g.tk;
-
-  for (int k0 = 0; k0 < k_end; k0 += B) {
-    zero_tile<B>(S, L::kLds);
-    __syncthreads();
-    scores_over_d<B>(S, qc, kc, qb, a.q_st, q0, g.tq, kb, a.k_st, k0, g.tk,
-                     D);
-    load_rows_cols<W, B>(vs, vb, a.v_st, k0, g.tk, col0, D);
-    for (int r = warp; r < B; r += kWarps) {  // as flash_fwd_kernel's
-      const int qi = q0 + r;
-      const float m_old = m_s[r];
-      float s[B / 32];
-      float mx = m_old;
-#pragma unroll
-      for (int c = 0; c < B / 32; ++c) {
-        const int j = lane + 32 * c;
-        const float x = S[r * L::kLds + j] * scale;
-        s[c] = g.visible(qi, k0 + j) ? x : kNegBig;
-        mx = fmaxf(mx, s[c]);
-      }
-      mx = warp_max(mx);
-      float p_sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < B / 32; ++c) {
-        const float p = s[c] <= 0.5f * kNegBig ? 0.f : expf(s[c] - mx);
-        p_sum += p;
-        P[r * L::kLdp + lane + 32 * c] = p;
-      }
-      p_sum = warp_sum(p_sum);
-      const float corr = expf(m_old - mx);
-      for (int d = lane; d < W; d += 32) O[r * L::kLdo + d] *= corr;
-      if (lane == 0) {
-        l_s[r] = l_s[r] * corr + p_sum;
-        m_s[r] = mx;
-      }
+  const int n_tiles = (k_end + BK - 1) / BK, n_items = n_tiles * (nc + 1);
+  auto load_item = [&](int i) {
+    float* st = ring + (i % NS) * kStage;
+    const int k0 = i / (nc + 1) * BK, c = i % (nc + 1);
+    if (c < nc) {
+      load_cols_async<R, kChunk>(st, qb, a.q_st, q0, g.tq, c * kChunk, D);
+      load_cols_async<BK, kChunk>(st + kQcf, kb, a.k_st, k0, g.tk,
+                                  c * kChunk, D);
+    } else {
+      load_cols_async<BK, W>(st, vb, a.v_st, k0, g.tk, col0, D);
     }
+  };
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) {
+    if (i < n_items) load_item(i);
+    cp_async_commit();
+  }
+  int item = 0;
+  // waits for item `item`, whose stage it returns; past the barrier every
+  // warp is done with the item before it, whose stage takes item + 2
+  auto next_item = [&]() -> const float* {
+    cp_async_wait<NS - 2>();
     __syncthreads();
-    block_mm<B, W, B, false, false, true>(P, L::kLdp, vs, L::kLdw, O,
-                                          L::kLdo);
-    __syncthreads();
+    if (item + NS - 1 < n_items) load_item(item + NS - 1);
+    cp_async_commit();
+    return ring + (item++ % NS) * kStage;
+  };
+
+  const int sr = threadIdx.x / TN, sc = threadIdx.x % TN;
+  float o[SM][4 * NV], m[SM], l[SM];
+#pragma unroll
+  for (int u = 0; u < SM; ++u) {
+    m[u] = kNegBig;
+    l[u] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4 * NV; ++i) o[u][i] = 0.f;
   }
 
-  OT* out = static_cast<OT*>(a.out);
-  for (int i = threadIdx.x; i < B * W; i += kThreads) {
-    const int r = i / W, d = i % W, qi = q0 + r;
-    if (qi >= g.tq || col0 + d >= D) continue;
-    const float l = l_s[r];
-    out[((static_cast<int64_t>(b) * g.tq + qi) * H + h) * D + col0 + d] =
-        from_f32<OT>(O[r * L::kLdo + d] / (l == 0.f ? 1.f : l));
-  }
-  if (col0 == 0) {
-    for (int r = threadIdx.x; r < B; r += kThreads) {
-      const int qi = q0 + r;
-      if (qi >= g.tq) continue;
-      const float l = l_s[r];
-      a.lse_out[static_cast<int64_t>(bh) * g.tq + qi] =
-          l == 0.f ? kNegBig : m_s[r] + logf(l);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BK;
+    float s[SM][SN];
+#pragma unroll
+    for (int u = 0; u < SM; ++u)
+#pragma unroll
+      for (int v = 0; v < SN; ++v) s[u][v] = 0.f;
+    for (int c = 0; c < nc; ++c) {
+      const float* st = next_item();
+      mm_rows<SM, SN, kChunk, RS, TN, LDC, LDC, true>(s, st + sr * LDC,
+                                                      st + kQcf + sc * LDC);
     }
+    const float* vt = next_item();
+    const bool interior =
+        q0 + R <= g.tq && k0 + BK <= g.tk &&
+        (!g.causal || g.q_offset + q0 >= g.k_offset + k0 + BK - 1);
+    fwd_softmax<TN, SM, SN, 4 * NV, LDP>(s, o, m, l, ps + sr * LDP + sc,
+                                         interior, g, q0 + sr, k0 + sc,
+                                         scale);
+    mm_acc<SM, NV, BK, RS, 4 * TN, LDP, L::kLdv>(o, ps + sr * LDP,
+                                                 vt + 4 * sc);
   }
+
+  fwd_store<TN, SM, NV>(
+      o, m, l,
+      static_cast<OT*>(a.out) + (static_cast<int64_t>(b) * g.tq * H + h) * D +
+          col0,
+      static_cast<int64_t>(H) * D,
+      col0 == 0 ? a.lse_out + static_cast<int64_t>(bh) * g.tq : nullptr,
+      q0 + sr, g.tq, sc, D - col0);
 }
 
 template <typename OT>
@@ -1562,8 +1596,9 @@ inline cudaError_t launch_cluster(void (*kern)(const FlashArgs), dim3 grid,
 }
 
 // The route is chosen by the input type and D alone: the 16-bit kernels
-// run as clusters while the slices fit a portable cluster (D <= 2048); the
-// f32 kernels and wider D take the first wide kernels.
+// run as clusters while the slices fit a portable cluster (D <= 2048) and
+// take the unclustered wide kernels past it; the f32 forward takes
+// flash_fwd_wide_f32_sm90, the f32 dq and dk/dv the first wide kernels.
 template <int KIND, typename T, typename OT>
 cudaError_t launch_wide(const FlashArgs& a, cudaStream_t stream) {
   constexpr bool k16 = !std::is_same<T, float>::value;
@@ -1601,9 +1636,10 @@ cudaError_t launch_wide(const FlashArgs& a, cudaStream_t stream) {
     }
     tile = DkvWide::kRows;  // = DkvCluster::kRows
   } else if constexpr (KIND == kFwd) {
-    kern = flash_fwd_wide_kernel<OT>;
-    smem = WideLayout::kFwd;
-    tile = kTile;
+    kern = flash_fwd_wide_f32_sm90<OT>;
+    smem = FwdWideF32::kSmem;
+    tile = FwdWideF32::kRows;
+    threads = kF32Threads;
   } else if constexpr (KIND == kDq) {
     kern = flash_dq_wide_kernel<OT>;
     smem = WideLayout::kDq;

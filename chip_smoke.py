@@ -248,6 +248,13 @@ DP_PARITY = dict(model=dict(stage_sizes=[1, 1, 1, 1], width=8,
 # name: (wrapper, the prefix of its kernels' names in traces at every
 # head dim and dtype, TPU kernel it replaces, source of the bf16 kernel
 # the training path runs)
+# the kernels each flash wrapper launches for float32 inputs: at D <= 256
+# and past it
+FLASH_F32_KERNELS = {
+    "flash_fwd": ("flash_fwd_f32_sm90", "flash_fwd_wide_f32_sm90"),
+    "flash_dq": ("flash_dq_f32_sm90", "flash_dq_wide_kernel"),
+    "flash_dkv": ("flash_dkv_f32_sm90", "flash_dkv_wide_kernel"),
+}
 FLASH_KERNELS = {
     "flash_fwd": ("flash_fwd_with_lse", "flash_fwd_",
                   "chainermn_tpu/ops/flash_attention.py:195",
@@ -3045,9 +3052,11 @@ def phase_flash_parity(device):
     planted fault must fail: the D = 512 bf16 ``square_causal`` kernels
     against the plain versions on K with its columns past the first 256
     zeroed (scores reduced over one slice's columns only): each of out,
-    dq, dk and dv must fail its tolerance; and the D = 64 f32
-    ``square_causal`` dq and dk/dv against the plain versions on K with
-    its last 64 keys zeroed: dq and dk must fail ``TOL["f32"]``."""
+    dq, dk and dv must fail its tolerance; the D = 64 f32
+    ``square_causal`` kernels against the plain versions on K with its
+    last 64 keys zeroed: out, lse, dq and dk must fail ``TOL["f32"]``;
+    and the D = 512 f32 ones on K with its columns past 256 zeroed: every
+    output must fail it."""
     import torch
 
     fa = importlib.import_module("chainermn_torch.ops.flash_attention")
@@ -3115,11 +3124,13 @@ def phase_flash_parity(device):
                                          checks["dv"][0])
     planted = _flash_planted_fault(fa, gen, device)
     planted_f32 = _flash_planted_fault_f32(fa, gen, device)
+    planted_f32_wide = _flash_planted_fault_f32(fa, gen, device, d=512)
     emit({"phase": "flash_parity", "H": 16, "tol": TOL,
           "shapes": {c[0]: c[1:] for c in FLASH_CASES + [grid_case]},
           "shape_fields": ["Tq", "Tk", "causal", "q_offset", "k_offset"],
           "cases": results, "planted_fault": planted,
-          "planted_fault_f32": planted_f32})
+          "planted_fault_f32": planted_f32,
+          "planted_fault_f32_wide": planted_f32_wide})
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"flash kernels disagree with their plain "
@@ -3127,9 +3138,12 @@ def phase_flash_parity(device):
     if planted["ok"] or planted["passed"]:
         raise AssertionError(f"flash_parity: the planted fault passes: "
                              f"{planted}")
-    if {"dq", "dk"} & set(planted_f32["passed"]):
+    if {"out", "lse", "dq", "dk"} & set(planted_f32["passed"]):
         raise AssertionError(f"flash_parity: the f32 planted fault passes: "
                              f"{planted_f32}")
+    if planted_f32_wide["passed"]:
+        raise AssertionError(f"flash_parity: the D = 512 f32 planted fault "
+                             f"passes: {planted_f32_wide}")
     return worst
 
 
@@ -3165,32 +3179,41 @@ def _flash_planted_fault(fa, gen, device):
             "ok": all(c[1] for c in checks.values())}
 
 
-def _flash_planted_fault_f32(fa, gen, device):
-    """The f32 dq and dk/dv kernels at D = 64, ``square_causal``, against
-    the plain versions on K with its last 64 keys zeroed (lse and delta
-    from the plain forward on that K); ``passed`` lists the outputs inside
-    ``TOL["f32"]``, which must hold neither dq nor dk."""
+def _flash_planted_fault_f32(fa, gen, device, d=64):
+    """The f32 kernels, ``square_causal``, against the plain versions on a
+    cut K: at D = 64 its last 64 keys zeroed, at D = 512 (the wide
+    kernels) its columns past the first 256 zeroed (scores reduced over
+    one slice's columns only). The backward kernels take lse and delta
+    from the plain forward on the cut K. ``passed`` lists the outputs
+    inside ``TOL["f32"]``: at D = 64 it must hold none of out, lse, dq and
+    dk, at D = 512 nothing."""
     import torch
 
     _, tq, tk, causal, qo, ko = FLASH_CASES[0]
-    q, k, v, do = _flash_inputs(2, tq, tk, 16, 64, torch.float32, gen,
+    q, k, v, do = _flash_inputs(2, tq, tk, 16, d, torch.float32, gen,
                                 device)
     kw = dict(causal=causal, q_offset=qo, k_offset=ko)
     gkw = dict(kw, grad_dtype=torch.float32)
     cut = k.clone()
-    cut[:, -64:] = 0
+    if d > 256:
+        cut[..., 256:] = 0
+        fault = "K columns 256.. zeroed in the plain versions"
+    else:
+        cut[:, -64:] = 0
+        fault = "the last 64 keys of K zeroed in the plain versions"
     r_out, r_lse = fa.flash_fwd_reference(q, cut, v, **kw)
     delta = (do.float() * r_out.float()).sum(-1).transpose(1, 2).contiguous()
-    got = {"dq": fa.flash_dq(q, k, v, do, r_lse, delta, **gkw)}
+    got = dict(zip(("out", "lse"), fa.flash_fwd_with_lse(q, k, v, **kw)))
+    got["dq"] = fa.flash_dq(q, k, v, do, r_lse, delta, **gkw)
     got["dk"], got["dv"] = fa.flash_dkv(q, k, v, do, r_lse, delta, **gkw)
-    want = {"dq": fa.flash_dq_reference(q, cut, v, do, r_lse, delta, **gkw)}
+    want = {"out": r_out, "lse": r_lse,
+            "dq": fa.flash_dq_reference(q, cut, v, do, r_lse, delta, **gkw)}
     want["dk"], want["dv"] = fa.flash_dkv_reference(q, cut, v, do, r_lse,
                                                     delta, **gkw)
     rtol, atol = TOL["f32"]
     checks = {n: _compare(got[n], want[n], rtol, atol) for n in got}
-    return {"D": 64, "dtype": "f32", "case": FLASH_CASES[0][0],
-            "fault": "the last 64 keys of K zeroed in the plain versions",
-            "err": {n: c[0] for n, c in checks.items()},
+    return {"D": d, "dtype": "f32", "case": FLASH_CASES[0][0],
+            "fault": fault, "err": {n: c[0] for n, c in checks.items()},
             "passed": [n for n, c in checks.items() if c[1]]}
 
 
@@ -3667,19 +3690,28 @@ def _flash_rows(b, t, h, d, gen, device, flush, dname="bf16", reps=50,
     return recs
 
 
+# flash_timing's rows beside the main shape's: H = 4, D = 256 and H = 2,
+# D = 512 in bf16, the main shape in float16 and float32, and float32 at
+# H = 2, D = 512
+FLASH_TIMING_TAGS = ("d256", "d512", "f16", "f32", "f32_d512")
+
+
 def phase_flash_timing(device):
     """Each flash kernel, its plain version and a library yardstick at the
     training shape (B=8, T=2048, H=16, D=64, bf16, causal; q, k and v
     sliced from one fused qkv tensor as the model passes them), L2
     flushed before each timed call; then the same at H=4, D=256 and H=2,
     D=512 (the ``lm_d256`` and ``lm_wide`` shapes: the same FLOPs and
-    bytes), at the training shape in float16 and float32 (20 calls each,
-    the plain versions not timed, SDPA in the same dtype; the f32 bound
-    at 67 TFLOP/s, the FMA units' peak) and at D=8 (padded to 64). Each
-    row names the kernel one profiled call ran and the cluster size the
-    library launched it with; the D=512 forward, dq and dk/dv must have
-    run as clusters (``*_cluster_sm90``, 2 CTAs), and the f32 dq and
-    dk/dv as ``flash_dq_f32_sm90`` / ``flash_dkv_f32_sm90``. Each
+    bytes), at the training shape in float16 and float32 and at H=2,
+    D=512 in float32 (20 calls each, the plain versions not timed, SDPA
+    in the same dtype; the f32 bound at 67 TFLOP/s, the FMA units' peak)
+    and at D=8 (padded to 64). Each row names the kernel one profiled
+    call ran and the cluster size the library launched it with; the
+    D=512 forward, dq and dk/dv must have run as clusters
+    (``*_cluster_sm90``, 2 CTAs), and the f32 rows unclustered as
+    ``FLASH_F32_KERNELS`` names them where the trace names a kernel
+    (``flash_fwd_f32_sm90``, ``flash_dq_f32_sm90``,
+    ``flash_dkv_f32_sm90``; at D=512 ``flash_fwd_wide_f32_sm90``). Each
     kernel's outputs must agree with its plain version's within its
     dtype's tolerance, so the strided reads of the training path are held
     to a limit. The yardstick, which the port never calls, is
@@ -3707,14 +3739,19 @@ def phase_flash_timing(device):
         rows = _flash_rows(b, t, hh, cfg["d_model"] // hh, gen, device, flush)
         for name, rec in rows.items():
             recs[name][tag] = dict(rec, H=hh, D=cfg["d_model"] // hh)
-    # the main shape in float16 and float32 (the f32 forward is
-    # flash_attention.cu's first version, dq and dk/dv the register-tiled
-    # kernels of flash_f32_sm90.cuh), each beside SDPA in its dtype
-    for dname in ("f16", "f32"):
-        rows = _flash_rows(b, t, h, d, gen, device, flush, dname=dname,
+    # the main shape in float16 and float32 (the f32 forward, dq and dk/dv
+    # the register-tiled kernels of flash_f32_sm90.cuh), each beside SDPA
+    # in its dtype, and float32 at the lm_wide shape (H = 2, D = 512: the
+    # f32 forward's register tiles on 256-column slices, dq and dk/dv the
+    # first wide kernels)
+    hw = LM_D512["n_heads"]
+    for tag, dname, hh in (("f16", "f16", h), ("f32", "f32", h),
+                           ("f32_d512", "f32", hw)):
+        dd = LM["d_model"] // hh
+        rows = _flash_rows(b, t, hh, dd, gen, device, flush, dname=dname,
                            reps=20, plain_reps=0)
         for name, rec in rows.items():
-            recs[name][dname] = dict(rec, H=h, D=d)
+            recs[name][tag] = dict(rec, H=hh, D=dd)
     # the same shape at D = 8 (the repo's small LM configurations), which
     # the wrapper runs padded to 64
     q, k, v, do = _flash_inputs(b, t, t, h, 8, torch.bfloat16, gen, device,
@@ -3738,7 +3775,7 @@ def phase_flash_timing(device):
           "kernels": recs})
     rows = [(n, r) for n, r in recs.items()] + [
         (f"{n} {tag}", r[tag]) for n, r in recs.items()
-        for tag in ("d256", "d512", "f16", "f32")]
+        for tag in FLASH_TIMING_TAGS]
     bad = [n for n, r in rows if not r["within_tol"]]
     if bad:
         raise AssertionError(f"flash kernels {bad} disagree with their plain "
@@ -3756,14 +3793,17 @@ def phase_flash_timing(device):
     if bad:
         raise AssertionError(f"flash kernels {bad} at D = 512 launched "
                              f"without a cluster")
-    # f32 dq and dk/dv run the register-tiled kernels wherever the trace
-    # names one
-    bad = [n for n in ("flash_dq", "flash_dkv")
-           if recs[n]["f32"]["kernel"] != "not measured"
-           and f"{n}_f32_sm90" not in recs[n]["f32"]["kernel"]]
+    # f32 runs its own kernels (FLASH_F32_KERNELS), never clustered,
+    # wherever the trace names one: the register-tiled forward, dq and
+    # dk/dv at D = 64 and, at D = 512, the register-tiled wide forward
+    bad = [f"{n} {tag}" for n, names in FLASH_F32_KERNELS.items()
+           for tag, want in (("f32", names[0]), ("f32_d512", names[1]))
+           if recs[n][tag]["cluster_size"] != 1
+           or recs[n][tag]["kernel"] != "not measured"
+           and want not in recs[n][tag]["kernel"].split(",")]
     if bad:
-        raise AssertionError(f"f32 flash kernels {bad} did not run "
-                             f"flash_dq_f32_sm90 / flash_dkv_f32_sm90")
+        raise AssertionError(f"f32 flash rows {bad} did not run "
+                             f"{FLASH_F32_KERNELS}")
     return recs
 
 
@@ -8140,7 +8180,9 @@ def main() -> int:
                 "plain_ms",
                 "library_ms", "library_backend", "bound_ms", "bound_by",
                 "max_abs_err")}
-               for tag in ("d256", "d512", "f16", "f32")},
+               for tag in FLASH_TIMING_TAGS},
+            "f32_kernels": dict(zip(("d_le_256", "d_gt_256"),
+                                    FLASH_F32_KERNELS[name])),
             "launches_reshard_path": {
                 "train_tp2": reshard["train"][0]["launches"][name],
                 "restored_tp4": reshard["serve"][0]["honest"]["launches"][

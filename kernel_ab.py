@@ -10,8 +10,10 @@ prints one JSON line a run: CUDA-event medians (``chip_smoke.cuda_ms``, L2
 flushed before each call) of the flash forward, dq and dk/dv kernels in
 bf16 and f32 at B=2, T=1024, H=16, D=64, causal, q/k/v sliced from one
 fused tensor, of the bf16 forward at the training shape (B=8, T=2048),
-of the f32 forward, dq and dk/dv at the training shape (H=16, D=64) and
-at H=4, D=256 (the same FLOPs),
+of the f32 forward, dq and dk/dv at the training shape (H=16, D=64), at
+H=4, D=256 and at H=2, D=512 (the same FLOPs), each shape's forward
+beside SDPA's in f32 (``F.scaled_dot_product_attention``, the backend it
+picks; the port never calls it),
 of the bf16 forward, dq and dk/dv past D = 256 at the wide LM's shape
 (B=8, T=2048, H=2, D=512) and at H=1, D=1024 (the same FLOPs), and of
 the paged-decode kernel on 16 rows of 64..639 keys; then the card's name and power limit. Both
@@ -31,6 +33,7 @@ from pathlib import Path
 def _child(name: str, root: str) -> None:
     sys.path.insert(0, root)
     import torch
+    import torch.nn.functional as F
 
     import chip_smoke as cs
     fa = importlib.import_module("chainermn_torch.ops.flash_attention")
@@ -59,10 +62,17 @@ def _child(name: str, root: str) -> None:
     rec["fwd_bf16_train_shape_ms"] = cs.cuda_ms(
         lambda: fa.flash_fwd_with_lse(q, k, v, causal=True), flush=flush)
     del q, k, v
-    for h, d in ((16, 64), (4, 256)):
+    for h, d in ((16, 64), (4, 256), (2, 512)):
         q, k, v, do = cs._flash_inputs(8, 2048, 2048, h, d, torch.float32,
                                        torch.Generator().manual_seed(10),
                                        dev, fused=True)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        with torch.no_grad():
+            rec[f"sdpa_fwd_f32_train_d{d}_ms"] = cs.cuda_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=True),
+                flush=flush)
+        del qt, kt, vt
         kw = dict(causal=True)
         gkw = dict(kw, grad_dtype=torch.float32)
         out, lse = fa.flash_fwd_with_lse(q, k, v, **kw)

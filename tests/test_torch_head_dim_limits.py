@@ -129,16 +129,30 @@ F32_THREADS, F32_GROUP, F32_PAD, F32_STAGES = 256, 128, 4, 2  # kF32*
 
 
 def f32_tiles(kind, d):
-    """The f32 dq and dk/dv kernels' tiles up to D = 256 (``DqF32Tiles``,
-    ``DkvF32Tiles``): rows a CTA and rows a ring stage."""
+    """The f32 forward, dq and dk/dv kernels' tiles up to D = 256
+    (``FwdF32Tiles``, ``DqF32Tiles``, ``DkvF32Tiles``): rows a CTA and
+    rows a ring stage."""
+    if kind == "fwd":
+        return 128 if d == 128 else 64, (64 if d == 64 else 32)
     if kind == "dq":
         return (128 if d == 64 else 32 if d > 128 else 64,
                 32 if d > 128 else 64)
     return 32 if d > 128 else 64, (64 if d == 64 else 32)
 
 
-# the f32 kernels: Layout<D>'s forward and the register-tiled dq and
-# dk/dv of flash_f32_sm90.cuh up to 256, WideLayout past it
+def f32_fwd_row_threads(d):
+    """``kTn``: the threads of one row in the f32 forward's layout (one
+    warp holds 32 / kTn rows); 16 in the wide forward."""
+    return 8 if d == 128 else 16
+
+
+# FwdWideF32: 64 query rows, 64-key tiles, 3 ring stages
+WIDE_F32_ROWS, WIDE_F32_BK, WIDE_F32_STAGES = 64, 64, 3
+
+
+# the f32 kernels: the register-tiled forward, dq and dk/dv of
+# flash_f32_sm90.cuh up to 256; past it the register-tiled wide forward
+# (FwdWideF32) and WideLayout's dq and dk/dv
 def _f32_layout(d):
     tile, pad = 32, 1
     r = (lambda n: _up(4 * n, 128))
@@ -146,10 +160,15 @@ def _f32_layout(d):
     if d > 256:
         c, w, acc = (r(tile * (CHUNK + pad)), r(tile * (WIDE_COLS + pad)),
                      r(tile * (WIDE_COLS + 4)))
-        return {"fwd": 2 * c + w + sc + p + acc + 2 * st,
+        rows, bk, tn = WIDE_F32_ROWS, WIDE_F32_BK, f32_fwd_row_threads(d)
+        stage = max(r(rows * (CHUNK + F32_PAD)) + r(bk * (CHUNK + F32_PAD)),
+                    r(bk * (WIDE_COLS + F32_PAD)))
+        return {"fwd": WIDE_F32_STAGES * stage + r(rows * (bk + tn)),
                 "dq": 4 * c + w + 2 * sc + p + acc + 2 * st,
                 "dkv": 4 * c + 2 * w + 2 * sc + 2 * p + 2 * acc + 2 * st}
-    t, acc = r(tile * (d + pad)), r(tile * (d + 4))
+    rows, bk = f32_tiles("fwd", d)
+    fwd = (r(rows * (d + F32_PAD)) + F32_STAGES * 2 * r(bk * (d + F32_PAD))
+           + r(rows * (bk + f32_fwd_row_threads(d))))
     rows, bk = f32_tiles("dq", d)
     dq = (2 * r(rows * (d + F32_PAD)) + F32_STAGES * 2 * r(bk * (d + F32_PAD))
           + r(rows * (bk + F32_PAD)))
@@ -157,17 +176,23 @@ def _f32_layout(d):
     stage = 2 * r(bq * (d + F32_PAD)) + 2 * r(bq)
     dkv = (2 * r(rows * (d + F32_PAD)) + F32_STAGES * stage
            + 2 * r(rows * (bq + F32_PAD)))
-    return {"fwd": 3 * t + sc + p + acc + 2 * st, "dq": dq, "dkv": dkv}
+    return {"fwd": fwd, "dq": dq, "dkv": dkv}
 
 
 def _f32_regs(kind, d):
-    """f32 accumulators a thread holds up to D = 256 (0 past it, where
-    they live in shared memory): dq's dQ, S and dP over the CTA's 256
-    threads; dk/dv's dV and S^T over one group of 128, dK and dP^T over
-    the other."""
-    if d > 256 or kind == "fwd":
+    """f32 accumulators a thread holds: the forward's O and S over the
+    CTA's 256 threads (past 256 the slice's O and S); up to D = 256 dq's
+    dQ, S and dP over the 256 threads, dk/dv's dV and S^T over one group
+    of 128, dK and dP^T over the other (0 past 256, where the f32 dq and
+    dk/dv keep them in shared memory)."""
+    if kind == "fwd" and d > 256:
+        return (WIDE_F32_ROWS * WIDE_COLS
+                + WIDE_F32_ROWS * WIDE_F32_BK) // F32_THREADS
+    if d > 256:
         return 0
     rows, tile = f32_tiles(kind, d)
+    if kind == "fwd":
+        return (rows * d + rows * tile) // F32_THREADS
     if kind == "dq":
         return (rows * d + 2 * rows * tile) // F32_THREADS
     return (rows * d + rows * tile) // F32_GROUP
@@ -241,9 +266,20 @@ PINNED = {
         "static constexpr uint32_t kSlice = 2 * kQs + 2 * kBq * 4;",
         "static constexpr uint32_t kStage = round1024(2 * kKc + 2 * kQc > "
         "kSlice ? 2 * kKc + 2 * kQc : kSlice);",
+        # FwdWideF32 and its route
+        "static constexpr int kBk = 64;",
+        "static constexpr int kTn = 16;",
+        "static constexpr int kStages = 3;",
+        "static constexpr size_t kQc = round128(sizeof(float) * kRows * "
+        "kLdc);",
+        "static constexpr size_t kKc = round128(sizeof(float) * kBk * kLdc);",
+        "static constexpr size_t kV = round128(sizeof(float) * kBk * kLdv);",
+        "static constexpr size_t kStage = kQc + kKc > kV ? kQc + kKc : kV;",
+        "static constexpr size_t kP = round128(sizeof(float) * kRows * kLdp);",
+        "static constexpr size_t kSmem = kStages * kStage + kP;",
+        "kern = flash_fwd_wide_f32_sm90<OT>; smem = FwdWideF32::kSmem; "
+        "tile = FwdWideF32::kRows;",
         # WideLayout
-        "static constexpr size_t kFwd = 2 * kChunkBytes + kSliceBytes + "
-        "kScoreBytes + kPBytes + kAccBytes + 2 * kStatBytes;",
         "static constexpr size_t kDq = 4 * kChunkBytes + kSliceBytes + "
         "2 * kScoreBytes + kPBytes + kAccBytes + 2 * kStatBytes;",
         "static constexpr size_t kDkv = 4 * kChunkBytes + 2 * kSliceBytes + "
@@ -251,12 +287,11 @@ PINNED = {
     "flash_attention.cu": [
         "constexpr int kTile = 32;",
         "constexpr int kPad = 1;",
-        "static constexpr size_t kFwd = 3 * kTileBytes + kScoreBytes + "
-        "kPBytes + kAccBytes + 2 * kStatBytes;",
         "else if constexpr (KIND == kDq) "
         "return launch_dq_f32_sm90<OT, D>(a, stream);",
         "else if constexpr (KIND == kDkv) "
-        "return launch_dkv_f32_sm90<OT, D>(a, stream);",
+        "return launch_dkv_f32_sm90<OT, D>(a, stream); "
+        "else return launch_fwd_f32_sm90<OT, D>(a, stream);",
         "else if (a->head_dim == 256) err = dispatch_types<KIND, 256>(*a, st);",
         "else if (a->head_dim > 256 && a->head_dim % kChunk == 0) "
         "err = dispatch_types<KIND, kWide>(*a, st);"],
@@ -265,6 +300,18 @@ PINNED = {
         "constexpr int kF32Group = 128;",
         "constexpr int kF32Pad = 4;",
         "constexpr int kF32Stages = 2;",
+        # FwdF32Tiles
+        "static constexpr int kRows = D == 128 ? 128 : 64;",
+        "static constexpr int kBk = D == 64 ? 64 : 32;",
+        "static constexpr int kTn = D == 128 ? 8 : 16;",
+        "static constexpr int kLdp = kBk + kTn;",
+        "static constexpr size_t kP = round128(sizeof(float) * kRows * kLdp);",
+        "static constexpr size_t kSmem = kQ + kF32Stages * 2 * kK + kP;",
+        "constexpr int RS = kF32Threads / TN, SM = R / RS, SN = BK / TN, "
+        "NV = D / (4 * TN);",
+        "float o[SM][4 * NV], m[SM], l[SM];",
+        "return launch_sm90(flash_fwd_f32_sm90<OT, D>, FwdF32Tiles<D>::kSmem, "
+        "a.tq, FwdF32Tiles<D>::kRows, a, stream);",
         # DqF32Tiles
         "static constexpr int kRows = D == 64 ? 128 : D > 128 ? 32 : 64;",
         "static constexpr int kBk = D > 128 ? 32 : 64;",
@@ -335,12 +382,19 @@ def test_every_instance_fits_a_cta(kernel, d):
 
 def test_d256_figures():
     """The sizes PERF.md and the sources quote for D = 256, and the f32
-    dq and dk/dv sizes ``flash_f32_sm90.cuh`` quotes at 64 and 128."""
+    forward, dq and dk/dv sizes ``flash_f32_sm90.cuh`` quotes at 64 and
+    128."""
     assert [TILES[k](256)[0] for k in ("fwd_sm90", "dq_sm90", "dkv_sm90")] \
         == [164_864, 230_400, 167_936]
-    assert _f32_layout(256) == {"fwd": 141_056, "dq": 204_288,
+    assert _f32_layout(256) == {"fwd": 211_968, "dq": 204_288,
                                 "dkv": 209_408}
-    assert [TILES[k](256)[1] for k in ("dq_f32", "dkv_f32")] == [40, 72]
+    assert [TILES[k](256)[1] for k in ("fwd_f32", "dq_f32", "dkv_f32")] \
+        == [72, 40, 72]
+    # the f32 forward at 64 and 128: O and S a thread; at 64 two CTAs
+    # share an SM's 228 KiB of shared memory
+    assert [_f32_layout(d)["fwd"] for d in (64, 128)] == [107_520, 155_648]
+    assert [TILES["fwd_f32"](d)[1] for d in (64, 128)] == [32, 80]
+    assert 2 * (_f32_layout(64)["fwd"] + 1024) <= 228 * 1024
     # the f32 dq and dk/dv at 64 and 128 (flash_f32_sm90.cuh's header)
     assert [(_f32_layout(d)["dq"], _f32_layout(d)["dkv"]) for d in (64, 128)] \
         == [(174_080, 140_288), (220_160, 154_112)]
@@ -362,16 +416,17 @@ def _smoke_flash_cases():
 
 
 def f32_visited(kind, d, tq, tk, causal, q_offset, k_offset):
-    """The (query, key) pairs the f32 dq or dk/dv kernel visits at D <= 256,
-    by the pinned tile-range lines of ``flash_f32_sm90.cuh``: dq's CTA
-    ``bx`` takes query rows from ``q0``, longest first, and key tiles up
-    to ``k_end``; dk/dv's takes keys from ``k0`` and query tiles from
-    ``q_begin``. Returns the visited mask and, for each CTA, the tiles of
-    its row range it skips, as (query slice, key slice)."""
+    """The (query, key) pairs the f32 forward, dq or dk/dv kernel visits at
+    D <= 256, by the pinned tile-range lines of ``flash_f32_sm90.cuh``:
+    the forward's and dq's CTA ``bx`` takes query rows from ``q0``,
+    longest first, and key tiles up to ``k_end``; dk/dv's takes keys from
+    ``k0`` and query tiles from ``q_begin``. Returns the visited mask and,
+    for each CTA, the tiles of its row range it skips, as (query slice,
+    key slice)."""
     rows, tile = f32_tiles(kind, d)
     visited = np.zeros((tq, tk), dtype=bool)
     skipped = []
-    if kind == "dq":
+    if kind in ("fwd", "dq"):
         grid = -(-tq // rows)
         for bx in range(grid):
             q0 = (grid - 1 - bx) * rows
@@ -394,14 +449,15 @@ def f32_visited(kind, d, tq, tk, causal, q_offset, k_offset):
     return visited, skipped
 
 
-@pytest.mark.parametrize("kind", ["dq", "dkv"])
+@pytest.mark.parametrize("kind", ["dq", "dkv", "fwd"])
 @pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("case", _smoke_flash_cases(), ids=lambda c: c[0])
 def test_f32_tile_ranges_skip_only_masked_tiles(case, d, kind):
     """For every ``FLASH_CASES`` shape and offset the f32 kernels' tile
     ranges visit every visible (q, k) pair and skip only tiles in which
     no pair is visible, although dq's key tiles and dk/dv's query tiles
-    differ in size from the CTA's own rows at some D."""
+    differ in size from the CTA's own rows at some D (the forward's
+    key tiles too)."""
     _, tq, tk, causal, q_offset, k_offset = case
     q_pos = q_offset + np.arange(tq)[:, None]
     k_pos = k_offset + np.arange(tk)[None, :]
@@ -424,8 +480,9 @@ def test_wide_figures():
         == [(230_400, 168), (230_400, 120), (231_424, 192)]
     assert [TILES[k](2112) for k in ("fwd_sm90", "dq_sm90", "dkv_sm90")] \
         == [(62_464, 152), (123_904, 168), (102_400, 176)]
-    assert _f32_layout(512) == {"fwd": 91_904, "dq": 113_152,
+    assert _f32_layout(512) == {"fwd": 220_160, "dq": 113_152,
                                 "dkv": 183_552}
+    assert TILES["fwd_f32"](512)[1] == 80   # the slice's O and S
     assert SM90_ROWS * 512 * 2 == 131_072
     assert STAGES * 2 * 32 * 512 * 2 == 196_608
     assert 4 * _up(4 * 32 * 513, 128) > SMEM_LIMIT  # f32 Layout<512> tiles

@@ -1,7 +1,7 @@
 """Import rules of the port: ``chainermn_torch``, ``chip_smoke.py``,
-``kernel_ab.py`` and ``smoke_ab.py`` never import jax, flax, optax or
-anything of ``chainermn_tpu``, and the port's entry points do not carry
-on quietly on the CPU."""
+``kernel_ab.py``, ``kernel_variants.py`` and ``smoke_ab.py`` never import
+jax, flax, optax or anything of ``chainermn_tpu``, and the port's entry
+points do not carry on quietly on the CPU."""
 
 import ast
 import pathlib
@@ -13,7 +13,8 @@ import torch
 
 PKG = pathlib.Path(__file__).resolve().parents[1] / "chainermn_torch"
 SCRIPTS = [(name, PKG.parent / f"{name}.py")
-           for name in ("chip_smoke", "kernel_ab", "smoke_ab")]
+           for name in ("chip_smoke", "kernel_ab", "kernel_variants",
+                        "smoke_ab")]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chainermn_tpu")
 
 
