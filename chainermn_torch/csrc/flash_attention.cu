@@ -45,12 +45,17 @@
 // cp.async ring, with S (and dP) in registers, the forward's online
 // softmax in registers and O there for the whole key loop; past D = 256
 // the f32 forward (flash_wide.cuh: flash_fwd_wide_f32_sm90) runs the same
-// tiles on 256-column slices of O. Every kernel is one thread block per
-// (batch*head, row or key tile, and past 256 column slice) with the TPU's
-// sequential grid axis as a loop inside it, so no state crosses blocks and every output is written once,
-// with no atomics (deterministic); causal blocks stop at the last key
-// tile a query tile can see, ragged Tq / Tk are masked in the tail tiles,
-// and the blocks with the most causal work are issued first.
+// tiles on 256-column slices of O, and the f32 dq and dk/dv
+// (flash_dq_cluster_f32_sm90, flash_dkv_cluster_f32_sm90) run them on
+// 256-column slices as thread-block clusters whose CTAs share the score
+// tiles and exchange dS through distributed shared memory. Every kernel is
+// one thread block per (batch*head, row or key tile, and past 256 column
+// slice) with the TPU's sequential grid axis as a loop inside it, so no
+// state crosses blocks (past a cluster's exchange of score tiles)
+// and every output is written once, with no atomics (deterministic);
+// causal blocks stop at the last key tile a query tile can see, ragged Tq
+// / Tk are masked in the tail tiles, and the blocks with the most causal
+// work are issued first.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -86,27 +91,9 @@ struct FlashArgs {
 
 namespace {
 
-constexpr int kThreads = 128;
 constexpr float kNegBig = -1e30f;
 
 using bf16 = __nv_bfloat16;
-
-// Tile rows and shared-memory row padding of the f32 dq and dk/dv past
-// D = 256 (flash_wide.cuh's WideLayout): an odd pitch lets their scalar
-// products read columns without bank conflicts.
-constexpr int kTile = 32;
-constexpr int kPad = 1;
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __host__ __device__ constexpr size_t round128(size_t bytes) {
   return (bytes + 127) / 128 * 128;
@@ -148,34 +135,6 @@ __device__ __forceinline__ Geo make_geo(const FlashArgs& a) {
   return Geo{static_cast<int>(a.tq), static_cast<int>(a.tk),
              static_cast<int>(a.q_offset), static_cast<int>(a.k_offset),
              a.causal != 0};
-}
-
-// Rows row0 .. row0+R-1 of a [B, H, Tq] row statistic (0 past n_rows).
-template <int R>
-__device__ __forceinline__ void load_stat(float* dst, const float* src,
-                                          int row0, int n_rows) {
-  for (int r = threadIdx.x; r < R; r += kThreads)
-    dst[r] = row0 + r < n_rows ? src[row0 + r] : 0.f;
-}
-
-// C[M x N] (pitch ldc) = or += op(A)[M x K] op(B)[K x N], all f32 in
-// shared memory, plain FMA (never TF32), one thread per output element.
-// A[m][k] is a[m * lda + k], or a[k * lda + m] when TA; B[k][n] is
-// b[k * ldb + n], or b[n * ldb + k] when TB. The whole block calls it; the
-// caller syncs.
-template <int M, int N, int K, bool TA, bool TB, bool ACC>
-__device__ __forceinline__ void block_mm(const float* a, int lda,
-                                         const float* b, int ldb, float* c,
-                                         int ldc) {
-  for (int i = threadIdx.x; i < M * N; i += kThreads) {
-    const int m = i / N, n = i % N;
-    float s = ACC ? c[m * ldc + n] : 0.f;
-#pragma unroll 8
-    for (int k = 0; k < K; ++k)
-      s = fmaf(TA ? a[k * lda + m] : a[m * lda + k],
-               TB ? b[n * ldb + k] : b[k * ldb + n], s);
-    c[m * ldc + n] = s;
-  }
 }
 
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };

@@ -2,7 +2,7 @@
 // 256: register-tiled FMA products fed by a cp.async ring.
 //
 // Included by flash_attention.cu inside its anonymous namespace, after
-// FlashArgs, Geo, make_geo, from_f32, Carver and flash_bwd_sm90.cuh (whose
+// FlashArgs, Geo, make_geo, Carver and flash_bwd_sm90.cuh (whose
 // cp.async helpers, store2 and launch_sm90 it uses); it includes nothing
 // itself. They replace the TPU's _fwd_kernel / _bwd_dq_kernel /
 // _bwd_dkv_kernel of chainermn_tpu/ops/flash_attention.py for f32 inputs

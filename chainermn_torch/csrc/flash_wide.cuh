@@ -1,14 +1,16 @@
 // Flash forward, dq and dk/dv at head dims past 256: D any multiple of 64
 // (the wrapper pads other widths up to the next one with zero lanes), in
 // bf16/f16 (wgmma, *_cluster_sm90 and *_wide_sm90) and f32 (plain FMA:
-// flash_fwd_wide_f32_sm90, flash_dq_wide_kernel, flash_dkv_wide_kernel).
+// flash_fwd_wide_f32_sm90, flash_dq_cluster_f32_sm90 and
+// flash_dkv_cluster_f32_sm90, and past D = 2048 flash_dq_wide_f32_sm90 and
+// flash_dkv_wide_f32_sm90).
 //
 // Included by flash_attention.cu inside its anonymous namespace, after
 // flash_bwd_sm90.cuh and flash_fwd_sm90.cuh, whose PTX helpers, swizzled
 // tiles, gemm_ss / gemm_rs, softmax_step, frag_row / frag_col and store2
-// it uses, and after the f32 kernels' Carver, block_mm and load_stat and
-// flash_f32_sm90.cuh's register-tiled products and forward softmax. It
-// includes nothing itself. The kernels compute the same
+// it uses, and after the f32 kernels' Carver and flash_f32_sm90.cuh's
+// register-tiled products, loaders and forward softmax. It includes
+// nothing itself. The kernels compute the same
 // functions under the same contract as the D <= 256 kernels
 // (flash_attention.cu's header): the -1e30 sentinel, a masked p exactly 0,
 // p and ds rounded to the operand's type, f32 softmax state and
@@ -95,12 +97,22 @@
 //     online softmax and the slice of O in registers (64 floats a thread);
 //     220,160 B. It repeats the score product in every slice (at D = 512
 //     1.5x the needed FLOPs, at 1024 2.5x).
-//   - The f32 dq and dk/dv keep the first wide design: 32-row tiles, 4
-//     warps and scalar shared-memory products (block_mm), with the same
-//     chunking and slicing; one CTA an SM is what their shared memory
-//     allows anyway, and saying so (__launch_bounds__(kThreads, 1)) lets
-//     the compiler keep the chunk loops' pointers and strides in
-//     registers.
+//   - The f32 dq and dk/dv (DqWideF32, DkvWideF32) run flash_dq_f32_sm90's
+//     and flash_dkv_f32_sm90's register tiles on one slice and, up to D =
+//     2048, run a tile's slices as one cluster
+//     like the 16-bit kernels, but share the score work by tiles, not by
+//     columns: in step s the CTA of rank r reduces S and dP (S^T and dP^T)
+//     of tile s ns + r of the other sequence over all of D, streaming
+//     64-column chunks of the four operands through the ring, and forms
+//     its dS (P^T and dS^T); after one cluster barrier every CTA copies
+//     the step's tiles through distributed shared memory and applies them
+//     to its slice (dQ += dS K; dV += P^T dO, dK += dS^T Q) in tile order.
+//     Each score element is then one ascending FMA chain over D, the
+//     order of the plain version's f32 products (partials over column
+//     slices would differ from them by up to 2e-5 at D = 1024 and 2048);
+//     dq 64 rows a CTA (196,608 B), dk/dv 32 keys (225,280 B), 32-key
+//     (query) tiles, 2 ring stages. Past 2048 a CTA reduces every tile's
+//     scores itself and repeats them in every slice.
 
 #pragma once
 
@@ -1198,80 +1210,6 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
 
 // ------------------------------------------------------ f32 kernels (wide) --
 
-// Rows row0 .. row0+R-1, columns col0 .. col0+W-1 of one (batch, head)
-// slice of a [B, T, H, D] f32 input into a shared tile of pitch W + kPad;
-// zero past n_rows and at or past n_cols (D is a multiple of 64, so a
-// 16-byte piece is all inside or all past it).
-template <int W, int R>
-__device__ __forceinline__ void load_rows_cols(float* dst, const float* src,
-                                               int64_t st, int row0,
-                                               int n_rows, int col0,
-                                               int n_cols) {
-  constexpr int kLd = W + kPad;
-  constexpr int kPerRow = W / 4;
-  for (int i = threadIdx.x; i < R * kPerRow; i += kThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * 4;
-    const int t = row0 + r;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (t < n_rows && col0 + c < n_cols)
-      x = *reinterpret_cast<const float4*>(src + t * st + col0 + c);
-    float* d = dst + r * kLd + c;
-    d[0] = x.x;
-    d[1] = x.y;
-    d[2] = x.z;
-    d[3] = x.w;
-  }
-}
-
-// Shared-memory pitches and sizes of the f32 wide dq and dk/dv.
-struct WideLayout {
-  static constexpr int kB = kTile;               // rows of every tile
-  static constexpr int kLdc = kChunk + kPad;     // reduction chunks
-  static constexpr int kLdw = kWideCols + kPad;  // slice tiles
-  static constexpr int kLds = kB + 4;            // scores
-  static constexpr int kLdp = kB + kPad;         // p / ds
-  static constexpr int kLdo = kWideCols + 4;     // accumulators
-  static constexpr size_t kChunkBytes = round128(sizeof(float) * kB * kLdc);
-  static constexpr size_t kSliceBytes = round128(sizeof(float) * kB * kLdw);
-  static constexpr size_t kScoreBytes = round128(sizeof(float) * kB * kLds);
-  static constexpr size_t kPBytes = round128(sizeof(float) * kB * kLdp);
-  static constexpr size_t kAccBytes = round128(sizeof(float) * kB * kLdo);
-  static constexpr size_t kStatBytes = round128(sizeof(float) * kB);
-  static constexpr size_t kDq = 4 * kChunkBytes + kSliceBytes +
-                                2 * kScoreBytes + kPBytes + kAccBytes +
-                                2 * kStatBytes;
-  static constexpr size_t kDkv = 4 * kChunkBytes + 2 * kSliceBytes +
-                                 2 * kScoreBytes + 2 * kPBytes +
-                                 2 * kAccBytes + 2 * kStatBytes;
-  static_assert(kDkv <= 232448, "f32 wide dk/dv exceeds shared memory");
-};
-
-// S[B x B] += A B^T over all D columns, the operands streamed through two
-// chunk tiles (rows ra0 of a, rows rb0 of b). The whole block calls it;
-// it leaves synced.
-template <int B>
-__device__ __forceinline__ void scores_over_d(float* S, float* ta, float* tb,
-                                              const float* a, int64_t sta,
-                                              int ra0, int na,
-                                              const float* b, int64_t stb,
-                                              int rb0, int nb, int D) {
-  using L = WideLayout;
-  for (int c0 = 0; c0 < D; c0 += kChunk) {
-    load_rows_cols<kChunk, B>(ta, a, sta, ra0, na, c0, D);
-    load_rows_cols<kChunk, B>(tb, b, stb, rb0, nb, c0, D);
-    __syncthreads();
-    block_mm<B, B, kChunk, false, true, true>(ta, L::kLdc, tb, L::kLdc, S,
-                                              L::kLds);
-    __syncthreads();
-  }
-}
-
-template <int B>
-__device__ __forceinline__ void zero_tile(float* t, int ld) {
-  for (int i = threadIdx.x; i < B * B; i += kThreads)
-    t[(i / B) * ld + i % B] = 0.f;
-}
-
 // The f32 forward past 256: flash_fwd_f32_sm90's register tiles on one
 // 256-column slice of O a CTA, unclustered. Q is not resident: S = Q K^T
 // is reduced over D in kChunk-column chunks of Q and K that stream through
@@ -1398,161 +1336,516 @@ __global__ void __launch_bounds__(kF32Threads, 1)
       q0 + sr, g.tq, sc, D - col0);
 }
 
-template <typename OT>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_dq_wide_kernel(const FlashArgs a) {
-  using L = WideLayout;
-  constexpr int B = L::kB, W = kWideCols;
+// ----------------------------- f32 dq and dk/dv, a cluster of slices --
+
+// flash_dq_f32_sm90's and flash_dkv_f32_sm90's register tiles on one
+// 256-column slice of dQ (or dK and dV) a CTA. The score products (S = Q
+// K^T and dP = dO V^T; S^T and dP^T for dk/dv) reduce over all of D in
+// one ascending FMA chain an element, streamed in kCols-column chunks
+// through the ring, so they give the bits of the plain version's
+// f32 products (which sum in that order); partials over column slices
+// summed afterwards would not (up to 2e-5 apart at D = 1024 and 2048).
+// Up to kMaxCluster slices (D <= 2048) the ns CTAs of a row (or key) tile
+// run as one thread-block cluster and share the score work: in step s the
+// CTA of rank r reduces the scores of tile s ns + r of the other sequence
+// alone (group 0 S or S^T, group 1 dP or dP^T; dq a 4 x 4 micro-tile a
+// thread, dk/dv 2 x 4), forms its dS (and P^T) tile in its shared
+// memory, and after one cluster barrier every CTA copies the step's ns
+// tiles through distributed shared memory and applies them, in tile
+// order, to its own slice. So the score work runs once in all, and every
+// output is the unclustered kernel's to the bit. Past kMaxCluster
+// (CLUSTER false) a CTA reduces every tile's scores itself: right, not
+// fast (every slice repeats them).
+
+// The float4 at shared offset `off` of the cluster's CTA `rank`.
+__device__ __forceinline__ float4 ld_rank4(uint32_t off, int rank) {
+  uint32_t peer;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(peer)
+               : "r"(off), "r"(rank));
+  float4 x;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
+               : "r"(peer)
+               : "memory");
+  return x;
+}
+
+// Tiles j < n of the cluster (its CTA j's tile at `src`, R x LD floats
+// with the first W columns used) into dst + j * stride of this CTA: every
+// rank's reads in flight before the first write.
+template <int R, int W, int LD>
+__device__ __forceinline__ void copy_ranks(float* dst, int stride,
+                                           const float* src, int n) {
+  constexpr int NQ = R * W / (4 * kF32Threads);
+  static_assert(NQ * 4 * kF32Threads == R * W, "tile / thread mismatch");
+  float4 y[kMaxCluster][NQ];
+#pragma unroll
+  for (int j = 0; j < kMaxCluster; ++j)
+#pragma unroll
+    for (int u = 0; u < NQ; ++u) {
+      const int i = threadIdx.x + kF32Threads * u;
+      const int off = i / (W / 4) * LD + 4 * (i % (W / 4));
+      if (j < n) y[j][u] = ld_rank4(smem_addr(src + off), j);
+    }
+#pragma unroll
+  for (int j = 0; j < kMaxCluster; ++j)
+#pragma unroll
+    for (int u = 0; u < NQ; ++u) {
+      const int i = threadIdx.x + kF32Threads * u;
+      const int off = i / (W / 4) * LD + 4 * (i % (W / 4));
+      if (j < n) *reinterpret_cast<float4*>(dst + j * stride + off) = y[j][u];
+    }
+}
+
+// A product group's micro-tiles of a score product, x[u][v] (rows sr +
+// 16u, columns sc + 8v), into the tile at t (pitch LD).
+template <int SM, int SN, int LD>
+__device__ __forceinline__ void put_scores(float* t, const float (&x)[SM][SN],
+                                           int sr, int sc) {
+#pragma unroll
+  for (int u = 0; u < SM; ++u)
+#pragma unroll
+    for (int v = 0; v < SN; ++v) t[(sr + 16 * u) * LD + sc + 8 * v] = x[u][v];
+}
+
+// The f32 dq past 256: the CTA's R query rows, BK-key tiles. A step's
+// items: the D / kCols chunks of Q, dO, K and V of the CTA's own score
+// tile (if it has one), then the K slices of the step's tiles.
+template <bool CLUSTER>
+struct DqWideF32 {
+  static constexpr int kRows = 64;                  // query rows a CTA
+  static constexpr int kBk = 32;                    // keys a tile
+  static constexpr int kStages = 2;                 // ring depth
+  static constexpr int kCols = 64;                  // columns of a chunk
+  static constexpr int kLd = kWideCols + kF32Pad;   // slice rows
+  static constexpr int kLdc = kCols + kF32Pad;      // chunk rows
+  static constexpr int kLdx = kBk + kF32Pad;        // score tiles
+  static constexpr size_t kK = round128(sizeof(float) * kBk * kLd);
+  static constexpr size_t kQc = round128(sizeof(float) * kRows * kLdc);
+  static constexpr size_t kKc = round128(sizeof(float) * kBk * kLdc);
+  static constexpr size_t kX = round128(sizeof(float) * kRows * kLdx);
+  static constexpr size_t kStage =
+      2 * kQc + 2 * kKc > kK ? 2 * kQc + 2 * kKc : kK;
+  // the ring, this CTA's dS of two steps, then S and dP of its score tile
+  // or the step's dS tiles
+  static constexpr size_t kSmem =
+      kStages * kStage + 2 * kX + (CLUSTER ? kMaxCluster : 2) * kX;
+  static_assert(kSmem <= kSmemLimit, "f32 wide dq exceeds shared memory");
+};
+
+template <typename OT, bool CLUSTER>
+__device__ __forceinline__ void dq_wide_f32(const FlashArgs& a) {
+  using L = DqWideF32<CLUSTER>;
+  constexpr int R = L::kRows, BK = L::kBk, NS = L::kStages, KC = L::kCols,
+                LD = L::kLd, LDC = L::kLdc, LDX = L::kLdx;
+  // S (group 0) or dP (group 1): a 16 x 8 grid of the group's threads,
+  // rows sr + 16u and keys sc + 8v
+  constexpr int SM = R / 16, SN = BK / 8;
+  // dS: NQ quads of 4 keys a thread
+  constexpr int NQ = R * BK / (4 * kF32Threads);
+  static_assert(NQ * 4 * kF32Threads == R * BK && R % 16 == 0 && BK % 8 == 0,
+                "f32 wide dq tiles / threads mismatch");
+  // dQ: the group's rows row0 + qr + 4u, columns qc + 128v + f
+  constexpr int QM = R / 8, NV = kWideCols / 128;
+  constexpr int kStagef = L::kStage / sizeof(float), kQcf = L::kQc / sizeof(float),
+                kKcf = L::kKc / sizeof(float), kXf = L::kX / sizeof(float);
   extern __shared__ __align__(128) unsigned char smem[];
   Carver cv{smem};
-  float* qc = cv.take<float>(B * L::kLdc);
-  float* doc = cv.take<float>(B * L::kLdc);
-  float* kc = cv.take<float>(B * L::kLdc);
-  float* vc = cv.take<float>(B * L::kLdc);
-  float* ks = cv.take<float>(B * L::kLdw);
-  float* S = cv.take<float>(B * L::kLds);
-  float* dP = cv.take<float>(B * L::kLds);
-  float* dS = cv.take<float>(B * L::kLdp);
-  float* dQ = cv.take<float>(B * L::kLdo);
-  float* lse_s = cv.take<float>(B);
-  float* dl_s = cv.take<float>(B);
+  float* ring = cv.take<float>(NS * kStagef);
+  float* own = cv.take<float>(2 * kXf);  // this CTA's dS, step s at s % 2
+  float* work = cv.take<float>((CLUSTER ? kMaxCluster : 2) * kXf);
 
   const Geo g = make_geo(a);
   const int H = static_cast<int>(a.heads), D = static_cast<int>(a.head_dim);
   const int bh = blockIdx.z * gridDim.y + blockIdx.y, b = bh / H, h = bh % H;
-  if (bh >= a.batch * a.heads) return;  // the last z-slice's spare CTAs
-  const int ns = wide_slices(D);
-  const int q0 = (gridDim.x / ns - 1 - blockIdx.x / ns) * B;
-  const int col0 = (blockIdx.x % ns) * W;
+  // the last z-slice's spare CTAs: bh is the cluster's, so all its CTAs
+  // leave and none waits for a peer at a cluster barrier
+  if (bh >= a.batch * a.heads) return;
+  const int ns = wide_slices(D), nc = (D + KC - 1) / KC;
+  // the CTAs that share the score tiles, and this one's place among them
+  const int nr = CLUSTER ? ns : 1, rank = CLUSTER ? cluster_rank() : 0;
+  const int col0 = (blockIdx.x % ns) * kWideCols;
+  const int q0 = (gridDim.x / ns - 1 - blockIdx.x / ns) * R;  // longest first
   const float scale = static_cast<float>(a.scale);
   const float* qb = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
   const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
   const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const float* dob =
-      static_cast<const float*>(a.dout) + b * a.do_sb + h * a.do_sh;
+  const float* dob = static_cast<const float*>(a.dout) + b * a.do_sb + h * a.do_sh;
 
-  load_stat<B>(lse_s, a.lse + static_cast<int64_t>(bh) * g.tq, q0, g.tq);
-  load_stat<B>(dl_s, a.delta + static_cast<int64_t>(bh) * g.tq, q0, g.tq);
-  for (int i = threadIdx.x; i < B * W; i += kThreads)
-    dQ[(i / W) * L::kLdo + i % W] = 0.f;
-  const int q_last = min(q0 + B, g.tq) - 1;
+  // the row tile's key tiles, the same in every CTA of the cluster; step
+  // s takes tiles s nr .. s nr + nr - 1
+  const int q_last = min(q0 + R, g.tq) - 1;
   const int k_end =
       g.causal ? max(0, min(g.tk, g.q_offset + q_last - g.k_offset + 1))
                : g.tk;
-
-  for (int k0 = 0; k0 < k_end; k0 += B) {
-    zero_tile<B>(S, L::kLds);
-    zero_tile<B>(dP, L::kLds);
+  const int n_tiles = (k_end + BK - 1) / BK, n_steps = (n_tiles + nr - 1) / nr;
+  auto step_tiles = [&](int s) { return min(nr, n_tiles - s * nr); };
+  auto n_score = [&](int s) { return rank < step_tiles(s) ? nc : 0; };
+  const int full = nc + nr;  // the items of every step but the last
+  const int n_items =
+      n_steps ? (n_steps - 1) * full + n_score(n_steps - 1) +
+                    step_tiles(n_steps - 1)
+              : 0;
+  auto load_item = [&](int i) {
+    float* st = ring + (i % NS) * kStagef;
+    const int s = i / full, j = i - s * full, c = n_score(s);
+    if (j < c) {  // chunk j of the score tile
+      const int k0 = (s * nr + rank) * BK;
+      load_cols_async<R, KC>(st, qb, a.q_st, q0, g.tq, j * KC, D);
+      load_cols_async<R, KC>(st + kQcf, dob, a.do_st, q0, g.tq, j * KC, D);
+      load_cols_async<BK, KC>(st + 2 * kQcf, kb, a.k_st, k0, g.tk, j * KC, D);
+      load_cols_async<BK, KC>(st + 2 * kQcf + kKcf, vb, a.v_st, k0, g.tk,
+                              j * KC, D);
+    } else {  // K's slice of the step's tile j - c
+      load_cols_async<BK, kWideCols>(st, kb, a.k_st, (s * nr + j - c) * BK,
+                                     g.tk, col0, D);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) {
+    if (i < n_items) load_item(i);
+    cp_async_commit();
+  }
+  int item = 0;
+  // waits for item `item`, whose stage it returns; past the CTA barrier
+  // every warp is done with the item before it, whose stage takes the
+  // copies of item + NS - 1
+  auto next_item = [&]() -> const float* {
+    cp_async_wait<NS - 2>();
     __syncthreads();
-    scores_over_d<B>(S, qc, kc, qb, a.q_st, q0, g.tq, kb, a.k_st, k0, g.tk,
-                     D);
-    scores_over_d<B>(dP, doc, vc, dob, a.do_st, q0, g.tq, vb, a.v_st, k0,
-                     g.tk, D);
-    load_rows_cols<W, B>(ks, kb, a.k_st, k0, g.tk, col0, D);
-    for (int i = threadIdx.x; i < B * B; i += kThreads) {
-      const int r = i / B, j = i % B;
-      const float s = S[r * L::kLds + j] * scale;
-      const float p = g.visible(q0 + r, k0 + j) ? expf(s - lse_s[r]) : 0.f;
-      dS[r * L::kLdp + j] = p * (dP[r * L::kLds + j] - dl_s[r]);
+    if (item + NS - 1 < n_items) load_item(item + NS - 1);
+    cp_async_commit();
+    return ring + (item++ % NS) * kStagef;
+  };
+
+  const int grp = threadIdx.x / kF32Group, gt = threadIdx.x % kF32Group;
+  const int sr = grid_row<16>(gt), sc = grid_col<16>(gt);
+  const int row0 = grp * (R / 2), qr = gt / 32, qc = 4 * (gt % 32);
+  const float* lse = a.lse + static_cast<int64_t>(bh) * g.tq;
+  const float* delta = a.delta + static_cast<int64_t>(bh) * g.tq;
+  float lse_r[NQ], dl_r[NQ];  // the statistics of the thread's quads' rows
+#pragma unroll
+  for (int u = 0; u < NQ; ++u) {
+    const int qi = q0 + (threadIdx.x + kF32Threads * u) / (BK / 4);
+    lse_r[u] = qi < g.tq ? lse[qi] : 0.f;
+    dl_r[u] = qi < g.tq ? delta[qi] : 0.f;
+  }
+  float dq[QM][4 * NV];
+#pragma unroll
+  for (int u = 0; u < QM; ++u)
+#pragma unroll
+    for (int i = 0; i < 4 * NV; ++i) dq[u][i] = 0.f;
+
+  for (int s = 0; s < n_steps; ++s) {
+    const int nt = step_tiles(s);
+    float* ds_own = own + (s % 2) * kXf;
+    if (rank < nt) {  // this CTA's score tile: S and dP over all of D
+      const int k0 = (s * nr + rank) * BK;
+      float x[SM][SN];
+#pragma unroll
+      for (int u = 0; u < SM; ++u)
+#pragma unroll
+        for (int v = 0; v < SN; ++v) x[u][v] = 0.f;
+      for (int c = 0; c < nc; ++c) {
+        const float* st = next_item();
+        mm_rows<SM, SN, KC, 16, 8, LDC, LDC, true>(
+            x, st + grp * kQcf + sr * LDC,
+            st + 2 * kQcf + grp * kKcf + sc * LDC);
+      }
+      put_scores<SM, SN, LDX>(work + grp * kXf, x, sr, sc);
+      __syncthreads();
+      // dS = P (dP - delta), P = exp(S scale - lse)
+      const bool interior =
+          q0 + R <= g.tq && k0 + BK <= g.tk &&
+          (!g.causal || g.q_offset + q0 >= g.k_offset + k0 + BK - 1);
+#pragma unroll
+      for (int u = 0; u < NQ; ++u) {
+        const int i = threadIdx.x + kF32Threads * u, r = i / (BK / 4),
+                  c = 4 * (i % (BK / 4));
+        const float4 sv = *reinterpret_cast<const float4*>(work + r * LDX + c);
+        const float4 dp =
+            *reinterpret_cast<const float4*>(work + kXf + r * LDX + c);
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // masked p is exactly 0, also when lse is the -1e30 sentinel
+          const float p = interior || g.visible(q0 + r, k0 + c + e)
+                              ? expf(part(sv, e) * scale - lse_r[u])
+                              : 0.f;
+          ds[e] = p * (part(dp, e) - dl_r[u]);
+        }
+        *reinterpret_cast<float4*>(ds_own + r * LDX + c) =
+            make_float4(ds[0], ds[1], ds[2], ds[3]);
+      }
+    }
+    // the step's dS tiles, tile j at dsl + j kXf
+    const float* dsl = ds_own;
+    if constexpr (CLUSTER) {
+      cluster_arrive();  // wrote step s's dS, read step s - 1's
+      cluster_wait();    // every CTA's dS of step s is in place
+      copy_ranks<R, BK, LDX>(work, kXf, ds_own, nt);
+      dsl = work;
     }
     __syncthreads();
-    block_mm<B, W, B, false, false, true>(dS, L::kLdp, ks, L::kLdw, dQ,
-                                          L::kLdo);
-    __syncthreads();
+    for (int j = 0; j < nt; ++j) {
+      const float* kt = next_item();  // K's slice of tile s nr + j
+      mm_acc<QM, NV, BK, 4, 128, LDX, LD>(
+          dq, dsl + j * kXf + (row0 + qr) * LDX, kt + qc);
+    }
   }
+  if constexpr (CLUSTER) {  // no peer reads this CTA's dS after it
+    cluster_arrive();
+    cluster_wait();
+  }
+  cp_async_wait<0>();
 
-  OT* dq = static_cast<OT*>(a.dq);
-  for (int i = threadIdx.x; i < B * W; i += kThreads) {
-    const int r = i / W, d = i % W, qi = q0 + r;
-    if (qi >= g.tq || col0 + d >= D) continue;
-    dq[((static_cast<int64_t>(b) * g.tq + qi) * H + h) * D + col0 + d] =
-        from_f32<OT>(dQ[r * L::kLdo + d] * scale);
+  OT* dqp = static_cast<OT*>(a.dq);
+#pragma unroll
+  for (int u = 0; u < QM; ++u) {
+    const int qi = q0 + row0 + qr + 4 * u;
+    if (qi >= g.tq) continue;
+    OT* row = dqp + ((static_cast<int64_t>(b) * g.tq + qi) * H + h) * D +
+              col0 + qc;
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+      if (col0 + qc + 128 * v < D)
+        store4(row + 128 * v, dq[u][4 * v] * scale, dq[u][4 * v + 1] * scale,
+               dq[u][4 * v + 2] * scale, dq[u][4 * v + 3] * scale);
   }
 }
 
 template <typename OT>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_dkv_wide_kernel(const FlashArgs a) {
-  using L = WideLayout;
-  constexpr int B = L::kB, W = kWideCols;
+__global__ void __launch_bounds__(kF32Threads, 1)
+    flash_dq_cluster_f32_sm90(const FlashArgs a) {
+  dq_wide_f32<OT, true>(a);
+}
+
+template <typename OT>
+__global__ void __launch_bounds__(kF32Threads, 1)
+    flash_dq_wide_f32_sm90(const FlashArgs a) {
+  dq_wide_f32<OT, false>(a);
+}
+
+// The f32 dk/dv past 256: the CTA's R keys, BQ-query tiles. A step's
+// items: the D / kCols chunks of K, V, Q and dO of the CTA's own score
+// tile (if it has one), then the Q and dO slices of the step's tiles.
+template <bool CLUSTER>
+struct DkvWideF32 {
+  static constexpr int kRows = 32;                  // keys a CTA
+  static constexpr int kBq = 32;                    // queries a tile
+  static constexpr int kStages = 2;                 // ring depth
+  static constexpr int kCols = 64;                  // columns of a chunk
+  static constexpr int kLd = kWideCols + kF32Pad;   // slice rows
+  static constexpr int kLdc = kCols + kF32Pad;      // chunk rows
+  static constexpr int kLdx = kBq + kF32Pad;        // score tiles
+  static constexpr size_t kQ = round128(sizeof(float) * kBq * kLd);
+  static constexpr size_t kKc = round128(sizeof(float) * kRows * kLdc);
+  static constexpr size_t kQc = round128(sizeof(float) * kBq * kLdc);
+  static constexpr size_t kX = round128(sizeof(float) * kRows * kLdx);
+  static constexpr size_t kStage =
+      2 * kKc + 2 * kQc > 2 * kQ ? 2 * kKc + 2 * kQc : 2 * kQ;
+  // the ring, this CTA's P^T and dS^T of two steps, then S^T and dP^T of
+  // its score tile or the step's P^T and dS^T tiles
+  static constexpr size_t kSmem =
+      kStages * kStage + 4 * kX + (CLUSTER ? kMaxCluster : 1) * 2 * kX;
+  static_assert(kSmem <= kSmemLimit, "f32 wide dk/dv exceeds shared memory");
+};
+
+template <typename OT, bool CLUSTER>
+__device__ __forceinline__ void dkv_wide_f32(const FlashArgs& a) {
+  using L = DkvWideF32<CLUSTER>;
+  constexpr int R = L::kRows, BQ = L::kBq, NS = L::kStages, KC = L::kCols,
+                LD = L::kLd, LDC = L::kLdc, LDX = L::kLdx;
+  // S^T (group 0) or dP^T (group 1): a 16 x 8 grid of the group's
+  // threads, keys sr + 16u and queries sc + 8v
+  constexpr int SM = R / 16, SN = BQ / 8;
+  // P^T and dS^T: NQ quads of 4 queries a thread
+  constexpr int NQ = R * BQ / (4 * kF32Threads);
+  static_assert(NQ * 4 * kF32Threads == R * BQ && R % 16 == 0 && BQ % 8 == 0,
+                "f32 wide dk/dv tiles / threads mismatch");
+  // dV (group 0) or dK (group 1): a KTM x KTN grid of the group's
+  // threads, KM keys kr + KTM u and columns kc + 4 KTN v + f each
+  constexpr int KM = R / 8, KTM = R / KM, KTN = kF32Group / KTM,
+                NV = kWideCols / (4 * KTN);
+  constexpr int kStagef = L::kStage / sizeof(float), kQf = L::kQ / sizeof(float),
+                kKcf = L::kKc / sizeof(float), kQcf = L::kQc / sizeof(float),
+                kXf = L::kX / sizeof(float);
   extern __shared__ __align__(128) unsigned char smem[];
   Carver cv{smem};
-  float* kc = cv.take<float>(B * L::kLdc);
-  float* vc = cv.take<float>(B * L::kLdc);
-  float* qc = cv.take<float>(B * L::kLdc);
-  float* doc = cv.take<float>(B * L::kLdc);
-  float* qs = cv.take<float>(B * L::kLdw);
-  float* dos = cv.take<float>(B * L::kLdw);
-  float* S = cv.take<float>(B * L::kLds);
-  float* dP = cv.take<float>(B * L::kLds);
-  float* P = cv.take<float>(B * L::kLdp);
-  float* dS = cv.take<float>(B * L::kLdp);
-  float* dK = cv.take<float>(B * L::kLdo);
-  float* dV = cv.take<float>(B * L::kLdo);
-  float* lse_s = cv.take<float>(B);
-  float* dl_s = cv.take<float>(B);
+  float* ring = cv.take<float>(NS * kStagef);
+  // this CTA's P^T and dS^T (kXf on), step s at s % 2
+  float* own = cv.take<float>(4 * kXf);
+  float* work = cv.take<float>((CLUSTER ? kMaxCluster : 1) * 2 * kXf);
 
   const Geo g = make_geo(a);
   const int H = static_cast<int>(a.heads), D = static_cast<int>(a.head_dim);
   const int bh = blockIdx.z * gridDim.y + blockIdx.y, b = bh / H, h = bh % H;
-  if (bh >= a.batch * a.heads) return;  // the last z-slice's spare CTAs
-  const int ns = wide_slices(D);
-  const int k0 = (gridDim.x / ns - 1 - blockIdx.x / ns) * B;
-  const int col0 = (blockIdx.x % ns) * W;
+  if (bh >= a.batch * a.heads) return;  // as dq's: the cluster's
+  const int ns = wide_slices(D), nc = (D + KC - 1) / KC;
+  const int nr = CLUSTER ? ns : 1, rank = CLUSTER ? cluster_rank() : 0;
+  const int col0 = (blockIdx.x % ns) * kWideCols;
+  const int k0 = blockIdx.x / ns * R;  // low keys: most causal work
   const float scale = static_cast<float>(a.scale);
   const float* qb = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
   const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
   const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const float* dob =
-      static_cast<const float*>(a.dout) + b * a.do_sb + h * a.do_sh;
+  const float* dob = static_cast<const float*>(a.dout) + b * a.do_sb + h * a.do_sh;
   const float* lse = a.lse + static_cast<int64_t>(bh) * g.tq;
   const float* delta = a.delta + static_cast<int64_t>(bh) * g.tq;
 
-  for (int i = threadIdx.x; i < B * W; i += kThreads) {
-    dK[(i / W) * L::kLdo + i % W] = 0.f;
-    dV[(i / W) * L::kLdo + i % W] = 0.f;
-  }
+  // causal: query rows before the first that sees key k0 see none of the
+  // CTA's keys; round down to the query tile (the same in every CTA of
+  // the cluster); step s takes tiles s nr .. s nr + nr - 1
   const int q_begin =
-      g.causal ? max(0, k0 + g.k_offset - g.q_offset) / B * B : 0;
-
-  for (int q0 = q_begin; q0 < g.tq; q0 += B) {
-    __syncthreads();  // the previous products are done with qs, dos, P, dS
-    zero_tile<B>(S, L::kLds);
-    zero_tile<B>(dP, L::kLds);
-    load_stat<B>(lse_s, lse, q0, g.tq);
-    load_stat<B>(dl_s, delta, q0, g.tq);
+      g.causal ? max(0, k0 + g.k_offset - g.q_offset) / BQ * BQ : 0;
+  const int n_tiles = q_begin < g.tq ? (g.tq - q_begin + BQ - 1) / BQ : 0;
+  const int n_steps = (n_tiles + nr - 1) / nr;
+  auto step_tiles = [&](int s) { return min(nr, n_tiles - s * nr); };
+  auto n_score = [&](int s) { return rank < step_tiles(s) ? nc : 0; };
+  const int full = nc + nr;  // the items of every step but the last
+  const int n_items =
+      n_steps ? (n_steps - 1) * full + n_score(n_steps - 1) +
+                    step_tiles(n_steps - 1)
+              : 0;
+  auto load_item = [&](int i) {
+    float* st = ring + (i % NS) * kStagef;
+    const int s = i / full, j = i - s * full, c = n_score(s);
+    if (j < c) {  // chunk j of the score tile
+      const int q0 = q_begin + (s * nr + rank) * BQ;
+      load_cols_async<R, KC>(st, kb, a.k_st, k0, g.tk, j * KC, D);
+      load_cols_async<R, KC>(st + kKcf, vb, a.v_st, k0, g.tk, j * KC, D);
+      load_cols_async<BQ, KC>(st + 2 * kKcf, qb, a.q_st, q0, g.tq, j * KC, D);
+      load_cols_async<BQ, KC>(st + 2 * kKcf + kQcf, dob, a.do_st, q0, g.tq,
+                              j * KC, D);
+    } else {  // Q's and dO's slices of the step's tile j - c
+      const int q0 = q_begin + (s * nr + j - c) * BQ;
+      load_cols_async<BQ, kWideCols>(st, qb, a.q_st, q0, g.tq, col0, D);
+      load_cols_async<BQ, kWideCols>(st + kQf, dob, a.do_st, q0, g.tq, col0,
+                                     D);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) {
+    if (i < n_items) load_item(i);
+    cp_async_commit();
+  }
+  int item = 0;
+  auto next_item = [&]() -> const float* {  // as dq's
+    cp_async_wait<NS - 2>();
     __syncthreads();
-    scores_over_d<B>(S, qc, kc, qb, a.q_st, q0, g.tq, kb, a.k_st, k0, g.tk,
-                     D);
-    scores_over_d<B>(dP, doc, vc, dob, a.do_st, q0, g.tq, vb, a.v_st, k0,
-                     g.tk, D);
-    load_rows_cols<W, B>(qs, qb, a.q_st, q0, g.tq, col0, D);
-    load_rows_cols<W, B>(dos, dob, a.do_st, q0, g.tq, col0, D);
-    for (int i = threadIdx.x; i < B * B; i += kThreads) {
-      const int r = i / B, j = i % B;
-      const float s = S[r * L::kLds + j] * scale;
-      const float p = g.visible(q0 + r, k0 + j) ? expf(s - lse_s[r]) : 0.f;
-      P[r * L::kLdp + j] = p;
-      dS[r * L::kLdp + j] = p * (dP[r * L::kLds + j] - dl_s[r]);
+    if (item + NS - 1 < n_items) load_item(item + NS - 1);
+    cp_async_commit();
+    return ring + (item++ % NS) * kStagef;
+  };
+
+  const int grp = threadIdx.x / kF32Group, gt = threadIdx.x % kF32Group;
+  const int sr = grid_row<16>(gt), sc = grid_col<16>(gt);
+  const int kr = grid_row<KTM>(gt), kc = 4 * grid_col<KTM>(gt);
+  float acc[KM][4 * NV];  // dV (group 0) or dK (group 1)
+#pragma unroll
+  for (int u = 0; u < KM; ++u)
+#pragma unroll
+    for (int i = 0; i < 4 * NV; ++i) acc[u][i] = 0.f;
+
+  for (int s = 0; s < n_steps; ++s) {
+    const int nt = step_tiles(s);
+    float* p_own = own + (s % 2) * 2 * kXf;  // P^T, then dS^T
+    if (rank < nt) {  // this CTA's score tile: S^T and dP^T over all of D
+      const int q0 = q_begin + (s * nr + rank) * BQ;
+      float x[SM][SN];
+#pragma unroll
+      for (int u = 0; u < SM; ++u)
+#pragma unroll
+        for (int v = 0; v < SN; ++v) x[u][v] = 0.f;
+      for (int c = 0; c < nc; ++c) {
+        const float* st = next_item();
+        mm_rows<SM, SN, KC, 16, 8, LDC, LDC, true>(
+            x, st + grp * kKcf + sr * LDC,
+            st + 2 * kKcf + grp * kQcf + sc * LDC);
+      }
+      put_scores<SM, SN, LDX>(work + grp * kXf, x, sr, sc);
+      __syncthreads();
+      // P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T - delta)
+      const bool interior =
+          q0 + BQ <= g.tq && k0 + R <= g.tk &&
+          (!g.causal || g.q_offset + q0 >= g.k_offset + k0 + R - 1);
+#pragma unroll
+      for (int u = 0; u < NQ; ++u) {
+        const int i = threadIdx.x + kF32Threads * u, r = i / (BQ / 4),
+                  c = 4 * (i % (BQ / 4));
+        const float4 sv = *reinterpret_cast<const float4*>(work + r * LDX + c);
+        const float4 dp =
+            *reinterpret_cast<const float4*>(work + kXf + r * LDX + c);
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = q0 + c + e;
+          const float ls = qi < g.tq ? lse[qi] : 0.f;
+          const float dl = qi < g.tq ? delta[qi] : 0.f;
+          // masked p is exactly 0, also when lse is the -1e30 sentinel
+          p[e] = interior || g.visible(qi, k0 + r)
+                     ? expf(part(sv, e) * scale - ls)
+                     : 0.f;
+          ds[e] = p[e] * (part(dp, e) - dl);
+        }
+        *reinterpret_cast<float4*>(p_own + r * LDX + c) =
+            make_float4(p[0], p[1], p[2], p[3]);
+        *reinterpret_cast<float4*>(p_own + kXf + r * LDX + c) =
+            make_float4(ds[0], ds[1], ds[2], ds[3]);
+      }
+    }
+    // the step's P^T and dS^T tiles, tile j's at pl + 2 j kXf
+    const float* pl = p_own;
+    if constexpr (CLUSTER) {
+      cluster_arrive();  // wrote step s's tiles, read step s - 1's
+      cluster_wait();    // every CTA's tiles of step s are in place
+      copy_ranks<R, BQ, LDX>(work, 2 * kXf, p_own, nt);
+      copy_ranks<R, BQ, LDX>(work + kXf, 2 * kXf, p_own + kXf, nt);
+      pl = work;
     }
     __syncthreads();
-    block_mm<B, W, B, true, false, true>(P, L::kLdp, dos, L::kLdw, dV,
-                                         L::kLdo);
-    block_mm<B, W, B, true, false, true>(dS, L::kLdp, qs, L::kLdw, dK,
-                                         L::kLdo);
+    for (int j = 0; j < nt; ++j) {
+      const float* qt = next_item();  // Q's, then dO's, slice of tile j
+      // group 0: dV += P^T dO; group 1: dK += dS^T Q
+      mm_acc<KM, NV, BQ, KTM, 4 * KTN, LDX, LD>(
+          acc, pl + (2 * j + grp) * kXf + kr * LDX,
+          (grp ? qt : qt + kQf) + kc);
+    }
   }
-  __syncthreads();
+  if constexpr (CLUSTER) {  // no peer reads this CTA's tiles after it
+    cluster_arrive();
+    cluster_wait();
+  }
+  cp_async_wait<0>();
 
-  OT* dk = static_cast<OT*>(a.dk);
-  OT* dv = static_cast<OT*>(a.dv);
-  for (int i = threadIdx.x; i < B * W; i += kThreads) {
-    const int r = i / W, d = i % W, kj = k0 + r;
-    if (kj >= g.tk || col0 + d >= D) continue;
-    const int64_t o =
-        ((static_cast<int64_t>(b) * g.tk + kj) * H + h) * D + col0 + d;
-    dk[o] = from_f32<OT>(dK[r * L::kLdo + d] * scale);
-    dv[o] = from_f32<OT>(dV[r * L::kLdo + d]);
+  // group 0 writes dV, group 1 dK (scaled)
+  OT* out = static_cast<OT*>(grp ? a.dk : a.dv);
+  const float f = grp ? scale : 1.f;
+#pragma unroll
+  for (int u = 0; u < KM; ++u) {
+    const int kj = k0 + kr + KTM * u;
+    if (kj >= g.tk) continue;
+    OT* row = out + ((static_cast<int64_t>(b) * g.tk + kj) * H + h) * D +
+              col0 + kc;
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+      if (col0 + kc + 4 * KTN * v < D)
+        store4(row + 4 * KTN * v, acc[u][4 * v] * f, acc[u][4 * v + 1] * f,
+               acc[u][4 * v + 2] * f, acc[u][4 * v + 3] * f);
   }
+}
+
+template <typename OT>
+__global__ void __launch_bounds__(kF32Threads, 1)
+    flash_dkv_cluster_f32_sm90(const FlashArgs a) {
+  dkv_wide_f32<OT, true>(a);
+}
+
+template <typename OT>
+__global__ void __launch_bounds__(kF32Threads, 1)
+    flash_dkv_wide_f32_sm90(const FlashArgs a) {
+  dkv_wide_f32<OT, false>(a);
 }
 
 // ------------------------------------------------------------ launchers --
@@ -1596,19 +1889,20 @@ inline cudaError_t launch_cluster(void (*kern)(const FlashArgs), dim3 grid,
 }
 
 // The route is chosen by the input type and D alone: the 16-bit kernels
-// run as clusters while the slices fit a portable cluster (D <= 2048) and
-// take the unclustered wide kernels past it; the f32 forward takes
-// flash_fwd_wide_f32_sm90, the f32 dq and dk/dv the first wide kernels.
+// and the f32 dq and dk/dv run as clusters while the slices fit a
+// portable cluster (D <= 2048) and take the unclustered wide kernels past
+// it; the f32 forward takes flash_fwd_wide_f32_sm90 at every D.
 template <int KIND, typename T, typename OT>
 cudaError_t launch_wide(const FlashArgs& a, cudaStream_t stream) {
   constexpr bool k16 = !std::is_same<T, float>::value;
   static_assert(DkvCluster::kRows == DkvWide::kRows, "one dk/dv key tile");
+  static_assert(kF32Threads == kSm90Threads, "one block size");
   static bool fits[kMaxCluster + 1] = {};  // this instance's cluster sizes
   const int ns = wide_slices(a.head_dim);
-  const bool cluster = k16 && ns <= kMaxCluster;
+  const bool cluster = (k16 || KIND != kFwd) && ns <= kMaxCluster;
   void (*kern)(const FlashArgs);
   size_t smem;
-  int tile, threads = k16 ? kSm90Threads : kThreads;
+  int tile;
   const int64_t rows = KIND == kDkv ? a.tk : a.tq;  // dk/dv: key tiles
   if constexpr (k16 && KIND == kFwd) {
     kern = flash_fwd_wide_sm90<T, OT>;
@@ -1639,15 +1933,26 @@ cudaError_t launch_wide(const FlashArgs& a, cudaStream_t stream) {
     kern = flash_fwd_wide_f32_sm90<OT>;
     smem = FwdWideF32::kSmem;
     tile = FwdWideF32::kRows;
-    threads = kF32Threads;
   } else if constexpr (KIND == kDq) {
-    kern = flash_dq_wide_kernel<OT>;
-    smem = WideLayout::kDq;
-    tile = kTile;
+    static_assert(DqWideF32<true>::kRows == DqWideF32<false>::kRows,
+                  "one f32 dq row tile");
+    kern = flash_dq_wide_f32_sm90<OT>;
+    smem = DqWideF32<false>::kSmem;
+    if (cluster) {
+      kern = flash_dq_cluster_f32_sm90<OT>;
+      smem = DqWideF32<true>::kSmem;
+    }
+    tile = DqWideF32<true>::kRows;
   } else {
-    kern = flash_dkv_wide_kernel<OT>;
-    smem = WideLayout::kDkv;
-    tile = kTile;
+    static_assert(DkvWideF32<true>::kRows == DkvWideF32<false>::kRows,
+                  "one f32 dk/dv key tile");
+    kern = flash_dkv_wide_f32_sm90<OT>;
+    smem = DkvWideF32<false>::kSmem;
+    if (cluster) {
+      kern = flash_dkv_cluster_f32_sm90<OT>;
+      smem = DkvWideF32<true>::kSmem;
+    }
+    tile = DkvWideF32<true>::kRows;
   }
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1655,6 +1960,6 @@ cudaError_t launch_wide(const FlashArgs& a, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   const dim3 grid = wide_grid(rows, tile, a);
   if (cluster) return launch_cluster(kern, grid, smem, ns, fits, a, stream);
-  kern<<<grid, threads, smem, stream>>>(a);
+  kern<<<grid, kSm90Threads, smem, stream>>>(a);
   return cudaGetLastError();
 }

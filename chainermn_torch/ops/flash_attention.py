@@ -25,9 +25,12 @@ turn the kernels off. On the card they take what the reference takes:
 float32, bfloat16 or float16 inputs of one dtype, any ``Tq``/``Tk``, any
 ``B * H``, and any head dim ``D``. The kernels are built for ``D`` of 64,
 128 and 256, and past 256 for every multiple of 64 (``csrc/flash_wide.cuh``:
-each CTA owns 256 columns of the output and streams the products that
-reduce over ``D`` in 64-column chunks, so nothing it holds grows with
-``D``); float32 dq and dk/dv up to 256 run register-tiled FMA products
+each CTA owns 256 columns of the output, so nothing it holds grows with
+``D``; up to ``D`` = 2048 the slices of a tile run as one thread-block
+cluster that shares the score products through distributed shared
+memory, in every dtype but the float32 forward, which, like every kernel
+past 2048, streams the products that reduce over ``D`` in 64-column
+chunks); float32 runs register-tiled FMA products
 (``csrc/flash_f32_sm90.cuh``). :func:`pad_head_dim` runs any other ``D``
 on the next of these widths (:func:`kernel_head_dim`) with zero lanes
 (exact; it costs one padded copy of the inputs). The

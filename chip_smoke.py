@@ -248,12 +248,16 @@ DP_PARITY = dict(model=dict(stage_sizes=[1, 1, 1, 1], width=8,
 # name: (wrapper, the prefix of its kernels' names in traces at every
 # head dim and dtype, TPU kernel it replaces, source of the bf16 kernel
 # the training path runs)
-# the kernels each flash wrapper launches for float32 inputs: at D <= 256
-# and past it
+# the kernels each flash wrapper launches for float32 inputs: at D <= 256,
+# past it up to the portable cluster (D <= 2048; dq and dk/dv as clusters
+# of the 256-column slices) and past 2048
 FLASH_F32_KERNELS = {
-    "flash_fwd": ("flash_fwd_f32_sm90", "flash_fwd_wide_f32_sm90"),
-    "flash_dq": ("flash_dq_f32_sm90", "flash_dq_wide_kernel"),
-    "flash_dkv": ("flash_dkv_f32_sm90", "flash_dkv_wide_kernel"),
+    "flash_fwd": ("flash_fwd_f32_sm90", "flash_fwd_wide_f32_sm90",
+                  "flash_fwd_wide_f32_sm90"),
+    "flash_dq": ("flash_dq_f32_sm90", "flash_dq_cluster_f32_sm90",
+                 "flash_dq_wide_f32_sm90"),
+    "flash_dkv": ("flash_dkv_f32_sm90", "flash_dkv_cluster_f32_sm90",
+                  "flash_dkv_wide_f32_sm90"),
 }
 FLASH_KERNELS = {
     "flash_fwd": ("flash_fwd_with_lse", "flash_fwd_",
@@ -3023,8 +3027,9 @@ FLASH_PAD_CASES = ("square_causal", "ragged_full", "rect_causal",
                    "offset_k300")
 FLASH_HEAD_DIMS = (64, 128, 256)   # the one-tile kernels' own widths
 FLASH_PAD_DIMS = (8, 32, 96, 192)
-# past 256 (256-column slices of the output; the 16-bit forward and dk/dv
-# as clusters of the slices up to D = 2048), each width at a few
+# past 256 (256-column slices of the output; the 16-bit forward, dq and
+# dk/dv and the f32 dq and dk/dv as clusters of the slices up to D =
+# 2048), each width at a few
 # FLASH_CASES only: D = 512, the wide LM's, at three (the blind rows of
 # offset_k300 among them), 320 and 1024 (a cluster of 4) at one each, 257
 # (padded to 320) and 384 (a slice of 128 columns beside a whole one) at
@@ -3692,8 +3697,11 @@ def _flash_rows(b, t, h, d, gen, device, flush, dname="bf16", reps=50,
 
 # flash_timing's rows beside the main shape's: H = 4, D = 256 and H = 2,
 # D = 512 in bf16, the main shape in float16 and float32, and float32 at
-# H = 2, D = 512
-FLASH_TIMING_TAGS = ("d256", "d512", "f16", "f32", "f32_d512")
+# H = 2, D = 512 and H = 1, D = 1024
+FLASH_TIMING_TAGS = ("d256", "d512", "f16", "f32", "f32_d512", "f32_d1024")
+# the cluster size each f32 row's dq and dk/dv must launch with (the f32
+# forward never clusters)
+FLASH_F32_CLUSTER = {"f32": 1, "f32_d512": 2, "f32_d1024": 4}
 
 
 def phase_flash_timing(device):
@@ -3702,16 +3710,19 @@ def phase_flash_timing(device):
     sliced from one fused qkv tensor as the model passes them), L2
     flushed before each timed call; then the same at H=4, D=256 and H=2,
     D=512 (the ``lm_d256`` and ``lm_wide`` shapes: the same FLOPs and
-    bytes), at the training shape in float16 and float32 and at H=2,
-    D=512 in float32 (20 calls each, the plain versions not timed, SDPA
-    in the same dtype; the f32 bound at 67 TFLOP/s, the FMA units' peak)
-    and at D=8 (padded to 64). Each row names the kernel one profiled
-    call ran and the cluster size the library launched it with; the
-    D=512 forward, dq and dk/dv must have run as clusters
-    (``*_cluster_sm90``, 2 CTAs), and the f32 rows unclustered as
+    bytes), at the training shape in float16 and float32 and in float32
+    at H=2, D=512 and H=1, D=1024 (20 calls each, the plain versions not
+    timed, SDPA in the same dtype; the f32 bound at 67 TFLOP/s, the FMA
+    units' peak) and at D=8 (padded to 64). Each row names the kernel one
+    profiled call ran and the cluster size the library launched it with;
+    the D=512 forward, dq and dk/dv must have run as clusters
+    (``*_cluster_sm90``, 2 CTAs), and the f32 rows as
     ``FLASH_F32_KERNELS`` names them where the trace names a kernel
     (``flash_fwd_f32_sm90``, ``flash_dq_f32_sm90``,
-    ``flash_dkv_f32_sm90``; at D=512 ``flash_fwd_wide_f32_sm90``). Each
+    ``flash_dkv_f32_sm90`` at D=64, unclustered; past 256 the
+    unclustered ``flash_fwd_wide_f32_sm90`` and the clusters
+    ``flash_dq_cluster_f32_sm90`` and ``flash_dkv_cluster_f32_sm90``, of
+    2 CTAs at D=512 and 4 at D=1024: ``FLASH_F32_CLUSTER``). Each
     kernel's outputs must agree with its plain version's within its
     dtype's tolerance, so the strided reads of the training path are held
     to a limit. The yardstick, which the port never calls, is
@@ -3741,12 +3752,12 @@ def phase_flash_timing(device):
             recs[name][tag] = dict(rec, H=hh, D=cfg["d_model"] // hh)
     # the main shape in float16 and float32 (the f32 forward, dq and dk/dv
     # the register-tiled kernels of flash_f32_sm90.cuh), each beside SDPA
-    # in its dtype, and float32 at the lm_wide shape (H = 2, D = 512: the
-    # f32 forward's register tiles on 256-column slices, dq and dk/dv the
-    # first wide kernels)
+    # in its dtype, and float32 at the lm_wide shape (H = 2, D = 512) and
+    # at H = 1, D = 1024 (the f32 forward's register tiles on 256-column
+    # slices, dq and dk/dv clusters of 2 and 4 such slices)
     hw = LM_D512["n_heads"]
     for tag, dname, hh in (("f16", "f16", h), ("f32", "f32", h),
-                           ("f32_d512", "f32", hw)):
+                           ("f32_d512", "f32", hw), ("f32_d1024", "f32", 1)):
         dd = LM["d_model"] // hh
         rows = _flash_rows(b, t, hh, dd, gen, device, flush, dname=dname,
                            reps=20, plain_reps=0)
@@ -3793,12 +3804,15 @@ def phase_flash_timing(device):
     if bad:
         raise AssertionError(f"flash kernels {bad} at D = 512 launched "
                              f"without a cluster")
-    # f32 runs its own kernels (FLASH_F32_KERNELS), never clustered,
-    # wherever the trace names one: the register-tiled forward, dq and
-    # dk/dv at D = 64 and, at D = 512, the register-tiled wide forward
+    # f32 runs its own kernels (FLASH_F32_KERNELS) wherever the trace
+    # names one: the register-tiled forward, dq and dk/dv at D = 64,
+    # unclustered; at D = 512 and 1024 the unclustered wide forward and
+    # the dq and dk/dv clusters of FLASH_F32_CLUSTER's sizes
     bad = [f"{n} {tag}" for n, names in FLASH_F32_KERNELS.items()
-           for tag, want in (("f32", names[0]), ("f32_d512", names[1]))
-           if recs[n][tag]["cluster_size"] != 1
+           for tag, want in (("f32", names[0]), ("f32_d512", names[1]),
+                             ("f32_d1024", names[1]))
+           if recs[n][tag]["cluster_size"] != (
+               1 if n == "flash_fwd" else FLASH_F32_CLUSTER[tag])
            or recs[n][tag]["kernel"] != "not measured"
            and want not in recs[n][tag]["kernel"].split(",")]
     if bad:
@@ -8181,7 +8195,7 @@ def main() -> int:
                 "library_ms", "library_backend", "bound_ms", "bound_by",
                 "max_abs_err")}
                for tag in FLASH_TIMING_TAGS},
-            "f32_kernels": dict(zip(("d_le_256", "d_gt_256"),
+            "f32_kernels": dict(zip(("d_le_256", "d_le_2048", "d_gt_2048"),
                                     FLASH_F32_KERNELS[name])),
             "launches_reshard_path": {
                 "train_tp2": reshard["train"][0]["launches"][name],

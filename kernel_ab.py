@@ -11,12 +11,14 @@ flushed before each call) of the flash forward, dq and dk/dv kernels in
 bf16 and f32 at B=2, T=1024, H=16, D=64, causal, q/k/v sliced from one
 fused tensor, of the bf16 forward at the training shape (B=8, T=2048),
 of the f32 forward, dq and dk/dv at the training shape (H=16, D=64), at
-H=4, D=256 and at H=2, D=512 (the same FLOPs), each shape's forward
-beside SDPA's in f32 (``F.scaled_dot_product_attention``, the backend it
-picks; the port never calls it),
-of the bf16 forward, dq and dk/dv past D = 256 at the wide LM's shape
-(B=8, T=2048, H=2, D=512) and at H=1, D=1024 (the same FLOPs), and of
-the paged-decode kernel on 16 rows of 64..639 keys; then the card's name and power limit. Both
+H=4, D=256, at H=2, D=512 and at H=1, D=1024 (the same FLOPs), each
+shape beside SDPA's f32 forward and backward (dq, dk and dv in one call;
+``F.scaled_dot_product_attention``, the backend it picks, which is
+recorded; the port never calls it), of the bf16 forward, dq and dk/dv
+past D = 256 at the wide LM's shape (B=8, T=2048, H=2, D=512) and at
+H=1, D=1024 (the same FLOPs), each beside SDPA's bf16 forward and
+backward, and of the paged-decode kernel on 16 rows of 64..639 keys;
+then the card's name and power limit. Both
 checkouts need ``chip_smoke.py``; two versions are only compared inside
 one such call.
 """
@@ -62,17 +64,29 @@ def _child(name: str, root: str) -> None:
     rec["fwd_bf16_train_shape_ms"] = cs.cuda_ms(
         lambda: fa.flash_fwd_with_lse(q, k, v, causal=True), flush=flush)
     del q, k, v
-    for h, d in ((16, 64), (4, 256), (2, 512)):
-        q, k, v, do = cs._flash_inputs(8, 2048, 2048, h, d, torch.float32,
-                                       torch.Generator().manual_seed(10),
-                                       dev, fused=True)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa(tag, q, k, v, do):
+        """SDPA's forward and backward on the kernels' inputs."""
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
         with torch.no_grad():
-            rec[f"sdpa_fwd_f32_train_d{d}_ms"] = cs.cuda_ms(
+            rec[f"sdpa_fwd_{tag}_ms"] = cs.cuda_ms(
                 lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                        is_causal=True),
                 flush=flush)
-        del qt, kt, vt
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        rec[f"sdpa_bwd_{tag}_ms"] = cs.cuda_ms(
+            lambda: torch.autograd.grad(out, (qt, kt, vt), do.transpose(1, 2),
+                                        retain_graph=True), flush=flush)
+        rec[f"sdpa_backend_{tag}"] = cs._sdpa_backend(qt, kt, vt,
+                                                      is_causal=True)
+
+    for h, d in ((16, 64), (4, 256), (2, 512), (1, 1024)):
+        q, k, v, do = cs._flash_inputs(8, 2048, 2048, h, d, torch.float32,
+                                       torch.Generator().manual_seed(10),
+                                       dev, fused=True)
+        sdpa(f"f32_train_d{d}", q, k, v, do)
+        torch.cuda.empty_cache()
         kw = dict(causal=True)
         gkw = dict(kw, grad_dtype=torch.float32)
         out, lse = fa.flash_fwd_with_lse(q, k, v, **kw)
@@ -88,6 +102,8 @@ def _child(name: str, root: str) -> None:
         q, k, v, do = cs._flash_inputs(8, 2048, 2048, h, d, torch.bfloat16,
                                        torch.Generator().manual_seed(9), dev,
                                        fused=True)
+        sdpa(f"bf16_d{d}", q, k, v, do)
+        torch.cuda.empty_cache()
         kw = dict(causal=True)
         gkw = dict(kw, grad_dtype=torch.bfloat16)
         out, lse = fa.flash_fwd_with_lse(q, k, v, **kw)

@@ -4,12 +4,13 @@ without one.
 The four Hopper kernels run every head dim ``D``: the flash wrappers pad
 ``D`` up to 64, 128 or 256, and past 256 up to the next multiple of 64,
 which the wide kernels (``csrc/flash_wide.cuh``) run as 256-column
-slices of the output, one CTA each. The 16-bit forward, dq and dk/dv run
-the slices of a tile as one thread-block cluster up to the portable
-cluster size (8 slices, D <= 2048), each CTA contracting the score
-products over its own columns and summing the cluster's partials through
-distributed shared memory; the f32 kernels and wider D stream the
-products that reduce over ``D`` in 64-column chunks. The paged kernel
+slices of the output, one CTA each. The 16-bit forward, dq and dk/dv and
+the f32 dq and dk/dv run the slices of a tile as one thread-block cluster
+up to the portable cluster size (8 slices, D <= 2048), each CTA
+contracting the score products over its own columns and summing the
+cluster's partials through distributed shared memory; the f32 forward
+and wider D stream the products that reduce over ``D`` in 64-column
+chunks. The paged kernel
 masks lanes past ``D`` up to 256 and splits wider outputs into
 256-column slices too. The paged kernel takes float16 queries over
 float16 and int8 stores beside float32 and bfloat16 queries over
@@ -57,7 +58,7 @@ def wide_cluster(kind, dtype, d):
     """The cluster size ``launch_wide`` launches kernel ``kind`` with
     (1: no cluster): its pinned ``cluster`` line over ``wide_slices``."""
     ns = -(-d // WIDE_COLS)
-    cluster = dtype != "f32" and ns <= MAX_CLUSTER
+    cluster = (dtype != "f32" or kind != "fwd") and ns <= MAX_CLUSTER
     return ns if d > 256 and cluster else 1
 
 
@@ -148,24 +149,44 @@ def f32_fwd_row_threads(d):
 
 # FwdWideF32: 64 query rows, 64-key tiles, 3 ring stages
 WIDE_F32_ROWS, WIDE_F32_BK, WIDE_F32_STAGES = 64, 64, 3
+# DqWideF32 and DkvWideF32: 64 query rows (32 keys) a CTA, 32-key
+# (query) tiles, 2 ring stages, 64-column chunks
+WIDE_F32_DQ, WIDE_F32_DKV, WIDE_F32_STAGES_BWD = (64, 32), (32, 32), 2
+
+
+def _f32_wide_bwd(kind, d):
+    """Shared memory of the f32 dq or dk/dv past 256 (``DqWideF32``,
+    ``DkvWideF32``): a ring whose stages hold the larger of a score tile's
+    64-column chunks of Q, dO, K and V and a gradient item (K's slice; Q's
+    and dO's slices), this CTA's exchanged tiles of two steps (dS; P^T
+    and dS^T), and a work area for the score tile's products or, in a
+    cluster, every rank's exchanged tiles of a step."""
+    r = (lambda n: _up(4 * n, 128))
+    rows, tile = WIDE_F32_DQ if kind == "dq" else WIDE_F32_DKV
+    ranks = MAX_CLUSTER if wide_cluster(kind, "f32", d) > 1 else 1
+    sl = WIDE_COLS + F32_PAD
+    x = r(rows * (tile + F32_PAD))
+    chunks = 2 * r(rows * (CHUNK + F32_PAD)) + 2 * r(tile * (CHUNK + F32_PAD))
+    if kind == "dq":
+        stage, exchanged = max(chunks, r(tile * sl)), 2 * x
+        work = ranks * x if ranks > 1 else 2 * x
+    else:
+        stage, exchanged = max(chunks, 2 * r(tile * sl)), 4 * x
+        work = ranks * 2 * x
+    return WIDE_F32_STAGES_BWD * stage + exchanged + work
 
 
 # the f32 kernels: the register-tiled forward, dq and dk/dv of
 # flash_f32_sm90.cuh up to 256; past it the register-tiled wide forward
-# (FwdWideF32) and WideLayout's dq and dk/dv
+# (FwdWideF32), dq and dk/dv (DqWideF32, DkvWideF32)
 def _f32_layout(d):
-    tile, pad = 32, 1
     r = (lambda n: _up(4 * n, 128))
-    sc, p, st = r(tile * (tile + 4)), r(tile * (tile + pad)), r(tile)
     if d > 256:
-        c, w, acc = (r(tile * (CHUNK + pad)), r(tile * (WIDE_COLS + pad)),
-                     r(tile * (WIDE_COLS + 4)))
         rows, bk, tn = WIDE_F32_ROWS, WIDE_F32_BK, f32_fwd_row_threads(d)
         stage = max(r(rows * (CHUNK + F32_PAD)) + r(bk * (CHUNK + F32_PAD)),
                     r(bk * (WIDE_COLS + F32_PAD)))
         return {"fwd": WIDE_F32_STAGES * stage + r(rows * (bk + tn)),
-                "dq": 4 * c + w + 2 * sc + p + acc + 2 * st,
-                "dkv": 4 * c + 2 * w + 2 * sc + 2 * p + 2 * acc + 2 * st}
+                "dq": _f32_wide_bwd("dq", d), "dkv": _f32_wide_bwd("dkv", d)}
     rows, bk = f32_tiles("fwd", d)
     fwd = (r(rows * (d + F32_PAD)) + F32_STAGES * 2 * r(bk * (d + F32_PAD))
            + r(rows * (bk + f32_fwd_row_threads(d))))
@@ -181,15 +202,17 @@ def _f32_layout(d):
 
 def _f32_regs(kind, d):
     """f32 accumulators a thread holds: the forward's O and S over the
-    CTA's 256 threads (past 256 the slice's O and S); up to D = 256 dq's
-    dQ, S and dP over the 256 threads, dk/dv's dV and S^T over one group
-    of 128, dK and dP^T over the other (0 past 256, where the f32 dq and
-    dk/dv keep them in shared memory)."""
+    CTA's 256 threads (past 256 the slice's O and S); dq's dQ, S and dP
+    over the 256 threads, dk/dv's dV and S^T over one group of 128, dK and
+    dP^T over the other (past 256 the slice's: each group dQ of half the
+    rows and one partial product, or dV or dK and one partial)."""
     if kind == "fwd" and d > 256:
         return (WIDE_F32_ROWS * WIDE_COLS
                 + WIDE_F32_ROWS * WIDE_F32_BK) // F32_THREADS
     if d > 256:
-        return 0
+        rows, tile = WIDE_F32_DQ if kind == "dq" else WIDE_F32_DKV
+        out = rows // 2 if kind == "dq" else rows
+        return (out * WIDE_COLS + rows * tile) // F32_GROUP
     rows, tile = f32_tiles(kind, d)
     if kind == "fwd":
         return (rows * d + rows * tile) // F32_THREADS
@@ -229,7 +252,7 @@ PINNED = {
         "constexpr int kMaxCluster = 8;",
         "constexpr int kRing = 4;",
         "constexpr uint32_t kPartBytes = 64 * 32 * 4;",
-        "const bool cluster = k16 && ns <= kMaxCluster;",
+        "const bool cluster = (k16 || KIND != kFwd) && ns <= kMaxCluster;",
         # FwdCluster
         "static constexpr uint32_t kQ = kSm90Rows * kWideCols * 2;",
         "static constexpr uint32_t kKv = kBk * kWideCols * 2;",
@@ -279,14 +302,40 @@ PINNED = {
         "static constexpr size_t kSmem = kStages * kStage + kP;",
         "kern = flash_fwd_wide_f32_sm90<OT>; smem = FwdWideF32::kSmem; "
         "tile = FwdWideF32::kRows;",
-        # WideLayout
-        "static constexpr size_t kDq = 4 * kChunkBytes + kSliceBytes + "
-        "2 * kScoreBytes + kPBytes + kAccBytes + 2 * kStatBytes;",
-        "static constexpr size_t kDkv = 4 * kChunkBytes + 2 * kSliceBytes + "
-        "2 * kScoreBytes + 2 * kPBytes + 2 * kAccBytes + 2 * kStatBytes;"],
+        # DqWideF32, DkvWideF32 and their routes
+        "static constexpr int kBk = 32; // keys a tile",
+        "static constexpr int kRows = 32; // keys a CTA",
+        "static constexpr int kBq = 32; // queries a tile",
+        "static constexpr int kRows = 64; // query rows a CTA",
+        "static constexpr int kStages = 2; // ring depth",
+        "static constexpr int kCols = 64; // columns of a chunk",
+        "static constexpr int kLdx = kBk + kF32Pad;",
+        "static constexpr int kLdx = kBq + kF32Pad;",
+        "static constexpr size_t kStage = 2 * kQc + 2 * kKc > kK ? 2 * kQc + "
+        "2 * kKc : kK;",
+        "static constexpr size_t kSmem = kStages * kStage + 2 * kX + "
+        "(CLUSTER ? kMaxCluster : 2) * kX;",
+        "static constexpr size_t kStage = 2 * kKc + 2 * kQc > 2 * kQ ? 2 * "
+        "kKc + 2 * kQc : 2 * kQ;",
+        "static constexpr size_t kSmem = kStages * kStage + 4 * kX + "
+        "(CLUSTER ? kMaxCluster : 1) * 2 * kX;",
+        "constexpr int SM = R / 16, SN = BK / 8;",
+        "constexpr int QM = R / 8, NV = kWideCols / 128;",
+        "float dq[QM][4 * NV];",
+        "constexpr int SM = R / 16, SN = BQ / 8;",
+        "constexpr int KM = R / 8, KTM = R / KM, KTN = kF32Group / KTM, "
+        "NV = kWideCols / (4 * KTN);",
+        "kern = flash_dq_cluster_f32_sm90<OT>; smem = DqWideF32<true>::kSmem;",
+        "kern = flash_dq_wide_f32_sm90<OT>; smem = DqWideF32<false>::kSmem;",
+        "tile = DqWideF32<true>::kRows;",
+        "kern = flash_dkv_cluster_f32_sm90<OT>; smem = "
+        "DkvWideF32<true>::kSmem;",
+        "kern = flash_dkv_wide_f32_sm90<OT>; smem = DkvWideF32<false>::kSmem;",
+        "tile = DkvWideF32<true>::kRows;",
+        # the tile ranges the cluster's CTAs share
+        "const int q0 = (gridDim.x / ns - 1 - blockIdx.x / ns) * R;",
+        "const int k0 = blockIdx.x / ns * R;"],
     "flash_attention.cu": [
-        "constexpr int kTile = 32;",
-        "constexpr int kPad = 1;",
         "else if constexpr (KIND == kDq) "
         "return launch_dq_f32_sm90<OT, D>(a, stream);",
         "else if constexpr (KIND == kDkv) "
@@ -475,17 +524,94 @@ def test_wide_figures():
     cluster kernels at 512, the unclustered ones at 2112), and why the
     D <= 256 tiles could not simply widen: at D = 512 a 128-row Q tile
     alone takes 131,072 B and three K/V stages of 32 keys 196,608 B, and
-    the f32 dk/dv layout would not fit."""
+    the f32 dq's resident Q and dO with its ring of K and V would not
+    fit."""
     assert [TILES[k](512) for k in ("fwd_sm90", "dq_sm90", "dkv_sm90")] \
         == [(230_400, 168), (230_400, 120), (231_424, 192)]
     assert [TILES[k](2112) for k in ("fwd_sm90", "dq_sm90", "dkv_sm90")] \
         == [(62_464, 152), (123_904, 168), (102_400, 176)]
-    assert _f32_layout(512) == {"fwd": 220_160, "dq": 113_152,
-                                "dkv": 183_552}
+    assert _f32_layout(512) == {"fwd": 220_160, "dq": 196_608,
+                                "dkv": 225_280}
     assert TILES["fwd_f32"](512)[1] == 80   # the slice's O and S
     assert SM90_ROWS * 512 * 2 == 131_072
     assert STAGES * 2 * 32 * 512 * 2 == 196_608
-    assert 4 * _up(4 * 32 * 513, 128) > SMEM_LIMIT  # f32 Layout<512> tiles
+    rows, bk = f32_tiles("dq", 256)         # DqF32Tiles<256> at D = 512
+    assert (2 * _up(4 * rows * 516, 128)
+            + F32_STAGES * 2 * _up(4 * bk * 516, 128)) > SMEM_LIMIT
+
+
+def test_f32_wide_bwd_figures():
+    """The sizes ``flash_wide.cuh`` quotes for the f32 dq and dk/dv past
+    256: as clusters 196,608 and 225,280 B (the rings 104,448 and 133,120
+    B, their own exchanged tiles of two steps 18,432 B each, eight ranks'
+    tiles 73,728 B each), unclustered (past 2048) 141,312 and 160,768 B;
+    dq's 64 rows hold twice the D = 256 kernel's accumulators a thread
+    (80), dk/dv as many (72)."""
+    assert [_f32_layout(d)["dq"] for d in (320, 2048, 2112, 4096)] \
+        == [196_608, 196_608, 141_312, 141_312]
+    assert [_f32_layout(d)["dkv"] for d in (320, 2048, 2112, 4096)] \
+        == [225_280, 225_280, 160_768, 160_768]
+    assert 2 * _up(4 * (2 * 64 + 2 * 32) * (CHUNK + F32_PAD), 128) \
+        == 104_448
+    assert 2 * 2 * _up(4 * 32 * (WIDE_COLS + F32_PAD), 128) == 133_120
+    assert MAX_CLUSTER * _up(4 * 64 * (32 + F32_PAD), 128) == 73_728
+    assert [TILES[k](d)[1] for k in ("dq_f32", "dkv_f32")
+            for d in (512, 2112)] == [80, 80, 72, 72]
+    assert [TILES[k](256)[1] for k in ("dq_f32", "dkv_f32")] == [40, 72]
+
+
+def f32_cta_work(kind, d):
+    """(rows a CTA, rows a tile, FMAs a CTA does a tile) of the f32 dq or
+    dk/dv at head dim ``d``: the two score products reduce over all of
+    ``d``, once a tile in a cluster, whose ``ns`` CTAs take every
+    ``ns``-th tile each, and again in every unclustered slice; the
+    gradient products (dQ; dV and dK) write the CTA's columns (all of
+    ``d`` up to 256, past it a 256-column slice)."""
+    if d <= 256:
+        rows, tile = f32_tiles(kind, d)
+        cols, sharing = d, 1
+    else:
+        rows, tile = WIDE_F32_DQ if kind == "dq" else WIDE_F32_DKV
+        cols, sharing = WIDE_COLS, wide_cluster(kind, "f32", d)
+    grads = 1 if kind == "dq" else 2
+    return (rows, tile,
+            2 * rows * tile * d // sharing + grads * rows * tile * cols)
+
+
+@pytest.mark.parametrize("d", [512, 1024, 2048])
+@pytest.mark.parametrize("kind", ["dq", "dkv"])
+def test_f32_cluster_cta_does_the_d256_work(kind, d):
+    """A CTA of the f32 dq or dk/dv cluster at D = 512 .. 2048 does the D
+    = 256 kernel's FLOPs for each (query, key) pair of its tiles (it
+    reduces the scores of every ns-th tile over all of D: the pinned step
+    and chunk lines), with its tiles (dk/dv) or twice its rows (dq: 64
+    rows a CTA, which ``kernel_variants.py`` found faster), so the launch
+    at H = 2, D = 512 or H = 1, D = 1024 does the FLOPs of H = 4, D = 256
+    on as many CTAs (dq: half as many); past 2048 the unclustered CTA
+    repeats the score products over all of D."""
+    def per_pair(k, dd):
+        rows, tile, fmas = f32_cta_work(k, dd)
+        return fmas / (rows * tile)
+
+    assert per_pair(kind, d) == per_pair(kind, 256)
+    assert f32_cta_work(kind, d)[:2] == (
+        (64, 32) if kind == "dq" else f32_tiles(kind, 256))
+    rows = f32_cta_work(kind, d)[0]
+    ns = -(-d // WIDE_COLS)
+    b, t, heads = 8, 2048, 1024 // d
+    if heads:
+        r256 = f32_tiles(kind, 256)[0]
+        ctas = b * heads * -(-t // rows) * ns
+        assert ctas * rows == b * 4 * -(-t // r256) * r256
+    assert per_pair(kind, 2112) > per_pair(kind, 256)
+    text = " ".join((CSRC / "flash_wide.cuh").read_text().split())
+    for line in ("const int nr = CLUSTER ? ns : 1, rank = CLUSTER ? "
+                 "cluster_rank() : 0;",
+                 "auto n_score = [&](int s) { return rank < step_tiles(s) ? "
+                 "nc : 0; };",
+                 "mm_rows<SM, SN, KC, 16, 8, LDC, LDC, true>(",
+                 "for (int c = 0; c < nc; ++c) {"):
+        assert line in text, line
 
 
 def test_dq_cluster_figures():
@@ -512,19 +638,22 @@ def test_cluster_rule_pinned_to_launch_wide(d):
     """``launch_wide``'s route (the pinned ``cluster`` line): ceil(D /
     256) slices; the 16-bit forward, dq and dk/dv run them as one
     cluster up to ``kMaxCluster`` (8), so D = 2112 (9 slices) takes the
-    unclustered kernels; the f32 kernels never cluster."""
+    unclustered kernels; so do the f32 dq and dk/dv, while the f32
+    forward never clusters."""
     ns = {320: 2, 512: 2, 1024: 4, 2048: 8, 2112: 9, 4096: 16}[d]
     want = ns if ns <= 8 else 1
     assert [wide_cluster(k, "bf16", d) for k in ("fwd", "dq", "dkv")] \
         == [want, want, want]
     assert [wide_cluster(k, "f16", d) for k in ("fwd", "dq", "dkv")] \
         == [want, want, want]
-    assert {wide_cluster(k, "f32", d) for k in ("fwd", "dq", "dkv")} == {1}
+    assert [wide_cluster(k, "f32", d) for k in ("fwd", "dq", "dkv")] \
+        == [1, want, want]
     text = " ".join((CSRC / "flash_wide.cuh").read_text().split())
     assert "return static_cast<int>((d + kWideCols - 1) / kWideCols);" \
         in text
-    assert "const bool cluster = k16 && ns <= kMaxCluster;" \
-        in text and f"constexpr int kMaxCluster = {MAX_CLUSTER};" in text
+    assert ("const bool cluster = (k16 || KIND != kFwd) && ns <= "
+            "kMaxCluster;") in text \
+        and f"constexpr int kMaxCluster = {MAX_CLUSTER};" in text
 
 
 def test_head_dims_are_64_128_256():

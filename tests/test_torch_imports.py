@@ -1,5 +1,6 @@
 """Import rules of the port: ``chainermn_torch``, ``chip_smoke.py``,
-``kernel_ab.py``, ``kernel_variants.py`` and ``smoke_ab.py`` never import
+``kernel_ab.py``, ``kernel_variants.py``, ``smoke_ab.py`` and
+``f32_order_check.py`` never import
 jax, flax, optax or anything of ``chainermn_tpu``, and the port's entry
 points do not carry on quietly on the CPU."""
 
@@ -14,7 +15,7 @@ import torch
 PKG = pathlib.Path(__file__).resolve().parents[1] / "chainermn_torch"
 SCRIPTS = [(name, PKG.parent / f"{name}.py")
            for name in ("chip_smoke", "kernel_ab", "kernel_variants",
-                        "smoke_ab")]
+                        "smoke_ab", "f32_order_check")]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chainermn_tpu")
 
 
